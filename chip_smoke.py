@@ -26,6 +26,26 @@ into nomad_tpu_torch/csrc/build/), then:
      through K4.  (The packer logs at most 256 plan deltas, so after a
      384-eval wave the next dispatch re-uploads the usage instead.)
 
+Then the solo path, each eval through Harness.process at the widths of
+bench.py's configs 1-4 (bench.py:409, :442, :484, :553):
+
+  7. dev_eval: one node, a service job of 3 groups x 2 (K5 with N < 3);
+  8. bulk_eval: 1,000 nodes, one batch job of 10,000 x cpu 10/mem 10
+     (K1 + K6, compact output);
+  9. spread_eval: 5,000 nodes in 3 DCs, 3,000 placements spread
+     50/30/20 over the DCs with a rack affinity (K1 + K5); prints the
+     spread deviation;
+ 10. preempt_eval: 500 nodes of cpu 4000/mem 8192 filled by a
+     low-priority batch job, then 125 high-priority placements at cpu
+     3000 (K6, then K8 + K7 evict);
+ 11. system_eval: a system job over the spread_eval cluster (K8), one
+     alloc per feasible node;
+ 12. solo kernel checks: K5 (the spread and dev evals' inputs, and a
+     variant with distinct_property, reschedule rows and a device mask),
+     K6 (the bulk eval's inputs in all three output layouts, and with the
+     spread algorithm), K7 and K8 (the preempt and system evals' inputs)
+     against their plain versions, on the card and on CPU copies.
+
 Every phase prints one JSON line; a failed phase raises and the script
 exits non-zero.  The kernel launch counters are zeroed before each main
 path phase and read after it; the line before the last carries them.
@@ -63,6 +83,36 @@ PEAK_OPS = 67e12
 # the selection key (cap, noise hash, orderable bits) 25; the 8 radix
 # passes' key compare and digit 56; the exhaustion metrics 20.
 OPS_PER_ROW_STEP = 47 + 70 + 25 + 56 + 20
+# The exact scan (csrc/place_scan.cu) per node and step, counted from
+# the source: capacity fit and distinct_hosts 7; the six metric counts
+# 8; and on an active step the binpack score (conversions, 2 divisions,
+# 2 libm_pow10f at 14, clamps, reciprocal multiply) 47, anti-affinity 3,
+# the mean of five components 6, the selection key (noise hash, add,
+# orderable bits) 15 and the top-3 insert 3.  Plus per spread row 10 on
+# an active step, and per applying distinct_property row 4 on every
+# step.  An inactive (padding) step needs only the fit and the metrics.
+OPS_SCAN_FIT = 7
+OPS_SCAN_METRICS = 8
+OPS_SCAN_SCORE = 47 + 3 + 6 + 15 + 3
+OPS_SCAN_SPREAD = 10
+OPS_SCAN_DISTINCT = 4
+# Device preemption (csrc/preempt.cu) per candidate row and step: the
+# first-fit prefix 7 and the cost prefix 2 per victim, then the key 6.
+OPS_PREEMPT_VICTIM = 9
+OPS_PREEMPT_ROW = 6
+# K8 (csrc/landscape.cu feasible entry) per node and group: the base
+# mask 3 and about 4 per constraint row.
+OPS_FEASIBLE_ROW = 4
+OPS_FEASIBLE_BASE = 3
+# the solo evals' clock
+SOLO_NOW = 1.7e9
+# scan_variant's distinct_property row: node index % 7, at most 300
+# placements per value, so 2,100 of the spread eval's 3,000 fit
+VARIANT_PD_VALUES = 7
+VARIANT_PD_LIMIT = 300
+# __syncthreads per step of the scan and preemption kernels
+BARRIERS_SCAN = 3
+BARRIERS_PREEMPT = 3
 
 
 def emit(obj) -> None:
@@ -257,18 +307,58 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def to_cpu(inp):
-    """MultiEvalInputs with every tensor copied to the CPU."""
+def tree_map(fn, x):
+    """`x` (a tensor, or an inputs tuple or argument list holding some)
+    with `fn` applied to every tensor."""
     import torch
-    return inp._replace(**{f: v.cpu() for f, v in zip(inp._fields, inp)
-                           if isinstance(v, torch.Tensor)})
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*[tree_map(fn, v) for v in x])
+    if isinstance(x, (tuple, list)):
+        return type(x)(tree_map(fn, v) for v in x)
+    return x
 
 
-def check_exact(name, got, *wants, packed=False) -> float:
+def to_cpu(x):
+    import torch
+    return tree_map(torch.Tensor.cpu, x)
+
+
+def table_bytes(attrs, luts, con, aff=None) -> int:
+    """Bytes of the [N, A] attribute table and the [L, V] LUT table that
+    a mask or affinity pass needs: the attribute columns its live
+    constraint rows (`con`, opcodes EQ to LUT) and weighted affinity
+    rows (`aff`) name, and the LUT rows that their LUT rows name."""
+    import torch
+
+    from nomad_tpu_torch.pack.packer import DOP_EQ, DOP_LUT
+
+    rows = con.reshape(-1, 3).cpu()
+    rows = rows[(rows[:, 1] >= DOP_EQ) & (rows[:, 1] <= DOP_LUT)]
+    if aff is not None:
+        a = aff.reshape(-1, 4).cpu()
+        rows = torch.cat([rows, a[a[:, 3] != 0, :3]])
+    cols = set(rows[:, 0].tolist())
+    lut_rows = set(rows[rows[:, 1] == DOP_LUT, 2].tolist())
+    return (attrs.shape[0] * len(cols) * attrs.element_size()
+            + len(lut_rows) * luts.shape[1] * luts.element_size())
+
+
+def fn_bytes(tensors, attrs, luts, con, aff=None) -> int:
+    """Bytes a function reads once: every tensor but the attribute and
+    LUT tables, plus the parts of them that `con` and `aff` name."""
+    return (nbytes(*[t for t in tensors
+                     if t is not attrs and t is not luts])
+            + table_bytes(attrs, luts, con, aff))
+
+
+def check_exact(name, got, *wants, packed=False, score_cols=None) -> float:
     """Every output of `got` equal to each of `wants` word for word, f32
     values compared as their bits.  Returns the largest absolute
     difference of the f32 values (with `packed`, also the first output's
-    top-score meta columns, bitcast back) from the last of `wants`."""
+    top-score meta columns, bitcast back; with `score_cols`, those
+    columns of the first output) from the last of `wants`."""
     import torch
 
     err = 0.0
@@ -291,8 +381,8 @@ def check_exact(name, got, *wants, packed=False) -> float:
         g, w = g.cpu(), w.cpu()
         if g.dtype == torch.float32:
             gs, ws = g, w
-        elif packed and i == 0:
-            cols = [g.shape[1] - 16 + c for c in (3, 4, 5)]
+        elif (packed or score_cols) and i == 0:
+            cols = score_cols or [g.shape[1] - 16 + c for c in (3, 4, 5)]
             gs = g[:, cols].contiguous().view(torch.float32)
             ws = w[:, cols].contiguous().view(torch.float32)
         else:
@@ -390,7 +480,8 @@ def kernel_phase(h, zoned_built, flat_built):
     torch.cuda.synchronize()
     c_rows, af_rows = m_args[1].shape[1], zin.aff.shape[1]
     valid = int(cv.sum())
-    k1_bytes = (nbytes(*m_args, zin.aff, cr) + u * n + nbytes(got[1]))
+    k1_bytes = (fn_bytes((*m_args, zin.aff, cr), zin.attrs, zin.luts,
+                         m_args[1], zin.aff) + u * n + nbytes(got[1]))
     k1_ops = u * n * c_rows * 4 + valid * zin.aff.shape[0] * af_rows * 6
     rows.append(dict(kernel=K.LANDSCAPE, max_abs_err=err,
                      ms=time_ms(k1, 20), plain_ms=time_ms(k1_plain, 3),
@@ -431,11 +522,13 @@ def kernel_phase(h, zoned_built, flat_built):
                       packed=True)
     torch.cuda.synchronize()
     f_real = int((fin.round_want > 0).sum())
-    k3_bytes = (nbytes(fin.attrs, fin.cap, fin.used0, fin.elig, fin.luts,
-                       fin.base_mask, fin.con, fin.aff, fin.req, fin.desired,
-                       fin.dh_limit, fin.g_static, fin.g_aff, fin.g_job,
-                       fin.seed, fin.job_count0, fin.round_g,
-                       fin.round_want) + nbytes(*got))
+    k3_bytes = (fn_bytes((fin.cap, fin.used0, fin.elig, fin.luts,
+                          fin.base_mask, fin.con, fin.aff, fin.req,
+                          fin.desired, fin.dh_limit, fin.g_static, fin.g_aff,
+                          fin.g_job, fin.seed, fin.job_count0, fin.round_g,
+                          fin.round_want), fin.attrs, fin.luts, fin.con,
+                         fin.aff)
+                + nbytes(*got))
     k3_barriers = BARRIERS_FLAT + sort_barriers(min(frs, n))
     rows.append(dict(
         kernel=K.MULTI_FLAT, max_abs_err=err,
@@ -469,6 +562,457 @@ def kernel_phase(h, zoned_built, flat_built):
         ops=SCATTER_CHUNK * 3,
         library_ms=time_ms(lambda: work.index_add_(0, r4l, v4), 50),
         depth_ms=None))
+    for r in rows:
+        b_ms = r["bytes"] / PEAK_BYTES * 1e3
+        o_ms = r["ops"] / PEAK_OPS * 1e3
+        r["bound_ms"] = max(b_ms, o_ms)
+        r["bound_by"] = "bytes" if b_ms >= o_ms else "operations"
+        r["barrier_ms"] = barrier_ms
+    return rows
+
+
+
+# ------------------------------------------------------------- solo path
+
+class Recorder:
+    """Spies on the solo path's kernel wrappers where the engine and the
+    system scheduler call them, and keeps a copy of the first call's
+    arguments per (phase, kernel) while armed, for the kernel checks.
+    It calls the wrapped function unchanged, so launch counts are the
+    path's own."""
+
+    def __init__(self):
+        self.phase = None
+        self.calls = {}
+
+    def wrap(self, module, attr, kind):
+        import torch
+
+        orig = getattr(module, attr)
+
+        def spy(*args, **kw):
+            key = (self.phase, kind)
+            if self.phase is not None and key not in self.calls:
+                if kw:
+                    raise AssertionError(f"{attr} called with keywords")
+                self.calls[key] = tree_map(torch.Tensor.clone, args)
+            return orig(*args, **kw)
+
+        setattr(module, attr, spy)
+
+    def get(self, phase, kind):
+        if (phase, kind) not in self.calls:
+            raise AssertionError(f"{phase} never called {kind}")
+        return self.calls[(phase, kind)]
+
+
+def bench_cluster(h, n_nodes: int, n_dcs: int = 1, seed: int = 0,
+                  cpu=None, mem=None, mock=None):
+    """bench.py build_harness: n_dcs datacenters, 20 racks, random node
+    sizes (or the given ones), ids node-000000...  `mock` is the port's
+    unless given (the parity tests build the same cluster in the
+    reference)."""
+    import random
+
+    if mock is None:
+        from nomad_tpu_torch import mock
+
+    rng = random.Random(seed)
+    nodes = []
+    for i in range(n_nodes):
+        n = mock.node(id=f"node-{i:06d}")
+        n.datacenter = f"dc{1 + i % n_dcs}"
+        n.attributes["platform.rack"] = f"r{i % 20}"
+        n.resources.cpu = cpu or rng.choice([4000, 8000, 16000])
+        n.resources.memory_mb = mem or rng.choice([8192, 16384, 32768])
+        nodes.append(n)
+    h.state.upsert_nodes(nodes)
+    return nodes
+
+
+def solo_eval(mock, job):
+    """The registration eval of `job`, with an id fixed by the job's (the
+    per-eval seed is crc32 of the eval id)."""
+    return mock.eval(id=f"eval-{job.id}-0000-0000-000000000000",
+                     job_id=job.id, type=job.type, priority=job.priority,
+                     triggered_by="job-register")
+
+
+def config3_job(mock, structs):
+    """bench.py config 3's job: 3,000 placements of cpu 10/mem 10 spread
+    50/30/20 over dc1-dc3, with an affinity for rack r3."""
+    job = mock.job(id="config3")
+    job.datacenters = ["dc1", "dc2", "dc3"]
+    tg = job.task_groups[0]
+    tg.count = 3000
+    tg.tasks[0].resources.cpu = 10
+    tg.tasks[0].resources.memory_mb = 10
+    job.spreads = [structs.Spread(
+        attribute="${node.datacenter}", weight=50,
+        targets=[structs.SpreadTarget("dc1", 50),
+                 structs.SpreadTarget("dc2", 30),
+                 structs.SpreadTarget("dc3", 20)])]
+    job.affinities = [structs.Affinity("${attr.platform.rack}",
+                                       structs.OP_EQ, "r3", weight=50)]
+    return job
+
+
+def process(h, job, kind):
+    """Register `job` and run its eval through Harness.process on the
+    card; returns the host seconds (ending in a synchronize)."""
+    import torch
+
+    from nomad_tpu_torch import mock
+
+    h.state.upsert_job(job)
+    ev = solo_eval(mock, job)
+    t0 = time.perf_counter()
+    err = h.process(kind, ev, now=SOLO_NOW)
+    torch.cuda.synchronize()
+    if err is not None:
+        raise RuntimeError(f"eval {ev.id} failed: {err}")
+    return time.perf_counter() - t0
+
+
+def live_allocs(h, job):
+    return [a for a in h.state.allocs_by_job(job.namespace, job.id)
+            if not a.terminal_status()]
+
+
+def check_capacity(h):
+    """No node over capacity, usage recomputed from the store's allocs."""
+    snap = h.snapshot()
+    for n in snap.nodes():
+        used = [0, 0, 0]
+        for a in snap.allocs_by_node(n.id):
+            if a.terminal_status():
+                continue
+            used[0] += a.resources.cpu
+            used[1] += a.resources.memory_mb
+            used[2] += a.resources.disk_mb
+        if (used[0] > n.resources.cpu - n.reserved.cpu
+                or used[1] > n.resources.memory_mb - n.reserved.memory_mb
+                or used[2] > n.resources.disk_mb - n.reserved.disk_mb):
+            raise AssertionError(f"node {n.id} over capacity: {used}")
+
+
+def solo_phases(card, launches):
+    """The solo path through Harness.process at bench.py configs 1-4
+    and a system job; returns the Recorder with each phase's kernel
+    inputs."""
+    import nomad_tpu_torch.ops.engine as E
+    import nomad_tpu_torch.scheduler.system as SY
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops import kernels as K
+    from nomad_tpu_torch.scheduler import Harness
+    from nomad_tpu_torch import structs
+    from nomad_tpu_torch.structs import (
+        PreemptionConfig, Resources, SchedulerConfiguration, Task, TaskGroup)
+
+    rec = Recorder()
+    for attr, kind in (("place_packed", "scan"),
+                       ("place_bulk_packed", "bulk"),
+                       ("preempt_bulk", "preempt"),
+                       ("feasible_mask", "feasible")):
+        rec.wrap(E, attr, kind)
+    rec.wrap(SY, "feasible_mask", "feasible")
+
+    def phase(name, must, body):
+        K.reset_launches()
+        rec.phase = name
+        out = body()
+        rec.phase = None
+        ph = {k.name: k.launches for k in K.KERNELS}
+        for k, v in ph.items():
+            launches[k] += v
+        if min(ph[k] for k in must) < 1:
+            raise AssertionError(f"{name} launches {ph}, want {must}")
+        emit({"phase": name, "card": card, **out, "launches": ph})
+
+    # config 1: one node, 3 groups x 2
+    h1 = Harness()
+    bench_cluster(h1, 1)
+
+    def dev_eval():
+        job = mock.job(id="config1")
+        job.task_groups = [TaskGroup(name=f"tg{i}", count=2, tasks=[
+            Task(name="t", driver="exec",
+                 resources=Resources(cpu=100, memory_mb=64))])
+            for i in range(3)]
+        dt = process(h1, job, "service")
+        placed = len(live_allocs(h1, job))
+        if placed != 6:
+            raise AssertionError(f"dev_eval placed {placed} of 6")
+        check_capacity(h1)
+        return {"nodes": 1, "placements": placed, "eval_s": dt}
+
+    phase("dev_eval", ("place_scan",), dev_eval)
+
+    # config 2: 1,000 nodes, one batch job of 10,000
+    h2 = Harness()
+    n2 = len(bench_cluster(h2, 1000))
+    h2.engine.packer.update(h2.snapshot())
+
+    def bulk_eval():
+        job = mock.batch_job(id="config2")
+        job.task_groups[0].count = 10000
+        job.task_groups[0].tasks[0].resources.cpu = 10
+        job.task_groups[0].tasks[0].resources.memory_mb = 10
+        dt = process(h2, job, "batch")
+        placed = len(live_allocs(h2, job))
+        if placed != 10000:
+            raise AssertionError(f"bulk_eval placed {placed} of 10000")
+        check_capacity(h2)
+        return {"nodes": n2, "placements": placed, "eval_s": dt,
+                "placements_per_s": placed / dt}
+
+    phase("bulk_eval", ("landscape", "multi_bulk"), bulk_eval)
+    del h2
+
+    # config 3: 5,000 nodes in 3 DCs, spread 50/30/20 + rack affinity
+    h3 = Harness()
+    n3 = len(bench_cluster(h3, 5000, n_dcs=3))
+    h3.engine.packer.update(h3.snapshot())
+
+    def spread_eval():
+        job = config3_job(mock, structs)
+        dt = process(h3, job, "service")
+        allocs = live_allocs(h3, job)
+        if len(allocs) != 3000:
+            raise AssertionError(f"spread_eval placed {len(allocs)} of 3000")
+        check_capacity(h3)
+        by_dc = {"dc1": 0, "dc2": 0, "dc3": 0}
+        for a in allocs:
+            by_dc[h3.state.node_by_id(a.node_id).datacenter] += 1
+        targets = {"dc1": 50.0, "dc2": 30.0, "dc3": 20.0}
+        dev = max(abs(100.0 * by_dc[d] / len(allocs) - pct)
+                  for d, pct in targets.items())
+        return {"nodes": n3, "placements": len(allocs), "eval_s": dt,
+                "placements_per_s": len(allocs) / dt,
+                "spread_achieved": by_dc, "spread_deviation_pct": dev}
+
+    phase("spread_eval", ("landscape", "place_scan"), spread_eval)
+
+    # config 4: 500 full nodes, then 125 high-priority placements
+    h4 = Harness()
+    nodes4 = bench_cluster(h4, 500, cpu=4000, mem=8192)
+    h4.state.set_scheduler_config(SchedulerConfiguration(
+        preemption_config=PreemptionConfig(
+            system_scheduler_enabled=True, batch_scheduler_enabled=True,
+            service_scheduler_enabled=True)))
+    low = mock.batch_job(id="config4-low")
+    low.priority = 20
+    low.task_groups[0].count = len(nodes4)
+    low.task_groups[0].tasks[0].resources.cpu = 3000
+    low.task_groups[0].tasks[0].resources.memory_mb = 64
+    process(h4, low, "batch")
+    if len(live_allocs(h4, low)) != len(nodes4):
+        raise AssertionError("config 4's low-priority fill is incomplete")
+
+    def preempt_eval():
+        hi = mock.job(id="config4-hi")
+        hi.priority = 80
+        hi.task_groups[0].count = len(nodes4) // 4
+        hi.task_groups[0].tasks[0].resources.cpu = 3000
+        hi.task_groups[0].tasks[0].resources.memory_mb = 64
+        dt = process(h4, hi, "service")
+        plan = h4.plans[-1]
+        victims = [a for allocs in plan.node_preemptions.values()
+                   for a in allocs]
+        placed = len(live_allocs(h4, hi))
+        if placed != hi.task_groups[0].count:
+            raise AssertionError(f"preempt_eval placed {placed}")
+        if not victims or any(v.job.priority >= hi.priority
+                              for v in victims):
+            raise AssertionError("an eviction is not of lower priority")
+        check_capacity(h4)
+        return {"nodes": len(nodes4), "placements": placed,
+                "preemptions": len(victims), "eval_s": dt}
+
+    phase("preempt_eval", ("multi_bulk", "feasible_mask", "preempt_bulk"),
+          preempt_eval)
+
+    # a system job over the config-3 cluster
+    def system_eval():
+        job = mock.system_job(id="system")
+        job.datacenters = ["dc1", "dc2", "dc3"]
+        dt = process(h3, job, "system")
+        allocs = live_allocs(h3, job)
+        ask = job.task_groups[0].tasks[0].resources
+        snap = h3.snapshot()
+        fits = 0
+        for n in snap.nodes():
+            used = [0, 0]
+            for a in snap.allocs_by_node(n.id):
+                if a.terminal_status() or a.job_id == job.id:
+                    continue
+                used[0] += a.resources.cpu
+                used[1] += a.resources.memory_mb
+            fits += (used[0] + ask.cpu <= n.resources.cpu - n.reserved.cpu
+                     and used[1] + ask.memory_mb
+                     <= n.resources.memory_mb - n.reserved.memory_mb)
+        if len(allocs) != fits or len({a.node_id for a in allocs}) != fits:
+            raise AssertionError(f"system_eval placed {len(allocs)} allocs "
+                                 f"for {fits} feasible nodes")
+        check_capacity(h3)
+        return {"nodes": n3, "placements": len(allocs), "eval_s": dt}
+
+    phase("system_eval", ("feasible_mask",), system_eval)
+    return rec
+
+
+def scan_variant(inp):
+    """The spread eval's scan inputs with a distinct_property row over
+    VARIANT_PD_VALUES values (limit VARIANT_PD_LIMIT, which binds),
+    reschedule rows on every other real step and a device AND-mask:
+    every branch of K5 at the main path's width."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    dev = inp.attrs.device
+    n = inp.attrs.shape[0]
+    g = inp.req.shape[0]
+    p = inp.tg_idx.shape[0]
+    real = int(inp.active.sum())
+    prev = np.full(p, -1, np.int32)
+    prev[:real:2] = rng.integers(0, n, len(range(0, real, 2)))
+
+    def t(a):
+        return torch.tensor(a, device=dev)
+
+    return inp._replace(
+        pd_nodeval=t((np.arange(n) % VARIANT_PD_VALUES)
+                     .astype(np.int32)[None]),
+        pd_limit=t(np.array([VARIANT_PD_LIMIT], np.int32)),
+        pd_apply=t(np.ones((g, 1), bool)),
+        pd_counts0=t(np.zeros((1, VARIANT_PD_VALUES), np.int32)),
+        prev_row=t(prev), extra_mask=t(rng.random((g, n)) < 0.9))
+
+
+def solo_kernel_phase(rec, barrier_ms):
+    """K5-K8 against their plain versions, on the card and on CPU
+    copies, at the solo phases' own inputs."""
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as K
+    from nomad_tpu_torch.ops import preempt as P
+    from nomad_tpu_torch.ops import select as S
+    from nomad_tpu_torch.ops.feasibility import (
+        feasible_mask, feasible_mask_plain)
+
+    rows = []
+    tensors = lambda x: [v for v in x if isinstance(v, torch.Tensor)]
+
+    # K5: the spread eval's 4,096-step scan, the variant, the dev eval
+    spread_in = rec.get("spread_eval", "scan")[0]
+    checks = [("spread_eval", spread_in), ("variant", scan_variant(spread_in)),
+              ("dev_eval", rec.get("dev_eval", "scan")[0])]
+    err = 0.0
+    placed = {}
+    for label, inp in checks:
+        got = S.place_packed(inp)
+        err = max(err, check_exact(
+            "place_scan", got, S.pack_outputs(S.place(inp)),
+            S.place_packed(to_cpu(inp)), score_cols=[1, 5, 6, 7]))
+        torch.cuda.synchronize()
+        placed[label] = int((got[0][:, 0] >= 0).sum())
+    # the variant's distinct_property limit must reject placements
+    if not (placed["variant"] <= VARIANT_PD_VALUES * VARIANT_PD_LIMIT
+            < placed["spread_eval"]):
+        raise AssertionError(f"scan variant's distinct_property limit did "
+                             f"not bind: placed {placed}")
+    inp = spread_in
+    n, p = inp.attrs.shape[0], inp.tg_idx.shape[0]
+    act = inp.active.cpu()
+    real = int(act.sum())
+    s_rows = int((inp.sp_weight > 0).sum())
+    d_step = (inp.pd_apply & (inp.pd_limit > 0)[None]).sum(1).cpu()[
+        inp.tg_idx.long().cpu()]                   # distinct rows per step
+    rows.append(dict(
+        kernel=K.PLACE_SCAN, max_abs_err=err,
+        ms=time_ms(lambda: S.place_packed(inp), 3),
+        plain_ms=time_ms(lambda: S.pack_outputs(S.place(inp)), 1, 0),
+        bytes=fn_bytes(tensors(inp), inp.attrs, inp.luts, inp.con,
+                       inp.aff)
+        + p * 14 * 4 + n * 16,
+        # an active step scores and selects; a padding step writes its
+        # metrics only, from the fit and distinct_property checks
+        ops=n * (real * (OPS_SCAN_FIT + OPS_SCAN_SCORE + OPS_SCAN_METRICS
+                         + OPS_SCAN_SPREAD * s_rows)
+                 + (p - real) * (OPS_SCAN_FIT + OPS_SCAN_METRICS)
+                 + OPS_SCAN_DISTINCT * int(d_step.sum())),
+        library_ms=None, depth_ms=real * BARRIERS_SCAN * barrier_ms,
+        depth_steps=real, barriers_per_step=BARRIERS_SCAN, placed=placed))
+
+    # K6: the bulk eval's rounds in the three layouts and the spread
+    # algorithm
+    binp, rs, n_rounds = rec.get("bulk_eval", "bulk")[:3]
+    cpu = to_cpu(binp)
+    err = 0.0
+    for b_in, b_cpu in ((binp, cpu), (binp._replace(spread_algo=True),
+                                      cpu._replace(spread_algo=True))):
+        for ws, fk in ((False, 0), (True, 0), (False, S.FILL_K)):
+            got = S.place_bulk_packed(b_in, rs, n_rounds, ws, fk)
+            err = max(err, check_exact(
+                "multi_bulk", got,
+                S.place_bulk_packed_plain(b_in, rs, n_rounds, ws, fk),
+                S.place_bulk_packed(b_cpu, rs, n_rounds, ws, fk),
+                packed=True))
+            torch.cuda.synchronize()
+    n = binp.attrs.shape[0]
+    real = -(-binp.p_real // rs)
+    k6_out = S.place_bulk_packed(binp, rs, n_rounds, False, S.FILL_K)
+    k6_barriers = BARRIERS_FLAT + sort_barriers(min(rs, n))
+    rows.append(dict(
+        kernel=K.MULTI_BULK, max_abs_err=err,
+        ms=time_ms(lambda: S.place_bulk_packed(binp, rs, n_rounds, False,
+                                               S.FILL_K), 5),
+        plain_ms=time_ms(lambda: S.place_bulk_packed_plain(
+            binp, rs, n_rounds, False, S.FILL_K), 1, 0),
+        bytes=fn_bytes(tensors(binp), binp.attrs, binp.luts, binp.con,
+                       binp.aff)
+        + nbytes(*k6_out),
+        ops=real * n * OPS_PER_ROW_STEP, library_ms=None,
+        depth_ms=real * k6_barriers * barrier_ms, depth_steps=real,
+        barriers_per_step=k6_barriers))
+
+    # K7: the preempt eval's launch
+    args = rec.get("preempt_eval", "preempt")
+    got = P.preempt_bulk(*args)
+    err = check_exact("preempt_bulk", got, P.preempt_bulk_plain(*args),
+                      P.preempt_bulk(*to_cpu(args)))
+    torch.cuda.synchronize()
+    m, a = args[5].shape
+    n_real = args[10]
+    rows.append(dict(
+        kernel=K.PREEMPT_BULK, max_abs_err=err,
+        ms=time_ms(lambda: P.preempt_bulk(*args), 10),
+        plain_ms=time_ms(lambda: P.preempt_bulk_plain(*args), 1, 0),
+        bytes=nbytes(*tensors(args), *got),
+        ops=n_real * m * (OPS_PREEMPT_VICTIM * a + OPS_PREEMPT_ROW),
+        library_ms=None, depth_ms=n_real * BARRIERS_PREEMPT * barrier_ms,
+        depth_steps=n_real, barriers_per_step=BARRIERS_PREEMPT))
+
+    # K8: the system eval's [G, 5,000] mask and the preempt eval's
+    err = 0.0
+    for phase in ("system_eval", "preempt_eval"):
+        fa = rec.get(phase, "feasible")
+        got = feasible_mask(*fa)
+        err = max(err, check_exact("feasible_mask", [got],
+                                   [feasible_mask_plain(*fa)],
+                                   [feasible_mask(*to_cpu(fa))]))
+        torch.cuda.synchronize()
+    fa = rec.get("system_eval", "feasible")
+    g, c = fa[4].shape[:2]
+    n = fa[0].shape[0]
+    rows.append(dict(
+        kernel=K.FEASIBLE, max_abs_err=err,
+        ms=time_ms(lambda: feasible_mask(*fa), 50),
+        plain_ms=time_ms(lambda: feasible_mask_plain(*fa), 10),
+        bytes=fn_bytes(fa, fa[0], fa[5], fa[4]) + g * n,
+        ops=g * n * (OPS_FEASIBLE_ROW * c + OPS_FEASIBLE_BASE),
+        library_ms=None, depth_ms=None))
     for r in rows:
         b_ms = r["bytes"] / PEAK_BYTES * 1e3
         o_ms = r["ops"] / PEAK_OPS * 1e3
@@ -571,12 +1115,20 @@ def main() -> int:
               "placements_per_s": placed / tm["wall_s"], "launches": ph})
         prev = pend
 
+    # 7-11. the solo path, then 12. its kernels against the plain versions
+    rec = solo_phases(card, launches)
+    srows = solo_kernel_phase(rec, krows[0]["barrier_ms"])
+    torch.cuda.synchronize()
+    emit({"phase": "solo_kernel_checks", "card": card, "tolerance": "exact",
+          "checks": [{k: (v.name if k == "kernel" else v)
+                      for k, v in r.items()} for r in srows]})
+
     missing = [k for k, v in launches.items() if v < 1]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
     kernels = []
-    for r in krows:
+    for r in krows + srows:
         k = r["kernel"]
         kernels.append({
             "name": k.name, "route": "cuda",

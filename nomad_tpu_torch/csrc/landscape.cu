@@ -1,10 +1,15 @@
 // K1 "landscape": the static constraint and affinity landscapes of a
-// multi-eval wave.
+// multi-eval wave and of the solo kernels' statics.
+// K8 "feasible_mask": the [G, N] static feasibility of one eval, through
+// the same mask pass.
 //
-// Replaces (TPU side, jax.jit): nomad_tpu/ops/feasibility.py:29
-// constraint_mask (with feasible_mask :60 and the host-side
-// _cpu_mask_jit, nomad_tpu/ops/engine.py:220) and
-// nomad_tpu/ops/scoring.py:66 affinity_score / :79 constraint_mask_rows.
+// Replaces (TPU side, jax.jit): K1 nomad_tpu/ops/feasibility.py:29
+// constraint_mask (with the host-side _cpu_mask_jit,
+// nomad_tpu/ops/engine.py:220) and nomad_tpu/ops/scoring.py:66
+// affinity_score / :79 constraint_mask_rows; K8
+// nomad_tpu/ops/feasibility.py:75 feasible_mask_jit at its call sites
+// nomad_tpu/ops/engine.py:1114 (preemption fallback) and
+// nomad_tpu/scheduler/system.py:132 (system scheduler).
 //
 // What bounds it on the H100: bytes.  Each output element reads C (or Af)
 // attribute words of one node row plus as many LUT bytes, and does a
@@ -134,5 +139,20 @@ extern "C" int landscape_affinity(const int* attrs, int n, int n_attr,
   affinity_kernel<<<grid, 256, 0, stream>>>(attrs, n, n_attr, rows, nc, aff,
                                             ua, n_aff, luts, n_lut, n_vocab,
                                             out);
+  return (int)cudaGetLastError();
+}
+
+// K8: the same mask pass; the wrapper passes one base row
+// `dc & pool` and maps every group to it
+extern "C" int feasible_mask(const int* attrs, int n, int n_attr,
+                             const int* con, int n_groups, int n_con,
+                             const uint8_t* luts, int n_lut, int n_vocab,
+                             const uint8_t* elig, const uint8_t* base,
+                             const int* u_mask, uint8_t* out,
+                             cudaStream_t stream) {
+  dim3 grid((n + 255) / 256, n_groups);
+  mask_kernel<<<grid, 256, 0, stream>>>(attrs, n, n_attr, con, n_con, luts,
+                                        n_lut, n_vocab, elig, base, u_mask,
+                                        out);
   return (int)cudaGetLastError();
 }

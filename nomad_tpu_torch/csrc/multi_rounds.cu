@@ -1,12 +1,14 @@
 // K2 "multi_compact" and K3 "multi_flat": the batched multi-eval
-// water-fill rounds, one persistent launch per wave.
+// water-fill rounds, one persistent launch per wave.  K6 "multi_bulk":
+// one eval's homogeneous batch in rounds, the K3 machinery at one group.
 //
 // Replaces (TPU side, jax.jit): nomad_tpu/ops/select.py:836
-// place_multi_compact_packed (+ :1006 place_multi_compact_chained) for K2
-// and :733 place_multi_packed (+ :997 place_multi_chained) for K3, with
-// their shared round core round_scores_g (:342), waterfill_round (:413),
-// round_metrics_g (:393), tiebreak_noise (:43) and pack_round_buffer
-// (:531).
+// place_multi_compact_packed (+ :1006 place_multi_compact_chained) for K2,
+// :733 place_multi_packed (+ :997 place_multi_chained) for K3 and :554
+// place_bulk_packed (_bulk_scan :517, _bulk_step :460, _bulk_static
+// :505; place_bulk :615) for K6, with their shared round core
+// round_scores_g (:342), waterfill_round (:413), round_metrics_g (:393),
+// tiebreak_noise (:43) and pack_round_buffer (:531).
 //
 // What bounds it on the H100: sequential depth, not bytes or operations.
 // A wave is T dependent steps (rounds of one lane must see the previous
@@ -22,7 +24,9 @@
 // Design: one thread block of 1024 threads per lane, for the whole wave
 // (K2: L blocks, one per disjoint signature frame; K3: one block whose
 // frame is every node, whose static row comes from K1's [U, N] output).
-// The lane's frame state (usage, job counts, intake, scores, selection
+// K6 is K3 with one group, every round of it, and the bulk kernel's three
+// output layouts (full, with a score block, compact prefix plus full
+// fills).  The lane's frame state (usage, job counts, intake, scores, selection
 // keys) lives in global scratch that stays L2-resident; selection state
 // lives in shared memory.  Per step the block
 //   1. scores every frame row (intake k_i, binpack/anti-affinity/affinity
@@ -56,11 +60,8 @@ constexpr int BS = 1024;            // threads per block (one lane)
 constexpr int MAX_RS = 1024;        // select.py asserts round_size <= 1024
 constexpr int TOP_K = 3;
 constexpr int META = 16;
-constexpr float NEG_INF = -1e30f;
-constexpr float HALF_NEG_INF = -5e29f;
-constexpr float NOISE_SCALE = (float)(1e-6 / 4294967296.0);
-constexpr float INV18 = (float)(1.0 / 18.0);
-constexpr unsigned FULL = 0xffffffffu;
+
+#include "score_common.cuh"
 
 struct Params {
   const int* cap;            // [N, 3]
@@ -84,78 +85,16 @@ struct Params {
   const int* round_g;        // K2: [T * L] step-major; K3: [R]
   const int* round_want;
   int n_steps, n_lanes, nc, spread, rs, fill_k;
+  int out_mode;              // K3/K6 layout: 0 full, 1 + scores, 2 compact
   int* used_c;               // K2 scratch [L, nc, 3]
   int* jc;                   // [L, nc] current job counts (K3: output)
   int* ki;                   // [L, nc] intake
   float* score;              // [L, nc]
   unsigned* keyb;            // [L, nc] orderable key bits
-  int* buf;                  // K2: [T*L, fill_k + 16]; K3: [R, rs + 16]
-  int* fills;                // K2: [T*L, rs]
+  int* buf;                  // K2: [T*L, fill_k + 16]; K3: [R, rs + 16];
+                             // K6: [R, rs + 16 | 2 rs + 16 | fill_k + 16]
+  int* fills;                // K2: [T*L, rs]; K6 compact: [R, rs]
 };
-
-__device__ __forceinline__ int floordiv(int a, int b) {
-  int q = a / b;
-  if ((a % b != 0) && ((a < 0) != (b < 0))) --q;
-  return q;
-}
-
-// 2^(i/32) as double bits, less i << 47 (the C library's exp2f table)
-__constant__ unsigned long long EXP2_TAB[32] = {
-    0x3ff0000000000000ull, 0x3fefd9b0d3158574ull, 0x3fefb5586cf9890full,
-    0x3fef9301d0125b51ull, 0x3fef72b83c7d517bull, 0x3fef54873168b9aaull,
-    0x3fef387a6e756238ull, 0x3fef1e9df51fdee1ull, 0x3fef06fe0a31b715ull,
-    0x3feef1a7373aa9cbull, 0x3feedea64c123422ull, 0x3feece086061892dull,
-    0x3feebfdad5362a27ull, 0x3feeb42b569d4f82ull, 0x3feeab07dd485429ull,
-    0x3feea47eb03a5585ull, 0x3feea09e667f3bcdull, 0x3fee9f75e8ec5f74ull,
-    0x3feea11473eb0187ull, 0x3feea589994cce13ull, 0x3feeace5422aa0dbull,
-    0x3feeb737b0cdc5e5ull, 0x3feec49182a3f090ull, 0x3feed503b23e255dull,
-    0x3feee89f995ad3adull, 0x3feeff76f2fb5e47ull, 0x3fef199bdd85529cull,
-    0x3fef3720dcef9069ull, 0x3fef5818dcfba487ull, 0x3fef7c97337b9b5full,
-    0x3fefa4afa2a490daull, 0x3fefd0765b6e4540ull};
-
-// powf(10, x) as the C library computes it (glibc >= 2.28, from ARM's
-// optimized-routines): log2(10) by its table-driven log2 (a constant,
-// the base being fixed), then 2^(x log2 10) as 2^(k/32) * p(r) in double
-// and one rounding to float.  Valid for |x| < 37 (no overflow or
-// subnormal branch); the scores call it on [0, 1].
-__device__ __forceinline__ float libm_pow10f(float x) {
-  const double LOG2_10 = 0x1.a934f0979b22dp+1;
-  const double SHIFT = 0x1.8p+47;   // 1.5 * 2^52 / 32
-  const double C0 = 0x1.c6af84b912394p-5, C1 = 0x1.ebfce50fac4f3p-3,
-               C2 = 0x1.62e42ff0c52d6p-1;
-  const double xd = __dmul_rn((double)x, LOG2_10);
-  double kd = __dadd_rn(xd, SHIFT);
-  const unsigned long long ki = (unsigned long long)__double_as_longlong(kd);
-  kd = __dsub_rn(kd, SHIFT);
-  const double r = __dsub_rn(xd, kd);
-  const double s = __longlong_as_double(
-      (long long)(EXP2_TAB[ki % 32] + (ki << 47)));
-  const double z = __fma_rn(C0, r, C1);
-  const double r2 = __dmul_rn(r, r);
-  double y = __fma_rn(C2, r, 1.0);
-  y = __fma_rn(z, r2, y);
-  return (float)__dmul_rn(y, s);
-}
-
-__device__ __forceinline__ float tiebreak_noise(unsigned seed,
-                                                unsigned row) {
-  unsigned x = (row * 0x9E3779B1u) ^ (seed * 0x85EBCA77u);
-  x = (x ^ (x >> 16)) * 0x7FEB352Du;
-  x = (x ^ (x >> 15)) * 0x846CA68Bu;
-  x = x ^ (x >> 16);
-  return ((float)x * NOISE_SCALE) * (seed != 0u ? 1.0f : 0.0f);
-}
-
-// float -> uint32 whose unsigned order is the float order (+0 canonical)
-__device__ __forceinline__ unsigned orderable(float f) {
-  unsigned b = __float_as_uint(f == 0.0f ? 0.0f : f);
-  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-}
-
-__device__ __forceinline__ float from_orderable(unsigned o) {
-  unsigned b = (o & 0x80000000u) ? (o & 0x7fffffffu) : ~o;
-  return __uint_as_float(b);
-}
 
 // round_scores_g for one row: intake k_i and the normalised rank score
 __device__ __forceinline__ void intake_score(
@@ -503,10 +442,22 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
       }
       meta = brow + p.fill_k;
     } else {
-      int* brow = p.buf + (int64_t)t * (p.rs + META);
-      for (int i = tid; i < p.rs; i += BS)
-        brow[i] = (i < kk && s_c[i] > 0) ? s_j[i] * 2048 + s_c[i] : 0;
-      meta = brow + p.rs;
+      const int width = p.out_mode == 2 ? p.fill_k + META
+                        : (p.out_mode == 1 ? 2 * p.rs : p.rs) + META;
+      int* brow = p.buf + (int64_t)t * width;
+      for (int i = tid; i < p.rs; i += BS) {
+        int f = (i < kk && s_c[i] > 0) ? s_j[i] * 2048 + s_c[i] : 0;
+        if (p.out_mode == 2) {
+          p.fills[(int64_t)t * p.rs + i] = f;
+          if (i < p.fill_k) brow[i] = f;
+        } else {
+          brow[i] = f;
+        }
+        // slots past kk hold NEG_INF (s_sc's default), as the padded
+        // reference prefix does
+        if (p.out_mode == 1) brow[p.rs + i] = __float_as_int(s_sc[i]);
+      }
+      meta = brow + width - META;
     }
     if (tid == 0) {
       const int topn = min(min(kk, TOP_K), p.n);
@@ -626,6 +577,31 @@ extern "C" int multi_flat(
   p.n_steps = n_rounds; p.n_lanes = 1; p.nc = n; p.spread = spread;
   p.rs = rs; p.fill_k = 0;
   p.jc = jc; p.ki = ki; p.score = score; p.keyb = keyb; p.buf = buf;
+  rounds_kernel<false><<<1, BS, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int multi_bulk(
+    const int* cap, int* used, const uint8_t* static_u, const float* aff_land,
+    const int* aff, const int* req, const int* desired, const int* dh_limit,
+    const int* g_ix, const long long* seed, const int* job_count0,
+    const int* round_g, const int* round_want, int* buf, int n, int ua,
+    int n_aff, int n_rounds, int spread, int rs, int out_mode, int fill_k,
+    int* fills, int* jc, int* ki, float* score, unsigned* keyb,
+    cudaStream_t stream) {
+  if (rs > MAX_RS || rs < 1 || out_mode < 0 || out_mode > 2 ||
+      (out_mode == 2 && (fill_k < 1 || fill_k > rs || fills == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.cap = cap; p.used = used; p.n = n;
+  p.static_u = static_u; p.aff_land = aff_land; p.aff = aff; p.ua = ua;
+  p.n_aff = n_aff; p.req = req; p.desired = desired; p.dh_limit = dh_limit;
+  p.g_static = g_ix; p.g_aff = g_ix; p.g_job = g_ix; p.seed = seed;
+  p.job_count0 = job_count0; p.round_g = round_g; p.round_want = round_want;
+  p.n_steps = n_rounds; p.n_lanes = 1; p.nc = n; p.spread = spread;
+  p.rs = rs; p.fill_k = fill_k; p.out_mode = out_mode;
+  p.jc = jc; p.ki = ki; p.score = score; p.keyb = keyb; p.buf = buf;
+  p.fills = fills;
   rounds_kernel<false><<<1, BS, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }

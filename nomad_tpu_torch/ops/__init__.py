@@ -13,7 +13,16 @@ from .feasibility import constraint_mask, feasible_mask  # noqa: F401
 from .scoring import (  # noqa: F401
     affinity_score,
     binpack_score,
+    capacity_fit,
     job_anti_affinity,
     normalize_scores,
+    spread_boost,
 )
-from .select import MultiEvalInputs  # noqa: F401
+from .select import (  # noqa: F401
+    BulkInputs,
+    MultiEvalInputs,
+    PlacementInputs,
+    PlacementOutputs,
+    place,
+    place_packed,
+)

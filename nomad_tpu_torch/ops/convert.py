@@ -1,20 +1,20 @@
-"""Numpy <-> port tensors for a multi-eval launch's inputs.
+"""Numpy <-> port tensors for the kernels' inputs.
 
-The reference engine's `build_multi_inputs(...)["inp"]`, converted to
-numpy arrays field by field, becomes the port's `MultiEvalInputs` on a
-given device (and back), so the JAX kernels and the port's compute on
-identical packed cluster state.  The candidate frames (`cand_rows`,
-`cand_valid`) convert the same way.
+The reference's lowered inputs, converted to numpy arrays field by field,
+become the port's `MultiEvalInputs`, `PlacementInputs`, `BulkInputs` or
+`preempt_bulk` arguments on a given device (and back), so the JAX
+kernels and the port's compute on identical packed cluster state.  The
+candidate frames (`cand_rows`, `cand_valid`) convert the same way.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
-from .select import MultiEvalInputs
+from .select import BulkInputs, MultiEvalInputs, PlacementInputs
 
 _BOOL_FIELDS = ("elig", "luts", "base_mask")
 
@@ -61,3 +61,101 @@ def frames_from_numpy(cand_rows: np.ndarray, cand_valid: np.ndarray,
     """Compact candidate frames ([L, Nc] rows, padding = N; validity)."""
     return (torch.tensor(np.asarray(cand_rows, np.int32), device=device),
             torch.tensor(np.asarray(cand_valid, bool), device=device))
+
+
+# fields that are Python values in the port's solo inputs
+_SCALAR_BOOL = ("spread_algo",)
+_SCALAR_INT = ("seed", "g", "p_real")
+_SOLO_BOOL = ("elig", "dc_mask", "pool_mask", "luts", "pd_apply", "active",
+              "extra_mask")
+_SOLO_F32 = ("sp_weight", "sp_expected", "sp_counts0")
+
+
+def _solo_from_numpy(cls, arrays, device):
+    out = {}
+    for name in cls._fields:
+        a = arrays.get(name)
+        if name in _SCALAR_BOOL:
+            out[name] = bool(np.asarray(a))
+        elif name in _SCALAR_INT:
+            out[name] = int(np.asarray(a if a is not None else 0))
+        elif a is None:
+            out[name] = None
+        elif name in _SOLO_BOOL:
+            out[name] = torch.tensor(np.asarray(a, bool), device=device)
+        elif name in _SOLO_F32:
+            out[name] = torch.tensor(np.asarray(a, np.float32),
+                                     device=device)
+        else:
+            out[name] = torch.tensor(np.asarray(a, np.int32), device=device)
+    return cls(**out)
+
+
+def _solo_to_numpy(inp) -> Dict[str, np.ndarray]:
+    out = {}
+    for name, v in zip(type(inp)._fields, inp):
+        if name in _SCALAR_BOOL:
+            out[name] = np.bool_(v)
+        elif name == "seed":
+            out[name] = np.uint32(v)
+        elif name in _SCALAR_INT:
+            out[name] = np.int32(v)
+        elif v is None:
+            out[name] = None
+        else:
+            out[name] = v.cpu().numpy()
+    return out
+
+
+def placement_inputs_from_numpy(arrays: Dict[str, np.ndarray],
+                                device="cpu") -> PlacementInputs:
+    """`arrays` holds one numpy array per PlacementInputs field, as the
+    reference's PlacementInputs carries them (`seed` a uint32 scalar,
+    `spread_algo` a bool scalar, `extra_mask` optional)."""
+    return _solo_from_numpy(PlacementInputs, arrays, device)
+
+
+def placement_inputs_to_numpy(inp: PlacementInputs) -> Dict[str, np.ndarray]:
+    """Inverse of `placement_inputs_from_numpy`."""
+    return _solo_to_numpy(inp)
+
+
+def bulk_inputs_from_numpy(arrays: Dict[str, np.ndarray],
+                           device="cpu") -> BulkInputs:
+    """One numpy array per BulkInputs field (`g`, `p_real` int32 and
+    `seed` uint32 scalars)."""
+    return _solo_from_numpy(BulkInputs, arrays, device)
+
+
+def bulk_inputs_to_numpy(inp: BulkInputs) -> Dict[str, np.ndarray]:
+    """Inverse of `bulk_inputs_from_numpy`."""
+    return _solo_to_numpy(inp)
+
+
+class PreemptArgs(NamedTuple):
+    """`preempt.preempt_bulk`'s arguments, in its order."""
+    cap: torch.Tensor         # [M, 3] int32
+    used0: torch.Tensor       # [M, 3] int32
+    static_g: torch.Tensor    # [M] bool
+    dh_limit_g: int
+    job_count0: torch.Tensor  # [M] int32
+    pre_prio: torch.Tensor    # [M, A] int32
+    pre_res: torch.Tensor     # [M, A, 3] int32
+    req: torch.Tensor         # [3] int32
+    k0: torch.Tensor          # [M] int32
+    n_place: int
+    n_real: int
+
+
+def preempt_args_from_numpy(args, device="cpu") -> PreemptArgs:
+    """The reference's positional `preempt_bulk` arguments (numpy arrays
+    or scalars) as the port's."""
+    out = []
+    for name, a in zip(PreemptArgs._fields, args):
+        if name in ("dh_limit_g", "n_place", "n_real"):
+            out.append(int(np.asarray(a)))
+        elif name == "static_g":
+            out.append(torch.tensor(np.asarray(a, bool), device=device))
+        else:
+            out.append(torch.tensor(np.asarray(a, np.int32), device=device))
+    return PreemptArgs(*out)

@@ -1,9 +1,11 @@
-"""Host<->device placement engine, single-device batch path (reference:
+"""Host<->device placement engine, single device (reference:
 nomad_tpu/ops/engine.py).
 
 Bridges the control plane (snapshots, Job/TaskGroup objects) and the
 device kernels: packs state, keeps node tensors and the usage tensor
-resident on the device, lowers a multi-eval batch (`build_multi_inputs`),
+resident on the device, places one eval's batch (`place`: the bulk
+rounds K6 or the exact scan K5, then preemption through K8 and K7 for
+what failed), lowers a multi-eval batch (`build_multi_inputs`),
 launches it (`dispatch_batch`) and maps node rows back to ids and
 AllocMetrics (`collect_batch`).
 
@@ -15,8 +17,7 @@ Differences from the reference's engine:
   - a chained wave reuses the previous wave's usage tensor in place (the
     reference donates it to XLA);
   - no mesh, no compile ledger, no metrics registry hooks, no h2d/d2h
-    observers: those come with later slices (ROADMAP queue 1);
-  - the solo path (`place`) is not ported yet and raises.
+    observers: those come with later slices (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -28,7 +29,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from nomad_tpu_torch.pack.packer import ClusterPacker, NodeTensors
+from nomad_tpu_torch.pack.packer import (
+    ClusterPacker,
+    JobContext,
+    NodeTensors,
+    TGTensors,
+)
+from nomad_tpu_torch.pack.spread import SpreadTensors, lower_spreads
 from nomad_tpu_torch.structs import (
     AllocMetric,
     Job,
@@ -38,15 +45,31 @@ from nomad_tpu_torch.structs import (
 )
 
 from . import kernels as K
-from .feasibility import landscape_mask
+from .feasibility import feasible_mask, landscape_mask
+from .preempt import (
+    Preemptor,
+    build_victim_tables,
+    preempt_bulk,
+    preemption_enabled,
+)
 from .select import (
     FILL_K,
+    BulkInputs,
     MultiEvalInputs,
+    PlacementInputs,
+    place_bulk_packed,
     place_multi_chained,
     place_multi_compact_chained,
     place_multi_compact_packed,
     place_multi_packed,
+    place_packed,
 )
+
+# Minimum homogeneous batch size before the bulk rounds beat the
+# per-placement scan (the scan is exact sequential semantics; bulk commits
+# whole rounds between state refreshes)
+BULK_THRESHOLD = 64
+BULK_ROUND = 1024
 
 # fixed-size chunks for the delta-replay scatter (reference: engine.py:49)
 SCATTER_CHUNK = 16384
@@ -223,22 +246,26 @@ def _resolve_compact_fills(buf_np: np.ndarray, fills_full, slot_k: int):
 
 
 def _unpack_bulk_compact(buf: np.ndarray, round_size: int, p_real: int,
-                         slot_k: int = 0):
-    """Expand a compact per-round buffer (layout: select.pack_round_buffer)
-    into per-placement picks plus the per-round metric block.  Placements
-    within a round are interchangeable, so per-node fill counts expand
-    with np.repeat.  `slot_k`: fill slots per buffer row when they differ
-    from the round size."""
+                         with_scores: bool = False, slot_k: int = 0):
+    """Expand a per-round buffer (layout: select.pack_round_buffer, with
+    an optional score block) into per-placement picks and scores plus the
+    per-round metric block.  Placements within a round are
+    interchangeable, so per-node fill counts expand with np.repeat.
+    `slot_k`: fill slots per buffer row when they differ from the round
+    size."""
     n_rounds = buf.shape[0]
     slot_k = slot_k or round_size
     fills = buf[:, :slot_k]
-    meta = buf[:, slot_k:]
+    off = 2 * slot_k if with_scores else slot_k
+    sc_r = buf[:, slot_k:off].view(np.float32) if with_scores else None
+    meta = buf[:, off:]
     rows_r = fills >> 11
     cnt_r = fills & 2047
     placed_r = meta[:, 12]
 
     p_pad = n_rounds * round_size
     picks = np.full(p_pad, -1, np.int32)
+    scores = np.zeros(p_pad, np.float32)
     for r in range(n_rounds):
         lo = r * round_size
         k = int(placed_r[r])
@@ -246,7 +273,22 @@ def _unpack_bulk_compact(buf: np.ndarray, round_size: int, p_real: int,
             continue
         nz = cnt_r[r].nonzero()[0]
         picks[lo:lo + k] = np.repeat(rows_r[r, nz], cnt_r[r, nz])[:k]
-    return picks[:p_real], meta
+        if with_scores:
+            scores[lo:lo + k] = np.repeat(sc_r[r, nz], cnt_r[r, nz])[:k]
+    return picks[:p_real], scores[:p_real], meta
+
+
+def _unpack_bulk(buf: np.ndarray, round_size: int, p_real: int):
+    """Per-placement expansion of the buffer with scores (the exact-API
+    path): picks, scores, top-k rows and scores, and the metric columns,
+    each round's metrics repeated over its placements."""
+    picks, scores, meta = _unpack_bulk_compact(
+        buf, round_size, p_real, with_scores=True)
+    rep = np.repeat(np.arange(buf.shape[0]), round_size)[:p_real]
+    m = meta[rep]
+    return (picks, scores,
+            m[:, 0:3], m[:, 3:6].view(np.float32),
+            m[:, 6], m[:, 7], m[:, 8], m[:, 9:12])
 
 
 @dataclass
@@ -406,14 +448,425 @@ class PlacementEngine:
             metrics.append(metric)
         return metrics
 
+    def _fetch(self, t: torch.Tensor) -> np.ndarray:
+        """A device result as a host array (waits for the kernels)."""
+        return t.cpu().numpy()
+
     # -------------------------------------------------------------- solo
 
+    def _device_mask(self, tgs: Sequence[TaskGroup], t: NodeTensors,
+                     snapshot, stopped_ids, device_in_use=None):
+        """Host-side DeviceChecker analog (scheduler/device.py): a [G, N]
+        bool mask of "node can satisfy this task group's device
+        requests", ANDed into the kernels' static feasibility.  None when
+        no group asks for devices.  `device_in_use` overlays in-plan
+        assignments the snapshot cannot see yet."""
+        from nomad_tpu_torch.scheduler.device import (
+            InUseIndex, node_feasible, tg_device_requests)
+        reqs_by_g = [tg_device_requests(tg) for tg in tgs]
+        if not any(reqs_by_g):
+            return None
+        dev_nodes = []
+        for row, nid in enumerate(t.node_ids):
+            node = snapshot.node_by_id(nid)
+            if node is not None and node.resources.devices:
+                dev_nodes.append((row, node))
+        in_use = InUseIndex()
+        for row, node in dev_nodes:
+            for a in snapshot.allocs_by_node(node.id):
+                if a.terminal_status() or a.id in stopped_ids:
+                    continue
+                in_use.add_alloc(node.id, a)
+        if device_in_use is not None:
+            for node_id, gid, ids in device_in_use.items():
+                in_use.add(node_id, gid, ids)
+        mask = np.zeros((len(tgs), t.n), bool)
+        for g, tg in enumerate(tgs):
+            if not reqs_by_g[g]:
+                mask[g, :] = True
+                continue
+            for row, node in dev_nodes:
+                mask[g, row] = node_feasible(node, tg, in_use)
+        return mask
+
     def place(self, snapshot, job: Job, tgs: Sequence[TaskGroup],
-              requests: Sequence[PlacementRequest], **kwargs):
-        """The solo (one eval) placement path."""
-        raise NotImplementedError(
-            "the solo placement path (engine.place, kernels K5-K7) is not "
-            "ported yet: ROADMAP.md queue 1, item 2")
+              requests: Sequence[PlacementRequest],
+              tensors: Optional[NodeTensors] = None,
+              stopped_allocs: Sequence = (),
+              bulk_api: bool = False,
+              seed: int = 0,
+              device_in_use=None,
+              block=None,
+              ):
+        """Score + select nodes for `requests` (placements of `tgs`), one
+        decision per request in order, or a BulkDecisions with `bulk_api`
+        when the batch takes the bulk rounds.
+
+        `block`: a (tg_name, count) pair of `count` fresh placements of
+        one task group, the compact alternative to `requests`.
+        `stopped_allocs`: allocs the in-flight plan stops; their usage
+        (and this job's counts) is subtracted before scoring.  `seed`:
+        the per-eval tie-break for equal scores."""
+        if block is not None:
+            block_tg, block_count = block
+            if block_count <= 0:
+                return []
+        elif not requests:
+            return []
+        t0 = time.perf_counter_ns()
+        t = tensors if tensors is not None else self.packer.update(snapshot)
+        n = t.n
+        if n == 0:
+            if block is not None:
+                requests = [PlacementRequest(tg_name=block_tg)] * block_count
+            return [self._no_nodes_decision(r, snapshot, job)
+                    for r in requests]
+
+        tg_tensors: TGTensors = self.packer.lower_task_groups(
+            job, tgs, snapshot=snapshot)
+        ctx: JobContext = self.packer.job_context(job, snapshot, t)
+
+        name_to_g = {name: i for i, name in enumerate(tg_tensors.names)}
+        p_real = block_count if block is not None else len(requests)
+        p_pad = _pad_pow2(p_real)
+
+        desired = np.array([tg.count for tg in tgs], np.int32)
+        algo = snapshot.scheduler_config().scheduler_algorithm
+        dev = self._node_arrays(t)
+        used0 = self._used_device(t)
+        job_count = ctx.job_count
+        if stopped_allocs:
+            delta = np.zeros((n, 3), np.int32)
+            job_count = job_count.copy()
+            for a in stopped_allocs:
+                row = t.id_to_row.get(a.node_id)
+                if row is None:
+                    continue
+                delta[row, 0] -= a.resources.cpu
+                delta[row, 1] -= a.resources.memory_mb
+                delta[row, 2] -= a.resources.disk_mb
+                if a.job_id == job.id and job_count[row] > 0:
+                    job_count[row] -= 1
+            used0 = used0 + self._to_dev(delta)
+
+        dcm = self._dev_const(("dc", t.version, n, tuple(job.datacenters)),
+                              lambda: ctx.dc_mask)
+        pm = self._dev_const(("pool", t.version, n, job.node_pool),
+                             lambda: ctx.pool_mask)
+        luts_dev = self._dev_const(
+            ("luts", self.packer.lut_epoch, tg_tensors.luts.shape),
+            lambda: tg_tensors.luts)
+        if job_count.any():
+            jc_dev = self._to_dev(job_count)
+        else:
+            jc_dev = self._dev_const(("zjc", n),
+                                     lambda: np.zeros(n, np.int32))
+
+        # device (GPU/...) feasibility: a host-computed per-group node mask
+        dev_mask = self._device_mask(
+            tgs, t, snapshot, {a.id for a in stopped_allocs}, device_in_use)
+        extra_mask = None if dev_mask is None else self._to_dev(dev_mask)
+
+        has_spread = bool(job.spreads) or any(tg.spreads for tg in tgs)
+        has_distinct = any(tg_tensors.distinct)
+        if block is not None:
+            bulk_ok = (p_real >= BULK_THRESHOLD
+                       and not has_spread and not has_distinct
+                       and dev_mask is None)
+            if not bulk_ok or not bulk_api:
+                # the exact scan and per-placement decisions need rows
+                requests = [PlacementRequest(tg_name=block_tg)] * p_real
+        else:
+            bulk_ok = (
+                p_real >= BULK_THRESHOLD
+                and len({r.tg_name for r in requests}) == 1
+                and not has_spread and not has_distinct
+                # device asks cap per-node intake by discrete instance
+                # counts, which the rounds cannot see: exact scan only
+                and dev_mask is None
+                and all(not r.prev_node_id for r in requests))
+
+        if bulk_ok:
+            g_idx = name_to_g[block_tg if block is not None
+                              else requests[0].tg_name]
+            round_size = min(BULK_ROUND, p_pad)
+            n_rounds = p_pad // round_size
+            binp = BulkInputs(
+                attrs=dev["attrs"], cap=dev["cap"], used0=used0,
+                elig=dev["elig"], dc_mask=dcm, pool_mask=pm, luts=luts_dev,
+                con=self._to_dev(tg_tensors.con),
+                aff=self._to_dev(tg_tensors.aff),
+                req=self._to_dev(tg_tensors.req),
+                desired=self._to_dev(desired),
+                dh_limit=self._to_dev(tg_tensors.dh_limit),
+                job_count0=jc_dev,
+                spread_algo=algo == SCHED_ALGO_SPREAD,
+                g=g_idx, p_real=p_real, seed=seed & 0xFFFFFFFF,
+                extra_mask=extra_mask)
+            fills_full = None
+            slot_k = 0
+            if bulk_api and algo != SCHED_ALGO_SPREAD:
+                # compact output: FILL_K slots always fetched, the full
+                # fills stay on the device for a round that overflows
+                # (the spread algorithm fans each round over ~want nodes
+                # and keeps the full layout)
+                slot_k = min(FILL_K, round_size)
+                buf, fills_full, used_dev, job_count_dev = \
+                    place_bulk_packed(binp, round_size, n_rounds, False,
+                                      slot_k)
+            else:
+                buf, used_dev, job_count_dev = place_bulk_packed(
+                    binp, round_size, n_rounds, not bulk_api)
+            tg_idx = np.full(p_real, g_idx, np.int32)
+            if bulk_api:
+                buf_np, slot_k = _resolve_compact_fills(
+                    self._fetch(buf),
+                    None if fills_full is None
+                    else (lambda: self._fetch(fills_full)), slot_k)
+                picks, _, meta = _unpack_bulk_compact(
+                    buf_np, round_size, p_real, slot_k=slot_k)
+                return self._bulk_decisions(
+                    block_tg if block is not None else requests[0].tg_name,
+                    picks, meta, round_size, t, ctx,
+                    snapshot, job, binp, tg_tensors, tg_idx, used_dev,
+                    job_count_dev, p_real, n, t0)
+            (picks, scores, topk_rows, topk_scores,
+             n_feas, n_filt, n_exh, dim_exh) = _unpack_bulk(
+                self._fetch(buf), round_size, p_real)
+            inp = binp      # _preempt_fallback's field source
+        else:
+            sp: SpreadTensors = lower_spreads(self.packer, job, t, snapshot)
+            pd = self.packer.lower_distinct(job, tgs, tg_tensors, t,
+                                            snapshot)
+            tg_idx = np.zeros(p_pad, np.int32)
+            prev_row = np.full(p_pad, -1, np.int32)
+            active = np.zeros(p_pad, bool)
+            for i, r in enumerate(requests):
+                tg_idx[i] = name_to_g[r.tg_name]
+                if r.prev_node_id:
+                    prev_row[i] = t.id_to_row.get(r.prev_node_id, -1)
+                active[i] = True
+            inp = PlacementInputs(
+                attrs=dev["attrs"], cap=dev["cap"], used0=used0,
+                elig=dev["elig"], dc_mask=dcm, pool_mask=pm, luts=luts_dev,
+                con=self._to_dev(tg_tensors.con),
+                aff=self._to_dev(tg_tensors.aff),
+                req=self._to_dev(tg_tensors.req),
+                desired=self._to_dev(desired),
+                dh_limit=self._to_dev(tg_tensors.dh_limit),
+                sp_nodeval=self._to_dev(sp.sp_nodeval),
+                sp_weight=self._to_dev(sp.sp_weight),
+                sp_expected=self._to_dev(sp.sp_expected),
+                sp_counts0=self._to_dev(sp.sp_counts0),
+                pd_nodeval=self._to_dev(pd.pd_nodeval),
+                pd_limit=self._to_dev(pd.pd_limit),
+                pd_apply=self._to_dev(pd.pd_apply),
+                pd_counts0=self._to_dev(pd.pd_counts0),
+                tg_idx=self._to_dev(tg_idx),
+                prev_row=self._to_dev(prev_row),
+                active=self._to_dev(active),
+                job_count0=jc_dev,
+                spread_algo=algo == SCHED_ALGO_SPREAD,
+                seed=seed & 0xFFFFFFFF,
+                extra_mask=extra_mask)
+            buf, used_dev, job_count_dev = place_packed(inp)
+            b = self._fetch(buf)[:p_real]
+            picks = b[:, 0].copy()
+            scores = b[:, 1].view(np.float32)
+            topk_rows = b[:, 2:5]
+            topk_scores = b[:, 5:8].view(np.float32)
+            n_filt = b[:, 9]
+            n_exh = b[:, 10]
+            dim_exh = b[:, 11:14]
+        elapsed = (time.perf_counter_ns() - t0) // max(p_real, 1)
+
+        # ---- preemption fallback for failed placements ----
+        evictions_by_req = self._preempt_fallback(
+            picks, snapshot, job, inp, tg_tensors, tg_idx,
+            t, used_dev, job_count_dev, p_real)
+
+        dc_counts = self._dc_counts(t)
+        picks_l = picks.tolist()
+        scores_l = scores.tolist()
+        topk_rows_l = topk_rows.tolist()
+        topk_scores_l = topk_scores.tolist()
+        n_filt_l = n_filt.tolist()
+        n_exh_l = n_exh.tolist()
+        dim_exh_l = dim_exh.tolist()
+        n_in_pool = int(ctx.pool_mask.sum())
+        elapsed = int(elapsed)
+        node_ids = t.node_ids
+
+        # score_meta_data repeats within a bulk round: one shared list per
+        # distinct top-k (read-only by convention)
+        smd_cache: Dict[tuple, list] = {}
+        decisions: List[PlacementDecision] = []
+        dims = ("cpu", "memory", "disk")
+        for i, r in enumerate(requests):
+            metric = AllocMetric(
+                nodes_evaluated=n,
+                nodes_filtered=n_filt_l[i],
+                nodes_in_pool=n_in_pool,
+                nodes_available=dc_counts,
+                nodes_exhausted=n_exh_l[i],
+                allocation_time_ns=elapsed,
+            )
+            de = dim_exh_l[i]
+            if de[0] or de[1] or de[2]:
+                for d in range(3):
+                    if de[d]:
+                        metric.dimension_exhausted[dims[d]] = de[d]
+            key = (tuple(topk_rows_l[i]), tuple(topk_scores_l[i]))
+            smd = smd_cache.get(key)
+            if smd is None:
+                smd = [NodeScoreMeta(node_id=node_ids[kr],
+                                     scores={"final": ks},
+                                     norm_score=ks)
+                       for kr, ks in zip(topk_rows_l[i], topk_scores_l[i])
+                       if kr >= 0]
+                smd_cache[key] = smd
+            metric.score_meta_data = smd
+            pick = picks_l[i]
+            node_id = node_ids[pick] if pick >= 0 else None
+            decisions.append(PlacementDecision(
+                tg_name=r.tg_name, node_id=node_id,
+                score=scores_l[i], metric=metric,
+                evictions=evictions_by_req.get(i, [])))
+        return decisions
+
+    # Device preemption runs over the compact victim tables (candidate
+    # nodes x pow2 depth), one K7 launch per failing task group; groups
+    # chain through the same usage state.  The host Preemptor covers
+    # small batches, oversized tables and whatever the kernel left.
+    PREEMPT_DEVICE_MIN_FAILED = 4
+    # upload guard: candidates x depth
+    PREEMPT_DEVICE_MAX_TABLE = 256 * 1024
+
+    def _preempt_fallback(self, picks, snapshot, job, inp, tg_tensors,
+                          tg_idx, t, used_dev, job_count_dev, p_real
+                          ) -> Dict[int, List]:
+        """Preemption for placements the kernels could not fit, when the
+        scheduler type enables it.  Mutates `picks`."""
+        evictions_by_req: Dict[int, List] = {}
+        if (not np.any(picks < 0)
+                or not preemption_enabled(snapshot.scheduler_config(),
+                                          job.type)):
+            return evictions_by_req
+        static = self._fetch(feasible_mask(
+            inp.attrs, inp.elig, inp.dc_mask, inp.pool_mask, inp.con,
+            inp.luts))
+        used = self._fetch(used_dev)
+        job_count = self._fetch(job_count_dev)
+        pre_evicted: set = set()
+
+        failed = [i for i in range(p_real) if picks[i] < 0]
+        by_g: Dict[int, list] = {}
+        for i in failed:
+            by_g.setdefault(int(tg_idx[i]), []).append(i)
+        tables = None
+        # victims consumed so far per row, shared across the chained
+        # per-group launches: each victim frees its capacity once
+        taken: Dict[int, int] = {}
+        for g, failed_g in sorted(by_g.items()):
+            if len(failed_g) < self.PREEMPT_DEVICE_MIN_FAILED:
+                continue
+            if tables is None:
+                tables = build_victim_tables(job, snapshot, t)
+            if (not tables[3]
+                    or tables[1].size > self.PREEMPT_DEVICE_MAX_TABLE):
+                break
+            used, job_count = self._preempt_device(
+                failed_g, g, tables, tg_tensors, t, static,
+                used, job_count, picks, evictions_by_req, pre_evicted,
+                taken)
+
+        if not np.any(picks < 0):
+            return evictions_by_req
+        preemptor = Preemptor(job, snapshot, t, static, used,
+                              job_count=job_count,
+                              dh_limit=tg_tensors.dh_limit)
+        preemptor.evicted_ids |= pre_evicted
+        for i in range(p_real):
+            if picks[i] >= 0:
+                continue
+            g = int(tg_idx[i])
+            res = preemptor.preempt_for(g, tg_tensors.req[g].astype(np.int64))
+            if res is not None:
+                picks[i] = res.node_row
+                evictions_by_req[i] = res.evictions
+        return evictions_by_req
+
+    def _preempt_device(self, failed, g, tables, tg_tensors, t,
+                        static, used, job_count, picks, evictions_by_req,
+                        pre_evicted, taken):
+        """One K7 launch for ONE task group's failed batch over the
+        compact candidate tables; maps (candidate, k) results back to
+        victim allocs.  Victims consumed by earlier groups (`taken`)
+        start consumed.  Returns the post-eviction (used, job_count)."""
+        cand_rows, prio, res, by_row = tables
+        k0 = np.zeros(len(cand_rows), np.int32)
+        if taken:
+            for ci, row in enumerate(cand_rows):
+                k0[ci] = taken.get(int(row), 0)
+        # candidate axis padded on the pow2 ladder
+        m = len(cand_rows)
+        m_pad = _pad_pow2(m)
+
+        def padr(a, fill=0):
+            out = np.full((m_pad,) + a.shape[1:], fill, a.dtype)
+            out[:m] = a
+            return out
+
+        best_c, ks, used2_c, jc2_c = preempt_bulk(
+            self._to_dev(padr(t.cap[cand_rows])),
+            self._to_dev(padr(used[cand_rows])),
+            self._to_dev(padr(static[g][cand_rows], False)),
+            int(tg_tensors.dh_limit[g]),
+            self._to_dev(padr(job_count[cand_rows])),
+            self._to_dev(padr(prio, 1 << 30)), self._to_dev(padr(res)),
+            self._to_dev(tg_tensors.req[g].astype(np.int32)),
+            self._to_dev(padr(k0)),
+            _pad_pow2(len(failed)), len(failed))
+        best_c = self._fetch(best_c)
+        ks = self._fetch(ks)
+        used = used.copy()
+        used[cand_rows] = self._fetch(used2_c)[:m]
+        job_count = job_count.copy()
+        job_count[cand_rows] = self._fetch(jc2_c)[:m]
+        for j, i in enumerate(failed):
+            ci = int(best_c[j])
+            if ci < 0:
+                continue
+            row = int(cand_rows[ci])
+            k = int(ks[j])
+            start = taken.get(row, 0)
+            victims = by_row[row][start:start + k]
+            taken[row] = start + k
+            picks[i] = row
+            evictions_by_req[i] = victims
+            pre_evicted.update(v.id for v in victims)
+        return used, job_count
+
+    def _bulk_decisions(self, tg_name, picks, meta, round_size, t, ctx,
+                        snapshot, job, inp, tg_tensors, tg_idx, used_dev,
+                        job_count_dev, p_real, n, t0) -> BulkDecisions:
+        evictions = self._preempt_fallback(
+            picks, snapshot, job, inp, tg_tensors, tg_idx,
+            t, used_dev, job_count_dev, p_real)
+        elapsed = int(time.perf_counter_ns() - t0) // max(p_real, 1)
+        metrics = self._metrics_from_meta(
+            meta, n, int(ctx.pool_mask.sum()), self._dc_counts(t),
+            t.node_ids, elapsed)
+        return BulkDecisions(
+            tg_name=tg_name, picks=picks, node_ids=t.node_ids,
+            round_size=round_size, metrics=metrics, evictions=evictions,
+            nodes_evaluated=n)
+
+    def _no_nodes_decision(self, r: PlacementRequest, snapshot, job: Job
+                           ) -> PlacementDecision:
+        return PlacementDecision(
+            tg_name=r.tg_name, node_id=None, score=0.0,
+            metric=AllocMetric(nodes_evaluated=0))
 
     # -------------------------------------------------------- multi-eval
 
@@ -795,7 +1248,7 @@ class PlacementEngine:
                     node_ids=t.node_ids, round_size=rs, metrics=[],
                     nodes_evaluated=n))
                 continue
-            picks, meta = _unpack_bulk_compact(
+            picks, _, meta = _unpack_bulk_compact(
                 buf_np[lo:hi], rs, counts[gi],
                 slot_k=rs_eff if rs_eff != rs else 0)
             metrics = self._metrics_from_meta(

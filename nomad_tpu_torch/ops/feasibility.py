@@ -1,11 +1,16 @@
 """Feasibility masks (reference: nomad_tpu/ops/feasibility.py).
 
-`constraint_mask` / `feasible_mask` are the plain PyTorch versions of the
-reference's jnp functions: every packed constraint row evaluated against
-every node.  `landscape_mask` is the wrapper of kernel K1's mask entry
-(`csrc/landscape.cu`): the deduped per-signature static landscape
-`constraint_mask(attrs, con, luts) & elig & base_mask[u_mask]` that the
-multi-eval launches and the engine's lane prover consume.
+`constraint_mask` / `feasible_mask_plain` are the plain PyTorch versions
+of the reference's jnp functions: every packed constraint row evaluated
+against every node.  Two wrappers launch kernels of `csrc/landscape.cu`:
+
+  landscape_mask  K1's mask entry: the deduped per-signature static
+                  landscape `constraint_mask(attrs, con, luts) & elig &
+                  base_mask[u_mask]` that the multi-eval launches, the
+                  solo kernels' statics and the lane prover consume;
+  feasible_mask   K8: the [G, N] static feasibility of the preemption
+                  fallback and the system scheduler (one base row
+                  `elig & dc & pool`, every group mapped to it).
 """
 
 from __future__ import annotations
@@ -59,11 +64,43 @@ def constraint_mask(attrs: torch.Tensor,     # [N, A] int32
     return _row_predicates(attrs, con, luts, True).all(dim=1)
 
 
-def feasible_mask(attrs, elig, dc_mask, pool_mask, con, luts):
-    """Full static feasibility: eligibility, datacenter and node-pool
+def feasible_mask_plain(attrs, elig, dc_mask, pool_mask, con, luts):
+    """Plain version of K8: eligibility, datacenter and node-pool
     membership, and the constraint rows ([G, N] bool)."""
     base = elig & dc_mask & pool_mask
     return constraint_mask(attrs, con, luts) & base[None, :]
+
+
+def feasible_mask(attrs: torch.Tensor,       # [N, A] int32
+                  elig: torch.Tensor,        # [N] bool
+                  dc_mask: torch.Tensor,     # [N] bool
+                  pool_mask: torch.Tensor,   # [N] bool
+                  con: torch.Tensor,         # [G, C, 3] int32
+                  luts: torch.Tensor,        # [L, V] bool
+                  ) -> torch.Tensor:         # [G, N] bool
+    """Full static feasibility (reference: feasibility.feasible_mask).  A
+    CPU tensor takes the plain version; a CUDA tensor launches K8 (or
+    raises): K1's mask pass with one base row `dc & pool` and every
+    group mapped to it."""
+    if attrs.device.type == "cpu":
+        return feasible_mask_plain(attrs, elig, dc_mask, pool_mask, con,
+                                   luts)
+    name = "feasible_mask"
+    K.check_dtype(name, attrs, torch.int32, 2)
+    K.check_dtype(name, con, torch.int32, 3)
+    K.check_dtype(name, luts, torch.bool, 2)
+    for key, t in (("elig", elig), ("dc_mask", dc_mask),
+                   ("pool_mask", pool_mask)):
+        K.check_dtype(f"{name}.{key}", t, torch.bool, 1)
+    K.check_cuda(name, attrs=attrs, elig=elig, dc_mask=dc_mask,
+                 pool_mask=pool_mask, con=con, luts=luts)
+    if dc_mask.shape != pool_mask.shape:
+        raise ValueError(f"{name}: inconsistent shapes")
+    base = (dc_mask & pool_mask)[None]
+    u_mask = torch.zeros(con.shape[0], dtype=torch.int32,
+                         device=attrs.device)
+    return _mask_launch(K.FEASIBLE, name, attrs, con, luts, elig, base,
+                        u_mask)
 
 
 def landscape_mask_plain(attrs, con, luts, elig, base_mask, u_mask):
@@ -84,7 +121,13 @@ def landscape_mask(attrs: torch.Tensor,      # [N, A] int32
     if attrs.device.type == "cpu":
         return landscape_mask_plain(attrs, con, luts, elig, base_mask,
                                     u_mask)
-    name = "landscape_mask"
+    return _mask_launch(K.LANDSCAPE, "landscape_mask", attrs, con, luts,
+                        elig, base_mask, u_mask)
+
+
+def _mask_launch(kernel, name, attrs, con, luts, elig, base_mask, u_mask):
+    """One launch of csrc/landscape.cu's mask pass through `name`'s entry,
+    counted on `kernel`."""
     K.check_cuda(name, attrs=attrs, con=con, luts=luts, elig=elig,
                  base_mask=base_mask, u_mask=u_mask)
     K.check_dtype(name, attrs, torch.int32, 2)
@@ -101,7 +144,7 @@ def landscape_mask(attrs: torch.Tensor,      # [N, A] int32
     out = torch.empty((u, n), dtype=torch.bool, device=attrs.device)
     if u and n:
         with torch.cuda.device(attrs.device):
-            K.LANDSCAPE.launch(
+            kernel.launch(
                 name, attrs.data_ptr(), n, a, con.data_ptr(), u, c,
                 luts.data_ptr(), luts.shape[0], luts.shape[1],
                 elig.data_ptr(), base_mask.data_ptr(), u_mask.data_ptr(),

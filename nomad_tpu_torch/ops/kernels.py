@@ -27,8 +27,12 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
+# -fmad=false: no multiply-add contraction the source does not spell out
+# (the reference's XLA fuses some and not others; the kernels write each
+# fma it has as __fmaf_rn)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +46,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # attrs n a | rows n_rowsets nc | aff ua af | luts l v | out | stream
         "landscape_affinity": [_P, _I, _I, _P, _I, _I, _P, _I, _I,
                                _P, _I, _I, _P, _P],
+        # attrs n a | con g c | luts l v | elig base u_mask | out | stream
+        "feasible_mask": [_P, _I, _I, _P, _I, _I, _P, _I, _I,
+                          _P, _P, _P, _P, _P],
     },
     "multi_rounds.cu": {
         # 18 tensors | n n_lanes nc ua af steps spread rs fill_k |
@@ -49,10 +56,22 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "multi_compact": [_P] * 18 + [_I] * 9 + [_P] * 6,
         # 16 tensors | n ua af rounds spread rs | 4 scratch | stream
         "multi_flat": [_P] * 16 + [_I] * 6 + [_P] * 5,
+        # 14 tensors | n ua af rounds spread rs | mode fill_k fills |
+        # 4 scratch | stream
+        "multi_bulk": [_P] * 14 + [_I] * 6 + [_I, _I, _P] + [_P] * 5,
         # x y n | stream (check entry: the kernels' device 10^x)
         "pow10_f32": [_P, _P, ctypes.c_longlong, _P],
         # rounds sink | stream (probe: the cost of one barrier round)
         "barrier_probe": [_I, _P, _P],
+    },
+    "place_scan.cu": {
+        # 21 tensors | 3 scratch | n g s k d kd steps spread | seed |
+        # stream
+        "place_scan": [_P] * 24 + [_I] * 8 + [ctypes.c_uint, _P],
+    },
+    "preempt.cu": {
+        # 8 tensors | m a dh n_place n_real | 2 outputs 2 scratch | stream
+        "preempt_bulk": [_P] * 8 + [_I] * 5 + [_P] * 5,
     },
     "scatter_add.cu": {
         # used n | rows vals m | stream
@@ -93,7 +112,16 @@ MULTI_FLAT = Kernel("multi_flat", "multi_rounds.cu",
                     "nomad_tpu/ops/select.py:733")
 SCATTER_ADD = Kernel("scatter_add", "scatter_add.cu",
                      "nomad_tpu/ops/engine.py:50")
-KERNELS = (LANDSCAPE, MULTI_COMPACT, MULTI_FLAT, SCATTER_ADD)
+PLACE_SCAN = Kernel("place_scan", "place_scan.cu",
+                    "nomad_tpu/ops/select.py:297")
+MULTI_BULK = Kernel("multi_bulk", "multi_rounds.cu",
+                    "nomad_tpu/ops/select.py:554")
+PREEMPT_BULK = Kernel("preempt_bulk", "preempt.cu",
+                      "nomad_tpu/ops/preempt.py:108")
+FEASIBLE = Kernel("feasible_mask", "landscape.cu",
+                  "nomad_tpu/ops/feasibility.py:75")
+KERNELS = (LANDSCAPE, MULTI_COMPACT, MULTI_FLAT, SCATTER_ADD, PLACE_SCAN,
+           MULTI_BULK, PREEMPT_BULK, FEASIBLE)
 
 _lock = threading.Lock()
 _libs: Dict[str, Dict[str, object]] = {}

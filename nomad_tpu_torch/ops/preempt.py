@@ -10,9 +10,17 @@ scheduler type, lower-priority allocs are evicted to make room:
     priority band the alloc whose resources best match the remaining
     shortfall (basicResourceDistance).
 
-This slice ports the host side: the scheduler-type gate, the host
-`Preemptor` and the packed victim tables.  The device kernel
-`preempt_bulk` comes with the solo placement path.
+Two implementations share the packed victim tables:
+
+  - `preempt_bulk`, kernel K7 (`csrc/preempt.cu`): every failed placement
+    of a homogeneous batch resolves in ONE launch.  A step computes, for
+    every candidate node, the eviction count that fits the ask (prefix
+    sums over the priority-sorted victim table) and its priority-weighted
+    cost, picks the cheapest node (lowest row on ties) and commits, so
+    later placements see earlier evictions.  `preempt_bulk_plain` is its
+    plain version.
+  - `Preemptor`, the host implementation for the long tail (deep victim
+    tables, heterogeneous asks, leftovers of the kernel).
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from nomad_tpu_torch.structs import (
     Allocation,
@@ -33,9 +42,17 @@ from nomad_tpu_torch.structs import (
     SchedulerConfiguration,
 )
 
+from .kernels import PREEMPT_BULK, check_cuda, check_dtype, stream_of
+from .scoring import fmaf
+
 # victim-table depth: nodes with more evictable allocs are truncated to
 # their MAX_VICTIMS lowest-priority ones
 MAX_VICTIMS = 32
+BIG_COST = 1e30
+# XLA's CPU backend computes a cumulative sum longer than this in blocks
+# of this length: each block sequentially, then the blocks' running sums
+# added on (its reduce-window rewrite)
+_XLA_SCAN_BLOCK = 16
 
 
 def build_victim_tables(job: Job, snapshot, tensors
@@ -85,6 +102,119 @@ def build_victim_tables(job: Job, snapshot, tensors
             res[ci, i] = (a.resources.cpu, a.resources.memory_mb,
                           a.resources.disk_mb)
     return cand_rows, prio, res, by_row
+
+
+def xla_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """float32 cumulative sum over the last axis in the order XLA's CPU
+    backend sums it (reference: `jnp.cumsum` in preempt_bulk): up to 16
+    terms from 0 in order; longer rows in blocks of 16, each block in
+    order from 0, then the sum of the earlier blocks (itself summed in
+    order from 0) added to every element of a block."""
+    a = x.shape[-1]
+    if a <= _XLA_SCAN_BLOCK:
+        acc = torch.zeros_like(x[..., 0])
+        outs = []
+        for i in range(a):
+            acc = acc + x[..., i]
+            outs.append(acc)
+        return torch.stack(outs, dim=-1)
+    if a % _XLA_SCAN_BLOCK or a > _XLA_SCAN_BLOCK ** 2:
+        raise ValueError(f"no XLA scan order for a row of {a}")
+    blocks = xla_cumsum(x.reshape(x.shape[:-1] + (-1, _XLA_SCAN_BLOCK)))
+    carry = torch.zeros_like(blocks[..., 0, -1])
+    outs = []
+    for b in range(blocks.shape[-2]):
+        outs.append(blocks[..., b, :] + carry[..., None])
+        carry = carry + blocks[..., b, -1]
+    return torch.cat(outs, dim=-1)
+
+
+def preempt_bulk_plain(cap, used0, static_g, dh_limit_g: int, job_count0,
+                       pre_prio, pre_res, req, k0, n_place: int,
+                       n_real: int):
+    """Plain version of K7 (reference: preempt.preempt_bulk): resolve up
+    to `n_real` (<= n_place) failed placements by eviction over M
+    candidate rows.  `k0` [M] counts victims already consumed by earlier
+    launches of the eval.  Returns (best_rows [n_place], k_counts
+    [n_place], used [M, 3], job_count [M]); best_rows[i] = -1 when
+    nothing makes placement i fit (or i is padding)."""
+    dev = cap.device
+    a = pre_prio.shape[1]
+    # (prio + 1) * 1000 + resource sum: XLA contracts it into one fma
+    vic_cost = fmaf(pre_prio.to(torch.float32) + 1.0, 1000.0,
+                    pre_res.sum(dim=2).to(torch.float32))     # [M, A]
+    used = used0.clone()
+    job_count = job_count0.clone()
+    consumed = torch.arange(a, device=dev)[None, :] < k0[:, None]
+    pos = torch.arange(a, device=dev)
+    best_out, k_out = [], []
+    for idx in range(n_place):
+        alive = ~consumed
+        freed = torch.cumsum(pre_res * alive[..., None], dim=1)  # [M, A, 3]
+        free = (cap - used)[:, None, :]
+        ok_k = (free + freed >= req[None, None, :]).all(dim=2)
+        any_ok = ok_k.any(dim=1)
+        k_idx = torch.where(any_ok, ok_k.to(torch.int8).argmax(dim=1), 0)
+        cost_pfx = xla_cumsum(torch.where(alive, vic_cost, 0.0))
+        cost = cost_pfx.gather(1, k_idx[:, None])[:, 0]
+        dh_ok = (job_count < dh_limit_g if dh_limit_g > 0
+                 else torch.ones_like(any_ok))
+        cost = torch.where(static_g & any_ok & dh_ok, cost, BIG_COST)
+        best = int(torch.nonzero(cost == cost.min())[0, 0])
+        ok = float(cost[best]) < BIG_COST / 2 and idx < n_real
+        take = alive[best] & (pos <= k_idx[best])
+        if ok:
+            consumed[best] |= take
+            used[best] += req - (pre_res[best] * take[:, None]).sum(dim=0)
+            job_count[best] += 1
+        best_out.append(best if ok else -1)
+        k_out.append(int(take.sum()) if ok else 0)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    return i32(best_out), i32(k_out), used, job_count
+
+
+def preempt_bulk(cap, used0, static_g, dh_limit_g: int, job_count0,
+                 pre_prio, pre_res, req, k0, n_place: int, n_real: int):
+    """Device preemption for one task group's failed placements (see
+    `preempt_bulk_plain`).  CPU tensors take the plain version; CUDA
+    tensors launch K7 (or raise).  The inputs are not modified."""
+    if cap.device.type == "cpu":
+        return preempt_bulk_plain(cap, used0, static_g, dh_limit_g,
+                                  job_count0, pre_prio, pre_res, req, k0,
+                                  n_place, n_real)
+    name = "preempt_bulk"
+    tensors = dict(cap=cap, used0=used0, job_count0=job_count0,
+                   pre_prio=pre_prio, pre_res=pre_res, req=req, k0=k0)
+    for key, t in tensors.items():
+        check_dtype(f"{name}.{key}", t, torch.int32)
+    check_dtype(f"{name}.static_g", static_g, torch.bool, 1)
+    check_cuda(name, static_g=static_g, **tensors)
+    m, a = pre_prio.shape
+    if (cap.shape != (m, 3) or used0.shape != (m, 3)
+            or static_g.shape != (m,) or job_count0.shape != (m,)
+            or pre_res.shape != (m, a, 3) or req.shape != (3,)
+            or k0.shape != (m,) or not 1 <= a <= MAX_VICTIMS):
+        raise ValueError(f"{name}: inconsistent shapes")
+    used = used0.clone()
+    job_count = job_count0.clone()
+    dev = cap.device
+    best = torch.empty(n_place, dtype=torch.int32, device=dev)
+    ks = torch.empty(n_place, dtype=torch.int32, device=dev)
+    consumed = torch.empty(m, dtype=torch.int32, device=dev)
+    vcost = torch.empty((m, a), dtype=torch.float32, device=dev)
+    if n_place and m:
+        with torch.cuda.device(dev):
+            PREEMPT_BULK.launch(
+                name, *[t.data_ptr() for t in (
+                    cap, used, static_g, job_count, pre_prio, pre_res, req,
+                    k0)],
+                m, a, int(dh_limit_g), n_place, int(n_real),
+                best.data_ptr(), ks.data_ptr(), consumed.data_ptr(),
+                vcost.data_ptr(), stream=stream_of(cap))
+    elif n_place:
+        best.fill_(-1)
+        ks.zero_()
+    return best, ks, used, job_count
 
 
 def preemption_enabled(cfg: SchedulerConfiguration, job_type: str) -> bool:

@@ -9,7 +9,9 @@ on the card), plus the wrapper of kernel K1's affinity entry
 Score components (all bounded like the reference's):
   binpack     [0, 18]   structs.ScoreFit exponential (or inverted for spread)
   job-anti-affinity  [-1, 0]   -(collisions / desired_count)
+  node-reschedule-penalty  {-1, 0}  previous node of a rescheduled alloc
   node-affinity  [-1, 1]  sum(matched weights)/sum(|weights|)
+  allocation-spread  [-1, 1]  per-property boost toward target percentages
 """
 
 from __future__ import annotations
@@ -113,6 +115,65 @@ def binpack_score(cap: torch.Tensor,         # [..., 3] float32
     score = torch.clamp(score, 0.0, MAX_FIT_SCORE)
     ok = (cap[..., 0] > 0) & (cap[..., 1] > 0)
     return torch.where(ok, score, 0.0)
+
+
+def fmaf(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """float32 fused multiply-add, a * b + c rounded once, on any device.
+
+    XLA's CPU backend contracts a multiply feeding an add into one fma
+    inside a fusion (the reference's spread sum and preemption cost get
+    it), so the plain versions must too: the product is exact in
+    float64, the sum is taken in float64 rounded to odd (its TwoSum
+    error moves an inexact even result one ulp toward the true value),
+    and rounding that to float32 is the correctly rounded fma."""
+    p = a.to(torch.float64) * torch.as_tensor(b, dtype=torch.float64,
+                                              device=a.device)
+    cd = c.to(torch.float64)
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    bits = s.view(torch.int64)
+    toward = torch.where((err > 0) == (s > 0), 1, -1)
+    bits = torch.where((err != 0) & ((bits & 1) == 0), bits + toward, bits)
+    return bits.view(torch.float64).to(torch.float32)
+
+
+def capacity_fit(cap: torch.Tensor,          # [N, 3] int32
+                 used: torch.Tensor,         # [N, 3] int32
+                 req: torch.Tensor,          # [..., 3] int32
+                 ) -> torch.Tensor:          # [...] bool
+    """AllocsFit's dimension check (ports are checked on the host)."""
+    return (used + req <= cap).all(dim=-1)
+
+
+def spread_boost(sp_nodeval: torch.Tensor,   # [S, N] int32, -1 none
+                 sp_weight: torch.Tensor,    # [S] float32 (0 = padding)
+                 sp_expected: torch.Tensor,  # [S, K] float32
+                 sp_counts: torch.Tensor,    # [S, K] float32
+                 ) -> torch.Tensor:          # [N] float32
+    """SpreadIterator: boost toward the target counts,
+    (expected - count) / max(expected, 1) clipped to [-1, 1], 0 for a
+    node whose value is not a target, weighted by weight/100 and averaged
+    over the non-padding spreads.
+
+    In the reference's order: `/ 100.0` compiles to a multiply by
+    f32(0.01) (XLA's reciprocal rewrite), and the weighted sum over S
+    runs from 0, one fma per spread (XLA fuses the product into the
+    reduction)."""
+    k = sp_counts.shape[1]
+    val = sp_nodeval.long().clamp(0, k - 1)
+    exp_n = sp_expected.gather(1, val)
+    cnt_n = sp_counts.gather(1, val)
+    boost = (exp_n - cnt_n) / torch.clamp(exp_n, min=1.0)
+    boost = torch.clamp(boost, -1.0, 1.0)
+    boost = torch.where(sp_nodeval >= 0, boost, 0.0)
+    w = sp_weight * torch.tensor(0.01, dtype=torch.float32,
+                                 device=sp_weight.device)
+    n_active = torch.clamp((sp_weight > 0).sum(), min=1).to(torch.float32)
+    acc = torch.zeros_like(boost[0])
+    for s in range(boost.shape[0]):
+        acc = fmaf(boost[s], w[s], acc)
+    return acc / n_active
 
 
 def job_anti_affinity(job_count: torch.Tensor,   # [..., N] int32

@@ -1,19 +1,24 @@
-"""Batched multi-eval placement (reference: nomad_tpu/ops/select.py).
+"""Placement selection (reference: nomad_tpu/ops/select.py).
 
-The multi-eval half of the reference's selection module: G task groups
-drawn from up to J jobs place in water-fill rounds against one shared
-capacity state (see `MultiEvalInputs`).  Each launch has a plain PyTorch
-version, written in the reference's order of operations so that its
-integer outputs, packed buffers and f32 score bits agree with the JAX
-functions on the CPU, and a wrapper that launches the hand-written CUDA
-kernel for a CUDA tensor:
+The solo path places one eval's batch: an exact scan, one placement per
+step, that sees every earlier placement's capacity, job count, spread and
+distinct_property state (`PlacementInputs`), or, for a homogeneous
+batch, water-fill rounds of up to 1,024 placements (`BulkInputs`).  The
+multi-eval path places G task groups drawn from up to J jobs in rounds
+against one shared capacity state (`MultiEvalInputs`).  Each launch has
+a plain PyTorch version, written in the reference's order of operations
+so that its integer outputs, packed buffers and f32 score bits agree
+with the JAX functions on the CPU, and a wrapper that launches the
+hand-written CUDA kernel for a CUDA tensor:
 
+  place_packed                K5 (csrc/place_scan.cu, exact scan)
+  place_bulk_packed           K6 (csrc/multi_rounds.cu, bulk rounds)
   place_multi_packed          K3 (csrc/multi_rounds.cu, flat rounds)
   place_multi_compact_packed  K2 (csrc/multi_rounds.cu, laned rounds)
 
-both on top of K1's landscapes (feasibility.landscape_mask,
-scoring.affinity_landscape).  The solo kernels (`place`, `place_packed`,
-`place_bulk*`) are not ported yet.
+all on top of K1's landscapes (feasibility.landscape_mask,
+scoring.affinity_landscape); K5 and K6 take their static mask from K8
+(feasibility.feasible_mask).
 
 Top-k order: `jax.lax.top_k` puts the lower index first among equal
 values; the plain versions sort stably (value descending, index
@@ -27,13 +32,21 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import kernels as K
-from .feasibility import landscape_mask, landscape_mask_plain
+from .feasibility import (
+    feasible_mask,
+    feasible_mask_plain,
+    landscape_mask,
+    landscape_mask_plain,
+)
 from .scoring import (
     affinity_landscape,
     affinity_landscape_plain,
+    affinity_score,
     binpack_score,
+    capacity_fit,
     job_anti_affinity,
     normalize_scores,
+    spread_boost,
 )
 
 NEG_INF = -1e30
@@ -511,3 +524,559 @@ def place_multi_compact_chained(used0: torch.Tensor, inp: MultiEvalInputs,
         return buf, fills, used0
     return _compact_launch(used0, used0, inp, cand_rows, cand_valid,
                            round_size, n_lanes)
+
+
+# ------------------------------------------------------ solo: exact scan
+
+class PlacementInputs(NamedTuple):
+    """Device inputs for one eval's placement batch (field meanings and
+    shapes as the reference's select.PlacementInputs).  `spread_algo` is
+    a Python bool and `seed` a Python int (uint32 value, 0 = no
+    tie-break noise); `extra_mask` is an optional [G, N] bool AND-mask
+    (the host's device-instance feasibility)."""
+    attrs: torch.Tensor       # [N, A] int32
+    cap: torch.Tensor         # [N, 3] int32
+    used0: torch.Tensor       # [N, 3] int32
+    elig: torch.Tensor        # [N] bool
+    dc_mask: torch.Tensor     # [N] bool
+    pool_mask: torch.Tensor   # [N] bool
+    luts: torch.Tensor        # [L, V] bool
+    con: torch.Tensor         # [G, C, 3] int32
+    aff: torch.Tensor         # [G, Af, 4] int32
+    req: torch.Tensor         # [G, 3] int32
+    desired: torch.Tensor     # [G] int32
+    dh_limit: torch.Tensor    # [G] int32 (0 = no distinct_hosts)
+    sp_nodeval: torch.Tensor  # [S, N] int32 (-1 = not a target)
+    sp_weight: torch.Tensor   # [S] float32 (0 = padding)
+    sp_expected: torch.Tensor  # [S, K] float32
+    sp_counts0: torch.Tensor  # [S, K] float32
+    pd_nodeval: torch.Tensor  # [D, N] int32 (-1 = unset)
+    pd_limit: torch.Tensor    # [D] int32 (0 = inert padding row)
+    pd_apply: torch.Tensor    # [G, D] bool
+    pd_counts0: torch.Tensor  # [D, Kd] int32
+    tg_idx: torch.Tensor      # [P] int32
+    prev_row: torch.Tensor    # [P] int32 (-1 = not a reschedule)
+    active: torch.Tensor      # [P] bool (padding rows False)
+    job_count0: torch.Tensor  # [N] int32
+    spread_algo: bool
+    seed: int = 0
+    extra_mask: Optional[torch.Tensor] = None
+
+
+class PlacementOutputs(NamedTuple):
+    picks: torch.Tensor        # [P] int32 node row or -1
+    scores: torch.Tensor       # [P] float32 final score of the pick
+    topk_rows: torch.Tensor    # [P, k] int32
+    topk_scores: torch.Tensor  # [P, k] float32
+    n_feasible: torch.Tensor   # [P] int32
+    n_filtered: torch.Tensor   # [P] int32
+    n_exhausted: torch.Tensor  # [P] int32
+    dim_exhausted: torch.Tensor  # [P, 3] int32
+    used: torch.Tensor         # [N, 3] final proposed usage
+    job_count: torch.Tensor    # [N] final job counts
+
+
+class StepStatics(NamedTuple):
+    """Loop-invariant per-eval tensors of the scan."""
+    static: torch.Tensor   # [G, N] feasibility
+    aff_sc: torch.Tensor   # [G, N]
+    aff_any: torch.Tensor  # [G]
+    sp_any: torch.Tensor   # []
+    capf: torch.Tensor     # [N, 3] float32
+    noise: torch.Tensor    # [N]
+    rows: torch.Tensor     # [N] node row ids
+
+
+def _seed_t(seed: int, device) -> torch.Tensor:
+    return torch.tensor(int(seed) & _U32, dtype=torch.int64, device=device)
+
+
+def scan_statics(inp: PlacementInputs, rows: torch.Tensor) -> StepStatics:
+    """Plain statics: feasibility ([G, N], ANDed with `extra_mask`),
+    affinity, and the tie-break noise over `rows`."""
+    static = feasible_mask_plain(inp.attrs, inp.elig, inp.dc_mask,
+                                 inp.pool_mask, inp.con, inp.luts)
+    if inp.extra_mask is not None:
+        static = static & inp.extra_mask
+    return StepStatics(
+        static=static,
+        aff_sc=affinity_score(inp.attrs, inp.aff, inp.luts),
+        aff_any=(inp.aff[..., 3] != 0).any(dim=1),
+        sp_any=(inp.sp_weight > 0).any(),
+        capf=inp.cap.to(torch.float32),
+        noise=tiebreak_noise(_seed_t(inp.seed, rows.device), rows),
+        rows=rows)
+
+
+def step_scores(inp: PlacementInputs, st: StepStatics, carry, g: int,
+                prev: int):
+    """Scoring core of one scan step (reference: select.step_scores):
+    (feas, final, stat_g, fit, dh_ok) over every node row."""
+    used, job_count, sp_counts, pd_counts = carry
+    n = st.rows.shape[0]
+    req_g = inp.req[g]
+    stat_g = st.static[g]
+    fit = capacity_fit(inp.cap, used, req_g)
+    dh = inp.dh_limit[g]
+    dh_ok = torch.where(dh > 0, job_count < dh, True)
+    kd = pd_counts.shape[1]
+    pd_val = inp.pd_nodeval.long().clamp(0, kd - 1)
+    pd_cnt = pd_counts.gather(1, pd_val)
+    pd_row_ok = (pd_cnt < inp.pd_limit[:, None]) & (inp.pd_nodeval >= 0)
+    pd_applies = inp.pd_apply[g] & (inp.pd_limit > 0)
+    pd_ok = torch.where(pd_applies[:, None], pd_row_ok, True).all(dim=0)
+    feas = stat_g & fit & dh_ok & pd_ok
+
+    # `/ 18.0` in the reference, a multiply by f32(1/18) under XLA
+    bp = binpack_score(st.capf, used.to(torch.float32),
+                       req_g.to(torch.float32),
+                       inp.spread_algo) * _INV18.to(st.capf.device)
+    aa = job_anti_affinity(job_count, inp.desired[g])
+    is_prev = st.rows == prev
+    rp = torch.where(is_prev, -1.0, 0.0)
+    af = st.aff_sc[g]
+    sp = spread_boost(inp.sp_nodeval, inp.sp_weight, inp.sp_expected,
+                      sp_counts)
+    ones = torch.ones(n, dtype=torch.bool, device=st.rows.device)
+    final = normalize_scores(
+        [bp, aa, rp, af, sp],
+        [ones, job_count > 0, is_prev, st.aff_any[g].expand(n),
+         st.sp_any.expand(n)])
+    return feas, final, stat_g, fit, dh_ok
+
+
+def place(inp: PlacementInputs) -> PlacementOutputs:
+    """Plain version of K5's scan (reference: select.place): one
+    placement per step, each seeing the state every earlier placement
+    committed."""
+    n = inp.attrs.shape[0]
+    dev = inp.attrs.device
+    top_k = min(TOP_K, n)
+    st = scan_statics(inp, torch.arange(n, device=dev))
+    used = inp.used0.clone()
+    job_count = inp.job_count0.clone()
+    sp_counts = inp.sp_counts0.clone()
+    pd_counts = inp.pd_counts0.clone()
+    s_idx = torch.arange(sp_counts.shape[0], device=dev)
+    d_idx = torch.arange(pd_counts.shape[0], device=dev)
+    cols = []
+    for g, prev, act in zip(inp.tg_idx.tolist(), inp.prev_row.tolist(),
+                            inp.active.tolist()):
+        feas, final, stat_g, fit, dh_ok = step_scores(
+            inp, st, (used, job_count, sp_counts, pd_counts), g, prev)
+        req_g = inp.req[g]
+        masked = torch.where(feas, final, NEG_INF)
+        keys = masked + st.noise
+        top_rows = torch.sort(keys, descending=True,
+                              stable=True).indices[:top_k]
+        top_sc = torch.where(keys[top_rows] > NEG_INF / 2,
+                             final[top_rows], NEG_INF)
+        ok = bool(act) and float(top_sc[0]) > NEG_INF / 2
+        pick = int(top_rows[0]) if ok else -1
+
+        # metrics, on the usage before this step's commit
+        exhausted = stat_g & (~fit | ~dh_ok)
+        over = used + req_g[None, :] > inp.cap
+        dim_ex = ((stat_g & ~fit)[:, None] & over).sum(dim=0)
+        cols.append((
+            torch.tensor([pick], dtype=torch.int32, device=dev),
+            top_sc[:1] if ok else torch.zeros(1, device=dev),
+            (top_rows if ok else torch.full_like(top_rows, -1))[None],
+            (top_sc if ok else torch.zeros_like(top_sc))[None],
+            feas.sum()[None], (~stat_g).sum()[None], exhausted.sum()[None],
+            dim_ex[None]))
+        if ok:
+            used[pick] += req_g
+            job_count[pick] += 1
+            val = inp.sp_nodeval[:, pick].long()
+            hit = val >= 0
+            sp_counts.index_put_(
+                (s_idx[hit], val[hit].clamp(0, sp_counts.shape[1] - 1)),
+                torch.ones((), device=dev), accumulate=True)
+            val = inp.pd_nodeval[:, pick].long()
+            hit = (val >= 0) & inp.pd_apply[g]
+            pd_counts.index_put_(
+                (d_idx[hit], val[hit].clamp(0, pd_counts.shape[1] - 1)),
+                torch.ones((), dtype=pd_counts.dtype, device=dev),
+                accumulate=True)
+    out = [torch.cat(c, dim=0) for c in zip(*cols)]
+    i32 = [o.to(torch.int32) for o in out[4:]]
+    return PlacementOutputs(
+        picks=out[0], scores=out[1].to(torch.float32),
+        topk_rows=out[2].to(torch.int32),
+        topk_scores=out[3].to(torch.float32), n_feasible=i32[0],
+        n_filtered=i32[1], n_exhausted=i32[2], dim_exhausted=i32[3],
+        used=used, job_count=job_count)
+
+
+def pack_outputs(out: PlacementOutputs):
+    """One int32 buffer [P, 14] (floats bitcast): 0 pick | 1 score |
+    2-4 topk_rows | 5-7 topk_scores | 8 n_feasible | 9 n_filtered |
+    10 n_exhausted | 11-13 dim_exhausted.  Returns (buf, used,
+    job_count)."""
+    p, top_k = out.topk_rows.shape
+    dev = out.picks.device
+    f2i = lambda x: x.to(torch.float32).contiguous().view(torch.int32)
+    buf = torch.cat([
+        out.picks[:, None], f2i(out.scores)[:, None],
+        out.topk_rows,
+        torch.full((p, 3 - top_k), -1, dtype=torch.int32, device=dev),
+        f2i(out.topk_scores),
+        torch.zeros((p, 3 - top_k), dtype=torch.int32, device=dev),
+        out.n_feasible[:, None], out.n_filtered[:, None],
+        out.n_exhausted[:, None], out.dim_exhausted,
+    ], dim=1).to(torch.int32)
+    return buf, out.used, out.job_count
+
+
+def _solo_statics(attrs, elig, dc_mask, pool_mask, con, aff, luts,
+                  extra_mask):
+    """The solo kernels' statics: K8's [G, N] static mask (`extra_mask`
+    ANDed in) and K1's [G, N] affinity."""
+    static = feasible_mask(attrs, elig, dc_mask, pool_mask, con, luts)
+    if extra_mask is not None:
+        static = static & extra_mask
+    return static, affinity_landscape(attrs, aff, luts)
+
+
+_SCAN_I32 = ("cap", "used0", "con", "aff", "req", "desired", "dh_limit",
+             "sp_nodeval", "pd_nodeval", "pd_limit", "pd_counts0", "tg_idx",
+             "prev_row", "job_count0", "attrs")
+_SCAN_F32 = ("sp_weight", "sp_expected", "sp_counts0")
+_SCAN_BOOL = ("elig", "dc_mask", "pool_mask", "luts", "pd_apply", "active")
+
+
+def _check_inputs(name: str, inp, i32, f32=(), bools=()) -> None:
+    """Dtypes first, then one CUDA device and contiguity, for every
+    tensor field of a solo kernel's inputs."""
+    for keys, dtype in ((i32, torch.int32), (f32, torch.float32),
+                        (bools, torch.bool)):
+        for key in keys:
+            K.check_dtype(f"{name}.{key}", getattr(inp, key), dtype)
+    if getattr(inp, "extra_mask", None) is not None:
+        K.check_dtype(f"{name}.extra_mask", inp.extra_mask, torch.bool, 2)
+    K.check_cuda(name, **{f: v for f, v in zip(inp._fields, inp)
+                          if isinstance(v, torch.Tensor)})
+
+
+def _scan_launch(inp: PlacementInputs):
+    """K1 statics + one K5 launch."""
+    name = "place_scan"
+    _check_inputs(name, inp, _SCAN_I32, _SCAN_F32, _SCAN_BOOL)
+    n = inp.attrs.shape[0]
+    g = inp.req.shape[0]
+    s, k = inp.sp_counts0.shape
+    d, kd = inp.pd_counts0.shape
+    p = inp.tg_idx.shape[0]
+    if (inp.cap.shape != (n, 3) or inp.used0.shape != (n, 3)
+            or inp.job_count0.shape != (n,) or inp.con.shape[0] != g
+            or inp.aff.shape[0] != g or inp.sp_nodeval.shape != (s, n)
+            or inp.sp_weight.shape != (s,) or inp.sp_expected.shape != (s, k)
+            or inp.pd_nodeval.shape != (d, n) or inp.pd_limit.shape != (d,)
+            or inp.pd_apply.shape != (g, d) or inp.prev_row.shape != (p,)
+            or inp.active.shape != (p,) or n == 0
+            or (inp.extra_mask is not None
+                and inp.extra_mask.shape != (g, n))):
+        raise ValueError(f"{name}: inconsistent shapes")
+    dev = inp.attrs.device
+    static, aff_sc = _solo_statics(inp.attrs, inp.elig, inp.dc_mask,
+                                   inp.pool_mask, inp.con, inp.aff,
+                                   inp.luts, inp.extra_mask)
+    aff_any = (inp.aff[..., 3] != 0).any(dim=1)
+    used = inp.used0.clone()
+    job_count = inp.job_count0.clone()
+    sp_counts = inp.sp_counts0.clone()
+    pd_counts = inp.pd_counts0.clone()
+    buf = torch.empty((p, 14), dtype=torch.int32, device=dev)
+    score = torch.empty(n, dtype=torch.float32, device=dev)
+    if p:
+        with torch.cuda.device(dev):
+            K.PLACE_SCAN.launch(
+                name, *[t.data_ptr() for t in (
+                    inp.cap, used, static, aff_sc, aff_any, inp.req,
+                    inp.desired, inp.dh_limit, inp.sp_nodeval,
+                    inp.sp_weight, inp.sp_expected, inp.sp_counts0,
+                    inp.pd_nodeval, inp.pd_limit, inp.pd_apply,
+                    inp.pd_counts0, inp.tg_idx, inp.prev_row, inp.active,
+                    job_count, buf, sp_counts, pd_counts, score)],
+                n, g, s, k, d, kd, p, int(bool(inp.spread_algo)),
+                int(inp.seed) & _U32, stream=K.stream_of(used))
+    return buf, used, job_count
+
+
+def place_packed(inp: PlacementInputs):
+    """`place` packed (reference: select.place_packed): (buf [P, 14],
+    used [N, 3], job_count [N]).  CPU tensors take the plain version;
+    CUDA tensors launch K1 and K5 (or raise).  `inp` is not modified."""
+    if inp.attrs.device.type == "cpu":
+        return pack_outputs(place(inp))
+    return _scan_launch(inp)
+
+
+# ------------------------------------------------------ solo: bulk rounds
+
+class BulkInputs(NamedTuple):
+    """Inputs of the bulk rounds for one task group `g` (reference:
+    select.BulkInputs): no per-placement arrays and no spread or
+    distinct state; `p_real` placements form a prefix of the padded
+    batch.  `spread_algo`, `g`, `p_real` and `seed` are Python values."""
+    attrs: torch.Tensor       # [N, A] int32
+    cap: torch.Tensor         # [N, 3] int32
+    used0: torch.Tensor       # [N, 3] int32
+    elig: torch.Tensor        # [N] bool
+    dc_mask: torch.Tensor     # [N] bool
+    pool_mask: torch.Tensor   # [N] bool
+    luts: torch.Tensor        # [L, V] bool
+    con: torch.Tensor         # [G, C, 3] int32
+    aff: torch.Tensor         # [G, Af, 4] int32
+    req: torch.Tensor         # [G, 3] int32
+    desired: torch.Tensor     # [G] int32
+    dh_limit: torch.Tensor    # [G] int32
+    job_count0: torch.Tensor  # [N] int32
+    spread_algo: bool
+    g: int
+    p_real: int
+    seed: int = 0
+    extra_mask: Optional[torch.Tensor] = None
+
+
+def _to_bulk_inputs(inp: PlacementInputs) -> BulkInputs:
+    return BulkInputs(
+        attrs=inp.attrs, cap=inp.cap, used0=inp.used0, elig=inp.elig,
+        dc_mask=inp.dc_mask, pool_mask=inp.pool_mask, luts=inp.luts,
+        con=inp.con, aff=inp.aff, req=inp.req, desired=inp.desired,
+        dh_limit=inp.dh_limit, job_count0=inp.job_count0,
+        spread_algo=inp.spread_algo, g=int(inp.tg_idx[0]),
+        p_real=int(inp.active.sum()), seed=inp.seed,
+        extra_mask=inp.extra_mask)
+
+
+def _bulk_static(inp: BulkInputs, g: int):
+    """Plain statics of the bulk rounds: (static [N], aff_sc [N],
+    aff_any [], noise [N])."""
+    full = feasible_mask_plain(inp.attrs, inp.elig, inp.dc_mask,
+                               inp.pool_mask, inp.con, inp.luts)
+    if inp.extra_mask is not None:
+        full = full & inp.extra_mask
+    n = inp.attrs.shape[0]
+    rows = torch.arange(n, device=inp.attrs.device)
+    return (full[g], affinity_score(inp.attrs, inp.aff, inp.luts)[g],
+            (inp.aff[..., 3] != 0).any(dim=1)[g],
+            tiebreak_noise(_seed_t(inp.seed, rows.device), rows))
+
+
+def bulk_round_scores(inp: BulkInputs, static_t, used, job_count,
+                      round_size: int):
+    """round_scores_g at the bulk rounds' fixed group `inp.g`: (k_i [N],
+    score [N])."""
+    g = inp.g
+    static, aff_sc, aff_any, _ = static_t
+    k_i, score = round_scores_g(
+        inp.cap[None], inp.req[g:g + 1], inp.desired[g:g + 1],
+        inp.dh_limit[g:g + 1], static[None], aff_sc[None], aff_any[None],
+        used[None], job_count[None], inp.spread_algo, round_size)
+    return k_i[0], score[0]
+
+
+def bulk_round_metrics(inp: BulkInputs, static, used, job_count):
+    """round_metrics_g at the fixed group: (n_exhausted [], dim [3])."""
+    g = inp.g
+    n_exh, dim_ex = round_metrics_g(
+        inp.cap[None], inp.req[g:g + 1], inp.dh_limit[g:g + 1],
+        static[None], used[None], job_count[None])
+    return n_exh[0], dim_ex[0]
+
+
+def _bulk_step(inp: BulkInputs, round_size: int, top_k: int, static_t,
+               carry, want: int):
+    """One water-fill round of the bulk kernel: ((used, job_count),
+    (rows_p, cnt_p, sc_p, top_rows, top_sc, n_feas, n_filt, n_exh,
+    dim_ex, placed))."""
+    req = inp.req[inp.g]
+    static, _, _, noise = static_t
+    used, job_count = carry
+    k_i, score = bulk_round_scores(inp, static_t, used, job_count,
+                                   round_size)
+    want_t = torch.tensor([want], dtype=torch.int32, device=used.device)
+    rows_p, cnt_p, sc_p, c_i, placed, k_round = waterfill_round(
+        k_i[None], score[None], noise[None], want_t, inp.spread_algo,
+        round_size)
+    used = used + c_i[0][:, None] * req[None, :]
+    job_count = job_count + c_i[0]
+    top_sc = sc_p[0, :top_k]
+    valid = top_sc > NEG_INF / 2
+    top_rows = torch.where(valid, rows_p[0, :top_k], -1)
+    top_sc = torch.where(valid, top_sc, 0.0)
+    n_exh, dim_ex = bulk_round_metrics(inp, static, used, job_count)
+    out = (rows_p[0], cnt_p[0], sc_p[0], top_rows, top_sc,
+           (k_round[0] > 0).sum(), (~static).sum(), n_exh, dim_ex,
+           placed[0])
+    return (used, job_count), out
+
+
+def _bulk_scan(inp: BulkInputs, round_size: int, n_rounds: int,
+               top_k: int):
+    """All rounds; the demand of round r is clip(p_real - r * round_size,
+    0, round_size).  Returns ((used, job_count), stacked outputs)."""
+    static_t = _bulk_static(inp, inp.g)
+    carry = (inp.used0, inp.job_count0)
+    outs = []
+    for r in range(n_rounds):
+        want = min(max(inp.p_real - r * round_size, 0), round_size)
+        carry, out = _bulk_step(inp, round_size, top_k, static_t, carry,
+                                want)
+        outs.append(out)
+    return carry, [torch.stack(c) for c in zip(*outs)]
+
+
+def _check_bulk(n: int, round_size: int, with_scores: bool,
+                fill_k: int) -> None:
+    _check_rounds(n, round_size)
+    if with_scores and fill_k:
+        raise ValueError("scores need the full slot layout")
+
+
+def place_bulk_packed_plain(inp: BulkInputs, round_size: int,
+                            n_rounds: int, with_scores: bool = False,
+                            fill_k: int = 0):
+    """Plain version of K6: (buf [R, round_size + 16], used, job_count);
+    with `with_scores` the buffer carries a bitcast score block before
+    the meta ([R, 2 * round_size + 16]); with `fill_k` it is
+    (buf_small [R, fill_k' + 16], fills [R, round_size], used,
+    job_count), fill_k' = min(fill_k, round_size)."""
+    n = inp.attrs.shape[0]
+    _check_bulk(n, round_size, with_scores, fill_k)
+    (used, job_count), outs = _bulk_scan(inp, round_size, n_rounds,
+                                         min(TOP_K, n))
+    (rows_p, cnt_p, sc_p, top_rows, top_sc, n_feas, n_filt, n_exh,
+     dim_ex, placed) = outs
+    fills, meta = pack_round_buffer(rows_p, cnt_p, top_rows, top_sc,
+                                    n_feas, n_filt, n_exh, dim_ex, placed)
+    if fill_k:
+        buf_small = torch.cat([fills[:, :min(fill_k, round_size)], meta],
+                              dim=1)
+        return buf_small, fills, used, job_count
+    parts = [fills]
+    if with_scores:
+        parts.append(sc_p.to(torch.float32).contiguous().view(torch.int32))
+    buf = torch.cat(parts + [meta], dim=1)
+    return buf, used, job_count
+
+
+_BULK_I32 = ("attrs", "cap", "used0", "con", "aff", "req", "desired",
+             "dh_limit", "job_count0")
+_BULK_BOOL = ("elig", "dc_mask", "pool_mask", "luts")
+
+
+def _bulk_launch(inp: BulkInputs, round_size: int, n_rounds: int,
+                 with_scores: bool, fill_k: int):
+    """K1 statics of group g + one K6 launch (the rounds kernel at a
+    fixed group)."""
+    name = "multi_bulk"
+    _check_inputs(name, inp, _BULK_I32, (), _BULK_BOOL)
+    n = inp.attrs.shape[0]
+    _check_bulk(n, round_size, with_scores, fill_k)
+    g = inp.g
+    if (inp.cap.shape != (n, 3) or inp.used0.shape != (n, 3)
+            or inp.job_count0.shape != (n,)
+            or not 0 <= g < inp.req.shape[0]):
+        raise ValueError(f"{name}: inconsistent shapes")
+    dev = inp.attrs.device
+    gs = slice(g, g + 1)
+    extra = None if inp.extra_mask is None else inp.extra_mask[gs]
+    aff = inp.aff[gs].contiguous()
+    static, aff_sc = _solo_statics(inp.attrs, inp.elig, inp.dc_mask,
+                                   inp.pool_mask, inp.con[gs].contiguous(),
+                                   aff, inp.luts, extra)
+    want = [min(max(inp.p_real - r * round_size, 0), round_size)
+            for r in range(n_rounds)]
+    used = inp.used0.clone()
+    slot_k = min(fill_k, round_size) if fill_k else 0
+    if slot_k:
+        mode, width = 2, slot_k + 16
+        fills = torch.empty((n_rounds, round_size), dtype=torch.int32,
+                            device=dev)
+    else:
+        mode = 1 if with_scores else 0
+        width = (2 if with_scores else 1) * round_size + 16
+        fills = None
+    buf = torch.empty((n_rounds, width), dtype=torch.int32, device=dev)
+    jc = torch.empty(n, dtype=torch.int32, device=dev)
+    ki = torch.empty(n, dtype=torch.int32, device=dev)
+    score = torch.empty(n, dtype=torch.float32, device=dev)
+    keyb = torch.empty(n, dtype=torch.int32, device=dev)
+    if n_rounds:
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            K.MULTI_BULK.launch(
+                name, *[t.data_ptr() for t in (
+                    inp.cap, used, static.contiguous(), aff_sc, aff,
+                    inp.req[gs].contiguous(), inp.desired[gs].contiguous(),
+                    inp.dh_limit[gs].contiguous(), zero,
+                    _seed_t(inp.seed, dev).reshape(1), inp.job_count0,
+                    torch.zeros(n_rounds, dtype=torch.int32, device=dev),
+                    torch.tensor(want, dtype=torch.int32, device=dev), buf)],
+                n, 1, aff.shape[1], n_rounds, int(bool(inp.spread_algo)),
+                round_size, mode, slot_k,
+                0 if fills is None else fills.data_ptr(),
+                *[t.data_ptr() for t in (jc, ki, score, keyb)],
+                stream=K.stream_of(used))
+    else:
+        jc.copy_(inp.job_count0)
+    if slot_k:
+        return buf, fills, used, jc
+    return buf, used, jc
+
+
+def place_bulk_packed(inp: BulkInputs, round_size: int, n_rounds: int,
+                      with_scores: bool = False, fill_k: int = 0):
+    """Bulk water-fill rounds for one task group with packed per-round
+    outputs (reference: select.place_bulk_packed; layouts on
+    `place_bulk_packed_plain`).  CPU tensors take the plain version;
+    CUDA tensors launch K1 and K6 (or raise).  `inp` is not modified."""
+    if inp.attrs.device.type == "cpu":
+        return place_bulk_packed_plain(inp, round_size, n_rounds,
+                                       with_scores, fill_k)
+    return _bulk_launch(inp, round_size, n_rounds, with_scores, fill_k)
+
+
+def place_bulk(inp: PlacementInputs, round_size: int) -> PlacementOutputs:
+    """Homogeneous batch in rounds, expanded to per-placement outputs
+    (reference: select.place_bulk): the packed buffer with scores,
+    each round's fills expanded in fill order (placements of a round are
+    interchangeable) and its metrics repeated over its placements."""
+    n = inp.attrs.shape[0]
+    p_pad = inp.tg_idx.shape[0]
+    if p_pad % round_size:
+        raise ValueError("the padded batch must be whole rounds")
+    n_rounds = p_pad // round_size
+    buf, used, job_count = place_bulk_packed(
+        _to_bulk_inputs(inp), round_size, n_rounds, with_scores=True)
+    top_k = min(TOP_K, n)
+    fills = buf[:, :round_size]
+    sc_r = buf[:, round_size:2 * round_size].contiguous().view(
+        torch.float32)
+    meta = buf[:, 2 * round_size:]
+    rows_r = fills >> 11
+    cnt_r = fills & 2047
+    placed = meta[:, 12]
+    edges = torch.cumsum(cnt_r, dim=1)
+    p_idx = torch.arange(round_size, device=buf.device).expand(
+        n_rounds, round_size).contiguous()
+    slot = torch.searchsorted(edges, p_idx, right=True).clamp(
+        0, round_size - 1)
+    picks = torch.where(p_idx < placed[:, None], rows_r.gather(1, slot), -1)
+    scores = torch.where(picks >= 0, sc_r.gather(1, slot), 0.0)
+
+    def rep(x):
+        return x.repeat_interleave(round_size, dim=0)
+
+    return PlacementOutputs(
+        picks=picks.reshape(p_pad).to(torch.int32),
+        scores=scores.reshape(p_pad),
+        topk_rows=rep(meta[:, 0:top_k]),
+        topk_scores=rep(meta[:, 3:3 + top_k].contiguous().view(
+            torch.float32)),
+        n_feasible=rep(meta[:, 6]), n_filtered=rep(meta[:, 7]),
+        n_exhausted=rep(meta[:, 8]), dim_exhausted=rep(meta[:, 9:12]),
+        used=used, job_count=job_count)

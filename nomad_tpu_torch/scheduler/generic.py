@@ -10,11 +10,8 @@ placements of the eval go to the device kernels as one batch
 (nomad_tpu_torch.ops.PlacementEngine) and come back as node picks +
 AllocMetrics in a single device round-trip.
 
-Port status: the batched path (prepare_batch, submit_batched,
-finalize_batched) runs on the port's kernels; the solo path that
-`process()` reaches (engine.place) is not ported yet and raises.  The
-port-carve counters of the reference's metrics registry come with the
-telemetry slice.
+Port status: the port-carve counters of the reference's metrics registry
+come with the telemetry slice.
 """
 
 from __future__ import annotations
@@ -23,7 +20,8 @@ import zlib
 from typing import Dict, List, Optional
 
 from nomad_tpu_torch.chaos.clock import SystemClock
-from nomad_tpu_torch.ops import PlacementEngine
+from nomad_tpu_torch.ops import PlacementEngine, PlacementRequest
+from nomad_tpu_torch.ops.engine import BulkDecisions
 from nomad_tpu_torch.structs import (
     Allocation,
     AllocMetric,
@@ -460,8 +458,12 @@ class GenericScheduler(Scheduler):
                     RPlace(tg=b.tg, name=_name(job, b.tg, ix), index=ix)
                     for ix in b.indexes)
             blocks = []
-        if (all_places or blocks) and job is not None:
-            self._compute_placements(plan, job)
+        if all_places and job is not None:
+            self._compute_placements(plan, job, all_places, evaluation,
+                                     results)
+        elif blocks and job is not None:
+            self._compute_placements_block(plan, job, blocks[0],
+                                           evaluation, results)
 
         plan.deployment = results.deployment
         plan.deployment_updates = results.deployment_updates
@@ -491,13 +493,142 @@ class GenericScheduler(Scheduler):
 
     # ---------------------------------------------------------- placement
 
-    def _compute_placements(self, plan: Plan, job: Job) -> None:
-        """The solo placement path.  Its engine call (`engine.place`,
-        kernels K5-K7) is not ported yet and raises NotImplementedError;
-        the materialisation of its decisions comes with it."""
+    def _compute_placements(self, plan: Plan, job: Job,
+                            places: List[RPlace],
+                            evaluation: Evaluation,
+                            results: ReconcileResults) -> None:
+        tgs = job.task_groups
+        reqs = []
+        for p in places:
+            prev_node = ""
+            if p.previous_alloc is not None and p.reschedule:
+                prev_node = p.previous_alloc.node_id
+            reqs.append(PlacementRequest(tg_name=p.tg.name,
+                                         prev_node_id=prev_node))
+        # allocs this plan is stopping free their capacity for placement
         stopped = [a for allocs in plan.node_update.values() for a in allocs]
-        self.engine.place(self.state, job, job.task_groups, [],
-                          stopped_allocs=stopped, seed=self._seed)
+        decisions = self.engine.place(self.state, job, tgs, reqs,
+                                      stopped_allocs=stopped, bulk_api=True,
+                                      seed=getattr(self, "_seed", 0))
+        if isinstance(decisions, BulkDecisions):
+            self._materialize_bulk(plan, job, places, decisions,
+                                   evaluation, results)
+            return
+        self._materialize_decisions(plan, job, places, reqs, decisions,
+                                    evaluation, results, stopped)
+
+    def _materialize_decisions(self, plan: Plan, job: Job,
+                               places: List[RPlace], reqs,
+                               decisions, evaluation: Evaluation,
+                               results: ReconcileResults,
+                               stopped) -> None:
+        """Per-decision alloc construction (ports, devices, reschedule
+        trackers) — the tail of `_compute_placements`, shared with the
+        block fallback path."""
+        tgs = job.task_groups
+        # concrete device-instance assignment for groups that ask for
+        # devices (reference: scheduler/device.go AllocateDevice); may
+        # re-place a subset when a node's instances run out mid-plan
+        dev_assign = self._assign_devices(job, tgs, places, reqs,
+                                          decisions, stopped)
+
+        # host-side port assignment per chosen node (reference: AllocsFit's
+        # NetworkIndex, kept off-device per SURVEY §7 P1).  Preemption
+        # victims' ports are freed: exclude them from the index.
+        net_idx: Dict[str, NetworkIndex] = {}
+        victim_ids = {v.id for d in decisions for v in d.evictions}
+
+        # one combined-resources template per task group.  When the group
+        # asks for no ports the template is shared by every alloc of the
+        # group (immutable once inserted, the store's ownership convention);
+        # with networks each alloc gets a copy carrying its port assignment.
+        ask_templates: Dict[str, object] = {}
+        # alloc construction is the host-side hot path at bench scale
+        # (100k placements/plan): build one fully-initialized template
+        # alloc per task group and clone via dict copy instead of running
+        # the 40-field dataclass constructor per placement.
+        alloc_templates: Dict[str, Allocation] = {}
+
+        for i, (p, d) in enumerate(zip(places, decisions)):
+            tg = p.tg
+            if d.node_id is None:
+                self._record_failure(tg.name, d.metric)
+                continue
+            ports = None
+            ask = ask_templates.get(tg.name)
+            if ask is None:
+                ask_templates[tg.name] = ask = tg.combined_resources()
+            has_net = bool(ask.networks)
+            if has_net:
+                ask = ask.copy()
+            if ask.networks:
+                ni = self._net_index(d.node_id, net_idx, victim_ids)
+                ports, fail = ni.assign_ports(ask.networks)
+                if ports is None:
+                    # stock moves to the NEXT candidate when the picked
+                    # node can't satisfy the ask (rank.go iterator pull);
+                    # the kernel returned its runner-ups in the metric's
+                    # top-k — retry them before declaring failure.
+                    # Never redirect a placement bound to its node by
+                    # evictions or device instances.
+                    alt_ports = alt = None
+                    if not d.evictions and i not in dev_assign:
+                        alt_ports, alt = self._ports_from_runner_up(
+                            plan, d.node_id, d.metric.score_meta_data,
+                            ask, net_idx, victim_ids, job, tg)
+                    if alt_ports is None:
+                        d.metric.exhausted_node(fail)
+                        self._record_failure(tg.name, d.metric)
+                        continue
+                    ports = alt_ports
+                    d.node_id = alt
+                else:
+                    ni.commit(ports)
+
+            tmpl = alloc_templates.get(tg.name)
+            if tmpl is None:
+                alloc_templates[tg.name] = tmpl = Allocation(
+                    namespace=job.namespace,
+                    eval_id=evaluation.id,
+                    job_id=job.id,
+                    job=job,
+                    task_group=tg.name,
+                    desired_status="run",
+                    client_status="pending",
+                    job_version=job.version,
+                    create_time=self.now,
+                    modify_time=self.now,
+                )
+            alloc = Allocation.__new__(Allocation)
+            ad = dict(tmpl.__dict__)
+            alloc.__dict__ = ad
+            ad["id"] = new_id()
+            ad["name"] = p.name
+            ad["node_id"] = d.node_id
+            ad["resources"] = ask
+            ad["allocated_ports"] = ports or {}
+            ad["allocated_devices"] = dev_assign.get(i, [])
+            ad["metrics"] = d.metric
+            # per-alloc mutable state: runners write task_states in place
+            ad["task_states"] = {}
+            if d.evictions:
+                for victim in d.evictions:
+                    plan.append_preempted_alloc(victim, alloc.id)
+                alloc.preempted_allocations = [v.id for v in d.evictions]
+            if results.deployment is not None:
+                alloc.deployment_id = results.deployment.id
+                if p.canary:
+                    dstate = results.deployment.task_groups.get(tg.name)
+                    if dstate is not None:
+                        dstate.placed_canaries.append(alloc.id)
+            if p.previous_alloc is not None:
+                alloc.previous_allocation = p.previous_alloc.id
+                if p.reschedule:
+                    from .util import append_reschedule_tracker
+                    append_reschedule_tracker(alloc, p.previous_alloc, self.now)
+                    alloc.desired_description = ALLOC_RESCHEDULED
+            plan.append_alloc(alloc)
+            self._note_placed(tg.name, d.metric, evictions=d.evictions)
 
     @staticmethod
     def _net_columnar_labels(ask) -> Optional[List[str]]:
@@ -648,6 +779,108 @@ class GenericScheduler(Scheduler):
                 <= node.resources.memory_mb - node.reserved.memory_mb
                 and disk + ask.disk_mb
                 <= node.resources.disk_mb - node.reserved.disk_mb)
+
+    def _compute_placements_block(self, plan: Plan, job: Job, block,
+                                  evaluation: Evaluation,
+                                  results: ReconcileResults) -> None:
+        """Compact twin of `_compute_placements` for one PlaceBlock: no
+        per-placement request objects anywhere — the engine gets
+        (task group, count) and the bulk decisions materialize with names
+        derived from the block's index list."""
+        stopped = [a for allocs in plan.node_update.values() for a in allocs]
+        decisions = self.engine.place(
+            self.state, job, job.task_groups, None,
+            stopped_allocs=stopped, bulk_api=True,
+            seed=getattr(self, "_seed", 0),
+            block=(block.tg.name, len(block.indexes)))
+        if isinstance(decisions, BulkDecisions):
+            self._materialize_bulk(plan, job, None, decisions,
+                                   evaluation, results, block=block)
+            return
+        # engine fell back (spread/devices/small count): expand and run
+        # the general path with the decisions it already computed
+        places = [RPlace(tg=block.tg, name=_name(job, block.tg, ix),
+                         index=ix) for ix in block.indexes]
+        reqs = [PlacementRequest(tg_name=block.tg.name)] * len(places)
+        self._materialize_decisions(plan, job, places, reqs, decisions,
+                                    evaluation, results, stopped)
+
+    def _assign_devices(self, job, tgs, places, reqs, decisions, stopped):
+        """Pick concrete device instances for every placement whose task
+        group requests devices (reference: scheduler/device.go
+        AllocateDevice called from BinPackIterator).
+
+        The kernel's [G, N] device mask was computed against the snapshot,
+        so a node can run out of instances mid-plan (several placements
+        landing on it).  Failed assignments are re-placed through the
+        engine with the in-plan usage overlay visible (up to 3 rounds —
+        the host-side twin of the kernel's sequential-capacity scan);
+        still-failing placements become normal placement failures with the
+        exhausted dimension recorded.  Mutates `decisions` in place and
+        returns {placement_index: [AllocatedDeviceResource]}."""
+        from .device import InUseIndex, assign_devices, tg_device_requests
+
+        tg_has_dev = {tg.name: bool(tg_device_requests(tg)) for tg in tgs}
+        if not any(tg_has_dev.values()):
+            return {}
+        dev_assign: Dict[int, list] = {}
+        stopped_ids = {a.id for a in stopped}
+        dev_index = InUseIndex()
+        seeded = set()
+
+        def seed(node_id: str) -> None:
+            # preemption victims are conservatively NOT excluded: their
+            # instances stay unavailable within this plan
+            if node_id in seeded:
+                return
+            seeded.add(node_id)
+            for a in self.state.allocs_by_node(node_id):
+                if a.terminal_status() or a.id in stopped_ids:
+                    continue
+                dev_index.add_alloc(node_id, a)
+
+        pending = [i for i, p in enumerate(places)
+                   if tg_has_dev[p.tg.name]]
+        for round_no in range(3):
+            failed = []
+            for i in pending:
+                d = decisions[i]
+                if d.node_id is None:
+                    continue
+                node = self.state.node_by_id(d.node_id)
+                if node is None:
+                    failed.append(i)
+                    continue
+                seed(d.node_id)
+                assigned, why = assign_devices(node, places[i].tg, dev_index)
+                if assigned is None:
+                    failed.append(i)
+                else:
+                    dev_assign[i] = assigned
+            if not failed:
+                return dev_assign
+            if round_no == 2:
+                break
+            redo = self.engine.place(
+                self.state, job, tgs, [reqs[i] for i in failed],
+                stopped_allocs=stopped, seed=getattr(self, "_seed", 0),
+                device_in_use=dev_index)
+            for i, d_new in zip(failed, redo):
+                if d_new.node_id is None:
+                    # the first pass found a device node; the re-place
+                    # lost it to in-plan instance consumption — that is
+                    # exhaustion, not filtering (reference: AllocMetric
+                    # DimensionExhausted["devices"])
+                    d_new.metric.exhausted_node("devices")
+                decisions[i] = d_new
+            pending = failed
+        for i in failed:
+            d = decisions[i]
+            if d.node_id is not None:
+                d.metric.exhausted_node("devices")
+                d.node_id = None
+                d.evictions = []
+        return dev_assign
 
     def _materialize_bulk(self, plan: Plan, job: Job,
                           places: Optional[List[RPlace]], bd,

@@ -23,15 +23,21 @@ import torch
 from nomad_tpu_torch.ops import kernels as K
 from nomad_tpu_torch.ops import select as psel
 from nomad_tpu_torch.ops.convert import (
+    bulk_inputs_from_numpy,
     frames_from_numpy,
     multi_inputs_from_numpy,
     multi_inputs_to_numpy,
+    placement_inputs_from_numpy,
+    preempt_args_from_numpy,
 )
 from nomad_tpu_torch.ops.engine import scatter_add_, scatter_add_plain
 from nomad_tpu_torch.ops.feasibility import (
+    feasible_mask,
+    feasible_mask_plain,
     landscape_mask,
     landscape_mask_plain,
 )
+from nomad_tpu_torch.ops.preempt import preempt_bulk, preempt_bulk_plain
 from nomad_tpu_torch.ops.scoring import (
     affinity_landscape,
     affinity_landscape_plain,
@@ -45,6 +51,8 @@ from torch_parity import (  # noqa: F401
     build_zoned_cluster,
     cuda_device,
     engine,
+    random_placement_arrays,
+    random_preempt_args,
     set_spread,
 )
 
@@ -228,3 +236,154 @@ def test_wrapper_refuses_wrong_dtype(cuda_device):
                                        device=cuda_device),
                      torch.zeros((1, 3), dtype=torch.int32,
                                  device=cuda_device))
+
+
+# ------------------------------------------------------- solo kernels
+
+SCAN_CASES = {
+    "binpack": dict(),
+    "spread_algo": dict(spread_algo=True),
+    "spread_affinity": dict(n=300, p=64, s=2, k=3),
+    "distinct_prev_extra": dict(s=1, k=4, d=2, prev=True, extra=True,
+                                dh=True, p=32, p_real=27, tight=True),
+    "one_node": dict(n=1, g=3, p=8),
+    "two_nodes": dict(n=2, p=8, p_real=5),
+}
+
+
+def _scan_inputs(case, device="cpu"):
+    arr = random_placement_arrays(np.random.default_rng(11), **SCAN_CASES[case])
+    return placement_inputs_from_numpy(arr, device)
+
+
+def _bulk_inputs(device="cpu", spread_algo=False, n=200, p_real=700):
+    arr = random_placement_arrays(np.random.default_rng(5), n=n, g=2,
+                                  p=8, spread_algo=spread_algo, dh=True,
+                                  extra=True)
+    arr = {k: arr[k] for k in psel.BulkInputs._fields if k in arr}
+    arr.update(g=np.int32(1), p_real=np.int32(p_real))
+    return bulk_inputs_from_numpy(arr, device)
+
+
+def _preempt_args(device="cpu", **kw):
+    return preempt_args_from_numpy(
+        random_preempt_args(np.random.default_rng(3), **kw), device)
+
+
+BULK_MODES = {"full": (False, 0), "scores": (True, 0), "compact": (False, 32)}
+
+
+def test_solo_wrappers_take_plain_versions_on_cpu():
+    """CPU tensors never reach K5-K8: results equal the plain versions
+    and no launch is counted."""
+    K.reset_launches()
+    inp = _scan_inputs("distinct_prev_extra")
+    got = psel.place_packed(inp)
+    _same(got, psel.pack_outputs(psel.place(inp)))
+    b = _bulk_inputs()
+    for ws, fk in BULK_MODES.values():
+        _same(psel.place_bulk_packed(b, 256, 4, ws, fk),
+              psel.place_bulk_packed_plain(b, 256, 4, ws, fk))
+    args = _preempt_args(m=40, a=4)
+    _same(preempt_bulk(*args), preempt_bulk_plain(*args))
+    fm = (inp.attrs, inp.elig, inp.dc_mask, inp.pool_mask, inp.con, inp.luts)
+    _same([feasible_mask(*fm)], [feasible_mask_plain(*fm)])
+    assert all(k.launches == 0 for k in K.KERNELS)
+
+
+def test_solo_launches_refuse_wrong_dtypes_and_cpu_tensors():
+    """The launch paths check dtypes first, then that every tensor is on
+    one CUDA device: a wrong dtype or a CPU tensor raises before any
+    launch."""
+    inp = _scan_inputs("binpack")
+    with pytest.raises(ValueError, match="int32"):
+        psel._scan_launch(inp._replace(req=inp.req.long()))
+    with pytest.raises(ValueError, match="float32"):
+        psel._scan_launch(inp._replace(sp_weight=inp.sp_weight.double()))
+    with pytest.raises(ValueError, match="not CUDA"):
+        psel._scan_launch(inp)
+    b = _bulk_inputs()
+    with pytest.raises(ValueError, match="bool"):
+        psel._bulk_launch(b._replace(elig=b.elig.int()), 256, 4, False, 0)
+    with pytest.raises(ValueError, match="not CUDA"):
+        psel._bulk_launch(b, 256, 4, False, 0)
+    with pytest.raises(ValueError, match="not CUDA"):
+        psel._bulk_launch(b, 256, 4, False, 32)
+    args = _preempt_args(m=8, a=2)
+    from nomad_tpu_torch.ops import preempt as P
+    meta = args._replace(cap=args.cap.to("meta"))
+    with pytest.raises(ValueError, match="int32"):
+        P.preempt_bulk(*meta._replace(k0=args.k0.to("meta").long()))
+    with pytest.raises(ValueError, match="not CUDA"):
+        P.preempt_bulk(*meta)
+    fm = [inp.attrs.to("meta"), inp.elig, inp.dc_mask, inp.pool_mask,
+          inp.con, inp.luts]
+    with pytest.raises(ValueError, match="bool"):
+        feasible_mask(*fm[:4], inp.con, inp.luts.int())
+    with pytest.raises(ValueError, match="not CUDA"):
+        feasible_mask(*fm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SCAN_CASES))
+def test_place_scan_matches_plain(cuda_device, case):
+    inp = _scan_inputs(case, cuda_device)
+    got = psel.place_packed(inp)
+    want = psel.pack_outputs(psel.place(inp))
+    want_cpu = psel.place_packed(_scan_inputs(case))
+    torch.cuda.synchronize()
+    _same(got, want, want_cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(BULK_MODES))
+@pytest.mark.parametrize("spread_algo", [False, True])
+def test_bulk_matches_plain(cuda_device, mode, spread_algo):
+    ws, fk = BULK_MODES[mode]
+    for n, p_real in ((200, 700), (50, 600)):   # 50 < round size
+        b = _bulk_inputs(cuda_device, spread_algo, n, p_real)
+        got = psel.place_bulk_packed(b, 256, 3, ws, fk)
+        want = psel.place_bulk_packed_plain(b, 256, 3, ws, fk)
+        want_cpu = psel.place_bulk_packed(
+            _bulk_inputs("cpu", spread_algo, n, p_real), 256, 3, ws, fk)
+        torch.cuda.synchronize()
+        _same(got, want, want_cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [dict(m=300, a=1), dict(m=500, a=32, big=True,
+                                k0max=5, n_fail=60),
+                                dict(m=64, a=8, ties=True, n_fail=40),
+                                dict(m=40, a=16, dh=1, n_fail=20)])
+def test_preempt_matches_plain(cuda_device, kw):
+    args = _preempt_args(cuda_device, **kw)
+    got = preempt_bulk(*args)
+    want = preempt_bulk_plain(*args)
+    want_cpu = preempt_bulk(*_preempt_args("cpu", **kw))
+    torch.cuda.synchronize()
+    _same(got, want, want_cpu)
+
+
+@pytest.mark.gpu
+def test_feasible_mask_matches_plain(cuda_device):
+    for case in ("spread_affinity", "distinct_prev_extra"):
+        i = _scan_inputs(case, cuda_device)
+        c = _scan_inputs(case)
+        got = feasible_mask(i.attrs, i.elig, i.dc_mask, i.pool_mask, i.con,
+                            i.luts)
+        want = feasible_mask_plain(i.attrs, i.elig, i.dc_mask, i.pool_mask,
+                                   i.con, i.luts)
+        want_cpu = feasible_mask_plain(c.attrs, c.elig, c.dc_mask,
+                                       c.pool_mask, c.con, c.luts)
+        torch.cuda.synchronize()
+        _same([got], [want], [want_cpu])
+
+
+@pytest.mark.gpu
+def test_solo_wrappers_refuse_wrong_dtype_on_card(cuda_device):
+    inp = _scan_inputs("binpack", cuda_device)
+    with pytest.raises(ValueError):
+        psel.place_packed(inp._replace(tg_idx=inp.tg_idx.long()))
+    args = _preempt_args(cuda_device, m=8, a=2)
+    with pytest.raises(ValueError):
+        preempt_bulk(*args._replace(req=args.req.float()))

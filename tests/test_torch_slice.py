@@ -74,24 +74,3 @@ def test_flat_wave_matches_reference():
     assert len(m_r) == 8 * 25
     assert m_r == m_p
 
-
-def test_solo_path_raises_until_ported():
-    from nomad_tpu_torch.ops import PlacementEngine
-    eng = PlacementEngine(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.place(None, None, [], [])
-
-
-def test_process_reaches_the_raising_solo_path():
-    """An eval outside the batched flow goes through process() to the
-    solo path's engine call, which raises until it is ported."""
-    from nomad_tpu_torch import mock
-    from nomad_tpu_torch.scheduler import Harness
-    h = Harness(device="cpu")
-    h.state.upsert_node(mock.node(id="node-00000"))
-    job = mock.job(id="web")
-    h.state.upsert_job(job)
-    ev = mock.eval(id="eval-web", type="service", job_id=job.id,
-                   triggered_by="job-register")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        h.process("service", ev)

@@ -186,3 +186,203 @@ def alloc_map(h, jobs):
             if not a.terminal_status():
                 out[(j.id, a.name)] = a.node_id
     return out
+
+
+def random_placement_arrays(rng, n=40, g=2, p=16, p_real=None, s=0, k=3,
+                            d=0, kd=3, spread_algo=False, seed=12345,
+                            prev=False, extra=False, dh=False,
+                            tight=False):
+    """Seeded numpy PlacementInputs fields for the solo kernels: `s`
+    spread rows of `k` values, `d` distinct_property rows of `kd`
+    values, reschedule rows (`prev`), a device AND-mask (`extra`),
+    distinct_hosts limits (`dh`), and with `tight` small nodes that run
+    out within the batch."""
+    p_real = p if p_real is None else p_real
+    a = 4
+    attrs = rng.integers(-1, 5, (n, a)).astype(np.int32)
+    luts = rng.random((3, 6)) < 0.6
+    if tight:
+        cap = np.stack([rng.choice([300, 500, 800], n),
+                        rng.choice([256, 512, 1024], n),
+                        np.full(n, 3000)], axis=1).astype(np.int32)
+    else:
+        cap = np.stack([rng.choice([4000, 8000, 16000], n),
+                        rng.choice([8192, 16384], n),
+                        np.full(n, 100000)], axis=1).astype(np.int32)
+    used0 = (cap * rng.random((n, 3)) * 0.6).astype(np.int32)
+    used0[rng.random(n) < 0.1, 1] = cap[0, 1] * 3     # over capacity
+    con = np.zeros((g, 2, 3), np.int32)
+    for gi in range(g):
+        if rng.random() < 0.7:
+            con[gi, 0] = (rng.integers(0, a), rng.integers(1, 6),
+                          rng.integers(0, 3))
+    aff = np.zeros((g, 2, 4), np.int32)
+    for gi in range(g):
+        if rng.random() < 0.6:
+            aff[gi, 0] = (rng.integers(0, a), 1, rng.integers(0, 4),
+                          rng.integers(-50, 51))
+            aff[gi, 1] = (rng.integers(0, a), 5, rng.integers(0, 3),
+                          rng.integers(1, 30))
+    req = np.stack([rng.choice([50, 100, 250], g),
+                    rng.choice([64, 128, 300], g),
+                    rng.choice([0, 10], g)], axis=1).astype(np.int32)
+    s_rows = max(s, 1)
+    if s:
+        sp_nodeval = rng.integers(-1, k, (s, n)).astype(np.int32)
+        sp_weight = rng.choice([50.0, 33.0, 70.0], s).astype(np.float32)
+        sp_expected = (rng.random((s, k)) * p).astype(np.float32)
+        sp_counts0 = rng.integers(0, 3, (s, k)).astype(np.float32)
+    else:
+        sp_nodeval = np.full((1, n), -1, np.int32)
+        sp_weight = np.zeros(1, np.float32)
+        sp_expected = np.ones((1, 1), np.float32)
+        sp_counts0 = np.zeros((1, 1), np.float32)
+    if d:
+        pd_nodeval = rng.integers(-1, kd, (d, n)).astype(np.int32)
+        pd_limit = rng.integers(1, 4, d).astype(np.int32)
+        pd_apply = rng.random((g, d)) < 0.7
+        pd_counts0 = rng.integers(0, 2, (d, kd)).astype(np.int32)
+    else:
+        pd_nodeval = np.full((1, n), -1, np.int32)
+        pd_limit = np.zeros(1, np.int32)
+        pd_apply = np.zeros((g, 1), bool)
+        pd_counts0 = np.zeros((1, 1), np.int32)
+    tg_idx = np.zeros(p, np.int32)
+    tg_idx[:p_real] = rng.integers(0, g, p_real)
+    prev_row = np.full(p, -1, np.int32)
+    if prev:
+        hit = rng.random(p_real) < 0.5
+        prev_row[:p_real][hit] = rng.integers(0, n, int(hit.sum()))
+    active = np.arange(p) < p_real
+    out = dict(
+        attrs=attrs, cap=cap, used0=used0, elig=rng.random(n) < 0.9,
+        dc_mask=rng.random(n) < 0.9, pool_mask=rng.random(n) < 0.95,
+        luts=luts, con=con, aff=aff, req=req,
+        desired=rng.integers(1, 8, g).astype(np.int32),
+        dh_limit=(rng.integers(0, 3, g) if dh
+                  else np.zeros(g)).astype(np.int32),
+        sp_nodeval=sp_nodeval[:s_rows], sp_weight=sp_weight,
+        sp_expected=sp_expected, sp_counts0=sp_counts0,
+        pd_nodeval=pd_nodeval, pd_limit=pd_limit, pd_apply=pd_apply,
+        pd_counts0=pd_counts0, tg_idx=tg_idx, prev_row=prev_row,
+        active=active,
+        job_count0=rng.integers(0, 2, n).astype(np.int32),
+        spread_algo=np.bool_(spread_algo), seed=np.uint32(seed),
+        extra_mask=(rng.random((g, n)) < 0.8) if extra else None)
+    return out
+
+
+def reference_placement_inputs(arrays):
+    """The reference's PlacementInputs from `random_placement_arrays`."""
+    import jax.numpy as jnp
+    from nomad_tpu.ops.select import PlacementInputs
+    return PlacementInputs(**{
+        k: (None if v is None else jnp.asarray(v))
+        for k, v in arrays.items()})
+
+
+def random_preempt_args(rng, m=40, a=4, big=False, ties=False, dh=0,
+                        k0max=0, n_fail=10):
+    """Seeded numpy `preempt_bulk` arguments over `m` full candidate
+    rows with up to `a` priority-sorted victims each.  `big` victims'
+    disk makes their cost prefix sums inexact in f32; `ties` gives every
+    victim the same priority and resources, so candidates tie on cost;
+    `k0max` marks victims consumed by an earlier launch."""
+    cap = np.stack([np.full(m, 4000), np.full(m, 8192),
+                    np.full(m, 10 ** 8)], 1).astype(np.int32)
+    depth = rng.integers(1, a + 1, m)
+    prio = np.full((m, a), 1 << 30, np.int32)
+    res = np.zeros((m, a, 3), np.int32)
+    for i in range(m):
+        dd = depth[i]
+        prio[i, :dd] = 20 if ties else np.sort(rng.integers(10, 60, dd))
+        if ties:
+            res[i, :dd] = (1000, 64, 0)
+        else:
+            res[i, :dd] = np.stack([
+                rng.integers(100, 2000, dd), rng.integers(64, 4000, dd),
+                rng.integers(10 ** 6, 1.6 * 10 ** 7, dd) if big
+                else rng.integers(0, 500, dd)], 1)
+    used = np.minimum(res.sum(1), cap).astype(np.int32)
+    static = rng.random(m) < 0.9
+    jc = rng.integers(0, 2, m).astype(np.int32)
+    req = np.array([1500, 512, 0], np.int32)
+    k0 = np.minimum(rng.integers(0, k0max + 1, m), depth).astype(np.int32)
+    n_place = 1
+    while n_place < n_fail:
+        n_place *= 2
+    return (cap, used, static, np.int32(dh), jc, prio, res, req, k0,
+            n_place, np.int32(n_fail))
+
+
+# ------------------------------------------------ solo-path scenarios
+
+def make_node(name, i, dc="dc1", cpu=4000, mem=8192, **attrs):
+    mock = pkg(name, "mock")
+    nid = f"node-{i:05d}"
+    n = mock.node(id=nid, name=nid, datacenter=dc)
+    n.attributes["unique.hostname"] = nid
+    n.attributes.update(attrs)
+    n.resources.cpu = cpu
+    n.resources.memory_mb = mem
+    return n
+
+
+def add_nodes(name, h, specs):
+    """specs: (dc, cpu, mem, attrs) per node, ids node-00000..."""
+    structs = pkg(name, "structs")
+    nodes = []
+    for i, (dc, cpu, mem, attrs) in enumerate(specs):
+        n = make_node(name, i, dc, cpu, mem, **attrs)
+        n.computed_class = structs.compute_class(n)
+        nodes.append(n)
+    h.state.upsert_nodes(nodes)
+    return nodes
+
+
+def eval_for(name, job, tag="0", **kw):
+    mock = pkg(name, "mock")
+    kw.setdefault("triggered_by", "job-register")
+    return mock.eval(id=f"eval-{job.id}-{tag}-0000-000000000000",
+                     type=job.type, job_id=job.id, priority=job.priority,
+                     **kw)
+
+
+def _metric(m):
+    if m is None:
+        return None
+    return (m.nodes_evaluated, m.nodes_filtered, m.nodes_in_pool,
+            dict(m.nodes_available), m.nodes_exhausted,
+            dict(m.dimension_exhausted), dict(m.class_filtered),
+            dict(m.constraint_filtered),
+            [(s.node_id, np.float32(s.norm_score).view(np.int32).item())
+             for s in m.score_meta_data])
+
+
+def view(h):
+    """Everything the two packages must agree on, keyed by stable names:
+    live and stopped allocs per (job, name), their node, status, metric,
+    devices and preempted victims; each eval update's status, failed
+    group metrics and queued counts; the blocked/follow-up evals."""
+    snap = h.snapshot()
+    by_id = {}
+    for job in snap.jobs():
+        for a in snap.allocs_by_job(job.namespace, job.id):
+            by_id[a.id] = (a.job_id, a.name)
+    allocs = {}
+    for job in snap.jobs():
+        for a in snap.allocs_by_job(job.namespace, job.id):
+            allocs[(a.job_id, a.name, a.node_id, a.desired_status,
+                    a.client_status)] = (
+                _metric(a.metrics),
+                [(d.name, tuple(d.device_ids))
+                 for d in (a.allocated_devices or [])],
+                sorted(by_id.get(v, v)
+                       for v in (a.preempted_allocations or [])),
+                by_id.get(a.previous_allocation, a.previous_allocation))
+    evals = [(e.job_id, e.status,
+              {k: _metric(v) for k, v in (e.failed_tg_allocs or {}).items()},
+              dict(e.queued_allocations or {}))
+             for e in h.evals]
+    created = [(e.job_id, e.triggered_by, e.status) for e in h.create_evals]
+    return allocs, evals, created
