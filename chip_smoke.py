@@ -46,6 +46,23 @@ bench.py's configs 1-4 (bench.py:409, :442, :484, :553):
      spread algorithm), K7 and K8 (the preempt and system evals' inputs)
      against their plain versions, on the card and on CPU copies.
 
+Then the node-sharded mesh: a second engine on make_mesh(8) of the card
+(8 shards of the node axis, parallel/mesh.py) over the same clusters:
+
+ 13. mesh_waves: the four waves above on a second 50,000-node cluster
+     built alike (K12 with 5 lanes x 8 shards, K12 chained, K12, then K11
+     with K13 replaying the small wave's deltas), every eval held against
+     the single-device engine at the same snapshot and seeds (bench.py
+     _sharded_parity_gate: sorted picks and nodes_filtered equal), and
+     the store gates as above;
+ 14. mesh_solo: spread_eval (K9, 5,000 nodes in shards of 625) and
+     bulk_eval (K10, 1,000 nodes) through Harness.process on the mesh
+     engine: the scan's allocs on the single-device eval's nodes alloc by
+     alloc, the bulk's as sorted lists;
+ 15. mesh kernel checks: K9-K13 against their plain versions at those
+     phases' inputs, on the card and on CPU copies, and a probe of one
+     cluster exchange at 8 blocks.
+
 Every phase prints one JSON line; a failed phase raises and the script
 exits non-zero.  The kernel launch counters are zeroed before each main
 path phase and read after it; the line before the last carries them.
@@ -67,6 +84,8 @@ N_ZONES = 5
 N_EVALS = 384
 PER_EVAL = 260
 SMALL_EVALS = 128
+# shards of the node-sharded mesh on the one card (bench.py --mesh 8)
+MESH_SHARDS = 8
 FLAT_EVALS = 64
 FLAT_PER_EVAL = 100
 
@@ -210,18 +229,30 @@ def prepare(h, evals):
     return snap, scheds, preps, items, seeds
 
 
-def run_wave(h, evals, used0_dev=None):
+def run_wave(h, evals, used0_dev=None, twin=None):
     """prepare -> ONE dispatch/collect -> submit/finalize per eval, as
-    the worker runs a wave; returns (pending, decisions, timings)."""
+    the worker runs a wave; returns (pending, decisions, timings, twin
+    pending).  `twin` = (engine, used0_dev): that engine places the same
+    items at the same snapshot and seeds first (untimed), and each eval's
+    decisions must pass `parity_gate` against its."""
     import torch
 
     t0 = time.perf_counter()
     snap, scheds, preps, items, seeds = prepare(h, evals)
     t1 = time.perf_counter()
+    twin_pend = None
+    if twin is not None:
+        twin_pend = twin[0].dispatch_batch(snap, items, seed=seeds,
+                                           used0_dev=twin[1])
+        twin_dec = twin[0].collect_batch(twin_pend)
+        torch.cuda.synchronize()
+    t1b = time.perf_counter()
     pending = h.engine.dispatch_batch(snap, items, seed=seeds,
                                       used0_dev=used0_dev)
     decisions = h.engine.collect_batch(pending)
     t2 = time.perf_counter()
+    if twin is not None:
+        parity_gate(decisions, twin_dec)
     for ev, s, prep, bd in zip(evals, scheds, preps, decisions):
         err = s.finalize_batched(ev, s.submit_batched(ev, prep, bd))
         if err is not None:
@@ -229,8 +260,26 @@ def run_wave(h, evals, used0_dev=None):
     if h.engine.device.type == "cuda":
         torch.cuda.synchronize()
     t3 = time.perf_counter()
-    return pending, decisions, {"prepare_s": t1 - t0, "place_s": t2 - t1,
-                                "commit_s": t3 - t2, "wall_s": t3 - t0}
+    return pending, decisions, {
+        "prepare_s": t1 - t0, "place_s": t2 - t1b, "commit_s": t3 - t2,
+        "wall_s": t3 - t0 - (t1b - t1)}, twin_pend
+
+
+def parity_gate(got, want):
+    """bench.py _sharded_parity_gate's criteria: per eval the same picks
+    as sorted lists and the same nodes_filtered per round."""
+    import numpy as np
+
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} decisions, want {len(want)}")
+    for gi, (a, b) in enumerate(zip(got, want)):
+        if not np.array_equal(np.sort(a.picks), np.sort(b.picks)):
+            raise AssertionError(f"eval {gi}: sharded and single-device "
+                                 "picks differ")
+        fa = [m.nodes_filtered for m in a.metrics]
+        fb = [m.nodes_filtered for m in b.metrics]
+        if fa != fb:
+            raise AssertionError(f"eval {gi}: nodes_filtered {fa} != {fb}")
 
 
 def check_store(h, jobs, per_eval, all_jobs, zone_of=None, n_zones=0):
@@ -279,6 +328,9 @@ def used_matches_store(h, used_dev, usage):
     for node_id, u in usage.items():
         want[t.id_to_row[node_id]] = u
     got = used_dev.cpu().numpy()
+    if got[t.n:].any():
+        raise AssertionError("usage on mesh padding rows")
+    got = got[:t.n]
     if not np.array_equal(got, want):
         bad = np.nonzero((got != want).any(axis=1))[0]
         raise AssertionError(f"device usage differs from the store on "
@@ -584,6 +636,8 @@ class Recorder:
     def __init__(self):
         self.phase = None
         self.calls = {}
+        # per phase: {alloc name: (node id, nodes_filtered)}
+        self.placed = {}
 
     def wrap(self, module, attr, kind):
         import torch
@@ -679,6 +733,12 @@ def live_allocs(h, job):
             if not a.terminal_status()]
 
 
+def alloc_view(h, job):
+    """{alloc name: (node id, nodes_filtered)} of the job's live allocs."""
+    return {a.name: (a.node_id, a.metrics.nodes_filtered)
+            for a in live_allocs(h, job)}
+
+
 def check_capacity(h):
     """No node over capacity, usage recomputed from the store's allocs."""
     snap = h.snapshot()
@@ -763,6 +823,7 @@ def solo_phases(card, launches):
         if placed != 10000:
             raise AssertionError(f"bulk_eval placed {placed} of 10000")
         check_capacity(h2)
+        rec.placed["bulk_eval"] = alloc_view(h2, job)
         return {"nodes": n2, "placements": placed, "eval_s": dt,
                 "placements_per_s": placed / dt}
 
@@ -781,6 +842,7 @@ def solo_phases(card, launches):
         if len(allocs) != 3000:
             raise AssertionError(f"spread_eval placed {len(allocs)} of 3000")
         check_capacity(h3)
+        rec.placed["spread_eval"] = alloc_view(h3, job)
         by_dc = {"dc1": 0, "dc2": 0, "dc3": 0}
         for a in allocs:
             by_dc[h3.state.node_by_id(a.node_id).datacenter] += 1
@@ -1022,6 +1084,364 @@ def solo_kernel_phase(rec, barrier_ms):
     return rows
 
 
+# ------------------------------------------------------------- the mesh
+
+def cluster_round_ms(rounds: int = 20000) -> float:
+    """Measured cost of one cluster exchange of the sharded kernels at
+    MESH_SHARDS blocks (csrc/multi_rounds.cu cluster_barrier_probe: a
+    post to global scratch, a fence, the cluster barrier and the read of
+    the MESH_SHARDS slots)."""
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as K
+
+    rows = torch.zeros(4 * MESH_SHARDS * 8, dtype=torch.int32, device="cuda")
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    probe = K.MULTI_COMPACT.fn("cluster_barrier_probe")
+
+    def run():
+        rc = probe(rounds, MESH_SHARDS, rows.data_ptr(), sink.data_ptr(),
+                   K.stream_of(rows))
+        if rc != 0:
+            raise RuntimeError(f"cluster_barrier_probe failed with "
+                               f"cudaError {rc}")
+
+    return time_ms(run, 5) / rounds
+
+
+def timed(fn):
+    """One call of `fn` on the card: (its result, ms by CUDA events)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def mesh_engine(h):
+    """A PlacementEngine on an 8-shard mesh of the card, attached to
+    `h`'s store."""
+    from nomad_tpu_torch.ops import PlacementEngine
+    from nomad_tpu_torch.parallel import make_mesh
+
+    eng = PlacementEngine(mesh=make_mesh(MESH_SHARDS))
+    eng.packer.attach(h.state)
+    return eng
+
+
+def mesh_phases(card, launches, waves, solo_placed):
+    """The mesh engine (8 shards on the card) over the same clusters:
+    the four config-5 waves, each eval held against the single-device
+    engine at the same snapshot and seeds (`parity_gate`), then the
+    config-3 and config-2 solo evals through Harness.process, held
+    against the single-device evals' placements (`solo_placed`).
+    Returns the Recorder with each phase's sharded kernel inputs."""
+    import torch
+
+    import nomad_tpu_torch.parallel.mesh as PM
+    from nomad_tpu_torch import mock, structs
+    from nomad_tpu_torch.ops import kernels as K
+    from nomad_tpu_torch.scheduler import Harness
+
+    rec = Recorder()
+    for attr, kind in (("place_sharded_packed", "scan"),
+                       ("place_bulk_sharded_packed", "bulk"),
+                       ("place_multi_sharded_packed", "flat"),
+                       ("place_multi_compact_sharded", "compact"),
+                       ("place_multi_compact_sharded_chained",
+                        "compact_chained"),
+                       ("scatter_add_sharded_", "scatter")):
+        rec.wrap(PM, attr, kind)
+
+    def phase(name, must, body):
+        K.reset_launches()
+        rec.phase = name
+        out = body()
+        rec.phase = None
+        ph = {k.name: k.launches for k in K.KERNELS}
+        for k, v in ph.items():
+            launches[k] += v
+        if min(ph[k] for k in must) < 1:
+            raise AssertionError(f"{name} launches {ph}, want {must}")
+        emit({"phase": name, "card": card, "shards": MESH_SHARDS, **out,
+              "launches": ph})
+
+    # mesh_waves: a second cluster built as the first, the harness's own
+    # single-device engine kept as the twin
+    h = Harness()
+    t0 = time.perf_counter()
+    zone_of = build_cluster(h, N_NODES, N_ZONES)
+    registered = [register_wave(h, name, n_ev, per, zones)
+                  for name, n_ev, per, zones, _, _ in waves]
+    solo = h.engine
+    h.engine = mesh_engine(h)
+    h.engine.packer.update(h.snapshot())
+    solo.packer.update(h.snapshot())
+    emit({"phase": "mesh_cluster", "nodes": N_NODES, "zones": N_ZONES,
+          "build_s": time.perf_counter() - t0})
+    all_jobs = []
+    prev = prev_twin = None
+    mesh_must = {"zoned_wave": ("multi_compact_sharded",),
+                 "chained_wave": ("multi_compact_sharded",),
+                 "small_zoned_wave": ("multi_compact_sharded",),
+                 "flat_wave": ("multi_flat_sharded", "scatter_add_sharded")}
+    for (name, n_ev, per, zones, chained, _), (jobs, evals) in zip(
+            waves, registered):
+        all_jobs += jobs
+
+        def wave():
+            chain = twin_chain = None
+            if chained:
+                chain = (prev["used"], prev["node_version"], prev["npad"])
+                twin_chain = (prev_twin["used"], prev_twin["node_version"],
+                              prev_twin["npad"])
+            pend, _, tm, tpend = run_wave(h, evals, used0_dev=chain,
+                                          twin=(solo, twin_chain))
+            if bool(pend["chained"]) != chained:
+                raise AssertionError(f"{name}: chained={pend['chained']}")
+            if zones and (pend["cand_rows"] is None
+                          or pend["cand_rows"].shape[:2]
+                          != (MESH_SHARDS, zones)):
+                raise AssertionError(f"{name} did not take the sharded "
+                                     f"compact path with {zones} lanes")
+            if not zones and pend["cand_rows"] is not None:
+                raise AssertionError(f"{name} took the compact path")
+            placed, usage = check_store(h, jobs, per, all_jobs, zone_of,
+                                        zones)
+            used_matches_store(h, pend["used"], usage)
+            wave.out = (pend, tpend)
+            return {"evals": n_ev, "placements": placed,
+                    "lanes": pend["n_lanes"], "round_size": pend["rs"],
+                    **tm, "evals_per_s": n_ev / tm["wall_s"],
+                    "placements_per_s": placed / tm["wall_s"],
+                    "parity_gate": "sorted picks and nodes_filtered equal",
+                    "collective_bytes": pend["collective_bytes"],
+                    "shard_h2d_bytes": pend["shard_h2d_bytes"]}
+
+        phase("mesh_" + name, mesh_must[name], wave)
+        prev, prev_twin = wave.out
+    del h, solo, prev, prev_twin, registered
+
+    # mesh_solo: config 3 (K9) and config 2 (K10)
+    def mesh_solo_eval(label, n_nodes, n_dcs, job, kind, ordered):
+        hm = Harness()
+        bench_cluster(hm, n_nodes, n_dcs=n_dcs)
+        hm.engine = mesh_engine(hm)
+        hm.engine.packer.update(hm.snapshot())
+        dt = process(hm, job, kind)
+        got = alloc_view(hm, job)
+        want = solo_placed[label]
+        check_capacity(hm)
+        if ordered:
+            same = got == want
+        else:
+            same = sorted(got.values()) == sorted(want.values())
+        if not same or len(got) != job.task_groups[0].count:
+            raise AssertionError(f"mesh {label}: placements differ from "
+                                 "the single-device eval's")
+        return {"nodes": n_nodes, "placements": len(got), "eval_s": dt,
+                "placements_per_s": len(got) / dt,
+                "parity": "picks in order" if ordered
+                else "picks as sorted lists",
+                "collective_bytes": hm.engine.collective_bytes}
+
+    phase("mesh_spread_eval", ("place_scan_sharded",),
+          lambda: mesh_solo_eval("spread_eval", 5000, 3,
+                            config3_job(mock, structs), "service", True))
+
+    def config2_job():
+        job = mock.batch_job(id="config2")
+        job.task_groups[0].count = 10000
+        job.task_groups[0].tasks[0].resources.cpu = 10
+        job.task_groups[0].tasks[0].resources.memory_mb = 10
+        return job
+
+    phase("mesh_bulk_eval", ("multi_bulk_sharded",),
+          lambda: mesh_solo_eval("bulk_eval", 1000, 1, config2_job(),
+                                 "batch", False))
+    torch.cuda.synchronize()
+    return rec
+
+
+def exchange_bytes(rounds, kk_loc, kk):
+    """Bytes of the sharded rounds kernels' exchange: per round each of
+    the S blocks posts kk_loc keys with their values (24 bytes), then
+    reads all S lists' keys and the kk winners' values."""
+    s = MESH_SHARDS
+    return rounds * (s * kk_loc * 24 + s * (s * kk_loc * 8 + kk * 16))
+
+
+def mesh_kernel_phase(rec, barrier_ms, cluster_ms):
+    """K9-K13 against their plain versions, on the card and on CPU
+    copies, at the mesh phases' own inputs."""
+    import torch
+
+    import nomad_tpu_torch.parallel.mesh as PM
+    from nomad_tpu_torch.ops import kernels as K
+    from nomad_tpu_torch.ops import select as S
+
+    cpu_mesh = PM.make_mesh(MESH_SHARDS, "cpu")
+    ns = MESH_SHARDS
+    rows = []
+    tensors = lambda x: [v for v in x if isinstance(v, torch.Tensor)]
+
+    def depth(steps, block_barriers, cluster_barriers):
+        return dict(depth_ms=steps * (block_barriers * barrier_ms
+                                      + cluster_barriers * cluster_ms),
+                    depth_steps=steps, barriers_per_step=block_barriers,
+                    cluster_barriers_per_step=cluster_barriers)
+
+    # K9: the mesh spread eval's 4,096-step scan
+    inp, mesh = rec.get("mesh_spread_eval", "scan")
+    got = PM.place_sharded_packed(inp, mesh)
+    want, plain_ms = timed(
+        lambda: S.pack_outputs(PM.place_sharded_plain(inp, ns)))
+    err = check_exact("place_scan_sharded", got, want,
+                      PM.place_sharded_packed(to_cpu(inp), cpu_mesh),
+                      score_cols=[1, 5, 6, 7])
+    torch.cuda.synchronize()
+    n, p = inp.attrs.shape[0], inp.tg_idx.shape[0]
+    real = int(inp.active.sum())
+    s_rows = int((inp.sp_weight > 0).sum())
+    d_step = (inp.pd_apply & (inp.pd_limit > 0)[None]).sum(1).cpu()[
+        inp.tg_idx.long().cpu()]
+    rows.append(dict(
+        kernel=K.PLACE_SCAN_SHARDED, max_abs_err=err,
+        ms=time_ms(lambda: PM.place_sharded_packed(inp, mesh), 3),
+        plain_ms=plain_ms,
+        bytes=fn_bytes(tensors(inp), inp.attrs, inp.luts, inp.con, inp.aff)
+        + p * 14 * 4 + n * 16 + p * ns * 16 * 4 * (1 + ns),
+        ops=n * (real * (OPS_SCAN_FIT + OPS_SCAN_SCORE + OPS_SCAN_METRICS
+                         + OPS_SCAN_SPREAD * s_rows)
+                 + (p - real) * (OPS_SCAN_FIT + OPS_SCAN_METRICS)
+                 + OPS_SCAN_DISTINCT * int(d_step.sum())),
+        library_ms=None, **depth(real, BARRIERS_SCAN, 1)))
+
+    # K10: the mesh bulk eval's rounds
+    binp, mesh, rs, n_rounds = rec.get("mesh_bulk_eval", "bulk")
+    got = PM.place_bulk_sharded_packed(binp, mesh, rs, n_rounds)
+    want, plain_ms = timed(
+        lambda: PM.place_bulk_sharded_plain(binp, ns, rs, n_rounds))
+    err = check_exact("multi_bulk_sharded", got, want,
+                      PM.place_bulk_sharded_packed(to_cpu(binp), cpu_mesh,
+                                                   rs, n_rounds),
+                      packed=True)
+    torch.cuda.synchronize()
+    n = binp.attrs.shape[0]
+    real = -(-binp.p_real // rs)
+    kk_loc = min(rs, n // ns)
+    kk = min(rs, ns * kk_loc)
+    rows.append(dict(
+        kernel=K.MULTI_BULK_SHARDED, max_abs_err=err,
+        ms=time_ms(lambda: PM.place_bulk_sharded_packed(binp, mesh, rs,
+                                                        n_rounds), 5),
+        plain_ms=plain_ms,
+        bytes=fn_bytes(tensors(binp), binp.attrs, binp.luts, binp.con,
+                       binp.aff) + nbytes(*got)
+        + exchange_bytes(real, kk_loc, kk),
+        ops=real * n * OPS_PER_ROW_STEP, library_ms=None,
+        **depth(real, BARRIERS_FLAT + 35 + sort_barriers(kk_loc)
+                + sort_barriers(kk), 3)))
+
+    # K11: the mesh flat wave's launch
+    fin, mesh, frs = rec.get("mesh_flat_wave", "flat")
+    got = PM.place_multi_sharded_packed(fin, mesh, frs)
+    want, plain_ms = timed(lambda: PM.place_multi_sharded_plain(fin, ns, frs))
+    err = check_exact("multi_flat_sharded", got, want,
+                      PM.place_multi_sharded_packed(to_cpu(fin), cpu_mesh,
+                                                    frs), packed=True)
+    torch.cuda.synchronize()
+    n = fin.attrs.shape[0]
+    f_real = int((fin.round_want > 0).sum())
+    kk_loc = min(frs, n // ns)
+    kk = min(frs, ns * kk_loc)
+    rows.append(dict(
+        kernel=K.MULTI_FLAT_SHARDED, max_abs_err=err,
+        ms=time_ms(lambda: PM.place_multi_sharded_packed(fin, mesh, frs), 5),
+        plain_ms=plain_ms,
+        bytes=fn_bytes((fin.cap, fin.used0, fin.elig, fin.luts,
+                        fin.base_mask, fin.con, fin.aff, fin.req,
+                        fin.desired, fin.dh_limit, fin.g_static, fin.g_aff,
+                        fin.g_job, fin.seed, fin.job_count0, fin.round_g,
+                        fin.round_want), fin.attrs, fin.luts, fin.con,
+                       fin.aff) + nbytes(*got)
+        + exchange_bytes(f_real, kk_loc, kk),
+        ops=f_real * n * OPS_PER_ROW_STEP, library_ms=None,
+        **depth(f_real, BARRIERS_FLAT + 35 + sort_barriers(kk_loc)
+                + sort_barriers(kk), 3)))
+
+    # K12: the mesh zoned wave's launch, and the chained wave's in place
+    zin, cr, cv, mesh, rs, lanes = rec.get("mesh_zoned_wave", "compact")
+    got = PM.place_multi_compact_sharded(zin, cr, cv, mesh, rs, lanes)
+    want, plain_ms = timed(lambda: PM.place_multi_compact_sharded_plain(
+        zin, cr, cv, ns, rs, lanes))
+    err = check_exact("multi_compact_sharded", got, want,
+                      PM.place_multi_compact_sharded_plain(
+                          to_cpu(zin), cr.cpu(), cv.cpu(), ns, rs, lanes),
+                      packed=True)
+    used0, cin, ccr, ccv, mesh, crs, clanes = rec.get("mesh_chained_wave",
+                                                      "compact_chained")
+    cgot = PM.place_multi_compact_sharded_chained(
+        used0.clone(), cin, ccr, ccv, mesh, crs, clanes)
+    err = max(err, check_exact(
+        "multi_compact_sharded chained", cgot,
+        PM.place_multi_compact_sharded_plain(
+            to_cpu(cin._replace(used0=used0)), ccr.cpu(), ccv.cpu(), ns,
+            crs, clanes), packed=True))
+    torch.cuda.synchronize()
+    nc = cr.shape[-1]
+    steps = zin.round_g.shape[0] // lanes
+    real = (zin.round_want.view(steps, lanes) > 0).sum(0).cpu()
+    valid_l = cv.sum(dim=(0, 2)).cpu()
+    kk_loc = min(rs, nc)
+    kk = min(rs, ns * kk_loc)
+    rows.append(dict(
+        kernel=K.MULTI_COMPACT_SHARDED, max_abs_err=err,
+        ms=time_ms(lambda: PM.place_multi_compact_sharded(
+            zin, cr, cv, mesh, rs, lanes), 5),
+        plain_ms=plain_ms,
+        bytes=nbytes(zin.cap, zin.used0, cr, cv, zin.aff, zin.req,
+                     zin.desired, zin.dh_limit, zin.g_aff, zin.g_job,
+                     zin.seed, zin.job_count0, zin.round_g, zin.round_want)
+        + nbytes(*got) + exchange_bytes(int(real.sum()), kk_loc, kk),
+        ops=int((real * valid_l).sum()) * OPS_PER_ROW_STEP, library_ms=None,
+        **depth(int(real.max()), BARRIERS_COMPACT + 35
+                + sort_barriers(kk_loc) + sort_barriers(kk), 3)))
+
+    # K13: the mesh flat wave's replay chunk
+    used, r13, v13, mesh = rec.get("mesh_flat_wave", "scatter")
+    got = PM.scatter_add_sharded_(used.clone(), r13, v13, mesh)
+    want, plain_ms = timed(lambda: PM.scatter_add_sharded_plain(
+        used.clone(), r13, v13, ns))
+    err = check_exact("scatter_add_sharded", [got], [want],
+                      [PM.scatter_add_sharded_plain(used.cpu(), r13.cpu(),
+                                                    v13.cpu(), ns)])
+    torch.cuda.synchronize()
+    work = used.clone()
+    r13l = r13.long()
+    m = r13.shape[0]
+    rows.append(dict(
+        kernel=K.SCATTER_ADD_SHARDED, max_abs_err=err,
+        ms=time_ms(lambda: PM.scatter_add_sharded_(work, r13, v13, mesh), 50),
+        plain_ms=plain_ms, bytes=nbytes(r13, v13) + 2 * m * 3 * 4,
+        ops=m * 3,
+        library_ms=time_ms(lambda: work.index_add_(0, r13l, v13), 50),
+        depth_ms=None, replay_rows=m))
+    for r in rows:
+        b_ms = r["bytes"] / PEAK_BYTES * 1e3
+        o_ms = r["ops"] / PEAK_OPS * 1e3
+        r["bound_ms"] = max(b_ms, o_ms)
+        r["bound_by"] = "bytes" if b_ms >= o_ms else "operations"
+        r["barrier_ms"] = barrier_ms
+        r["cluster_barrier_ms"] = cluster_ms
+    return rows
+
+
 # ------------------------------------------------------------- main
 
 def main() -> int:
@@ -1089,10 +1509,10 @@ def main() -> int:
     for (name, n_ev, per, zones, chained, must), (jobs, evals) in zip(
             waves, registered):
         all_jobs += jobs
-        chain = ((prev["used"], prev["node_version"], prev["n"])
+        chain = ((prev["used"], prev["node_version"], prev["npad"])
                  if chained else None)
         K.reset_launches()
-        pend, _, tm = run_wave(h, evals, used0_dev=chain)
+        pend, _, tm, _ = run_wave(h, evals, used0_dev=chain)
         ph = {k.name: k.launches for k in K.KERNELS}
         for k, v in ph.items():
             launches[k] += v
@@ -1123,12 +1543,23 @@ def main() -> int:
           "checks": [{k: (v.name if k == "kernel" else v)
                       for k, v in r.items()} for r in srows]})
 
+    # 13-14. the node-sharded mesh, then 15. its kernels against the plain
+    # versions
+    cluster_ms = cluster_round_ms()
+    mrec = mesh_phases(card, launches, waves, rec.placed)
+    del rec
+    mrows = mesh_kernel_phase(mrec, krows[0]["barrier_ms"], cluster_ms)
+    torch.cuda.synchronize()
+    emit({"phase": "mesh_kernel_checks", "card": card, "tolerance": "exact",
+          "checks": [{k: (v.name if k == "kernel" else v)
+                      for k, v in r.items()} for r in mrows]})
+
     missing = [k for k, v in launches.items() if v < 1]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
     kernels = []
-    for r in krows + srows:
+    for r in krows + srows + mrows:
         k = r["kernel"]
         kernels.append({
             "name": k.name, "route": "cuda",

@@ -1,6 +1,9 @@
 // K2 "multi_compact" and K3 "multi_flat": the batched multi-eval
 // water-fill rounds, one persistent launch per wave.  K6 "multi_bulk":
 // one eval's homogeneous batch in rounds, the K3 machinery at one group.
+// K10 "multi_bulk_sharded", K11 "multi_flat_sharded" and K12
+// "multi_compact_sharded": the same rounds over a node axis split into S
+// shards on one card (see "Sharded rounds" below).
 //
 // Replaces (TPU side, jax.jit): nomad_tpu/ops/select.py:836
 // place_multi_compact_packed (+ :1006 place_multi_compact_chained) for K2,
@@ -50,11 +53,41 @@
 // follows the C library's algorithm step for step in double precision,
 // so scores (and hence picks) agree to the bit with the reference, whose
 // XLA CPU pow is the C library's powf.
+//
+// Sharded rounds (K10-K12).  Replaces (TPU side, jax.jit under
+// shard_map): nomad_tpu/parallel/mesh.py:645 place_bulk_sharded_packed_fn
+// (_bulk_local :346), :454 place_multi_sharded_packed_fn (_multi_local
+// :390, chained form :497) and :590 place_multi_compact_sharded_fn
+// (_multi_compact_local :503, chained form :639), with their round
+// _sharded_waterfill (:255).  Shard s owns the rows [s n_loc, (s+1) n_loc)
+// (K12: its slice [S, L, Nc_loc] of every lane's frame).  One cluster of S
+// blocks per exchange group (K10/K11: one; K12: one per lane, lanes never
+// exchange), each block running the round body above on its shard, with
+// global rows for the noise.  Per round the blocks meet three times at
+// the cluster barrier, through exchange rows in global scratch that the
+// wrapper allocates (written and read past L1, `__stcg`/`__ldcg`):
+//   1. the viable-row count, summed (the spread algorithm's intake cap);
+//   2. each shard's sorted local top min(round, n_loc) keys with their
+//      score, intake, row and slot, and the feasible and static counts;
+//      every block then gathers the S lists and selects the global top
+//      min(round, S kk_loc) of their shard-major concatenation with the
+//      same radix select (keys carry the concatenation index, so ties go
+//      to the lower shard, then the lower local rank, as lax.top_k over
+//      the all_gather orders them), water-fills it with the same
+//      arithmetic, and commits the winners whose origin shard it is;
+//   3. the post-commit exhaustion metrics, summed.
+// Block 0 writes the round's packed row.  A phase's exchange row is
+// rewritten a round later only after the next barrier, when every block
+// has read it.  What bounds it: as for K2/K3, the chain of dependent
+// block passes, now with three cluster barriers a round.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int BS = 1024;            // threads per block (one lane)
 constexpr int MAX_RS = 1024;        // select.py asserts round_size <= 1024
@@ -94,6 +127,13 @@ struct Params {
   int* buf;                  // K2: [T*L, fill_k + 16]; K3: [R, rs + 16];
                              // K6: [R, rs + 16 | 2 rs + 16 | fill_k + 16]
   int* fills;                // K2: [T*L, rs]; K6 compact: [R, rs]
+  int row_stride;            // K3/K6/K10/K11: node rows of static_u,
+                             // aff_land and job_count0 (N or npad)
+  int n_shards;              // sharded: cluster size S; nc = n_loc
+  int n_jrows;               // K12: J' rows of job_count0 [S, J', nc]
+  int* xcnt;                 // sharded: [clusters, 4, S, 8] count rows
+  unsigned long long* xkey;  // sharded: [clusters, S * kk_loc] keys
+  int* xval;                 // sharded: [clusters, S * kk_loc, 4]
 };
 
 // round_scores_g for one row: intake k_i and the normalised rank score
@@ -171,17 +211,130 @@ __device__ int block_scan(int v, int* red) {
   return x + (warp > 0 ? red[warp - 1] : 0);
 }
 
-__device__ __forceinline__ unsigned long long composite(const unsigned* keyb,
-                                                        int j) {
-  // key bits high, inverted index low: descending composite order is
-  // key descending, then index ascending
-  return ((unsigned long long)keyb[j] << 32) | (unsigned)(~j);
+// The top `kk` (1 <= kk <= m, kk <= MAX_RS) of the m unique 64-bit keys
+// comp(j), sorted descending into s_sel[0, kk): an 8-pass MSB radix
+// select for the kk-th largest key with warp-aggregated shared-memory
+// histograms, a gather of the keys at or above it, and a bitonic sort
+// (s_sel[kk, sortp) zeroed).  Called by every thread of the block.
+template <class Comp>
+__device__ void select_top(Comp comp, int m, int kk,
+                           unsigned long long* s_sel, int* s_hist,
+                           int* s_misc) {
+  const int tid = threadIdx.x;
+  const int lane_id = tid & 31, warp = tid >> 5;
+  const int n_iter = (m + BS - 1) / BS;   // uniform trip count
+  int sortp = 1;
+  while (sortp < kk) sortp <<= 1;
+
+  unsigned long long prefix = 0;
+  int k_rem = kk;
+  for (int pass = 0; pass < 8; ++pass) {
+    const int shift = 56 - 8 * pass;
+    const unsigned long long hi_mask =
+        pass == 0 ? 0ull : (~0ull << (shift + 8));
+    for (int i = tid; i < 256; i += BS) s_hist[i] = 0;
+    __syncthreads();
+    for (int it = 0; it < n_iter; ++it) {
+      int j = it * BS + tid;
+      int d = -1;
+      if (j < m) {
+        unsigned long long c = comp(j);
+        if ((c & hi_mask) == prefix) d = (int)((c >> shift) & 255);
+      }
+      unsigned peers = __match_any_sync(FULL, d);
+      if (d >= 0 && lane_id == __ffs(peers) - 1)
+        atomicAdd(&s_hist[d], __popc(peers));
+    }
+    __syncthreads();
+    if (warp == 0) {
+      int cnt[8];
+      int sum = 0;
+      for (int q = 0; q < 8; ++q) {
+        cnt[q] = s_hist[255 - (lane_id * 8 + q)];
+        sum += cnt[q];
+      }
+      int incl = sum;
+      for (int o = 1; o < 32; o <<= 1) {
+        int y = __shfl_up_sync(FULL, incl, o);
+        if (lane_id >= o) incl += y;
+      }
+      int acc = incl - sum;
+      if (acc < k_rem && k_rem <= incl) {
+        for (int q = 0; q < 8; ++q) {
+          if (acc + cnt[q] >= k_rem) {
+            s_misc[0] = 255 - (lane_id * 8 + q);
+            s_misc[1] = acc;
+            break;
+          }
+          acc += cnt[q];
+        }
+      }
+    }
+    __syncthreads();
+    prefix |= (unsigned long long)s_misc[0] << shift;
+    k_rem -= s_misc[1];
+    __syncthreads();
+  }
+
+  // gather the kk keys >= the threshold (keys are unique), sort
+  if (tid == 0) s_misc[2] = 0;
+  __syncthreads();
+  for (int it = 0; it < n_iter; ++it) {
+    int j = it * BS + tid;
+    unsigned long long c = 0;
+    bool take = false;
+    if (j < m) {
+      c = comp(j);
+      take = c >= prefix;
+    }
+    unsigned b = __ballot_sync(FULL, take);
+    int pos = 0;
+    if (lane_id == 0 && b) pos = atomicAdd(&s_misc[2], __popc(b));
+    pos = __shfl_sync(FULL, pos, 0);
+    if (take) s_sel[pos + __popc(b & ((1u << lane_id) - 1u))] = c;
+  }
+  for (int i = kk + tid; i < sortp; i += BS) s_sel[i] = 0;
+  __syncthreads();
+  for (int k2 = 2; k2 <= sortp; k2 <<= 1) {
+    for (int jj = k2 >> 1; jj > 0; jj >>= 1) {
+      if (tid < sortp) {
+        int ixj = tid ^ jj;
+        if (ixj > tid) {
+          unsigned long long x = s_sel[tid], y = s_sel[ixj];
+          bool desc = (tid & k2) == 0;
+          if (desc ? (x < y) : (x > y)) {
+            s_sel[tid] = y;
+            s_sel[ixj] = x;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
 }
 
-template <bool COMPACT>
+// Sums `nv` (<= 8) per-block values (already block-reduced, the same in
+// every thread) over the cluster's S blocks in shard order: each block
+// posts its values into its slot of `row` ([S, 8] ints), the cluster
+// barrier orders every post before every read.  Called by every thread
+// of every block of the cluster.
+__device__ void cluster_sum(int* row, int s, int S, int* v, int nv) {
+  if (threadIdx.x == 0)
+    for (int q = 0; q < nv; ++q) __stcg(row + s * 8 + q, v[q]);
+  __threadfence();
+  cg::this_cluster().sync();
+  for (int q = 0; q < nv; ++q) {
+    int t = 0;
+    for (int r = 0; r < S; ++r) t += __ldcg(row + r * 8 + q);
+    v[q] = t;
+  }
+}
+
+template <bool COMPACT, bool SHARDED>
 __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
+  extern __shared__ unsigned long long s_all[];   // sharded: S * kk_loc
   __shared__ unsigned long long s_sel[MAX_RS];
-  __shared__ int s_j[MAX_RS];
+  __shared__ int s_row[MAX_RS];
   __shared__ int s_c[MAX_RS];
   __shared__ float s_sc[MAX_RS];
   __shared__ int s_hist[256];
@@ -189,21 +342,29 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
   __shared__ int s_misc[4];
 
   const int tid = threadIdx.x;
-  const int lane_id = tid & 31, warp = tid >> 5;
-  const int l = COMPACT ? blockIdx.x : 0;
+  const int S = SHARDED ? p.n_shards : 1;
+  const int s = SHARDED ? (int)cg::this_cluster().block_rank() : 0;
+  const int l = COMPACT ? (int)blockIdx.x / S : 0;
   const int nc = p.nc;
-  const int64_t base = (int64_t)l * nc;
-  int* used_state = COMPACT ? p.used_c + base * 3 : p.used;
-  int* jc = p.jc + base;
-  int* ki = p.ki + base;
-  float* score = p.score + base;
-  unsigned* keyb = p.keyb + base;
-  const int* crow = COMPACT ? p.cand_rows + base : nullptr;
-  const uint8_t* cval = COMPACT ? p.cand_valid + base : nullptr;
+  // first slot of this block's frame in the [.., nc] scratch and inputs:
+  // K2 lane l, K12 (shard s, lane l), K10/K11 shard s's first row
+  const int64_t fb =
+      COMPACT ? ((int64_t)s * p.n_lanes + l) * nc : (int64_t)s * nc;
+  int* used_state = COMPACT ? p.used_c + fb * 3 : p.used + fb * 3;
+  int* jc = p.jc + fb;
+  int* ki = p.ki + fb;
+  float* score = p.score + fb;
+  unsigned* keyb = p.keyb + fb;
+  const int* crow = COMPACT ? p.cand_rows + fb : nullptr;
+  const uint8_t* cval = COMPACT ? p.cand_valid + fb : nullptr;
   const int n_iter = (nc + BS - 1) / BS;   // uniform trip count
-  const int kk = min(p.rs, nc);
-  int sortp = 1;
-  while (sortp < kk) sortp <<= 1;
+  const int kk_loc = min(p.rs, nc);
+  // length of the merged (sorted) candidate list a round fills from
+  const int kk = SHARDED ? min(p.rs, S * kk_loc) : kk_loc;
+  const int64_t cl = COMPACT ? l : 0;      // exchange group
+  int* xcnt = SHARDED ? p.xcnt + cl * 4 * S * 8 : nullptr;
+  unsigned long long* xkey = SHARDED ? p.xkey + cl * S * kk_loc : nullptr;
+  int* xval = SHARDED ? p.xval + cl * S * kk_loc * 4 : nullptr;
 
   int cand_n = 0;
   if (COMPACT) {
@@ -222,6 +383,7 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
       }
     }
     cand_n = block_sum(cnt, s_red);
+    if (SHARDED) cluster_sum(xcnt, s, S, &cand_n, 1);
   }
 
   for (int t = 0; t < p.n_steps; ++t) {
@@ -242,11 +404,14 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
     for (int q = 0; q < p.n_aff; ++q)
       aff_any |= p.aff[((int64_t)a * p.n_aff + q) * 4 + 3] != 0;
     const float* aff_row =
-        COMPACT ? p.aff_land + ((int64_t)l * p.ua + a) * nc
-                : p.aff_land + (int64_t)a * nc;
+        COMPACT ? p.aff_land + (((int64_t)s * p.n_lanes + l) * p.ua + a) * nc
+                : p.aff_land + (int64_t)a * p.row_stride + fb;
     const uint8_t* stat_row =
-        COMPACT ? cval : p.static_u + (int64_t)p.g_static[g] * nc;
-    const int* jc0 = p.job_count0 + (int64_t)p.g_job[g] * nc;
+        COMPACT ? cval
+                : p.static_u + (int64_t)p.g_static[g] * p.row_stride + fb;
+    const int* jc0 =
+        COMPACT ? p.job_count0 + ((int64_t)s * p.n_jrows + p.g_job[g]) * nc
+                : p.job_count0 + (int64_t)p.g_job[g] * p.row_stride + fb;
 
     // 1. job counts, intake, rank score
     int viable = 0, n_static = 0;
@@ -256,9 +421,8 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
         int jcount = same ? jc[j] : jc0[j];
         jc[j] = jcount;
         bool st = stat_row[j] != 0;
-        int row = COMPACT ? min(crow[j], p.n - 1) : j;
-        int c[3] = {p.cap[(int64_t)row * 3], p.cap[(int64_t)row * 3 + 1],
-                    p.cap[(int64_t)row * 3 + 2]};
+        int64_t row = COMPACT ? min(crow[j], p.n - 1) : fb + j;
+        int c[3] = {p.cap[row * 3], p.cap[row * 3 + 1], p.cap[row * 3 + 2]};
         const int* u = used_state + (int64_t)j * 3;
         int uu[3] = {u[0], u[1], u[2]};
         int k;
@@ -273,6 +437,7 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
     }
     viable = block_sum(viable, s_red);
     if (!COMPACT) n_static = block_sum(n_static, s_red);
+    if (SHARDED) cluster_sum(xcnt + 1 * S * 8, s, S, &viable, 1);
     const int cap_round =
         p.spread ? max(want / max(viable, 1) + 1, 1) : p.rs;
 
@@ -283,7 +448,7 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
       if (j < nc) {
         int kr = min(ki[j], cap_round);
         ki[j] = kr;
-        unsigned grow = COMPACT ? (unsigned)crow[j] : (unsigned)j;
+        unsigned grow = COMPACT ? (unsigned)crow[j] : (unsigned)(fb + j);
         float key = (kr > 0 ? score[j] : NEG_INF) + tiebreak_noise(sd, grow);
         keyb[j] = orderable(key);
         n_feas += kr > 0 ? 1 : 0;
@@ -291,128 +456,85 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
     }
     n_feas = block_sum(n_feas, s_red);
 
-    // 3a. radix select: the kk-th largest composite key
-    unsigned long long prefix = 0;
-    int k_rem = kk;
-    for (int pass = 0; pass < 8; ++pass) {
-      const int shift = 56 - 8 * pass;
-      const unsigned long long hi_mask =
-          pass == 0 ? 0ull : (~0ull << (shift + 8));
-      for (int i = tid; i < 256; i += BS) s_hist[i] = 0;
-      __syncthreads();
-      for (int it = 0; it < n_iter; ++it) {
-        int j = it * BS + tid;
-        int d = -1;
-        if (j < nc) {
-          unsigned long long comp = composite(keyb, j);
-          if ((comp & hi_mask) == prefix) d = (int)((comp >> shift) & 255);
-        }
-        unsigned peers = __match_any_sync(FULL, d);
-        if (d >= 0 && lane_id == __ffs(peers) - 1)
-          atomicAdd(&s_hist[d], __popc(peers));
+    // 3. the sorted top kk_loc of the frame (key bits high, inverted
+    // index low: key descending, then index ascending, as
+    // jax.lax.top_k orders them)
+    select_top([&](int j) {
+      return ((unsigned long long)keyb[j] << 32) | (unsigned)(~j);
+    }, nc, kk_loc, s_sel, s_hist, s_misc);
+    int ks = 0, grow = 0, own = -1;
+    float scs = NEG_INF;
+    if (!SHARDED) {
+      if (tid < kk) {
+        unsigned long long comp = s_sel[tid];
+        own = (int)(~(unsigned)(comp & 0xffffffffull));
+        float key = from_orderable((unsigned)(comp >> 32));
+        scs = key > HALF_NEG_INF ? score[own] : NEG_INF;
+        ks = scs > HALF_NEG_INF ? ki[own] : 0;
+        grow = COMPACT ? crow[own] : own;
       }
-      __syncthreads();
-      if (warp == 0) {
-        int cnt[8];
-        int s = 0;
-        for (int q = 0; q < 8; ++q) {
-          cnt[q] = s_hist[255 - (lane_id * 8 + q)];
-          s += cnt[q];
-        }
-        int incl = s;
-        for (int o = 1; o < 32; o <<= 1) {
-          int y = __shfl_up_sync(FULL, incl, o);
-          if (lane_id >= o) incl += y;
-        }
-        int acc = incl - s;
-        if (acc < k_rem && k_rem <= incl) {
-          for (int q = 0; q < 8; ++q) {
-            if (acc + cnt[q] >= k_rem) {
-              s_misc[0] = 255 - (lane_id * 8 + q);
-              s_misc[1] = acc;
-              break;
-            }
-            acc += cnt[q];
-          }
-        }
+    } else {
+      // post the shard's list: keys re-indexed by their place in the
+      // shard-major concatenation, with score, intake, row and slot
+      if (tid < kk_loc) {
+        unsigned long long comp = s_sel[tid];
+        int jl = (int)(~(unsigned)(comp & 0xffffffffull));
+        float key = from_orderable((unsigned)(comp >> 32));
+        int ci = s * kk_loc + tid;
+        __stcg(xkey + ci, (comp & 0xffffffff00000000ull) | (unsigned)(~ci));
+        __stcg(xval + ci * 4, __float_as_int(key > HALF_NEG_INF ? score[jl]
+                                                                : NEG_INF));
+        __stcg(xval + ci * 4 + 1, ki[jl]);
+        __stcg(xval + ci * 4 + 2, COMPACT ? crow[jl] : (int)(fb + jl));
+        __stcg(xval + ci * 4 + 3, jl);
       }
+      int sums[2] = {n_feas, n_static};
+      cluster_sum(xcnt + 2 * S * 8, s, S, sums, 2);
+      n_feas = sums[0];
+      n_static = sums[1];
+      const int m = S * kk_loc;
+      for (int i = tid; i < m; i += BS) s_all[i] = __ldcg(xkey + i);
       __syncthreads();
-      prefix |= (unsigned long long)s_misc[0] << shift;
-      k_rem -= s_misc[1];
-      __syncthreads();
-    }
-
-    // 3b. gather the kk keys >= the threshold (keys are unique), sort
-    if (tid == 0) s_misc[2] = 0;
-    __syncthreads();
-    for (int it = 0; it < n_iter; ++it) {
-      int j = it * BS + tid;
-      unsigned long long comp = 0;
-      bool take = false;
-      if (j < nc) {
-        comp = composite(keyb, j);
-        take = comp >= prefix;
-      }
-      unsigned b = __ballot_sync(FULL, take);
-      int pos = 0;
-      if (lane_id == 0 && b) pos = atomicAdd(&s_misc[2], __popc(b));
-      pos = __shfl_sync(FULL, pos, 0);
-      if (take) s_sel[pos + __popc(b & ((1u << lane_id) - 1u))] = comp;
-    }
-    for (int i = kk + tid; i < sortp; i += BS) s_sel[i] = 0;
-    __syncthreads();
-    for (int k2 = 2; k2 <= sortp; k2 <<= 1) {
-      for (int jj = k2 >> 1; jj > 0; jj >>= 1) {
-        if (tid < sortp) {
-          int ixj = tid ^ jj;
-          if (ixj > tid) {
-            unsigned long long x = s_sel[tid], y = s_sel[ixj];
-            bool desc = (tid & k2) == 0;
-            if (desc ? (x < y) : (x > y)) {
-              s_sel[tid] = y;
-              s_sel[ixj] = x;
-            }
-          }
-        }
-        __syncthreads();
+      select_top([&](int j) { return s_all[j]; }, m, kk, s_sel, s_hist,
+                 s_misc);
+      if (tid < kk) {
+        unsigned long long comp = s_sel[tid];
+        int ci = (int)(~(unsigned)(comp & 0xffffffffull));
+        float key = from_orderable((unsigned)(comp >> 32));
+        const int* v = xval + ci * 4;
+        scs = key > HALF_NEG_INF ? __int_as_float(__ldcg(v)) : NEG_INF;
+        ks = scs > HALF_NEG_INF ? __ldcg(v + 1) : 0;
+        grow = __ldcg(v + 2);
+        own = ci / kk_loc == s ? __ldcg(v + 3) : -1;
       }
     }
 
     // 4. water-fill the sorted prefix up to `want`
-    int ks = 0, jsel = 0;
-    float scs = NEG_INF;
-    if (tid < kk) {
-      unsigned long long comp = s_sel[tid];
-      jsel = (int)(~(unsigned)(comp & 0xffffffffull));
-      float key = from_orderable((unsigned)(comp >> 32));
-      scs = key > HALF_NEG_INF ? score[jsel] : NEG_INF;
-      ks = scs > HALF_NEG_INF ? ki[jsel] : 0;
-    }
     const int csum = block_scan(ks, s_red);
     const int c = min(max(want - (csum - ks), 0), ks);
-    s_j[tid] = jsel;
+    s_row[tid] = grow;
     s_c[tid] = c;
     s_sc[tid] = scs;
     const int placed = block_sum(c, s_red);
 
-    // 5. commit, then post-commit exhaustion metrics
-    if (tid < kk && c > 0) {
-      int* us = used_state + (int64_t)jsel * 3;
+    // 5. commit the winners of this frame, then post-commit exhaustion
+    if (tid < kk && c > 0 && own >= 0) {
+      int* us = used_state + (int64_t)own * 3;
       us[0] += c * req[0];
       us[1] += c * req[1];
       us[2] += c * req[2];
-      jc[jsel] += c;
+      jc[own] += c;
     }
     __syncthreads();
     int n_exh = 0, dx0 = 0, dx1 = 0, dx2 = 0;
     for (int it = 0; it < n_iter; ++it) {
       int j = it * BS + tid;
       if (j < nc && stat_row[j] != 0) {
-        int row = COMPACT ? crow[j] : j;
+        int64_t row = COMPACT ? crow[j] : fb + j;
         const int* u = used_state + (int64_t)j * 3;
-        int f0 = p.cap[(int64_t)row * 3] - u[0];
-        int f1 = p.cap[(int64_t)row * 3 + 1] - u[1];
-        int f2 = p.cap[(int64_t)row * 3 + 2] - u[2];
+        int f0 = p.cap[row * 3] - u[0];
+        int f1 = p.cap[row * 3 + 1] - u[1];
+        int f2 = p.cap[row * 3 + 2] - u[2];
         bool fit = f0 >= req[0] && f1 >= req[1] && f2 >= req[2] &&
                    f0 >= 0 && f1 >= 0 && f2 >= 0;
         bool dh_ok = dh > 0 ? jc[j] < dh : true;
@@ -424,64 +546,66 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
         }
       }
     }
-    n_exh = block_sum(n_exh, s_red);
-    dx0 = block_sum(dx0, s_red);
-    dx1 = block_sum(dx1, s_red);
-    dx2 = block_sum(dx2, s_red);
+    int mx[4] = {block_sum(n_exh, s_red), block_sum(dx0, s_red),
+                 block_sum(dx1, s_red), block_sum(dx2, s_red)};
+    if (SHARDED) cluster_sum(xcnt + 3 * S * 8, s, S, mx, 4);
 
-    // 6. this round's packed output row
-    int* meta;
-    if (COMPACT) {
-      const int64_t r = (int64_t)t * p.n_lanes + l;
-      int* frow = p.fills + r * p.rs;
-      int* brow = p.buf + r * (p.fill_k + META);
-      for (int i = tid; i < p.rs; i += BS) {
-        int f = (i < kk && s_c[i] > 0) ? crow[s_j[i]] * 2048 + s_c[i] : 0;
-        frow[i] = f;
-        if (i < p.fill_k) brow[i] = f;
-      }
-      meta = brow + p.fill_k;
-    } else {
-      const int width = p.out_mode == 2 ? p.fill_k + META
-                        : (p.out_mode == 1 ? 2 * p.rs : p.rs) + META;
-      int* brow = p.buf + (int64_t)t * width;
-      for (int i = tid; i < p.rs; i += BS) {
-        int f = (i < kk && s_c[i] > 0) ? s_j[i] * 2048 + s_c[i] : 0;
-        if (p.out_mode == 2) {
-          p.fills[(int64_t)t * p.rs + i] = f;
+    // 6. this round's packed output row (block 0 of a cluster)
+    if (s == 0) {
+      int* meta;
+      if (COMPACT) {
+        const int64_t r = (int64_t)t * p.n_lanes + l;
+        int* frow = p.fills + r * p.rs;
+        int* brow = p.buf + r * (p.fill_k + META);
+        for (int i = tid; i < p.rs; i += BS) {
+          int f = (i < kk && s_c[i] > 0) ? s_row[i] * 2048 + s_c[i] : 0;
+          frow[i] = f;
           if (i < p.fill_k) brow[i] = f;
-        } else {
-          brow[i] = f;
         }
-        // slots past kk hold NEG_INF (s_sc's default), as the padded
-        // reference prefix does
-        if (p.out_mode == 1) brow[p.rs + i] = __float_as_int(s_sc[i]);
+        meta = brow + p.fill_k;
+      } else {
+        const int width = p.out_mode == 2 ? p.fill_k + META
+                          : (p.out_mode == 1 ? 2 * p.rs : p.rs) + META;
+        int* brow = p.buf + (int64_t)t * width;
+        for (int i = tid; i < p.rs; i += BS) {
+          int f = (i < kk && s_c[i] > 0) ? s_row[i] * 2048 + s_c[i] : 0;
+          if (p.out_mode == 2) {
+            p.fills[(int64_t)t * p.rs + i] = f;
+            if (i < p.fill_k) brow[i] = f;
+          } else {
+            brow[i] = f;
+          }
+          // slots past kk hold NEG_INF (s_sc's default), as the padded
+          // reference prefix does
+          if (p.out_mode == 1) brow[p.rs + i] = __float_as_int(s_sc[i]);
+        }
+        meta = brow + width - META;
       }
-      meta = brow + width - META;
-    }
-    if (tid == 0) {
-      const int topn = min(min(kk, TOP_K), p.n);
-      for (int q = 0; q < TOP_K; ++q) {
-        bool v = q < topn && s_sc[q] > HALF_NEG_INF;
-        meta[q] = v ? (COMPACT ? crow[s_j[q]] : s_j[q]) : -1;
-        meta[TOP_K + q] = v ? __float_as_int(s_sc[q]) : 0;
+      if (tid == 0) {
+        const int topn = min(min(kk, TOP_K), p.n);
+        for (int q = 0; q < TOP_K; ++q) {
+          bool v = q < topn && s_sc[q] > HALF_NEG_INF;
+          meta[q] = v ? s_row[q] : -1;
+          meta[TOP_K + q] = v ? __float_as_int(s_sc[q]) : 0;
+        }
+        meta[6] = n_feas;
+        meta[7] = p.n - (COMPACT ? cand_n : n_static);
+        meta[8] = mx[0];
+        meta[9] = mx[1];
+        meta[10] = mx[2];
+        meta[11] = mx[3];
+        meta[12] = placed;
+        meta[13] = 0;
+        meta[14] = 0;
+        meta[15] = 0;
       }
-      meta[6] = n_feas;
-      meta[7] = COMPACT ? p.n - cand_n : nc - n_static;
-      meta[8] = n_exh;
-      meta[9] = dx0;
-      meta[10] = dx1;
-      meta[11] = dx2;
-      meta[12] = placed;
-      meta[13] = 0;
-      meta[14] = 0;
-      meta[15] = 0;
     }
     __syncthreads();
   }
 
   if (COMPACT) {
-    // scatter the lane's usage slice back to its cluster rows
+    // scatter the frame's usage slice back to its cluster rows (frames
+    // are disjoint, so blocks never write the same row)
     for (int it = 0; it < n_iter; ++it) {
       int j = it * BS + tid;
       if (j < nc && cval[j] != 0) {
@@ -515,6 +639,101 @@ __global__ void __launch_bounds__(BS, 1) barrier_kernel(int rounds,
   if (v == 0x7fffffff) *sink = v;
 }
 
+// `rounds` dependent count exchanges of the sharded rounds (post,
+// fence, cluster barrier, read of the S slots) in one cluster of 1024-
+// thread blocks: the price of one of their three cluster meetings a
+// round
+__global__ void __launch_bounds__(BS, 1) cluster_barrier_kernel(
+    int rounds, int* rows, int* sink) {
+  const int S = (int)cg::this_cluster().num_blocks();
+  const int s = (int)cg::this_cluster().block_rank();
+  int v = threadIdx.x;
+  for (int i = 0; i < rounds; ++i) {
+    int x = v + i;
+    cluster_sum(rows + (i & 3) * S * 8, s, S, &x, 1);
+    v += x & 1;
+  }
+  if (v == 0x7fffffff) *sink = v;
+}
+
+// the sharded launch of a rounds kernel: clusters of S blocks,
+// S * kk_loc gathered keys in dynamic shared memory
+template <bool COMPACT>
+int launch_sharded(Params p, int n_clusters, cudaStream_t stream) {
+  if (p.n_shards < 1 || p.n_shards > 8 || p.nc < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t dyn = (size_t)p.n_shards * min(p.rs, p.nc) *
+                     sizeof(unsigned long long);
+  return launch_clusters(rounds_kernel<COMPACT, true>,
+                         n_clusters * p.n_shards, p.n_shards, dyn, stream,
+                         p);
+}
+
+int run_compact(const int* cap, const int* used_in, int* used_out,
+                const int* cand_rows, const uint8_t* cand_valid,
+                const float* aff_land, const int* aff, const int* req,
+                const int* desired, const int* dh_limit, const int* g_aff,
+                const int* g_job, const long long* seed,
+                const int* job_count0, const int* round_g,
+                const int* round_want, int* buf_small, int* fills_full,
+                int n, int n_lanes, int nc, int ua, int n_aff, int n_steps,
+                int spread, int rs, int fill_k, int* used_c, int* jc,
+                int* ki, float* score, unsigned* keyb, int n_shards,
+                int n_jrows, int* xcnt, unsigned long long* xkey, int* xval,
+                cudaStream_t stream) {
+  if (rs > MAX_RS || rs < 1) return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.cap = cap; p.used_in = used_in; p.used = used_out; p.n = n;
+  p.cand_rows = cand_rows; p.cand_valid = cand_valid;
+  p.aff_land = aff_land; p.aff = aff; p.ua = ua; p.n_aff = n_aff;
+  p.req = req; p.desired = desired; p.dh_limit = dh_limit;
+  p.g_aff = g_aff; p.g_job = g_job; p.seed = seed;
+  p.job_count0 = job_count0; p.round_g = round_g; p.round_want = round_want;
+  p.n_steps = n_steps; p.n_lanes = n_lanes; p.nc = nc; p.spread = spread;
+  p.rs = rs; p.fill_k = fill_k;
+  p.used_c = used_c; p.jc = jc; p.ki = ki; p.score = score; p.keyb = keyb;
+  p.buf = buf_small; p.fills = fills_full;
+  p.n_shards = n_shards; p.n_jrows = n_jrows;
+  p.xcnt = xcnt; p.xkey = xkey; p.xval = xval;
+  if (n_shards) return launch_sharded<true>(p, n_lanes, stream);
+  rounds_kernel<true, false><<<n_lanes, BS, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+int run_flat(const int* cap, int* used, const uint8_t* static_u,
+             const float* aff_land, const int* aff, const int* req,
+             const int* desired, const int* dh_limit, const int* g_static,
+             const int* g_aff, const int* g_job, const long long* seed,
+             const int* job_count0, const int* round_g,
+             const int* round_want, int* buf, int n, int ua, int n_aff,
+             int n_rounds, int spread, int rs, int out_mode, int fill_k,
+             int* fills, int* jc, int* ki, float* score, unsigned* keyb,
+             int n_shards, int* xcnt, unsigned long long* xkey, int* xval,
+             cudaStream_t stream) {
+  if (rs > MAX_RS || rs < 1 || out_mode < 0 || out_mode > 2 ||
+      (out_mode == 2 && (fill_k < 1 || fill_k > rs || fills == nullptr)) ||
+      (n_shards && (out_mode != 0 || n % n_shards != 0)))
+    return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.cap = cap; p.used = used; p.n = n;
+  p.static_u = static_u; p.aff_land = aff_land; p.aff = aff; p.ua = ua;
+  p.n_aff = n_aff; p.req = req; p.desired = desired; p.dh_limit = dh_limit;
+  p.g_static = g_static; p.g_aff = g_aff; p.g_job = g_job; p.seed = seed;
+  p.job_count0 = job_count0; p.round_g = round_g; p.round_want = round_want;
+  p.n_steps = n_rounds; p.n_lanes = 1; p.spread = spread;
+  p.rs = rs; p.fill_k = fill_k; p.out_mode = out_mode;
+  p.jc = jc; p.ki = ki; p.score = score; p.keyb = keyb; p.buf = buf;
+  p.fills = fills; p.row_stride = n;
+  p.n_shards = n_shards; p.xcnt = xcnt; p.xkey = xkey; p.xval = xval;
+  if (n_shards) {
+    p.nc = n / n_shards;
+    return launch_sharded<false>(p, 1, stream);
+  }
+  p.nc = n;
+  rounds_kernel<false, false><<<1, BS, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The rounds kernels' 10^x over an array, to hold it against the C
@@ -534,6 +753,16 @@ extern "C" int barrier_probe(int rounds, int* sink, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// Probe of the cost of one cluster exchange of the sharded kernels at
+// cluster size `cluster` (`rows` holds 4 * cluster * 8 ints); the
+// placement path never calls it.
+extern "C" int cluster_barrier_probe(int rounds, int cluster, int* rows,
+                                     int* sink, cudaStream_t stream) {
+  if (cluster < 1 || cluster > 8) return (int)cudaErrorInvalidValue;
+  return launch_clusters(cluster_barrier_kernel, cluster, cluster, 0,
+                         stream, rounds, rows, sink);
+}
+
 extern "C" int multi_compact(
     const int* cap, const int* used_in, int* used_out, const int* cand_rows,
     const uint8_t* cand_valid, const float* aff_land, const int* aff,
@@ -543,20 +772,34 @@ extern "C" int multi_compact(
     int* buf_small, int* fills_full, int n, int n_lanes, int nc, int ua,
     int n_aff, int n_steps, int spread, int rs, int fill_k, int* used_c,
     int* jc, int* ki, float* score, unsigned* keyb, cudaStream_t stream) {
-  if (rs > MAX_RS || rs < 1) return (int)cudaErrorInvalidValue;
-  Params p{};
-  p.cap = cap; p.used_in = used_in; p.used = used_out; p.n = n;
-  p.cand_rows = cand_rows; p.cand_valid = cand_valid;
-  p.aff_land = aff_land; p.aff = aff; p.ua = ua; p.n_aff = n_aff;
-  p.req = req; p.desired = desired; p.dh_limit = dh_limit;
-  p.g_aff = g_aff; p.g_job = g_job; p.seed = seed;
-  p.job_count0 = job_count0; p.round_g = round_g; p.round_want = round_want;
-  p.n_steps = n_steps; p.n_lanes = n_lanes; p.nc = nc; p.spread = spread;
-  p.rs = rs; p.fill_k = fill_k;
-  p.used_c = used_c; p.jc = jc; p.ki = ki; p.score = score; p.keyb = keyb;
-  p.buf = buf_small; p.fills = fills_full;
-  rounds_kernel<true><<<n_lanes, BS, 0, stream>>>(p);
-  return (int)cudaGetLastError();
+  return run_compact(cap, used_in, used_out, cand_rows, cand_valid, aff_land,
+                     aff, req, desired, dh_limit, g_aff, g_job, seed,
+                     job_count0, round_g, round_want, buf_small, fills_full,
+                     n, n_lanes, nc, ua, n_aff, n_steps, spread, rs, fill_k,
+                     used_c, jc, ki, score, keyb, 0, 0, nullptr, nullptr,
+                     nullptr, stream);
+}
+
+// K12: frames [S, L, nc] (nc = Nc_loc), job_count0 [S, n_jrows, nc],
+// aff_land [S, L, Ua, nc], scratch [S, L, nc]; one cluster per lane
+extern "C" int multi_compact_sharded(
+    const int* cap, const int* used_in, int* used_out, const int* cand_rows,
+    const uint8_t* cand_valid, const float* aff_land, const int* aff,
+    const int* req, const int* desired, const int* dh_limit,
+    const int* g_aff, const int* g_job, const long long* seed,
+    const int* job_count0, const int* round_g, const int* round_want,
+    int* buf_small, int* fills_full, int n, int n_lanes, int nc, int ua,
+    int n_aff, int n_steps, int spread, int rs, int fill_k, int* used_c,
+    int* jc, int* ki, float* score, unsigned* keyb, int n_shards,
+    int n_jrows, int* xcnt, unsigned long long* xkey, int* xval,
+    cudaStream_t stream) {
+  if (n_shards < 1) return (int)cudaErrorInvalidValue;
+  return run_compact(cap, used_in, used_out, cand_rows, cand_valid, aff_land,
+                     aff, req, desired, dh_limit, g_aff, g_job, seed,
+                     job_count0, round_g, round_want, buf_small, fills_full,
+                     n, n_lanes, nc, ua, n_aff, n_steps, spread, rs, fill_k,
+                     used_c, jc, ki, score, keyb, n_shards, n_jrows, xcnt,
+                     xkey, xval, stream);
 }
 
 extern "C" int multi_flat(
@@ -567,18 +810,29 @@ extern "C" int multi_flat(
     const int* round_want, int* buf, int n, int ua, int n_aff, int n_rounds,
     int spread, int rs, int* jc, int* ki, float* score, unsigned* keyb,
     cudaStream_t stream) {
-  if (rs > MAX_RS || rs < 1) return (int)cudaErrorInvalidValue;
-  Params p{};
-  p.cap = cap; p.used = used; p.n = n;
-  p.static_u = static_u; p.aff_land = aff_land; p.aff = aff; p.ua = ua;
-  p.n_aff = n_aff; p.req = req; p.desired = desired; p.dh_limit = dh_limit;
-  p.g_static = g_static; p.g_aff = g_aff; p.g_job = g_job; p.seed = seed;
-  p.job_count0 = job_count0; p.round_g = round_g; p.round_want = round_want;
-  p.n_steps = n_rounds; p.n_lanes = 1; p.nc = n; p.spread = spread;
-  p.rs = rs; p.fill_k = 0;
-  p.jc = jc; p.ki = ki; p.score = score; p.keyb = keyb; p.buf = buf;
-  rounds_kernel<false><<<1, BS, 0, stream>>>(p);
-  return (int)cudaGetLastError();
+  return run_flat(cap, used, static_u, aff_land, aff, req, desired, dh_limit,
+                  g_static, g_aff, g_job, seed, job_count0, round_g,
+                  round_want, buf, n, ua, n_aff, n_rounds, spread, rs, 0, 0,
+                  nullptr, jc, ki, score, keyb, 0, nullptr, nullptr, nullptr,
+                  stream);
+}
+
+// K11: the flat rounds over npad = n rows in n_shards shards
+extern "C" int multi_flat_sharded(
+    const int* cap, int* used, const uint8_t* static_u, const float* aff_land,
+    const int* aff, const int* req, const int* desired, const int* dh_limit,
+    const int* g_static, const int* g_aff, const int* g_job,
+    const long long* seed, const int* job_count0, const int* round_g,
+    const int* round_want, int* buf, int n, int ua, int n_aff, int n_rounds,
+    int spread, int rs, int* jc, int* ki, float* score, unsigned* keyb,
+    int n_shards, int* xcnt, unsigned long long* xkey, int* xval,
+    cudaStream_t stream) {
+  if (n_shards < 1) return (int)cudaErrorInvalidValue;
+  return run_flat(cap, used, static_u, aff_land, aff, req, desired, dh_limit,
+                  g_static, g_aff, g_job, seed, job_count0, round_g,
+                  round_want, buf, n, ua, n_aff, n_rounds, spread, rs, 0, 0,
+                  nullptr, jc, ki, score, keyb, n_shards, xcnt, xkey, xval,
+                  stream);
 }
 
 extern "C" int multi_bulk(
@@ -589,19 +843,25 @@ extern "C" int multi_bulk(
     int n_aff, int n_rounds, int spread, int rs, int out_mode, int fill_k,
     int* fills, int* jc, int* ki, float* score, unsigned* keyb,
     cudaStream_t stream) {
-  if (rs > MAX_RS || rs < 1 || out_mode < 0 || out_mode > 2 ||
-      (out_mode == 2 && (fill_k < 1 || fill_k > rs || fills == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  Params p{};
-  p.cap = cap; p.used = used; p.n = n;
-  p.static_u = static_u; p.aff_land = aff_land; p.aff = aff; p.ua = ua;
-  p.n_aff = n_aff; p.req = req; p.desired = desired; p.dh_limit = dh_limit;
-  p.g_static = g_ix; p.g_aff = g_ix; p.g_job = g_ix; p.seed = seed;
-  p.job_count0 = job_count0; p.round_g = round_g; p.round_want = round_want;
-  p.n_steps = n_rounds; p.n_lanes = 1; p.nc = n; p.spread = spread;
-  p.rs = rs; p.fill_k = fill_k; p.out_mode = out_mode;
-  p.jc = jc; p.ki = ki; p.score = score; p.keyb = keyb; p.buf = buf;
-  p.fills = fills;
-  rounds_kernel<false><<<1, BS, 0, stream>>>(p);
-  return (int)cudaGetLastError();
+  return run_flat(cap, used, static_u, aff_land, aff, req, desired, dh_limit,
+                  g_ix, g_ix, g_ix, seed, job_count0, round_g, round_want,
+                  buf, n, ua, n_aff, n_rounds, spread, rs, out_mode, fill_k,
+                  fills, jc, ki, score, keyb, 0, nullptr, nullptr, nullptr,
+                  stream);
+}
+
+// K10: the bulk rounds (full layout) over npad = n rows in n_shards shards
+extern "C" int multi_bulk_sharded(
+    const int* cap, int* used, const uint8_t* static_u, const float* aff_land,
+    const int* aff, const int* req, const int* desired, const int* dh_limit,
+    const int* g_ix, const long long* seed, const int* job_count0,
+    const int* round_g, const int* round_want, int* buf, int n, int ua,
+    int n_aff, int n_rounds, int spread, int rs, int* jc, int* ki,
+    float* score, unsigned* keyb, int n_shards, int* xcnt,
+    unsigned long long* xkey, int* xval, cudaStream_t stream) {
+  if (n_shards < 1) return (int)cudaErrorInvalidValue;
+  return run_flat(cap, used, static_u, aff_land, aff, req, desired, dh_limit,
+                  g_ix, g_ix, g_ix, seed, job_count0, round_g, round_want,
+                  buf, n, ua, n_aff, n_rounds, spread, rs, 0, 0, nullptr, jc,
+                  ki, score, keyb, n_shards, xcnt, xkey, xval, stream);
 }

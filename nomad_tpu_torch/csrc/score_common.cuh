@@ -1,6 +1,7 @@
 // Scoring helpers shared by the rounds kernels (multi_rounds.cu) and the
 // exact scan (place_scan.cu): floor division, the C library's powf(10, x),
-// the reference's tie-break hash and float <-> orderable key bits.
+// the reference's tie-break hash, float <-> orderable key bits, and the
+// cluster launch of the sharded kernels (blocks of BS threads).
 // Included inside each source's anonymous namespace.
 
 #pragma once
@@ -73,4 +74,40 @@ __device__ __forceinline__ unsigned orderable(float f) {
 __device__ __forceinline__ float from_orderable(unsigned o) {
   unsigned b = (o & 0x80000000u) ? (o & 0x7fffffffu) : ~o;
   return __uint_as_float(b);
+}
+
+// Launch `kern` as clusters of `cluster` blocks of BS threads; refuses
+// (cudaErrorLaunchOutOfResources) when the card cannot place one such
+// cluster.
+template <class... Args>
+int launch_clusters(void (*kern)(Args...), int n_blocks, int cluster,
+                    size_t dyn, cudaStream_t stream, Args... args) {
+  cudaError_t e;
+  // static and dynamic shared memory past 48 KB need the opt-in, so
+  // state the dynamic amount whatever it is
+  if (dyn > 0) {
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)dyn);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_blocks);
+  cfg.blockDim = dim3(BS);
+  cfg.dynamicSmemBytes = dyn;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n_clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&n_clusters, (const void*)kern, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (n_clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+  e = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }

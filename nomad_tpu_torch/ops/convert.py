@@ -4,7 +4,10 @@ The reference's lowered inputs, converted to numpy arrays field by field,
 become the port's `MultiEvalInputs`, `PlacementInputs`, `BulkInputs` or
 `preempt_bulk` arguments on a given device (and back), so the JAX
 kernels and the port's compute on identical packed cluster state.  The
-candidate frames (`cand_rows`, `cand_valid`) convert the same way.
+candidate frames (`cand_rows`, `cand_valid`) convert the same way.  A
+mesh engine's inputs convert alike: node axes padded to npad, compact
+frames per shard [S, L, Nc_loc] and their seeds (`job_count0`)
+[S, J', Nc_loc].
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ def multi_inputs_from_numpy(arrays: Dict[str, np.ndarray],
                             device="cpu") -> MultiEvalInputs:
     """`arrays` holds one numpy array per MultiEvalInputs field (integer
     fields int32, masks bool, `seed` uint32 of shape [G] or [],
-    `spread_algo` a bool scalar)."""
+    `spread_algo` a bool scalar; `job_count0` [G, N], [J', Nc] or, on a
+    mesh, [S, J', Nc_loc])."""
     out = {}
     for name in MultiEvalInputs._fields:
         a = arrays[name]
@@ -58,9 +62,15 @@ def multi_inputs_to_numpy(inp: MultiEvalInputs) -> Dict[str, np.ndarray]:
 
 def frames_from_numpy(cand_rows: np.ndarray, cand_valid: np.ndarray,
                       device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Compact candidate frames ([L, Nc] rows, padding = N; validity)."""
-    return (torch.tensor(np.asarray(cand_rows, np.int32), device=device),
-            torch.tensor(np.asarray(cand_valid, bool), device=device))
+    """Compact candidate frames: [L, Nc] rows (padding = N), or a mesh
+    engine's per-shard [S, L, Nc_loc] (global rows, padding = npad); and
+    their validity."""
+    cand_rows, cand_valid = np.asarray(cand_rows), np.asarray(cand_valid)
+    if cand_rows.ndim not in (2, 3) or cand_rows.shape != cand_valid.shape:
+        raise ValueError(f"frames must be [L, Nc] or [S, L, Nc_loc], got "
+                         f"{cand_rows.shape} and {cand_valid.shape}")
+    return (torch.tensor(cand_rows.astype(np.int32), device=device),
+            torch.tensor(cand_valid.astype(bool), device=device))
 
 
 # fields that are Python values in the port's solo inputs

@@ -1,5 +1,4 @@
-"""Host<->device placement engine, single device (reference:
-nomad_tpu/ops/engine.py).
+"""Host<->device placement engine (reference: nomad_tpu/ops/engine.py).
 
 Bridges the control plane (snapshots, Job/TaskGroup objects) and the
 device kernels: packs state, keeps node tensors and the usage tensor
@@ -9,6 +8,12 @@ what failed), lowers a multi-eval batch (`build_multi_inputs`),
 launches it (`dispatch_batch`) and maps node rows back to ids and
 AllocMetrics (`collect_batch`).
 
+On a `parallel.mesh.Mesh` (`PlacementEngine(mesh=make_mesh(8))`) the node
+axis is split into shards on the engine's one device: node tensors are
+padded to a multiple of the shard count (padded rows ineligible), a node
+write re-uploads only the shards holding dirty rows, and every launch
+goes through the sharded kernels K9-K13 (parallel/mesh.py).
+
 Differences from the reference's engine:
   - the lane prover's per-signature masks (`_host_signature_masks`) come
     from kernel K1 on the device, copied back as a [U, N] bool array;
@@ -16,8 +21,11 @@ Differences from the reference's engine:
     memory with a CUDA event that `collect_batch` waits on;
   - a chained wave reuses the previous wave's usage tensor in place (the
     reference donates it to XLA);
-  - no mesh, no compile ledger, no metrics registry hooks, no h2d/d2h
-    observers: those come with later slices (ROADMAP queue 1).
+  - a mesh runs its shards on one card: `mesh=None` means one device
+    (no automatic sharding), and a mesh across cards raises;
+    `shard_h2d_bytes` and `collective_bytes` are plain attributes;
+  - no compile ledger, no metrics registry hooks, no h2d/d2h observers:
+    those come with later slices (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from nomad_tpu_torch.pack.interner import UNSET
 from nomad_tpu_torch.pack.packer import (
     ClusterPacker,
     JobContext,
@@ -43,6 +52,7 @@ from nomad_tpu_torch.structs import (
     SCHED_ALGO_SPREAD,
     TaskGroup,
 )
+from nomad_tpu_torch.parallel import mesh as pmesh
 
 from . import kernels as K
 from .feasibility import feasible_mask, landscape_mask
@@ -54,6 +64,7 @@ from .preempt import (
 )
 from .select import (
     FILL_K,
+    TOP_K,
     BulkInputs,
     MultiEvalInputs,
     PlacementInputs,
@@ -89,13 +100,15 @@ def scatter_add_plain(used: torch.Tensor, rows: torch.Tensor,
 
 
 def scatter_add_(used: torch.Tensor, rows: torch.Tensor,
-                 vals: torch.Tensor) -> torch.Tensor:
+                 vals: torch.Tensor, n_shards: int = 0) -> torch.Tensor:
     """`used[rows] += vals` in place (reference: engine._scatter_add_jit).
     A CPU tensor takes the plain version; a CUDA tensor launches K4 (or
-    raises).  used [N, 3] int32, rows [M] int32, vals [M, 3] int32."""
+    raises; K13 with `n_shards`, as parallel.mesh.scatter_add_sharded_
+    calls it).  used [N, 3] int32, rows [M] int32, vals [M, 3] int32."""
     if used.device.type == "cpu":
         return scatter_add_plain(used, rows, vals)
-    name = "scatter_add"
+    kern = K.SCATTER_ADD_SHARDED if n_shards else K.SCATTER_ADD
+    name = kern.name
     K.check_cuda(name, used=used, rows=rows, vals=vals)
     K.check_dtype(name, used, torch.int32, 2)
     K.check_dtype(name, rows, torch.int32, 1)
@@ -105,9 +118,10 @@ def scatter_add_(used: torch.Tensor, rows: torch.Tensor,
         raise ValueError(f"{name}: expected used [N, 3], vals [M, 3]")
     if m:
         with torch.cuda.device(used.device):
-            K.SCATTER_ADD.launch(name, used.data_ptr(), used.shape[0],
-                                 rows.data_ptr(), vals.data_ptr(), m,
-                                 stream=K.stream_of(used))
+            kern.launch(name, used.data_ptr(), used.shape[0],
+                        rows.data_ptr(), vals.data_ptr(), m,
+                        *([n_shards] if n_shards else []),
+                        stream=K.stream_of(used))
     return used
 
 
@@ -135,6 +149,40 @@ class PlacementDecision:
     metric: AllocMetric
     # allocs to evict to make this placement possible (preemption)
     evictions: List = field(default_factory=list)
+
+
+# The sharded-function dispatch (reference: engine._sharded_fn): kind ->
+# the parallel.mesh wrapper that launches its kernel, looked up at call
+# time.  Each takes the engine's mesh as an argument.
+_SHARDED_KINDS = {
+    "scan": "place_sharded_packed",                              # K9
+    "bulk": "place_bulk_sharded_packed",                         # K10
+    "multi": "place_multi_sharded_packed",                       # K11
+    "multi_chained": "place_multi_sharded_chained",
+    "multi_compact": "place_multi_compact_sharded",              # K12
+    "multi_compact_chained": "place_multi_compact_sharded_chained",
+    "scatter": "scatter_add_sharded_",                           # K13
+}
+
+
+def _pad_rows(a: np.ndarray, n_pad: int, fill=0) -> np.ndarray:
+    """Pad a host array's leading (node) axis to n_pad rows."""
+    n = a.shape[0]
+    if n == n_pad:
+        return a
+    out = np.full((n_pad,) + a.shape[1:], fill, a.dtype)
+    out[:n] = a
+    return out
+
+
+def _pad_cols(a: np.ndarray, n_pad: int, fill=0) -> np.ndarray:
+    """Pad a host array's trailing (node) axis to n_pad columns."""
+    n = a.shape[-1]
+    if n == n_pad:
+        return a
+    out = np.full(a.shape[:-1] + (n_pad,), fill, a.dtype)
+    out[..., :n] = a
+    return out
 
 
 def _pad_pow2(x: int, lo: int = 8) -> int:
@@ -312,55 +360,182 @@ def _default_device():
     return torch.device("cuda")
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """One device: the same type, and the same index where both name one
+    (an index-less CUDA device is the current one)."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == (
+        cur if b.index is None else b.index)
+
+
 class PlacementEngine:
     """Owns a ClusterPacker + device caches for one scheduling session,
     on one device (`torch.device("cuda")` unless the caller passes
-    another; the CPU runs the kernels' plain versions)."""
+    another, or the mesh's; the CPU runs the kernels' plain versions).
+
+    `mesh`: None or False = one device, unsharded; a
+    `parallel.mesh.Mesh` shards the node axis over its shards on its
+    device, which must be the engine's.  Node tensors are then padded to
+    a multiple of the shard count (padded rows are ineligible) and every
+    launch goes through the sharded kernels."""
 
     def __init__(self, packer: Optional[ClusterPacker] = None,
-                 device=None) -> None:
+                 device=None, mesh=None) -> None:
+        mesh = mesh or None
+        if mesh is not None and not isinstance(mesh, pmesh.Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = (_default_device() if device is None
                        else torch.device(device))
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device} requested but CUDA "
                                "is not available")
+        if mesh is not None and not _same_device(mesh.device, self.device):
+            raise ValueError(f"the mesh lies on {mesh.device}, the engine "
+                             f"on {self.device}")
+        self.mesh = mesh
+        self._ndev = 1 if mesh is None else mesh.n_shards
         self.packer = packer or ClusterPacker()
         self._dev_cache: Dict[str, torch.Tensor] = {}
         self._cache_version: Tuple[int, int, int] = (-1, -1, -1)
+        self._cache_npad: int = -1
         self._used_version: int = -1
         self._used_dev: Optional[torch.Tensor] = None
         self._const_cache: Dict[tuple, torch.Tensor] = {}
         self._dc_cache: Optional[Tuple[int, Dict[str, int]]] = None
+        # mesh meters: bytes re-uploaded by dirty-shard patches, and the
+        # analytic cross-shard exchange payload of each launch
+        self.shard_h2d_bytes: int = 0
+        self.collective_bytes: int = 0
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         """Copy a host array to the device (always a copy: the packer
         mutates its arrays in place after the upload)."""
         return torch.tensor(a, device=self.device)
 
+    @property
+    def n_devices(self) -> int:
+        """Shards of the node axis (1 unsharded)."""
+        return self._ndev
+
+    def padded_row_fraction(self, n: int) -> float:
+        """Fraction of kernel rows that are mesh padding (ineligible)."""
+        npad = self._padded_n(max(n, 1))
+        return (npad - n) / npad if npad else 0.0
+
+    def _note_collective(self, rounds: int, kk: int, width: int = 5,
+                         extra: int = 64) -> int:
+        """Meter one mesh launch's cross-shard exchange (reference:
+        engine._note_collective): per round every shard receives a
+        [width, kk] candidate pack from each shard plus ~`extra` bytes of
+        summed metrics."""
+        nbytes = rounds * (width * kk * 4 * self._ndev + extra)
+        self.collective_bytes += nbytes
+        return nbytes
+
+    def _padded_n(self, n: int) -> int:
+        """Node count padded to a mesh multiple (identity unsharded)."""
+        return pmesh.pad_nodes(n, self._ndev)
+
+    @staticmethod
+    def _sharded(kind: str):
+        """The mesh wrapper of `kind` (see _SHARDED_KINDS)."""
+        return getattr(pmesh, _SHARDED_KINDS[kind])
+
     # ------------------------------------------------------------ devices
 
     def _node_arrays(self, t: NodeTensors):
         """Upload node tensors once per (version, vocab, width) — the
-        incremental device sync point."""
+        incremental device sync point.  On a mesh the node axis is padded
+        to a shard multiple (padded rows ineligible, attributes UNSET),
+        and a version bump from dirty-row refreshes with stable width and
+        padding re-uploads only the shards that hold dirty rows."""
         key = (t.version, len(self.packer.interner), t.attrs.shape[1])
         if self._cache_version != key:
             with self.packer.lock:
-                self._dev_cache = {
-                    "attrs": self._to_dev(t.attrs),
-                    "cap": self._to_dev(t.cap),
-                    "elig": self._to_dev(t.elig),
-                }
-                # a full re-upload invalidates the resident `used` copy
-                # too (row remap / width change)
-                self._used_version = -1
-                self._used_dev = None
+                npad = self._padded_n(t.n)
+                patched = False
+                if (self.mesh is not None and self._dev_cache
+                        and self._cache_version[2] == key[2]
+                        and self._cache_npad == npad):
+                    rows = self.packer.node_rows_dirty_since(
+                        self._cache_version[0])
+                    if rows is not None:
+                        self._patch_node_shards(t, npad, rows)
+                        patched = True
+                if not patched:
+                    self._dev_cache = {
+                        "attrs": self._to_dev(_pad_rows(t.attrs, npad,
+                                                        UNSET)),
+                        "cap": self._to_dev(_pad_rows(t.cap, npad)),
+                        "elig": self._to_dev(_pad_rows(t.elig, npad,
+                                                       False)),
+                    }
+                    # a full re-upload invalidates the resident `used`
+                    # copy too (row remap / width change); a shard patch
+                    # keeps it and _used_device heals the dirty shards
+                    self._used_version = -1
+                    self._used_dev = None
                 self._cache_version = key
+                self._cache_npad = npad
         return self._dev_cache
+
+    def _shard_of(self, rows: np.ndarray, npad: int) -> set:
+        """Mesh shard indices owning `rows` (node axis split evenly)."""
+        nloc = max(npad // self._ndev, 1)
+        return set((np.asarray(rows, np.int64) // nloc).tolist())
+
+    def _patch_shards(self, arr: torch.Tensor, host: np.ndarray, fill,
+                      npad: int, dirty_shards: set
+                      ) -> Tuple[torch.Tensor, int]:
+        """A copy of the node-sharded tensor `arr` with the row ranges of
+        `dirty_shards` re-uploaded from the host tensor (padding rows
+        `fill`); the clean shards are copied on the device.  Returns
+        (new tensor, bytes uploaded)."""
+        nloc = max(npad // self._ndev, 1)
+        out = arr.clone()
+        nbytes = 0
+        for sh in sorted(dirty_shards):
+            lo = sh * nloc
+            sl = np.full((nloc,) + host.shape[1:], fill, host.dtype)
+            real = max(min(lo + nloc, host.shape[0]) - lo, 0)
+            if real:
+                sl[:real] = host[lo:lo + real]
+            out[lo:lo + nloc] = self._to_dev(sl)
+            nbytes += sl.nbytes
+        return out, nbytes
+
+    def _patch_node_shards(self, t: NodeTensors, npad: int,
+                           rows: np.ndarray) -> int:
+        """Dirty-shard re-upload of attrs/cap/elig (packer lock held by
+        the caller).  Zero rows = nothing to move (version-only bump)."""
+        if rows.size == 0:
+            return 0
+        dirty = self._shard_of(rows, npad)
+        nbytes = 0
+        cache = dict(self._dev_cache)
+        for name, host, fill in (("attrs", t.attrs, UNSET),
+                                 ("cap", t.cap, 0),
+                                 ("elig", t.elig, False)):
+            cache[name], nb = self._patch_shards(
+                cache[name], host, fill, npad, dirty)
+            nbytes += nb
+        self._dev_cache = cache
+        self.shard_h2d_bytes += nbytes
+        return nbytes
 
     def _used_device(self, t: NodeTensors) -> torch.Tensor:
         """Device-resident usage tensor.  The packer's delta log is
-        replayed onto it in place through K4 (upload O(changed rows),
-        not O(N)); a row remap or rebuild re-uploads it whole."""
+        replayed onto it in place through K4 (K13 on a mesh): upload
+        O(changed rows), not O(N).  On a mesh, a dirty-row refresh heals
+        only the shards whose rows may be stale; a row remap or rebuild
+        re-uploads it whole, padded."""
         with self.packer.lock:
             ver = t.used_version
             if self._used_dev is not None and self._used_version == ver:
@@ -368,6 +543,19 @@ class PlacementEngine:
             deltas = None
             if self._used_dev is not None:
                 deltas = self.packer.used_deltas_since(self._used_version)
+            if (deltas is None and self._used_dev is not None
+                    and self.mesh is not None):
+                sync_rows = self.packer.used_sync_rows_since(
+                    self._used_version)
+                if (sync_rows is not None
+                        and self._cache_npad == self._padded_n(t.n)):
+                    if sync_rows.size:
+                        self._used_dev, nb = self._patch_shards(
+                            self._used_dev, t.used, 0, self._cache_npad,
+                            self._shard_of(sync_rows, self._cache_npad))
+                        self.shard_h2d_bytes += nb
+                    self._used_version = ver
+                    return self._used_dev
             if deltas is not None:
                 rows = np.concatenate([d[0] for d in deltas])
                 vals = np.concatenate([d[1] for d in deltas])
@@ -380,14 +568,17 @@ class PlacementEngine:
                     rows, vals = uniq, agg
                 dev = self._used_dev
                 for lo in range(0, len(rows), SCATTER_CHUNK):
-                    scatter_add_(
-                        dev,
-                        self._to_dev(rows[lo:lo + SCATTER_CHUNK]
-                                     .astype(np.int32)),
-                        self._to_dev(vals[lo:lo + SCATTER_CHUNK]
-                                     .astype(np.int32)))
+                    r_c = self._to_dev(rows[lo:lo + SCATTER_CHUNK]
+                                       .astype(np.int32))
+                    v_c = self._to_dev(vals[lo:lo + SCATTER_CHUNK]
+                                       .astype(np.int32))
+                    if self.mesh is not None:
+                        self._sharded("scatter")(dev, r_c, v_c, self.mesh)
+                    else:
+                        scatter_add_(dev, r_c, v_c)
             else:
-                self._used_dev = self._to_dev(t.used)
+                self._used_dev = self._to_dev(
+                    _pad_rows(t.used, self._padded_n(t.n)))
             self._used_version = ver
             return self._used_dev
 
@@ -529,6 +720,7 @@ class PlacementEngine:
         name_to_g = {name: i for i, name in enumerate(tg_tensors.names)}
         p_real = block_count if block is not None else len(requests)
         p_pad = _pad_pow2(p_real)
+        npad = self._padded_n(n)
 
         desired = np.array([tg.count for tg in tgs], np.int32)
         algo = snapshot.scheduler_config().scheduler_algorithm
@@ -536,7 +728,7 @@ class PlacementEngine:
         used0 = self._used_device(t)
         job_count = ctx.job_count
         if stopped_allocs:
-            delta = np.zeros((n, 3), np.int32)
+            delta = np.zeros((npad, 3), np.int32)
             job_count = job_count.copy()
             for a in stopped_allocs:
                 row = t.id_to_row.get(a.node_id)
@@ -549,23 +741,25 @@ class PlacementEngine:
                     job_count[row] -= 1
             used0 = used0 + self._to_dev(delta)
 
-        dcm = self._dev_const(("dc", t.version, n, tuple(job.datacenters)),
-                              lambda: ctx.dc_mask)
-        pm = self._dev_const(("pool", t.version, n, job.node_pool),
-                             lambda: ctx.pool_mask)
+        dcm = self._dev_const(
+            ("dc", t.version, npad, tuple(job.datacenters)),
+            lambda: _pad_rows(ctx.dc_mask, npad, False))
+        pm = self._dev_const(("pool", t.version, npad, job.node_pool),
+                             lambda: _pad_rows(ctx.pool_mask, npad, False))
         luts_dev = self._dev_const(
             ("luts", self.packer.lut_epoch, tg_tensors.luts.shape),
             lambda: tg_tensors.luts)
         if job_count.any():
-            jc_dev = self._to_dev(job_count)
+            jc_dev = self._to_dev(_pad_rows(job_count, npad))
         else:
-            jc_dev = self._dev_const(("zjc", n),
-                                     lambda: np.zeros(n, np.int32))
+            jc_dev = self._dev_const(("zjc", npad),
+                                     lambda: np.zeros(npad, np.int32))
 
         # device (GPU/...) feasibility: a host-computed per-group node mask
         dev_mask = self._device_mask(
             tgs, t, snapshot, {a.id for a in stopped_allocs}, device_in_use)
-        extra_mask = None if dev_mask is None else self._to_dev(dev_mask)
+        extra_mask = (None if dev_mask is None
+                      else self._to_dev(_pad_cols(dev_mask, npad, False)))
 
         has_spread = bool(job.spreads) or any(tg.spreads for tg in tgs)
         has_distinct = any(tg_tensors.distinct)
@@ -585,6 +779,10 @@ class PlacementEngine:
                 # counts, which the rounds cannot see: exact scan only
                 and dev_mask is None
                 and all(not r.prev_node_id for r in requests))
+        # the sharded bulk rounds have no score block: the per-placement
+        # API routes through the exact scan on a mesh
+        if self.mesh is not None and not bulk_api:
+            bulk_ok = False
 
         if bulk_ok:
             g_idx = name_to_g[block_tg if block is not None
@@ -605,7 +803,12 @@ class PlacementEngine:
                 extra_mask=extra_mask)
             fills_full = None
             slot_k = 0
-            if bulk_api and algo != SCHED_ALGO_SPREAD:
+            if self.mesh is not None:
+                buf, used_dev, job_count_dev = self._sharded("bulk")(
+                    binp, self.mesh, round_size, n_rounds)
+                self._note_collective(n_rounds,
+                                      min(round_size, npad // self._ndev))
+            elif bulk_api and algo != SCHED_ALGO_SPREAD:
                 # compact output: FILL_K slots always fetched, the full
                 # fills stay on the device for a round that overflows
                 # (the spread algorithm fans each round over ~want nodes
@@ -625,6 +828,11 @@ class PlacementEngine:
                     else (lambda: self._fetch(fills_full)), slot_k)
                 picks, _, meta = _unpack_bulk_compact(
                     buf_np, round_size, p_real, slot_k=slot_k)
+                if npad != n:
+                    # mesh padding rows are statically infeasible; they
+                    # are not filtered nodes
+                    meta = meta.copy()
+                    meta[:, 7] -= npad - n
                 return self._bulk_decisions(
                     block_tg if block is not None else requests[0].tg_name,
                     picks, meta, round_size, t, ctx,
@@ -654,11 +862,11 @@ class PlacementEngine:
                 req=self._to_dev(tg_tensors.req),
                 desired=self._to_dev(desired),
                 dh_limit=self._to_dev(tg_tensors.dh_limit),
-                sp_nodeval=self._to_dev(sp.sp_nodeval),
+                sp_nodeval=self._to_dev(_pad_cols(sp.sp_nodeval, npad, -1)),
                 sp_weight=self._to_dev(sp.sp_weight),
                 sp_expected=self._to_dev(sp.sp_expected),
                 sp_counts0=self._to_dev(sp.sp_counts0),
-                pd_nodeval=self._to_dev(pd.pd_nodeval),
+                pd_nodeval=self._to_dev(_pad_cols(pd.pd_nodeval, npad, -1)),
                 pd_limit=self._to_dev(pd.pd_limit),
                 pd_apply=self._to_dev(pd.pd_apply),
                 pd_counts0=self._to_dev(pd.pd_counts0),
@@ -669,13 +877,20 @@ class PlacementEngine:
                 spread_algo=algo == SCHED_ALGO_SPREAD,
                 seed=seed & 0xFFFFFFFF,
                 extra_mask=extra_mask)
-            buf, used_dev, job_count_dev = place_packed(inp)
+            if self.mesh is not None:
+                buf, used_dev, job_count_dev = self._sharded("scan")(
+                    inp, self.mesh)
+                self._note_collective(
+                    p_pad, min(TOP_K, npad // self._ndev), width=2,
+                    extra=128)
+            else:
+                buf, used_dev, job_count_dev = place_packed(inp)
             b = self._fetch(buf)[:p_real]
             picks = b[:, 0].copy()
             scores = b[:, 1].view(np.float32)
             topk_rows = b[:, 2:5]
             topk_scores = b[:, 5:8].view(np.float32)
-            n_filt = b[:, 9]
+            n_filt = b[:, 9] - (npad - n)
             n_exh = b[:, 10]
             dim_exh = b[:, 11:14]
         elapsed = (time.perf_counter_ns() - t0) // max(p_real, 1)
@@ -752,11 +967,13 @@ class PlacementEngine:
                 or not preemption_enabled(snapshot.scheduler_config(),
                                           job.type)):
             return evictions_by_req
+        # mesh padding rows sliced off: the preemptor works over the real
+        # node rows
         static = self._fetch(feasible_mask(
             inp.attrs, inp.elig, inp.dc_mask, inp.pool_mask, inp.con,
-            inp.luts))
-        used = self._fetch(used_dev)
-        job_count = self._fetch(job_count_dev)
+            inp.luts))[:, :t.n]
+        used = self._fetch(used_dev)[:t.n]
+        job_count = self._fetch(job_count_dev)[:t.n]
         pre_evicted: set = set()
 
         failed = [i for i in range(p_real) if picks[i] < 0]
@@ -887,8 +1104,8 @@ class PlacementEngine:
         start the result's copy to pinned host memory; returns a pending
         handle for collect_batch.
 
-        `used0_dev`: a (usage tensor, node-table version, node count)
-        triple to start from instead of the packer-synced state — the
+        `used0_dev`: a (usage tensor, node-table version, padded node
+        count `npad`) triple to start from instead of the packer-synced state — the
         cross-batch chaining hook (a wave may start from the previous
         wave's proposed usage before its plans commit).  On a version or
         size mismatch the chain falls back to the packer-synced tensor.
@@ -899,6 +1116,8 @@ class PlacementEngine:
         eligibility (the wave pipeline's refute-repair input)."""
         if not items:
             return None
+        # per-dispatch dirty-shard upload meter
+        shard_b0 = self.shard_h2d_bytes
         built = self.build_multi_inputs(snapshot, items, seed=seed,
                                         used0_dev=used0_dev,
                                         masked_node_ids=masked_node_ids)
@@ -908,10 +1127,25 @@ class PlacementEngine:
         chained = aux["chained"]
         fills_full = None
         fill_k = None
+        coll_bytes = 0
+        mesh = self.mesh
         if aux["cand_rows"] is not None:
             cr = self._to_dev(aux["cand_rows"])
             cv = self._to_dev(aux["cand_valid"])
-            if chained:
+            if mesh is not None:
+                if chained:
+                    buf, fills_full, used_out = self._sharded(
+                        "multi_compact_chained")(
+                            inp.used0, inp._replace(used0=None), cr, cv,
+                            mesh, rs, aux["n_lanes"])
+                else:
+                    buf, fills_full, used_out = self._sharded(
+                        "multi_compact")(inp, cr, cv, mesh, rs,
+                                         aux["n_lanes"])
+                coll_bytes = self._note_collective(
+                    int(inp.round_g.shape[0]),
+                    min(rs, int(aux["cand_rows"].shape[-1])))
+            elif chained:
                 buf, fills_full, used_out = place_multi_compact_chained(
                     inp.used0, inp._replace(used0=None), cr, cv, rs,
                     aux["n_lanes"])
@@ -919,6 +1153,14 @@ class PlacementEngine:
                 buf, fills_full, used_out = place_multi_compact_packed(
                     inp, cr, cv, rs, aux["n_lanes"])
             fill_k = min(FILL_K, rs)
+        elif mesh is not None:
+            if chained:
+                buf, used_out, _ = self._sharded("multi_chained")(
+                    inp.used0, inp._replace(used0=None), mesh, rs)
+            else:
+                buf, used_out, _ = self._sharded("multi")(inp, mesh, rs)
+            coll_bytes = self._note_collective(
+                int(inp.round_g.shape[0]), min(rs, aux["npad"] // self._ndev))
         elif chained:
             buf, used_out, _ = place_multi_chained(
                 inp.used0, inp._replace(used0=None), rs)
@@ -928,7 +1170,10 @@ class PlacementEngine:
         return {"buf": host_buf, "ready": ready, "used": used_out,
                 "items": list(items), "spans": aux["spans"],
                 "counts": aux["counts"], "rs": rs, "t": aux["t"],
-                "ctxs": aux["ctxs"], "n": aux["n"],
+                "ctxs": aux["ctxs"], "n": aux["n"], "npad": aux["npad"],
+                "collective_bytes": coll_bytes,
+                "shard_h2d_bytes": self.shard_h2d_bytes - shard_b0,
+                "padded_fraction": (aux["npad"] - aux["n"]) / aux["npad"],
                 "node_version": aux["t"].version, "perm": aux["perm"],
                 "fills_full": fills_full, "fill_k": fill_k,
                 "chained": chained, "n_lanes": aux["n_lanes"],
@@ -951,19 +1196,22 @@ class PlacementEngine:
                            seed=0, used0_dev=None, masked_node_ids=None):
         """Host half of dispatch_batch: pack + lower a multi-eval batch
         into MultiEvalInputs WITHOUT launching the placement kernels.
-        Returns a dict {inp, rs, spans, counts, t, ctxs, n, t0, n_lanes,
-        perm, chained, cand_rows, cand_valid} or the empty-cluster
-        sentinel tuple."""
+        Returns a dict {inp, rs, spans, counts, t, ctxs, n, npad, t0,
+        n_lanes, perm, chained, cand_rows, cand_valid} or the
+        empty-cluster sentinel tuple.  On a mesh the compact frames are
+        per shard, [S, L, Nc_loc], and their job-count seeds
+        [S, J', Nc_loc]."""
         t = self.packer.update(snapshot)
         n = t.n
         if n == 0:
             return (None, items)
         t0 = time.perf_counter_ns()
+        npad = self._padded_n(n)
         dev = self._node_arrays(t)
         used0 = None
         if used0_dev is not None:
-            arr, chain_ver, chain_n = used0_dev
-            if chain_ver == t.version and chain_n == n:
+            arr, chain_ver, chain_npad = used0_dev
+            if chain_ver == t.version and chain_npad == npad:
                 used0 = arr
         chained = used0 is not None
         if used0 is None:
@@ -975,7 +1223,7 @@ class PlacementEngine:
             rows = np.array([t.id_to_row[nid] for nid in masked_node_ids
                              if nid in t.id_to_row], np.int64)
             if rows.size:
-                node_ok = np.ones(n, bool)
+                node_ok = np.ones(npad, bool)
                 node_ok[rows] = False
                 elig_dev = elig_dev & self._to_dev(node_ok)
         algo = snapshot.scheduler_config().scheduler_algorithm
@@ -1028,8 +1276,9 @@ class PlacementEngine:
                 mi = len(mask_rows)
                 mask_keys[key] = mi
                 mask_rows.append(self._dev_const(
-                    ("basemask", t.version, n) + key,
-                    lambda ctx=ctx: ctx.dc_mask & ctx.pool_mask))
+                    ("basemask", t.version, npad) + key,
+                    lambda ctx=ctx: _pad_rows(ctx.dc_mask & ctx.pool_mask,
+                                              npad, False)))
             con_row = np.zeros((c_max, 3), np.int32)
             con_row[:tt.con.shape[1]] = tt.con[0]
             skey = con_row.tobytes() + mi.to_bytes(4, "little")
@@ -1053,7 +1302,8 @@ class PlacementEngine:
                 jc_nz_idx.append(gi)
                 jc_nz_rows.append(ctx.job_count)
         m_pad = _pad_pow2(len(mask_rows), lo=1)
-        zrow = self._dev_const(("zrow", n), lambda: np.zeros(n, bool))
+        zrow = self._dev_const(("zrow", npad),
+                               lambda: np.zeros(npad, bool))
         sig_base = [mask_rows[mi] for mi in static_mi]
         mask_rows.extend([zrow] * (m_pad - len(mask_rows)))
         base_mask = torch.stack(mask_rows)
@@ -1121,13 +1371,32 @@ class PlacementEngine:
                     masks = masks & node_ok[None, :]
                 rows_l = [np.nonzero(masks[i])[0].astype(np.int32)
                           for i in range(width)]
-                nc = max(max((len(r) for r in rows_l), default=1), 1)
-                nc = ((nc + 2047) // 2048) * 2048
-                cand_rows = np.full((width, nc), n, np.int32)
-                cand_valid = np.zeros((width, nc), bool)
-                for li, rows in enumerate(rows_l):
-                    cand_rows[li, :len(rows)] = rows
-                    cand_valid[li, :len(rows)] = True
+                if self.mesh is None:
+                    nc = max(max((len(r) for r in rows_l), default=1), 1)
+                    nc = ((nc + 2047) // 2048) * 2048
+                    cand_rows = np.full((width, nc), npad, np.int32)
+                    cand_valid = np.zeros((width, nc), bool)
+                    for li, rows in enumerate(rows_l):
+                        cand_rows[li, :len(rows)] = rows
+                        cand_valid[li, :len(rows)] = True
+                else:
+                    # per-shard frame blocks: shard s holds its slice of
+                    # every lane's candidates (global rows; padding npad
+                    # lies past every shard)
+                    ndev = self._ndev
+                    nloc = npad // ndev
+                    shard_rows = [[rows[(rows // nloc) == sh]
+                                   for rows in rows_l]
+                                  for sh in range(ndev)]
+                    nc = max(max((len(r) for per in shard_rows
+                                  for r in per), default=1), 1)
+                    nc = ((nc + 511) // 512) * 512
+                    cand_rows = np.full((ndev, width, nc), npad, np.int32)
+                    cand_valid = np.zeros((ndev, width, nc), bool)
+                    for sh in range(ndev):
+                        for li, rows in enumerate(shard_rows[sh]):
+                            cand_rows[sh, li, :len(rows)] = rows
+                            cand_valid[sh, li, :len(rows)] = True
                 lane_of = {s: li for li, s in enumerate(clique)}
                 lanes: List[List[int]] = [[] for _ in range(width)]
                 for r_idx in range(n_real):
@@ -1169,20 +1438,25 @@ class PlacementEngine:
         # nonzero jobs' rows written.
         if cand_rows is not None:
             g_job = np.zeros(g_pad, np.int32)
-            jrows = [np.zeros(nc, np.int32)]
+            jrows = [np.zeros(cand_rows.shape[:-2] + (nc,), np.int32)]
             for gi, jc_row in zip(jc_nz_idx, jc_nz_rows):
-                idx = cand_rows[lane_of[int(g_static[gi])]]
+                idx = cand_rows[..., lane_of[int(g_static[gi])], :]
                 row = np.where(idx < n, jc_row[np.minimum(idx, n - 1)], 0)
                 g_job[gi] = len(jrows)
                 jrows.append(row.astype(np.int32))
-            jc0 = self._to_dev(np.stack(jrows))
+            jc0 = np.stack(jrows)
+            if cand_rows.ndim == 3:
+                # sharded seeds: [S, J', Nc_loc]
+                jc0 = np.ascontiguousarray(np.moveaxis(jc0, 0, 1))
+            jc0 = self._to_dev(jc0)
             g_job_dev = self._to_dev(g_job)
         else:
-            jc0 = torch.zeros((g_pad, n), dtype=torch.int32,
+            jc0 = torch.zeros((g_pad, npad), dtype=torch.int32,
                               device=self.device)
             if jc_nz_idx:
                 jc0[torch.tensor(jc_nz_idx, device=self.device)] = \
-                    self._to_dev(np.stack(jc_nz_rows).astype(np.int32))
+                    self._to_dev(_pad_cols(np.stack(jc_nz_rows), npad)
+                                 .astype(np.int32))
             g_job_dev = torch.arange(g_pad, dtype=torch.int32,
                                      device=self.device)
 
@@ -1202,7 +1476,7 @@ class PlacementEngine:
             seed=self._to_dev(seed_g.astype(np.int64)),
         )
         return {"inp": inp, "rs": rs, "spans": spans, "counts": counts,
-                "t": t, "ctxs": ctxs, "n": n, "t0": t0,
+                "t": t, "ctxs": ctxs, "n": n, "npad": npad, "t0": t0,
                 "n_lanes": n_lanes, "perm": perm, "chained": chained,
                 "cand_rows": cand_rows, "cand_valid": cand_valid}
 
@@ -1251,6 +1525,9 @@ class PlacementEngine:
             picks, _, meta = _unpack_bulk_compact(
                 buf_np[lo:hi], rs, counts[gi],
                 slot_k=rs_eff if rs_eff != rs else 0)
+            if pending["npad"] != n:
+                meta = meta.copy()
+                meta[:, 7] -= pending["npad"] - n
             metrics = self._metrics_from_meta(
                 meta, n, int(ctxs[gi].pool_mask.sum()), dc_counts,
                 t.node_ids, int(elapsed))

@@ -63,11 +63,27 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "pow10_f32": [_P, _P, ctypes.c_longlong, _P],
         # rounds sink | stream (probe: the cost of one barrier round)
         "barrier_probe": [_I, _P, _P],
+        # rounds cluster rows sink | stream (probe: one cluster exchange)
+        "cluster_barrier_probe": [_I, _I, _P, _P, _P],
+        # multi_compact's arguments | n_shards n_jrows | 3 exchange |
+        # stream
+        "multi_compact_sharded": ([_P] * 18 + [_I] * 9 + [_P] * 5
+                                  + [_I, _I] + [_P] * 4),
+        # multi_flat's arguments | n_shards | 3 exchange | stream
+        "multi_flat_sharded": [_P] * 16 + [_I] * 6 + [_P] * 4 + [_I]
+                              + [_P] * 4,
+        # 14 tensors | n ua af rounds spread rs | 4 scratch | n_shards |
+        # 3 exchange | stream
+        "multi_bulk_sharded": [_P] * 14 + [_I] * 6 + [_P] * 4 + [_I]
+                              + [_P] * 4,
     },
     "place_scan.cu": {
         # 21 tensors | 3 scratch | n g s k d kd steps spread | seed |
         # stream
         "place_scan": [_P] * 24 + [_I] * 8 + [ctypes.c_uint, _P],
+        # place_scan's arguments | n_shards exchange | stream
+        "place_scan_sharded": [_P] * 24 + [_I] * 8 + [ctypes.c_uint, _I,
+                                                      _P, _P],
     },
     "preempt.cu": {
         # 8 tensors | m a dh n_place n_real | 2 outputs 2 scratch | stream
@@ -76,6 +92,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "scatter_add.cu": {
         # used n | rows vals m | stream
         "scatter_add": [_P, _I, _P, _P, _I, _P],
+        # used npad | rows vals m | n_shards | stream
+        "scatter_add_sharded": [_P, _I, _P, _P, _I, _I, _P],
     },
 }
 
@@ -120,8 +138,21 @@ PREEMPT_BULK = Kernel("preempt_bulk", "preempt.cu",
                       "nomad_tpu/ops/preempt.py:108")
 FEASIBLE = Kernel("feasible_mask", "landscape.cu",
                   "nomad_tpu/ops/feasibility.py:75")
+# the node-sharded mesh on one card (parallel/mesh.py)
+PLACE_SCAN_SHARDED = Kernel("place_scan_sharded", "place_scan.cu",
+                            "nomad_tpu/parallel/mesh.py:221")
+MULTI_BULK_SHARDED = Kernel("multi_bulk_sharded", "multi_rounds.cu",
+                            "nomad_tpu/parallel/mesh.py:645")
+MULTI_FLAT_SHARDED = Kernel("multi_flat_sharded", "multi_rounds.cu",
+                            "nomad_tpu/parallel/mesh.py:454")
+MULTI_COMPACT_SHARDED = Kernel("multi_compact_sharded", "multi_rounds.cu",
+                               "nomad_tpu/parallel/mesh.py:590")
+SCATTER_ADD_SHARDED = Kernel("scatter_add_sharded", "scatter_add.cu",
+                             "nomad_tpu/ops/engine.py:96")
 KERNELS = (LANDSCAPE, MULTI_COMPACT, MULTI_FLAT, SCATTER_ADD, PLACE_SCAN,
-           MULTI_BULK, PREEMPT_BULK, FEASIBLE)
+           MULTI_BULK, PREEMPT_BULK, FEASIBLE, PLACE_SCAN_SHARDED,
+           MULTI_BULK_SHARDED, MULTI_FLAT_SHARDED, MULTI_COMPACT_SHARDED,
+           SCATTER_ADD_SHARDED)
 
 _lock = threading.Lock()
 _libs: Dict[str, Dict[str, object]] = {}

@@ -238,10 +238,12 @@ def _check_rounds(n: int, round_size: int) -> None:
 
 # ------------------------------------------------------------------ K3
 
-def place_multi_packed_plain(inp: MultiEvalInputs, round_size: int):
+def place_multi_packed_plain(inp: MultiEvalInputs, round_size: int,
+                             fill=waterfill_round):
     """Plain version of K3: the round core over all N rows, one round at
     a time.  Returns (buf [R, round_size + 16], used [N, 3], last job
-    count row [N])."""
+    count row [N]).  `fill` decides each round's fills (the sharded
+    plain versions pass parallel.mesh's two-stage water-fill)."""
     n = inp.attrs.shape[0]
     _check_rounds(n, round_size)
     top_k = min(TOP_K, n)
@@ -272,7 +274,7 @@ def place_multi_packed_plain(inp: MultiEvalInputs, round_size: int):
             cap, req, inp.desired[g], inp.dh_limit[g], static,
             aff_u[a_r[r:r + 1]], aff_any_u[a_r[r:r + 1]], used, job_count,
             inp.spread_algo, round_size)
-        rows_p, cnt_p, sc_p, c_i, placed, k_round = waterfill_round(
+        rows_p, cnt_p, sc_p, c_i, placed, k_round = fill(
             k_i, score, noise, inp.round_want[r:r + 1], inp.spread_algo,
             round_size)
         used = used + c_i[..., None] * req[:, None, :]
@@ -294,13 +296,34 @@ def place_multi_packed_plain(inp: MultiEvalInputs, round_size: int):
     return buf, used[0], cur[0].to(torch.int32)
 
 
+def _exchange(n_clusters: int, n_shards: int, kk_loc: int, dev):
+    """Exchange scratch of the sharded rounds kernels (csrc/
+    multi_rounds.cu): per cluster, four count rows [4, S, 8], the S
+    shards' sorted keys [S * kk_loc] and their values [S * kk_loc, 4]."""
+    return [torch.empty(n_clusters * 4 * n_shards * 8, dtype=torch.int32,
+                        device=dev),
+            torch.empty(n_clusters * n_shards * kk_loc, dtype=torch.int64,
+                        device=dev),
+            torch.empty(n_clusters * n_shards * kk_loc * 4,
+                        dtype=torch.int32, device=dev)]
+
+
+def _check_shards(name: str, n: int, n_shards: int) -> None:
+    if n_shards and (not 1 <= n_shards <= 8 or n % n_shards):
+        raise ValueError(f"{name}: {n} rows do not split into {n_shards} "
+                         "shards (1..8)")
+
+
 def _flat_launch(used: torch.Tensor, inp: MultiEvalInputs,
-                 round_size: int):
-    """K1 landscapes + one K3 launch; `used` is the round state and the
-    usage output (updated in place)."""
-    name = "multi_flat"
+                 round_size: int, n_shards: int = 0):
+    """K1 landscapes + one K3 launch (K11 with `n_shards`: the node axis
+    in that many shards); `used` is the round state and the usage output
+    (updated in place)."""
+    kern = K.MULTI_FLAT_SHARDED if n_shards else K.MULTI_FLAT
+    name = kern.name
     n = inp.attrs.shape[0]
     _check_rounds(n, round_size)
+    _check_shards(name, n, n_shards)
     dev = inp.attrs.device
     static_u = landscape_mask(inp.attrs, inp.con, inp.luts, inp.elig,
                               inp.base_mask, inp.u_mask)
@@ -331,13 +354,17 @@ def _flat_launch(used: torch.Tensor, inp: MultiEvalInputs,
     ki = torch.empty(n, dtype=torch.int32, device=dev)
     score = torch.empty(n, dtype=torch.float32, device=dev)
     keyb = torch.empty(n, dtype=torch.int32, device=dev)
+    mesh_args = []
+    if n_shards:
+        xch = _exchange(1, n_shards, min(round_size, n // n_shards), dev)
+        mesh_args = [n_shards] + [t.data_ptr() for t in xch]
     if n_rounds:
         with torch.cuda.device(dev):
-            K.MULTI_FLAT.launch(
+            kern.launch(
                 name, *[t.data_ptr() for t in (*tensors.values(), buf)],
                 n, ua, af, n_rounds, int(bool(inp.spread_algo)),
                 round_size, *[t.data_ptr() for t in (jc, ki, score, keyb)],
-                stream=K.stream_of(used))
+                *mesh_args, stream=K.stream_of(used))
     return buf, used, jc
 
 
@@ -369,12 +396,12 @@ def place_multi_chained(used0: torch.Tensor, inp: MultiEvalInputs,
 
 def place_multi_compact_packed_plain(inp: MultiEvalInputs, cand_rows,
                                      cand_valid, round_size: int,
-                                     n_lanes: int):
+                                     n_lanes: int, fill=waterfill_round):
     """Plain version of K2: lanes over disjoint candidate frames
     (`cand_rows` [L, Nc] int32, padding = N; `cand_valid` [L, Nc] bool),
     one round per lane per step over the step-major [T * L] schedule.
     Returns (buf_small [T*L, FILL_K + 16], fills_full [T*L, round_size],
-    used [N, 3])."""
+    used [N, 3]).  `fill` as in `place_multi_packed_plain`."""
     n = inp.attrs.shape[0]
     _check_rounds(n, round_size)
     top_k = min(TOP_K, n)
@@ -410,7 +437,7 @@ def place_multi_compact_packed_plain(inp: MultiEvalInputs, cand_rows,
             cap_c, req_r[t], des_r[t], dh_r[t], cand_valid, aff_sc,
             aff_any_u[a_r[t]], used_c, job_count, inp.spread_algo,
             round_size)
-        rows_p, cnt_p, sc_p, c_i, placed, k_round = waterfill_round(
+        rows_p, cnt_p, sc_p, c_i, placed, k_round = fill(
             k_i, score, noise, want_r[t], inp.spread_algo, round_size)
         used_c = used_c + c_i[..., None] * req_r[t][:, None, :]
         job_count = job_count + c_i
@@ -438,24 +465,29 @@ def place_multi_compact_packed_plain(inp: MultiEvalInputs, cand_rows,
 
 def _compact_launch(used_out: torch.Tensor, used_in: torch.Tensor,
                     inp: MultiEvalInputs, cand_rows, cand_valid,
-                    round_size: int, n_lanes: int):
-    """K1's per-frame affinity + one K2 launch (one block per lane).
-    `used_out` receives the final usage; it may be `used_in` itself."""
-    name = "multi_compact"
+                    round_size: int, n_lanes: int, n_shards: int = 0):
+    """K1's per-frame affinity + one K2 launch (one block per lane; K12
+    with `n_shards`: per-shard frames [S, L, Nc_loc] and seeds
+    [S, J', Nc_loc], one cluster of S blocks per lane).  `used_out`
+    receives the final usage; it may be `used_in` itself."""
+    kern = K.MULTI_COMPACT_SHARDED if n_shards else K.MULTI_COMPACT
+    name = kern.name
     n = inp.attrs.shape[0]
     _check_rounds(n, round_size)
+    _check_shards(name, n, n_shards)
     dev = inp.attrs.device
-    if cand_rows.shape != cand_valid.shape or cand_rows.dim() != 2 \
-            or cand_rows.shape[0] != n_lanes:
-        raise ValueError(f"{name}: frames must be [n_lanes, Nc]")
+    lead = (n_shards, n_lanes) if n_shards else (n_lanes,)
+    if cand_rows.shape != cand_valid.shape \
+            or cand_rows.shape[:-1] != lead:
+        raise ValueError(f"{name}: frames must be {list(lead)} + [Nc]")
     K.check_dtype(f"{name}.cand_rows", cand_rows, torch.int32)
     K.check_dtype(f"{name}.cand_valid", cand_valid, torch.bool)
+    nc = cand_rows.shape[-1]
     aff_cu = affinity_landscape(inp.attrs, inp.aff, inp.luts,
-                                rows=cand_rows)
+                                rows=cand_rows.reshape(-1, nc))
     g_cnt = inp.req.shape[0]
     seed = inp.seed.expand(g_cnt) if inp.seed.dim() == 0 else inp.seed
     seed = seed.to(torch.int64).contiguous()
-    nc = cand_rows.shape[1]
     tensors = dict(cap=inp.cap, used_in=used_in, used_out=used_out,
                    cand_rows=cand_rows, cand_valid=cand_valid,
                    aff_cu=aff_cu, aff=inp.aff, req=inp.req,
@@ -468,8 +500,11 @@ def _compact_launch(used_out: torch.Tensor, used_in: torch.Tensor,
                 "dh_limit", "g_aff", "g_job", "job_count0", "round_g",
                 "round_want"):
         K.check_dtype(f"{name}.{key}", tensors[key], torch.int32)
+    jc_lead = (n_shards,) if n_shards else ()
     if (used_in.shape != (n, 3) or used_out.shape != (n, 3)
-            or inp.job_count0.shape[1] != nc or seed.shape[0] != g_cnt
+            or inp.job_count0.dim() != len(jc_lead) + 2
+            or inp.job_count0.shape[:len(jc_lead)] != jc_lead
+            or inp.job_count0.shape[-1] != nc or seed.shape[0] != g_cnt
             or inp.round_g.shape != inp.round_want.shape
             or inp.round_g.shape[0] % n_lanes):
         raise ValueError(f"{name}: inconsistent shapes")
@@ -480,20 +515,26 @@ def _compact_launch(used_out: torch.Tensor, used_in: torch.Tensor,
                             dtype=torch.int32, device=dev)
     fills = torch.empty((n_steps * n_lanes, round_size), dtype=torch.int32,
                         device=dev)
-    used_c = torch.empty((n_lanes, nc, 3), dtype=torch.int32, device=dev)
-    jc = torch.empty((n_lanes, nc), dtype=torch.int32, device=dev)
-    ki = torch.empty((n_lanes, nc), dtype=torch.int32, device=dev)
-    score = torch.empty((n_lanes, nc), dtype=torch.float32, device=dev)
-    keyb = torch.empty((n_lanes, nc), dtype=torch.int32, device=dev)
+    frame = lead + (nc,)
+    used_c = torch.empty(frame + (3,), dtype=torch.int32, device=dev)
+    jc = torch.empty(frame, dtype=torch.int32, device=dev)
+    ki = torch.empty(frame, dtype=torch.int32, device=dev)
+    score = torch.empty(frame, dtype=torch.float32, device=dev)
+    keyb = torch.empty(frame, dtype=torch.int32, device=dev)
+    mesh_args = []
+    if n_shards:
+        xch = _exchange(n_lanes, n_shards, min(round_size, nc), dev)
+        mesh_args = ([n_shards, inp.job_count0.shape[1]]
+                     + [t.data_ptr() for t in xch])
     if n_steps and nc:
         with torch.cuda.device(dev):
-            K.MULTI_COMPACT.launch(
+            kern.launch(
                 name,
                 *[t.data_ptr() for t in (*tensors.values(), buf_small, fills)],
                 n, n_lanes, nc, ua, af, n_steps, int(bool(inp.spread_algo)),
                 round_size, fill_k,
                 *[t.data_ptr() for t in (used_c, jc, ki, score, keyb)],
-                stream=K.stream_of(used_out))
+                *mesh_args, stream=K.stream_of(used_out))
     return buf_small, fills, used_out
 
 
@@ -645,13 +686,25 @@ def step_scores(inp: PlacementInputs, st: StepStatics, carry, g: int,
     return feas, final, stat_g, fit, dh_ok
 
 
-def place(inp: PlacementInputs) -> PlacementOutputs:
+def top_k_select(keys: torch.Tensor, final: torch.Tensor, seed):
+    """One step's top rows (node rows, `keys` = masked score + noise
+    descending, lower row first among ties) and their reported scores
+    (`final`, NEG_INF where the key is infeasible)."""
+    top_rows = torch.sort(keys, descending=True,
+                          stable=True).indices[:min(TOP_K, keys.shape[0])]
+    top_sc = torch.where(keys[top_rows] > NEG_INF / 2, final[top_rows],
+                         NEG_INF)
+    return top_rows, top_sc
+
+
+def place(inp: PlacementInputs, select=top_k_select) -> PlacementOutputs:
     """Plain version of K5's scan (reference: select.place): one
     placement per step, each seeing the state every earlier placement
-    committed."""
+    committed.  `select(keys, final, seed)` picks each step's top rows
+    (the sharded scan passes parallel.mesh's two-stage top-k)."""
     n = inp.attrs.shape[0]
     dev = inp.attrs.device
-    top_k = min(TOP_K, n)
+    seed = _seed_t(inp.seed, dev)
     st = scan_statics(inp, torch.arange(n, device=dev))
     used = inp.used0.clone()
     job_count = inp.job_count0.clone()
@@ -666,11 +719,7 @@ def place(inp: PlacementInputs) -> PlacementOutputs:
             inp, st, (used, job_count, sp_counts, pd_counts), g, prev)
         req_g = inp.req[g]
         masked = torch.where(feas, final, NEG_INF)
-        keys = masked + st.noise
-        top_rows = torch.sort(keys, descending=True,
-                              stable=True).indices[:top_k]
-        top_sc = torch.where(keys[top_rows] > NEG_INF / 2,
-                             final[top_rows], NEG_INF)
+        top_rows, top_sc = select(masked + st.noise, final, seed)
         ok = bool(act) and float(top_sc[0]) > NEG_INF / 2
         pick = int(top_rows[0]) if ok else -1
 
@@ -759,11 +808,14 @@ def _check_inputs(name: str, inp, i32, f32=(), bools=()) -> None:
                           if isinstance(v, torch.Tensor)})
 
 
-def _scan_launch(inp: PlacementInputs):
-    """K1 statics + one K5 launch."""
-    name = "place_scan"
-    _check_inputs(name, inp, _SCAN_I32, _SCAN_F32, _SCAN_BOOL)
+def _scan_launch(inp: PlacementInputs, n_shards: int = 0):
+    """K1 statics + one K5 launch (K9 with `n_shards`: one cluster of
+    that many blocks, each keeping its own spread and distinct counts)."""
+    kern = K.PLACE_SCAN_SHARDED if n_shards else K.PLACE_SCAN
+    name = kern.name
     n = inp.attrs.shape[0]
+    _check_shards(name, n, n_shards)
+    _check_inputs(name, inp, _SCAN_I32, _SCAN_F32, _SCAN_BOOL)
     g = inp.req.shape[0]
     s, k = inp.sp_counts0.shape
     d, kd = inp.pd_counts0.shape
@@ -785,13 +837,20 @@ def _scan_launch(inp: PlacementInputs):
     aff_any = (inp.aff[..., 3] != 0).any(dim=1)
     used = inp.used0.clone()
     job_count = inp.job_count0.clone()
-    sp_counts = inp.sp_counts0.clone()
-    pd_counts = inp.pd_counts0.clone()
+    # the kernel's counts when they exceed shared memory: one copy per
+    # block
+    copies = max(n_shards, 1)
+    sp_counts = inp.sp_counts0.repeat(copies, 1)
+    pd_counts = inp.pd_counts0.repeat(copies, 1)
     buf = torch.empty((p, 14), dtype=torch.int32, device=dev)
     score = torch.empty(n, dtype=torch.float32, device=dev)
+    mesh_args = []
+    if n_shards:
+        xch = torch.empty(2 * n_shards * 16, dtype=torch.int32, device=dev)
+        mesh_args = [n_shards, xch.data_ptr()]
     if p:
         with torch.cuda.device(dev):
-            K.PLACE_SCAN.launch(
+            kern.launch(
                 name, *[t.data_ptr() for t in (
                     inp.cap, used, static, aff_sc, aff_any, inp.req,
                     inp.desired, inp.dh_limit, inp.sp_nodeval,
@@ -800,7 +859,7 @@ def _scan_launch(inp: PlacementInputs):
                     inp.pd_counts0, inp.tg_idx, inp.prev_row, inp.active,
                     job_count, buf, sp_counts, pd_counts, score)],
                 n, g, s, k, d, kd, p, int(bool(inp.spread_algo)),
-                int(inp.seed) & _U32, stream=K.stream_of(used))
+                int(inp.seed) & _U32, *mesh_args, stream=K.stream_of(used))
     return buf, used, job_count
 
 
@@ -888,7 +947,7 @@ def bulk_round_metrics(inp: BulkInputs, static, used, job_count):
 
 
 def _bulk_step(inp: BulkInputs, round_size: int, top_k: int, static_t,
-               carry, want: int):
+               carry, want: int, fill=waterfill_round):
     """One water-fill round of the bulk kernel: ((used, job_count),
     (rows_p, cnt_p, sc_p, top_rows, top_sc, n_feas, n_filt, n_exh,
     dim_ex, placed))."""
@@ -898,7 +957,7 @@ def _bulk_step(inp: BulkInputs, round_size: int, top_k: int, static_t,
     k_i, score = bulk_round_scores(inp, static_t, used, job_count,
                                    round_size)
     want_t = torch.tensor([want], dtype=torch.int32, device=used.device)
-    rows_p, cnt_p, sc_p, c_i, placed, k_round = waterfill_round(
+    rows_p, cnt_p, sc_p, c_i, placed, k_round = fill(
         k_i[None], score[None], noise[None], want_t, inp.spread_algo,
         round_size)
     used = used + c_i[0][:, None] * req[None, :]
@@ -915,7 +974,7 @@ def _bulk_step(inp: BulkInputs, round_size: int, top_k: int, static_t,
 
 
 def _bulk_scan(inp: BulkInputs, round_size: int, n_rounds: int,
-               top_k: int):
+               top_k: int, fill=waterfill_round):
     """All rounds; the demand of round r is clip(p_real - r * round_size,
     0, round_size).  Returns ((used, job_count), stacked outputs)."""
     static_t = _bulk_static(inp, inp.g)
@@ -924,7 +983,7 @@ def _bulk_scan(inp: BulkInputs, round_size: int, n_rounds: int,
     for r in range(n_rounds):
         want = min(max(inp.p_real - r * round_size, 0), round_size)
         carry, out = _bulk_step(inp, round_size, top_k, static_t, carry,
-                                want)
+                                want, fill)
         outs.append(out)
     return carry, [torch.stack(c) for c in zip(*outs)]
 
@@ -938,16 +997,17 @@ def _check_bulk(n: int, round_size: int, with_scores: bool,
 
 def place_bulk_packed_plain(inp: BulkInputs, round_size: int,
                             n_rounds: int, with_scores: bool = False,
-                            fill_k: int = 0):
+                            fill_k: int = 0, fill=waterfill_round):
     """Plain version of K6: (buf [R, round_size + 16], used, job_count);
     with `with_scores` the buffer carries a bitcast score block before
     the meta ([R, 2 * round_size + 16]); with `fill_k` it is
     (buf_small [R, fill_k' + 16], fills [R, round_size], used,
-    job_count), fill_k' = min(fill_k, round_size)."""
+    job_count), fill_k' = min(fill_k, round_size).  `fill` as in
+    `place_multi_packed_plain`."""
     n = inp.attrs.shape[0]
     _check_bulk(n, round_size, with_scores, fill_k)
     (used, job_count), outs = _bulk_scan(inp, round_size, n_rounds,
-                                         min(TOP_K, n))
+                                         min(TOP_K, n), fill)
     (rows_p, cnt_p, sc_p, top_rows, top_sc, n_feas, n_filt, n_exh,
      dim_ex, placed) = outs
     fills, meta = pack_round_buffer(rows_p, cnt_p, top_rows, top_sc,
@@ -969,13 +1029,18 @@ _BULK_BOOL = ("elig", "dc_mask", "pool_mask", "luts")
 
 
 def _bulk_launch(inp: BulkInputs, round_size: int, n_rounds: int,
-                 with_scores: bool, fill_k: int):
+                 with_scores: bool, fill_k: int, n_shards: int = 0):
     """K1 statics of group g + one K6 launch (the rounds kernel at a
-    fixed group)."""
-    name = "multi_bulk"
+    fixed group; K10 with `n_shards`, full layout only)."""
+    kern = K.MULTI_BULK_SHARDED if n_shards else K.MULTI_BULK
+    name = kern.name
     _check_inputs(name, inp, _BULK_I32, (), _BULK_BOOL)
     n = inp.attrs.shape[0]
     _check_bulk(n, round_size, with_scores, fill_k)
+    _check_shards(name, n, n_shards)
+    if n_shards and (with_scores or fill_k):
+        raise ValueError(f"{name}: the sharded bulk rounds have the full "
+                         "layout only")
     g = inp.g
     if (inp.cap.shape != (n, 3) or inp.used0.shape != (n, 3)
             or inp.job_count0.shape != (n,)
@@ -1008,7 +1073,16 @@ def _bulk_launch(inp: BulkInputs, round_size: int, n_rounds: int,
     if n_rounds:
         zero = torch.zeros(1, dtype=torch.int32, device=dev)
         with torch.cuda.device(dev):
-            K.MULTI_BULK.launch(
+            if n_shards:
+                xch = _exchange(1, n_shards,
+                                min(round_size, n // n_shards), dev)
+                layout = []
+                mesh_args = [n_shards] + [t.data_ptr() for t in xch]
+            else:
+                layout = [mode, slot_k,
+                          0 if fills is None else fills.data_ptr()]
+                mesh_args = []
+            kern.launch(
                 name, *[t.data_ptr() for t in (
                     inp.cap, used, static.contiguous(), aff_sc, aff,
                     inp.req[gs].contiguous(), inp.desired[gs].contiguous(),
@@ -1017,10 +1091,9 @@ def _bulk_launch(inp: BulkInputs, round_size: int, n_rounds: int,
                     torch.zeros(n_rounds, dtype=torch.int32, device=dev),
                     torch.tensor(want, dtype=torch.int32, device=dev), buf)],
                 n, 1, aff.shape[1], n_rounds, int(bool(inp.spread_algo)),
-                round_size, mode, slot_k,
-                0 if fills is None else fills.data_ptr(),
+                round_size, *layout,
                 *[t.data_ptr() for t in (jc, ki, score, keyb)],
-                stream=K.stream_of(used))
+                *mesh_args, stream=K.stream_of(used))
     else:
         jc.copy_(inp.job_count0)
     if slot_k:

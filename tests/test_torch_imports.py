@@ -67,3 +67,18 @@ def test_engine_defaults_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         PlacementEngine(device="cuda")
     assert Harness(device="cpu").engine.device.type == "cpu"
+
+
+def test_mesh_modules_stand_alone():
+    """The mesh slice's modules are among those the probe imports, and
+    a mesh across several cards raises."""
+    import pkgutil
+
+    import nomad_tpu_torch
+    from nomad_tpu_torch.parallel import make_mesh
+    names = {m.name for m in pkgutil.walk_packages(
+        nomad_tpu_torch.__path__, "nomad_tpu_torch.")}
+    assert {"nomad_tpu_torch.parallel",
+            "nomad_tpu_torch.parallel.mesh"} <= names
+    with pytest.raises(NotImplementedError):
+        make_mesh(8, ["cuda:0", "cuda:1"])

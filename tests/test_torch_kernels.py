@@ -387,3 +387,191 @@ def test_solo_wrappers_refuse_wrong_dtype_on_card(cuda_device):
     args = _preempt_args(cuda_device, m=8, a=2)
     with pytest.raises(ValueError):
         preempt_bulk(*args._replace(req=args.req.float()))
+
+
+# ------------------------------------------------------ mesh kernels
+
+from nomad_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from torch_parity import pad_arrays  # noqa: E402
+
+S = 8
+MESH_SCAN_CASES = {
+    "padding_spread_distinct": dict(n=37, s=2, k=3, d=1, kd=3, p=32),
+    "n_loc_below_3": dict(n=13, p=16, s=1),
+    "few_feasible": dict(n=6, p=16, tight=True),
+    "reschedule_extra_dh": dict(n=300, prev=True, extra=True, dh=True,
+                                tight=True, p=64, p_real=59),
+    # spread counts past shared memory: each block's copy in global memory
+    "counts_in_global": dict(n=64, s=1, k=41000, p=16),
+}
+
+
+def _mesh_scan_inputs(case, device="cpu"):
+    kw = MESH_SCAN_CASES[case]
+    arr = random_placement_arrays(np.random.default_rng(21), **kw)
+    return placement_inputs_from_numpy(
+        pad_arrays(arr, pmesh.pad_nodes(kw["n"], S)), device)
+
+
+def _mesh_bulk_inputs(device="cpu", spread_algo=False, n=200, p_real=700):
+    arr = random_placement_arrays(np.random.default_rng(5), n=n, g=2,
+                                  p=8, spread_algo=spread_algo, dh=True,
+                                  extra=True)
+    arr = pad_arrays(arr, pmesh.pad_nodes(n, S))
+    arr = {k: arr[k] for k in psel.BulkInputs._fields if k in arr}
+    arr.update(g=np.int32(1), p_real=np.int32(p_real))
+    return bulk_inputs_from_numpy(arr, device)
+
+
+def _mesh_engine():
+    from nomad_tpu_torch.ops import PlacementEngine
+    return PlacementEngine(device="cpu", mesh=pmesh.make_mesh(S, "cpu"))
+
+
+def _mesh_built(zoned, spread=False, n_zones=5, count=40):
+    if zoned:
+        h = build_zoned_cluster(PORT, n_nodes=301, n_zones=n_zones)
+        n_items, zones = 11, n_zones
+    else:
+        h = build_flat_cluster(PORT, n_nodes=150)
+        n_items, count, zones = 9, 30, 0
+    if spread:
+        set_spread(PORT, h)
+    _, items = add_jobs(PORT, h, n_items, count, zones=zones)
+    built = _mesh_engine().build_multi_inputs(h.state.snapshot(), items,
+                                              seed=4)
+    assert (built["cand_rows"] is not None) == zoned
+    return built
+
+
+def test_mesh_wrappers_take_plain_versions_on_cpu():
+    """CPU tensors never reach K9-K13: results equal the plain versions
+    and no launch is counted; CPU tensors on a CUDA mesh raise."""
+    K.reset_launches()
+    mesh = pmesh.make_mesh(S, "cpu")
+    inp = _mesh_scan_inputs("padding_spread_distinct")
+    _same(pmesh.place_sharded_packed(inp, mesh),
+          psel.pack_outputs(pmesh.place_sharded_plain(inp, S)))
+    b = _mesh_bulk_inputs()
+    _same(pmesh.place_bulk_sharded_packed(b, mesh, 256, 3),
+          pmesh.place_bulk_sharded_plain(b, S, 256, 3))
+    built = _mesh_built(True)
+    cr, cv = frames_from_numpy(built["cand_rows"], built["cand_valid"])
+    args = (cr, cv, mesh, built["rs"], built["n_lanes"])
+    _same(pmesh.place_multi_compact_sharded(built["inp"], *args),
+          pmesh.place_multi_compact_sharded_plain(
+              built["inp"], cr, cv, S, built["rs"], built["n_lanes"]))
+    used = torch.zeros((16, 3), dtype=torch.int32)
+    pmesh.scatter_add_sharded_(used, torch.tensor([1, 9, 9], dtype=torch.int32),
+                               torch.ones((3, 3), dtype=torch.int32), mesh)
+    assert used[:, 0].tolist()[:10] == [0, 1, 0, 0, 0, 0, 0, 0, 0, 2]
+    assert all(k.launches == 0 for k in K.KERNELS)
+    with pytest.raises(ValueError, match="mesh on cuda"):
+        pmesh.place_sharded_packed(inp, pmesh.make_mesh(S, "cuda"))
+    with pytest.raises(ValueError, match="not CUDA"):
+        psel._scan_launch(inp, n_shards=S)
+    with pytest.raises(ValueError, match="shards"):
+        psel._scan_launch(_scan_inputs("binpack"), n_shards=3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(MESH_SCAN_CASES))
+def test_k9_sharded_scan_matches_plain(cuda_device, case):
+    mesh = pmesh.make_mesh(S, cuda_device)
+    inp = _mesh_scan_inputs(case, cuda_device)
+    got = pmesh.place_sharded_packed(inp, mesh)
+    want = psel.pack_outputs(pmesh.place_sharded_plain(inp, S))
+    want_cpu = pmesh.place_sharded_packed(_mesh_scan_inputs(case),
+                                          pmesh.make_mesh(S, "cpu"))
+    torch.cuda.synchronize()
+    _same(got, want, want_cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spread_algo", [False, True])
+def test_k10_sharded_bulk_matches_plain(cuda_device, spread_algo):
+    mesh = pmesh.make_mesh(S, cuda_device)
+    for n, p_real in ((200, 700), (50, 600)):   # n_loc < round size
+        b = _mesh_bulk_inputs(cuda_device, spread_algo, n, p_real)
+        got = pmesh.place_bulk_sharded_packed(b, mesh, 256, 3)
+        want = pmesh.place_bulk_sharded_plain(b, S, 256, 3)
+        want_cpu = pmesh.place_bulk_sharded_plain(
+            _mesh_bulk_inputs("cpu", spread_algo, n, p_real), S, 256, 3)
+        torch.cuda.synchronize()
+        _same(got, want, want_cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spread", [False, True])
+def test_k11_sharded_flat_matches_plain(cuda_device, spread):
+    mesh = pmesh.make_mesh(S, cuda_device)
+    built = _mesh_built(False, spread)
+    inp = _on(built["inp"], cuda_device)
+    rs = built["rs"]
+    got = pmesh.place_multi_sharded_packed(inp, mesh, rs)
+    want = pmesh.place_multi_sharded_plain(inp, S, rs)
+    want_cpu = pmesh.place_multi_sharded_plain(built["inp"], S, rs)
+    torch.cuda.synchronize()
+    _same(got, want, want_cpu)
+    used0 = inp.used0.clone()
+    chained = pmesh.place_multi_sharded_chained(
+        used0, inp._replace(used0=None), mesh, rs)
+    assert chained[1] is used0
+    _same(chained, want_cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["five_lanes", "two_lanes", "spread",
+                                  "round_512"])
+def test_k12_sharded_compact_matches_plain(cuda_device, case):
+    """round_512: 8 x 512 gathered keys, past 48 KB of shared memory
+    with the static arrays."""
+    mesh = pmesh.make_mesh(S, cuda_device)
+    built = _mesh_built(True, case == "spread",
+                        2 if case == "two_lanes" else 5,
+                        300 if case == "round_512" else 40)
+    assert built["rs"] == (512 if case == "round_512" else 64)
+    inp = _on(built["inp"], cuda_device)
+    rs, lanes = built["rs"], built["n_lanes"]
+    cr, cv = frames_from_numpy(built["cand_rows"], built["cand_valid"],
+                               cuda_device)
+    got = pmesh.place_multi_compact_sharded(inp, cr, cv, mesh, rs, lanes)
+    want = pmesh.place_multi_compact_sharded_plain(inp, cr, cv, S, rs, lanes)
+    want_cpu = pmesh.place_multi_compact_sharded_plain(
+        built["inp"], cr.cpu(), cv.cpu(), S, rs, lanes)
+    torch.cuda.synchronize()
+    _same(got, want, want_cpu)
+    used0 = inp.used0.clone()
+    chained = pmesh.place_multi_compact_sharded_chained(
+        used0, inp._replace(used0=None), cr, cv, mesh, rs, lanes)
+    assert chained[2] is used0
+    _same(chained, want_cpu)
+
+
+@pytest.mark.gpu
+def test_k13_sharded_scatter_matches_plain(cuda_device):
+    rng = np.random.default_rng(1)
+    npad = 504
+    used = torch.tensor(rng.integers(0, 1000, (npad, 3)), dtype=torch.int32,
+                        device=cuda_device)
+    rows = torch.tensor(rng.integers(-3, npad + 3, 20000), dtype=torch.int32,
+                        device=cuda_device)
+    vals = torch.tensor(rng.integers(-50, 50, (20000, 3)),
+                        dtype=torch.int32, device=cuda_device)
+    want = pmesh.scatter_add_sharded_plain(used.clone(), rows, vals, S)
+    want_cpu = pmesh.scatter_add_sharded_plain(used.cpu(), rows.cpu(),
+                                               vals.cpu(), S)
+    got = pmesh.scatter_add_sharded_(used, rows, vals,
+                                     pmesh.make_mesh(S, cuda_device))
+    torch.cuda.synchronize()
+    _same([got], [want], [want_cpu])
+
+
+@pytest.mark.gpu
+def test_cluster_barrier_probe_runs(cuda_device):
+    rows = torch.zeros(4 * S * 8, dtype=torch.int32, device=cuda_device)
+    sink = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    rc = K.MULTI_COMPACT.fn("cluster_barrier_probe")(
+        100, S, rows.data_ptr(), sink.data_ptr(), K.stream_of(rows))
+    torch.cuda.synchronize()
+    assert rc == 0

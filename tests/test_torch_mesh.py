@@ -1,0 +1,307 @@
+"""K9-K13 plain versions (nomad_tpu_torch/parallel/mesh.py) against the
+reference's sharded functions (nomad_tpu/parallel/mesh.py) on the
+8-device virtual CPU mesh that tests/conftest.py sets up.
+
+Both sides get the same numpy inputs, made from a seed, over a node
+axis padded to a multiple of 8 as the reference engine pads it (padding
+rows ineligible, attributes UNSET).  Tolerance: exact.  Every output
+word must be equal, the f32 scores bitcast into the packed buffers
+included.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nomad_tpu.ops.select import BulkInputs as RefBulk
+from nomad_tpu.parallel import mesh as rmesh
+from nomad_tpu_torch.ops.convert import (
+    bulk_inputs_from_numpy,
+    frames_from_numpy,
+    multi_inputs_from_numpy,
+    placement_inputs_from_numpy,
+)
+from nomad_tpu_torch.ops.select import pack_outputs
+from nomad_tpu_torch.parallel import mesh as pmesh
+from torch_parity import (
+    add_jobs,
+    build_flat_cluster,
+    build_zoned_cluster,
+    pad_arrays,
+    random_placement_arrays,
+    reference_inputs_numpy,
+    reference_placement_inputs,
+    set_spread,
+)
+
+pytestmark = pytest.mark.skipif(
+    jax.device_count() < 8, reason="needs the 8-device virtual mesh")
+
+S = 8
+
+
+@pytest.fixture(autouse=True)
+def _threads():
+    torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def ref_mesh():
+    return rmesh.make_mesh(S)
+
+
+def assert_equal(want, got):
+    assert len(want) == len(got)
+    for i, (w, g) in enumerate(zip(want, got)):
+        w, g = np.asarray(w), g.numpy()
+        assert w.dtype == g.dtype and w.shape == g.shape, i
+        assert w.tobytes() == g.tobytes(), i
+
+
+# ------------------------------------------------------------------ K9
+
+SCAN_CASES = {
+    # 37 nodes -> 3 padding rows; two spreads and a distinct_property
+    "padding_spread_distinct": dict(n=37, s=2, k=3, d=1, kd=3, p=32),
+    "spread_algo": dict(n=40, spread_algo=True, p=16),
+    # n_loc = 2 < 3: each shard offers two local winners
+    "n_loc_below_3": dict(n=13, p=16, s=1),
+    # few feasible rows: the gathered top 3 carries row -1
+    "few_feasible": dict(n=6, p=16, tight=True),
+    "reschedule_extra_dh": dict(n=48, prev=True, extra=True, dh=True,
+                                tight=True, p=32, p_real=29),
+    "no_seed": dict(n=40, seed=0, s=1, p=16),
+    "one_node": dict(n=1, g=3, p=8),
+}
+
+
+def _scan_arrays(case, rep):
+    kw = dict(SCAN_CASES[case])
+    arr = random_placement_arrays(np.random.default_rng(300 + rep), **kw)
+    return pad_arrays(arr, pmesh.pad_nodes(kw["n"], S))
+
+
+@pytest.mark.parametrize("case", sorted(SCAN_CASES))
+def test_k9_scan_matches_reference(case, ref_mesh):
+    fn = rmesh.place_sharded_packed_fn(ref_mesh)
+    for rep in range(2):
+        arr = _scan_arrays(case, rep)
+        want = fn(reference_placement_inputs(arr))
+        got = pmesh.place_sharded_packed(placement_inputs_from_numpy(arr),
+                                         pmesh.make_mesh(S, "cpu"))
+        assert_equal(want, got)
+
+
+def test_k9_shard_without_feasible_rows(ref_mesh):
+    """Shard 0's rows all ineligible, and only two feasible rows left in
+    the cluster: the global top 3 holds -1 rows at 0.0."""
+    arr = random_placement_arrays(np.random.default_rng(5), n=32, p=16,
+                                  tight=True)
+    arr["elig"][:] = False
+    arr["elig"][[9, 30]] = True
+    arr["dc_mask"][:] = True
+    arr["pool_mask"][:] = True
+    arr["con"][:] = 0
+    arr["used0"][:] = 0
+    want = rmesh.place_sharded_packed_fn(ref_mesh)(
+        reference_placement_inputs(arr))
+    got = pmesh.place_sharded_packed(placement_inputs_from_numpy(arr),
+                                     pmesh.make_mesh(S, "cpu"))
+    assert_equal(want, got)
+    buf = got[0].numpy()
+    assert set(buf[:, 0].tolist()) <= {9, 30, -1}
+    assert (buf[buf[:, 0] >= 0, 4] == -1).all()
+
+
+def test_k9_scores_are_key_less_noise():
+    """The sharded scan reports key - noise(row); the single-device scan
+    reports the score itself.  Picks agree, and the two scores differ by
+    at most the two roundings of (score + noise) - noise: one ulp of the
+    larger of |score| and the noise's 1e-6."""
+    from nomad_tpu_torch.ops.select import place_packed
+    arr = pad_arrays(random_placement_arrays(np.random.default_rng(0),
+                                             n=300, p=64, s=2, k=3), 304)
+    inp = placement_inputs_from_numpy(arr)
+    got = pmesh.place_sharded_packed(inp, pmesh.make_mesh(S, "cpu"))[0]
+    solo = place_packed(inp)[0]
+    assert (got[:, 0] >= 0).all()
+    assert np.array_equal(got[:, 0].numpy(), solo[:, 0].numpy())
+    g = got[:, 1].numpy().view(np.float32)
+    s = solo[:, 1].numpy().view(np.float32)
+    ulp = np.spacing(np.maximum(np.abs(s), np.float32(1e-6)))
+    assert (np.abs(g - s) <= ulp).all()
+
+
+# ----------------------------------------------------------------- K10
+
+BULK_CASES = {
+    # (arrays kwargs, round size, rounds, p_real): n_loc = 8 < round
+    "n_loc_below_round": (dict(n=60), 16, 3, 41),
+    "padding_small": (dict(n=5), 16, 2, 20),
+    "spread_algo": (dict(n=60, spread_algo=True), 16, 3, 48),
+    "dh_limit": (dict(n=30, dh=True, tight=True), 16, 4, 60),
+    "extra_mask_tight": (dict(n=44, extra=True, tight=True), 32, 4, 128),
+}
+
+
+def _bulk_arrays(case):
+    kw, rs, rounds, p_real = BULK_CASES[case]
+    arr = random_placement_arrays(np.random.default_rng(11), g=2,
+                                  p=rs * rounds, **kw)
+    arr = pad_arrays(arr, pmesh.pad_nodes(kw["n"], S))
+    b = {k: arr[k] for k in RefBulk._fields if k in arr}
+    b.update(g=np.int32(1), p_real=np.int32(p_real))
+    return b, rs, rounds
+
+
+@pytest.mark.parametrize("case", sorted(BULK_CASES))
+def test_k10_bulk_matches_reference(case, ref_mesh):
+    b, rs, rounds = _bulk_arrays(case)
+    ref = RefBulk(**{k: (None if v is None else jnp.asarray(v))
+                     for k, v in b.items()})
+    want = rmesh.place_bulk_sharded_packed_fn(ref_mesh, rs, rounds)(ref)
+    got = pmesh.place_bulk_sharded_packed(
+        bulk_inputs_from_numpy(b), pmesh.make_mesh(S, "cpu"), rs, rounds)
+    assert_equal(want, got)
+
+
+# ---------------------------------------------------------- K11 / K12
+
+def _mesh_engine():
+    from nomad_tpu.ops import PlacementEngine
+    return PlacementEngine(mesh=rmesh.make_mesh(S))
+
+
+def _flat_built(seed=3, spread=False):
+    h = build_flat_cluster("nomad_tpu", n_nodes=150)
+    if spread:
+        set_spread("nomad_tpu", h)
+    _, items = add_jobs("nomad_tpu", h, 9, 30, zones=0)
+    built = _mesh_engine().build_multi_inputs(h.state.snapshot(), items,
+                                              seed=seed)
+    assert built["cand_rows"] is None and built["npad"] == 152
+    return built
+
+
+def _zoned_built(seed=4, n_zones=5, n_nodes=300, spread=False):
+    h = build_zoned_cluster("nomad_tpu", n_nodes=n_nodes, n_zones=n_zones)
+    if spread:
+        set_spread("nomad_tpu", h)
+    _, items = add_jobs("nomad_tpu", h, 11, 40, zones=n_zones)
+    built = _mesh_engine().build_multi_inputs(h.state.snapshot(), items,
+                                              seed=seed)
+    assert built["cand_rows"].shape[:2] == (S, n_zones)
+    return built
+
+
+@pytest.mark.parametrize("spread", [False, True])
+@pytest.mark.parametrize("chained", [False, True])
+def test_k11_flat_matches_reference(ref_mesh, chained, spread):
+    built = _flat_built(spread=spread)
+    arrs = reference_inputs_numpy(built["inp"])
+    inp = multi_inputs_from_numpy(arrs)
+    rs = built["rs"]
+    mesh = pmesh.make_mesh(S, "cpu")
+    if chained:
+        fn = rmesh.place_multi_sharded_packed_fn(ref_mesh, rs, chained=True)
+        want = fn(jnp.asarray(arrs["used0"]), built["inp"]._replace(
+            used0=None))
+        used0 = inp.used0.clone()
+        got = pmesh.place_multi_sharded_chained(
+            used0, inp._replace(used0=None), mesh, rs)
+        assert got[1] is used0
+    else:
+        want = rmesh.place_multi_sharded_packed_fn(ref_mesh, rs)(
+            built["inp"])
+        got = pmesh.place_multi_sharded_packed(inp, mesh, rs)
+        assert np.array_equal(inp.used0.numpy(), arrs["used0"])
+    assert_equal(want, got)
+
+
+@pytest.mark.parametrize("case", ["five_lanes", "two_lanes", "chained",
+                                  "spread"])
+def test_k12_compact_matches_reference(ref_mesh, case):
+    built = _zoned_built(n_zones=2 if case == "two_lanes" else 5,
+                         spread=case == "spread")
+    arrs = reference_inputs_numpy(built["inp"])
+    inp = multi_inputs_from_numpy(arrs)
+    rs, lanes = built["rs"], built["n_lanes"]
+    cr, cv = frames_from_numpy(built["cand_rows"], built["cand_valid"])
+    mesh = pmesh.make_mesh(S, "cpu")
+    if case == "chained":
+        fn = rmesh.place_multi_compact_sharded_fn(ref_mesh, rs, lanes,
+                                                  chained=True)
+        want = fn(jnp.asarray(arrs["used0"]),
+                  built["inp"]._replace(used0=None),
+                  jnp.asarray(built["cand_rows"]),
+                  jnp.asarray(built["cand_valid"]))
+        used0 = inp.used0.clone()
+        got = pmesh.place_multi_compact_sharded_chained(
+            used0, inp._replace(used0=None), cr, cv, mesh, rs, lanes)
+        assert got[2] is used0
+    else:
+        want = rmesh.place_multi_compact_sharded_fn(ref_mesh, rs, lanes)(
+            built["inp"], built["cand_rows"], built["cand_valid"])
+        got = pmesh.place_multi_compact_sharded(inp, cr, cv, mesh, rs,
+                                                lanes)
+    assert_equal(want, got)
+    assert (got[0].numpy()[:, -16 + 12] > 0).any()
+
+
+# ----------------------------------------------------------------- K13
+
+def test_k13_scatter_matches_reference(ref_mesh):
+    from nomad_tpu.ops.engine import _sharded_fn
+    rng = np.random.default_rng(2)
+    npad = 40
+    used = rng.integers(0, 1000, (npad, 3)).astype(np.int32)
+    rows = rng.integers(0, npad, 512).astype(np.int32)   # repeats
+    vals = rng.integers(-50, 50, (512, 3)).astype(np.int32)
+    want = _sharded_fn(ref_mesh, "scatter")(jnp.asarray(used),
+                                            jnp.asarray(rows),
+                                            jnp.asarray(vals))
+    got = torch.tensor(used)
+    out = pmesh.scatter_add_sharded_(got, torch.tensor(rows),
+                                     torch.tensor(vals),
+                                     pmesh.make_mesh(S, "cpu"))
+    assert out is got
+    assert np.array_equal(np.asarray(want), got.numpy())
+
+
+def test_k13_drops_rows_outside_the_table():
+    used = torch.zeros((16, 3), dtype=torch.int32)
+    rows = torch.tensor([-1, 0, 15, 16, 99], dtype=torch.int32)
+    vals = torch.ones((5, 3), dtype=torch.int32)
+    pmesh.scatter_add_sharded_plain(used, rows, vals, 8)
+    assert used.sum().item() == 6 and used[0, 0] == 1 and used[15, 2] == 1
+
+
+# ------------------------------------------------------------- the mesh
+
+def test_mesh_shape_rules():
+    m = pmesh.make_mesh(8, "cpu")
+    assert (m.n_shards, m.device.type, pmesh.AXIS) == (8, "cpu", "nodes")
+    assert pmesh.pad_nodes(13, 8) == 16 and pmesh.pad_nodes(16, 8) == 16
+    with pytest.raises(ValueError):
+        pmesh.make_mesh(9, "cpu")
+    with pytest.raises(ValueError):
+        pmesh.make_mesh(0, "cpu")
+    with pytest.raises(NotImplementedError, match="several cards"):
+        pmesh.make_mesh(8, ["cuda:0", "cuda:1"])
+    assert pmesh.make_mesh(4, ["cpu", "cpu"]).device.type == "cpu"
+    with pytest.raises(ValueError, match="pad_nodes"):
+        pmesh.scatter_add_sharded_plain(
+            torch.zeros((13, 3), dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32),
+            torch.zeros((1, 3), dtype=torch.int32), 8)
+
+
+def test_plain_packed_scan_equals_pack_of_outputs():
+    arr = _scan_arrays("n_loc_below_3", 1)
+    inp = placement_inputs_from_numpy(arr)
+    a = pmesh.place_sharded_packed(inp, pmesh.make_mesh(S, "cpu"))
+    b = pack_outputs(pmesh.place_sharded_plain(inp, S))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)

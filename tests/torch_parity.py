@@ -272,6 +272,33 @@ def random_placement_arrays(rng, n=40, g=2, p=16, p_real=None, s=0, k=3,
     return out
 
 
+# node-axis fields of random_placement_arrays and their padding values
+# (reference engine._pad_rows / _pad_cols): padded rows are ineligible and
+# match nothing
+_PAD_ROWS = {"attrs": -1, "cap": 0, "used0": 0, "elig": False,
+             "dc_mask": False, "pool_mask": False, "job_count0": 0}
+_PAD_COLS = {"sp_nodeval": -1, "pd_nodeval": -1, "extra_mask": False}
+
+
+def pad_arrays(arr, npad):
+    """`random_placement_arrays` output with the node axis padded to
+    `npad` rows, as the mesh engine pads it."""
+    out = dict(arr)
+    for k, fill in _PAD_ROWS.items():
+        a = arr[k]
+        p = np.full((npad,) + a.shape[1:], fill, a.dtype)
+        p[:a.shape[0]] = a
+        out[k] = p
+    for k, fill in _PAD_COLS.items():
+        a = arr.get(k)
+        if a is None:
+            continue
+        p = np.full(a.shape[:-1] + (npad,), fill, a.dtype)
+        p[..., :a.shape[-1]] = a
+        out[k] = p
+    return out
+
+
 def reference_placement_inputs(arrays):
     """The reference's PlacementInputs from `random_placement_arrays`."""
     import jax.numpy as jnp
