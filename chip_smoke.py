@@ -13,7 +13,8 @@ into nomad_tpu_torch/csrc/build/), then:
      copies of the same inputs (the CPU plain version is the one that
      matches the JAX reference bit for bit).  Tolerance: none; every
      output word, f32 scores compared as their bits, must be equal.
-     Kernel / plain / library times, and each kernel's bound;
+     Kernel / plain / library times (K4 and K13 timed in turns with
+     their library call), and each kernel's bound;
   3. the north-star zoned wave through the port's Harness: 50,000 nodes
      in 3 DCs and 5 CSI zones (bench.py _build_bench_cluster), 384 batch
      evals x 260 placements, prepare_batch per eval, ONE place_batch
@@ -63,6 +64,16 @@ Then the node-sharded mesh: a second engine on make_mesh(8) of the card
      phases' inputs, on the card and on CPU copies, and a probe of one
      cluster exchange at 8 blocks.
 
+After every wall-time measurement:
+
+ 16. launch_path: K4's wall time per call split by the host clock, the
+     median of 11 loops of 1,000 calls each (the wrapper's Python, the
+     call into the launcher, the same call launching nothing, both again
+     through ctypes) and its device time per call;
+ 17. device_times: each kernel row's timed loop run again under one
+     torch.profiler window, giving `device_ms` (and `library_device_ms`
+     for the rows that have a library call).
+
 Every phase prints one JSON line; a failed phase raises and the script
 exits non-zero.  The kernel launch counters are zeroed before each main
 path phase and read after it; the line before the last carries them.
@@ -74,6 +85,7 @@ nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -129,6 +141,10 @@ SOLO_NOW = 1.7e9
 # placements per value, so 2,100 of the spread eval's 3,000 fit
 VARIANT_PD_VALUES = 7
 VARIANT_PD_LIMIT = 300
+# K4, K13 and their index_add_ (a few microseconds a call) are timed in
+# turns: REPLAY_ROUNDS loops a side of REPLAY_REPS back-to-back calls
+REPLAY_REPS = 1000
+REPLAY_ROUNDS = 11
 # __syncthreads per step of the scan and preemption kernels
 BARRIERS_SCAN = 3
 BARRIERS_PREEMPT = 3
@@ -355,6 +371,135 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def timing(fn, reps: int) -> dict:
+    """A kernel row's `ms` (time_ms over `reps` back-to-back calls: the
+    wall time per call) and the loop itself, kept for the row's device
+    window at the end of the run (device_phase)."""
+    return {"ms": time_ms(fn, reps), "_timed": (fn, reps)}
+
+
+def paired_timing(kernel_fn, library_fn, rounds: int = REPLAY_ROUNDS,
+                  reps: int = REPLAY_REPS) -> dict:
+    """`ms` and `library_ms` of a kernel's wrapper and of the one
+    PyTorch call that computes its function, timed in turns (kernel,
+    library, library, kernel, ...): `rounds` loops of `reps` calls after
+    10 warm-up calls each, the median loop of each side.  One loop of a
+    call of a few microseconds moves by a third with the host's load, so
+    a single loop of each, taken at two moments, cannot order two calls
+    that differ by a tenth."""
+    loops = {kernel_fn: [], library_fn: []}
+    for i in range(rounds):
+        for fn in ((kernel_fn, library_fn) if i % 2 == 0
+                   else (library_fn, kernel_fn)):
+            loops[fn].append(time_ms(fn, reps, 10))
+    return {"ms": statistics.median(loops[kernel_fn]),
+            "library_ms": statistics.median(loops[library_fn]),
+            "ms_loops": loops[kernel_fn],
+            "library_ms_loops": loops[library_fn],
+            "_timed": (kernel_fn, reps), "_library_timed": (library_fn, reps)}
+
+
+def device_ms(fn, reps: int):
+    """Device time per call of `fn`: one torch.profiler window (CPU and
+    CUDA activities) over `reps` calls after a warm-up call, summing the
+    duration of every device activity the calls ran (kernels, copies,
+    fills).  None when the profiler recorded no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / reps / 1e3 if us > 0 else None
+
+
+def device_phase(rows) -> dict:
+    """`device_ms` (and, where a row has one, `library_device_ms`) of
+    every kernel row from its own timed loop, run again under the
+    profiler.  The windows run after every `ms` of the script was taken,
+    so no profiler state is left behind under a wall-time measurement.
+    A row whose window saw no device time keeps None ("not measured")."""
+    by = {}
+    for r in rows:
+        fn, reps = r.pop("_timed")
+        lib = r.pop("_library_timed", None)
+        r["device_ms"] = device_ms(fn, reps)
+        r["library_device_ms"] = device_ms(*lib) if lib else None
+        by[r["kernel"].name] = ("torch.profiler" if r["device_ms"]
+                                else "not measured")
+    return by
+
+
+def launch_path(row, calls: int = 1000) -> dict:
+    """K4's wall time per call split by the host clock, `calls` calls
+    each (the chunk of the kernel row `row`): the wrapper's Python before
+    the launcher (checks, stream, guard: the wrapper run with its bound
+    launcher swapped for a Python no-op), the call into the launcher
+    with the wrapper's arguments, the same call with m = 0 (argument
+    conversion and cudaGetLastError, no launch), the whole wrapper and
+    `index_add_`, and the launcher's two calls again through ctypes, each
+    the median of REPLAY_ROUNDS loops; then the device time per call of
+    the wrapper from one profiler window."""
+    import ctypes
+
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as K
+    from nomad_tpu_torch.ops.engine import scatter_add_
+
+    work, rows, vals, rows_l = row["_args"]
+    kern, sym = K.SCATTER_ADD, "scatter_add"
+    launcher = kern.fn(sym)
+    args = (work.data_ptr(), work.shape[0], rows.data_ptr(),
+            vals.data_ptr(), rows.shape[0], K.stream_of(work))
+    empty = args[:4] + (0, args[5])
+
+    def host_us(f, *a):
+        """Median of REPLAY_ROUNDS loops of `calls` calls, per call."""
+        per_call = []
+        for _ in range(REPLAY_ROUNDS):
+            for _ in range(10):
+                f(*a)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                f(*a)
+            per_call.append((time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+        return statistics.median(per_call)
+
+    out = {"phase": "launch_path", "kernel": kern.name, "calls": calls,
+           "rows": rows.shape[0],
+           "stream": "torch._C._cuda_getCurrentRawStream",
+           "wrapper_host_us": host_us(scatter_add_, work, rows, vals),
+           "index_add_host_us": host_us(work.index_add_, 0, rows_l, vals)}
+    kern._fns[sym] = lambda *a: 0
+    try:
+        out["python_us"] = host_us(scatter_add_, work, rows, vals)
+    finally:
+        kern._fns[sym] = launcher
+    out["launcher_us"] = host_us(launcher, *args)
+    out["launcher_no_launch_us"] = host_us(launcher, *empty)
+    # the same launcher bound through ctypes, as the port bound every
+    # launcher before its FASTCALL binding (csrc/py_launchers.cuh)
+    cfn = ctypes.CDLL(str(K.build_all()[kern.source]))[sym]
+    cfn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    cfn.restype = ctypes.c_int
+    out["ctypes_us"] = host_us(cfn, *args)
+    out["ctypes_no_launch_us"] = host_us(cfn, *empty)
+    dev_ms = device_ms(lambda: scatter_add_(work, rows, vals), calls)
+    out["device_us"] = dev_ms * 1e3 if dev_ms else None
+    return out
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -536,7 +681,7 @@ def kernel_phase(h, zoned_built, flat_built):
                          m_args[1], zin.aff) + u * n + nbytes(got[1]))
     k1_ops = u * n * c_rows * 4 + valid * zin.aff.shape[0] * af_rows * 6
     rows.append(dict(kernel=K.LANDSCAPE, max_abs_err=err,
-                     ms=time_ms(k1, 20), plain_ms=time_ms(k1_plain, 3),
+                     **timing(k1, 20), plain_ms=time_ms(k1_plain, 3),
                      bytes=k1_bytes, ops=k1_ops, library_ms=None,
                      depth_ms=None))
 
@@ -559,7 +704,7 @@ def kernel_phase(h, zoned_built, flat_built):
     k2_barriers = BARRIERS_COMPACT + sort_barriers(min(rs, cr.shape[1]))
     rows.append(dict(
         kernel=K.MULTI_COMPACT, max_abs_err=err,
-        ms=time_ms(lambda: S.place_multi_compact_packed(zin, *args), 5),
+        **timing(lambda: S.place_multi_compact_packed(zin, *args), 5),
         plain_ms=time_ms(
             lambda: S.place_multi_compact_packed_plain(zin, *args), 2),
         bytes=k2_bytes, ops=k2_ops, library_ms=None,
@@ -584,7 +729,7 @@ def kernel_phase(h, zoned_built, flat_built):
     k3_barriers = BARRIERS_FLAT + sort_barriers(min(frs, n))
     rows.append(dict(
         kernel=K.MULTI_FLAT, max_abs_err=err,
-        ms=time_ms(lambda: S.place_multi_packed(fin, frs), 5),
+        **timing(lambda: S.place_multi_packed(fin, frs), 5),
         plain_ms=time_ms(lambda: S.place_multi_packed_plain(fin, frs), 2),
         bytes=k3_bytes, ops=f_real * n * OPS_PER_ROW_STEP, library_ms=None,
         depth_ms=f_real * k3_barriers * barrier_ms, depth_steps=f_real,
@@ -608,12 +753,12 @@ def kernel_phase(h, zoned_built, flat_built):
     r4l = r4.long()
     rows.append(dict(
         kernel=K.SCATTER_ADD, max_abs_err=err,
-        ms=time_ms(lambda: scatter_add_(work, r4, v4), 50),
+        **paired_timing(lambda: scatter_add_(work, r4, v4),
+                        lambda: work.index_add_(0, r4l, v4)),
         plain_ms=time_ms(lambda: scatter_add_plain(work, r4, v4), 20),
         bytes=nbytes(r4, v4) + 2 * SCATTER_CHUNK * 3 * 4,
         ops=SCATTER_CHUNK * 3,
-        library_ms=time_ms(lambda: work.index_add_(0, r4l, v4), 50),
-        depth_ms=None))
+        depth_ms=None, _args=(work, r4, v4, r4l)))
     for r in rows:
         b_ms = r["bytes"] / PEAK_BYTES * 1e3
         o_ms = r["ops"] / PEAK_OPS * 1e3
@@ -993,7 +1138,7 @@ def solo_kernel_phase(rec, barrier_ms):
         inp.tg_idx.long().cpu()]                   # distinct rows per step
     rows.append(dict(
         kernel=K.PLACE_SCAN, max_abs_err=err,
-        ms=time_ms(lambda: S.place_packed(inp), 3),
+        **timing(lambda: S.place_packed(inp), 3),
         plain_ms=time_ms(lambda: S.pack_outputs(S.place(inp)), 1, 0),
         bytes=fn_bytes(tensors(inp), inp.attrs, inp.luts, inp.con,
                        inp.aff)
@@ -1028,7 +1173,7 @@ def solo_kernel_phase(rec, barrier_ms):
     k6_barriers = BARRIERS_FLAT + sort_barriers(min(rs, n))
     rows.append(dict(
         kernel=K.MULTI_BULK, max_abs_err=err,
-        ms=time_ms(lambda: S.place_bulk_packed(binp, rs, n_rounds, False,
+        **timing(lambda: S.place_bulk_packed(binp, rs, n_rounds, False,
                                                S.FILL_K), 5),
         plain_ms=time_ms(lambda: S.place_bulk_packed_plain(
             binp, rs, n_rounds, False, S.FILL_K), 1, 0),
@@ -1049,7 +1194,7 @@ def solo_kernel_phase(rec, barrier_ms):
     n_real = args[10]
     rows.append(dict(
         kernel=K.PREEMPT_BULK, max_abs_err=err,
-        ms=time_ms(lambda: P.preempt_bulk(*args), 10),
+        **timing(lambda: P.preempt_bulk(*args), 10),
         plain_ms=time_ms(lambda: P.preempt_bulk_plain(*args), 1, 0),
         bytes=nbytes(*tensors(args), *got),
         ops=n_real * m * (OPS_PREEMPT_VICTIM * a + OPS_PREEMPT_ROW),
@@ -1070,7 +1215,7 @@ def solo_kernel_phase(rec, barrier_ms):
     n = fa[0].shape[0]
     rows.append(dict(
         kernel=K.FEASIBLE, max_abs_err=err,
-        ms=time_ms(lambda: feasible_mask(*fa), 50),
+        **timing(lambda: feasible_mask(*fa), 50),
         plain_ms=time_ms(lambda: feasible_mask_plain(*fa), 10),
         bytes=fn_bytes(fa, fa[0], fa[5], fa[4]) + g * n,
         ops=g * n * (OPS_FEASIBLE_ROW * c + OPS_FEASIBLE_BASE),
@@ -1312,7 +1457,7 @@ def mesh_kernel_phase(rec, barrier_ms, cluster_ms):
         inp.tg_idx.long().cpu()]
     rows.append(dict(
         kernel=K.PLACE_SCAN_SHARDED, max_abs_err=err,
-        ms=time_ms(lambda: PM.place_sharded_packed(inp, mesh), 3),
+        **timing(lambda: PM.place_sharded_packed(inp, mesh), 3),
         plain_ms=plain_ms,
         bytes=fn_bytes(tensors(inp), inp.attrs, inp.luts, inp.con, inp.aff)
         + p * 14 * 4 + n * 16 + p * ns * 16 * 4 * (1 + ns),
@@ -1338,7 +1483,7 @@ def mesh_kernel_phase(rec, barrier_ms, cluster_ms):
     kk = min(rs, ns * kk_loc)
     rows.append(dict(
         kernel=K.MULTI_BULK_SHARDED, max_abs_err=err,
-        ms=time_ms(lambda: PM.place_bulk_sharded_packed(binp, mesh, rs,
+        **timing(lambda: PM.place_bulk_sharded_packed(binp, mesh, rs,
                                                         n_rounds), 5),
         plain_ms=plain_ms,
         bytes=fn_bytes(tensors(binp), binp.attrs, binp.luts, binp.con,
@@ -1362,7 +1507,7 @@ def mesh_kernel_phase(rec, barrier_ms, cluster_ms):
     kk = min(frs, ns * kk_loc)
     rows.append(dict(
         kernel=K.MULTI_FLAT_SHARDED, max_abs_err=err,
-        ms=time_ms(lambda: PM.place_multi_sharded_packed(fin, mesh, frs), 5),
+        **timing(lambda: PM.place_multi_sharded_packed(fin, mesh, frs), 5),
         plain_ms=plain_ms,
         bytes=fn_bytes((fin.cap, fin.used0, fin.elig, fin.luts,
                         fin.base_mask, fin.con, fin.aff, fin.req,
@@ -1402,7 +1547,7 @@ def mesh_kernel_phase(rec, barrier_ms, cluster_ms):
     kk = min(rs, ns * kk_loc)
     rows.append(dict(
         kernel=K.MULTI_COMPACT_SHARDED, max_abs_err=err,
-        ms=time_ms(lambda: PM.place_multi_compact_sharded(
+        **timing(lambda: PM.place_multi_compact_sharded(
             zin, cr, cv, mesh, rs, lanes), 5),
         plain_ms=plain_ms,
         bytes=nbytes(zin.cap, zin.used0, cr, cv, zin.aff, zin.req,
@@ -1427,10 +1572,11 @@ def mesh_kernel_phase(rec, barrier_ms, cluster_ms):
     m = r13.shape[0]
     rows.append(dict(
         kernel=K.SCATTER_ADD_SHARDED, max_abs_err=err,
-        ms=time_ms(lambda: PM.scatter_add_sharded_(work, r13, v13, mesh), 50),
+        **paired_timing(
+            lambda: PM.scatter_add_sharded_(work, r13, v13, mesh),
+            lambda: work.index_add_(0, r13l, v13)),
         plain_ms=plain_ms, bytes=nbytes(r13, v13) + 2 * m * 3 * 4,
         ops=m * 3,
-        library_ms=time_ms(lambda: work.index_add_(0, r13l, v13), 50),
         depth_ms=None, replay_rows=m))
     for r in rows:
         b_ms = r["bytes"] / PEAK_BYTES * 1e3
@@ -1498,7 +1644,7 @@ def main() -> int:
     torch.cuda.synchronize()
     emit({"phase": "kernel_checks", "card": card, "tolerance": "exact",
           "checks": [{k: (v.name if k == "kernel" else v)
-                      for k, v in r.items()} for r in krows]})
+                      for k, v in r.items() if k[0] != "_"} for r in krows]})
     del zoned_built, flat_built
 
     # 3-6. the main path: each wave through the Harness, launch counts
@@ -1541,7 +1687,7 @@ def main() -> int:
     torch.cuda.synchronize()
     emit({"phase": "solo_kernel_checks", "card": card, "tolerance": "exact",
           "checks": [{k: (v.name if k == "kernel" else v)
-                      for k, v in r.items()} for r in srows]})
+                      for k, v in r.items() if k[0] != "_"} for r in srows]})
 
     # 13-14. the node-sharded mesh, then 15. its kernels against the plain
     # versions
@@ -1552,7 +1698,20 @@ def main() -> int:
     torch.cuda.synchronize()
     emit({"phase": "mesh_kernel_checks", "card": card, "tolerance": "exact",
           "checks": [{k: (v.name if k == "kernel" else v)
-                      for k, v in r.items()} for r in mrows]})
+                      for k, v in r.items() if k[0] != "_"} for r in mrows]})
+
+    # K4's launch path split, then every row's device window (after all
+    # wall-time measurements)
+    lp = launch_path(next(r for r in krows if r["kernel"] is K.SCATTER_ADD))
+    lp["card"] = card
+    device_by = device_phase(krows + srows + mrows)
+    emit(lp)
+    emit({"phase": "device_times", "card": card, "source": device_by,
+          "rows": [{"name": r["kernel"].name, "ms": r["ms"],
+                    "device_ms": r["device_ms"],
+                    "library_ms": r["library_ms"],
+                    "library_device_ms": r["library_device_ms"]}
+                   for r in krows + srows + mrows]})
 
     missing = [k for k, v in launches.items() if v < 1]
     if missing:
@@ -1568,7 +1727,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "depth_ms": r["depth_ms"]})
+            "depth_ms": r["depth_ms"], "device_ms": r["device_ms"],
+            "library_device_ms": r["library_device_ms"]})
     emit({"phase": "summary", "total_s": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"kernels": kernels})

@@ -27,6 +27,7 @@
 // per-lane candidate frames), clamping out-of-range ids as a JAX gather
 // does.
 
+#include "py_launchers.cuh"  // first: it includes Python.h
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -156,3 +157,8 @@ extern "C" int feasible_mask(const int* attrs, int n, int n_attr,
                                         out);
   return (int)cudaGetLastError();
 }
+
+PY_LAUNCHERS(landscape,
+             PY_LAUNCHER(landscape_mask),
+             PY_LAUNCHER(landscape_affinity),
+             PY_LAUNCHER(feasible_mask))

@@ -81,6 +81,7 @@
 // has read it.  What bounds it: as for K2/K3, the chain of dependent
 // block passes, now with three cluster barriers a round.
 
+#include "py_launchers.cuh"  // first: it includes Python.h
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -865,3 +866,14 @@ extern "C" int multi_bulk_sharded(
                   buf, n, ua, n_aff, n_rounds, spread, rs, 0, 0, nullptr, jc,
                   ki, score, keyb, n_shards, xcnt, xkey, xval, stream);
 }
+
+PY_LAUNCHERS(multi_rounds,
+             PY_LAUNCHER(multi_compact),
+             PY_LAUNCHER(multi_flat),
+             PY_LAUNCHER(multi_bulk),
+             PY_LAUNCHER(pow10_f32),
+             PY_LAUNCHER(barrier_probe),
+             PY_LAUNCHER(cluster_barrier_probe),
+             PY_LAUNCHER(multi_compact_sharded),
+             PY_LAUNCHER(multi_flat_sharded),
+             PY_LAUNCHER(multi_bulk_sharded))

@@ -45,6 +45,7 @@
 // values to its counts, and block 0 writes the step's row.  What bounds
 // it: the chain of steps, now with one cluster barrier each.
 
+#include "py_launchers.cuh"  // first: it includes Python.h
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -453,3 +454,7 @@ extern "C" int place_scan_sharded(SCAN_ARGS, int n_shards, int* xch,
   p.xch = xch;
   return run_scan(p, n_shards, stream);
 }
+
+PY_LAUNCHERS(place_scan,
+             PY_LAUNCHER(place_scan),
+             PY_LAUNCHER(place_scan_sharded))

@@ -24,6 +24,7 @@
 // the job count, and writes the step's (row, victims) pair.  The victim
 // cost (prio + 1) * 1000 + resource sum is one fma, as XLA fuses it.
 
+#include "py_launchers.cuh"  // first: it includes Python.h
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -180,3 +181,6 @@ extern "C" int preempt_bulk(const int* cap, int* used, const uint8_t* stat,
   preempt_kernel<<<1, BS, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
+
+PY_LAUNCHERS(preempt,
+             PY_LAUNCHER(preempt_bulk))

@@ -91,37 +91,28 @@ MAX_LANES = 8
 
 def scatter_add_plain(used: torch.Tensor, rows: torch.Tensor,
                       vals: torch.Tensor) -> torch.Tensor:
-    """Plain version of K4: used[rows] += vals in place (rows may repeat;
-    rows outside [0, N) are dropped)."""
-    keep = (rows >= 0) & (rows < used.shape[0])
-    used.index_put_((rows[keep].long(),), vals[keep].to(used.dtype),
-                    accumulate=True)
+    """Plain version of K4: used[rows] += vals in place, indexed as the
+    reference's `u.at[r].add(v)`: for N rows, a row in [-N, 0) adds to
+    row r + N, a row below -N or at N and above is dropped; repeated
+    rows sum."""
+    r = K.wrap_rows(rows, used.shape[0])
+    keep = (r >= 0) & (r < used.shape[0])
+    used.index_put_((r[keep],), vals[keep].to(used.dtype), accumulate=True)
     return used
 
 
 def scatter_add_(used: torch.Tensor, rows: torch.Tensor,
-                 vals: torch.Tensor, n_shards: int = 0) -> torch.Tensor:
-    """`used[rows] += vals` in place (reference: engine._scatter_add_jit).
-    A CPU tensor takes the plain version; a CUDA tensor launches K4 (or
-    raises; K13 with `n_shards`, as parallel.mesh.scatter_add_sharded_
-    calls it).  used [N, 3] int32, rows [M] int32, vals [M, 3] int32."""
-    if used.device.type == "cpu":
+                 vals: torch.Tensor) -> torch.Tensor:
+    """`used[rows] += vals` in place (reference: engine._scatter_add_jit;
+    rows index as in scatter_add_plain).  A CPU tensor takes the plain
+    version; a CUDA tensor launches K4 or raises.  used [N, 3] int32,
+    rows [M] int32, vals [M, 3] int32."""
+    if used.is_cpu:
         return scatter_add_plain(used, rows, vals)
-    kern = K.SCATTER_ADD_SHARDED if n_shards else K.SCATTER_ADD
-    name = kern.name
-    K.check_cuda(name, used=used, rows=rows, vals=vals)
-    K.check_dtype(name, used, torch.int32, 2)
-    K.check_dtype(name, rows, torch.int32, 1)
-    K.check_dtype(name, vals, torch.int32, 2)
-    m = rows.shape[0]
-    if used.shape[1] != 3 or vals.shape != (m, 3):
-        raise ValueError(f"{name}: expected used [N, 3], vals [M, 3]")
+    d, n, m = K.check_scatter("scatter_add", used, rows, vals)
     if m:
-        with torch.cuda.device(used.device):
-            kern.launch(name, used.data_ptr(), used.shape[0],
-                        rows.data_ptr(), vals.data_ptr(), m,
-                        *([n_shards] if n_shards else []),
-                        stream=K.stream_of(used))
+        K.SCATTER_ADD.launch(d, "scatter_add", used.data_ptr(), n,
+                             rows.data_ptr(), vals.data_ptr(), m)
     return used
 
 

@@ -143,10 +143,10 @@ def _mask_launch(kernel, name, attrs, con, luts, elig, base_mask, u_mask):
         raise ValueError(f"{name}: inconsistent shapes")
     out = torch.empty((u, n), dtype=torch.bool, device=attrs.device)
     if u and n:
-        with torch.cuda.device(attrs.device):
-            kernel.launch(
-                name, attrs.data_ptr(), n, a, con.data_ptr(), u, c,
-                luts.data_ptr(), luts.shape[0], luts.shape[1],
-                elig.data_ptr(), base_mask.data_ptr(), u_mask.data_ptr(),
-                out.data_ptr(), stream=K.stream_of(attrs))
+        kernel.launch(
+            attrs.get_device(), name, attrs.data_ptr(), n, a,
+            con.data_ptr(), u, c, luts.data_ptr(), luts.shape[0],
+            luts.shape[1],
+            elig.data_ptr(), base_mask.data_ptr(), u_mask.data_ptr(),
+            out.data_ptr())
     return out

@@ -1,29 +1,41 @@
 """Build and bind the port's hand-written CUDA kernels (`csrc/*.cu`).
 
 Each source compiles with `nvcc -gencode arch=compute_90a,code=sm_90a`
-into its own shared library with a plain C interface, loaded through
-`ctypes` (no PyTorch headers: a build takes seconds, not minutes).  All
-sources build together, one `nvcc` process each, at the first launch of
-any kernel; the libraries land in `BUILD_DIR` (listed in .gitignore)
-under a name carrying a hash of the sources and flags, so an edited
-source rebuilds and an unchanged one is reused.
+into a CPython extension module named after it, whose functions are the
+source's `extern "C"` launchers (`PY_LAUNCHERS`, csrc/py_launchers.cuh:
+arguments go from Python ints to the launchers' own parameter types;
+only Python.h is included, no PyTorch headers, so a build takes
+seconds).  All sources build together, one `nvcc` process each, at the
+first launch of any kernel; the modules land in `BUILD_DIR` (listed in
+.gitignore) under a name carrying a hash of the sources and flags, so an
+edited source rebuilds and an unchanged one is reused.
 
 Each `Kernel` carries `launches`, the count its wrappers bump once per
 launch of the CUDA kernel (never for the plain version), so a run can
 show that the main path went through the kernel.
+
+The launch path is kept lean, since the small kernels' wall time is
+mostly host time: a `Kernel` binds its launchers on first use and keeps
+them (no lock, no module lookup after that), a launcher converts its
+arguments in C (METH_FASTCALL, not ctypes), and `Kernel.launch` reads
+the raw `cudaStream_t` without building a `torch.cuda.Stream` and
+enters a device guard only for a device other than the current one.
 """
 
 from __future__ import annotations
 
-import ctypes
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
+import sysconfig
 import threading
 import time
 from pathlib import Path
 from typing import Dict, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -33,69 +45,14 @@ BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
-# C signatures of every exported launcher, by source file.
-SIGNATURES: Dict[str, Dict[str, list]] = {
-    "landscape.cu": {
-        # attrs n a | con u c | luts l v | elig base u_mask | out | stream
-        "landscape_mask": [_P, _I, _I, _P, _I, _I, _P, _I, _I,
-                           _P, _P, _P, _P, _P],
-        # attrs n a | rows n_rowsets nc | aff ua af | luts l v | out | stream
-        "landscape_affinity": [_P, _I, _I, _P, _I, _I, _P, _I, _I,
-                               _P, _I, _I, _P, _P],
-        # attrs n a | con g c | luts l v | elig base u_mask | out | stream
-        "feasible_mask": [_P, _I, _I, _P, _I, _I, _P, _I, _I,
-                          _P, _P, _P, _P, _P],
-    },
-    "multi_rounds.cu": {
-        # 18 tensors | n n_lanes nc ua af steps spread rs fill_k |
-        # 5 scratch | stream
-        "multi_compact": [_P] * 18 + [_I] * 9 + [_P] * 6,
-        # 16 tensors | n ua af rounds spread rs | 4 scratch | stream
-        "multi_flat": [_P] * 16 + [_I] * 6 + [_P] * 5,
-        # 14 tensors | n ua af rounds spread rs | mode fill_k fills |
-        # 4 scratch | stream
-        "multi_bulk": [_P] * 14 + [_I] * 6 + [_I, _I, _P] + [_P] * 5,
-        # x y n | stream (check entry: the kernels' device 10^x)
-        "pow10_f32": [_P, _P, ctypes.c_longlong, _P],
-        # rounds sink | stream (probe: the cost of one barrier round)
-        "barrier_probe": [_I, _P, _P],
-        # rounds cluster rows sink | stream (probe: one cluster exchange)
-        "cluster_barrier_probe": [_I, _I, _P, _P, _P],
-        # multi_compact's arguments | n_shards n_jrows | 3 exchange |
-        # stream
-        "multi_compact_sharded": ([_P] * 18 + [_I] * 9 + [_P] * 5
-                                  + [_I, _I] + [_P] * 4),
-        # multi_flat's arguments | n_shards | 3 exchange | stream
-        "multi_flat_sharded": [_P] * 16 + [_I] * 6 + [_P] * 4 + [_I]
-                              + [_P] * 4,
-        # 14 tensors | n ua af rounds spread rs | 4 scratch | n_shards |
-        # 3 exchange | stream
-        "multi_bulk_sharded": [_P] * 14 + [_I] * 6 + [_P] * 4 + [_I]
-                              + [_P] * 4,
-    },
-    "place_scan.cu": {
-        # 21 tensors | 3 scratch | n g s k d kd steps spread | seed |
-        # stream
-        "place_scan": [_P] * 24 + [_I] * 8 + [ctypes.c_uint, _P],
-        # place_scan's arguments | n_shards exchange | stream
-        "place_scan_sharded": [_P] * 24 + [_I] * 8 + [ctypes.c_uint, _I,
-                                                      _P, _P],
-    },
-    "preempt.cu": {
-        # 8 tensors | m a dh n_place n_real | 2 outputs 2 scratch | stream
-        "preempt_bulk": [_P] * 8 + [_I] * 5 + [_P] * 5,
-    },
-    "scatter_add.cu": {
-        # used n | rows vals m | stream
-        "scatter_add": [_P, _I, _P, _P, _I, _P],
-        # used npad | rows vals m | n_shards | stream
-        "scatter_add_sharded": [_P, _I, _P, _P, _I, _I, _P],
-    },
-}
+# every source with launchers (the .cuh headers are included by them)
+SOURCES = ("landscape.cu", "multi_rounds.cu", "place_scan.cu", "preempt.cu",
+           "scatter_add.cu")
+# PyTorch's current CUDA device and the raw handle of a device's current
+# stream (PyTorch's generated Triton launchers read it the same way);
+# None in a CPU build, where nothing launches
+_current_device = getattr(torch._C, "_cuda_getDevice", None)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 class Kernel:
@@ -107,14 +64,29 @@ class Kernel:
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self._fns: Dict[str, object] = {}
 
     def fn(self, symbol: str):
-        return _library(self.source)[symbol]
+        """The launcher `symbol` of this kernel's module (built and
+        loaded at the first call, then kept here): it takes the
+        launcher's C arguments as Python ints (a pointer may be None)
+        and returns its cudaError."""
+        f = self._fns.get(symbol)
+        if f is None:
+            f = self._fns[symbol] = getattr(_library(self.source), symbol)
+        return f
 
-    def launch(self, symbol: str, *args, stream) -> None:
-        """Call one C launcher on `stream` (PyTorch's current stream of
-        the tensors' device) and raise when CUDA refused the launch."""
-        rc = self.fn(symbol)(*args, stream)
+    def launch(self, device: int, symbol: str, *args) -> None:
+        """Call one launcher on PyTorch's current stream of the CUDA
+        device with index `device` (the stream is its last argument),
+        under a device guard only when that is not the current device,
+        and raise when CUDA refused the launch."""
+        f = self._fns.get(symbol) or self.fn(symbol)
+        if device == _current_device():
+            rc = f(*args, _raw_stream(device))
+        else:
+            with torch.cuda.device(device):
+                rc = f(*args, _raw_stream(device))
         if rc != 0:
             raise RuntimeError(
                 f"{self.name}: CUDA launch of {symbol} failed with "
@@ -155,7 +127,7 @@ KERNELS = (LANDSCAPE, MULTI_COMPACT, MULTI_FLAT, SCATTER_ADD, PLACE_SCAN,
            SCATTER_ADD_SHARDED)
 
 _lock = threading.Lock()
-_libs: Dict[str, Dict[str, object]] = {}
+_libs: Dict[str, object] = {}
 build_seconds: Optional[float] = None
 
 
@@ -185,16 +157,18 @@ def build_all() -> Dict[str, Path]:
     tag = _sources_hash()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {src: BUILD_DIR / f"{Path(src).stem}.{tag}.so"
-             for src in SIGNATURES}
+             for src in SOURCES}
     todo = {src: p for src, p in paths.items() if not p.exists()}
     t0 = time.perf_counter()
     procs = {}
     nvcc = _nvcc() if todo else ""
+    py_include = sysconfig.get_paths()["include"]
     for src, p in todo.items():
         tmp = p.with_name(p.name + f".{os.getpid()}.tmp")
         log = open(p.with_suffix(".log"), "w")
         procs[src] = (subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)],
+            [nvcc, *NVCC_FLAGS, "-I", py_include, "-o", str(tmp),
+             str(CSRC / src)],
             stdout=log, stderr=subprocess.STDOUT), tmp, log)
     failed = []
     for src, (proc, tmp, log) in procs.items():
@@ -218,25 +192,24 @@ def build_logs() -> Dict[str, str]:
     the current build."""
     tag = _sources_hash()
     out = {}
-    for src in SIGNATURES:
+    for src in SOURCES:
         log = BUILD_DIR / f"{Path(src).stem}.{tag}.log"
         if log.exists():
             out[src] = log.read_text()
     return out
 
 
-def _library(source: str) -> Dict[str, object]:
+def _library(source: str):
+    """The extension module of `source`, every source built and loaded
+    at the first call."""
     with _lock:
         if not _libs:
             for src, path in build_all().items():
-                lib = ctypes.CDLL(str(path))
-                fns = {}
-                for sym, argtypes in SIGNATURES[src].items():
-                    fn = getattr(lib, sym)
-                    fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
-                    fns[sym] = fn
-                _libs[src] = fns
+                spec = importlib.util.spec_from_file_location(
+                    f"nomad_tpu_torch.csrc.{Path(src).stem}", path)
+                mod = importlib.util.module_from_spec(spec)
+                spec.loader.exec_module(mod)
+                _libs[src] = mod
         return _libs[source]
 
 
@@ -246,9 +219,9 @@ def reset_launches() -> None:
 
 
 def stream_of(t) -> int:
-    """Raw handle of PyTorch's current stream on `t`'s device."""
-    import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """Raw handle of PyTorch's current stream on `t`'s (CUDA) device,
+    read without building a `torch.cuda.Stream`."""
+    return _raw_stream(t.get_device())
 
 
 def check_cuda(name: str, **tensors) -> None:
@@ -265,6 +238,42 @@ def check_cuda(name: str, **tensors) -> None:
             raise ValueError(f"{name}: {key} is on {t.device}, not {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} is not contiguous")
+
+
+def wrap_rows(rows, n: int):
+    """K4/K13's row ids for a table of `n` rows as the reference indexes
+    them (numpy's rules), as int64: r in [-n, 0) becomes r + n; rows
+    outside [0, n) after that are dropped by the caller."""
+    r = rows.long()
+    return torch.where(r < 0, r + n, r)
+
+
+_I32 = torch.int32
+
+
+def check_scatter(name: str, used, rows, vals):
+    """K4/K13's checks in one pass: used [N, 3], rows [M] and vals
+    [M, 3], all int32, contiguous and on one CUDA device.  Returns the
+    device index, N and M."""
+    d = used.get_device()
+    us, rs, vs = used.shape, rows.shape, vals.shape
+    if (not used.is_cuda or rows.get_device() != d
+            or vals.get_device() != d):
+        raise ValueError(f"{name}: used on {used.device}, rows on "
+                         f"{rows.device}, vals on {vals.device}: not one "
+                         "CUDA device")
+    if used.dtype is not _I32 or rows.dtype is not _I32 or (
+            vals.dtype is not _I32):
+        raise ValueError(f"{name}: expected {_I32}, got {used.dtype}, "
+                         f"{rows.dtype}, {vals.dtype}")
+    if len(us) != 2 or us[1] != 3 or len(rs) != 1 or vs != (rs[0], 3):
+        raise ValueError(f"{name}: expected used [N, 3], rows [M], vals "
+                         f"[M, 3], got {tuple(us)}, {tuple(rs)}, "
+                         f"{tuple(vs)}")
+    if not (used.is_contiguous() and rows.is_contiguous()
+            and vals.is_contiguous()):
+        raise ValueError(f"{name}: used, rows and vals must be contiguous")
+    return d, us[0], rs[0]
 
 
 def check_dtype(name: str, t, dtype, ndim: Optional[int] = None) -> None:

@@ -42,7 +42,7 @@ from nomad_tpu_torch.structs import (
     SchedulerConfiguration,
 )
 
-from .kernels import PREEMPT_BULK, check_cuda, check_dtype, stream_of
+from .kernels import PREEMPT_BULK, check_cuda, check_dtype
 from .scoring import fmaf
 
 # victim-table depth: nodes with more evictable allocs are truncated to
@@ -203,14 +203,13 @@ def preempt_bulk(cap, used0, static_g, dh_limit_g: int, job_count0,
     consumed = torch.empty(m, dtype=torch.int32, device=dev)
     vcost = torch.empty((m, a), dtype=torch.float32, device=dev)
     if n_place and m:
-        with torch.cuda.device(dev):
-            PREEMPT_BULK.launch(
-                name, *[t.data_ptr() for t in (
-                    cap, used, static_g, job_count, pre_prio, pre_res, req,
-                    k0)],
-                m, a, int(dh_limit_g), n_place, int(n_real),
-                best.data_ptr(), ks.data_ptr(), consumed.data_ptr(),
-                vcost.data_ptr(), stream=stream_of(cap))
+        PREEMPT_BULK.launch(
+            dev.index, name, *[t.data_ptr() for t in (
+                cap, used, static_g, job_count, pre_prio, pre_res, req,
+                k0)],
+            m, a, int(dh_limit_g), n_place, int(n_real),
+            best.data_ptr(), ks.data_ptr(), consumed.data_ptr(),
+            vcost.data_ptr())
     elif n_place:
         best.fill_(-1)
         ks.zero_()

@@ -261,9 +261,8 @@ def affinity_landscape(attrs: torch.Tensor, aff: torch.Tensor,
         out = torch.empty((n_sets, ua, nc), dtype=torch.float32,
                           device=attrs.device)
     if ua and nc and n_sets:
-        with torch.cuda.device(attrs.device):
-            K.LANDSCAPE.launch(
-                name, attrs.data_ptr(), n, a, rows_ptr, n_sets, nc,
-                aff.data_ptr(), ua, af, luts.data_ptr(), luts.shape[0],
-                luts.shape[1], out.data_ptr(), stream=K.stream_of(attrs))
+        K.LANDSCAPE.launch(
+            attrs.get_device(), name, attrs.data_ptr(), n, a, rows_ptr,
+            n_sets, nc, aff.data_ptr(), ua, af, luts.data_ptr(),
+            luts.shape[0], luts.shape[1], out.data_ptr())
     return out

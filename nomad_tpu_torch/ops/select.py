@@ -359,12 +359,12 @@ def _flat_launch(used: torch.Tensor, inp: MultiEvalInputs,
         xch = _exchange(1, n_shards, min(round_size, n // n_shards), dev)
         mesh_args = [n_shards] + [t.data_ptr() for t in xch]
     if n_rounds:
-        with torch.cuda.device(dev):
-            kern.launch(
-                name, *[t.data_ptr() for t in (*tensors.values(), buf)],
-                n, ua, af, n_rounds, int(bool(inp.spread_algo)),
-                round_size, *[t.data_ptr() for t in (jc, ki, score, keyb)],
-                *mesh_args, stream=K.stream_of(used))
+        kern.launch(
+            dev.index, name,
+            *[t.data_ptr() for t in (*tensors.values(), buf)],
+            n, ua, af, n_rounds, int(bool(inp.spread_algo)),
+            round_size, *[t.data_ptr() for t in (jc, ki, score, keyb)],
+            *mesh_args)
     return buf, used, jc
 
 
@@ -527,14 +527,13 @@ def _compact_launch(used_out: torch.Tensor, used_in: torch.Tensor,
         mesh_args = ([n_shards, inp.job_count0.shape[1]]
                      + [t.data_ptr() for t in xch])
     if n_steps and nc:
-        with torch.cuda.device(dev):
-            kern.launch(
-                name,
-                *[t.data_ptr() for t in (*tensors.values(), buf_small, fills)],
-                n, n_lanes, nc, ua, af, n_steps, int(bool(inp.spread_algo)),
-                round_size, fill_k,
-                *[t.data_ptr() for t in (used_c, jc, ki, score, keyb)],
-                *mesh_args, stream=K.stream_of(used_out))
+        kern.launch(
+            dev.index, name,
+            *[t.data_ptr() for t in (*tensors.values(), buf_small, fills)],
+            n, n_lanes, nc, ua, af, n_steps, int(bool(inp.spread_algo)),
+            round_size, fill_k,
+            *[t.data_ptr() for t in (used_c, jc, ki, score, keyb)],
+            *mesh_args)
     return buf_small, fills, used_out
 
 
@@ -849,17 +848,16 @@ def _scan_launch(inp: PlacementInputs, n_shards: int = 0):
         xch = torch.empty(2 * n_shards * 16, dtype=torch.int32, device=dev)
         mesh_args = [n_shards, xch.data_ptr()]
     if p:
-        with torch.cuda.device(dev):
-            kern.launch(
-                name, *[t.data_ptr() for t in (
-                    inp.cap, used, static, aff_sc, aff_any, inp.req,
-                    inp.desired, inp.dh_limit, inp.sp_nodeval,
-                    inp.sp_weight, inp.sp_expected, inp.sp_counts0,
-                    inp.pd_nodeval, inp.pd_limit, inp.pd_apply,
-                    inp.pd_counts0, inp.tg_idx, inp.prev_row, inp.active,
-                    job_count, buf, sp_counts, pd_counts, score)],
-                n, g, s, k, d, kd, p, int(bool(inp.spread_algo)),
-                int(inp.seed) & _U32, *mesh_args, stream=K.stream_of(used))
+        kern.launch(
+            dev.index, name, *[t.data_ptr() for t in (
+                inp.cap, used, static, aff_sc, aff_any, inp.req,
+                inp.desired, inp.dh_limit, inp.sp_nodeval,
+                inp.sp_weight, inp.sp_expected, inp.sp_counts0,
+                inp.pd_nodeval, inp.pd_limit, inp.pd_apply,
+                inp.pd_counts0, inp.tg_idx, inp.prev_row, inp.active,
+                job_count, buf, sp_counts, pd_counts, score)],
+            n, g, s, k, d, kd, p, int(bool(inp.spread_algo)),
+            int(inp.seed) & _U32, *mesh_args)
     return buf, used, job_count
 
 
@@ -1072,28 +1070,27 @@ def _bulk_launch(inp: BulkInputs, round_size: int, n_rounds: int,
     keyb = torch.empty(n, dtype=torch.int32, device=dev)
     if n_rounds:
         zero = torch.zeros(1, dtype=torch.int32, device=dev)
-        with torch.cuda.device(dev):
-            if n_shards:
-                xch = _exchange(1, n_shards,
-                                min(round_size, n // n_shards), dev)
-                layout = []
-                mesh_args = [n_shards] + [t.data_ptr() for t in xch]
-            else:
-                layout = [mode, slot_k,
-                          0 if fills is None else fills.data_ptr()]
-                mesh_args = []
-            kern.launch(
-                name, *[t.data_ptr() for t in (
-                    inp.cap, used, static.contiguous(), aff_sc, aff,
-                    inp.req[gs].contiguous(), inp.desired[gs].contiguous(),
-                    inp.dh_limit[gs].contiguous(), zero,
-                    _seed_t(inp.seed, dev).reshape(1), inp.job_count0,
-                    torch.zeros(n_rounds, dtype=torch.int32, device=dev),
-                    torch.tensor(want, dtype=torch.int32, device=dev), buf)],
-                n, 1, aff.shape[1], n_rounds, int(bool(inp.spread_algo)),
-                round_size, *layout,
-                *[t.data_ptr() for t in (jc, ki, score, keyb)],
-                *mesh_args, stream=K.stream_of(used))
+        if n_shards:
+            xch = _exchange(1, n_shards,
+                            min(round_size, n // n_shards), dev)
+            layout = []
+            mesh_args = [n_shards] + [t.data_ptr() for t in xch]
+        else:
+            layout = [mode, slot_k,
+                      0 if fills is None else fills.data_ptr()]
+            mesh_args = []
+        kern.launch(
+            dev.index, name, *[t.data_ptr() for t in (
+                inp.cap, used, static.contiguous(), aff_sc, aff,
+                inp.req[gs].contiguous(), inp.desired[gs].contiguous(),
+                inp.dh_limit[gs].contiguous(), zero,
+                _seed_t(inp.seed, dev).reshape(1), inp.job_count0,
+                torch.zeros(n_rounds, dtype=torch.int32, device=dev),
+                torch.tensor(want, dtype=torch.int32, device=dev), buf)],
+            n, 1, aff.shape[1], n_rounds, int(bool(inp.spread_algo)),
+            round_size, *layout,
+            *[t.data_ptr() for t in (jc, ki, score, keyb)],
+            *mesh_args)
     else:
         jc.copy_(inp.job_count0)
     if slot_k:

@@ -32,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from nomad_tpu_torch.ops import kernels as K
 from nomad_tpu_torch.ops import select as S
 from nomad_tpu_torch.ops.select import (
     NEG_INF,
@@ -58,6 +59,9 @@ class Mesh:
                              f"got {n_shards}")
         self.n_shards = int(n_shards)
         self.device = torch.device(device)
+        # read on every wrapper call (a torch.device builds its type
+        # string anew at each read)
+        self.on_cpu = self.device.type == "cpu"
 
     def __repr__(self) -> str:
         return f"Mesh({self.n_shards} x {AXIS!r} on {self.device})"
@@ -248,9 +252,12 @@ def scatter_add_sharded_plain(used: torch.Tensor, rows: torch.Tensor,
                               vals: torch.Tensor,
                               n_shards: int) -> torch.Tensor:
     """Plain version of K13: each shard adds the deltas of the rows it
-    owns, used[rows] += vals in place (rows outside [0, npad) drop)."""
-    n_loc = _n_loc(used.shape[0], n_shards)
-    r = rows.long()
+    owns, used[rows] += vals in place.  Rows index the padded global
+    table [npad, 3] as in the reference: a row in [-npad, 0) adds to
+    row r + npad, a row below -npad or at npad and above is dropped."""
+    npad = used.shape[0]
+    n_loc = _n_loc(npad, n_shards)
+    r = K.wrap_rows(rows, npad)
     for s in range(n_shards):
         keep = (r >= s * n_loc) & (r < (s + 1) * n_loc)
         used.index_put_((r[keep],), vals[keep].to(used.dtype),
@@ -263,11 +270,13 @@ def scatter_add_sharded_plain(used: torch.Tensor, rows: torch.Tensor,
 def _on_mesh(mesh: Mesh, t: torch.Tensor) -> bool:
     """True for a CPU mesh (plain version); raises when the tensors lie
     on another device than the mesh."""
-    if t.device.type != mesh.device.type or (
-            mesh.device.index is not None
-            and t.device.index != mesh.device.index):
-        raise ValueError(f"tensors on {t.device}, mesh on {mesh.device}")
-    return t.device.type == "cpu"
+    if mesh.on_cpu:
+        if t.is_cpu:
+            return True
+    elif t.is_cuda and (mesh.device.index is None
+                        or t.get_device() == mesh.device.index):
+        return False
+    raise ValueError(f"tensors on {t.device}, mesh on {mesh.device}")
 
 
 def place_sharded_packed(inp: PlacementInputs, mesh: Mesh):
@@ -343,10 +352,21 @@ def place_multi_compact_sharded_chained(used0: torch.Tensor,
 def scatter_add_sharded_(used: torch.Tensor, rows: torch.Tensor,
                          vals: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """K13 (reference: engine._sharded_fn(mesh, "scatter")):
-    used[rows] += vals in place on the sharded usage [npad, 3], each
-    shard applying the rows it owns."""
-    if _on_mesh(mesh, used):
+    used[rows] += vals in place on the sharded usage [npad, 3], rows as
+    in scatter_add_sharded_plain.  On the card the shards are one
+    contiguous tensor, so K13 is one pass over the rows."""
+    if used.is_cpu and mesh.on_cpu:
         return scatter_add_sharded_plain(used, rows, vals, mesh.n_shards)
-    from nomad_tpu_torch.ops.engine import scatter_add_
-    _n_loc(used.shape[0], mesh.n_shards)
-    return scatter_add_(used, rows, vals, n_shards=mesh.n_shards)
+    # _on_mesh's test, on the device index the checks return
+    d, npad, m = K.check_scatter("scatter_add_sharded", used, rows, vals)
+    idx = mesh.device.index
+    if mesh.on_cpu or (idx is not None and idx != d):
+        raise ValueError(f"tensors on {used.device}, mesh on {mesh.device}")
+    s = mesh.n_shards
+    if npad % s:
+        _n_loc(npad, s)                  # raises
+    if m:
+        K.SCATTER_ADD_SHARDED.launch(
+            d, "scatter_add_sharded", used.data_ptr(), npad,
+            rows.data_ptr(), vals.data_ptr(), m, s)
+    return used

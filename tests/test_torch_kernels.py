@@ -575,3 +575,126 @@ def test_cluster_barrier_probe_runs(cuda_device):
         100, S, rows.data_ptr(), sink.data_ptr(), K.stream_of(rows))
     torch.cuda.synchronize()
     assert rc == 0
+
+
+# ------------------------------------------------ usage delta replay
+
+from torch_parity import SCATTER_ROW_CASES, scatter_case  # noqa: E402
+
+# chunk sizes around the 256-thread block and the engine's full chunk
+SCATTER_M = [0, 1, 255, 256, 257, 16384]
+
+
+def _replay(kernel, used, rows, vals):
+    """(kernel result, plain result on the card, plain result on CPU
+    copies) of K4 or K13 (8 shards) on a copy of `used` each."""
+    if kernel == "k4":
+        run = scatter_add_
+        plain = scatter_add_plain
+    else:
+        def run(u, r, v):
+            return pmesh.scatter_add_sharded_(u, r, v,
+                                              pmesh.make_mesh(S, u.device))
+
+        def plain(u, r, v):
+            return pmesh.scatter_add_sharded_plain(u, r, v, S)
+    want = plain(used.clone(), rows, vals)
+    want_cpu = plain(used.cpu(), rows.cpu(), vals.cpu())
+    got = run(used.clone(), rows, vals)
+    torch.cuda.synchronize()
+    return got, want, want_cpu
+
+
+def _replay_inputs(device, rows, seed=0, npad=504):
+    rng = np.random.default_rng(seed)
+    used = torch.tensor(rng.integers(0, 1000, (npad, 3)), dtype=torch.int32,
+                        device=device)
+    rows = torch.tensor(np.asarray(rows, np.int32), device=device)
+    vals = torch.tensor(rng.integers(-50, 50, (rows.shape[0], 3)),
+                        dtype=torch.int32, device=device)
+    return used, rows, vals
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", SCATTER_M)
+@pytest.mark.parametrize("kernel", ["k4", "k13"])
+def test_replay_matches_plain_at_chunk_sizes(cuda_device, kernel, m):
+    """Rows in [-2 npad, 2 npad): wrapped, kept and dropped ones."""
+    rows = np.random.default_rng(m).integers(-1008, 1008, m)
+    got, want, want_cpu = _replay(kernel,
+                                  *_replay_inputs(cuda_device, rows, m))
+    _same([got], [want], [want_cpu])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SCATTER_ROW_CASES)
+@pytest.mark.parametrize("kernel", ["k4", "k13"])
+def test_replay_matches_plain_on_row_sets(cuda_device, kernel, case):
+    rows, _ = scatter_case(case, 504, 3000, np.random.default_rng(9))
+    got, want, want_cpu = _replay(kernel,
+                                  *_replay_inputs(cuda_device, rows, 9))
+    _same([got], [want], [want_cpu])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("row", [0, 503, -1])
+@pytest.mark.parametrize("kernel", ["k4", "k13"])
+def test_replay_every_row_equal(cuda_device, kernel, row):
+    """A full chunk onto one row: every thread's atomics meet."""
+    got, want, want_cpu = _replay(
+        kernel, *_replay_inputs(cuda_device, [row] * 16384, 4))
+    _same([got], [want], [want_cpu])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["k4", "k13"])
+def test_replay_rows_on_shard_boundaries(cuda_device, kernel):
+    n_loc = 504 // S
+    edges = [s * n_loc + d for s in range(S + 1) for d in (-1, 0)]
+    rows = edges + [-r for r in edges] + [-504 - 1, 504]
+    got, want, want_cpu = _replay(kernel,
+                                  *_replay_inputs(cuda_device, rows * 40, 5))
+    _same([got], [want], [want_cpu])
+
+
+@pytest.mark.gpu
+def test_replay_counts_one_launch_per_call(cuda_device):
+    used, rows, vals = _replay_inputs(cuda_device, [1, -2, 3])
+    K.reset_launches()
+    scatter_add_(used, rows, vals)
+    assert (K.SCATTER_ADD.launches, K.SCATTER_ADD_SHARDED.launches) == (1, 0)
+    pmesh.scatter_add_sharded_(used, rows, vals,
+                               pmesh.make_mesh(S, cuda_device))
+    assert (K.SCATTER_ADD.launches, K.SCATTER_ADD_SHARDED.launches) == (1, 1)
+    scatter_add_(used, rows[:0], vals[:0])          # nothing to launch
+    torch.cuda.synchronize()
+    assert sum(k.launches for k in K.KERNELS) == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["k4", "k13"])
+def test_replay_wrappers_refuse_bad_tensors(cuda_device, kernel):
+    """A CPU/CUDA mix, a wrong dtype or a non-contiguous tensor raises
+    before any launch."""
+    used, rows, vals = _replay_inputs(cuda_device, [1, 2, 3, 4])
+    if kernel == "k4":
+        run = scatter_add_
+    else:
+        def run(u, r, v):
+            return pmesh.scatter_add_sharded_(u, r, v,
+                                              pmesh.make_mesh(S, cuda_device))
+    K.reset_launches()
+    wide = torch.zeros((4, 6), dtype=torch.int32, device=cuda_device)
+    for bad in ((used, rows.cpu(), vals), (used, rows, vals.cpu()),
+                (used, rows.long(), vals), (used.float(), rows, vals),
+                (used, rows, vals.short()), (used, rows, wide[:, ::2]),
+                (used.t().contiguous().t(), rows, vals),
+                (used, rows, vals[:3])):
+        with pytest.raises(ValueError):
+            run(*bad)
+    if kernel == "k13":                       # card tensors, CPU mesh
+        with pytest.raises(ValueError, match="mesh on cpu"):
+            pmesh.scatter_add_sharded_(used, rows, vals,
+                                       pmesh.make_mesh(S, "cpu"))
+    torch.cuda.synchronize()
+    assert sum(k.launches for k in K.KERNELS) == 0

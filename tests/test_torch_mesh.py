@@ -26,6 +26,7 @@ from nomad_tpu_torch.ops.convert import (
 from nomad_tpu_torch.ops.select import pack_outputs
 from nomad_tpu_torch.parallel import mesh as pmesh
 from torch_parity import (
+    SCATTER_ROW_CASES,
     add_jobs,
     build_flat_cluster,
     build_zoned_cluster,
@@ -33,6 +34,7 @@ from torch_parity import (
     random_placement_arrays,
     reference_inputs_numpy,
     reference_placement_inputs,
+    scatter_case,
     set_spread,
 )
 
@@ -270,12 +272,37 @@ def test_k13_scatter_matches_reference(ref_mesh):
     assert np.array_equal(np.asarray(want), got.numpy())
 
 
-def test_k13_drops_rows_outside_the_table():
-    used = torch.zeros((16, 3), dtype=torch.int32)
-    rows = torch.tensor([-1, 0, 15, 16, 99], dtype=torch.int32)
-    vals = torch.ones((5, 3), dtype=torch.int32)
-    pmesh.scatter_add_sharded_plain(used, rows, vals, 8)
-    assert used.sum().item() == 6 and used[0, 0] == 1 and used[15, 2] == 1
+def _k13_reference(ref_mesh, used, rows, vals):
+    from nomad_tpu.ops.engine import _sharded_fn
+    return np.asarray(_sharded_fn(ref_mesh, "scatter")(
+        jnp.asarray(used), jnp.asarray(rows), jnp.asarray(vals)))
+
+
+def test_k13_drops_rows_outside_the_table(ref_mesh):
+    """A 16-row table in 8 shards: -1 wraps to row 15 and -16 to row 0,
+    16, 99 and -17 drop, as in the reference."""
+    used = np.zeros((16, 3), np.int32)
+    rows = np.array([-1, 0, 15, 16, 99, -16, -17], np.int32)
+    vals = np.ones((7, 3), np.int32)
+    want = _k13_reference(ref_mesh, used, rows, vals)
+    got = pmesh.scatter_add_sharded_plain(torch.tensor(used),
+                                          torch.tensor(rows),
+                                          torch.tensor(vals), S)
+    assert want[:, 0].tolist() == [2] + [0] * 14 + [2]
+    assert np.array_equal(want, got.numpy())
+
+
+@pytest.mark.parametrize("case", SCATTER_ROW_CASES)
+def test_k13_row_sets_match_reference(ref_mesh, case):
+    rng = np.random.default_rng(len(case))
+    npad = 40
+    used = rng.integers(0, 1000, (npad, 3)).astype(np.int32)
+    rows, vals = scatter_case(case, npad, 512, rng)
+    want = _k13_reference(ref_mesh, used, rows, vals)
+    got = pmesh.scatter_add_sharded_(torch.tensor(used), torch.tensor(rows),
+                                     torch.tensor(vals),
+                                     pmesh.make_mesh(S, "cpu"))
+    assert np.array_equal(want, got.numpy())
 
 
 # ------------------------------------------------------------- the mesh

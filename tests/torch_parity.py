@@ -344,6 +344,29 @@ def random_preempt_args(rng, m=40, a=4, big=False, ties=False, dh=0,
 
 # ------------------------------------------------ solo-path scenarios
 
+# Row sets of the usage delta replay (K4, K13) for a table of n rows:
+# the reference indexes like numpy, so [-n, 0) wraps and the rest of
+# what lies outside [0, n) drops.
+SCATTER_ROW_CASES = ("negative", "below_table", "past_table", "mixed",
+                     "repeats", "empty")
+
+
+def scatter_case(case, n, m, rng):
+    """(rows [m] int32, vals [m, 3] int32) of one row set, from `rng`
+    (`empty` has m = 0)."""
+    lo, hi = {"negative": (-n, 0), "below_table": (-3 * n, -n),
+              "past_table": (n, 3 * n), "mixed": (-2 * n, 2 * n),
+              "repeats": (-n, n), "empty": (0, n)}[case]
+    m = 0 if case == "empty" else m
+    rows = rng.integers(lo, hi, m).astype(np.int32)
+    if case == "repeats" and m:
+        r0 = int(rows[0]) % n
+        rows[: m // 2] = r0
+        rows[m // 2: 3 * m // 4] = r0 - n         # the same row, wrapped
+    vals = rng.integers(-500, 500, (m, 3)).astype(np.int32)
+    return rows, vals
+
+
 def make_node(name, i, dc="dc1", cpu=4000, mem=8192, **attrs):
     mock = pkg(name, "mock")
     nid = f"node-{i:05d}"
