@@ -45,7 +45,11 @@ bench.py's configs 1-4 (bench.py:409, :442, :484, :553):
      variant with distinct_property, reschedule rows and a device mask),
      K6 (the bulk eval's inputs in all three output layouts, and with the
      spread algorithm), K7 and K8 (the preempt and system evals' inputs)
-     against their plain versions, on the card and on CPU copies.
+     against their plain versions, on the card and on CPU copies, and
+     K5's phase split at the spread eval's inputs (the PROF launcher of
+     csrc/place_scan.cu, blocks of 256 and of 1024 threads: microseconds
+     per active and per padding step in the loop top, the pass, the
+     merge, the exchange or decode, the commit and memoised steps).
 
 Then the node-sharded mesh: a second engine on make_mesh(8) of the card
 (8 shards of the node axis, parallel/mesh.py) over the same clusters:
@@ -61,8 +65,11 @@ Then the node-sharded mesh: a second engine on make_mesh(8) of the card
      engine: the scan's allocs on the single-device eval's nodes alloc by
      alloc, the bulk's as sorted lists;
  15. mesh kernel checks: K9-K13 against their plain versions at those
-     phases' inputs, on the card and on CPU copies, and a probe of one
-     cluster exchange at 8 blocks.
+     phases' inputs, on the card and on CPU copies, K9's phase split at
+     the mesh spread eval's inputs.  The `exchange_probes` line, before
+     the solo kernel checks, times one cluster exchange through global
+     scratch (K10-K12's) and one exchange through distributed shared
+     memory (K9's, and K5's above 512 rows), each at 8 blocks.
 
 After every wall-time measurement:
 
@@ -114,18 +121,20 @@ PEAK_OPS = 67e12
 # the selection key (cap, noise hash, orderable bits) 25; the 8 radix
 # passes' key compare and digit 56; the exhaustion metrics 20.
 OPS_PER_ROW_STEP = 47 + 70 + 25 + 56 + 20
-# The exact scan (csrc/place_scan.cu) per node and step, counted from
-# the source: capacity fit and distinct_hosts 7; the six metric counts
-# 8; and on an active step the binpack score (conversions, 2 divisions,
-# 2 libm_pow10f at 14, clamps, reciprocal multiply) 47, anti-affinity 3,
-# the mean of five components 6, the selection key (noise hash, add,
-# orderable bits) 15 and the top-3 insert 3.  Plus per spread row 10 on
-# an active step, and per applying distinct_property row 4 on every
-# step.  An inactive (padding) step needs only the fit and the metrics.
-OPS_SCAN_FIT = 7
-OPS_SCAN_METRICS = 8
-OPS_SCAN_SCORE = 47 + 3 + 6 + 15 + 3
-OPS_SCAN_SPREAD = 10
+# The exact scan (csrc/place_scan.cu) counted from the source.  A cache
+# entry (node_cache: capacity fit and distinct_hosts 7, the binpack term
+# with its 2 divisions and 2 libm_pow10f at 14 47, anti-affinity 3, two
+# additions 2) is built once per (group, node) and again per group for
+# the pick of each commit.  Per node of a computed active step: the
+# feasibility test and count 3, the mean's additions, count and division
+# 9, the key (add, orderable bits) 4 and the top-3 insert 3, plus 4 per
+# spread row (lookup, clamp, select, fma); of a computed inactive step
+# the feasibility test and count 3; per applying distinct_property row
+# 4.  A step whose row the memo knows (scan_steps) writes its row only.
+OPS_SCAN_CACHE = 7 + 47 + 3 + 2
+OPS_SCAN_STEP = 3 + 9 + 4 + 3
+OPS_SCAN_FEAS = 3
+OPS_SCAN_SPREAD = 4
 OPS_SCAN_DISTINCT = 4
 # Device preemption (csrc/preempt.cu) per candidate row and step: the
 # first-fit prefix 7 and the cost prefix 2 per victim, then the key 6.
@@ -145,8 +154,11 @@ VARIANT_PD_LIMIT = 300
 # turns: REPLAY_ROUNDS loops a side of REPLAY_REPS back-to-back calls
 REPLAY_REPS = 1000
 REPLAY_ROUNDS = 11
-# __syncthreads per step of the scan and preemption kernels
+# block barriers per computed step of the scan (two of all threads, one
+# of warps 0-2) and of the preemption kernel
 BARRIERS_SCAN = 3
+# bytes of one block's post in the scan's exchange (csrc/place_scan.cu XW)
+XCH_POST = 64
 BARRIERS_PREEMPT = 3
 
 
@@ -1097,7 +1109,93 @@ def scan_variant(inp):
         prev_row=t(prev), extra_mask=t(rng.random((g, n)) < 0.9))
 
 
-def solo_kernel_phase(rec, barrier_ms):
+# the PROF instantiation's phases (csrc/place_scan.cu PhaseClock)
+SCAN_PHASES = ("top", "pass", "merge", "exchange", "decode", "commit",
+               "memo")
+NPH = len(SCAN_PHASES)
+
+
+def scan_phase_split(inp, n_shards: int = 0) -> dict:
+    """K5's (K9's with `n_shards`) phase split at `inp`, for blocks of 256
+    and of 1024 threads (the main path takes 1024 above 1024 rows a
+    block, else 256)."""
+    return {str(nt): scan_phase_split_nt(inp, n_shards, nt)
+            for nt in (256, 1024)}
+
+
+def scan_phase_split_nt(inp, n_shards: int, nt: int) -> dict:
+    """One launch of the PROF instantiation (csrc/place_scan.cu
+    PhaseClock) with `nt` threads a block: block 0's clock64() cycles
+    per phase converted to microseconds by the launch's own CUDA-event
+    time over its total cycles, per active and per inactive (padding)
+    step."""
+    import torch
+
+    from nomad_tpu_torch.ops import select as S
+
+    prof = torch.zeros(2 * NPH + 4, dtype=torch.int64,
+                       device=inp.attrs.device)
+    S._scan_launch(inp, n_shards, prof, nt)         # warm-up
+    prof.zero_()
+    _, ms = timed(lambda: S._scan_launch(inp, n_shards, prof, nt))
+    c = prof.tolist()
+    total, setup = c[2 * NPH + 3], c[2 * NPH + 2]
+    us_per_cycle = ms * 1e3 / max(total, 1)
+    n_act, n_inact = c[2 * NPH], c[2 * NPH + 1]
+    per = lambda i, n: c[i] * us_per_cycle / max(n, 1)
+    return {
+        "prof_ms": ms, "cycles": total, "mhz": 1 / us_per_cycle,
+        "setup_us": setup * us_per_cycle,
+        "active_steps": n_act, "inactive_steps": n_inact,
+        "per_active_step_us": {ph: per(i, n_act)
+                               for i, ph in enumerate(SCAN_PHASES)},
+        "per_inactive_step_us": {ph: per(NPH + i, n_inact)
+                                 for i, ph in enumerate(SCAN_PHASES)}}
+
+
+def scan_steps(inp, buf) -> dict:
+    """The steps of a scan that need a pass, by the kernel's memo rule
+    (csrc/place_scan.cu): a step whose group and committed state equal
+    the last computed step's, and which is inactive or follows a
+    computed step with no feasible row, writes its row only.  From the
+    run's own output `buf` (a commit is a pick >= 0); also the applying
+    distinct_property rows summed over the computed steps."""
+    tg = inp.tg_idx.tolist()
+    act = inp.active.tolist()
+    picks = buf[:, 0].tolist()
+    feas = buf[:, 8].tolist()
+    d_rows = (inp.pd_apply & (inp.pd_limit > 0)[None]).sum(1).tolist()
+    out = {"active": 0, "inactive": 0, "memo": 0, "commits": 0,
+           "distinct_rows": 0}
+    memo = None
+    ver = 0
+    for t, g in enumerate(tg):
+        if memo == (g, ver) and (not act[t] or memo_feas == 0):
+            out["memo"] += 1
+            continue
+        out["active" if act[t] else "inactive"] += 1
+        out["distinct_rows"] += d_rows[g]
+        memo, memo_feas = (g, ver), feas[t]
+        if picks[t] >= 0:
+            ver += 1
+            out["commits"] += 1
+    return out
+
+
+def scan_ops(inp, steps) -> int:
+    """Operations K5/K9 need at `inp` (OPS_SCAN_*), `steps` from
+    scan_steps."""
+    n = inp.attrs.shape[0]
+    g = inp.req.shape[0]
+    s_rows = int((inp.sp_weight > 0).sum())
+    return (g * (n + steps["commits"]) * OPS_SCAN_CACHE
+            + n * (steps["active"] * (OPS_SCAN_STEP
+                                      + OPS_SCAN_SPREAD * s_rows)
+                   + steps["inactive"] * OPS_SCAN_FEAS
+                   + OPS_SCAN_DISTINCT * steps["distinct_rows"]))
+
+
+def solo_kernel_phase(rec, barrier_ms, dsmem_ms):
     """K5-K8 against their plain versions, on the card and on CPU
     copies, at the solo phases' own inputs."""
     import torch
@@ -1131,26 +1229,24 @@ def solo_kernel_phase(rec, barrier_ms):
                              f"not bind: placed {placed}")
     inp = spread_in
     n, p = inp.attrs.shape[0], inp.tg_idx.shape[0]
-    act = inp.active.cpu()
-    real = int(act.sum())
-    s_rows = int((inp.sp_weight > 0).sum())
-    d_step = (inp.pd_apply & (inp.pd_limit > 0)[None]).sum(1).cpu()[
-        inp.tg_idx.long().cpu()]                   # distinct rows per step
+    steps = scan_steps(inp, S.place_packed(inp)[0])
+    real = steps["active"] + steps["inactive"]
+    # above 512 rows K5 runs on a cluster and exchanges as K9 does
+    blocks = K.PLACE_SCAN.fn("place_scan_blocks")(n)
+    meets = int(blocks > 1)
     rows.append(dict(
         kernel=K.PLACE_SCAN, max_abs_err=err,
         **timing(lambda: S.place_packed(inp), 3),
         plain_ms=time_ms(lambda: S.pack_outputs(S.place(inp)), 1, 0),
         bytes=fn_bytes(tensors(inp), inp.attrs, inp.luts, inp.con,
                        inp.aff)
-        + p * 14 * 4 + n * 16,
-        # an active step scores and selects; a padding step writes its
-        # metrics only, from the fit and distinct_property checks
-        ops=n * (real * (OPS_SCAN_FIT + OPS_SCAN_SCORE + OPS_SCAN_METRICS
-                         + OPS_SCAN_SPREAD * s_rows)
-                 + (p - real) * (OPS_SCAN_FIT + OPS_SCAN_METRICS)
-                 + OPS_SCAN_DISTINCT * int(d_step.sum())),
-        library_ms=None, depth_ms=real * BARRIERS_SCAN * barrier_ms,
-        depth_steps=real, barriers_per_step=BARRIERS_SCAN, placed=placed))
+        + p * 14 * 4 + n * 16 + meets * real * blocks * blocks * XCH_POST,
+        ops=scan_ops(inp, steps), steps=steps, blocks=blocks,
+        library_ms=None,
+        depth_ms=real * (BARRIERS_SCAN * barrier_ms + meets * dsmem_ms),
+        depth_steps=real, barriers_per_step=BARRIERS_SCAN,
+        exchanges_per_step=meets, placed=placed,
+        phase_split=scan_phase_split(inp)))
 
     # K6: the bulk eval's rounds in the three layouts and the spread
     # algorithm
@@ -1249,6 +1345,27 @@ def cluster_round_ms(rounds: int = 20000) -> float:
                    K.stream_of(rows))
         if rc != 0:
             raise RuntimeError(f"cluster_barrier_probe failed with "
+                               f"cudaError {rc}")
+
+    return time_ms(run, 5) / rounds
+
+
+def dsmem_exchange_ms(rounds: int = 20000) -> float:
+    """Measured cost of one of K9's exchanges at MESH_SHARDS blocks
+    (csrc/place_scan.cu dsmem_exchange_probe: each block's warp pushes a
+    48-byte post into every peer's shared memory, arrives on the peer's
+    mbarrier and waits on its own, as xch_meet does in K9)."""
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as K
+
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    probe = K.PLACE_SCAN.fn("dsmem_exchange_probe")
+
+    def run():
+        rc = probe(rounds, MESH_SHARDS, sink.data_ptr(), K.stream_of(sink))
+        if rc != 0:
+            raise RuntimeError(f"dsmem_exchange_probe failed with "
                                f"cudaError {rc}")
 
     return time_ms(run, 5) / rounds
@@ -1421,7 +1538,7 @@ def exchange_bytes(rounds, kk_loc, kk):
     return rounds * (s * kk_loc * 24 + s * (s * kk_loc * 8 + kk * 16))
 
 
-def mesh_kernel_phase(rec, barrier_ms, cluster_ms):
+def mesh_kernel_phase(rec, barrier_ms, cluster_ms, dsmem_ms):
     """K9-K13 against their plain versions, on the card and on CPU
     copies, at the mesh phases' own inputs."""
     import torch
@@ -1435,15 +1552,16 @@ def mesh_kernel_phase(rec, barrier_ms, cluster_ms):
     rows = []
     tensors = lambda x: [v for v in x if isinstance(v, torch.Tensor)]
 
-    def depth(steps, block_barriers, cluster_barriers):
+    def depth(steps, block_barriers, cluster_barriers, meet_ms=cluster_ms):
         return dict(depth_ms=steps * (block_barriers * barrier_ms
-                                      + cluster_barriers * cluster_ms),
+                                      + cluster_barriers * meet_ms),
                     depth_steps=steps, barriers_per_step=block_barriers,
                     cluster_barriers_per_step=cluster_barriers)
 
     # K9: the mesh spread eval's 4,096-step scan
     inp, mesh = rec.get("mesh_spread_eval", "scan")
     got = PM.place_sharded_packed(inp, mesh)
+    steps = scan_steps(inp, got[0])
     want, plain_ms = timed(
         lambda: S.pack_outputs(PM.place_sharded_plain(inp, ns)))
     err = check_exact("place_scan_sharded", got, want,
@@ -1451,21 +1569,17 @@ def mesh_kernel_phase(rec, barrier_ms, cluster_ms):
                       score_cols=[1, 5, 6, 7])
     torch.cuda.synchronize()
     n, p = inp.attrs.shape[0], inp.tg_idx.shape[0]
-    real = int(inp.active.sum())
-    s_rows = int((inp.sp_weight > 0).sum())
-    d_step = (inp.pd_apply & (inp.pd_limit > 0)[None]).sum(1).cpu()[
-        inp.tg_idx.long().cpu()]
+    real = steps["active"] + steps["inactive"]
     rows.append(dict(
         kernel=K.PLACE_SCAN_SHARDED, max_abs_err=err,
         **timing(lambda: PM.place_sharded_packed(inp, mesh), 3),
         plain_ms=plain_ms,
+        # plus each computed step's posts, from every block to every block
         bytes=fn_bytes(tensors(inp), inp.attrs, inp.luts, inp.con, inp.aff)
-        + p * 14 * 4 + n * 16 + p * ns * 16 * 4 * (1 + ns),
-        ops=n * (real * (OPS_SCAN_FIT + OPS_SCAN_SCORE + OPS_SCAN_METRICS
-                         + OPS_SCAN_SPREAD * s_rows)
-                 + (p - real) * (OPS_SCAN_FIT + OPS_SCAN_METRICS)
-                 + OPS_SCAN_DISTINCT * int(d_step.sum())),
-        library_ms=None, **depth(real, BARRIERS_SCAN, 1)))
+        + p * 14 * 4 + n * 16 + real * ns * ns * XCH_POST,
+        ops=scan_ops(inp, steps), steps=steps,
+        library_ms=None, **depth(real, BARRIERS_SCAN, 1, dsmem_ms),
+        phase_split=scan_phase_split(inp, ns)))
 
     # K10: the mesh bulk eval's rounds
     binp, mesh, rs, n_rounds = rec.get("mesh_bulk_eval", "bulk")
@@ -1585,6 +1699,7 @@ def mesh_kernel_phase(rec, barrier_ms, cluster_ms):
         r["bound_by"] = "bytes" if b_ms >= o_ms else "operations"
         r["barrier_ms"] = barrier_ms
         r["cluster_barrier_ms"] = cluster_ms
+        r["dsmem_exchange_ms"] = dsmem_ms
     return rows
 
 
@@ -1682,8 +1797,14 @@ def main() -> int:
         prev = pend
 
     # 7-11. the solo path, then 12. its kernels against the plain versions
+    # (after the probes of the two cluster exchanges)
     rec = solo_phases(card, launches)
-    srows = solo_kernel_phase(rec, krows[0]["barrier_ms"])
+    cluster_ms = cluster_round_ms()
+    dsmem_ms = dsmem_exchange_ms()
+    emit({"phase": "exchange_probes", "card": card,
+          "cluster_barrier_us": cluster_ms * 1e3,
+          "dsmem_exchange_us": dsmem_ms * 1e3, "blocks": MESH_SHARDS})
+    srows = solo_kernel_phase(rec, krows[0]["barrier_ms"], dsmem_ms)
     torch.cuda.synchronize()
     emit({"phase": "solo_kernel_checks", "card": card, "tolerance": "exact",
           "checks": [{k: (v.name if k == "kernel" else v)
@@ -1691,10 +1812,10 @@ def main() -> int:
 
     # 13-14. the node-sharded mesh, then 15. its kernels against the plain
     # versions
-    cluster_ms = cluster_round_ms()
     mrec = mesh_phases(card, launches, waves, rec.placed)
     del rec
-    mrows = mesh_kernel_phase(mrec, krows[0]["barrier_ms"], cluster_ms)
+    mrows = mesh_kernel_phase(mrec, krows[0]["barrier_ms"], cluster_ms,
+                              dsmem_ms)
     torch.cuda.synchronize()
     emit({"phase": "mesh_kernel_checks", "card": card, "tolerance": "exact",
           "checks": [{k: (v.name if k == "kernel" else v)

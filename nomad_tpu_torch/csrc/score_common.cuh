@@ -1,7 +1,7 @@
 // Scoring helpers shared by the rounds kernels (multi_rounds.cu) and the
 // exact scan (place_scan.cu): floor division, the C library's powf(10, x),
 // the reference's tie-break hash, float <-> orderable key bits, and the
-// cluster launch of the sharded kernels (blocks of BS threads).
+// cluster launch of the sharded kernels.
 // Included inside each source's anonymous namespace.
 
 #pragma once
@@ -76,12 +76,13 @@ __device__ __forceinline__ float from_orderable(unsigned o) {
   return __uint_as_float(b);
 }
 
-// Launch `kern` as clusters of `cluster` blocks of BS threads; refuses
-// (cudaErrorLaunchOutOfResources) when the card cannot place one such
-// cluster.
+// Launch `kern` as clusters of `cluster` blocks of `threads` threads;
+// refuses (cudaErrorLaunchOutOfResources) when the card cannot place one
+// such cluster.
 template <class... Args>
-int launch_clusters(void (*kern)(Args...), int n_blocks, int cluster,
-                    size_t dyn, cudaStream_t stream, Args... args) {
+int launch_clusters_nt(void (*kern)(Args...), int n_blocks, int cluster,
+                       int threads, size_t dyn, cudaStream_t stream,
+                       Args... args) {
   cudaError_t e;
   // static and dynamic shared memory past 48 KB need the opt-in, so
   // state the dynamic amount whatever it is
@@ -93,7 +94,7 @@ int launch_clusters(void (*kern)(Args...), int n_blocks, int cluster,
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_blocks);
-  cfg.blockDim = dim3(BS);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = dyn;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -110,4 +111,12 @@ int launch_clusters(void (*kern)(Args...), int n_blocks, int cluster,
   e = cudaLaunchKernelEx(&cfg, kern, args...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// launch_clusters_nt with blocks of BS threads
+template <class... Args>
+int launch_clusters(void (*kern)(Args...), int n_blocks, int cluster,
+                    size_t dyn, cudaStream_t stream, Args... args) {
+  return launch_clusters_nt(kern, n_blocks, cluster, BS, dyn, stream,
+                            args...);
 }

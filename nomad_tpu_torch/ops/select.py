@@ -807,9 +807,13 @@ def _check_inputs(name: str, inp, i32, f32=(), bools=()) -> None:
                           if isinstance(v, torch.Tensor)})
 
 
-def _scan_launch(inp: PlacementInputs, n_shards: int = 0):
+def _scan_launch(inp: PlacementInputs, n_shards: int = 0, prof=None,
+                 nt: int = 0):
     """K1 statics + one K5 launch (K9 with `n_shards`: one cluster of
-    that many blocks, each keeping its own spread and distinct counts)."""
+    that many blocks, each keeping its own spread and distinct counts).
+    With `prof` (int64 [18] on the card) the PROF instantiation runs
+    instead, with `nt` threads a block (0: as the main path chooses),
+    and writes block 0's phase split there (chip_smoke.py)."""
     kern = K.PLACE_SCAN_SHARDED if n_shards else K.PLACE_SCAN
     name = kern.name
     n = inp.attrs.shape[0]
@@ -836,28 +840,30 @@ def _scan_launch(inp: PlacementInputs, n_shards: int = 0):
     aff_any = (inp.aff[..., 3] != 0).any(dim=1)
     used = inp.used0.clone()
     job_count = inp.job_count0.clone()
-    # the kernel's counts when they exceed shared memory: one copy per
-    # block
-    copies = max(n_shards, 1)
-    sp_counts = inp.sp_counts0.repeat(copies, 1)
-    pd_counts = inp.pd_counts0.repeat(copies, 1)
     buf = torch.empty((p, 14), dtype=torch.int32, device=dev)
-    score = torch.empty(n, dtype=torch.float32, device=dev)
-    mesh_args = []
-    if n_shards:
-        xch = torch.empty(2 * n_shards * 16, dtype=torch.int32, device=dev)
-        mesh_args = [n_shards, xch.data_ptr()]
-    if p:
-        kern.launch(
-            dev.index, name, *[t.data_ptr() for t in (
-                inp.cap, used, static, aff_sc, aff_any, inp.req,
-                inp.desired, inp.dh_limit, inp.sp_nodeval,
-                inp.sp_weight, inp.sp_expected, inp.sp_counts0,
-                inp.pd_nodeval, inp.pd_limit, inp.pd_apply,
-                inp.pd_counts0, inp.tg_idx, inp.prev_row, inp.active,
-                job_count, buf, sp_counts, pd_counts, score)],
-            n, g, s, k, d, kd, p, int(bool(inp.spread_algo)),
-            int(inp.seed) & _U32, *mesh_args)
+    if not p:
+        return buf, used, job_count
+    # the kernel's caches, counts and group statics (csrc/place_scan.cu
+    # scan_layout), one copy of the state per block
+    words = kern.fn("place_scan_scratch_words")(n, g, s, k, d, kd, n_shards)
+    if words < 0:
+        raise ValueError(f"{name}: scratch of {g} x {n} nodes too large")
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)
+    tail = [n_shards] if n_shards else []
+    symbol = name
+    if prof is not None:
+        symbol = name + "_prof"
+        tail += [nt, prof.data_ptr()]
+    kern.launch(
+        dev.index, symbol, *[t.data_ptr() for t in (
+            inp.cap, used, static, aff_sc, aff_any, inp.req,
+            inp.desired, inp.dh_limit, inp.sp_nodeval,
+            inp.sp_weight, inp.sp_expected, inp.sp_counts0,
+            inp.pd_nodeval, inp.pd_limit, inp.pd_apply,
+            inp.pd_counts0, inp.tg_idx, inp.prev_row, inp.active,
+            job_count, buf, scratch)],
+        n, g, s, k, d, kd, p, int(bool(inp.spread_algo)),
+        int(inp.seed) & _U32, *tail)
     return buf, used, job_count
 
 

@@ -46,6 +46,7 @@ from nomad_tpu_torch.ops.scoring import (
     pow10_on_card,
 )
 from torch_parity import (  # noqa: F401
+    MEMO_SCAN_CASES,
     add_jobs,
     build_flat_cluster,
     build_zoned_cluster,
@@ -248,6 +249,12 @@ SCAN_CASES = {
                                 dh=True, p=32, p_real=27, tight=True),
     "one_node": dict(n=1, g=3, p=8),
     "two_nodes": dict(n=2, p=8, p_real=5),
+    **MEMO_SCAN_CASES,
+    # the [G, N] caches past shared memory: flags, noise and the spread
+    # and distinct values there, the rest in global memory
+    "caches_in_global": dict(n=4000, g=60, p=32, s=1, d=1, dh=True),
+    # the group statics and counts past shared memory
+    "groups_in_global": dict(n=8, g=4500, p=16, s=1, d=1),
 }
 
 
@@ -403,6 +410,10 @@ MESH_SCAN_CASES = {
                                 tight=True, p=64, p_real=59),
     # spread counts past shared memory: each block's copy in global memory
     "counts_in_global": dict(n=64, s=1, k=41000, p=16),
+    **MEMO_SCAN_CASES,
+    # 2,000 rows a shard: flags, noise and values in shared memory, the
+    # [G, N] scores in global memory
+    "caches_in_global": dict(n=16000, g=60, p=16, s=1, d=1),
 }
 
 
@@ -565,6 +576,43 @@ def test_k13_sharded_scatter_matches_plain(cuda_device):
                                      pmesh.make_mesh(S, cuda_device))
     torch.cuda.synchronize()
     _same([got], [want], [want_cpu])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_shards", [0, S])
+def test_scan_prof_entry_and_one_launch_per_call(cuda_device, n_shards):
+    """One place_packed / place_sharded_packed call is one launch of its
+    kernel; the PROF instantiation (both block sizes) gives the same
+    outputs and counts its steps."""
+    case = "inactive_after_commit"
+    inp = (_mesh_scan_inputs if n_shards else _scan_inputs)(case,
+                                                            cuda_device)
+    mesh = pmesh.make_mesh(S, cuda_device)
+    kern = K.PLACE_SCAN_SHARDED if n_shards else K.PLACE_SCAN
+    K.reset_launches()
+    got = (pmesh.place_sharded_packed(inp, mesh) if n_shards
+           else psel.place_packed(inp))
+    assert kern.launches == 1
+    for nt in (256, 1024):
+        # csrc/place_scan.cu PhaseClock: 7 phases a step kind, the step
+        # counts, the set-up and the whole launch
+        prof = torch.zeros(18, dtype=torch.int64, device=cuda_device)
+        again = psel._scan_launch(inp, n_shards, prof, nt)
+        torch.cuda.synchronize()
+        _same(again, got)
+        c = prof.tolist()
+        assert c[14] == int(inp.active.sum())
+        assert c[14] + c[15] == inp.tg_idx.shape[0]
+        assert c[17] > 0
+
+
+@pytest.mark.gpu
+def test_dsmem_exchange_probe_runs(cuda_device):
+    sink = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    rc = K.PLACE_SCAN.fn("dsmem_exchange_probe")(
+        100, S, sink.data_ptr(), K.stream_of(sink))
+    torch.cuda.synchronize()
+    assert rc == 0
 
 
 @pytest.mark.gpu

@@ -26,10 +26,12 @@ from nomad_tpu_torch.ops.convert import (
 from nomad_tpu_torch.ops.select import pack_outputs
 from nomad_tpu_torch.parallel import mesh as pmesh
 from torch_parity import (
+    MEMO_SCAN_CASES,
     SCATTER_ROW_CASES,
     add_jobs,
     build_flat_cluster,
     build_zoned_cluster,
+    memo_identity,
     pad_arrays,
     random_placement_arrays,
     reference_inputs_numpy,
@@ -94,6 +96,23 @@ def test_k9_scan_matches_reference(case, ref_mesh):
         got = pmesh.place_sharded_packed(placement_inputs_from_numpy(arr),
                                          pmesh.make_mesh(S, "cpu"))
         assert_equal(want, got)
+
+
+@pytest.mark.parametrize("case", sorted(MEMO_SCAN_CASES))
+def test_k9_scan_matches_reference_on_memo_inputs(case, ref_mesh):
+    """The inputs of K9's memo cases, padded to the mesh; the reference's
+    output also has the identity the memo rests on."""
+    kw = MEMO_SCAN_CASES[case]
+    arr = pad_arrays(random_placement_arrays(np.random.default_rng(350),
+                                             **kw),
+                     pmesh.pad_nodes(kw["n"], S))
+    want = rmesh.place_sharded_packed_fn(ref_mesh)(
+        reference_placement_inputs(arr))
+    got = pmesh.place_sharded_packed(placement_inputs_from_numpy(arr),
+                                     pmesh.make_mesh(S, "cpu"))
+    assert_equal(want, got)
+    assert memo_identity(np.asarray(want[0]), arr["tg_idx"],
+                         arr["active"]) > 0
 
 
 def test_k9_shard_without_feasible_rows(ref_mesh):

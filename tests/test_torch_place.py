@@ -21,7 +21,12 @@ from nomad_tpu_torch.ops.convert import (
 )
 from nomad_tpu_torch.ops.scoring import fmaf, spread_boost
 from nomad_tpu_torch.ops.select import place, place_packed
-from torch_parity import random_placement_arrays, reference_placement_inputs
+from torch_parity import (
+    MEMO_SCAN_CASES,
+    memo_identity,
+    random_placement_arrays,
+    reference_placement_inputs,
+)
 
 
 @pytest.fixture(autouse=True)
@@ -61,6 +66,30 @@ def test_place_packed_matches_reference(case):
         got = place_packed(placement_inputs_from_numpy(arr))
         for w, g in zip(want, got):
             assert np.array_equal(np.asarray(w), g.numpy())
+
+
+@pytest.mark.parametrize("case", sorted(MEMO_SCAN_CASES))
+def test_place_packed_matches_reference_on_memo_inputs(case):
+    """The inputs of K5's memo cases (groups alternating, inactive steps
+    between active ones, an infeasible group, N < 3 with padding)."""
+    arr = random_placement_arrays(np.random.default_rng(150),
+                                  **MEMO_SCAN_CASES[case])
+    want = place_packed_jit(reference_placement_inputs(arr))
+    got = place_packed(placement_inputs_from_numpy(arr))
+    for w, g in zip(want, got):
+        assert np.array_equal(np.asarray(w), g.numpy())
+
+
+@pytest.mark.parametrize("case", sorted(MEMO_SCAN_CASES))
+def test_reference_output_has_the_memo_identity(case):
+    """The reference's own scan output: steps of one group with no commit
+    between them have equal metric columns, and such a step that is
+    inactive, or follows one with no feasible row, places nothing.  The
+    kernels' memo writes these rows without a pass."""
+    arr = random_placement_arrays(np.random.default_rng(150),
+                                  **MEMO_SCAN_CASES[case])
+    buf = np.asarray(place_packed_jit(reference_placement_inputs(arr))[0])
+    assert memo_identity(buf, arr["tg_idx"], arr["active"]) > 0
 
 
 def test_place_outputs_match_reference():

@@ -191,12 +191,17 @@ def alloc_map(h, jobs):
 def random_placement_arrays(rng, n=40, g=2, p=16, p_real=None, s=0, k=3,
                             d=0, kd=3, spread_algo=False, seed=12345,
                             prev=False, extra=False, dh=False,
-                            tight=False):
+                            tight=False, tg=None, active=None, pad_g=False,
+                            dead_group=None):
     """Seeded numpy PlacementInputs fields for the solo kernels: `s`
     spread rows of `k` values, `d` distinct_property rows of `kd`
     values, reschedule rows (`prev`), a device AND-mask (`extra`),
     distinct_hosts limits (`dh`), and with `tight` small nodes that run
-    out within the batch."""
+    out within the batch.  Options for the scan's memo: `tg` fixes the
+    real steps' groups, `active` the whole active mask (inactive steps
+    anywhere), `pad_g` draws the padding steps' groups, `dead_group` is
+    a group that no node admits (its device mask row all False).  The
+    defaults draw exactly as before."""
     p_real = p if p_real is None else p_real
     a = 4
     attrs = rng.integers(-1, 5, (n, a)).astype(np.int32)
@@ -253,7 +258,10 @@ def random_placement_arrays(rng, n=40, g=2, p=16, p_real=None, s=0, k=3,
     if prev:
         hit = rng.random(p_real) < 0.5
         prev_row[:p_real][hit] = rng.integers(0, n, int(hit.sum()))
-    active = np.arange(p) < p_real
+    active = np.arange(p) < p_real if active is None else np.asarray(
+        active, bool)
+    if tg is not None:
+        tg_idx[:p_real] = tg
     out = dict(
         attrs=attrs, cap=cap, used0=used0, elig=rng.random(n) < 0.9,
         dc_mask=rng.random(n) < 0.9, pool_mask=rng.random(n) < 0.95,
@@ -269,7 +277,57 @@ def random_placement_arrays(rng, n=40, g=2, p=16, p_real=None, s=0, k=3,
         job_count0=rng.integers(0, 2, n).astype(np.int32),
         spread_algo=np.bool_(spread_algo), seed=np.uint32(seed),
         extra_mask=(rng.random((g, n)) < 0.8) if extra else None)
+    if pad_g:
+        tg_idx[p_real:] = rng.integers(0, g, p - p_real)
+    if dead_group is not None:
+        if out["extra_mask"] is None:
+            out["extra_mask"] = np.ones((g, n), bool)
+        out["extra_mask"][dead_group] = False
     return out
+
+
+# Inputs that exercise the scan kernels' memo (csrc/place_scan.cu): the
+# group changing every step (each commit refreshes every group's cache
+# entry), inactive steps right after a commit and between active ones,
+# an active step with no feasible row followed by one of the same group,
+# and a shard of fewer than 3 rows with memoised padding steps
+MEMO_SCAN_CASES = {
+    "g_alternating": dict(n=40, g=3, p=32, p_real=27, s=1, d=1, dh=True,
+                          tight=True, tg=np.arange(27) % 3, pad_g=True),
+    "inactive_after_commit": dict(
+        n=40, g=2, p=24, s=1, k=4, d=1, tg=np.repeat([0, 1], 12),
+        active=np.array([1, 0, 1, 1, 0, 0, 1, 0, 1, 1, 1, 0] * 2)),
+    "infeasible_then_same_g": dict(
+        n=40, g=2, p=16, s=1, tg=[0, 0, 0, 1, 0, 0, 1, 1, 0, 0, 1, 0, 0,
+                                  0, 1, 1], dead_group=0),
+    "n_loc_below_3_memo": dict(n=13, p=16, p_real=9, s=1, pad_g=True),
+}
+
+
+def memo_identity(buf, tg_idx, active):
+    """Asserts, on a scan's packed output, the identity the kernels' memo
+    rests on: two steps of one group with no commit between them have
+    equal metric columns, and such a step places nothing (row
+    [-1, 0, -1, -1, -1, 0, 0, 0]) when it is inactive or the earlier one
+    had no feasible row.  Returns the number of steps it held for."""
+    seen = {}
+    ver = 0
+    held = 0
+    empty = [-1, 0, -1, -1, -1, 0, 0, 0]
+    for t, g in enumerate(tg_idx):
+        first = seen.get((int(g), ver))
+        if first is not None:
+            assert (buf[t, 8:] == buf[first, 8:]).all(), t
+            if not active[t] or buf[first, 8] == 0:
+                assert buf[t, :8].tolist() == empty, t
+            held += 1
+        else:
+            seen[(int(g), ver)] = t
+        if not active[t]:
+            assert buf[t, :8].tolist() == empty, t
+        if buf[t, 0] >= 0:
+            ver += 1
+    return held
 
 
 # node-axis fields of random_placement_arrays and their padding values
