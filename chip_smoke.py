@@ -1218,7 +1218,7 @@ def solo_kernel_phase(rec, barrier_ms, dsmem_ms):
     for label, inp in checks:
         got = S.place_packed(inp)
         err = max(err, check_exact(
-            "place_scan", got, S.pack_outputs(S.place(inp)),
+            "place_scan", got, S.pack_outputs(S.place_plain(inp)),
             S.place_packed(to_cpu(inp)), score_cols=[1, 5, 6, 7]))
         torch.cuda.synchronize()
         placed[label] = int((got[0][:, 0] >= 0).sum())
@@ -1237,7 +1237,7 @@ def solo_kernel_phase(rec, barrier_ms, dsmem_ms):
     rows.append(dict(
         kernel=K.PLACE_SCAN, max_abs_err=err,
         **timing(lambda: S.place_packed(inp), 3),
-        plain_ms=time_ms(lambda: S.pack_outputs(S.place(inp)), 1, 0),
+        plain_ms=time_ms(lambda: S.pack_outputs(S.place_plain(inp)), 1, 0),
         bytes=fn_bytes(tensors(inp), inp.attrs, inp.luts, inp.con,
                        inp.aff)
         + p * 14 * 4 + n * 16 + meets * real * blocks * blocks * XCH_POST,

@@ -11,7 +11,7 @@ so that its integer outputs, packed buffers and f32 score bits agree
 with the JAX functions on the CPU, and a wrapper that launches the
 hand-written CUDA kernel for a CUDA tensor:
 
-  place_packed                K5 (csrc/place_scan.cu, exact scan)
+  place, place_packed         K5 (csrc/place_scan.cu, exact scan)
   place_bulk_packed           K6 (csrc/multi_rounds.cu, bulk rounds)
   place_multi_packed          K3 (csrc/multi_rounds.cu, flat rounds)
   place_multi_compact_packed  K2 (csrc/multi_rounds.cu, laned rounds)
@@ -696,7 +696,8 @@ def top_k_select(keys: torch.Tensor, final: torch.Tensor, seed):
     return top_rows, top_sc
 
 
-def place(inp: PlacementInputs, select=top_k_select) -> PlacementOutputs:
+def place_plain(inp: PlacementInputs,
+                select=top_k_select) -> PlacementOutputs:
     """Plain version of K5's scan (reference: select.place): one
     placement per step, each seeing the state every earlier placement
     committed.  `select(keys, final, seed)` picks each step's top rows
@@ -757,6 +758,17 @@ def place(inp: PlacementInputs, select=top_k_select) -> PlacementOutputs:
         used=used, job_count=job_count)
 
 
+def place(inp: PlacementInputs) -> PlacementOutputs:
+    """The exact scan with per-placement outputs (reference:
+    select.place / place_jit).  CPU tensors take the plain version
+    (`place_plain`); CUDA tensors launch K1 and K5 through
+    `_scan_launch`, whose [P, 14] buffer `unpack_outputs` splits (or
+    raise): the plain step loop never runs on the card here."""
+    if inp.attrs.device.type == "cpu":
+        return place_plain(inp)
+    return unpack_outputs(*_scan_launch(inp))
+
+
 def pack_outputs(out: PlacementOutputs):
     """One int32 buffer [P, 14] (floats bitcast): 0 pick | 1 score |
     2-4 topk_rows | 5-7 topk_scores | 8 n_feasible | 9 n_filtered |
@@ -775,6 +787,22 @@ def pack_outputs(out: PlacementOutputs):
         out.n_exhausted[:, None], out.dim_exhausted,
     ], dim=1).to(torch.int32)
     return buf, out.used, out.job_count
+
+
+def unpack_outputs(buf: torch.Tensor, used: torch.Tensor,
+                   job_count: torch.Tensor) -> PlacementOutputs:
+    """The inverse of `pack_outputs` for N rows: the top lists keep
+    min(3, N) columns, as `place` reports them."""
+    top_k = min(TOP_K, used.shape[0])
+    i2f = lambda x: x.contiguous().view(torch.float32)
+    return PlacementOutputs(
+        picks=buf[:, 0].contiguous(), scores=i2f(buf[:, 1]),
+        topk_rows=buf[:, 2:2 + top_k].contiguous(),
+        topk_scores=i2f(buf[:, 5:5 + top_k]),
+        n_feasible=buf[:, 8].contiguous(), n_filtered=buf[:, 9].contiguous(),
+        n_exhausted=buf[:, 10].contiguous(),
+        dim_exhausted=buf[:, 11:14].contiguous(), used=used,
+        job_count=job_count)
 
 
 def _solo_statics(attrs, elig, dc_mask, pool_mask, con, aff, luts,
@@ -872,7 +900,7 @@ def place_packed(inp: PlacementInputs):
     used [N, 3], job_count [N]).  CPU tensors take the plain version;
     CUDA tensors launch K1 and K5 (or raise).  `inp` is not modified."""
     if inp.attrs.device.type == "cpu":
-        return pack_outputs(place(inp))
+        return pack_outputs(place_plain(inp))
     return _scan_launch(inp)
 
 

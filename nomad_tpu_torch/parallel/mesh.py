@@ -184,10 +184,11 @@ def sharded_waterfill(k_i, score, noise, want, spread_algo: bool,
 
 def place_sharded_plain(inp: PlacementInputs,
                         n_shards: int) -> PlacementOutputs:
-    """Plain version of K9: select.place with the sharded step
+    """Plain version of K9: select.place_plain with the sharded step
     selection.  The owner shard's psum-broadcast of the pick's spread
     and distinct_property values equals reading the pick's column."""
-    return S.place(inp, select=partial(sharded_top_k, n_shards=n_shards))
+    return S.place_plain(inp,
+                         select=partial(sharded_top_k, n_shards=n_shards))
 
 
 def place_bulk_sharded_plain(inp: BulkInputs, n_shards: int,

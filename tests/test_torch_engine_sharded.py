@@ -322,3 +322,26 @@ def test_full_scheduler_on_mesh_engine():
         assert placed == 40
         views[name] = view(h)
     assert views[REF] == views[PORT]
+
+
+@pytest.mark.parametrize("n_nodes", [13, 16])
+def test_system_job_on_mesh_engine(n_nodes):
+    """A system job through each package's mesh engine (make_mesh(8)):
+    one alloc per node, with the same allocs, metrics and eval updates.
+    At 13 nodes the engine's node arrays pad to 16 rows, and the job's
+    datacenter and pool masks pad with them (K8's [G, npad] mask; no
+    alloc on a padding row)."""
+    views = {}
+    for name in PACKAGES:
+        h = build(name, n_nodes, seed=5)
+        job = pkg(name, "mock").system_job(id="sys")
+        job.datacenters = ["dc1", "dc2", "dc3"]
+        h.state.upsert_job(job)
+        ev = eval_for(name, job)
+        h.state.upsert_evals([ev])
+        assert h.process("system", ev, now=1.7e9) is None
+        plan = h.plans[-1].node_allocation
+        assert sum(len(a) for a in plan.values()) == n_nodes
+        assert len(plan) == n_nodes
+        views[name] = view(h)
+    assert views[REF] == views[PORT]

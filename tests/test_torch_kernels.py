@@ -286,7 +286,8 @@ def test_solo_wrappers_take_plain_versions_on_cpu():
     K.reset_launches()
     inp = _scan_inputs("distinct_prev_extra")
     got = psel.place_packed(inp)
-    _same(got, psel.pack_outputs(psel.place(inp)))
+    _same(got, psel.pack_outputs(psel.place_plain(inp)))
+    _same(psel.place(inp), psel.place_plain(inp))
     b = _bulk_inputs()
     for ws, fk in BULK_MODES.values():
         _same(psel.place_bulk_packed(b, 256, 4, ws, fk),
@@ -336,10 +337,28 @@ def test_solo_launches_refuse_wrong_dtypes_and_cpu_tensors():
 def test_place_scan_matches_plain(cuda_device, case):
     inp = _scan_inputs(case, cuda_device)
     got = psel.place_packed(inp)
-    want = psel.pack_outputs(psel.place(inp))
+    want = psel.pack_outputs(psel.place_plain(inp))
     want_cpu = psel.place_packed(_scan_inputs(case))
     torch.cuda.synchronize()
     _same(got, want, want_cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["distinct_prev_extra", "one_node",
+                                  "two_nodes"])
+def test_ops_place_on_card_launches_k5(cuda_device, case):
+    """`ops.place` on CUDA tensors launches K5 once (no plain step loop on
+    the card) and its unpacked outputs equal the plain scan's on CPU
+    copies of the inputs."""
+    inp = _scan_inputs(case, cuda_device)
+    K.reset_launches()
+    got = psel.place(inp)
+    torch.cuda.synchronize()
+    assert K.PLACE_SCAN.launches == 1
+    assert all(t.device.type == "cuda" for t in got)
+    want_cpu = psel.place_plain(_scan_inputs(case))
+    assert got._fields == want_cpu._fields
+    _same(got, want_cpu)
 
 
 @pytest.mark.gpu

@@ -107,6 +107,28 @@ def test_place_outputs_match_reference():
         assert np.array_equal(_bits(w), _bits(g)), f
 
 
+@pytest.mark.parametrize("case", ["binpack", "distinct_property",
+                                  "one_node", "padded_p", "two_nodes"])
+def test_ops_place_matches_reference_place(case):
+    """`nomad_tpu_torch.ops.place`, exported where the reference exports
+    `place` and `place_jit`: on CPU tensors it is the plain scan and
+    equals `place_jit` field by field.  The card path unpacks K5's
+    [P, 14] buffer (`unpack_outputs`); unpacking the packed plain
+    outputs gives the same fields back, top lists of min(3, N)."""
+    from nomad_tpu_torch.ops import place as ops_place
+    from nomad_tpu_torch.ops.select import pack_outputs, unpack_outputs
+    arr = random_placement_arrays(np.random.default_rng(40), **CASES[case])
+    want = place_jit(reference_placement_inputs(arr))
+    got = ops_place(placement_inputs_from_numpy(arr))
+    back = unpack_outputs(*pack_outputs(got))
+    for out in (got, back):
+        assert out._fields == want._fields
+        for f in want._fields:
+            w, g = np.asarray(getattr(want, f)), getattr(out, f).numpy()
+            assert w.dtype == g.dtype and w.shape == g.shape, f
+            assert np.array_equal(_bits(w), _bits(g)), f
+
+
 def test_inactive_steps_still_report_metrics():
     """Padding steps pick nothing but carry the step's feasibility
     counts, so the packed buffer equals the reference's whole."""
