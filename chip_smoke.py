@@ -634,6 +634,72 @@ def barrier_round_ms(rounds: int = 20000) -> float:
     return time_ms(run, 5) / (2 * rounds)
 
 
+# the PROF instantiation's phases (csrc/multi_rounds.cu NPH_ROUNDS)
+COMPACT_PHASES = ("top", "score", "sums", "keys", "radix", "gather",
+                  "sort", "fill", "commit", "metrics", "out")
+
+
+def compact_phase_split(inp, cand_rows, cand_valid, rs, lanes) -> dict:
+    """One launch of K2's PROF instantiation at the zoned wave's inputs:
+    block 0's clock64() cycles per phase converted to microseconds by
+    the launch's own CUDA-event time over its total cycles, per real
+    step (want > 0) and per padding step."""
+    import torch
+
+    from nomad_tpu_torch.ops import select as S
+
+    nph = len(COMPACT_PHASES)
+    prof = torch.zeros(2 * nph + 4, dtype=torch.int64,
+                       device=inp.attrs.device)
+
+    def run():
+        S._compact_launch(inp.used0.clone(), inp.used0, inp, cand_rows,
+                          cand_valid, rs, lanes, prof=prof)
+
+    run()                                            # warm-up
+    prof.zero_()
+    _, ms = timed(run)
+    c = prof.tolist()
+    total, setup = c[2 * nph + 3], c[2 * nph + 2]
+    us_per_cycle = ms * 1e3 / max(total, 1)
+    n_act, n_pad = c[2 * nph], c[2 * nph + 1]
+    per = lambda i, n: c[i] * us_per_cycle / max(n, 1)
+    return {
+        "prof_ms": ms, "cycles": total, "mhz": 1 / us_per_cycle,
+        "setup_us": setup * us_per_cycle,
+        "real_steps": n_act, "padding_steps": n_pad,
+        "per_real_step_us": {ph: per(i, n_act)
+                             for i, ph in enumerate(COMPACT_PHASES)},
+        "per_padding_step_us": {ph: per(nph + i, n_pad)
+                                for i, ph in enumerate(COMPACT_PHASES)}}
+
+
+def compact_steps(inp, lanes, out) -> dict:
+    """What K2's steps at `inp` need, from the run's own output `out`
+    (buf_small, fills): per lane the real steps, the steps whose request
+    repeats the lane's previous step's, the steps that repeat the
+    previous step's group and want after it placed nothing (their row is
+    the previous row), and over the real steps how many frame rows each
+    round fills (the water-fill depth)."""
+    import collections
+
+    steps = inp.round_g.shape[0] // lanes
+    g = inp.round_g.view(steps, lanes).cpu()
+    want = inp.round_want.view(steps, lanes).cpu()
+    req = inp.req.cpu()[g.long()]                            # [T, L, 3]
+    placed = out[0][:, -16 + 12].view(steps, lanes).cpu()
+    depth = (out[1] & 2047).gt(0).sum(1).view(steps, lanes).cpu()
+    same_req = (req[1:] == req[:-1]).all(-1) & (want[1:] > 0)
+    memo = ((g[1:] == g[:-1]) & (want[1:] == want[:-1])
+            & (placed[:-1] == 0))
+    hist = collections.Counter(depth[want > 0].tolist())
+    return {"lanes": lanes, "steps": steps,
+            "real": (want > 0).sum(0).tolist(),
+            "req_repeats": same_req.sum(0).tolist(),
+            "memo": memo.sum(0).tolist(),
+            "fill_depth": {str(k): v for k, v in sorted(hist.items())}}
+
+
 def kernel_phase(h, zoned_built, flat_built):
     """Each kernel's wrapper against its plain version, on the card and
     on CPU copies, at the main path's shapes (the zoned and flat waves'
@@ -721,7 +787,9 @@ def kernel_phase(h, zoned_built, flat_built):
             lambda: S.place_multi_compact_packed_plain(zin, *args), 2),
         bytes=k2_bytes, ops=k2_ops, library_ms=None,
         depth_ms=int(real.max()) * k2_barriers * barrier_ms,
-        depth_steps=int(real.max()), barriers_per_step=k2_barriers))
+        depth_steps=int(real.max()), barriers_per_step=k2_barriers,
+        steps=compact_steps(zin, lanes, got),
+        phase_split=compact_phase_split(zin, *args)))
 
     # K3: the flat wave's launch
     fin, frs = flat_built["inp"], flat_built["rs"]

@@ -135,6 +135,19 @@ struct Params {
   int* xcnt;                 // sharded: [clusters, 4, S, 8] count rows
   unsigned long long* xkey;  // sharded: [clusters, S * kk_loc] keys
   int* xval;                 // sharded: [clusters, S * kk_loc, 4]
+  long long* prof;           // PROF: [2 NPH_ROUNDS + 4] block 0's split
+};
+
+// The PROF instantiation's phases (PhaseClock): the loop top, the score
+// pass, the block sums after the two passes, the key pass, the 8 radix
+// passes, the gather, the bitonic sort, the water-fill scan, the commit,
+// the metrics pass with its sums, and the output row.
+constexpr int NPH_ROUNDS = 11;
+enum { PH_TOP, PH_SCORE, PH_SUMS, PH_KEYS, PH_RADIX, PH_GATHER, PH_SORT,
+       PH_FILL, PH_COMMIT, PH_METRICS, PH_OUT };
+
+struct NoMark {
+  __device__ void operator()(int) const {}
 };
 
 // round_scores_g for one row: intake k_i and the normalised rank score
@@ -217,10 +230,10 @@ __device__ int block_scan(int v, int* red) {
 // select for the kk-th largest key with warp-aggregated shared-memory
 // histograms, a gather of the keys at or above it, and a bitonic sort
 // (s_sel[kk, sortp) zeroed).  Called by every thread of the block.
-template <class Comp>
+template <class Comp, class Mark = NoMark>
 __device__ void select_top(Comp comp, int m, int kk,
                            unsigned long long* s_sel, int* s_hist,
-                           int* s_misc) {
+                           int* s_misc, Mark mark = Mark()) {
   const int tid = threadIdx.x;
   const int lane_id = tid & 31, warp = tid >> 5;
   const int n_iter = (m + BS - 1) / BS;   // uniform trip count
@@ -276,6 +289,7 @@ __device__ void select_top(Comp comp, int m, int kk,
     k_rem -= s_misc[1];
     __syncthreads();
   }
+  mark(PH_RADIX);
 
   // gather the kk keys >= the threshold (keys are unique), sort
   if (tid == 0) s_misc[2] = 0;
@@ -296,6 +310,7 @@ __device__ void select_top(Comp comp, int m, int kk,
   }
   for (int i = kk + tid; i < sortp; i += BS) s_sel[i] = 0;
   __syncthreads();
+  mark(PH_GATHER);
   for (int k2 = 2; k2 <= sortp; k2 <<= 1) {
     for (int jj = k2 >> 1; jj > 0; jj >>= 1) {
       if (tid < sortp) {
@@ -312,6 +327,7 @@ __device__ void select_top(Comp comp, int m, int kk,
       __syncthreads();
     }
   }
+  mark(PH_SORT);
 }
 
 // Sums `nv` (<= 8) per-block values (already block-reduced, the same in
@@ -331,7 +347,7 @@ __device__ void cluster_sum(int* row, int s, int S, int* v, int nv) {
   }
 }
 
-template <bool COMPACT, bool SHARDED>
+template <bool COMPACT, bool SHARDED, bool PROF = false>
 __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
   extern __shared__ unsigned long long s_all[];   // sharded: S * kk_loc
   __shared__ unsigned long long s_sel[MAX_RS];
@@ -343,6 +359,8 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
   __shared__ int s_misc[4];
 
   const int tid = threadIdx.x;
+  PhaseClock<PROF, NPH_ROUNDS> pc;
+  pc.start(blockIdx.x == 0 && tid == 0);
   const int S = SHARDED ? p.n_shards : 1;
   const int s = SHARDED ? (int)cg::this_cluster().block_rank() : 0;
   const int l = COMPACT ? (int)blockIdx.x / S : 0;
@@ -386,6 +404,7 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
     cand_n = block_sum(cnt, s_red);
     if (SHARDED) cluster_sum(xcnt, s, S, &cand_n, 1);
   }
+  pc.setup_done();
 
   for (int t = 0; t < p.n_steps; ++t) {
     const int rr = COMPACT ? t * p.n_lanes + l : t;
@@ -413,6 +432,9 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
     const int* jc0 =
         COMPACT ? p.job_count0 + ((int64_t)s * p.n_jrows + p.g_job[g]) * nc
                 : p.job_count0 + (int64_t)p.g_job[g] * p.row_stride + fb;
+    const bool act = want > 0;
+    auto mark = [&](int ph) { pc.mark(ph, act); };
+    mark(PH_TOP);
 
     // 1. job counts, intake, rank score
     int viable = 0, n_static = 0;
@@ -436,11 +458,13 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
         n_static += st ? 1 : 0;
       }
     }
+    mark(PH_SCORE);
     viable = block_sum(viable, s_red);
     if (!COMPACT) n_static = block_sum(n_static, s_red);
     if (SHARDED) cluster_sum(xcnt + 1 * S * 8, s, S, &viable, 1);
     const int cap_round =
         p.spread ? max(want / max(viable, 1) + 1, 1) : p.rs;
+    mark(PH_SUMS);
 
     // 2. per-round intake cap and selection keys
     int n_feas = 0;
@@ -455,14 +479,16 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
         n_feas += kr > 0 ? 1 : 0;
       }
     }
+    mark(PH_KEYS);
     n_feas = block_sum(n_feas, s_red);
+    mark(PH_SUMS);
 
     // 3. the sorted top kk_loc of the frame (key bits high, inverted
     // index low: key descending, then index ascending, as
     // jax.lax.top_k orders them)
     select_top([&](int j) {
       return ((unsigned long long)keyb[j] << 32) | (unsigned)(~j);
-    }, nc, kk_loc, s_sel, s_hist, s_misc);
+    }, nc, kk_loc, s_sel, s_hist, s_misc, mark);
     int ks = 0, grow = 0, own = -1;
     float scs = NEG_INF;
     if (!SHARDED) {
@@ -517,6 +543,7 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
     s_c[tid] = c;
     s_sc[tid] = scs;
     const int placed = block_sum(c, s_red);
+    mark(PH_FILL);
 
     // 5. commit the winners of this frame, then post-commit exhaustion
     if (tid < kk && c > 0 && own >= 0) {
@@ -527,6 +554,7 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
       jc[own] += c;
     }
     __syncthreads();
+    mark(PH_COMMIT);
     int n_exh = 0, dx0 = 0, dx1 = 0, dx2 = 0;
     for (int it = 0; it < n_iter; ++it) {
       int j = it * BS + tid;
@@ -550,6 +578,7 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
     int mx[4] = {block_sum(n_exh, s_red), block_sum(dx0, s_red),
                  block_sum(dx1, s_red), block_sum(dx2, s_red)};
     if (SHARDED) cluster_sum(xcnt + 3 * S * 8, s, S, mx, 4);
+    mark(PH_METRICS);
 
     // 6. this round's packed output row (block 0 of a cluster)
     if (s == 0) {
@@ -602,6 +631,8 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
       }
     }
     __syncthreads();
+    mark(PH_OUT);
+    pc.step(act);
   }
 
   if (COMPACT) {
@@ -616,6 +647,7 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
       }
     }
   }
+  pc.finish(p.prof);
 }
 
 __global__ void pow10_kernel(const float* __restrict__ x,
@@ -681,7 +713,7 @@ int run_compact(const int* cap, const int* used_in, int* used_out,
                 int spread, int rs, int fill_k, int* used_c, int* jc,
                 int* ki, float* score, unsigned* keyb, int n_shards,
                 int n_jrows, int* xcnt, unsigned long long* xkey, int* xval,
-                cudaStream_t stream) {
+                long long* prof, cudaStream_t stream) {
   if (rs > MAX_RS || rs < 1) return (int)cudaErrorInvalidValue;
   Params p{};
   p.cap = cap; p.used_in = used_in; p.used = used_out; p.n = n;
@@ -695,9 +727,12 @@ int run_compact(const int* cap, const int* used_in, int* used_out,
   p.used_c = used_c; p.jc = jc; p.ki = ki; p.score = score; p.keyb = keyb;
   p.buf = buf_small; p.fills = fills_full;
   p.n_shards = n_shards; p.n_jrows = n_jrows;
-  p.xcnt = xcnt; p.xkey = xkey; p.xval = xval;
+  p.xcnt = xcnt; p.xkey = xkey; p.xval = xval; p.prof = prof;
   if (n_shards) return launch_sharded<true>(p, n_lanes, stream);
-  rounds_kernel<true, false><<<n_lanes, BS, 0, stream>>>(p);
+  if (prof)
+    rounds_kernel<true, false, true><<<n_lanes, BS, 0, stream>>>(p);
+  else
+    rounds_kernel<true, false><<<n_lanes, BS, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -778,7 +813,29 @@ extern "C" int multi_compact(
                      job_count0, round_g, round_want, buf_small, fills_full,
                      n, n_lanes, nc, ua, n_aff, n_steps, spread, rs, fill_k,
                      used_c, jc, ki, score, keyb, 0, 0, nullptr, nullptr,
-                     nullptr, stream);
+                     nullptr, nullptr, stream);
+}
+
+// The PROF instantiation of K2: the same rounds, with block 0's phase
+// split (NPH_ROUNDS phases) written to prof [2 NPH_ROUNDS + 4].  Never on
+// the main path.
+extern "C" int multi_compact_prof(
+    const int* cap, const int* used_in, int* used_out, const int* cand_rows,
+    const uint8_t* cand_valid, const float* aff_land, const int* aff,
+    const int* req, const int* desired, const int* dh_limit,
+    const int* g_aff, const int* g_job, const long long* seed,
+    const int* job_count0, const int* round_g, const int* round_want,
+    int* buf_small, int* fills_full, int n, int n_lanes, int nc, int ua,
+    int n_aff, int n_steps, int spread, int rs, int fill_k, int* used_c,
+    int* jc, int* ki, float* score, unsigned* keyb, long long* prof,
+    cudaStream_t stream) {
+  if (!prof) return (int)cudaErrorInvalidValue;
+  return run_compact(cap, used_in, used_out, cand_rows, cand_valid, aff_land,
+                     aff, req, desired, dh_limit, g_aff, g_job, seed,
+                     job_count0, round_g, round_want, buf_small, fills_full,
+                     n, n_lanes, nc, ua, n_aff, n_steps, spread, rs, fill_k,
+                     used_c, jc, ki, score, keyb, 0, 0, nullptr, nullptr,
+                     nullptr, prof, stream);
 }
 
 // K12: frames [S, L, nc] (nc = Nc_loc), job_count0 [S, n_jrows, nc],
@@ -800,7 +857,7 @@ extern "C" int multi_compact_sharded(
                      job_count0, round_g, round_want, buf_small, fills_full,
                      n, n_lanes, nc, ua, n_aff, n_steps, spread, rs, fill_k,
                      used_c, jc, ki, score, keyb, n_shards, n_jrows, xcnt,
-                     xkey, xval, stream);
+                     xkey, xval, nullptr, stream);
 }
 
 extern "C" int multi_flat(
@@ -869,6 +926,7 @@ extern "C" int multi_bulk_sharded(
 
 PY_LAUNCHERS(multi_rounds,
              PY_LAUNCHER(multi_compact),
+             PY_LAUNCHER(multi_compact_prof),
              PY_LAUNCHER(multi_flat),
              PY_LAUNCHER(multi_bulk),
              PY_LAUNCHER(pow10_f32),

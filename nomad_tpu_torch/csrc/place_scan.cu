@@ -157,66 +157,15 @@ struct ScanParams {
   int all_sm;                // every piece the pass reads in shared memory
 };
 
-// Phase split of the PROF instantiation: block 0's thread 0 adds the
-// clock64() cycles since the last mark to phase `ph` of the step's kind
-// (active or not), after a block barrier so that every thread has ended
-// the phase (mark_nb: warp 0's own work, no barrier).  prof[18]: cycles
-// per phase of active steps [0, 7), of inactive steps [7, 14), the step
-// counts [14, 16), the set-up before the first step [16] and the whole
-// kernel [17].  Phases: the loop top, the pass over the rows, the warp
-// and block merges, the exchange (post and wait, K9 and K5 on a
-// cluster), the decode (the merge of the posts, the row, the memo; the
-// commit of warps 1 and 2 starts during it, once the pick is known),
-// the rest of the commit, and memoised steps.
+// Phase split of the PROF instantiation (PhaseClock, score_common.cuh):
+// prof[18] holds cycles per phase of active steps [0, 7), of inactive
+// steps [7, 14), the step counts [14, 16), the set-up before the first
+// step [16] and the whole kernel [17].  Phases: the loop top, the pass
+// over the rows, the warp and block merges, the exchange (post and wait,
+// K9 and K5 on a cluster), the decode (the merge of the posts, the row,
+// the memo; the commit of warps 1 and 2 starts during it, once the pick
+// is known), the rest of the commit, and memoised steps.
 constexpr int NPHASE = 7;
-template <bool PROF>
-struct PhaseClock {
-  long long acc[2 * NPHASE + 2];
-  long long begin, setup, last;
-  bool on;
-  __device__ void start(bool on_) {
-    on = PROF && on_;
-    if (on) {
-      for (int i = 0; i < 2 * NPHASE + 2; ++i) acc[i] = 0;
-      begin = last = clock64();
-    }
-  }
-  __device__ void setup_done() {
-    if (!PROF) return;
-    __syncthreads();
-    if (on) {
-      last = clock64();
-      setup = last - begin;
-    }
-  }
-  __device__ void mark(int ph, bool act) {
-    if (!PROF) return;
-    __syncthreads();
-    if (on) {
-      const long long now = clock64();
-      acc[(act ? 0 : NPHASE) + ph] += now - last;
-      last = now;
-    }
-  }
-  __device__ void mark_nb(int ph, bool act) {
-    if (PROF && on) {
-      const long long now = clock64();
-      acc[(act ? 0 : NPHASE) + ph] += now - last;
-      last = now;
-    }
-  }
-  __device__ void step(bool act) {
-    if (PROF && on) acc[2 * NPHASE + (act ? 0 : 1)] += 1;
-  }
-  __device__ void finish(long long* out) {
-    if (!PROF) return;
-    __syncthreads();
-    if (!on) return;
-    for (int i = 0; i < 2 * NPHASE + 2; ++i) out[i] = acc[i];
-    out[2 * NPHASE + 2] = setup;
-    out[2 * NPHASE + 3] = clock64() - begin;
-  }
-};
 
 // The cache entry of one node for one group: the flag bits (without the
 // static bit) and acc = (0 + binpack) + anti-affinity, each computed as
@@ -628,7 +577,7 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(ScanParams p) {
   __shared__ __align__(16) Xch s_xch;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  PhaseClock<PROF> pc;
+  PhaseClock<PROF, NPHASE> pc;
   pc.start(blockIdx.x == 0 && tid == 0);
   const int n = p.n, G = p.g, S = p.s, Kv = p.k, D = p.d, Kd = p.kd;
   const int NS = SHARDED ? p.n_shards : 1;

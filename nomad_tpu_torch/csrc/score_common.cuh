@@ -1,7 +1,8 @@
 // Scoring helpers shared by the rounds kernels (multi_rounds.cu) and the
 // exact scan (place_scan.cu): floor division, the C library's powf(10, x),
-// the reference's tie-break hash, float <-> orderable key bits, and the
-// cluster launch of the sharded kernels.
+// the reference's tie-break hash, float <-> orderable key bits, the
+// cluster launch of the sharded kernels, and the PROF instantiations'
+// phase clock.
 // Included inside each source's anonymous namespace.
 
 #pragma once
@@ -120,3 +121,59 @@ int launch_clusters(void (*kern)(Args...), int n_blocks, int cluster,
   return launch_clusters_nt(kern, n_blocks, cluster, BS, dyn, stream,
                             args...);
 }
+
+// Phase split of a PROF instantiation: block 0's thread 0 adds the
+// clock64() cycles since the last mark to phase `ph` of the step's kind
+// (active or not), after a block barrier so that every thread has ended
+// the phase (mark_nb: warp 0's own work, no barrier).  The output holds
+// 2 NPHASE + 4 words: cycles per phase of active steps [0, NPHASE), of
+// inactive steps [NPHASE, 2 NPHASE), the two step counts, the set-up
+// before the first step and the whole kernel.
+template <bool PROF, int NPHASE>
+struct PhaseClock {
+  long long acc[2 * NPHASE + 2];
+  long long begin, setup, last;
+  bool on;
+  __device__ void start(bool on_) {
+    on = PROF && on_;
+    if (on) {
+      for (int i = 0; i < 2 * NPHASE + 2; ++i) acc[i] = 0;
+      begin = last = clock64();
+    }
+  }
+  __device__ void setup_done() {
+    if (!PROF) return;
+    __syncthreads();
+    if (on) {
+      last = clock64();
+      setup = last - begin;
+    }
+  }
+  __device__ void mark(int ph, bool act) {
+    if (!PROF) return;
+    __syncthreads();
+    if (on) {
+      const long long now = clock64();
+      acc[(act ? 0 : NPHASE) + ph] += now - last;
+      last = now;
+    }
+  }
+  __device__ void mark_nb(int ph, bool act) {
+    if (PROF && on) {
+      const long long now = clock64();
+      acc[(act ? 0 : NPHASE) + ph] += now - last;
+      last = now;
+    }
+  }
+  __device__ void step(bool act) {
+    if (PROF && on) acc[2 * NPHASE + (act ? 0 : 1)] += 1;
+  }
+  __device__ void finish(long long* out) {
+    if (!PROF) return;
+    __syncthreads();
+    if (!on) return;
+    for (int i = 0; i < 2 * NPHASE + 2; ++i) out[i] = acc[i];
+    out[2 * NPHASE + 2] = setup;
+    out[2 * NPHASE + 3] = clock64() - begin;
+  }
+};

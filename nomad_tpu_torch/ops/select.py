@@ -465,11 +465,14 @@ def place_multi_compact_packed_plain(inp: MultiEvalInputs, cand_rows,
 
 def _compact_launch(used_out: torch.Tensor, used_in: torch.Tensor,
                     inp: MultiEvalInputs, cand_rows, cand_valid,
-                    round_size: int, n_lanes: int, n_shards: int = 0):
+                    round_size: int, n_lanes: int, n_shards: int = 0,
+                    prof=None):
     """K1's per-frame affinity + one K2 launch (one block per lane; K12
     with `n_shards`: per-shard frames [S, L, Nc_loc] and seeds
     [S, J', Nc_loc], one cluster of S blocks per lane).  `used_out`
-    receives the final usage; it may be `used_in` itself."""
+    receives the final usage; it may be `used_in` itself.  With `prof`
+    (int64 on the card) K2's PROF instantiation runs instead and writes
+    block 0's phase split there (chip_smoke.py)."""
     kern = K.MULTI_COMPACT_SHARDED if n_shards else K.MULTI_COMPACT
     name = kern.name
     n = inp.attrs.shape[0]
@@ -526,9 +529,13 @@ def _compact_launch(used_out: torch.Tensor, used_in: torch.Tensor,
         xch = _exchange(n_lanes, n_shards, min(round_size, nc), dev)
         mesh_args = ([n_shards, inp.job_count0.shape[1]]
                      + [t.data_ptr() for t in xch])
+    symbol = name
+    if prof is not None:
+        symbol = name + "_prof"
+        mesh_args.append(prof.data_ptr())
     if n_steps and nc:
         kern.launch(
-            dev.index, name,
+            dev.index, symbol,
             *[t.data_ptr() for t in (*tensors.values(), buf_small, fills)],
             n, n_lanes, nc, ua, af, n_steps, int(bool(inp.spread_algo)),
             round_size, fill_k,
