@@ -14,7 +14,11 @@ into nomad_tpu_torch/csrc/build/), then:
      matches the JAX reference bit for bit).  Tolerance: none; every
      output word, f32 scores compared as their bits, must be equal.
      Kernel / plain / library times (K4 and K13 timed in turns with
-     their library call), and each kernel's bound;
+     their library call), and each kernel's bound; K2's chained form,
+     its phase split (the PROF launcher of csrc/compact_rounds.cu:
+     microseconds per real and per padding step in the loop top, the
+     pass, the merge, the exchange, the decision, the wide path and
+     memoised steps) and what the zoned wave's steps need (`steps`);
   3. the north-star zoned wave through the port's Harness: 50,000 nodes
      in 3 DCs and 5 CSI zones (bench.py _build_bench_cluster), 384 batch
      evals x 260 placements, prepare_batch per eval, ONE place_batch
@@ -607,12 +611,24 @@ def sort_barriers(kk: int) -> int:
     return lg * (lg + 1) // 2
 
 
-# __syncthreads per step of rounds_kernel (csrc/multi_rounds.cu) outside
-# the sort: block_sum of the viable rows 3 (K3: + the static rows 3), of
-# the feasible rows 3, radix select 8 passes x 4, gather 2, fill
-# block_scan 3 + block_sum 3, commit 1, metrics 4 block_sums 12, end 1
+# __syncthreads per step of rounds_kernel (csrc/multi_rounds.cu, K12's
+# lanes) outside the sort: block_sum of the viable rows 3 (K3: + the
+# static rows 3), of the feasible rows 3, radix select 8 passes x 4,
+# gather 2, fill block_scan 3 + block_sum 3, commit 1, metrics 4
+# block_sums 12, end 1
 BARRIERS_COMPACT = 3 + 3 + 32 + 2 + 6 + 1 + 12 + 1
 BARRIERS_FLAT = BARRIERS_COMPACT + 3
+# K2 (csrc/compact_rounds.cu) per computed step: a block barrier after
+# the pass and one after the decision, one exchange through distributed
+# shared memory between them; a memoised step none.  A step on the wide
+# path adds 4 radix passes x 3, the quota 1, the entry count 1, the sort
+# 1, the fill scan 2 and its sums 2 block barriers, and 6 cluster
+# barriers (4 histograms, the entry counts, the entries).
+TOPB_K2 = 4
+BARRIERS_K2 = 2
+EXCHANGES_K2 = 1
+BARRIERS_K2_WIDE = 4 * 3 + 1 + 1 + 1 + 2 + 2
+CLUSTER_K2_WIDE = 6
 
 
 def barrier_round_ms(rounds: int = 20000) -> float:
@@ -624,7 +640,7 @@ def barrier_round_ms(rounds: int = 20000) -> float:
     from nomad_tpu_torch.ops import kernels as K
 
     sink = torch.zeros(1, dtype=torch.int32, device="cuda")
-    probe = K.MULTI_COMPACT.fn("barrier_probe")
+    probe = K.MULTI_FLAT.fn("barrier_probe")
 
     def run():
         rc = probe(rounds, sink.data_ptr(), K.stream_of(sink))
@@ -634,16 +650,16 @@ def barrier_round_ms(rounds: int = 20000) -> float:
     return time_ms(run, 5) / (2 * rounds)
 
 
-# the PROF instantiation's phases (csrc/multi_rounds.cu NPH_ROUNDS)
-COMPACT_PHASES = ("top", "score", "sums", "keys", "radix", "gather",
-                  "sort", "fill", "commit", "metrics", "out")
+# the PROF instantiation's phases (csrc/compact_rounds.cu NPH)
+COMPACT_PHASES = ("top", "pass", "merge", "exchange", "decide", "wide",
+                  "memo")
 
 
 def compact_phase_split(inp, cand_rows, cand_valid, rs, lanes) -> dict:
-    """One launch of K2's PROF instantiation at the zoned wave's inputs:
-    block 0's clock64() cycles per phase converted to microseconds by
-    the launch's own CUDA-event time over its total cycles, per real
-    step (want > 0) and per padding step."""
+    """One launch of K2's PROF instantiation at `inp`: block 0's
+    clock64() cycles per phase converted to microseconds by the launch's
+    own CUDA-event time over its total cycles, per real step (want > 0)
+    and per padding step."""
     import torch
 
     from nomad_tpu_torch.ops import select as S
@@ -659,48 +675,72 @@ def compact_phase_split(inp, cand_rows, cand_valid, rs, lanes) -> dict:
     run()                                            # warm-up
     prof.zero_()
     _, ms = timed(run)
-    c = prof.tolist()
+    return phase_us(prof.tolist(), ms, COMPACT_PHASES, ("real", "padding"))
+
+
+def phase_us(c, ms, phases, kinds) -> dict:
+    """A PROF launch's phase split (PhaseClock, csrc/score_common.cuh:
+    block 0's clock64() cycles per phase of the two step kinds, the step
+    counts, the set-up and the whole launch) in microseconds, by the
+    launch's own CUDA-event time `ms` over its total cycles."""
+    nph = len(phases)
     total, setup = c[2 * nph + 3], c[2 * nph + 2]
     us_per_cycle = ms * 1e3 / max(total, 1)
-    n_act, n_pad = c[2 * nph], c[2 * nph + 1]
-    per = lambda i, n: c[i] * us_per_cycle / max(n, 1)
-    return {
-        "prof_ms": ms, "cycles": total, "mhz": 1 / us_per_cycle,
-        "setup_us": setup * us_per_cycle,
-        "real_steps": n_act, "padding_steps": n_pad,
-        "per_real_step_us": {ph: per(i, n_act)
-                             for i, ph in enumerate(COMPACT_PHASES)},
-        "per_padding_step_us": {ph: per(nph + i, n_pad)
-                                for i, ph in enumerate(COMPACT_PHASES)}}
+    out = {"prof_ms": ms, "cycles": total, "mhz": 1 / us_per_cycle,
+           "setup_us": setup * us_per_cycle}
+    for k, kind in enumerate(kinds):
+        n = c[2 * nph + k]
+        out[f"{kind}_steps"] = n
+        out[f"per_{kind}_step_us"] = {
+            ph: c[k * nph + i] * us_per_cycle / max(n, 1)
+            for i, ph in enumerate(phases)}
+    return out
 
 
-def compact_steps(inp, lanes, out) -> dict:
+def compact_steps(inp, lanes, out, kk) -> dict:
     """What K2's steps at `inp` need, from the run's own output `out`
-    (buf_small, fills): per lane the real steps, the steps whose request
-    repeats the lane's previous step's, the steps that repeat the
-    previous step's group and want after it placed nothing (their row is
-    the previous row), and over the real steps how many frame rows each
-    round fills (the water-fill depth)."""
+    (buf_small, fills), by the kernel's rules (csrc/compact_rounds.cu):
+    per lane the real steps, the steps whose request repeats the lane's
+    previous step's (its cache holds), the memoised steps (group and
+    want of the last computed step repeat after it placed nothing), the
+    computed ones, and those on the wide path (a round that fills more
+    than TOPB_K2 rows, or TOPB_K2 short of `want`, of more than TOPB_K2
+    candidates `kk`); over the real steps how many rows each round fills
+    (the water-fill depth)."""
     import collections
 
     steps = inp.round_g.shape[0] // lanes
-    g = inp.round_g.view(steps, lanes).cpu()
-    want = inp.round_want.view(steps, lanes).cpu()
-    req = inp.req.cpu()[g.long()]                            # [T, L, 3]
-    placed = out[0][:, -16 + 12].view(steps, lanes).cpu()
-    depth = (out[1] & 2047).gt(0).sum(1).view(steps, lanes).cpu()
-    same_req = (req[1:] == req[:-1]).all(-1) & (want[1:] > 0)
-    memo = ((g[1:] == g[:-1]) & (want[1:] == want[:-1])
-            & (placed[:-1] == 0))
-    hist = collections.Counter(depth[want > 0].tolist())
-    return {"lanes": lanes, "steps": steps,
-            "real": (want > 0).sum(0).tolist(),
-            "req_repeats": same_req.sum(0).tolist(),
-            "memo": memo.sum(0).tolist(),
+    g = inp.round_g.view(steps, lanes).cpu().tolist()
+    want = inp.round_want.view(steps, lanes).cpu().tolist()
+    req = inp.req.cpu().tolist()
+    placed = out[0][:, -16 + 12].view(steps, lanes).cpu().tolist()
+    depth = (out[1] & 2047).gt(0).sum(1).view(steps, lanes).cpu().tolist()
+    keys = ("real", "req_repeats", "memo", "computed", "wide")
+    per = {k: [0] * lanes for k in keys}
+    hist = collections.Counter()
+    for lane in range(lanes):
+        last = None      # (group, want, placed) of the last computed step
+        for t in range(steps):
+            gt, wt = g[t][lane], want[t][lane]
+            if wt > 0:
+                per["real"][lane] += 1
+                hist[depth[t][lane]] += 1
+                if t and req[g[t - 1][lane]] == req[gt]:
+                    per["req_repeats"][lane] += 1
+            if last == (gt, wt, 0):
+                per["memo"][lane] += 1
+                continue
+            per["computed"][lane] += 1
+            m = depth[t][lane]
+            if kk > TOPB_K2 and (m > TOPB_K2 or (
+                    m == TOPB_K2 and placed[t][lane] < wt)):
+                per["wide"][lane] += 1
+            last = (gt, wt, placed[t][lane])
+    return {"lanes": lanes, "steps": steps, **per,
             "fill_depth": {str(k): v for k, v in sorted(hist.items())}}
 
 
-def kernel_phase(h, zoned_built, flat_built):
+def kernel_phase(h, zoned_built, flat_built, dsmem_ms):
     """Each kernel's wrapper against its plain version, on the card and
     on CPU copies, at the main path's shapes (the zoned and flat waves'
     own inputs)."""
@@ -779,17 +819,39 @@ def kernel_phase(h, zoned_built, flat_built):
                        zin.seed, zin.job_count0, zin.round_g,
                        zin.round_want) + nbytes(*got))
     k2_ops = int((real * valid_l).sum()) * OPS_PER_ROW_STEP
-    k2_barriers = BARRIERS_COMPACT + sort_barriers(min(rs, cr.shape[1]))
+    # the chained wave's in-place form, from the zoned wave's usage
+    used0 = zin.used0.clone()
+    chained = S.place_multi_compact_chained(used0, zin._replace(used0=None),
+                                            *args)
+    if chained[2] is not used0:
+        raise AssertionError("multi_compact chained: usage not in place")
+    err = max(err, check_exact("multi_compact chained", chained,
+                               S.place_multi_compact_packed_plain(
+                                   zcpu, cr.cpu(), cv.cpu(), rs, lanes),
+                               packed=True))
+    torch.cuda.synchronize()
+    counts = compact_steps(zin, lanes, got, min(rs, cr.shape[1]))
+
+    def chain_ms(i):
+        """Lane i's chain: its computed steps, and those on the wide path
+        with their extra barriers and cluster barriers."""
+        return (counts["computed"][i] * (BARRIERS_K2 * barrier_ms
+                                         + EXCHANGES_K2 * dsmem_ms)
+                + counts["wide"][i] * (BARRIERS_K2_WIDE * barrier_ms
+                                       + CLUSTER_K2_WIDE * dsmem_ms))
+
+    worst = max(range(lanes), key=chain_ms)
     rows.append(dict(
         kernel=K.MULTI_COMPACT, max_abs_err=err,
         **timing(lambda: S.place_multi_compact_packed(zin, *args), 5),
         plain_ms=time_ms(
             lambda: S.place_multi_compact_packed_plain(zin, *args), 2),
         bytes=k2_bytes, ops=k2_ops, library_ms=None,
-        depth_ms=int(real.max()) * k2_barriers * barrier_ms,
-        depth_steps=int(real.max()), barriers_per_step=k2_barriers,
-        steps=compact_steps(zin, lanes, got),
-        phase_split=compact_phase_split(zin, *args)))
+        depth_ms=chain_ms(worst), depth_steps=counts["computed"][worst],
+        barriers_per_step=BARRIERS_K2, exchanges_per_step=EXCHANGES_K2,
+        wide_steps=counts["wide"][worst],
+        blocks=K.MULTI_COMPACT.fn("multi_compact_blocks")(cr.shape[1]),
+        steps=counts, phase_split=compact_phase_split(zin, *args)))
 
     # K3: the flat wave's launch
     fin, frs = flat_built["inp"], flat_built["rs"]
@@ -1206,19 +1268,7 @@ def scan_phase_split_nt(inp, n_shards: int, nt: int) -> dict:
     S._scan_launch(inp, n_shards, prof, nt)         # warm-up
     prof.zero_()
     _, ms = timed(lambda: S._scan_launch(inp, n_shards, prof, nt))
-    c = prof.tolist()
-    total, setup = c[2 * NPH + 3], c[2 * NPH + 2]
-    us_per_cycle = ms * 1e3 / max(total, 1)
-    n_act, n_inact = c[2 * NPH], c[2 * NPH + 1]
-    per = lambda i, n: c[i] * us_per_cycle / max(n, 1)
-    return {
-        "prof_ms": ms, "cycles": total, "mhz": 1 / us_per_cycle,
-        "setup_us": setup * us_per_cycle,
-        "active_steps": n_act, "inactive_steps": n_inact,
-        "per_active_step_us": {ph: per(i, n_act)
-                               for i, ph in enumerate(SCAN_PHASES)},
-        "per_inactive_step_us": {ph: per(NPH + i, n_inact)
-                                 for i, ph in enumerate(SCAN_PHASES)}}
+    return phase_us(prof.tolist(), ms, SCAN_PHASES, ("active", "inactive"))
 
 
 def scan_steps(inp, buf) -> dict:
@@ -1406,7 +1456,7 @@ def cluster_round_ms(rounds: int = 20000) -> float:
 
     rows = torch.zeros(4 * MESH_SHARDS * 8, dtype=torch.int32, device="cuda")
     sink = torch.zeros(1, dtype=torch.int32, device="cuda")
-    probe = K.MULTI_COMPACT.fn("cluster_barrier_probe")
+    probe = K.MULTI_FLAT.fn("cluster_barrier_probe")
 
     def run():
         rc = probe(rounds, MESH_SHARDS, rows.data_ptr(), sink.data_ptr(),
@@ -1823,7 +1873,11 @@ def main() -> int:
     flat_built = h.engine.build_multi_inputs(snap, items3, seed=seeds3)
     if zoned_built["cand_rows"] is None or flat_built["cand_rows"] is not None:
         raise AssertionError("main-path inputs took the wrong kernel")
-    krows = kernel_phase(h, zoned_built, flat_built)
+    # the probes of the two cluster exchanges (K2's depth needs the
+    # distributed shared memory one)
+    cluster_ms = cluster_round_ms()
+    dsmem_ms = dsmem_exchange_ms()
+    krows = kernel_phase(h, zoned_built, flat_built, dsmem_ms)
     torch.cuda.synchronize()
     emit({"phase": "kernel_checks", "card": card, "tolerance": "exact",
           "checks": [{k: (v.name if k == "kernel" else v)
@@ -1865,10 +1919,8 @@ def main() -> int:
         prev = pend
 
     # 7-11. the solo path, then 12. its kernels against the plain versions
-    # (after the probes of the two cluster exchanges)
+    # (after the line of the two exchange probes)
     rec = solo_phases(card, launches)
-    cluster_ms = cluster_round_ms()
-    dsmem_ms = dsmem_exchange_ms()
     emit({"phase": "exchange_probes", "card": card,
           "cluster_barrier_us": cluster_ms * 1e3,
           "dsmem_exchange_us": dsmem_ms * 1e3, "blocks": MESH_SHARDS})

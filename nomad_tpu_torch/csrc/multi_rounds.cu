@@ -1,13 +1,14 @@
-// K2 "multi_compact" and K3 "multi_flat": the batched multi-eval
-// water-fill rounds, one persistent launch per wave.  K6 "multi_bulk":
-// one eval's homogeneous batch in rounds, the K3 machinery at one group.
-// K10 "multi_bulk_sharded", K11 "multi_flat_sharded" and K12
+// K3 "multi_flat": the batched multi-eval water-fill rounds, one
+// persistent launch per wave.  K6 "multi_bulk": one eval's homogeneous
+// batch in rounds, the K3 machinery at one group.  K10
+// "multi_bulk_sharded", K11 "multi_flat_sharded" and K12
 // "multi_compact_sharded": the same rounds over a node axis split into S
-// shards on one card (see "Sharded rounds" below).
+// shards on one card (see "Sharded rounds" below).  K2 "multi_compact",
+// the rounds over zoned lanes, has its own design (compact_rounds.cu);
+// the lane machinery below is K12's.
 //
-// Replaces (TPU side, jax.jit): nomad_tpu/ops/select.py:836
-// place_multi_compact_packed (+ :1006 place_multi_compact_chained) for K2,
-// :733 place_multi_packed (+ :997 place_multi_chained) for K3 and :554
+// Replaces (TPU side, jax.jit): nomad_tpu/ops/select.py:733
+// place_multi_packed (+ :997 place_multi_chained) for K3 and :554
 // place_bulk_packed (_bulk_scan :517, _bulk_step :460, _bulk_static
 // :505; place_bulk :615) for K6, with their shared round core
 // round_scores_g (:342), waterfill_round (:413), round_metrics_g (:393),
@@ -25,8 +26,8 @@
 // whole frame with one block.
 //
 // Design: one thread block of 1024 threads per lane, for the whole wave
-// (K2: L blocks, one per disjoint signature frame; K3: one block whose
-// frame is every node, whose static row comes from K1's [U, N] output).
+// (K3: one block whose frame is every node, whose static row comes from
+// K1's [U, N] output; K12: the lanes' disjoint signature frames).
 // K6 is K3 with one group, every round of it, and the bulk kernel's three
 // output layouts (full, with a score block, compact prefix plus full
 // fills).  The lane's frame state (usage, job counts, intake, scores, selection
@@ -45,7 +46,7 @@
 //   5. commits usage and job counts, then counts post-commit exhaustion,
 //   6. writes its row of the packed output (fills row*2048+count and the
 //      16-word meta block, layout byte-identical to pack_round_buffer).
-// At the end K2 scatters each lane's usage slice back to its cluster rows
+// At the end K12 scatters each lane's usage slice back to its cluster rows
 // (frames are disjoint, so lanes never write the same row).  Floor
 // division of negative free capacity is done explicitly (C `/`
 // truncates).  10^x is not the device powf, which differs from the C
@@ -99,13 +100,13 @@ constexpr int META = 16;
 
 struct Params {
   const int* cap;            // [N, 3]
-  const int* used_in;        // K2: [N, 3] start usage
-  int* used;                 // K2: [N, 3] output; K3: state and output
+  const int* used_in;        // K12: [N, 3] start usage
+  int* used;                 // K12: [N, 3] output; K3: state and output
   int n;
-  const int* cand_rows;      // K2: [L, nc] frame rows (padding = n)
-  const uint8_t* cand_valid; // K2: [L, nc]
+  const int* cand_rows;      // K12: [S, L, nc] frame rows (padding = n)
+  const uint8_t* cand_valid; // K12: [S, L, nc]
   const uint8_t* static_u;   // K3: [U, N] from K1
-  const float* aff_land;     // K2: [L, Ua, nc]; K3: [Ua, N]
+  const float* aff_land;     // K12: [S, L, Ua, nc]; K3: [Ua, N]
   const int* aff;            // [Ua, Af, 4]
   int ua, n_aff;
   const int* req;            // [G, 3]
@@ -115,19 +116,19 @@ struct Params {
   const int* g_aff;          // [G]
   const int* g_job;          // [G]
   const long long* seed;     // [G], uint32 values
-  const int* job_count0;     // K2: [J', nc]; K3: [G, N]
-  const int* round_g;        // K2: [T * L] step-major; K3: [R]
+  const int* job_count0;     // K12: [S, J', nc]; K3: [G, N]
+  const int* round_g;        // K12: [T * L] step-major; K3: [R]
   const int* round_want;
   int n_steps, n_lanes, nc, spread, rs, fill_k;
   int out_mode;              // K3/K6 layout: 0 full, 1 + scores, 2 compact
-  int* used_c;               // K2 scratch [L, nc, 3]
+  int* used_c;               // K12 scratch [S, L, nc, 3]
   int* jc;                   // [L, nc] current job counts (K3: output)
   int* ki;                   // [L, nc] intake
   float* score;              // [L, nc]
   unsigned* keyb;            // [L, nc] orderable key bits
-  int* buf;                  // K2: [T*L, fill_k + 16]; K3: [R, rs + 16];
+  int* buf;                  // K12: [T*L, fill_k + 16]; K3: [R, rs + 16];
                              // K6: [R, rs + 16 | 2 rs + 16 | fill_k + 16]
-  int* fills;                // K2: [T*L, rs]; K6 compact: [R, rs]
+  int* fills;                // K12: [T*L, rs]; K6 compact: [R, rs]
   int row_stride;            // K3/K6/K10/K11: node rows of static_u,
                              // aff_land and job_count0 (N or npad)
   int n_shards;              // sharded: cluster size S; nc = n_loc
@@ -135,19 +136,6 @@ struct Params {
   int* xcnt;                 // sharded: [clusters, 4, S, 8] count rows
   unsigned long long* xkey;  // sharded: [clusters, S * kk_loc] keys
   int* xval;                 // sharded: [clusters, S * kk_loc, 4]
-  long long* prof;           // PROF: [2 NPH_ROUNDS + 4] block 0's split
-};
-
-// The PROF instantiation's phases (PhaseClock): the loop top, the score
-// pass, the block sums after the two passes, the key pass, the 8 radix
-// passes, the gather, the bitonic sort, the water-fill scan, the commit,
-// the metrics pass with its sums, and the output row.
-constexpr int NPH_ROUNDS = 11;
-enum { PH_TOP, PH_SCORE, PH_SUMS, PH_KEYS, PH_RADIX, PH_GATHER, PH_SORT,
-       PH_FILL, PH_COMMIT, PH_METRICS, PH_OUT };
-
-struct NoMark {
-  __device__ void operator()(int) const {}
 };
 
 // round_scores_g for one row: intake k_i and the normalised rank score
@@ -155,28 +143,12 @@ __device__ __forceinline__ void intake_score(
     const int* c, const int* u, const int* r, int rs, int dh, int jcount,
     bool st, int desired, float af, bool aff_any, bool spread, int* k_out,
     float* sc_out) {
-  int f0 = c[0] - u[0], f1 = c[1] - u[1], f2 = c[2] - u[2];
-  int p0 = r[0] > 0 ? floordiv(f0, r[0]) : rs;
-  int p1 = r[1] > 0 ? floordiv(f1, r[1]) : rs;
-  int p2 = r[2] > 0 ? floordiv(f2, r[2]) : rs;
-  int k = min(min(p0, p1), p2);
-  k = min(max(k, 0), rs);
-  if (f0 < 0 || f1 < 0 || f2 < 0) k = 0;
+  int k = rounds_kcap(c, u, r, rs);
   if (dh > 0) k = min(k, min(max(dh - jcount, 0), rs));
   if (!st) k = 0;
   *k_out = k;
 
-  float cf0 = (float)c[0], cf1 = (float)c[1];
-  float tu0 = (float)u[0] + (float)r[0];
-  float tu1 = (float)u[1] + (float)r[1];
-  float fr0 = 1.0f - fminf(tu0 / fmaxf(cf0, 1.0f), 1.0f);
-  float fr1 = 1.0f - fminf(tu1 / fmaxf(cf1, 1.0f), 1.0f);
-  float total = libm_pow10f(fr0) + libm_pow10f(fr1);
-  float s = spread ? total - 2.0f : 20.0f - total;
-  s = fminf(fmaxf(s, 0.0f), 18.0f);
-  // `/ 18.0` in the reference, which XLA compiles as a multiply by the
-  // f32 reciprocal: the scores must agree to the bit
-  float bp = ((cf0 > 0.0f && cf1 > 0.0f) ? s : 0.0f) * INV18;
+  float bp = rounds_binpack(c, u, r, spread);
   float aa = -((float)jcount / fmaxf((float)desired, 1.0f));
   float acc = 0.0f;
   acc = acc + bp;
@@ -230,10 +202,10 @@ __device__ int block_scan(int v, int* red) {
 // select for the kk-th largest key with warp-aggregated shared-memory
 // histograms, a gather of the keys at or above it, and a bitonic sort
 // (s_sel[kk, sortp) zeroed).  Called by every thread of the block.
-template <class Comp, class Mark = NoMark>
+template <class Comp>
 __device__ void select_top(Comp comp, int m, int kk,
                            unsigned long long* s_sel, int* s_hist,
-                           int* s_misc, Mark mark = Mark()) {
+                           int* s_misc) {
   const int tid = threadIdx.x;
   const int lane_id = tid & 31, warp = tid >> 5;
   const int n_iter = (m + BS - 1) / BS;   // uniform trip count
@@ -289,7 +261,6 @@ __device__ void select_top(Comp comp, int m, int kk,
     k_rem -= s_misc[1];
     __syncthreads();
   }
-  mark(PH_RADIX);
 
   // gather the kk keys >= the threshold (keys are unique), sort
   if (tid == 0) s_misc[2] = 0;
@@ -310,7 +281,6 @@ __device__ void select_top(Comp comp, int m, int kk,
   }
   for (int i = kk + tid; i < sortp; i += BS) s_sel[i] = 0;
   __syncthreads();
-  mark(PH_GATHER);
   for (int k2 = 2; k2 <= sortp; k2 <<= 1) {
     for (int jj = k2 >> 1; jj > 0; jj >>= 1) {
       if (tid < sortp) {
@@ -327,7 +297,6 @@ __device__ void select_top(Comp comp, int m, int kk,
       __syncthreads();
     }
   }
-  mark(PH_SORT);
 }
 
 // Sums `nv` (<= 8) per-block values (already block-reduced, the same in
@@ -347,7 +316,7 @@ __device__ void cluster_sum(int* row, int s, int S, int* v, int nv) {
   }
 }
 
-template <bool COMPACT, bool SHARDED, bool PROF = false>
+template <bool COMPACT, bool SHARDED>
 __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
   extern __shared__ unsigned long long s_all[];   // sharded: S * kk_loc
   __shared__ unsigned long long s_sel[MAX_RS];
@@ -359,14 +328,12 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
   __shared__ int s_misc[4];
 
   const int tid = threadIdx.x;
-  PhaseClock<PROF, NPH_ROUNDS> pc;
-  pc.start(blockIdx.x == 0 && tid == 0);
   const int S = SHARDED ? p.n_shards : 1;
   const int s = SHARDED ? (int)cg::this_cluster().block_rank() : 0;
   const int l = COMPACT ? (int)blockIdx.x / S : 0;
   const int nc = p.nc;
   // first slot of this block's frame in the [.., nc] scratch and inputs:
-  // K2 lane l, K12 (shard s, lane l), K10/K11 shard s's first row
+  // K12 (shard s, lane l), K10/K11 shard s's first row
   const int64_t fb =
       COMPACT ? ((int64_t)s * p.n_lanes + l) * nc : (int64_t)s * nc;
   int* used_state = COMPACT ? p.used_c + fb * 3 : p.used + fb * 3;
@@ -404,7 +371,6 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
     cand_n = block_sum(cnt, s_red);
     if (SHARDED) cluster_sum(xcnt, s, S, &cand_n, 1);
   }
-  pc.setup_done();
 
   for (int t = 0; t < p.n_steps; ++t) {
     const int rr = COMPACT ? t * p.n_lanes + l : t;
@@ -432,9 +398,6 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
     const int* jc0 =
         COMPACT ? p.job_count0 + ((int64_t)s * p.n_jrows + p.g_job[g]) * nc
                 : p.job_count0 + (int64_t)p.g_job[g] * p.row_stride + fb;
-    const bool act = want > 0;
-    auto mark = [&](int ph) { pc.mark(ph, act); };
-    mark(PH_TOP);
 
     // 1. job counts, intake, rank score
     int viable = 0, n_static = 0;
@@ -458,13 +421,11 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
         n_static += st ? 1 : 0;
       }
     }
-    mark(PH_SCORE);
     viable = block_sum(viable, s_red);
     if (!COMPACT) n_static = block_sum(n_static, s_red);
     if (SHARDED) cluster_sum(xcnt + 1 * S * 8, s, S, &viable, 1);
     const int cap_round =
         p.spread ? max(want / max(viable, 1) + 1, 1) : p.rs;
-    mark(PH_SUMS);
 
     // 2. per-round intake cap and selection keys
     int n_feas = 0;
@@ -479,16 +440,14 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
         n_feas += kr > 0 ? 1 : 0;
       }
     }
-    mark(PH_KEYS);
     n_feas = block_sum(n_feas, s_red);
-    mark(PH_SUMS);
 
     // 3. the sorted top kk_loc of the frame (key bits high, inverted
     // index low: key descending, then index ascending, as
     // jax.lax.top_k orders them)
     select_top([&](int j) {
       return ((unsigned long long)keyb[j] << 32) | (unsigned)(~j);
-    }, nc, kk_loc, s_sel, s_hist, s_misc, mark);
+    }, nc, kk_loc, s_sel, s_hist, s_misc);
     int ks = 0, grow = 0, own = -1;
     float scs = NEG_INF;
     if (!SHARDED) {
@@ -498,7 +457,7 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
         float key = from_orderable((unsigned)(comp >> 32));
         scs = key > HALF_NEG_INF ? score[own] : NEG_INF;
         ks = scs > HALF_NEG_INF ? ki[own] : 0;
-        grow = COMPACT ? crow[own] : own;
+        grow = own;
       }
     } else {
       // post the shard's list: keys re-indexed by their place in the
@@ -543,7 +502,6 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
     s_c[tid] = c;
     s_sc[tid] = scs;
     const int placed = block_sum(c, s_red);
-    mark(PH_FILL);
 
     // 5. commit the winners of this frame, then post-commit exhaustion
     if (tid < kk && c > 0 && own >= 0) {
@@ -554,7 +512,6 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
       jc[own] += c;
     }
     __syncthreads();
-    mark(PH_COMMIT);
     int n_exh = 0, dx0 = 0, dx1 = 0, dx2 = 0;
     for (int it = 0; it < n_iter; ++it) {
       int j = it * BS + tid;
@@ -578,7 +535,6 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
     int mx[4] = {block_sum(n_exh, s_red), block_sum(dx0, s_red),
                  block_sum(dx1, s_red), block_sum(dx2, s_red)};
     if (SHARDED) cluster_sum(xcnt + 3 * S * 8, s, S, mx, 4);
-    mark(PH_METRICS);
 
     // 6. this round's packed output row (block 0 of a cluster)
     if (s == 0) {
@@ -631,8 +587,6 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
       }
     }
     __syncthreads();
-    mark(PH_OUT);
-    pc.step(act);
   }
 
   if (COMPACT) {
@@ -647,7 +601,6 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
       }
     }
   }
-  pc.finish(p.prof);
 }
 
 __global__ void pow10_kernel(const float* __restrict__ x,
@@ -700,40 +653,6 @@ int launch_sharded(Params p, int n_clusters, cudaStream_t stream) {
   return launch_clusters(rounds_kernel<COMPACT, true>,
                          n_clusters * p.n_shards, p.n_shards, dyn, stream,
                          p);
-}
-
-int run_compact(const int* cap, const int* used_in, int* used_out,
-                const int* cand_rows, const uint8_t* cand_valid,
-                const float* aff_land, const int* aff, const int* req,
-                const int* desired, const int* dh_limit, const int* g_aff,
-                const int* g_job, const long long* seed,
-                const int* job_count0, const int* round_g,
-                const int* round_want, int* buf_small, int* fills_full,
-                int n, int n_lanes, int nc, int ua, int n_aff, int n_steps,
-                int spread, int rs, int fill_k, int* used_c, int* jc,
-                int* ki, float* score, unsigned* keyb, int n_shards,
-                int n_jrows, int* xcnt, unsigned long long* xkey, int* xval,
-                long long* prof, cudaStream_t stream) {
-  if (rs > MAX_RS || rs < 1) return (int)cudaErrorInvalidValue;
-  Params p{};
-  p.cap = cap; p.used_in = used_in; p.used = used_out; p.n = n;
-  p.cand_rows = cand_rows; p.cand_valid = cand_valid;
-  p.aff_land = aff_land; p.aff = aff; p.ua = ua; p.n_aff = n_aff;
-  p.req = req; p.desired = desired; p.dh_limit = dh_limit;
-  p.g_aff = g_aff; p.g_job = g_job; p.seed = seed;
-  p.job_count0 = job_count0; p.round_g = round_g; p.round_want = round_want;
-  p.n_steps = n_steps; p.n_lanes = n_lanes; p.nc = nc; p.spread = spread;
-  p.rs = rs; p.fill_k = fill_k;
-  p.used_c = used_c; p.jc = jc; p.ki = ki; p.score = score; p.keyb = keyb;
-  p.buf = buf_small; p.fills = fills_full;
-  p.n_shards = n_shards; p.n_jrows = n_jrows;
-  p.xcnt = xcnt; p.xkey = xkey; p.xval = xval; p.prof = prof;
-  if (n_shards) return launch_sharded<true>(p, n_lanes, stream);
-  if (prof)
-    rounds_kernel<true, false, true><<<n_lanes, BS, 0, stream>>>(p);
-  else
-    rounds_kernel<true, false><<<n_lanes, BS, 0, stream>>>(p);
-  return (int)cudaGetLastError();
 }
 
 int run_flat(const int* cap, int* used, const uint8_t* static_u,
@@ -799,45 +718,6 @@ extern "C" int cluster_barrier_probe(int rounds, int cluster, int* rows,
                          stream, rounds, rows, sink);
 }
 
-extern "C" int multi_compact(
-    const int* cap, const int* used_in, int* used_out, const int* cand_rows,
-    const uint8_t* cand_valid, const float* aff_land, const int* aff,
-    const int* req, const int* desired, const int* dh_limit,
-    const int* g_aff, const int* g_job, const long long* seed,
-    const int* job_count0, const int* round_g, const int* round_want,
-    int* buf_small, int* fills_full, int n, int n_lanes, int nc, int ua,
-    int n_aff, int n_steps, int spread, int rs, int fill_k, int* used_c,
-    int* jc, int* ki, float* score, unsigned* keyb, cudaStream_t stream) {
-  return run_compact(cap, used_in, used_out, cand_rows, cand_valid, aff_land,
-                     aff, req, desired, dh_limit, g_aff, g_job, seed,
-                     job_count0, round_g, round_want, buf_small, fills_full,
-                     n, n_lanes, nc, ua, n_aff, n_steps, spread, rs, fill_k,
-                     used_c, jc, ki, score, keyb, 0, 0, nullptr, nullptr,
-                     nullptr, nullptr, stream);
-}
-
-// The PROF instantiation of K2: the same rounds, with block 0's phase
-// split (NPH_ROUNDS phases) written to prof [2 NPH_ROUNDS + 4].  Never on
-// the main path.
-extern "C" int multi_compact_prof(
-    const int* cap, const int* used_in, int* used_out, const int* cand_rows,
-    const uint8_t* cand_valid, const float* aff_land, const int* aff,
-    const int* req, const int* desired, const int* dh_limit,
-    const int* g_aff, const int* g_job, const long long* seed,
-    const int* job_count0, const int* round_g, const int* round_want,
-    int* buf_small, int* fills_full, int n, int n_lanes, int nc, int ua,
-    int n_aff, int n_steps, int spread, int rs, int fill_k, int* used_c,
-    int* jc, int* ki, float* score, unsigned* keyb, long long* prof,
-    cudaStream_t stream) {
-  if (!prof) return (int)cudaErrorInvalidValue;
-  return run_compact(cap, used_in, used_out, cand_rows, cand_valid, aff_land,
-                     aff, req, desired, dh_limit, g_aff, g_job, seed,
-                     job_count0, round_g, round_want, buf_small, fills_full,
-                     n, n_lanes, nc, ua, n_aff, n_steps, spread, rs, fill_k,
-                     used_c, jc, ki, score, keyb, 0, 0, nullptr, nullptr,
-                     nullptr, prof, stream);
-}
-
 // K12: frames [S, L, nc] (nc = Nc_loc), job_count0 [S, n_jrows, nc],
 // aff_land [S, L, Ua, nc], scratch [S, L, nc]; one cluster per lane
 extern "C" int multi_compact_sharded(
@@ -851,13 +731,22 @@ extern "C" int multi_compact_sharded(
     int* jc, int* ki, float* score, unsigned* keyb, int n_shards,
     int n_jrows, int* xcnt, unsigned long long* xkey, int* xval,
     cudaStream_t stream) {
-  if (n_shards < 1) return (int)cudaErrorInvalidValue;
-  return run_compact(cap, used_in, used_out, cand_rows, cand_valid, aff_land,
-                     aff, req, desired, dh_limit, g_aff, g_job, seed,
-                     job_count0, round_g, round_want, buf_small, fills_full,
-                     n, n_lanes, nc, ua, n_aff, n_steps, spread, rs, fill_k,
-                     used_c, jc, ki, score, keyb, n_shards, n_jrows, xcnt,
-                     xkey, xval, nullptr, stream);
+  if (rs > MAX_RS || rs < 1 || n_shards < 1)
+    return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.cap = cap; p.used_in = used_in; p.used = used_out; p.n = n;
+  p.cand_rows = cand_rows; p.cand_valid = cand_valid;
+  p.aff_land = aff_land; p.aff = aff; p.ua = ua; p.n_aff = n_aff;
+  p.req = req; p.desired = desired; p.dh_limit = dh_limit;
+  p.g_aff = g_aff; p.g_job = g_job; p.seed = seed;
+  p.job_count0 = job_count0; p.round_g = round_g; p.round_want = round_want;
+  p.n_steps = n_steps; p.n_lanes = n_lanes; p.nc = nc; p.spread = spread;
+  p.rs = rs; p.fill_k = fill_k;
+  p.used_c = used_c; p.jc = jc; p.ki = ki; p.score = score; p.keyb = keyb;
+  p.buf = buf_small; p.fills = fills_full;
+  p.n_shards = n_shards; p.n_jrows = n_jrows;
+  p.xcnt = xcnt; p.xkey = xkey; p.xval = xval;
+  return launch_sharded<true>(p, n_lanes, stream);
 }
 
 extern "C" int multi_flat(
@@ -925,8 +814,6 @@ extern "C" int multi_bulk_sharded(
 }
 
 PY_LAUNCHERS(multi_rounds,
-             PY_LAUNCHER(multi_compact),
-             PY_LAUNCHER(multi_compact_prof),
              PY_LAUNCHER(multi_flat),
              PY_LAUNCHER(multi_bulk),
              PY_LAUNCHER(pow10_f32),

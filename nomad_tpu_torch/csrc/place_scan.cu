@@ -299,68 +299,8 @@ __device__ __forceinline__ void warp_top3(unsigned long long* t, float* tf,
   for (int q = 0; q < TOP_K; ++q) warp_round(t, tf, out + q, outf + q);
 }
 
-// ---- distributed shared memory exchange (K9 and its probe)
-
-__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
-  return (unsigned)__cvta_generic_to_shared(ptr);
-}
-
-__device__ __forceinline__ unsigned cluster_addr(unsigned a, unsigned r) {
-  unsigned out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(out) : "r"(a), "r"(r));
-  return out;
-}
-
-// The exchange slots of one block: post k of block r at slot[k & 1][r],
-// the arrival of all posts of exchange k on bar[k & 1].
-struct Xch {
-  int slot[2][MAX_SHARDS][XW];
-  unsigned long long bar[2];
-};
-
-__device__ __forceinline__ void xch_init(Xch* x, int n_shards) {
-  if (threadIdx.x == 0) {
-    for (int b = 0; b < 2; ++b)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-                   :: "r"(smem_u32(&x->bar[b])), "r"(n_shards) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-}
-
-// Warp 0 of every block of the cluster: lane r < S stores `post` (XW
-// words, the same in every lane) into slot [k & 1][sh] of block r and
-// arrives on block r's barrier (release at cluster scope, after its
-// stores); then every lane waits for this block's barrier of exchange k
-// (acquire at cluster scope), after which slot[k & 1][0, S) holds the S
-// posts.  Slot k & 1 of a peer is free again at exchange k + 2: the
-// peer read it before it posted exchange k + 1, which this block waited
-// for.
-__device__ __forceinline__ void xch_meet(Xch* x, int k, int sh,
-                                         int n_shards, const int* post) {
-  const int lane = threadIdx.x & 31;
-  const int b = k & 1;
-  if (lane < n_shards) {
-    const unsigned dst = cluster_addr(smem_u32(&x->slot[b][sh][0]), lane);
-    for (int w = 0; w < XW; w += 4)
-      asm volatile(
-          "st.shared::cluster.v4.s32 [%0], {%1, %2, %3, %4};"
-          :: "r"(dst + 4 * w), "r"(post[w]), "r"(post[w + 1]),
-          "r"(post[w + 2]), "r"(post[w + 3]) : "memory");
-    asm volatile(
-        "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
-        :: "r"(cluster_addr(smem_u32(&x->bar[b]), lane)) : "memory");
-  }
-  const unsigned bar = smem_u32(&x->bar[b]);
-  const unsigned parity = (unsigned)(k >> 1) & 1u;
-  unsigned done = 0;
-  while (!done)
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n\tselp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-}
+// the exchange slots of one block (score_common.cuh XchT)
+using Xch = XchT<XW>;
 
 // the row of a step whose outputs are known without a pass: nothing
 // placed, metric columns from the memo (the reference's step computes

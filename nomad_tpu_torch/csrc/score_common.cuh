@@ -1,8 +1,8 @@
 // Scoring helpers shared by the rounds kernels (multi_rounds.cu) and the
 // exact scan (place_scan.cu): floor division, the C library's powf(10, x),
 // the reference's tie-break hash, float <-> orderable key bits, the
-// cluster launch of the sharded kernels, and the PROF instantiations'
-// phase clock.
+// cluster launch of the sharded kernels, the exchange through distributed
+// shared memory, and the PROF instantiations' phase clock.
 // Included inside each source's anonymous namespace.
 
 #pragma once
@@ -55,6 +55,39 @@ __device__ __forceinline__ float libm_pow10f(float x) {
   double y = __fma_rn(C2, r, 1.0);
   y = __fma_rn(z, r2, y);
   return (float)__dmul_rn(y, s);
+}
+
+// The capacity part of a rounds kernel's intake for one row
+// (round_scores_g): min over the dimensions of floor(free / req) (rs for
+// a dimension not requested), clamped to [0, rs], and 0 when any
+// dimension is over capacity.
+__device__ __forceinline__ int rounds_kcap(const int* c, const int* u,
+                                           const int* r, int rs) {
+  int f0 = c[0] - u[0], f1 = c[1] - u[1], f2 = c[2] - u[2];
+  int p0 = r[0] > 0 ? floordiv(f0, r[0]) : rs;
+  int p1 = r[1] > 0 ? floordiv(f1, r[1]) : rs;
+  int p2 = r[2] > 0 ? floordiv(f2, r[2]) : rs;
+  int k = min(min(p0, p1), p2);
+  k = min(max(k, 0), rs);
+  if (f0 < 0 || f1 < 0 || f2 < 0) k = 0;
+  return k;
+}
+
+// The binpack term of a rounds kernel's score for one row, in the
+// reference's order of operations (binpack_score / 18).
+__device__ __forceinline__ float rounds_binpack(const int* c, const int* u,
+                                                const int* r, bool spread) {
+  float cf0 = (float)c[0], cf1 = (float)c[1];
+  float tu0 = (float)u[0] + (float)r[0];
+  float tu1 = (float)u[1] + (float)r[1];
+  float fr0 = 1.0f - fminf(tu0 / fmaxf(cf0, 1.0f), 1.0f);
+  float fr1 = 1.0f - fminf(tu1 / fmaxf(cf1, 1.0f), 1.0f);
+  float total = libm_pow10f(fr0) + libm_pow10f(fr1);
+  float s = spread ? total - 2.0f : 20.0f - total;
+  s = fminf(fmaxf(s, 0.0f), 18.0f);
+  // `/ 18.0` in the reference, which XLA compiles as a multiply by the
+  // f32 reciprocal: the scores must agree to the bit
+  return ((cf0 > 0.0f && cf1 > 0.0f) ? s : 0.0f) * INV18;
 }
 
 __device__ __forceinline__ float tiebreak_noise(unsigned seed,
@@ -120,6 +153,74 @@ int launch_clusters(void (*kern)(Args...), int n_blocks, int cluster,
                     size_t dyn, cudaStream_t stream, Args... args) {
   return launch_clusters_nt(kern, n_blocks, cluster, BS, dyn, stream,
                             args...);
+}
+
+// ---- distributed shared memory exchange (K9, K5 and K2 on a cluster)
+
+constexpr int XCH_BLOCKS = 8;   // the portable cluster size
+
+__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
+  return (unsigned)__cvta_generic_to_shared(ptr);
+}
+
+__device__ __forceinline__ unsigned cluster_addr(unsigned a, unsigned r) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out) : "r"(a), "r"(r));
+  return out;
+}
+
+// The exchange slots of one block: post k of block r at slot[k & 1][r]
+// (W words), the arrival of all posts of exchange k on bar[k & 1].
+template <int W>
+struct XchT {
+  int slot[2][XCH_BLOCKS][W];
+  unsigned long long bar[2];
+};
+
+template <int W>
+__device__ __forceinline__ void xch_init(XchT<W>* x, int n_shards) {
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                   :: "r"(smem_u32(&x->bar[b])), "r"(n_shards) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+}
+
+// Warp 0 of every block of the cluster: lane r < S stores `post` (W
+// words, the same in every lane) into slot [k & 1][sh] of block r and
+// arrives on block r's barrier (release at cluster scope, after its
+// stores); then every lane waits for this block's barrier of exchange k
+// (acquire at cluster scope), after which slot[k & 1][0, S) holds the S
+// posts.  Slot k & 1 of a peer is free again at exchange k + 2: the
+// peer read it before it posted exchange k + 1, which this block waited
+// for.
+template <int W>
+__device__ __forceinline__ void xch_meet(XchT<W>* x, int k, int sh,
+                                         int n_shards, const int* post) {
+  const int lane = threadIdx.x & 31;
+  const int b = k & 1;
+  if (lane < n_shards) {
+    const unsigned dst = cluster_addr(smem_u32(&x->slot[b][sh][0]), lane);
+    for (int w = 0; w < W; w += 4)
+      asm volatile(
+          "st.shared::cluster.v4.s32 [%0], {%1, %2, %3, %4};"
+          :: "r"(dst + 4 * w), "r"(post[w]), "r"(post[w + 1]),
+          "r"(post[w + 2]), "r"(post[w + 3]) : "memory");
+    asm volatile(
+        "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
+        :: "r"(cluster_addr(smem_u32(&x->bar[b]), lane)) : "memory");
+  }
+  const unsigned bar = smem_u32(&x->bar[b]);
+  const unsigned parity = (unsigned)(k >> 1) & 1u;
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n\tselp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
 }
 
 // Phase split of a PROF instantiation: block 0's thread 0 adds the

@@ -46,8 +46,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 # every source with launchers (the .cuh headers are included by them)
-SOURCES = ("landscape.cu", "multi_rounds.cu", "place_scan.cu", "preempt.cu",
-           "scatter_add.cu")
+SOURCES = ("compact_rounds.cu", "landscape.cu", "multi_rounds.cu",
+           "place_scan.cu", "preempt.cu", "scatter_add.cu")
 # PyTorch's current CUDA device and the raw handle of a device's current
 # stream (PyTorch's generated Triton launchers read it the same way);
 # None in a CPU build, where nothing launches
@@ -96,7 +96,7 @@ class Kernel:
 
 LANDSCAPE = Kernel("landscape", "landscape.cu",
                    "nomad_tpu/ops/feasibility.py:29")
-MULTI_COMPACT = Kernel("multi_compact", "multi_rounds.cu",
+MULTI_COMPACT = Kernel("multi_compact", "compact_rounds.cu",
                        "nomad_tpu/ops/select.py:836")
 MULTI_FLAT = Kernel("multi_flat", "multi_rounds.cu",
                     "nomad_tpu/ops/select.py:733")

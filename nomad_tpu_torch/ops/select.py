@@ -14,7 +14,7 @@ hand-written CUDA kernel for a CUDA tensor:
   place, place_packed         K5 (csrc/place_scan.cu, exact scan)
   place_bulk_packed           K6 (csrc/multi_rounds.cu, bulk rounds)
   place_multi_packed          K3 (csrc/multi_rounds.cu, flat rounds)
-  place_multi_compact_packed  K2 (csrc/multi_rounds.cu, laned rounds)
+  place_multi_compact_packed  K2 (csrc/compact_rounds.cu, laned rounds)
 
 all on top of K1's landscapes (feasibility.landscape_mask,
 scoring.affinity_landscape); K5 and K6 take their static mask from K8
@@ -467,12 +467,13 @@ def _compact_launch(used_out: torch.Tensor, used_in: torch.Tensor,
                     inp: MultiEvalInputs, cand_rows, cand_valid,
                     round_size: int, n_lanes: int, n_shards: int = 0,
                     prof=None):
-    """K1's per-frame affinity + one K2 launch (one block per lane; K12
-    with `n_shards`: per-shard frames [S, L, Nc_loc] and seeds
-    [S, J', Nc_loc], one cluster of S blocks per lane).  `used_out`
+    """K1's per-frame affinity + one K2 launch (a cluster of up to 8
+    blocks per lane, csrc/compact_rounds.cu; K12 with `n_shards`:
+    per-shard frames [S, L, Nc_loc] and seeds [S, J', Nc_loc], one
+    cluster of S blocks per lane, csrc/multi_rounds.cu).  `used_out`
     receives the final usage; it may be `used_in` itself.  With `prof`
-    (int64 on the card) K2's PROF instantiation runs instead and writes
-    block 0's phase split there (chip_smoke.py)."""
+    (int64 [18] on the card) K2's PROF instantiation runs instead and
+    writes block 0's phase split there (chip_smoke.py)."""
     kern = K.MULTI_COMPACT_SHARDED if n_shards else K.MULTI_COMPACT
     name = kern.name
     n = inp.attrs.shape[0]
@@ -518,29 +519,35 @@ def _compact_launch(used_out: torch.Tensor, used_in: torch.Tensor,
                             dtype=torch.int32, device=dev)
     fills = torch.empty((n_steps * n_lanes, round_size), dtype=torch.int32,
                         device=dev)
-    frame = lead + (nc,)
-    used_c = torch.empty(frame + (3,), dtype=torch.int32, device=dev)
-    jc = torch.empty(frame, dtype=torch.int32, device=dev)
-    ki = torch.empty(frame, dtype=torch.int32, device=dev)
-    score = torch.empty(frame, dtype=torch.float32, device=dev)
-    keyb = torch.empty(frame, dtype=torch.int32, device=dev)
-    mesh_args = []
+    if not (n_steps and nc):
+        return buf_small, fills, used_out
+    head = [t.data_ptr() for t in (*tensors.values(), buf_small, fills)]
+    dims = [n, n_lanes, nc, ua, af, n_steps, int(bool(inp.spread_algo)),
+            round_size, fill_k]
     if n_shards:
+        frame = lead + (nc,)
+        scratch = [torch.empty(frame + (3,), dtype=torch.int32, device=dev)]
+        scratch += [torch.empty(frame, dtype=dt, device=dev) for dt in (
+            torch.int32, torch.int32, torch.float32, torch.int32)]
         xch = _exchange(n_lanes, n_shards, min(round_size, nc), dev)
-        mesh_args = ([n_shards, inp.job_count0.shape[1]]
-                     + [t.data_ptr() for t in xch])
+        kern.launch(dev.index, name, *head, *dims,
+                    *[t.data_ptr() for t in scratch], n_shards,
+                    inp.job_count0.shape[1], *[t.data_ptr() for t in xch])
+        return buf_small, fills, used_out
+    # the frame state in global memory where it does not fit in shared
+    # memory (csrc/compact_rounds.cu plan)
+    nbytes = kern.fn("multi_compact_scratch_bytes")(n_lanes, nc, round_size)
+    if nbytes < 0:
+        raise ValueError(f"{name}: frames of {nc} slots at round size "
+                         f"{round_size} do not fit")
+    frame = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+             if nbytes else None)
+    tail = [None if frame is None else frame.data_ptr()]
     symbol = name
     if prof is not None:
         symbol = name + "_prof"
-        mesh_args.append(prof.data_ptr())
-    if n_steps and nc:
-        kern.launch(
-            dev.index, symbol,
-            *[t.data_ptr() for t in (*tensors.values(), buf_small, fills)],
-            n, n_lanes, nc, ua, af, n_steps, int(bool(inp.spread_algo)),
-            round_size, fill_k,
-            *[t.data_ptr() for t in (used_c, jc, ki, score, keyb)],
-            *mesh_args)
+        tail.append(prof.data_ptr())
+    kern.launch(dev.index, symbol, *head, *dims, *tail)
     return buf_small, fills, used_out
 
 
@@ -769,8 +776,8 @@ def place(inp: PlacementInputs) -> PlacementOutputs:
     """The exact scan with per-placement outputs (reference:
     select.place / place_jit).  CPU tensors take the plain version
     (`place_plain`); CUDA tensors launch K1 and K5 through
-    `_scan_launch`, whose [P, 14] buffer `unpack_outputs` splits (or
-    raise): the plain step loop never runs on the card here."""
+    `_scan_launch` (or raise), whose [P, 14] buffer `unpack_outputs`
+    splits: the plain step loop never runs on the card here."""
     if inp.attrs.device.type == "cpu":
         return place_plain(inp)
     return unpack_outputs(*_scan_launch(inp))

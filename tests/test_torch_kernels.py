@@ -46,10 +46,12 @@ from nomad_tpu_torch.ops.scoring import (
     pow10_on_card,
 )
 from torch_parity import (  # noqa: F401
+    COMPACT_CASES,
     MEMO_SCAN_CASES,
     add_jobs,
     build_flat_cluster,
     build_zoned_cluster,
+    compact_case,
     cuda_device,
     engine,
     random_placement_arrays,
@@ -182,6 +184,78 @@ def test_multi_compact_matches_plain(cuda_device, spread):
         used0, inp._replace(used0=None), *args)
     assert chained[2] is used0
     _same(chained, want_cpu)
+
+
+def _compact_on(case, device):
+    """One of COMPACT_CASES on `device`: (inputs, frames, round size,
+    lanes)."""
+    arrs, cr, cv, rs, lanes = compact_case(PORT, case)
+    return (multi_inputs_from_numpy(arrs, device),
+            frames_from_numpy(cr, cv, device), rs, lanes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(COMPACT_CASES))
+def test_multi_compact_cases_match_plain(cuda_device, case):
+    """K2 (csrc/compact_rounds.cu) against its plain version on the card
+    and on CPU copies, to the bit, on every case of COMPACT_CASES, and
+    its chained form in place."""
+    inp, (cr, cv), rs, lanes = _compact_on(case, cuda_device)
+    cpu, (ccr, ccv), _, _ = _compact_on(case, "cpu")
+    K.reset_launches()
+    got = psel.place_multi_compact_packed(inp, cr, cv, rs, lanes)
+    torch.cuda.synchronize()
+    assert K.MULTI_COMPACT.launches == 1
+    want = psel.place_multi_compact_packed_plain(inp, cr, cv, rs, lanes)
+    want_cpu = psel.place_multi_compact_packed_plain(cpu, ccr, ccv, rs,
+                                                     lanes)
+    _same(got, want, want_cpu)
+    used0 = inp.used0.clone()
+    chained = psel.place_multi_compact_chained(
+        used0, inp._replace(used0=None), cr, cv, rs, lanes)
+    torch.cuda.synchronize()
+    assert chained[2] is used0
+    _same(chained, want_cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["global_frame", "padding_lanes", "spread"])
+def test_multi_compact_prof_entry(cuda_device, case):
+    """K2's PROF instantiation gives the main path's outputs and counts
+    its real and padding steps, and a call of the main entry is one
+    launch."""
+    inp, (cr, cv), rs, lanes = _compact_on(case, cuda_device)
+    K.reset_launches()
+    got = psel.place_multi_compact_packed(inp, cr, cv, rs, lanes)
+    assert K.MULTI_COMPACT.launches == 1
+    # csrc/compact_rounds.cu PhaseClock: 7 phases a step kind, the step
+    # counts, the set-up and the whole launch
+    prof = torch.zeros(18, dtype=torch.int64, device=cuda_device)
+    again = psel._compact_launch(inp.used0.clone(), inp.used0, inp, cr, cv,
+                                 rs, lanes, prof=prof)
+    torch.cuda.synchronize()
+    _same(again, got)
+    c = prof.tolist()
+    # block 0 is lane 0's first block: its steps are the wave's
+    steps = inp.round_g.shape[0] // lanes
+    real = int((inp.round_want.view(steps, lanes)[:, 0] > 0).sum())
+    assert c[14] == real and c[14] + c[15] == steps
+    assert c[17] > 0
+
+
+@pytest.mark.gpu
+def test_multi_compact_refuses_bad_inputs(cuda_device):
+    """K2's wrapper raises on a CPU tensor among CUDA ones, a wrong
+    dtype or a round size the kernel does not take; nothing launches."""
+    inp, (cr, cv), rs, lanes = _compact_on("binpack", cuda_device)
+    K.reset_launches()
+    with pytest.raises(ValueError, match="not CUDA"):
+        psel.place_multi_compact_packed(inp, cr.cpu(), cv, rs, lanes)
+    with pytest.raises(ValueError, match="int32"):
+        psel.place_multi_compact_packed(inp, cr.long(), cv, rs, lanes)
+    with pytest.raises(ValueError, match="rounds <= 1024"):
+        psel.place_multi_compact_packed(inp, cr, cv, 2048, lanes)
+    assert K.MULTI_COMPACT.launches == 0
 
 
 @pytest.mark.gpu
@@ -638,7 +712,7 @@ def test_dsmem_exchange_probe_runs(cuda_device):
 def test_cluster_barrier_probe_runs(cuda_device):
     rows = torch.zeros(4 * S * 8, dtype=torch.int32, device=cuda_device)
     sink = torch.zeros(1, dtype=torch.int32, device=cuda_device)
-    rc = K.MULTI_COMPACT.fn("cluster_barrier_probe")(
+    rc = K.MULTI_FLAT.fn("cluster_barrier_probe")(
         100, S, rows.data_ptr(), sink.data_ptr(), K.stream_of(rows))
     torch.cuda.synchronize()
     assert rc == 0

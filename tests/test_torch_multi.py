@@ -19,11 +19,16 @@ from nomad_tpu_torch.ops.convert import (
     multi_inputs_to_numpy,
 )
 from torch_parity import (
+    COMPACT_CASES,
+    COMPACT_TOPB,
     add_jobs,
     build_flat_cluster,
     build_zoned_cluster,
+    compact_case,
+    compact_identities,
     engine,
     reference_inputs_numpy,
+    reference_multi_inputs,
     set_spread,
 )
 
@@ -165,6 +170,45 @@ def test_compact_job_count_seeds_match_jax():
 def test_compact_chained_matches_jax(seed):
     _assert_compact_equal(_zoned_batch(seed, n_items=10, count=30),
                           chained=True)
+
+
+@pytest.mark.parametrize("case", sorted(COMPACT_CASES))
+def test_compact_cases_match_jax(case):
+    """K2's card cases (torch_parity.COMPACT_CASES: ragged and small
+    frames, round sizes 1 and 1024, one lane, unequal lanes, padding
+    lanes, changing requests, a frame past shared memory): the port's
+    plain version equals the reference's function on each."""
+    arrs, cr, cv, rs, lanes = compact_case(REF, case)
+    r_out = rsel.place_multi_compact_packed_jit(
+        reference_multi_inputs(arrs), cr, cv, rs, lanes)
+    p_out = psel.place_multi_compact_packed(
+        multi_inputs_from_numpy(arrs), *frames_from_numpy(cr, cv), rs, lanes)
+    for name, r, p in zip(("buf_small", "fills", "used"), r_out, p_out):
+        r = np.asarray(r)
+        p = p.numpy()
+        assert r.dtype == p.dtype and r.shape == p.shape, name
+        assert r.tobytes() == p.tobytes(), name
+
+
+@pytest.mark.parametrize("case", ["binpack", "mixed_requests",
+                                  "padding_lanes", "spread",
+                                  "unequal_lanes"])
+def test_reference_compact_output_has_the_memo_identity(case):
+    """The reference's own compact output: each round's fills are a
+    prefix of its slots summing to its placed count, and a step that
+    repeats the group and want of the lane's last computed step, after
+    that step placed nothing, repeats its row; K2 writes such a row
+    without a pass.  Binpack rounds fill at most COMPACT_TOPB rows, the
+    rows K2 takes on its one-exchange path."""
+    arrs, cr, cv, rs, lanes = compact_case(REF, case)
+    buf, fills, _ = rsel.place_multi_compact_packed_jit(
+        reference_multi_inputs(arrs), cr, cv, rs, lanes)
+    held, short = compact_identities(np.asarray(buf), np.asarray(fills),
+                                     arrs["round_g"], arrs["round_want"],
+                                     lanes)
+    assert held > 0
+    if not COMPACT_CASES[case].get("spread"):
+        assert short == arrs["round_g"].shape[0]
 
 
 @pytest.mark.parametrize("seed", [0, 3])

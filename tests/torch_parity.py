@@ -330,6 +330,131 @@ def memo_identity(buf, tg_idx, active):
     return held
 
 
+# K2's cases (csrc/compact_rounds.cu): zoned batches built by the
+# engine, then reshaped to reach each branch of the kernel: a frame that
+# is not a multiple of the cluster's blocks, a frame below the round
+# size, round sizes 1 and 1024, one lane, lanes of unequal valid counts,
+# lanes of padding steps (memoised, and with distinct groups), requests
+# that change between steps (the cache refill), the spread algorithm's
+# wide rounds, keys tied without tie-break noise (seed 0), and a frame
+# too large for shared memory
+COMPACT_CASES = {
+    "binpack": dict(),
+    "spread": dict(spread=True),
+    "ragged_frame": dict(nc=1001),
+    "frame_below_round": dict(nc=50, count=60, spread=True),
+    "round_1": dict(rs=1),
+    "round_1024": dict(rs=1024, spread=True, count=300),
+    "one_lane": dict(lanes=[2]),
+    "unequal_lanes": dict(valid=[60, 7, 33, 1, 45]),
+    "padding_lanes": dict(idle=True),
+    "mixed_requests": dict(mixed=True),
+    "tied_keys": dict(spread=True, no_noise=True),
+    "global_frame": dict(nc=40960, lanes=[0, 1], spread=True),
+}
+# rows a K2 round fills on the kernel's one-exchange path
+# (csrc/compact_rounds.cu TOPB)
+COMPACT_TOPB = 4
+
+
+def compact_case(name, case, seed=7):
+    """(arrays, cand_rows, cand_valid, round_size, n_lanes) of one of
+    COMPACT_CASES, built with package `name`'s engine on the CPU: numpy
+    MultiEvalInputs fields and [L, Nc] frames."""
+    kw = COMPACT_CASES[case]
+    h = build_zoned_cluster(name)
+    if kw.get("spread"):
+        set_spread(name, h)
+    count = kw.get("count", 40)
+    _, items = add_jobs(name, h, 13, count)
+    if kw.get("mixed"):
+        _, more = add_jobs(name, h, 12, count, cpu=250, mem=300,
+                           prefix="big")
+        items = [x for pair in zip(items, more) for x in pair] + items[12:]
+    built = engine(name).build_multi_inputs(h.state.snapshot(), items,
+                                            seed=seed)
+    assert built["cand_rows"] is not None
+    inp = built["inp"]
+    arrs = {k: (None if v is None else np.asarray(v) if name == "nomad_tpu"
+                else v.numpy() if isinstance(v, torch.Tensor) else v)
+            for k, v in zip(type(inp)._fields, inp)}
+    arrs["seed"] = np.asarray(arrs["seed"]).astype(np.uint32)
+    cr = np.array(built["cand_rows"], np.int32)
+    cv = np.array(built["cand_valid"], bool)
+    lanes = built["n_lanes"]
+    n = arrs["cap"].shape[0]
+    steps = arrs["round_g"].shape[0] // lanes
+    rg = arrs["round_g"].reshape(steps, lanes).copy()
+    rw = arrs["round_want"].reshape(steps, lanes).copy()
+    jc0 = arrs["job_count0"]
+    if "lanes" in kw:
+        sel = kw["lanes"]
+        cr, cv, rg, rw = cr[sel], cv[sel], rg[:, sel], rw[:, sel]
+        lanes = len(sel)
+    if "nc" in kw:
+        nc, cur = kw["nc"], cr.shape[1]
+        if nc <= cur:
+            cr, cv, jc0 = cr[:, :nc], cv[:, :nc], jc0[:, :nc]
+        else:
+            pad = ((0, 0), (0, nc - cur))
+            cr = np.pad(cr, pad, constant_values=n)
+            cv = np.pad(cv, pad, constant_values=False)
+            jc0 = np.pad(jc0, pad)
+    for li, k in enumerate(kw.get("valid", ())):
+        cv[li, k:] = False
+        cr[li, k:] = n
+    if kw.get("idle"):
+        # the last lane pads every step (one group), the one before it
+        # keeps its groups with nothing to place
+        rw[:, -1] = 0
+        rg[:, -1] = rg[0, -1]
+        rw[:, -2] = 0
+    if kw.get("no_noise"):
+        arrs["seed"] = np.zeros_like(arrs["seed"])
+    arrs.update(round_g=rg.reshape(-1), round_want=rw.reshape(-1),
+                job_count0=np.ascontiguousarray(jc0))
+    return (arrs, np.ascontiguousarray(cr), np.ascontiguousarray(cv),
+            kw.get("rs", built["rs"]), lanes)
+
+
+def reference_multi_inputs(arrays):
+    """The reference's MultiEvalInputs from numpy arrays by field."""
+    import jax.numpy as jnp
+    from nomad_tpu.ops.select import MultiEvalInputs
+    return MultiEvalInputs(**{
+        k: (bool(arrays[k]) if k == "spread_algo" else
+            None if arrays[k] is None else jnp.asarray(arrays[k]))
+        for k in MultiEvalInputs._fields})
+
+
+def compact_identities(buf, fills, round_g, round_want, lanes):
+    """Asserts, on a compact wave's packed output (buf_small [T*L,
+    FILL_K + 16], fills [T*L, rs]), what K2's design rests on: a round's
+    filled rows form a prefix of its fill slots whose counts sum to its
+    placed column; and a step whose group and want equal the lane's last
+    computed step's, after that step placed nothing, repeats that step's
+    row (its memo).  Returns (memoised steps, rounds that fill at most
+    COMPACT_TOPB rows)."""
+    steps = round_g.shape[0] // lanes
+    held = short = 0
+    for li in range(lanes):
+        last = None
+        for t in range(steps):
+            r = t * lanes + li
+            cnt = fills[r] & 2047
+            m = int((cnt > 0).sum())
+            assert (cnt[:m] > 0).all() and int(cnt.sum()) == buf[r, -4], r
+            short += m <= COMPACT_TOPB
+            key = (int(round_g[r]), int(round_want[r]))
+            if last is not None and last[0] == key and last[1] == 0:
+                assert (buf[r] == buf[last[2]]).all(), r
+                assert (fills[r] == fills[last[2]]).all(), r
+                held += 1
+                continue
+            last = (key, int(buf[r, -4]), r)
+    return held, short
+
+
 # node-axis fields of random_placement_arrays and their padding values
 # (reference engine._pad_rows / _pad_cols): padded rows are ineligible and
 # match nothing
