@@ -117,14 +117,34 @@ FLAT_PER_EVAL = 100
 # (f64 runs at half of it, so the bound stays a lower bound)
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
-# Arithmetic of the rounds kernels (csrc/multi_rounds.cu) per valid frame
-# row and real step, counted from the source: intake_score's intake (3
-# subtractions, 3 floor divisions at 7 operations, request and
-# distinct_hosts clamps) 47; its score (conversions, 2 divisions, 2
-# libm_pow10f at 14, clamps, the three components and their mean) 70;
-# the selection key (cap, noise hash, orderable bits) 25; the 8 radix
-# passes' key compare and digit 56; the exhaustion metrics 20.
+# Arithmetic of the rounds template (csrc/multi_rounds.cu: K3, K6,
+# K10-K12) per valid frame row and real step, counted from the source:
+# intake_score's intake (3 subtractions, 3 floor divisions at 7
+# operations, request and distinct_hosts clamps) 47; its score
+# (conversions, 2 divisions, 2 libm_pow10f at 14, clamps, the three
+# components and their mean) 70; the selection key (cap, noise hash,
+# orderable bits) 25; the 8 radix passes' key compare and digit 56; the
+# exhaustion metrics 20.
 OPS_PER_ROW_STEP = 47 + 70 + 25 + 56 + 20
+# K2 (csrc/compact_rounds.cu) counted from the source.  A cache entry
+# (refresh_row: rounds_kcap's 3 subtractions, 3 floor divisions at 7 and
+# clamps 32; rounds_binpack's conversions, 2 divisions, 2 libm_pow10f at
+# 14, clamps and scale 54; the metrics' fit bits 22) is built per valid
+# row at a computed step whose request differs from the cached one, and
+# again at each committed row with the commit itself (usage and job
+# count 7, the metrics' correction 49).  Per valid row of a computed
+# step: validity and the distinct_hosts clamp 7, the mean of the cached
+# binpack term, anti-affinity and affinity 14, the tie-break noise 16,
+# the key bits and the slot 10, the counts of viable and exhausted rows
+# 10, the top-4 test 1.  The merge compares 2 per entry of the lists it
+# merges (each warp's and each block's top 4).  A step on the wide path
+# adds per valid row 4 radix passes at 4 and the take test 3.  A
+# memoised step copies its row (bytes, counted with the outputs).
+OPS_K2_CACHE = 32 + 54 + 22
+OPS_K2_COMMIT = 7 + 49
+OPS_K2_ROW = 7 + 14 + 16 + 10 + 10 + 1
+OPS_K2_MERGE = 2
+OPS_K2_WIDE = 4 * 4 + 3
 # The exact scan (csrc/place_scan.cu) counted from the source.  A cache
 # entry (node_cache: capacity fit and distinct_hosts 7, the binpack term
 # with its 2 divisions and 2 libm_pow10f at 14 47, anti-affinity 3, two
@@ -625,6 +645,7 @@ BARRIERS_FLAT = BARRIERS_COMPACT + 3
 # 1, the fill scan 2 and its sums 2 block barriers, and 6 cluster
 # barriers (4 histograms, the entry counts, the entries).
 TOPB_K2 = 4
+K2_WARPS = 8      # warps a block (256 threads)
 BARRIERS_K2 = 2
 EXCHANGES_K2 = 1
 BARRIERS_K2_WIDE = 4 * 3 + 1 + 1 + 1 + 2 + 2
@@ -701,12 +722,13 @@ def compact_steps(inp, lanes, out, kk) -> dict:
     """What K2's steps at `inp` need, from the run's own output `out`
     (buf_small, fills), by the kernel's rules (csrc/compact_rounds.cu):
     per lane the real steps, the steps whose request repeats the lane's
-    previous step's (its cache holds), the memoised steps (group and
-    want of the last computed step repeat after it placed nothing), the
-    computed ones, and those on the wide path (a round that fills more
-    than TOPB_K2 rows, or TOPB_K2 short of `want`, of more than TOPB_K2
-    candidates `kk`); over the real steps how many rows each round fills
-    (the water-fill depth)."""
+    previous step's, the memoised steps (group and want of the last
+    computed step repeat after it placed nothing), the computed ones,
+    those whose request differs from the cached one (the cache's
+    refills), the committed rows, and the steps on the wide path (a
+    round that fills more than TOPB_K2 rows, or TOPB_K2 short of `want`,
+    of more than TOPB_K2 candidates `kk`); over the real steps how many
+    rows each round fills (the water-fill depth)."""
     import collections
 
     steps = inp.round_g.shape[0] // lanes
@@ -715,11 +737,13 @@ def compact_steps(inp, lanes, out, kk) -> dict:
     req = inp.req.cpu().tolist()
     placed = out[0][:, -16 + 12].view(steps, lanes).cpu().tolist()
     depth = (out[1] & 2047).gt(0).sum(1).view(steps, lanes).cpu().tolist()
-    keys = ("real", "req_repeats", "memo", "computed", "wide")
+    keys = ("real", "req_repeats", "memo", "computed", "refills",
+            "commits", "wide")
     per = {k: [0] * lanes for k in keys}
     hist = collections.Counter()
     for lane in range(lanes):
         last = None      # (group, want, placed) of the last computed step
+        cached = None    # the request the lane's cache holds
         for t in range(steps):
             gt, wt = g[t][lane], want[t][lane]
             if wt > 0:
@@ -731,13 +755,66 @@ def compact_steps(inp, lanes, out, kk) -> dict:
                 per["memo"][lane] += 1
                 continue
             per["computed"][lane] += 1
+            if req[gt] != cached:
+                per["refills"][lane] += 1
+                cached = req[gt]
             m = depth[t][lane]
+            per["commits"][lane] += m
             if kk > TOPB_K2 and (m > TOPB_K2 or (
                     m == TOPB_K2 and placed[t][lane] < wt)):
                 per["wide"][lane] += 1
             last = (gt, wt, placed[t][lane])
     return {"lanes": lanes, "steps": steps, **per,
             "fill_depth": {str(k): v for k, v in sorted(hist.items())}}
+
+
+def compact_mixed(zin, zcpu, args) -> dict:
+    """K2 at the zoned wave's shapes with a request that changes at
+    every real step of a lane (memory 10 and 11 MB in turn), so that
+    every computed step refills the cache: its time, its steps and its
+    split, the kernel held against its plain version to the bit."""
+    import torch
+
+    from nomad_tpu_torch.ops import select as S
+
+    cr, cv, rs, lanes = args
+    steps = zin.round_g.shape[0] // lanes
+    g = zin.round_g.view(steps, lanes).cpu().tolist()
+    want = zin.round_want.view(steps, lanes).cpu().tolist()
+    base = zin.req.cpu()
+    req = base.clone()
+    for lane in range(lanes):
+        real = [g[t][lane] for t in range(steps) if want[t][lane] > 0]
+        for i, gt in enumerate(real):
+            req[gt, 1] = base[gt, 1] + i % 2
+    mix = zin._replace(req=req.to(zin.req.device))
+    got = S.place_multi_compact_packed(mix, *args)
+    err = check_exact(
+        "multi_compact mixed", got,
+        S.place_multi_compact_packed_plain(mix, *args),
+        S.place_multi_compact_packed_plain(zcpu._replace(req=req), cr.cpu(),
+                                           cv.cpu(), rs, lanes),
+        packed=True)
+    torch.cuda.synchronize()
+    return {"max_abs_err": err,
+            "ms": time_ms(lambda: S.place_multi_compact_packed(mix, *args),
+                          5),
+            "steps": compact_steps(mix, lanes, got, min(rs, cr.shape[1])),
+            "phase_split": compact_phase_split(mix, *args)}
+
+
+def compact_ops(valid_l, counts, blocks) -> int:
+    """Operations K2 needs (OPS_K2_*) over lanes of `valid_l` valid frame
+    rows, `counts` from compact_steps, `blocks` blocks a lane."""
+    ops = 0
+    for i, v in enumerate(valid_l):
+        ops += (v * (counts["computed"][i] * OPS_K2_ROW
+                     + counts["refills"][i] * OPS_K2_CACHE
+                     + counts["wide"][i] * OPS_K2_WIDE)
+                + counts["commits"][i] * (OPS_K2_CACHE + OPS_K2_COMMIT)
+                + counts["computed"][i] * blocks * OPS_K2_MERGE * TOPB_K2
+                * (K2_WARPS + blocks))
+    return ops
 
 
 def kernel_phase(h, zoned_built, flat_built, dsmem_ms):
@@ -811,14 +888,11 @@ def kernel_phase(h, zoned_built, flat_built, dsmem_ms):
         S.place_multi_compact_packed_plain(zcpu, cr.cpu(), cv.cpu(), rs,
                                            lanes), packed=True)
     torch.cuda.synchronize()
-    steps = zin.round_g.shape[0] // lanes
-    real = (zin.round_want.view(steps, lanes) > 0).sum(0).cpu()  # per lane
     valid_l = cv.sum(1).cpu()
     k2_bytes = (nbytes(zin.cap, zin.used0, cr, cv, zin.aff, zin.req,
                        zin.desired, zin.dh_limit, zin.g_aff, zin.g_job,
                        zin.seed, zin.job_count0, zin.round_g,
                        zin.round_want) + nbytes(*got))
-    k2_ops = int((real * valid_l).sum()) * OPS_PER_ROW_STEP
     # the chained wave's in-place form, from the zoned wave's usage
     used0 = zin.used0.clone()
     chained = S.place_multi_compact_chained(used0, zin._replace(used0=None),
@@ -831,6 +905,8 @@ def kernel_phase(h, zoned_built, flat_built, dsmem_ms):
                                packed=True))
     torch.cuda.synchronize()
     counts = compact_steps(zin, lanes, got, min(rs, cr.shape[1]))
+    blocks = K.MULTI_COMPACT.fn("multi_compact_blocks")(cr.shape[1])
+    k2_ops = compact_ops(valid_l.tolist(), counts, blocks)
 
     def chain_ms(i):
         """Lane i's chain: its computed steps, and those on the wide path
@@ -841,8 +917,12 @@ def kernel_phase(h, zoned_built, flat_built, dsmem_ms):
                                        + CLUSTER_K2_WIDE * dsmem_ms))
 
     worst = max(range(lanes), key=chain_ms)
+    mixed = compact_mixed(zin, zcpu, args)
+    mixed["bound_ms"] = max(
+        k2_bytes / PEAK_BYTES,
+        compact_ops(valid_l.tolist(), mixed["steps"], blocks) / PEAK_OPS) * 1e3
     rows.append(dict(
-        kernel=K.MULTI_COMPACT, max_abs_err=err,
+        kernel=K.MULTI_COMPACT, max_abs_err=max(err, mixed["max_abs_err"]),
         **timing(lambda: S.place_multi_compact_packed(zin, *args), 5),
         plain_ms=time_ms(
             lambda: S.place_multi_compact_packed_plain(zin, *args), 2),
@@ -850,8 +930,9 @@ def kernel_phase(h, zoned_built, flat_built, dsmem_ms):
         depth_ms=chain_ms(worst), depth_steps=counts["computed"][worst],
         barriers_per_step=BARRIERS_K2, exchanges_per_step=EXCHANGES_K2,
         wide_steps=counts["wide"][worst],
-        blocks=K.MULTI_COMPACT.fn("multi_compact_blocks")(cr.shape[1]),
-        steps=counts, phase_split=compact_phase_split(zin, *args)))
+        blocks=blocks, steps=counts,
+        phase_split=compact_phase_split(zin, *args),
+        mixed_requests=mixed))
 
     # K3: the flat wave's launch
     fin, frs = flat_built["inp"], flat_built["rs"]

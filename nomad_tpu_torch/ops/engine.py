@@ -434,6 +434,17 @@ class PlacementEngine:
         """Node count padded to a mesh multiple (identity unsharded)."""
         return pmesh.pad_nodes(n, self._ndev)
 
+    def job_masks(self, t: NodeTensors, job, ctx: JobContext):
+        """The job's datacenter and node pool masks on the device, padded
+        to the node arrays' npad rows (padding rows ineligible)."""
+        npad = self._padded_n(t.n)
+        dcm = self._dev_const(
+            ("dc", t.version, npad, tuple(job.datacenters)),
+            lambda: _pad_rows(ctx.dc_mask, npad, False))
+        pm = self._dev_const(("pool", t.version, npad, job.node_pool),
+                             lambda: _pad_rows(ctx.pool_mask, npad, False))
+        return dcm, pm
+
     @staticmethod
     def _sharded(kind: str):
         """The mesh wrapper of `kind` (see _SHARDED_KINDS)."""
@@ -732,11 +743,7 @@ class PlacementEngine:
                     job_count[row] -= 1
             used0 = used0 + self._to_dev(delta)
 
-        dcm = self._dev_const(
-            ("dc", t.version, npad, tuple(job.datacenters)),
-            lambda: _pad_rows(ctx.dc_mask, npad, False))
-        pm = self._dev_const(("pool", t.version, npad, job.node_pool),
-                             lambda: _pad_rows(ctx.pool_mask, npad, False))
+        dcm, pm = self.job_masks(t, job, ctx)
         luts_dev = self._dev_const(
             ("luts", self.packer.lut_epoch, tg_tensors.luts.shape),
             lambda: tg_tensors.luts)

@@ -14,7 +14,6 @@ from typing import Dict, Optional
 
 from nomad_tpu_torch.chaos.clock import SystemClock
 from nomad_tpu_torch.ops import PlacementEngine
-from nomad_tpu_torch.ops.engine import _pad_rows
 from nomad_tpu_torch.ops.feasibility import feasible_mask
 from nomad_tpu_torch.structs import (
     ALLOC_CLIENT_LOST,
@@ -130,15 +129,9 @@ class SystemScheduler(Scheduler):
         ctx = packer.job_context(job, self.state, t)
         eng = self.engine
         # the engine's node arrays have npad rows on a mesh; the job's
-        # masks pad alike (padding rows ineligible, so never placed), as
-        # PlacementEngine.place pads them
+        # masks pad alike (padding rows ineligible, so never placed)
         dev = eng._node_arrays(t)
-        npad = eng._padded_n(t.n)
-        dcm = eng._dev_const(
-            ("dc", t.version, npad, tuple(job.datacenters)),
-            lambda: _pad_rows(ctx.dc_mask, npad, False))
-        pm = eng._dev_const(("pool", t.version, npad, job.node_pool),
-                            lambda: _pad_rows(ctx.pool_mask, npad, False))
+        dcm, pm = eng.job_masks(t, job, ctx)
         mask = feasible_mask(
             dev["attrs"], dev["elig"], dcm, pm, eng._to_dev(tgt.con),
             eng._to_dev(tgt.luts)).cpu().numpy()          # [G, npad]
