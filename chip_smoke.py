@@ -14,11 +14,13 @@ into nomad_tpu_torch/csrc/build/), then:
      matches the JAX reference bit for bit).  Tolerance: none; every
      output word, f32 scores compared as their bits, must be equal.
      Kernel / plain / library times (K4 and K13 timed in turns with
-     their library call), and each kernel's bound; K2's chained form,
-     its phase split (the PROF launcher of csrc/compact_rounds.cu:
-     microseconds per real and per padding step in the loop top, the
-     pass, the merge, the exchange, the decision, the wide path and
-     memoised steps) and what the zoned wave's steps need (`steps`);
+     their library call), and each kernel's bound; K2's and K3's chained
+     forms, their phase splits (the PROF launchers of
+     csrc/compact_rounds.cu: microseconds per real and per padding step
+     in the loop top, the pass, the merge, the exchange, the decision,
+     the wide path and memoised steps) and what their steps need
+     (`steps`); K3 in both layouts of its frame (`layouts`: 16 blocks
+     with the frame in shared memory, 8 with it in global scratch);
   3. the north-star zoned wave through the port's Harness: 50,000 nodes
      in 3 DCs and 5 CSI zones (bench.py _build_bench_cluster), 384 batch
      evals x 260 placements, prepare_batch per eval, ONE place_batch
@@ -26,10 +28,11 @@ into nomad_tpu_torch/csrc/build/), then:
   4. a second, chained wave of 384 evals started from wave 1's usage
      (in-place chained K2);
   5. a smaller zoned wave of 128 evals x 260 (K2), unchained;
-  6. a single-signature wave of 64 evals x 100 (flat kernel K3), whose
-     dispatch first replays wave 5's 128 plans onto the device usage
-     through K4.  (The packer logs at most 256 plan deltas, so after a
-     384-eval wave the next dispatch re-uploads the usage instead.)
+  6. a single-signature wave of 64 evals x 100 (K3, the flat mode of
+     K2's kernel), whose dispatch first replays wave 5's 128 plans onto
+     the device usage through K4.  (The packer logs at most 256 plan
+     deltas, so after a 384-eval wave the next dispatch re-uploads the
+     usage instead.)
 
 Then the solo path, each eval through Harness.process at the widths of
 bench.py's configs 1-4 (bench.py:409, :442, :484, :553):
@@ -59,7 +62,8 @@ Then the node-sharded mesh: a second engine on make_mesh(8) of the card
 (8 shards of the node axis, parallel/mesh.py) over the same clusters:
 
  13. mesh_waves: the four waves above on a second 50,000-node cluster
-     built alike (K12 with 5 lanes x 8 shards, K12 chained, K12, then K11
+     built alike (K12, K2's kernel over 5 lanes of 8 shard slices, K12
+     chained, K12, then K11
      with K13 replaying the small wave's deltas), every eval held against
      the single-device engine at the same snapshot and seeds (bench.py
      _sharded_parity_gate: sorted picks and nodes_filtered equal), and
@@ -70,10 +74,12 @@ Then the node-sharded mesh: a second engine on make_mesh(8) of the card
      alloc, the bulk's as sorted lists;
  15. mesh kernel checks: K9-K13 against their plain versions at those
      phases' inputs, on the card and on CPU copies, K9's phase split at
-     the mesh spread eval's inputs.  The `exchange_probes` line, before
-     the solo kernel checks, times one cluster exchange through global
-     scratch (K10-K12's) and one exchange through distributed shared
-     memory (K9's, and K5's above 512 rows), each at 8 blocks.
+     the mesh spread eval's inputs, K12's split and steps.  The
+     `exchange_probes` line, before the solo kernel checks, times one
+     cluster exchange through global scratch (K10's and K11's) and one
+     exchange through distributed shared memory (K9's, and K5's above
+     512 rows), each at 8 blocks, and one of K2, K3 and K12 at 8 and at
+     16 blocks.
 
 After every wall-time measurement:
 
@@ -95,6 +101,7 @@ nothing of the JAX package.
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -117,8 +124,8 @@ FLAT_PER_EVAL = 100
 # (f64 runs at half of it, so the bound stays a lower bound)
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
-# Arithmetic of the rounds template (csrc/multi_rounds.cu: K3, K6,
-# K10-K12) per valid frame row and real step, counted from the source:
+# Arithmetic of the rounds template (csrc/multi_rounds.cu: K6, K10, K11)
+# per valid row and real step, counted from the source:
 # intake_score's intake (3 subtractions, 3 floor divisions at 7
 # operations, request and distinct_hosts clamps) 47; its score
 # (conversions, 2 divisions, 2 libm_pow10f at 14, clamps, the three
@@ -126,7 +133,8 @@ PEAK_OPS = 67e12
 # orderable bits) 25; the 8 radix passes' key compare and digit 56; the
 # exhaustion metrics 20.
 OPS_PER_ROW_STEP = 47 + 70 + 25 + 56 + 20
-# K2 (csrc/compact_rounds.cu) counted from the source.  A cache entry
+# K2, K3 and K12 (csrc/compact_rounds.cu) counted from the source.  A
+# cache entry
 # (refresh_row: rounds_kcap's 3 subtractions, 3 floor divisions at 7 and
 # clamps 32; rounds_binpack's conversions, 2 divisions, 2 libm_pow10f at
 # 14, clamps and scale 54; the metrics' fit bits 22) is built per valid
@@ -139,12 +147,15 @@ OPS_PER_ROW_STEP = 47 + 70 + 25 + 56 + 20
 # 10, the top-4 test 1.  The merge compares 2 per entry of the lists it
 # merges (each warp's and each block's top 4).  A step on the wide path
 # adds per valid row 4 radix passes at 4 and the take test 3.  A
-# memoised step copies its row (bytes, counted with the outputs).
+# memoised step copies its row (bytes, counted with the outputs).  K3's
+# refresh of the valid bits at a change of signature: per row the mask
+# byte's test, the bit's merge and the count, 3.
 OPS_K2_CACHE = 32 + 54 + 22
 OPS_K2_COMMIT = 7 + 49
 OPS_K2_ROW = 7 + 14 + 16 + 10 + 10 + 1
 OPS_K2_MERGE = 2
 OPS_K2_WIDE = 4 * 4 + 3
+OPS_K3_STATIC = 3
 # The exact scan (csrc/place_scan.cu) counted from the source.  A cache
 # entry (node_cache: capacity fit and distinct_hosts 7, the binpack term
 # with its 2 divisions and 2 libm_pow10f at 14 47, anti-affinity 3, two
@@ -631,25 +642,26 @@ def sort_barriers(kk: int) -> int:
     return lg * (lg + 1) // 2
 
 
-# __syncthreads per step of rounds_kernel (csrc/multi_rounds.cu, K12's
-# lanes) outside the sort: block_sum of the viable rows 3 (K3: + the
-# static rows 3), of the feasible rows 3, radix select 8 passes x 4,
+# __syncthreads per step of rounds_kernel (csrc/multi_rounds.cu: K6,
+# K10, K11) outside the sort: block_sum of the viable rows 3 and of the
+# static rows 3, of the feasible rows 3, radix select 8 passes x 4,
 # gather 2, fill block_scan 3 + block_sum 3, commit 1, metrics 4
 # block_sums 12, end 1
-BARRIERS_COMPACT = 3 + 3 + 32 + 2 + 6 + 1 + 12 + 1
-BARRIERS_FLAT = BARRIERS_COMPACT + 3
-# K2 (csrc/compact_rounds.cu) per computed step: a block barrier after
-# the pass and one after the decision, one exchange through distributed
-# shared memory between them; a memoised step none.  A step on the wide
-# path adds 4 radix passes x 3, the quota 1, the entry count 1, the sort
-# 1, the fill scan 2 and its sums 2 block barriers, and 6 cluster
-# barriers (4 histograms, the entry counts, the entries).
+BARRIERS_FLAT = 3 + 3 + 3 + 32 + 2 + 6 + 1 + 12 + 1
+# K2, K3 and K12 (csrc/compact_rounds.cu) per computed step: a block
+# barrier after the pass and one after the decision, one exchange
+# through distributed shared memory between them; a memoised step none.
+# A step on the wide path adds 4 radix passes x 3, the quota 1, the
+# entry count 1, the sort 1, the fill scan 2 and its sums 2 block
+# barriers, and 6 cluster barriers (4 histograms, the entry counts, the
+# entries).  K3's refresh of the valid bits adds 3 block barriers.
 TOPB_K2 = 4
 K2_WARPS = 8      # warps a block (256 threads)
 BARRIERS_K2 = 2
 EXCHANGES_K2 = 1
 BARRIERS_K2_WIDE = 4 * 3 + 1 + 1 + 1 + 2 + 2
 CLUSTER_K2_WIDE = 6
+BARRIERS_K3_STATIC = 3
 
 
 def barrier_round_ms(rounds: int = 20000) -> float:
@@ -661,7 +673,7 @@ def barrier_round_ms(rounds: int = 20000) -> float:
     from nomad_tpu_torch.ops import kernels as K
 
     sink = torch.zeros(1, dtype=torch.int32, device="cuda")
-    probe = K.MULTI_FLAT.fn("barrier_probe")
+    probe = K.MULTI_BULK.fn("barrier_probe")
 
     def run():
         rc = probe(rounds, sink.data_ptr(), K.stream_of(sink))
@@ -676,27 +688,37 @@ COMPACT_PHASES = ("top", "pass", "merge", "exchange", "decide", "wide",
                   "memo")
 
 
-def compact_phase_split(inp, cand_rows, cand_valid, rs, lanes) -> dict:
-    """One launch of K2's PROF instantiation at `inp`: block 0's
-    clock64() cycles per phase converted to microseconds by the launch's
-    own CUDA-event time over its total cycles, per real step (want > 0)
-    and per padding step."""
+def rounds_phase_split(launch) -> dict:
+    """One launch of a compact_rounds.cu PROF instantiation
+    (`launch(prof)`): block 0's clock64() cycles per phase converted to
+    microseconds by the launch's own CUDA-event time over its total
+    cycles, per real step (want > 0) and per padding step."""
     import torch
 
+    nph = len(COMPACT_PHASES)
+    prof = torch.zeros(2 * nph + 4, dtype=torch.int64, device="cuda")
+    launch(prof)                                     # warm-up
+    prof.zero_()
+    _, ms = timed(lambda: launch(prof))
+    return phase_us(prof.tolist(), ms, COMPACT_PHASES, ("real", "padding"))
+
+
+def compact_phase_split(inp, cand_rows, cand_valid, rs, lanes,
+                        n_shards=0) -> dict:
+    """K2's split at `inp` (K12's with `n_shards`)."""
     from nomad_tpu_torch.ops import select as S
 
-    nph = len(COMPACT_PHASES)
-    prof = torch.zeros(2 * nph + 4, dtype=torch.int64,
-                       device=inp.attrs.device)
+    return rounds_phase_split(lambda prof: S._compact_launch(
+        inp.used0.clone(), inp.used0, inp, cand_rows, cand_valid, rs, lanes,
+        n_shards=n_shards, prof=prof))
 
-    def run():
-        S._compact_launch(inp.used0.clone(), inp.used0, inp, cand_rows,
-                          cand_valid, rs, lanes, prof=prof)
 
-    run()                                            # warm-up
-    prof.zero_()
-    _, ms = timed(run)
-    return phase_us(prof.tolist(), ms, COMPACT_PHASES, ("real", "padding"))
+def flat_phase_split(inp, rs, max_cb) -> dict:
+    """K3's split at `inp` on a cluster of up to `max_cb` blocks."""
+    from nomad_tpu_torch.ops import select as S
+
+    return rounds_phase_split(lambda prof: S._flat_launch(
+        inp.used0.clone(), inp, rs, prof=prof, max_cb=max_cb))
 
 
 def phase_us(c, ms, phases, kinds) -> dict:
@@ -718,17 +740,21 @@ def phase_us(c, ms, phases, kinds) -> dict:
     return out
 
 
-def compact_steps(inp, lanes, out, kk) -> dict:
-    """What K2's steps at `inp` need, from the run's own output `out`
-    (buf_small, fills), by the kernel's rules (csrc/compact_rounds.cu):
-    per lane the real steps, the steps whose request repeats the lane's
-    previous step's, the memoised steps (group and want of the last
-    computed step repeat after it placed nothing), the computed ones,
-    those whose request differs from the cached one (the cache's
-    refills), the committed rows, and the steps on the wide path (a
-    round that fills more than TOPB_K2 rows, or TOPB_K2 short of `want`,
-    of more than TOPB_K2 candidates `kk`); over the real steps how many
-    rows each round fills (the water-fill depth)."""
+def compact_steps(inp, lanes, out, kk, valid, static=None) -> dict:
+    """What K2's steps at `inp` need (K3's and K12's alike), from the
+    run's own output `out` (buf_small, fills; K3: buf and its fill
+    slots), by the kernel's rules (csrc/compact_rounds.cu): per lane the
+    real steps, the steps whose request repeats the lane's previous
+    step's, the memoised steps (group and want of the last computed step
+    repeat after it placed nothing), the computed ones, those whose
+    request differs from the cached one (the cache's refills), the
+    committed rows, the steps on the wide path (a round that fills more
+    than TOPB_K2 rows, or TOPB_K2 short of `want`, of more than TOPB_K2
+    candidates `kk`), K3's refreshes of the valid bits (a computed step
+    whose group's signature `static[g]` differs from the last one's),
+    and the valid rows `valid(lane, g)` summed over the computed steps,
+    the refills and the wide steps; over the real steps how many rows
+    each round fills (the water-fill depth)."""
     import collections
 
     steps = inp.round_g.shape[0] // lanes
@@ -738,12 +764,14 @@ def compact_steps(inp, lanes, out, kk) -> dict:
     placed = out[0][:, -16 + 12].view(steps, lanes).cpu().tolist()
     depth = (out[1] & 2047).gt(0).sum(1).view(steps, lanes).cpu().tolist()
     keys = ("real", "req_repeats", "memo", "computed", "refills",
-            "commits", "wide")
+            "commits", "wide", "refreshes", "row_steps", "row_refills",
+            "row_wide")
     per = {k: [0] * lanes for k in keys}
     hist = collections.Counter()
     for lane in range(lanes):
         last = None      # (group, want, placed) of the last computed step
         cached = None    # the request the lane's cache holds
+        sig = None       # K3: the signature the valid bits hold
         for t in range(steps):
             gt, wt = g[t][lane], want[t][lane]
             if wt > 0:
@@ -754,21 +782,63 @@ def compact_steps(inp, lanes, out, kk) -> dict:
             if last == (gt, wt, 0):
                 per["memo"][lane] += 1
                 continue
+            v = valid(lane, gt)
             per["computed"][lane] += 1
+            per["row_steps"][lane] += v
+            if static is not None and static[gt] != sig:
+                per["refreshes"][lane] += 1
+                sig = static[gt]
             if req[gt] != cached:
                 per["refills"][lane] += 1
+                per["row_refills"][lane] += v
                 cached = req[gt]
             m = depth[t][lane]
             per["commits"][lane] += m
             if kk > TOPB_K2 and (m > TOPB_K2 or (
                     m == TOPB_K2 and placed[t][lane] < wt)):
                 per["wide"][lane] += 1
+                per["row_wide"][lane] += v
             last = (gt, wt, placed[t][lane])
     return {"lanes": lanes, "steps": steps, **per,
             "fill_depth": {str(k): v for k, v in sorted(hist.items())}}
 
 
-def compact_mixed(zin, zcpu, args) -> dict:
+def compact_ops(counts, blocks, n_rows=0) -> int:
+    """Operations K2, K3 or K12 need (OPS_K2_*, OPS_K3_STATIC), `counts`
+    from compact_steps, `blocks` blocks a lane, `n_rows` rows a refresh
+    of K3's valid bits reads."""
+    ops = 0
+    for i in range(counts["lanes"]):
+        ops += (counts["row_steps"][i] * OPS_K2_ROW
+                + counts["row_refills"][i] * OPS_K2_CACHE
+                + counts["row_wide"][i] * OPS_K2_WIDE
+                + counts["commits"][i] * (OPS_K2_CACHE + OPS_K2_COMMIT)
+                + counts["computed"][i] * blocks * OPS_K2_MERGE * TOPB_K2
+                * (K2_WARPS + blocks)
+                + counts["refreshes"][i] * n_rows * OPS_K3_STATIC)
+    return ops
+
+
+def compact_depth(counts, barrier_ms, xch_ms) -> dict:
+    """The chain of the lane whose steps cost the most: its computed
+    steps (BARRIERS_K2 block barriers and EXCHANGES_K2 exchanges of
+    `xch_ms` each), those on the wide path with their extra barriers and
+    cluster barriers, and K3's refreshes of the valid bits."""
+    def chain(i):
+        return (counts["computed"][i] * (BARRIERS_K2 * barrier_ms
+                                         + EXCHANGES_K2 * xch_ms)
+                + counts["wide"][i] * (BARRIERS_K2_WIDE * barrier_ms
+                                       + CLUSTER_K2_WIDE * xch_ms)
+                + counts["refreshes"][i] * BARRIERS_K3_STATIC * barrier_ms)
+
+    worst = max(range(counts["lanes"]), key=chain)
+    return dict(depth_ms=chain(worst), depth_steps=counts["computed"][worst],
+                barriers_per_step=BARRIERS_K2,
+                exchanges_per_step=EXCHANGES_K2,
+                wide_steps=counts["wide"][worst], exchange_ms=xch_ms)
+
+
+def compact_mixed(zin, zcpu, args, valid) -> dict:
     """K2 at the zoned wave's shapes with a request that changes at
     every real step of a lane (memory 10 and 11 MB in turn), so that
     every computed step refills the cache: its time, its steps and its
@@ -799,25 +869,12 @@ def compact_mixed(zin, zcpu, args) -> dict:
     return {"max_abs_err": err,
             "ms": time_ms(lambda: S.place_multi_compact_packed(mix, *args),
                           5),
-            "steps": compact_steps(mix, lanes, got, min(rs, cr.shape[1])),
+            "steps": compact_steps(mix, lanes, got, min(rs, cr.shape[1]),
+                                   valid),
             "phase_split": compact_phase_split(mix, *args)}
 
 
-def compact_ops(valid_l, counts, blocks) -> int:
-    """Operations K2 needs (OPS_K2_*) over lanes of `valid_l` valid frame
-    rows, `counts` from compact_steps, `blocks` blocks a lane."""
-    ops = 0
-    for i, v in enumerate(valid_l):
-        ops += (v * (counts["computed"][i] * OPS_K2_ROW
-                     + counts["refills"][i] * OPS_K2_CACHE
-                     + counts["wide"][i] * OPS_K2_WIDE)
-                + counts["commits"][i] * (OPS_K2_CACHE + OPS_K2_COMMIT)
-                + counts["computed"][i] * blocks * OPS_K2_MERGE * TOPB_K2
-                * (K2_WARPS + blocks))
-    return ops
-
-
-def kernel_phase(h, zoned_built, flat_built, dsmem_ms):
+def kernel_phase(h, zoned_built, flat_built):
     """Each kernel's wrapper against its plain version, on the card and
     on CPU copies, at the main path's shapes (the zoned and flat waves'
     own inputs)."""
@@ -904,44 +961,46 @@ def kernel_phase(h, zoned_built, flat_built, dsmem_ms):
                                    zcpu, cr.cpu(), cv.cpu(), rs, lanes),
                                packed=True))
     torch.cuda.synchronize()
-    counts = compact_steps(zin, lanes, got, min(rs, cr.shape[1]))
-    blocks = K.MULTI_COMPACT.fn("multi_compact_blocks")(cr.shape[1])
-    k2_ops = compact_ops(valid_l.tolist(), counts, blocks)
-
-    def chain_ms(i):
-        """Lane i's chain: its computed steps, and those on the wide path
-        with their extra barriers and cluster barriers."""
-        return (counts["computed"][i] * (BARRIERS_K2 * barrier_ms
-                                         + EXCHANGES_K2 * dsmem_ms)
-                + counts["wide"][i] * (BARRIERS_K2_WIDE * barrier_ms
-                                       + CLUSTER_K2_WIDE * dsmem_ms))
-
-    worst = max(range(lanes), key=chain_ms)
-    mixed = compact_mixed(zin, zcpu, args)
+    valid_l = valid_l.tolist()
+    lane_valid = lambda lane, g: valid_l[lane]
+    counts = compact_steps(zin, lanes, got, min(rs, cr.shape[1]), lane_valid)
+    blocks = K.MULTI_COMPACT.fn("multi_compact_blocks")(cr.shape[1], rs, 1,
+                                                        0, 8)
+    mixed = compact_mixed(zin, zcpu, args, lane_valid)
     mixed["bound_ms"] = max(
         k2_bytes / PEAK_BYTES,
-        compact_ops(valid_l.tolist(), mixed["steps"], blocks) / PEAK_OPS) * 1e3
+        compact_ops(mixed["steps"], blocks) / PEAK_OPS) * 1e3
     rows.append(dict(
         kernel=K.MULTI_COMPACT, max_abs_err=max(err, mixed["max_abs_err"]),
         **timing(lambda: S.place_multi_compact_packed(zin, *args), 5),
         plain_ms=time_ms(
             lambda: S.place_multi_compact_packed_plain(zin, *args), 2),
-        bytes=k2_bytes, ops=k2_ops, library_ms=None,
-        depth_ms=chain_ms(worst), depth_steps=counts["computed"][worst],
-        barriers_per_step=BARRIERS_K2, exchanges_per_step=EXCHANGES_K2,
-        wide_steps=counts["wide"][worst],
+        bytes=k2_bytes, ops=compact_ops(counts, blocks), library_ms=None,
+        **compact_depth(counts, barrier_ms, compact_exchange_ms(blocks)),
         blocks=blocks, steps=counts,
         phase_split=compact_phase_split(zin, *args),
         mixed_requests=mixed))
 
-    # K3: the flat wave's launch
+    # K3: the flat wave's launch, and its chained form in place; both
+    # layouts of its frame (S.FLAT_CLUSTER the main path's)
     fin, frs = flat_built["inp"], flat_built["rs"]
+    fcpu = to_cpu(fin)
     got = S.place_multi_packed(fin, frs)
+    want_cpu = S.place_multi_packed_plain(fcpu, frs)
     err = check_exact("multi_flat", got, S.place_multi_packed_plain(fin, frs),
-                      S.place_multi_packed_plain(to_cpu(fin), frs),
-                      packed=True)
+                      want_cpu, packed=True)
+    used0 = fin.used0.clone()
+    chained = S.place_multi_chained(used0, fin._replace(used0=None), frs)
+    if chained[1] is not used0:
+        raise AssertionError("multi_flat chained: usage not in place")
+    err = max(err, check_exact("multi_flat chained", chained, want_cpu,
+                               packed=True))
+    other = 8 if S.FLAT_CLUSTER > 8 else 16
+    err = max(err, check_exact(
+        f"multi_flat at {other} blocks",
+        S._flat_launch(fin.used0.clone(), fin, frs, max_cb=other), want_cpu,
+        packed=True))
     torch.cuda.synchronize()
-    f_real = int((fin.round_want > 0).sum())
     k3_bytes = (fn_bytes((fin.cap, fin.used0, fin.elig, fin.luts,
                           fin.base_mask, fin.con, fin.aff, fin.req,
                           fin.desired, fin.dh_limit, fin.g_static, fin.g_aff,
@@ -949,14 +1008,34 @@ def kernel_phase(h, zoned_built, flat_built, dsmem_ms):
                           fin.round_want), fin.attrs, fin.luts, fin.con,
                          fin.aff)
                 + nbytes(*got))
-    k3_barriers = BARRIERS_FLAT + sort_barriers(min(frs, n))
+    # the valid rows of each signature (K1's static rows)
+    sig_valid = landscape_mask_plain(
+        fin.attrs, fin.con, fin.luts, fin.elig, fin.base_mask,
+        fin.u_mask).sum(1).cpu().tolist()
+    g_static = fin.g_static.cpu().tolist()
+    counts = compact_steps(fin, 1, (got[0], got[0][:, :frs]), min(frs, n),
+                           lambda lane, g: sig_valid[g_static[g]], g_static)
+    plan = K.MULTI_FLAT.fn("multi_compact_blocks")
+    scratch = K.MULTI_FLAT.fn("multi_compact_scratch_bytes")
+    layouts = {}
+    for cb in (S.FLAT_CLUSTER, other):
+        layouts[str(cb)] = {
+            "blocks": plan(n, frs, 1, 1, cb),
+            "frame": ("shared memory" if scratch(1, n, frs, 1, 1, cb) == 0
+                      else "global scratch"),
+            "ms": time_ms(lambda: S._flat_launch(fin.used0.clone(), fin,
+                                                 frs, max_cb=cb), 5),
+            "phase_split": flat_phase_split(fin, frs, cb)}
+    blocks = layouts[str(S.FLAT_CLUSTER)]["blocks"]
     rows.append(dict(
         kernel=K.MULTI_FLAT, max_abs_err=err,
         **timing(lambda: S.place_multi_packed(fin, frs), 5),
         plain_ms=time_ms(lambda: S.place_multi_packed_plain(fin, frs), 2),
-        bytes=k3_bytes, ops=f_real * n * OPS_PER_ROW_STEP, library_ms=None,
-        depth_ms=f_real * k3_barriers * barrier_ms, depth_steps=f_real,
-        barriers_per_step=k3_barriers))
+        bytes=k3_bytes, ops=compact_ops(counts, blocks, n), library_ms=None,
+        **compact_depth(counts, barrier_ms, compact_exchange_ms(blocks)),
+        blocks=blocks, steps=counts,
+        phase_split=layouts[str(S.FLAT_CLUSTER)]["phase_split"],
+        layouts=layouts))
 
     # K4: one full replay chunk (SCATTER_CHUNK rows, repeats included)
     from nomad_tpu_torch.ops.engine import SCATTER_CHUNK
@@ -1537,7 +1616,7 @@ def cluster_round_ms(rounds: int = 20000) -> float:
 
     rows = torch.zeros(4 * MESH_SHARDS * 8, dtype=torch.int32, device="cuda")
     sink = torch.zeros(1, dtype=torch.int32, device="cuda")
-    probe = K.MULTI_FLAT.fn("cluster_barrier_probe")
+    probe = K.MULTI_BULK.fn("cluster_barrier_probe")
 
     def run():
         rc = probe(rounds, MESH_SHARDS, rows.data_ptr(), sink.data_ptr(),
@@ -1565,6 +1644,29 @@ def dsmem_exchange_ms(rounds: int = 20000) -> float:
         rc = probe(rounds, MESH_SHARDS, sink.data_ptr(), K.stream_of(sink))
         if rc != 0:
             raise RuntimeError(f"dsmem_exchange_probe failed with "
+                               f"cudaError {rc}")
+
+    return time_ms(run, 5) / rounds
+
+
+@functools.lru_cache(maxsize=None)
+def compact_exchange_ms(cluster: int, rounds: int = 20000) -> float:
+    """Measured cost of one exchange of K2, K3 and K12 at `cluster`
+    blocks (csrc/compact_rounds.cu compact_exchange_probe: each block's
+    warp pushes its 176-byte post into every peer's shared memory,
+    arrives on the peer's mbarrier and waits on its own, as a step's
+    xch_meet does)."""
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as K
+
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    probe = K.MULTI_COMPACT.fn("compact_exchange_probe")
+
+    def run():
+        rc = probe(rounds, cluster, sink.data_ptr(), K.stream_of(sink))
+        if rc != 0:
+            raise RuntimeError(f"compact_exchange_probe failed with "
                                f"cudaError {rc}")
 
     return time_ms(run, 5) / rounds
@@ -1852,12 +1954,9 @@ def mesh_kernel_phase(rec, barrier_ms, cluster_ms, dsmem_ms):
             to_cpu(cin._replace(used0=used0)), ccr.cpu(), ccv.cpu(), ns,
             crs, clanes), packed=True))
     torch.cuda.synchronize()
-    nc = cr.shape[-1]
-    steps = zin.round_g.shape[0] // lanes
-    real = (zin.round_want.view(steps, lanes) > 0).sum(0).cpu()
-    valid_l = cv.sum(dim=(0, 2)).cpu()
-    kk_loc = min(rs, nc)
-    kk = min(rs, ns * kk_loc)
+    valid_l = cv.sum(dim=(0, 2)).cpu().tolist()
+    counts = compact_steps(zin, lanes, got, min(rs, ns * cr.shape[-1]),
+                           lambda lane, g: valid_l[lane])
     rows.append(dict(
         kernel=K.MULTI_COMPACT_SHARDED, max_abs_err=err,
         **timing(lambda: PM.place_multi_compact_sharded(
@@ -1866,10 +1965,11 @@ def mesh_kernel_phase(rec, barrier_ms, cluster_ms, dsmem_ms):
         bytes=nbytes(zin.cap, zin.used0, cr, cv, zin.aff, zin.req,
                      zin.desired, zin.dh_limit, zin.g_aff, zin.g_job,
                      zin.seed, zin.job_count0, zin.round_g, zin.round_want)
-        + nbytes(*got) + exchange_bytes(int(real.sum()), kk_loc, kk),
-        ops=int((real * valid_l).sum()) * OPS_PER_ROW_STEP, library_ms=None,
-        **depth(int(real.max()), BARRIERS_COMPACT + 35
-                + sort_barriers(kk_loc) + sort_barriers(kk), 3)))
+        + nbytes(*got),
+        ops=compact_ops(counts, ns), library_ms=None,
+        **compact_depth(counts, barrier_ms, compact_exchange_ms(ns)),
+        blocks=ns, steps=counts,
+        phase_split=compact_phase_split(zin, cr, cv, rs, lanes, ns)))
 
     # K13: the mesh flat wave's replay chunk
     used, r13, v13, mesh = rec.get("mesh_flat_wave", "scatter")
@@ -1954,11 +2054,12 @@ def main() -> int:
     flat_built = h.engine.build_multi_inputs(snap, items3, seed=seeds3)
     if zoned_built["cand_rows"] is None or flat_built["cand_rows"] is not None:
         raise AssertionError("main-path inputs took the wrong kernel")
-    # the probes of the two cluster exchanges (K2's depth needs the
-    # distributed shared memory one)
+    # the probes of the cluster exchanges (the rounds' depth needs their
+    # own, at 8 and at 16 blocks)
     cluster_ms = cluster_round_ms()
     dsmem_ms = dsmem_exchange_ms()
-    krows = kernel_phase(h, zoned_built, flat_built, dsmem_ms)
+    xch_us = {cb: compact_exchange_ms(cb) * 1e3 for cb in (8, 16)}
+    krows = kernel_phase(h, zoned_built, flat_built)
     torch.cuda.synchronize()
     emit({"phase": "kernel_checks", "card": card, "tolerance": "exact",
           "checks": [{k: (v.name if k == "kernel" else v)
@@ -2004,7 +2105,8 @@ def main() -> int:
     rec = solo_phases(card, launches)
     emit({"phase": "exchange_probes", "card": card,
           "cluster_barrier_us": cluster_ms * 1e3,
-          "dsmem_exchange_us": dsmem_ms * 1e3, "blocks": MESH_SHARDS})
+          "dsmem_exchange_us": dsmem_ms * 1e3, "blocks": MESH_SHARDS,
+          "compact_exchange_us": xch_us})
     srows = solo_kernel_phase(rec, krows[0]["barrier_ms"], dsmem_ms)
     torch.cuda.synchronize()
     emit({"phase": "solo_kernel_checks", "card": card, "tolerance": "exact",

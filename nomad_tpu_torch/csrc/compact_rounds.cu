@@ -1,29 +1,53 @@
-// K2 "multi_compact": the batched multi-eval water-fill rounds over zoned
-// lanes, one launch per wave, one thread-block cluster per lane.
+// K2 "multi_compact", K12 "multi_compact_sharded" and K3 "multi_flat":
+// the batched multi-eval water-fill rounds, one launch per wave, one
+// thread-block cluster per lane.
 //
 // Replaces (TPU side, jax.jit): nomad_tpu/ops/select.py:836
-// place_multi_compact_packed (+ :1006 place_multi_compact_chained), with
-// its round core round_scores_g (:342), waterfill_round (:413),
+// place_multi_compact_packed (+ :1006 place_multi_compact_chained) for
+// K2; nomad_tpu/parallel/mesh.py:590 place_multi_compact_sharded_fn
+// (_multi_compact_local :503, chained form :639, its fill
+// _sharded_waterfill :255) for K12; nomad_tpu/ops/select.py:733
+// place_multi_packed (+ :997 place_multi_chained) for K3; with their
+// round core round_scores_g (:342), waterfill_round (:413),
 // round_metrics_g (:393), tiebreak_noise (:43) and pack_round_buffer
 // (:531).
 //
+// One kernel body, three launches:
+//   K2   lanes over zoned frames [L, Nc] (padding slots hold row n);
+//   K12  the same over per-shard frames [S, L, Nc_loc]: lane l's frame is
+//        its S shard slices laid end to end, shard-major (slot
+//        s Nc_loc + j).  The reference's two-stage top-k (each shard's
+//        top min(rs, Nc_loc), then the top of their shard-major union,
+//        ties to the lower index) is the exact top rs in that slot order,
+//        which is K2's order, so K12 is K2 on those frames; block s of
+//        the cluster reads shard s's slices in place;
+//   K3   (FLAT) one lane whose frame is every row (slot = row, no row
+//        array), the step's static row from K1's [U, N] mask
+//        (static_u[g_static[g]]) cached in each slot's valid bit and
+//        refreshed only when the signature changes, job counts chained by
+//        job (K2 chains by group) and reseeded from job_count0 [J, N] in
+//        the pass, buf [R, rs + 16] with every fill slot, usage updated
+//        in place, and the last step's job count row as an output.
+//
 // What bounds it on the H100: sequential depth.  Lane l's step t must see
 // the usage and job counts its steps < t committed, so a wave is T
-// dependent rounds of a frame of a CSI zone's nodes (the north-star zoned
-// wave: 128 steps, 77 of them real, over ~10,240 rows, 5 lanes).  The
-// bytes and operations are microseconds for the whole wave; the chain of
-// each step is what costs.
+// dependent rounds of a frame (the north-star zoned wave: 128 steps, 77
+// of them real, over ~10,240 rows, 5 lanes; the flat wave 64 rounds over
+// 50,000 rows).  The bytes and operations are microseconds for the whole
+// wave; the chain of each step is what costs.
 //
 // Design.  A lane's frame is split over a cluster of up to 8 blocks of
 // 256 threads (slots [sh R, (sh + 1) R) of the frame in block sh; 8
-// blocks of 1,280 slots at the zoned wave), and the frame's
-// state lives in shared memory (in global scratch when it does not fit):
-// usage, capacity, global row, job counts and the seed row they restart
-// from (loaded once per job), and a cache of the terms that only a
-// commit or another request changes: the capacity intake, the binpack
-// term (two 10^x in double precision) and the fit bits of the exhaustion
-// metrics.  The cache is refilled only when the step's request differs
-// from the cached one, else only at the rows a step commits.  Per step:
+// blocks of 1,280 slots at the zoned wave; K12 one block per shard; K3
+// may take a non-portable cluster of 16 blocks so that its frame fits in
+// shared memory), and the frame's state lives in shared memory (in
+// global scratch when it does not fit): usage, capacity, global row, job
+// counts and the seed row they restart from (loaded once per job; K3
+// keeps neither row array), and a cache of the terms that only a commit
+// or another request changes: the capacity intake, the binpack term (two
+// 10^x in double precision) and the fit bits of the exhaustion metrics.
+// The cache is refilled only when the step's request differs from the
+// cached one, else only at the rows a step commits.  Per step:
 //   1. the pass, two rows a thread at a time: each row's score in the
 //      reference's order of operations (intake, binpack -> job
 //      anti-affinity -> affinity mean, its divisions skipped only where
@@ -34,9 +58,10 @@
 //      top TOPB keys;
 //   2. the merge: warps by redux rounds, warp 0 over the warps; warp 0
 //      posts the block's top TOPB keys with what the decision needs
-//      (score, intake, global row, free capacity, job count) and the
-//      block's counts into every peer's shared memory (xch_meet,
-//      distributed shared memory, score_common.cuh);
+//      (score, intake, global row, free capacity, job count), the
+//      block's counts and its count of valid slots into every peer's
+//      shared memory (xch_meet, distributed shared memory,
+//      score_common.cuh);
 //   3. the decision, in warp 0 of every block alike: the lane's top TOPB
 //      of the posts, the spread intake cap (which needs the viable count
 //      only for the intake, never for the order: kr > 0 iff k > 0), the
@@ -53,12 +78,14 @@
 //      entries pushed to every block, sorted by rank and water-filled.
 //   4. the memo: a step whose group and `want` repeat the last computed
 //      step's, after that step placed nothing, has the same state and
-//      inputs (job counts carry over for a repeated group), so block 0
-//      copies that step's row and nothing else runs.  That is every
-//      padding step of a lane but the first.
+//      inputs (job counts carry over for a repeated group, and so for its
+//      job; the static row is the group's), so block 0 copies that step's
+//      row and nothing else runs.  That is every padding step of a lane
+//      but the first.
 // Block barriers per step: 2 (after the pass, after the decision); one
-// exchange; a memoised step none.  The last block of a lane may hold
-// fewer rows; frames of any size are accepted.
+// exchange; a memoised step none; K3 adds 3 at a signature change.  The
+// last block of a lane may hold fewer rows; frames of any size are
+// accepted.
 
 #include "py_launchers.cuh"  // first: it includes Python.h
 #include <cooperative_groups.h>
@@ -76,37 +103,46 @@ constexpr int META = 16;
 constexpr int TOPB = 4;            // keys a block posts each step
 constexpr int PW = 9;              // post words per key (hi lo sc k row f0
                                    // f1 f2 jc)
-constexpr int NCNT = 5;            // post counts: viable exh dim(3)
-constexpr int XW = 44;             // post words (TOPB PW + NCNT, padded)
+constexpr int NCNT = 5;            // pass counts: viable exh dim(3)
+constexpr int NPC = NCNT + 1;      // post counts: those, valid slots
+constexpr int XW = 44;             // post words (TOPB PW + NPC, padded)
 constexpr int GV = 7;              // wide-path entry words besides the key
 constexpr int STAGE = 128;         // steps staged in shared memory at once
 constexpr int SW = 12;             // staged words per step
 constexpr int MIN_ROWS = 256;      // frame slots a block takes at least
+constexpr int MAX_CB = 16;         // blocks a cluster (K3's frames; K2 and
+                                   // K12 take at most XCH_BLOCKS)
 // frame state bits
 constexpr unsigned F_VALID = 1, F_FIT = 2, F_LT0 = 4;
 
 #include "score_common.cuh"
 
+// Frames are [S, L, nc] (K2 and K3: S = 1; K3: L = 1, nc = N, no row
+// arrays), every per-slot input laid out alike with the shard outermost.
 struct Params {
   const int* cap;            // [N, 3]
   const int* used_in;        // [N, 3] start usage
   int* used_out;             // [N, 3] output (may be used_in)
-  const int* cand_rows;      // [L, nc] frame rows (padding = n)
-  const uint8_t* cand_valid; // [L, nc]
-  const float* aff_land;     // [L, Ua, nc]
+  const int* cand_rows;      // [S, L, nc] frame rows (padding = n)
+  const uint8_t* cand_valid; // [S, L, nc]
+  const uint8_t* static_u;   // K3: [U, N] from K1
+  const float* aff_land;     // [S, L, Ua, nc]
   const int* aff;            // [Ua, Af, 4]
   const int* req;            // [G, 3]
   const int* desired;        // [G]
   const int* dh_limit;       // [G]
+  const int* g_static;       // K3: [G]
   const int* g_aff;          // [G]
   const int* g_job;          // [G]
   const long long* seed;     // [G], uint32 values
-  const int* job_count0;     // [J', nc]
+  const int* job_count0;     // [S, J', nc]
   const int* round_g;        // [T * L] step-major
   const int* round_want;
   int* buf;                  // [T * L, fill_k + 16]
-  int* fills;                // [T * L, rs]
+  int* fills;                // [T * L, rs] (K3: none)
+  int* jc_out;               // K3: [N] the last step's job counts
   int n, n_lanes, nc, ua, n_aff, n_steps, spread, rs, fill_k;
+  int shards, n_jrows;       // S, J'
   int cb, rows;              // blocks per lane, frame slots per block
   unsigned char* frame_glob; // scratch for the frame state per block,
                              // used when it does not fit in smem
@@ -142,21 +178,28 @@ __host__ __device__ Dyn dyn_layout(int kk) {
   return d;
 }
 
-__host__ __device__ long long frame_size(int rows) {
-  return align16(14ll * 4 * rows + rows);
+// int words a frame slot holds: 12, and K2's global row and job count
+// seed row
+__host__ __device__ constexpr int frame_words(bool flat) {
+  return flat ? 12 : 14;
+}
+
+__host__ __device__ long long frame_size(int rows, bool flat) {
+  return align16(4ll * frame_words(flat) * rows + rows);
 }
 
 // One block's frame state, structure of arrays over its rows: usage,
-// capacity, global row, job counts (jc) and the job count seed row they
-// restart from (jcs), the cache (kcap, bp, the fit bits of fl), and the
-// step's intake, score and key bits.
+// capacity, job counts (jc), the cache (kcap, bp, the fit bits of fl),
+// the step's intake, score and key bits, and (K2, K12) the global row and
+// the job count seed row the counts restart from (jcs).
 struct Frame {
-  int *u0, *u1, *u2, *c0, *c1, *c2, *crow, *jc, *jcs, *kcap, *k;
+  int *u0, *u1, *u2, *c0, *c1, *c2, *jc, *kcap, *k, *crow, *jcs;
   float *bp, *sc;
   unsigned* hi;
   uint8_t* fl;
 };
 
+template <bool FLAT>
 __device__ __forceinline__ Frame frame_at(unsigned char* base, int r) {
   Frame f;
   int* w = (int*)base;
@@ -166,16 +209,22 @@ __device__ __forceinline__ Frame frame_at(unsigned char* base, int r) {
   f.c0 = w + 3 * r;
   f.c1 = w + 4 * r;
   f.c2 = w + 5 * r;
-  f.crow = w + 6 * r;
-  f.jc = w + 7 * r;
-  f.jcs = w + 8 * r;
-  f.kcap = w + 9 * r;
-  f.k = w + 10 * r;
-  f.bp = (float*)(w + 11 * r);
-  f.sc = (float*)(w + 12 * r);
-  f.hi = (unsigned*)(w + 13 * r);
-  f.fl = (uint8_t*)(w + 14 * r);
+  f.jc = w + 6 * r;
+  f.kcap = w + 7 * r;
+  f.k = w + 8 * r;
+  f.bp = (float*)(w + 9 * r);
+  f.sc = (float*)(w + 10 * r);
+  f.hi = (unsigned*)(w + 11 * r);
+  f.crow = FLAT ? nullptr : w + 12 * r;
+  f.jcs = FLAT ? nullptr : w + 13 * r;
+  f.fl = (uint8_t*)(w + frame_words(FLAT) * r);
   return f;
+}
+
+// the global row of this block's slot j (K3: slot = row)
+template <bool FLAT>
+__device__ __forceinline__ int row_of(const Frame& f, int j, int row0) {
+  return FLAT ? row0 + j : f.crow[j];
 }
 
 // round_metrics_g's fit of free capacity f for request r
@@ -255,6 +304,7 @@ __device__ __forceinline__ unsigned long long post_key(const int* w) {
 
 // A post entry of this block's row j: key bits, inverted slot, score,
 // intake, global row, free capacity and job count (0s when key is 0).
+template <bool FLAT>
 __device__ __forceinline__ void post_entry(int* w, unsigned long long key,
                                            const Frame& f, int row0) {
   if (key == 0ull) {
@@ -266,7 +316,7 @@ __device__ __forceinline__ void post_entry(int* w, unsigned long long key,
   w[1] = (int)(unsigned)key;
   w[2] = __float_as_int(f.sc[j]);
   w[3] = f.k[j];
-  w[4] = f.crow[j];
+  w[4] = row_of<FLAT>(f, j, row0);
   w[5] = f.c0[j] - f.u0[j];
   w[6] = f.c1[j] - f.u1[j];
   w[7] = f.c2[j] - f.u2[j];
@@ -338,8 +388,8 @@ __device__ __forceinline__ void metric_delta(const int* f, int jc, int c,
 }
 
 // SM: the frame state in dynamic shared memory (typed shared loads in
-// the pass), else in the wrapper's global scratch
-template <bool PROF, bool SM>
+// the pass), else in the wrapper's global scratch; FLAT: K3's frame
+template <bool PROF, bool SM, bool FLAT>
 __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
   constexpr int NT = BS, NW = BS / 32;
   extern __shared__ __align__(16) unsigned char s_dyn[];
@@ -349,15 +399,16 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
   __shared__ int s_tie[2][NW];
   __shared__ int s_tot[256];
   __shared__ __align__(16) int s_post[XW];
-  __shared__ __align__(16) XchT<XW> s_xch;
+  __shared__ __align__(16) XchT<XW, MAX_CB> s_xch;
   // the decision's results for the block: wide path, viable rows, intake
   // cap, placed, pre-commit exhaustion sums (4); the wide path's radix
-  // digit and count above it, tie quota and ties, entry counter
-  __shared__ int s_ctl[13];
-  __shared__ int s_cand, s_sel;   // read by the peers
+  // digit and count above it, tie quota and ties, entry counter; the
+  // filtered rows
+  __shared__ int s_ctl[14];
+  __shared__ int s_sel;   // read by the peers
 
   enum { C_WIDE, C_VIABLE, C_CAP, C_PLACED, C_EXH, C_DIG = 8, C_ACC, C_QUOTA,
-         C_EQ, C_CNT };
+         C_EQ, C_CNT, C_FILT };
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   PhaseClock<PROF, NPH> pc;
   pc.start(blockIdx.x == 0 && tid == 0);
@@ -366,9 +417,14 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
   const int sh = (int)cl.block_rank();
   const int l = (int)blockIdx.x / CB;
   const int nc = p.nc, n = p.n, rs = p.rs;
+  const int nct = nc * p.shards;              // slots of the lane's frame
   const int row0 = sh * R;
-  const int nb = max(0, min(R, nc - row0));   // this block's rows
-  const int kk = min(rs, nc);
+  const int nb = max(0, min(R, nct - row0));  // this block's rows
+  // where this block's slots lie in the [S, L, nc] inputs: K12 one block
+  // per shard (R = nc), else shard 0 from slot row0
+  const int sb = p.shards > 1 ? sh : 0, jb = p.shards > 1 ? 0 : row0;
+  const int64_t in0 = ((int64_t)sb * L + l) * nc + jb;
+  const int kk = min(rs, nct);
   const int nbk = min(TOPB, kk);
   const int width = p.fill_k + META;
   const Dyn dl = dyn_layout(kk);
@@ -377,42 +433,40 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
   int* gord = (int*)(s_dyn + dl.gord);
   int* gc = (int*)(s_dyn + dl.gc);
   int* hist = (int*)(s_dyn + dl.hist);
-  const Frame F = frame_at(
+  const Frame F = frame_at<FLAT>(
       SM ? s_dyn + dl.frame
          : p.frame_glob + (int64_t)blockIdx.x * p.frame_bytes,
       R);
   xch_init(&s_xch, CB);
 
-  // the lane's frame rows; padding rows start empty (never static)
+  // the lane's frame rows; K2's padding rows start empty (never valid);
+  // K3's valid bits come with the first step's static row
+  int nvalid = 0;   // this block's valid slots
   {
-    const int* crow_g = p.cand_rows + (int64_t)l * nc + row0;
-    const uint8_t* cval_g = p.cand_valid + (int64_t)l * nc + row0;
-    int cnt = 0;
     for (int j = tid; j < nb; j += NT) {
-      const bool v = cval_g[j] != 0;
-      const int64_t r = crow_g[j];
+      const bool v = FLAT || p.cand_valid[in0 + j] != 0;
+      const int64_t r = FLAT ? row0 + j : p.cand_rows[in0 + j];
       const int64_t rc = min(r, (int64_t)n - 1);
-      F.crow[j] = (int)r;
+      if (!FLAT) F.crow[j] = (int)r;
       F.c0[j] = p.cap[3 * rc];
       F.c1[j] = p.cap[3 * rc + 1];
       F.c2[j] = p.cap[3 * rc + 2];
       F.u0[j] = v ? p.used_in[3 * r] : 0;
       F.u1[j] = v ? p.used_in[3 * r + 1] : 0;
       F.u2[j] = v ? p.used_in[3 * r + 2] : 0;
-      F.fl[j] = v ? F_VALID : 0;
+      F.fl[j] = v && !FLAT ? F_VALID : 0;
       F.jc[j] = 0;
-      cnt += v ? 1 : 0;
+      nvalid += v && !FLAT ? 1 : 0;
     }
-    block_sums<1>(&cnt, s_red);
-    if (tid == 0) s_cand = cnt;
+    if (!FLAT) block_sums<1>(&nvalid, s_red);
   }
-  cl.sync();   // the peers' counts, and every exchange barrier set up
-  int cand_n = 0;
-  for (int r = 0; r < CB; ++r) cand_n += *cl.map_shared_rank(&s_cand, r);
+  cl.sync();   // every exchange barrier set up
   pc.setup_done();
 
   int g_prev = -1, want_prev = -1, placed_prev = 0, t_last = 0;
-  int jsrc = -1;   // the job count seed row held in F.jcs
+  int job_prev = -1;
+  int jsrc = -1;    // the job count seed row held in F.jcs
+  int u_have = -1;  // K3: the signature whose static row F_VALID holds
   int cq0 = 0, cq1 = 0, cq2 = 0;
   bool cached = false;
   int xk = 0;   // exchanges so far
@@ -439,6 +493,7 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
         w[8] = any;
         w[9] = (int)(unsigned)(p.seed[g] & 0xffffffffll);
         w[10] = p.g_job[g];
+        w[11] = FLAT ? p.g_static[g] : 0;
       }
       __syncthreads();
     }
@@ -450,8 +505,9 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
       // 4. the memo: the last computed step's row
       if (sh == 0) {
         const int64_t r = (int64_t)t * L + l, rl = (int64_t)t_last * L + l;
-        for (int i = tid; i < rs; i += NT)
-          p.fills[r * rs + i] = p.fills[rl * rs + i];
+        if (p.fills)
+          for (int i = tid; i < rs; i += NT)
+            p.fills[r * rs + i] = p.fills[rl * rs + i];
         for (int i = tid; i < width; i += NT)
           p.buf[r * width + i] = p.buf[rl * width + i];
       }
@@ -467,16 +523,21 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
     const bool aff_any = st[8] != 0;
     const unsigned sd = (unsigned)st[9];
     const int gjob = st[10];
+    // the counts carry over from the last step: K2's and K12's for the
+    // same group, K3's for the same job (select.py same_r)
+    const bool jsame = FLAT ? gjob == job_prev : same;
+    job_prev = gjob;
     const bool refresh =
         !cached || req[0] != cq0 || req[1] != cq1 || req[2] != cq2;
     cached = true;
     cq0 = req[0];
     cq1 = req[1];
     cq2 = req[2];
-    if (!same && gjob != jsrc) {
+    const int* jc0 =
+        p.job_count0 + ((int64_t)sb * p.n_jrows + gjob) * nc + jb;
+    if (!FLAT && !jsame && gjob != jsrc) {
       // the group's job count seed row, its loads issued together (each
       // thread reads back only the rows it loads)
-      const int* jc0 = p.job_count0 + (int64_t)gjob * nc + row0;
       for (int j0 = tid; j0 < nb; j0 += 4 * NT) {
         int v[4];
 #pragma unroll
@@ -490,6 +551,20 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
       }
       jsrc = gjob;
     }
+    if (FLAT && st[11] != u_have) {
+      // K3: the signature's static row into the valid bits (the cache
+      // does not depend on them: every slot holds its row's usage)
+      const uint8_t* srow = p.static_u + (int64_t)st[11] * n + row0;
+      nvalid = 0;
+      for (int j = tid; j < nb; j += NT) {
+        const bool v = __ldg(srow + j) != 0;
+        F.fl[j] = (uint8_t)((F.fl[j] & ~F_VALID) | (v ? F_VALID : 0u));
+        nvalid += v ? 1 : 0;
+      }
+      block_sums<1>(&nvalid, s_red);
+      __syncthreads();   // s_red read before the merge rewrites it
+      u_have = st[11];
+    }
     pc.mark(PH_TOP, act);
 
     // 1. the pass, two rows an iteration: both rows' loads, then both
@@ -500,7 +575,7 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
     int cnt[NCNT] = {0, 0, 0, 0, 0};   // viable exh dim(3)
     {
       const float* afr =
-          p.aff_land + ((int64_t)l * p.ua + a) * nc + row0;
+          p.aff_land + (((int64_t)sb * L + l) * p.ua + a) * nc + jb;
       const float des = fmaxf((float)desired, 1.0f);
       const int cnt0 = 1 + (aff_any ? 1 : 0);
       // one row: its intake, score and key bits, and its counts
@@ -535,6 +610,10 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
         *sc_out = sc;
         return hi;
       };
+      // a row's job count: carried, else the seed row (K3 reads it here)
+      auto jcount_at = [&](int j) {
+        return jsame ? F.jc[j] : FLAT ? __ldg(jc0 + j) : F.jcs[j];
+      };
       for (int j = tid; j < nb; j += 2 * NT) {
         const int j2 = j + NT;
         const bool two = j2 < nb;
@@ -543,12 +622,13 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
           if (two) refresh_row(F, j2, req, rs, p.spread != 0);
         }
         const int jj2 = two ? j2 : j;   // a second row's loads, in range
-        const int jc1 = same ? F.jc[j] : F.jcs[j];
-        const int jc2 = same ? F.jc[jj2] : F.jcs[jj2];
+        const int jc1 = jcount_at(j);
+        const int jc2 = jcount_at(jj2);
         const unsigned f1 = F.fl[j], f2 = F.fl[jj2];
         const int kc1 = F.kcap[j], kc2 = F.kcap[jj2];
         const float bp1 = F.bp[j], bp2 = F.bp[jj2];
-        const int g1 = F.crow[j], g2 = F.crow[jj2];
+        const int g1 = row_of<FLAT>(F, j, row0);
+        const int g2 = row_of<FLAT>(F, jj2, row0);
         const float af1 = aff_any ? afr[j] : 0.0f;
         const float af2 = aff_any ? afr[jj2] : 0.0f;
         int k1, k2;
@@ -557,7 +637,7 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
         F.hi[j] = hi1;
         F.k[j] = k1;
         F.sc[j] = sc1;
-        if (!same) F.jc[j] = jc1;
+        if (!jsame) F.jc[j] = jc1;
         topb_insert(((unsigned long long)hi1 << 32) | (unsigned)~(row0 + j),
                     top);
         if (two) {
@@ -565,7 +645,7 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
           F.hi[j2] = hi2;
           F.k[j2] = k2;
           F.sc[j2] = sc2;
-          if (!same) F.jc[j2] = jc2;
+          if (!jsame) F.jc[j2] = jc2;
           topb_insert(
               ((unsigned long long)hi2 << 32) | (unsigned)~(row0 + j2), top);
         }
@@ -598,7 +678,7 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
         const unsigned long long b = warp_pop(t2, &src);
         if (lane == q) mine = b;
       }
-      if (lane < TOPB) post_entry(s_post + lane * PW, mine, F, row0);
+      if (lane < TOPB) post_entry<FLAT>(s_post + lane * PW, mine, F, row0);
 #pragma unroll
       for (int q = 0; q < NCNT; ++q) {
         int v = 0;
@@ -606,33 +686,43 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
         v = __reduce_add_sync(FULL, v);
         if (lane == q) s_post[TOPB * PW + q] = v;
       }
+      if (lane == 0) s_post[TOPB * PW + NCNT] = nvalid;
       __syncwarp();
       pc.mark_nb(PH_MERGE, act);
       xch_meet(&s_xch, xk, sh, CB, s_post);
       pc.mark_nb(PH_XCH, act);
 
-      // 3. the decision over the CB posts (one key a lane)
+      // 3. the decision over the CB posts (one key a lane; two past 8
+      // blocks, the second from entry lane + 32)
       const int (*slots)[XW] = s_xch.slot[xk & 1];
+      const int ne = CB * TOPB;
+      auto entry = [&](int i) { return slots[i / TOPB] + (i % TOPB) * PW; };
       unsigned long long ck[TOPB] = {};
-      if (lane < CB * TOPB)
-        ck[0] = post_key(slots[lane / TOPB] + (lane % TOPB) * PW);
+      if (lane < ne) ck[0] = post_key(entry(lane));
+      if (lane + 32 < ne) topb_insert(post_key(entry(lane + 32)), ck);
       int win = 0;   // lane q < TOPB: the post entry of the q-th key
+      unsigned long long wkey = 0ull;
 #pragma unroll
       for (int q = 0; q < TOPB; ++q) {
-        warp_pop(ck, &src);
-        if (lane == q) win = src;
+        const unsigned long long b = warp_pop(ck, &src);
+        if (lane == q) {
+          win = src;
+          wkey = b;
+        }
       }
-      int vt[NCNT];
+      if (win + 32 < ne && post_key(entry(win)) != wkey) win += 32;
+      int vt[NPC];
 #pragma unroll
-      for (int q = 0; q < NCNT; ++q)
+      for (int q = 0; q < NPC; ++q)
         vt[q] = __reduce_add_sync(
             FULL, lane < CB ? slots[lane][TOPB * PW + q] : 0);
+      const int filt = n - vt[NCNT];
       // lane q < nbk: the lane's q-th key and its values
       int e[PW];
 #pragma unroll
       for (int q = 0; q < PW; ++q) e[q] = 0;
       if (lane < nbk) {
-        const int* w = slots[win / TOPB] + (win % TOPB) * PW;
+        const int* w = entry(win);
 #pragma unroll
         for (int q = 0; q < PW; ++q) e[q] = w[q];
       }
@@ -658,6 +748,7 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
         s_ctl[C_CAP] = cap_round;
         s_ctl[C_PLACED] = placed;
         for (int q = 0; q < 4; ++q) s_ctl[C_EXH + q] = vt[1 + q];
+        s_ctl[C_FILT] = filt;
       }
       if (!wide) {
         int d[4] = {0, 0, 0, 0};
@@ -671,12 +762,12 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
         for (int q = 0; q < 4; ++q) d[q] = __reduce_add_sync(FULL, d[q]);
         if (sh == 0) {
           const int64_t r = (int64_t)t * L + l;
-          int* frow = p.fills + r * rs;
+          int* frow = p.fills ? p.fills + r * rs : nullptr;
           int* brow = p.buf + r * width;
           const int fq = c > 0 ? e[4] * 2048 + c : 0;
           for (int i = lane; i < rs; i += 32) {
             const int f = i < nbk ? fq : 0;   // i == lane there
-            frow[i] = f;
+            if (frow) frow[i] = f;
             if (i < p.fill_k) brow[i] = f;
           }
           int* meta = brow + p.fill_k;
@@ -686,7 +777,7 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
             meta[lane] = v ? e[4] : -1;
             meta[TOP_K + lane] = v ? e[2] : 0;
           }
-          if (lane == 0) meta_tail(meta, vt[0], n - cand_n, vt + 1, d, placed);
+          if (lane == 0) meta_tail(meta, vt[0], filt, vt + 1, d, placed);
         }
       }
       pc.mark_nb(PH_DECIDE, act);
@@ -803,9 +894,9 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
         const int j = gord[i];
         const unsigned long long key =
             ((unsigned long long)F.hi[j] << 32) | (unsigned)~(row0 + j);
-        const int v[GV] = {__float_as_int(F.sc[j]), F.k[j], F.crow[j],
-                           F.c0[j] - F.u0[j], F.c1[j] - F.u1[j],
-                           F.c2[j] - F.u2[j], F.jc[j]};
+        const int v[GV] = {__float_as_int(F.sc[j]), F.k[j],
+                           row_of<FLAT>(F, j, row0), F.c0[j] - F.u0[j],
+                           F.c1[j] - F.u1[j], F.c2[j] - F.u2[j], F.jc[j]};
         for (int r = 0; r < CB; ++r) {
           cl.map_shared_rank(gkey, r)[off + i] = key;
           int* dv = cl.map_shared_rank(gval, r) + (off + i) * GV;
@@ -854,13 +945,13 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
       block_sums<NCNT>(d, s_red);
       if (sh == 0) {
         const int64_t r = (int64_t)t * L + l;
-        int* frow = p.fills + r * rs;
+        int* frow = p.fills ? p.fills + r * rs : nullptr;
         int* brow = p.buf + r * width;
         for (int i = tid; i < rs; i += NT) {
           const int f = i < T && gc[i] > 0
                             ? gval[gord[i] * GV + 2] * 2048 + gc[i]
                             : 0;
-          frow[i] = f;
+          if (frow) frow[i] = f;
           if (i < p.fill_k) brow[i] = f;
         }
         int* meta = brow + p.fill_k;
@@ -874,8 +965,8 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
           meta[TOP_K + tid] = v ? gval[e * GV] : 0;
         }
         if (tid == 0)
-          meta_tail(meta, s_ctl[C_VIABLE], n - cand_n, s_ctl + C_EXH, d + 1,
-                    d[0]);
+          meta_tail(meta, s_ctl[C_VIABLE], s_ctl[C_FILT], s_ctl + C_EXH,
+                    d + 1, d[0]);
       }
       placed = d[0];
       __syncthreads();   // the row complete before a memo copies it
@@ -885,34 +976,18 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
     pc.step(act);
   }
 
-  // the frame's usage back to its cluster rows (frames are disjoint)
+  // the frame's usage back to its rows (frames are disjoint; K3 writes
+  // every row, and its last step's job counts)
   for (int j = tid; j < nb; j += NT)
-    if (F.fl[j] & F_VALID) {
-      const int64_t r = F.crow[j];
+    if (FLAT || (F.fl[j] & F_VALID)) {
+      const int64_t r = row_of<FLAT>(F, j, row0);
       p.used_out[3 * r] = F.u0[j];
       p.used_out[3 * r + 1] = F.u1[j];
       p.used_out[3 * r + 2] = F.u2[j];
+      if (FLAT) p.jc_out[r] = F.jc[j];
     }
   cl.sync();   // no block leaves while a peer may read its memory
   pc.finish(p.prof);
-}
-
-// The blocks of a lane and the frame slots of each: at least MIN_ROWS a
-// block, at most XCH_BLOCKS blocks, the last holding the remainder.
-struct Plan {
-  int cb, rows;
-  long long fixed, frame;
-};
-
-Plan plan(int nc, int rs) {
-  int c = (nc + MIN_ROWS - 1) / MIN_ROWS;
-  c = c < 1 ? 1 : (c > XCH_BLOCKS ? XCH_BLOCKS : c);
-  Plan q;
-  q.rows = (nc + c - 1) / c;
-  q.cb = (nc + q.rows - 1) / q.rows;
-  q.fixed = dyn_layout(rs < nc ? rs : nc).frame;
-  q.frame = frame_size(q.rows);
-  return q;
 }
 
 // The dynamic shared memory every instantiation can take on the current
@@ -928,8 +1003,10 @@ int smem_room(long long* room) {
     return 0;
   }
   void (*kerns[])(Params) = {
-      compact_kernel<false, true>, compact_kernel<true, true>,
-      compact_kernel<false, false>, compact_kernel<true, false>};
+      compact_kernel<false, true, false>, compact_kernel<true, true, false>,
+      compact_kernel<false, false, false>, compact_kernel<true, false, false>,
+      compact_kernel<false, true, true>, compact_kernel<true, true, true>,
+      compact_kernel<false, false, true>, compact_kernel<true, false, true>};
   size_t st = 0;
   for (auto k : kerns) {
     cudaFuncAttributes fa;
@@ -946,28 +1023,99 @@ int smem_room(long long* room) {
   return 0;
 }
 
-// `p.frame_glob` is the wrapper's scratch (multi_compact_scratch_bytes),
-// used only when the frame state does not fit in shared memory
-template <bool PROF>
-int launch(Params p, cudaStream_t stream) {
-  if (p.rs > MAX_RS || p.rs < 1 || p.nc < 1 || p.n_lanes < 1 ||
-      p.fill_k < 1 || p.fill_k > p.rs)
-    return (int)cudaErrorInvalidValue;
-  const Plan q = plan(p.nc, p.rs);
+// The blocks of a lane and the frame slots of each.  K12 (S > 1): one
+// block per shard.  Else at least MIN_ROWS slots a block, at most
+// XCH_BLOCKS blocks, the last holding the remainder; a frame that does
+// not fit in the shared memory of XCH_BLOCKS blocks takes up to `max_cb`
+// blocks (K3's choice) where that makes it fit, else global scratch.
+struct Plan {
+  int cb, rows;
+  long long fixed, frame;
+  bool fits;
+};
+
+Plan split(int nct, int c, bool flat, long long fixed, long long room) {
+  Plan q;
+  q.rows = (nct + c - 1) / c;
+  q.cb = (nct + q.rows - 1) / q.rows;
+  q.fixed = fixed;
+  q.frame = frame_size(q.rows, flat);
+  q.fits = fixed + q.frame <= room;
+  return q;
+}
+
+int plan(int nc, int shards, int rs, bool flat, int max_cb, Plan* q) {
   long long room = 0;
   const int e = smem_room(&room);
   if (e) return e;
-  const bool fits = q.fixed + q.frame <= room;
-  if (q.fixed > room || (!fits && !p.frame_glob))
+  const int nct = nc * shards;
+  const long long fixed = dyn_layout(rs < nct ? rs : nct).frame;
+  if (shards > 1) {
+    *q = split(nct, shards, flat, fixed, room);
+    return 0;
+  }
+  const int want = (nct + MIN_ROWS - 1) / MIN_ROWS;
+  *q = split(nct, want < 1 ? 1 : want > XCH_BLOCKS ? XCH_BLOCKS : want, flat,
+             fixed, room);
+  if (!q->fits && max_cb > XCH_BLOCKS) {
+    const Plan w = split(nct, want > max_cb ? max_cb : want, flat, fixed,
+                         room);
+    if (w.fits) *q = w;
+  }
+  return 0;
+}
+
+// `p.frame_glob` is the wrapper's scratch (multi_compact_scratch_bytes),
+// used only when the frame state does not fit in shared memory
+template <bool PROF, bool FLAT>
+int launch(Params p, int max_cb, cudaStream_t stream) {
+  if (p.rs > MAX_RS || p.rs < 1 || p.nc < 1 || p.n_lanes < 1 ||
+      p.fill_k < 1 || p.fill_k > p.rs || p.shards < 1 ||
+      p.shards > XCH_BLOCKS || max_cb > MAX_CB ||
+      (FLAT && (p.n_lanes != 1 || p.shards != 1 || p.nc != p.n ||
+                !p.jc_out)))
+    return (int)cudaErrorInvalidValue;
+  Plan q;
+  int e = plan(p.nc, p.shards, p.rs, FLAT, max_cb, &q);
+  if (e) return e;
+  long long room = 0;
+  e = smem_room(&room);
+  if (e) return e;
+  if (q.fixed > room || (!q.fits && !p.frame_glob))
     return (int)cudaErrorInvalidValue;
   p.cb = q.cb;
   p.rows = q.rows;
   p.frame_bytes = q.frame;
-  if (fits)
-    return launch_clusters(compact_kernel<PROF, true>, p.n_lanes * q.cb,
-                           q.cb, (size_t)(q.fixed + q.frame), stream, p);
-  return launch_clusters(compact_kernel<PROF, false>, p.n_lanes * q.cb,
+  if (q.fits)
+    return launch_clusters(compact_kernel<PROF, true, FLAT>,
+                           p.n_lanes * q.cb, q.cb,
+                           (size_t)(q.fixed + q.frame), stream, p);
+  return launch_clusters(compact_kernel<PROF, false, FLAT>, p.n_lanes * q.cb,
                          q.cb, (size_t)q.fixed, stream, p);
+}
+
+// The probe of the rounds' exchange: `rounds` meetings of `cluster`
+// blocks (xch_meet of an XW-word post, one warp a block), each post
+// depending on the last.
+__global__ void __launch_bounds__(32, 1) exchange_kernel(int rounds,
+                                                         int* sink) {
+  __shared__ __align__(16) XchT<XW, MAX_CB> s_xch;
+  __shared__ __align__(16) int s_post[XW];
+  const int cb = (int)cg::this_cluster().num_blocks();
+  const int sh = (int)cg::this_cluster().block_rank();
+  const int lane = threadIdx.x;
+  xch_init(&s_xch, cb);
+  cg::this_cluster().sync();
+  int v = lane;
+  for (int r = 0; r < rounds; ++r) {
+    for (int w = lane; w < XW; w += 32) s_post[w] = v + r;
+    __syncwarp();
+    xch_meet(&s_xch, r, sh, cb, s_post);
+    v += s_xch.slot[r & 1][lane % cb][lane % XW] & 1;
+    __syncwarp();
+  }
+  cg::this_cluster().sync();
+  if (v == 0x7fffffff) *sink = v;
 }
 
 }  // namespace
@@ -992,6 +1140,7 @@ static Params params(COMPACT_ARGS) {
   p.buf = buf_small; p.fills = fills_full;
   p.n = n; p.n_lanes = n_lanes; p.nc = nc; p.ua = ua; p.n_aff = n_aff;
   p.n_steps = n_steps; p.spread = spread; p.rs = rs; p.fill_k = fill_k;
+  p.shards = 1; p.n_jrows = 0;
   p.frame_glob = scratch;
   return p;
 }
@@ -1002,40 +1151,126 @@ static Params params(COMPACT_ARGS) {
          round_want, buf_small, fills_full, n, n_lanes, nc, ua, n_aff,     \
          n_steps, spread, rs, fill_k, scratch)
 
-// The bytes of global scratch K2 needs at `nc` frame slots and round size
-// `rs` (the frame state, when it does not fit in shared memory), 0 when
-// it needs none, -1 when too large; a host function.
-extern "C" int multi_compact_scratch_bytes(int n_lanes, int nc, int rs) {
-  if (n_lanes < 1 || nc < 1 || rs < 1) return -1;
-  const Plan q = plan(nc, rs);
-  long long room = 0;
-  if (smem_room(&room) != 0 || q.fixed > room) return -1;
-  if (q.fixed + q.frame <= room) return 0;
+// K3: usage `used` [N, 3] updated in place, buf [R, rs + 16], the last
+// step's job counts jc [N]; up to `max_cb` blocks (8 or 16)
+#define FLAT_ARGS                                                          \
+  const int *cap, int *used, const uint8_t *static_u,                      \
+      const float *aff_land, const int *aff, const int *req,               \
+      const int *desired, const int *dh_limit, const int *g_static,        \
+      const int *g_aff, const int *g_job, const long long *seed,           \
+      const int *job_count0, const int *round_g, const int *round_want,    \
+      int *buf, int *jc, int n, int ua, int n_aff, int n_rounds,           \
+      int spread, int rs, int max_cb, unsigned char *scratch
+
+static Params flat_params(FLAT_ARGS) {
+  Params p{};
+  p.cap = cap; p.used_in = used; p.used_out = used; p.static_u = static_u;
+  p.aff_land = aff_land; p.aff = aff; p.req = req; p.desired = desired;
+  p.dh_limit = dh_limit; p.g_static = g_static; p.g_aff = g_aff;
+  p.g_job = g_job; p.seed = seed; p.job_count0 = job_count0;
+  p.round_g = round_g; p.round_want = round_want; p.buf = buf;
+  p.jc_out = jc;
+  p.n = n; p.n_lanes = 1; p.nc = n; p.ua = ua; p.n_aff = n_aff;
+  p.n_steps = n_rounds; p.spread = spread; p.rs = rs; p.fill_k = rs;
+  p.shards = 1; p.n_jrows = 0;
+  p.frame_glob = scratch;
+  return p;
+}
+
+#define FLAT_PARAMS                                                         \
+  flat_params(cap, used, static_u, aff_land, aff, req, desired, dh_limit,  \
+              g_static, g_aff, g_job, seed, job_count0, round_g,           \
+              round_want, buf, jc, n, ua, n_aff, n_rounds, spread, rs,     \
+              max_cb, scratch)
+
+// The plan of a launch as host functions: the bytes of global scratch it
+// needs (the frame state, when it does not fit in shared memory; 0 when
+// it needs none, -1 when too large), and its blocks a lane.  `nc` frame
+// slots a shard, `n_shards` shards (1: K2, K3), `flat`: K3's frame.
+extern "C" int multi_compact_scratch_bytes(int n_lanes, int nc, int rs,
+                                           int n_shards, int flat,
+                                           int max_cb) {
+  if (n_lanes < 1 || nc < 1 || rs < 1 || n_shards < 1) return -1;
+  Plan q;
+  if (plan(nc, n_shards, rs, flat != 0, max_cb, &q) != 0) return -1;
+  if (q.fits) return 0;
   const long long b = (long long)n_lanes * q.cb * q.frame;
   return b > 0x7fffffffll ? -1 : (int)b;
 }
 
-// K2's blocks per lane at `nc` frame slots (plan); a host function.
-extern "C" int multi_compact_blocks(int nc) {
-  return nc < 1 ? 0 : plan(nc, 1).cb;
+extern "C" int multi_compact_blocks(int nc, int rs, int n_shards, int flat,
+                                    int max_cb) {
+  Plan q;
+  if (nc < 1 || rs < 1 || n_shards < 1 ||
+      plan(nc, n_shards, rs, flat != 0, max_cb, &q) != 0)
+    return 0;
+  return q.cb;
 }
 
+// K2: frames [L, nc], seeds [J', nc]
 extern "C" int multi_compact(COMPACT_ARGS, cudaStream_t stream) {
-  return launch<false>(COMPACT_PARAMS, stream);
+  return launch<false, false>(COMPACT_PARAMS, XCH_BLOCKS, stream);
 }
 
-// The PROF instantiation: the same rounds, with block 0's phase split
+// The PROF instantiations: the same rounds, with block 0's phase split
 // (NPH phases) written to prof [2 NPH + 4].  Never on the main path.
 extern "C" int multi_compact_prof(COMPACT_ARGS, long long* prof,
                                   cudaStream_t stream) {
   if (!prof) return (int)cudaErrorInvalidValue;
   Params p = COMPACT_PARAMS;
   p.prof = prof;
-  return launch<true>(p, stream);
+  return launch<true, false>(p, XCH_BLOCKS, stream);
+}
+
+// K12: frames [S, L, nc] (nc = Nc_loc), seeds [S, n_jrows, nc], affinity
+// [S, L, Ua, nc]; one cluster of S blocks a lane
+extern "C" int multi_compact_sharded(COMPACT_ARGS, int n_shards,
+                                     int n_jrows, cudaStream_t stream) {
+  Params p = COMPACT_PARAMS;
+  p.shards = n_shards;
+  p.n_jrows = n_jrows;
+  return launch<false, false>(p, XCH_BLOCKS, stream);
+}
+
+extern "C" int multi_compact_sharded_prof(COMPACT_ARGS, int n_shards,
+                                          int n_jrows, long long* prof,
+                                          cudaStream_t stream) {
+  if (!prof) return (int)cudaErrorInvalidValue;
+  Params p = COMPACT_PARAMS;
+  p.shards = n_shards;
+  p.n_jrows = n_jrows;
+  p.prof = prof;
+  return launch<true, false>(p, XCH_BLOCKS, stream);
+}
+
+extern "C" int multi_flat(FLAT_ARGS, cudaStream_t stream) {
+  return launch<false, true>(FLAT_PARAMS, max_cb, stream);
+}
+
+extern "C" int multi_flat_prof(FLAT_ARGS, long long* prof,
+                               cudaStream_t stream) {
+  if (!prof) return (int)cudaErrorInvalidValue;
+  Params p = FLAT_PARAMS;
+  p.prof = prof;
+  return launch<true, true>(p, max_cb, stream);
+}
+
+// Probe of the cost of one exchange of the rounds at `cluster` blocks
+// (up to 16); the placement path never calls it.
+extern "C" int compact_exchange_probe(int rounds, int cluster, int* sink,
+                                      cudaStream_t stream) {
+  if (cluster < 1 || cluster > MAX_CB) return (int)cudaErrorInvalidValue;
+  return launch_clusters_nt(exchange_kernel, cluster, cluster, 32, 0,
+                            stream, rounds, sink);
 }
 
 PY_LAUNCHERS(compact_rounds,
              PY_LAUNCHER(multi_compact_scratch_bytes),
              PY_LAUNCHER(multi_compact_blocks),
              PY_LAUNCHER(multi_compact),
-             PY_LAUNCHER(multi_compact_prof))
+             PY_LAUNCHER(multi_compact_prof),
+             PY_LAUNCHER(multi_compact_sharded),
+             PY_LAUNCHER(multi_compact_sharded_prof),
+             PY_LAUNCHER(multi_flat),
+             PY_LAUNCHER(multi_flat_prof),
+             PY_LAUNCHER(compact_exchange_probe))

@@ -1,71 +1,60 @@
-// K3 "multi_flat": the batched multi-eval water-fill rounds, one
-// persistent launch per wave.  K6 "multi_bulk": one eval's homogeneous
-// batch in rounds, the K3 machinery at one group.  K10
-// "multi_bulk_sharded", K11 "multi_flat_sharded" and K12
-// "multi_compact_sharded": the same rounds over a node axis split into S
-// shards on one card (see "Sharded rounds" below).  K2 "multi_compact",
-// the rounds over zoned lanes, has its own design (compact_rounds.cu);
-// the lane machinery below is K12's.
+// K6 "multi_bulk": one eval's homogeneous batch in water-fill rounds,
+// one persistent launch.  K10 "multi_bulk_sharded" and K11
+// "multi_flat_sharded": the bulk rounds and the flat multi-eval rounds
+// over a node axis split into S shards on one card (see "Sharded rounds"
+// below).  K2, K3 and K12, the multi-eval rounds over lanes, every row or
+// shard frames, have their own design (compact_rounds.cu).
 //
-// Replaces (TPU side, jax.jit): nomad_tpu/ops/select.py:733
-// place_multi_packed (+ :997 place_multi_chained) for K3 and :554
+// Replaces (TPU side, jax.jit): nomad_tpu/ops/select.py:554
 // place_bulk_packed (_bulk_scan :517, _bulk_step :460, _bulk_static
-// :505; place_bulk :615) for K6, with their shared round core
-// round_scores_g (:342), waterfill_round (:413), round_metrics_g (:393),
-// tiebreak_noise (:43) and pack_round_buffer (:531).
+// :505; place_bulk :615) for K6, with the round core round_scores_g
+// (:342), waterfill_round (:413), round_metrics_g (:393), tiebreak_noise
+// (:43) and pack_round_buffer (:531).
 //
 // What bounds it on the H100: sequential depth, not bytes or operations.
-// A wave is T dependent steps (rounds of one lane must see the previous
-// round's commits): 128 steps of a ~10,240-row frame per lane for the
-// north-star zoned wave, 64 rounds over 50,000 rows for the flat wave.
-// The bytes a wave must move are a few MB and its arithmetic under a
-// billion operations (microseconds either way); what costs is that each
-// step is a chain of block-wide passes (score pass, 8 radix-select
-// passes, a sort of the selected rows, a scan, the commit, the metrics
-// pass), each waiting on the one before, and that each pass walks the
-// whole frame with one block.
+// A launch is R dependent rounds (each round must see the previous
+// round's commits); the bytes it must move are a few MB and its
+// arithmetic under a billion operations (microseconds either way); what
+// costs is that each round is a chain of block-wide passes (score pass,
+// 8 radix-select passes, a sort of the selected rows, a scan, the
+// commit, the metrics pass), each waiting on the one before, and that
+// each pass walks the whole node axis with one block.
 //
-// Design: one thread block of 1024 threads per lane, for the whole wave
-// (K3: one block whose frame is every node, whose static row comes from
-// K1's [U, N] output; K12: the lanes' disjoint signature frames).
-// K6 is K3 with one group, every round of it, and the bulk kernel's three
-// output layouts (full, with a score block, compact prefix plus full
-// fills).  The lane's frame state (usage, job counts, intake, scores, selection
-// keys) lives in global scratch that stays L2-resident; selection state
-// lives in shared memory.  Per step the block
-//   1. scores every frame row (intake k_i, binpack/anti-affinity/affinity
-//      rank chain, normalised exactly as the reference orders it),
+// Design: one thread block of 1024 threads for the whole launch, over
+// every node row, the static row from the caller's [U, N] mask (K6: one
+// group, every round of it), with the bulk kernel's three output layouts
+// (full, with a score block, compact prefix plus full fills).  The round
+// state (usage, job counts, intake, scores, selection keys) lives in
+// global memory that stays L2-resident; selection state lives in shared
+// memory.  Per round the block
+//   1. scores every row (intake k_i, binpack/anti-affinity/affinity rank
+//      chain, normalised exactly as the reference orders it),
 //   2. caps intake for the spread algorithm and builds 64-bit selection
 //      keys (score + tie-break noise, then the row index, so the order is
 //      score descending and index ascending among ties, as
 //      jax.lax.top_k orders them),
-//   3. finds the top min(round_size, frame) keys by an 8-pass MSB radix
+//   3. finds the top min(round_size, N) keys by an 8-pass MSB radix
 //      select with warp-aggregated shared-memory histograms, gathers them
 //      and bitonic-sorts them in shared memory,
 //   4. water-fills them with a block scan (cumsum) to `want` placements,
 //   5. commits usage and job counts, then counts post-commit exhaustion,
 //   6. writes its row of the packed output (fills row*2048+count and the
 //      16-word meta block, layout byte-identical to pack_round_buffer).
-// At the end K12 scatters each lane's usage slice back to its cluster rows
-// (frames are disjoint, so lanes never write the same row).  Floor
-// division of negative free capacity is done explicitly (C `/`
+// Floor division of negative free capacity is done explicitly (C `/`
 // truncates).  10^x is not the device powf, which differs from the C
 // library's powf in the last bit for some exponents: `libm_pow10f`
 // follows the C library's algorithm step for step in double precision,
 // so scores (and hence picks) agree to the bit with the reference, whose
 // XLA CPU pow is the C library's powf.
 //
-// Sharded rounds (K10-K12).  Replaces (TPU side, jax.jit under
+// Sharded rounds (K10, K11).  Replaces (TPU side, jax.jit under
 // shard_map): nomad_tpu/parallel/mesh.py:645 place_bulk_sharded_packed_fn
-// (_bulk_local :346), :454 place_multi_sharded_packed_fn (_multi_local
-// :390, chained form :497) and :590 place_multi_compact_sharded_fn
-// (_multi_compact_local :503, chained form :639), with their round
-// _sharded_waterfill (:255).  Shard s owns the rows [s n_loc, (s+1) n_loc)
-// (K12: its slice [S, L, Nc_loc] of every lane's frame).  One cluster of S
-// blocks per exchange group (K10/K11: one; K12: one per lane, lanes never
-// exchange), each block running the round body above on its shard, with
-// global rows for the noise.  Per round the blocks meet three times at
-// the cluster barrier, through exchange rows in global scratch that the
+// (_bulk_local :346) and :454 place_multi_sharded_packed_fn (_multi_local
+// :390, chained form :497), with their round _sharded_waterfill (:255).
+// Shard s owns the rows [s n_loc, (s+1) n_loc).  One cluster of S
+// blocks, each running the round body above on its shard, with global
+// rows for the noise.  Per round the blocks meet three times at the
+// cluster barrier, through exchange rows in global scratch that the
 // wrapper allocates (written and read past L1, `__stcg`/`__ldcg`):
 //   1. the viable-row count, summed (the spread algorithm's intake cap);
 //   2. each shard's sorted local top min(round, n_loc) keys with their
@@ -79,8 +68,8 @@
 //   3. the post-commit exhaustion metrics, summed.
 // Block 0 writes the round's packed row.  A phase's exchange row is
 // rewritten a round later only after the next barrier, when every block
-// has read it.  What bounds it: as for K2/K3, the chain of dependent
-// block passes, now with three cluster barriers a round.
+// has read it.  What bounds it: the chain of dependent block passes, now
+// with three cluster barriers a round.
 
 #include "py_launchers.cuh"  // first: it includes Python.h
 #include <cooperative_groups.h>
@@ -100,42 +89,36 @@ constexpr int META = 16;
 
 struct Params {
   const int* cap;            // [N, 3]
-  const int* used_in;        // K12: [N, 3] start usage
-  int* used;                 // K12: [N, 3] output; K3: state and output
+  int* used;                 // [N, 3] state and output
   int n;
-  const int* cand_rows;      // K12: [S, L, nc] frame rows (padding = n)
-  const uint8_t* cand_valid; // K12: [S, L, nc]
-  const uint8_t* static_u;   // K3: [U, N] from K1
-  const float* aff_land;     // K12: [S, L, Ua, nc]; K3: [Ua, N]
+  const uint8_t* static_u;   // [U, N]
+  const float* aff_land;     // [Ua, N]
   const int* aff;            // [Ua, Af, 4]
   int ua, n_aff;
   const int* req;            // [G, 3]
   const int* desired;        // [G]
   const int* dh_limit;       // [G]
-  const int* g_static;       // [G] (K3)
+  const int* g_static;       // [G]
   const int* g_aff;          // [G]
   const int* g_job;          // [G]
   const long long* seed;     // [G], uint32 values
-  const int* job_count0;     // K12: [S, J', nc]; K3: [G, N]
-  const int* round_g;        // K12: [T * L] step-major; K3: [R]
+  const int* job_count0;     // [J, N]
+  const int* round_g;        // [R]
   const int* round_want;
-  int n_steps, n_lanes, nc, spread, rs, fill_k;
-  int out_mode;              // K3/K6 layout: 0 full, 1 + scores, 2 compact
-  int* used_c;               // K12 scratch [S, L, nc, 3]
-  int* jc;                   // [L, nc] current job counts (K3: output)
-  int* ki;                   // [L, nc] intake
-  float* score;              // [L, nc]
-  unsigned* keyb;            // [L, nc] orderable key bits
-  int* buf;                  // K12: [T*L, fill_k + 16]; K3: [R, rs + 16];
-                             // K6: [R, rs + 16 | 2 rs + 16 | fill_k + 16]
-  int* fills;                // K12: [T*L, rs]; K6 compact: [R, rs]
-  int row_stride;            // K3/K6/K10/K11: node rows of static_u,
-                             // aff_land and job_count0 (N or npad)
+  int n_steps, nc, spread, rs, fill_k;
+  int out_mode;              // K6 layout: 0 full, 1 + scores, 2 compact
+  int* jc;                   // [N] current job counts (output)
+  int* ki;                   // [N] intake
+  float* score;              // [N]
+  unsigned* keyb;            // [N] orderable key bits
+  int* buf;                  // [R, rs + 16 | 2 rs + 16 | fill_k + 16]
+  int* fills;                // K6 compact: [R, rs]
+  int row_stride;            // node rows of static_u, aff_land and
+                             // job_count0 (N or npad)
   int n_shards;              // sharded: cluster size S; nc = n_loc
-  int n_jrows;               // K12: J' rows of job_count0 [S, J', nc]
-  int* xcnt;                 // sharded: [clusters, 4, S, 8] count rows
-  unsigned long long* xkey;  // sharded: [clusters, S * kk_loc] keys
-  int* xval;                 // sharded: [clusters, S * kk_loc, 4]
+  int* xcnt;                 // sharded: [4, S, 8] count rows
+  unsigned long long* xkey;  // sharded: [S * kk_loc] keys
+  int* xval;                 // sharded: [S * kk_loc, 4]
 };
 
 // round_scores_g for one row: intake k_i and the normalised rank score
@@ -316,7 +299,7 @@ __device__ void cluster_sum(int* row, int s, int S, int* v, int nv) {
   }
 }
 
-template <bool COMPACT, bool SHARDED>
+template <bool SHARDED>
 __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
   extern __shared__ unsigned long long s_all[];   // sharded: S * kk_loc
   __shared__ unsigned long long s_sel[MAX_RS];
@@ -330,57 +313,26 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
   const int tid = threadIdx.x;
   const int S = SHARDED ? p.n_shards : 1;
   const int s = SHARDED ? (int)cg::this_cluster().block_rank() : 0;
-  const int l = COMPACT ? (int)blockIdx.x / S : 0;
   const int nc = p.nc;
-  // first slot of this block's frame in the [.., nc] scratch and inputs:
-  // K12 (shard s, lane l), K10/K11 shard s's first row
-  const int64_t fb =
-      COMPACT ? ((int64_t)s * p.n_lanes + l) * nc : (int64_t)s * nc;
-  int* used_state = COMPACT ? p.used_c + fb * 3 : p.used + fb * 3;
+  // this block's first row (K10/K11: shard s's)
+  const int64_t fb = (int64_t)s * nc;
+  int* used_state = p.used + fb * 3;
   int* jc = p.jc + fb;
   int* ki = p.ki + fb;
   float* score = p.score + fb;
   unsigned* keyb = p.keyb + fb;
-  const int* crow = COMPACT ? p.cand_rows + fb : nullptr;
-  const uint8_t* cval = COMPACT ? p.cand_valid + fb : nullptr;
   const int n_iter = (nc + BS - 1) / BS;   // uniform trip count
   const int kk_loc = min(p.rs, nc);
   // length of the merged (sorted) candidate list a round fills from
   const int kk = SHARDED ? min(p.rs, S * kk_loc) : kk_loc;
-  const int64_t cl = COMPACT ? l : 0;      // exchange group
-  int* xcnt = SHARDED ? p.xcnt + cl * 4 * S * 8 : nullptr;
-  unsigned long long* xkey = SHARDED ? p.xkey + cl * S * kk_loc : nullptr;
-  int* xval = SHARDED ? p.xval + cl * S * kk_loc * 4 : nullptr;
-
-  int cand_n = 0;
-  if (COMPACT) {
-    // gather the lane's frame; padding rows start empty (they are never
-    // static, so nothing reads their usage into an output)
-    int cnt = 0;
-    for (int it = 0; it < n_iter; ++it) {
-      int j = it * BS + tid;
-      if (j < nc) {
-        bool valid = cval[j] != 0;
-        int row = crow[j];
-        for (int d = 0; d < 3; ++d)
-          used_state[(int64_t)j * 3 + d] =
-              valid ? p.used_in[(int64_t)row * 3 + d] : 0;
-        cnt += valid ? 1 : 0;
-      }
-    }
-    cand_n = block_sum(cnt, s_red);
-    if (SHARDED) cluster_sum(xcnt, s, S, &cand_n, 1);
-  }
+  int* xcnt = p.xcnt;
+  unsigned long long* xkey = p.xkey;
+  int* xval = p.xval;
 
   for (int t = 0; t < p.n_steps; ++t) {
-    const int rr = COMPACT ? t * p.n_lanes + l : t;
-    const int g = p.round_g[rr];
-    const int want = p.round_want[rr];
-    bool same;
-    if (COMPACT)
-      same = t > 0 && p.round_g[rr - p.n_lanes] == g;
-    else
-      same = t > 0 && p.g_job[p.round_g[t - 1]] == p.g_job[g];
+    const int g = p.round_g[t];
+    const int want = p.round_want[t];
+    const bool same = t > 0 && p.g_job[p.round_g[t - 1]] == p.g_job[g];
     int req[3] = {p.req[3 * g], p.req[3 * g + 1], p.req[3 * g + 2]};
     const int desired = p.desired[g];
     const int dh = p.dh_limit[g];
@@ -389,15 +341,10 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
     bool aff_any = false;
     for (int q = 0; q < p.n_aff; ++q)
       aff_any |= p.aff[((int64_t)a * p.n_aff + q) * 4 + 3] != 0;
-    const float* aff_row =
-        COMPACT ? p.aff_land + (((int64_t)s * p.n_lanes + l) * p.ua + a) * nc
-                : p.aff_land + (int64_t)a * p.row_stride + fb;
+    const float* aff_row = p.aff_land + (int64_t)a * p.row_stride + fb;
     const uint8_t* stat_row =
-        COMPACT ? cval
-                : p.static_u + (int64_t)p.g_static[g] * p.row_stride + fb;
-    const int* jc0 =
-        COMPACT ? p.job_count0 + ((int64_t)s * p.n_jrows + p.g_job[g]) * nc
-                : p.job_count0 + (int64_t)p.g_job[g] * p.row_stride + fb;
+        p.static_u + (int64_t)p.g_static[g] * p.row_stride + fb;
+    const int* jc0 = p.job_count0 + (int64_t)p.g_job[g] * p.row_stride + fb;
 
     // 1. job counts, intake, rank score
     int viable = 0, n_static = 0;
@@ -407,7 +354,7 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
         int jcount = same ? jc[j] : jc0[j];
         jc[j] = jcount;
         bool st = stat_row[j] != 0;
-        int64_t row = COMPACT ? min(crow[j], p.n - 1) : fb + j;
+        const int64_t row = fb + j;
         int c[3] = {p.cap[row * 3], p.cap[row * 3 + 1], p.cap[row * 3 + 2]};
         const int* u = used_state + (int64_t)j * 3;
         int uu[3] = {u[0], u[1], u[2]};
@@ -422,7 +369,7 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
       }
     }
     viable = block_sum(viable, s_red);
-    if (!COMPACT) n_static = block_sum(n_static, s_red);
+    n_static = block_sum(n_static, s_red);
     if (SHARDED) cluster_sum(xcnt + 1 * S * 8, s, S, &viable, 1);
     const int cap_round =
         p.spread ? max(want / max(viable, 1) + 1, 1) : p.rs;
@@ -434,7 +381,7 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
       if (j < nc) {
         int kr = min(ki[j], cap_round);
         ki[j] = kr;
-        unsigned grow = COMPACT ? (unsigned)crow[j] : (unsigned)(fb + j);
+        const unsigned grow = (unsigned)(fb + j);
         float key = (kr > 0 ? score[j] : NEG_INF) + tiebreak_noise(sd, grow);
         keyb[j] = orderable(key);
         n_feas += kr > 0 ? 1 : 0;
@@ -471,7 +418,7 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
         __stcg(xval + ci * 4, __float_as_int(key > HALF_NEG_INF ? score[jl]
                                                                 : NEG_INF));
         __stcg(xval + ci * 4 + 1, ki[jl]);
-        __stcg(xval + ci * 4 + 2, COMPACT ? crow[jl] : (int)(fb + jl));
+        __stcg(xval + ci * 4 + 2, (int)(fb + jl));
         __stcg(xval + ci * 4 + 3, jl);
       }
       int sums[2] = {n_feas, n_static};
@@ -516,7 +463,7 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
     for (int it = 0; it < n_iter; ++it) {
       int j = it * BS + tid;
       if (j < nc && stat_row[j] != 0) {
-        int64_t row = COMPACT ? crow[j] : fb + j;
+        const int64_t row = fb + j;
         const int* u = used_state + (int64_t)j * 3;
         int f0 = p.cap[row * 3] - u[0];
         int f1 = p.cap[row * 3 + 1] - u[1];
@@ -538,35 +485,22 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
 
     // 6. this round's packed output row (block 0 of a cluster)
     if (s == 0) {
-      int* meta;
-      if (COMPACT) {
-        const int64_t r = (int64_t)t * p.n_lanes + l;
-        int* frow = p.fills + r * p.rs;
-        int* brow = p.buf + r * (p.fill_k + META);
-        for (int i = tid; i < p.rs; i += BS) {
-          int f = (i < kk && s_c[i] > 0) ? s_row[i] * 2048 + s_c[i] : 0;
-          frow[i] = f;
+      const int width = p.out_mode == 2 ? p.fill_k + META
+                        : (p.out_mode == 1 ? 2 * p.rs : p.rs) + META;
+      int* brow = p.buf + (int64_t)t * width;
+      for (int i = tid; i < p.rs; i += BS) {
+        int f = (i < kk && s_c[i] > 0) ? s_row[i] * 2048 + s_c[i] : 0;
+        if (p.out_mode == 2) {
+          p.fills[(int64_t)t * p.rs + i] = f;
           if (i < p.fill_k) brow[i] = f;
+        } else {
+          brow[i] = f;
         }
-        meta = brow + p.fill_k;
-      } else {
-        const int width = p.out_mode == 2 ? p.fill_k + META
-                          : (p.out_mode == 1 ? 2 * p.rs : p.rs) + META;
-        int* brow = p.buf + (int64_t)t * width;
-        for (int i = tid; i < p.rs; i += BS) {
-          int f = (i < kk && s_c[i] > 0) ? s_row[i] * 2048 + s_c[i] : 0;
-          if (p.out_mode == 2) {
-            p.fills[(int64_t)t * p.rs + i] = f;
-            if (i < p.fill_k) brow[i] = f;
-          } else {
-            brow[i] = f;
-          }
-          // slots past kk hold NEG_INF (s_sc's default), as the padded
-          // reference prefix does
-          if (p.out_mode == 1) brow[p.rs + i] = __float_as_int(s_sc[i]);
-        }
-        meta = brow + width - META;
+        // slots past kk hold NEG_INF (s_sc's default), as the padded
+        // reference prefix does
+        if (p.out_mode == 1) brow[p.rs + i] = __float_as_int(s_sc[i]);
       }
+      int* meta = brow + width - META;
       if (tid == 0) {
         const int topn = min(min(kk, TOP_K), p.n);
         for (int q = 0; q < TOP_K; ++q) {
@@ -575,7 +509,7 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
           meta[TOP_K + q] = v ? __float_as_int(s_sc[q]) : 0;
         }
         meta[6] = n_feas;
-        meta[7] = p.n - (COMPACT ? cand_n : n_static);
+        meta[7] = p.n - n_static;
         meta[8] = mx[0];
         meta[9] = mx[1];
         meta[10] = mx[2];
@@ -587,19 +521,6 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
       }
     }
     __syncthreads();
-  }
-
-  if (COMPACT) {
-    // scatter the frame's usage slice back to its cluster rows (frames
-    // are disjoint, so blocks never write the same row)
-    for (int it = 0; it < n_iter; ++it) {
-      int j = it * BS + tid;
-      if (j < nc && cval[j] != 0) {
-        int row = crow[j];
-        for (int d = 0; d < 3; ++d)
-          p.used[(int64_t)row * 3 + d] = used_state[(int64_t)j * 3 + d];
-      }
-    }
   }
 }
 
@@ -642,17 +563,15 @@ __global__ void __launch_bounds__(BS, 1) cluster_barrier_kernel(
   if (v == 0x7fffffff) *sink = v;
 }
 
-// the sharded launch of a rounds kernel: clusters of S blocks,
+// the sharded launch of the rounds kernel: one cluster of S blocks,
 // S * kk_loc gathered keys in dynamic shared memory
-template <bool COMPACT>
-int launch_sharded(Params p, int n_clusters, cudaStream_t stream) {
+int launch_sharded(Params p, cudaStream_t stream) {
   if (p.n_shards < 1 || p.n_shards > 8 || p.nc < 1)
     return (int)cudaErrorInvalidValue;
   const size_t dyn = (size_t)p.n_shards * min(p.rs, p.nc) *
                      sizeof(unsigned long long);
-  return launch_clusters(rounds_kernel<COMPACT, true>,
-                         n_clusters * p.n_shards, p.n_shards, dyn, stream,
-                         p);
+  return launch_clusters(rounds_kernel<true>, p.n_shards, p.n_shards, dyn,
+                         stream, p);
 }
 
 int run_flat(const int* cap, int* used, const uint8_t* static_u,
@@ -675,17 +594,17 @@ int run_flat(const int* cap, int* used, const uint8_t* static_u,
   p.n_aff = n_aff; p.req = req; p.desired = desired; p.dh_limit = dh_limit;
   p.g_static = g_static; p.g_aff = g_aff; p.g_job = g_job; p.seed = seed;
   p.job_count0 = job_count0; p.round_g = round_g; p.round_want = round_want;
-  p.n_steps = n_rounds; p.n_lanes = 1; p.spread = spread;
+  p.n_steps = n_rounds; p.spread = spread;
   p.rs = rs; p.fill_k = fill_k; p.out_mode = out_mode;
   p.jc = jc; p.ki = ki; p.score = score; p.keyb = keyb; p.buf = buf;
   p.fills = fills; p.row_stride = n;
   p.n_shards = n_shards; p.xcnt = xcnt; p.xkey = xkey; p.xval = xval;
   if (n_shards) {
     p.nc = n / n_shards;
-    return launch_sharded<false>(p, 1, stream);
+    return launch_sharded(p, stream);
   }
   p.nc = n;
-  rounds_kernel<false, false><<<1, BS, 0, stream>>>(p);
+  rounds_kernel<false><<<1, BS, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -716,52 +635,6 @@ extern "C" int cluster_barrier_probe(int rounds, int cluster, int* rows,
   if (cluster < 1 || cluster > 8) return (int)cudaErrorInvalidValue;
   return launch_clusters(cluster_barrier_kernel, cluster, cluster, 0,
                          stream, rounds, rows, sink);
-}
-
-// K12: frames [S, L, nc] (nc = Nc_loc), job_count0 [S, n_jrows, nc],
-// aff_land [S, L, Ua, nc], scratch [S, L, nc]; one cluster per lane
-extern "C" int multi_compact_sharded(
-    const int* cap, const int* used_in, int* used_out, const int* cand_rows,
-    const uint8_t* cand_valid, const float* aff_land, const int* aff,
-    const int* req, const int* desired, const int* dh_limit,
-    const int* g_aff, const int* g_job, const long long* seed,
-    const int* job_count0, const int* round_g, const int* round_want,
-    int* buf_small, int* fills_full, int n, int n_lanes, int nc, int ua,
-    int n_aff, int n_steps, int spread, int rs, int fill_k, int* used_c,
-    int* jc, int* ki, float* score, unsigned* keyb, int n_shards,
-    int n_jrows, int* xcnt, unsigned long long* xkey, int* xval,
-    cudaStream_t stream) {
-  if (rs > MAX_RS || rs < 1 || n_shards < 1)
-    return (int)cudaErrorInvalidValue;
-  Params p{};
-  p.cap = cap; p.used_in = used_in; p.used = used_out; p.n = n;
-  p.cand_rows = cand_rows; p.cand_valid = cand_valid;
-  p.aff_land = aff_land; p.aff = aff; p.ua = ua; p.n_aff = n_aff;
-  p.req = req; p.desired = desired; p.dh_limit = dh_limit;
-  p.g_aff = g_aff; p.g_job = g_job; p.seed = seed;
-  p.job_count0 = job_count0; p.round_g = round_g; p.round_want = round_want;
-  p.n_steps = n_steps; p.n_lanes = n_lanes; p.nc = nc; p.spread = spread;
-  p.rs = rs; p.fill_k = fill_k;
-  p.used_c = used_c; p.jc = jc; p.ki = ki; p.score = score; p.keyb = keyb;
-  p.buf = buf_small; p.fills = fills_full;
-  p.n_shards = n_shards; p.n_jrows = n_jrows;
-  p.xcnt = xcnt; p.xkey = xkey; p.xval = xval;
-  return launch_sharded<true>(p, n_lanes, stream);
-}
-
-extern "C" int multi_flat(
-    const int* cap, int* used, const uint8_t* static_u, const float* aff_land,
-    const int* aff, const int* req, const int* desired, const int* dh_limit,
-    const int* g_static, const int* g_aff, const int* g_job,
-    const long long* seed, const int* job_count0, const int* round_g,
-    const int* round_want, int* buf, int n, int ua, int n_aff, int n_rounds,
-    int spread, int rs, int* jc, int* ki, float* score, unsigned* keyb,
-    cudaStream_t stream) {
-  return run_flat(cap, used, static_u, aff_land, aff, req, desired, dh_limit,
-                  g_static, g_aff, g_job, seed, job_count0, round_g,
-                  round_want, buf, n, ua, n_aff, n_rounds, spread, rs, 0, 0,
-                  nullptr, jc, ki, score, keyb, 0, nullptr, nullptr, nullptr,
-                  stream);
 }
 
 // K11: the flat rounds over npad = n rows in n_shards shards
@@ -814,11 +687,9 @@ extern "C" int multi_bulk_sharded(
 }
 
 PY_LAUNCHERS(multi_rounds,
-             PY_LAUNCHER(multi_flat),
              PY_LAUNCHER(multi_bulk),
              PY_LAUNCHER(pow10_f32),
              PY_LAUNCHER(barrier_probe),
              PY_LAUNCHER(cluster_barrier_probe),
-             PY_LAUNCHER(multi_compact_sharded),
              PY_LAUNCHER(multi_flat_sharded),
              PY_LAUNCHER(multi_bulk_sharded))

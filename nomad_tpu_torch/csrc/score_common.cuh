@@ -1,5 +1,5 @@
-// Scoring helpers shared by the rounds kernels (multi_rounds.cu) and the
-// exact scan (place_scan.cu): floor division, the C library's powf(10, x),
+// Scoring helpers shared by the rounds kernels (multi_rounds.cu,
+// compact_rounds.cu) and the exact scan (place_scan.cu): floor division, the C library's powf(10, x),
 // the reference's tie-break hash, float <-> orderable key bits, the
 // cluster launch of the sharded kernels, the exchange through distributed
 // shared memory, and the PROF instantiations' phase clock.
@@ -110,9 +110,12 @@ __device__ __forceinline__ float from_orderable(unsigned o) {
   return __uint_as_float(b);
 }
 
-// Launch `kern` as clusters of `cluster` blocks of `threads` threads;
-// refuses (cudaErrorLaunchOutOfResources) when the card cannot place one
-// such cluster.
+constexpr int XCH_BLOCKS = 8;   // the portable cluster size
+
+// Launch `kern` as clusters of `cluster` blocks of `threads` threads
+// (past the portable 8 blocks only where the card allows it); refuses
+// (cudaErrorLaunchOutOfResources) when the card cannot place one such
+// cluster.
 template <class... Args>
 int launch_clusters_nt(void (*kern)(Args...), int n_blocks, int cluster,
                        int threads, size_t dyn, cudaStream_t stream,
@@ -124,6 +127,11 @@ int launch_clusters_nt(void (*kern)(Args...), int n_blocks, int cluster,
     e = cudaFuncSetAttribute(kern,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)dyn);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (cluster > XCH_BLOCKS) {
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return (int)e;
   }
   cudaLaunchConfig_t cfg = {};
@@ -157,8 +165,6 @@ int launch_clusters(void (*kern)(Args...), int n_blocks, int cluster,
 
 // ---- distributed shared memory exchange (K9, K5 and K2 on a cluster)
 
-constexpr int XCH_BLOCKS = 8;   // the portable cluster size
-
 __device__ __forceinline__ unsigned smem_u32(const void* ptr) {
   return (unsigned)__cvta_generic_to_shared(ptr);
 }
@@ -171,15 +177,16 @@ __device__ __forceinline__ unsigned cluster_addr(unsigned a, unsigned r) {
 }
 
 // The exchange slots of one block: post k of block r at slot[k & 1][r]
-// (W words), the arrival of all posts of exchange k on bar[k & 1].
-template <int W>
+// (W words, clusters of up to NB blocks), the arrival of all posts of
+// exchange k on bar[k & 1].
+template <int W, int NB = XCH_BLOCKS>
 struct XchT {
-  int slot[2][XCH_BLOCKS][W];
+  int slot[2][NB][W];
   unsigned long long bar[2];
 };
 
-template <int W>
-__device__ __forceinline__ void xch_init(XchT<W>* x, int n_shards) {
+template <int W, int NB>
+__device__ __forceinline__ void xch_init(XchT<W, NB>* x, int n_shards) {
   if (threadIdx.x == 0) {
     for (int b = 0; b < 2; ++b)
       asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
@@ -188,7 +195,7 @@ __device__ __forceinline__ void xch_init(XchT<W>* x, int n_shards) {
   }
 }
 
-// Warp 0 of every block of the cluster: lane r < S stores `post` (W
+// Warp 0 of every block of the cluster (S <= 32 blocks): lane r < S stores `post` (W
 // words, the same in every lane) into slot [k & 1][sh] of block r and
 // arrives on block r's barrier (release at cluster scope, after its
 // stores); then every lane waits for this block's barrier of exchange k
@@ -196,8 +203,8 @@ __device__ __forceinline__ void xch_init(XchT<W>* x, int n_shards) {
 // posts.  Slot k & 1 of a peer is free again at exchange k + 2: the
 // peer read it before it posted exchange k + 1, which this block waited
 // for.
-template <int W>
-__device__ __forceinline__ void xch_meet(XchT<W>* x, int k, int sh,
+template <int W, int NB>
+__device__ __forceinline__ void xch_meet(XchT<W, NB>* x, int k, int sh,
                                          int n_shards, const int* post) {
   const int lane = threadIdx.x & 31;
   const int b = k & 1;

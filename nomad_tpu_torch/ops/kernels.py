@@ -98,7 +98,7 @@ LANDSCAPE = Kernel("landscape", "landscape.cu",
                    "nomad_tpu/ops/feasibility.py:29")
 MULTI_COMPACT = Kernel("multi_compact", "compact_rounds.cu",
                        "nomad_tpu/ops/select.py:836")
-MULTI_FLAT = Kernel("multi_flat", "multi_rounds.cu",
+MULTI_FLAT = Kernel("multi_flat", "compact_rounds.cu",
                     "nomad_tpu/ops/select.py:733")
 SCATTER_ADD = Kernel("scatter_add", "scatter_add.cu",
                      "nomad_tpu/ops/engine.py:50")
@@ -117,7 +117,8 @@ MULTI_BULK_SHARDED = Kernel("multi_bulk_sharded", "multi_rounds.cu",
                             "nomad_tpu/parallel/mesh.py:645")
 MULTI_FLAT_SHARDED = Kernel("multi_flat_sharded", "multi_rounds.cu",
                             "nomad_tpu/parallel/mesh.py:454")
-MULTI_COMPACT_SHARDED = Kernel("multi_compact_sharded", "multi_rounds.cu",
+MULTI_COMPACT_SHARDED = Kernel("multi_compact_sharded",
+                               "compact_rounds.cu",
                                "nomad_tpu/parallel/mesh.py:590")
 SCATTER_ADD_SHARDED = Kernel("scatter_add_sharded", "scatter_add.cu",
                              "nomad_tpu/ops/engine.py:96")

@@ -93,7 +93,7 @@ def pow10_on_card(x: torch.Tensor) -> torch.Tensor:
     K.check_dtype("pow10_f32", x, torch.float32)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        rc = K.MULTI_FLAT.fn("pow10_f32")(
+        rc = K.MULTI_BULK.fn("pow10_f32")(
             x.data_ptr(), y.data_ptr(), x.numel(), K.stream_of(x))
     if rc != 0:
         raise RuntimeError(f"pow10_f32: CUDA launch failed with "

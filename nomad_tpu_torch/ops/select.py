@@ -13,7 +13,7 @@ hand-written CUDA kernel for a CUDA tensor:
 
   place, place_packed         K5 (csrc/place_scan.cu, exact scan)
   place_bulk_packed           K6 (csrc/multi_rounds.cu, bulk rounds)
-  place_multi_packed          K3 (csrc/multi_rounds.cu, flat rounds)
+  place_multi_packed          K3 (csrc/compact_rounds.cu, flat rounds)
   place_multi_compact_packed  K2 (csrc/compact_rounds.cu, laned rounds)
 
 all on top of K1's landscapes (feasibility.landscape_mask,
@@ -296,6 +296,12 @@ def place_multi_packed_plain(inp: MultiEvalInputs, round_size: int,
     return buf, used[0], cur[0].to(torch.int32)
 
 
+# K3's cluster (csrc/compact_rounds.cu plan): up to 16 blocks, so that
+# the flat wave's 50,000-row frame fits in shared memory, rather than 8
+# with the frame in global scratch (both timed in PERF.md §6)
+FLAT_CLUSTER = 16
+
+
 def _exchange(n_clusters: int, n_shards: int, kk_loc: int, dev):
     """Exchange scratch of the sharded rounds kernels (csrc/
     multi_rounds.cu): per cluster, four count rows [4, S, 8], the S
@@ -314,11 +320,34 @@ def _check_shards(name: str, n: int, n_shards: int) -> None:
                          "shards (1..8)")
 
 
+def _multi_seed(inp: MultiEvalInputs) -> torch.Tensor:
+    """The per-group seeds [G] as int64 (a 0-dim seed broadcast)."""
+    g_cnt = inp.req.shape[0]
+    seed = inp.seed.expand(g_cnt) if inp.seed.dim() == 0 else inp.seed
+    return seed.to(torch.int64).contiguous()
+
+
+def _frame_scratch(kern, name, dev, *plan):
+    """The global scratch of a compact_rounds.cu launch whose frame
+    state does not fit in shared memory (None when it fits); `plan` as
+    the `multi_compact_scratch_bytes` launcher takes it."""
+    nbytes = kern.fn("multi_compact_scratch_bytes")(*plan)
+    if nbytes < 0:
+        raise ValueError(f"{name}: frames of {plan[1]} slots at round "
+                         f"size {plan[2]} do not fit")
+    return (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+            if nbytes else None)
+
+
 def _flat_launch(used: torch.Tensor, inp: MultiEvalInputs,
-                 round_size: int, n_shards: int = 0):
-    """K1 landscapes + one K3 launch (K11 with `n_shards`: the node axis
-    in that many shards); `used` is the round state and the usage output
-    (updated in place)."""
+                 round_size: int, n_shards: int = 0, prof=None,
+                 max_cb: int = FLAT_CLUSTER):
+    """K1 landscapes + one K3 launch (csrc/compact_rounds.cu, one cluster
+    of up to `max_cb` blocks over every row; K11 with `n_shards`: the
+    node axis in that many shards, csrc/multi_rounds.cu); `used` is the
+    round state and the usage output (updated in place).  With `prof`
+    (int64 [18] on the card) K3's PROF instantiation runs instead and
+    writes block 0's phase split there (chip_smoke.py)."""
     kern = K.MULTI_FLAT_SHARDED if n_shards else K.MULTI_FLAT
     name = kern.name
     n = inp.attrs.shape[0]
@@ -328,9 +357,7 @@ def _flat_launch(used: torch.Tensor, inp: MultiEvalInputs,
     static_u = landscape_mask(inp.attrs, inp.con, inp.luts, inp.elig,
                               inp.base_mask, inp.u_mask)
     aff_u = affinity_landscape(inp.attrs, inp.aff, inp.luts)
-    g_cnt = inp.req.shape[0]
-    seed = inp.seed.expand(g_cnt) if inp.seed.dim() == 0 else inp.seed
-    seed = seed.to(torch.int64).contiguous()
+    seed = _multi_seed(inp)
     tensors = dict(cap=inp.cap, used=used, static_u=static_u, aff_u=aff_u,
                    aff=inp.aff, req=inp.req, desired=inp.desired,
                    dh_limit=inp.dh_limit, g_static=inp.g_static,
@@ -343,28 +370,38 @@ def _flat_launch(used: torch.Tensor, inp: MultiEvalInputs,
                 "round_want"):
         K.check_dtype(f"{name}.{key}", tensors[key], torch.int32)
     if (used.shape != (n, 3) or inp.cap.shape != (n, 3)
-            or inp.job_count0.shape[1] != n or seed.shape[0] != g_cnt
+            or inp.job_count0.dim() != 2 or inp.job_count0.shape[1] != n
+            or seed.shape[0] != inp.req.shape[0]
             or inp.round_g.shape != inp.round_want.shape):
         raise ValueError(f"{name}: inconsistent shapes")
     n_rounds = inp.round_g.shape[0]
     ua, af = inp.aff.shape[:2]
+    spread = int(bool(inp.spread_algo))
     buf = torch.empty((n_rounds, round_size + 16), dtype=torch.int32,
                       device=dev)
     jc = torch.empty(n, dtype=torch.int32, device=dev)
-    ki = torch.empty(n, dtype=torch.int32, device=dev)
-    score = torch.empty(n, dtype=torch.float32, device=dev)
-    keyb = torch.empty(n, dtype=torch.int32, device=dev)
-    mesh_args = []
+    head = [t.data_ptr() for t in (*tensors.values(), buf)]
     if n_shards:
+        # the old rounds template's per-row scratch and its exchange
+        scratch = [torch.empty(n, dtype=dt, device=dev) for dt in (
+            torch.int32, torch.float32, torch.int32)]
         xch = _exchange(1, n_shards, min(round_size, n // n_shards), dev)
-        mesh_args = [n_shards] + [t.data_ptr() for t in xch]
-    if n_rounds:
-        kern.launch(
-            dev.index, name,
-            *[t.data_ptr() for t in (*tensors.values(), buf)],
-            n, ua, af, n_rounds, int(bool(inp.spread_algo)),
-            round_size, *[t.data_ptr() for t in (jc, ki, score, keyb)],
-            *mesh_args)
+        if n_rounds:
+            kern.launch(dev.index, name, *head, n, ua, af, n_rounds, spread,
+                        round_size, jc.data_ptr(),
+                        *[t.data_ptr() for t in scratch], n_shards,
+                        *[t.data_ptr() for t in xch])
+        return buf, used, jc
+    if not n_rounds:
+        return buf, used, jc.copy_(inp.job_count0[0])
+    frame = _frame_scratch(kern, name, dev, 1, n, round_size, 1, 1, max_cb)
+    tail = [None if frame is None else frame.data_ptr()]
+    symbol = name
+    if prof is not None:
+        symbol = name + "_prof"
+        tail.append(prof.data_ptr())
+    kern.launch(dev.index, symbol, *head, jc.data_ptr(), n, ua, af,
+                n_rounds, spread, round_size, max_cb, *tail)
     return buf, used, jc
 
 
@@ -467,13 +504,13 @@ def _compact_launch(used_out: torch.Tensor, used_in: torch.Tensor,
                     inp: MultiEvalInputs, cand_rows, cand_valid,
                     round_size: int, n_lanes: int, n_shards: int = 0,
                     prof=None):
-    """K1's per-frame affinity + one K2 launch (a cluster of up to 8
-    blocks per lane, csrc/compact_rounds.cu; K12 with `n_shards`:
-    per-shard frames [S, L, Nc_loc] and seeds [S, J', Nc_loc], one
-    cluster of S blocks per lane, csrc/multi_rounds.cu).  `used_out`
-    receives the final usage; it may be `used_in` itself.  With `prof`
-    (int64 [18] on the card) K2's PROF instantiation runs instead and
-    writes block 0's phase split there (chip_smoke.py)."""
+    """K1's per-frame affinity + one K2 launch (csrc/compact_rounds.cu, a
+    cluster of up to 8 blocks per lane; K12 with `n_shards`: per-shard
+    frames [S, L, Nc_loc] and seeds [S, J', Nc_loc], each lane's shard
+    slices laid end to end, one block per shard).  `used_out` receives
+    the final usage; it may be `used_in` itself.  With `prof` (int64
+    [18] on the card) the PROF instantiation runs instead and writes
+    block 0's phase split there (chip_smoke.py)."""
     kern = K.MULTI_COMPACT_SHARDED if n_shards else K.MULTI_COMPACT
     name = kern.name
     n = inp.attrs.shape[0]
@@ -489,9 +526,7 @@ def _compact_launch(used_out: torch.Tensor, used_in: torch.Tensor,
     nc = cand_rows.shape[-1]
     aff_cu = affinity_landscape(inp.attrs, inp.aff, inp.luts,
                                 rows=cand_rows.reshape(-1, nc))
-    g_cnt = inp.req.shape[0]
-    seed = inp.seed.expand(g_cnt) if inp.seed.dim() == 0 else inp.seed
-    seed = seed.to(torch.int64).contiguous()
+    seed = _multi_seed(inp)
     tensors = dict(cap=inp.cap, used_in=used_in, used_out=used_out,
                    cand_rows=cand_rows, cand_valid=cand_valid,
                    aff_cu=aff_cu, aff=inp.aff, req=inp.req,
@@ -508,7 +543,8 @@ def _compact_launch(used_out: torch.Tensor, used_in: torch.Tensor,
     if (used_in.shape != (n, 3) or used_out.shape != (n, 3)
             or inp.job_count0.dim() != len(jc_lead) + 2
             or inp.job_count0.shape[:len(jc_lead)] != jc_lead
-            or inp.job_count0.shape[-1] != nc or seed.shape[0] != g_cnt
+            or inp.job_count0.shape[-1] != nc
+            or seed.shape[0] != inp.req.shape[0]
             or inp.round_g.shape != inp.round_want.shape
             or inp.round_g.shape[0] % n_lanes):
         raise ValueError(f"{name}: inconsistent shapes")
@@ -521,33 +557,20 @@ def _compact_launch(used_out: torch.Tensor, used_in: torch.Tensor,
                         device=dev)
     if not (n_steps and nc):
         return buf_small, fills, used_out
-    head = [t.data_ptr() for t in (*tensors.values(), buf_small, fills)]
-    dims = [n, n_lanes, nc, ua, af, n_steps, int(bool(inp.spread_algo)),
-            round_size, fill_k]
-    if n_shards:
-        frame = lead + (nc,)
-        scratch = [torch.empty(frame + (3,), dtype=torch.int32, device=dev)]
-        scratch += [torch.empty(frame, dtype=dt, device=dev) for dt in (
-            torch.int32, torch.int32, torch.float32, torch.int32)]
-        xch = _exchange(n_lanes, n_shards, min(round_size, nc), dev)
-        kern.launch(dev.index, name, *head, *dims,
-                    *[t.data_ptr() for t in scratch], n_shards,
-                    inp.job_count0.shape[1], *[t.data_ptr() for t in xch])
-        return buf_small, fills, used_out
-    # the frame state in global memory where it does not fit in shared
-    # memory (csrc/compact_rounds.cu plan)
-    nbytes = kern.fn("multi_compact_scratch_bytes")(n_lanes, nc, round_size)
-    if nbytes < 0:
-        raise ValueError(f"{name}: frames of {nc} slots at round size "
-                         f"{round_size} do not fit")
-    frame = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
-             if nbytes else None)
+    frame = _frame_scratch(kern, name, dev, n_lanes, nc, round_size,
+                           max(n_shards, 1), 0, 8)
     tail = [None if frame is None else frame.data_ptr()]
+    if n_shards:
+        tail += [n_shards, inp.job_count0.shape[1]]
     symbol = name
     if prof is not None:
         symbol = name + "_prof"
         tail.append(prof.data_ptr())
-    kern.launch(dev.index, symbol, *head, *dims, *tail)
+    kern.launch(dev.index, symbol,
+                *[t.data_ptr() for t in (*tensors.values(), buf_small,
+                                         fills)],
+                n, n_lanes, nc, ua, af, n_steps, int(bool(inp.spread_algo)),
+                round_size, fill_k, *tail)
     return buf_small, fills, used_out
 
 

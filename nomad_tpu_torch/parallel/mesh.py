@@ -13,14 +13,16 @@ count and one `torch.device`.  The plain versions below carry the shard
 axis as a leading tensor dimension (`all_gather` is a reshape over it,
 `psum` a sum, `axis_index` an arange) and reuse ops/select.py's round
 and step cores.  On a CUDA tensor each wrapper launches its kernel, one
-thread-block cluster of S blocks per exchange group (csrc/multi_rounds.cu,
-csrc/place_scan.cu, csrc/scatter_add.cu):
+thread-block cluster of S blocks per exchange group:
 
-  place_sharded_packed               K9  (exact scan)
-  place_bulk_sharded_packed          K10 (bulk rounds)
-  place_multi_sharded_packed         K11 (flat multi-eval rounds)
-  place_multi_compact_sharded        K12 (laned rounds over shard frames)
-  scatter_add_sharded_               K13 (usage delta replay)
+  place_sharded_packed               K9  (exact scan, csrc/place_scan.cu)
+  place_bulk_sharded_packed          K10 (bulk rounds, csrc/multi_rounds.cu)
+  place_multi_sharded_packed         K11 (flat multi-eval rounds, the same)
+  place_multi_compact_sharded        K12 (laned rounds over shard frames:
+                                          K2's kernel, csrc/compact_rounds.cu,
+                                          over lane_frames' layout)
+  scatter_add_sharded_               K13 (usage delta replay,
+                                          csrc/scatter_add.cu)
 
 A mesh across several cards waits for a later slice and raises.
 """

@@ -47,6 +47,7 @@ from nomad_tpu_torch.ops.scoring import (
 )
 from torch_parity import (  # noqa: F401
     COMPACT_CASES,
+    FLAT_CASES,
     MEMO_SCAN_CASES,
     add_jobs,
     build_flat_cluster,
@@ -54,6 +55,7 @@ from torch_parity import (  # noqa: F401
     compact_case,
     cuda_device,
     engine,
+    flat_case,
     random_placement_arrays,
     random_preempt_args,
     set_spread,
@@ -268,6 +270,77 @@ def test_multi_flat_matches_plain(cuda_device, spread):
     want_cpu = psel.place_multi_packed_plain(built["inp"], built["rs"])
     torch.cuda.synchronize()
     _same(got, want, want_cpu)
+
+
+def _flat_on(case, device, n_rows=None):
+    """One of FLAT_CASES on `device`: (inputs, round size)."""
+    arrs, rs = flat_case(PORT, case, n_rows=n_rows)
+    return multi_inputs_from_numpy(arrs, device), rs
+
+
+def _flat_matches_plain(cuda_device, case, n_rows=None, max_cb=None):
+    """K3 (csrc/compact_rounds.cu flat mode, up to `max_cb` blocks) at
+    one of FLAT_CASES against its plain version on the card and on CPU
+    copies, to the bit: one launch, `inp.used0` untouched; then the
+    chained form in place."""
+    inp, rs = _flat_on(case, cuda_device, n_rows)
+    cpu, _ = _flat_on(case, "cpu", n_rows)
+    used0 = inp.used0.clone()
+    K.reset_launches()
+    if max_cb is None:
+        got = psel.place_multi_packed(inp, rs)
+    else:
+        got = psel._flat_launch(inp.used0.clone(), inp, rs, max_cb=max_cb)
+    torch.cuda.synchronize()
+    assert K.MULTI_FLAT.launches == 1
+    assert torch.equal(inp.used0, used0)
+    want = psel.place_multi_packed_plain(inp, rs)
+    want_cpu = psel.place_multi_packed_plain(cpu, rs)
+    _same(got, want, want_cpu)
+    chained = psel.place_multi_chained(used0, inp._replace(used0=None), rs)
+    torch.cuda.synchronize()
+    assert chained[1] is used0
+    _same(chained, want_cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(FLAT_CASES))
+def test_multi_flat_cases_match_plain(cuda_device, case):
+    """K3 on every case of FLAT_CASES (two alternating signatures, a job
+    over two groups, spread, round sizes 1 and 1024, idle and memoised
+    rounds, 37 rows), and its chained form."""
+    _flat_matches_plain(cuda_device, case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_cb", [8, 16])
+@pytest.mark.parametrize("case", ["binpack", "spread"])
+def test_multi_flat_wide_frame_matches_plain(cuda_device, case, max_cb):
+    """K3 over 50,000 rows (the flat wave's width, the case's node axis
+    tiled) in both layouts: 8 blocks with the frame in global scratch,
+    and a cluster of 16 blocks with the frame in shared memory."""
+    blocks = K.MULTI_FLAT.fn("multi_compact_blocks")(50000, 64, 1, 1,
+                                                     max_cb)
+    assert blocks == max_cb
+    _flat_matches_plain(cuda_device, case, 50000, max_cb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_cb", [8, 16])
+def test_multi_flat_prof_entry(cuda_device, max_cb):
+    """K3's PROF instantiation gives the main path's outputs and counts
+    its real and padding steps."""
+    inp, rs = _flat_on("padding_rounds", cuda_device, 50000)
+    got = psel._flat_launch(inp.used0.clone(), inp, rs, max_cb=max_cb)
+    prof = torch.zeros(18, dtype=torch.int64, device=cuda_device)
+    again = psel._flat_launch(inp.used0.clone(), inp, rs, prof=prof,
+                              max_cb=max_cb)
+    torch.cuda.synchronize()
+    _same(again, got)
+    c = prof.tolist()
+    real = int((inp.round_want > 0).sum())
+    assert c[14] == real and c[14] + c[15] == inp.round_g.shape[0]
+    assert c[17] > 0
 
 
 @pytest.mark.gpu
@@ -626,10 +699,11 @@ def test_k11_sharded_flat_matches_plain(cuda_device, spread):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["five_lanes", "two_lanes", "spread",
-                                  "round_512"])
+                                  "round_512", "empty_shards"])
 def test_k12_sharded_compact_matches_plain(cuda_device, case):
-    """round_512: 8 x 512 gathered keys, past 48 KB of shared memory
-    with the static arrays."""
+    """K12 (csrc/compact_rounds.cu over shard-major frames, one block a
+    shard).  round_512: a round past 48 KB of shared memory with the
+    static arrays; empty_shards: lane 0 without rows on shards 0-2."""
     mesh = pmesh.make_mesh(S, cuda_device)
     built = _mesh_built(True, case == "spread",
                         2 if case == "two_lanes" else 5,
@@ -637,9 +711,14 @@ def test_k12_sharded_compact_matches_plain(cuda_device, case):
     assert built["rs"] == (512 if case == "round_512" else 64)
     inp = _on(built["inp"], cuda_device)
     rs, lanes = built["rs"], built["n_lanes"]
-    cr, cv = frames_from_numpy(built["cand_rows"], built["cand_valid"],
-                               cuda_device)
+    crn, cvn = built["cand_rows"].copy(), built["cand_valid"].copy()
+    if case == "empty_shards":
+        crn[:3, 0] = inp.attrs.shape[0]
+        cvn[:3, 0] = False
+    cr, cv = frames_from_numpy(crn, cvn, cuda_device)
+    K.reset_launches()
     got = pmesh.place_multi_compact_sharded(inp, cr, cv, mesh, rs, lanes)
+    assert K.MULTI_COMPACT_SHARDED.launches == 1
     want = pmesh.place_multi_compact_sharded_plain(inp, cr, cv, S, rs, lanes)
     want_cpu = pmesh.place_multi_compact_sharded_plain(
         built["inp"], cr.cpu(), cv.cpu(), S, rs, lanes)
@@ -650,6 +729,28 @@ def test_k12_sharded_compact_matches_plain(cuda_device, case):
         used0, inp._replace(used0=None), cr, cv, mesh, rs, lanes)
     assert chained[2] is used0
     _same(chained, want_cpu)
+
+
+@pytest.mark.gpu
+def test_k12_prof_entry(cuda_device):
+    """K12's PROF instantiation gives the main path's outputs and counts
+    lane 0's real and padding steps."""
+    mesh = pmesh.make_mesh(S, cuda_device)
+    built = _mesh_built(True)
+    inp = _on(built["inp"], cuda_device)
+    rs, lanes = built["rs"], built["n_lanes"]
+    cr, cv = frames_from_numpy(built["cand_rows"], built["cand_valid"],
+                               cuda_device)
+    got = pmesh.place_multi_compact_sharded(inp, cr, cv, mesh, rs, lanes)
+    prof = torch.zeros(18, dtype=torch.int64, device=cuda_device)
+    again = psel._compact_launch(inp.used0.clone(), inp.used0, inp, cr, cv,
+                                 rs, lanes, n_shards=S, prof=prof)
+    torch.cuda.synchronize()
+    _same(again, got)
+    c = prof.tolist()
+    steps = inp.round_g.shape[0] // lanes
+    real = int((inp.round_want.view(steps, lanes)[:, 0] > 0).sum())
+    assert c[14] == real and c[14] + c[15] == steps
 
 
 @pytest.mark.gpu
@@ -712,7 +813,7 @@ def test_dsmem_exchange_probe_runs(cuda_device):
 def test_cluster_barrier_probe_runs(cuda_device):
     rows = torch.zeros(4 * S * 8, dtype=torch.int32, device=cuda_device)
     sink = torch.zeros(1, dtype=torch.int32, device=cuda_device)
-    rc = K.MULTI_FLAT.fn("cluster_barrier_probe")(
+    rc = K.MULTI_BULK.fn("cluster_barrier_probe")(
         100, S, rows.data_ptr(), sink.data_ptr(), K.stream_of(rows))
     torch.cuda.synchronize()
     assert rc == 0

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from nomad_tpu.ops import select as rsel
 from nomad_tpu.ops.select import BulkInputs as RefBulk
 from nomad_tpu.parallel import mesh as rmesh
 from nomad_tpu_torch.ops.convert import (
@@ -23,6 +24,7 @@ from nomad_tpu_torch.ops.convert import (
     multi_inputs_from_numpy,
     placement_inputs_from_numpy,
 )
+from nomad_tpu_torch.ops import select as psel
 from nomad_tpu_torch.ops.select import pack_outputs
 from nomad_tpu_torch.parallel import mesh as pmesh
 from torch_parity import (
@@ -206,11 +208,11 @@ def _flat_built(seed=3, spread=False):
     return built
 
 
-def _zoned_built(seed=4, n_zones=5, n_nodes=300, spread=False):
+def _zoned_built(seed=4, n_zones=5, n_nodes=300, spread=False, count=40):
     h = build_zoned_cluster("nomad_tpu", n_nodes=n_nodes, n_zones=n_zones)
     if spread:
         set_spread("nomad_tpu", h)
-    _, items = add_jobs("nomad_tpu", h, 11, 40, zones=n_zones)
+    _, items = add_jobs("nomad_tpu", h, 11, count, zones=n_zones)
     built = _mesh_engine().build_multi_inputs(h.state.snapshot(), items,
                                               seed=seed)
     assert built["cand_rows"].shape[:2] == (S, n_zones)
@@ -269,6 +271,47 @@ def test_k12_compact_matches_reference(ref_mesh, case):
                                                 lanes)
     assert_equal(want, got)
     assert (got[0].numpy()[:, -16 + 12] > 0).any()
+
+
+# K12 = K2 on each lane's shard frames laid end to end: (nodes, count,
+# spread) -> round size, all on 5 lanes and 8 shards
+IDENTITY_CASES = {
+    "n300_rs64": ((300, 40, False), 64),
+    "n300_rs64_spread": ((300, 40, True), 64),
+    "n120_rs256": ((120, 200, False), 256),
+    "n2000_rs512_spread": ((2000, 300, True), 512),
+}
+
+
+@pytest.mark.parametrize("case", sorted(IDENTITY_CASES))
+def test_k12_is_k2_on_shard_major_frames(ref_mesh, case):
+    """The reference's K12 equals the reference's K2 on frames [L, S *
+    Nc_loc] and seeds [J', S * Nc_loc] laid out shard-major (slot
+    s * Nc_loc + j holds shard s's slot j, as pmesh.lane_frames builds
+    them): the two-stage top-k is the exact top round_size in that slot
+    order.  The port's plain K12 equals the port's plain K2 on the same
+    frames.  This is what runs K12 on K2's kernel
+    (csrc/compact_rounds.cu)."""
+    (n_nodes, count, spread), rs = IDENTITY_CASES[case]
+    built = _zoned_built(n_nodes=n_nodes, spread=spread, count=count)
+    assert built["rs"] == rs and built["n_lanes"] == 5
+    arrs = reference_inputs_numpy(built["inp"])
+    want = rmesh.place_multi_compact_sharded_fn(ref_mesh, rs, 5)(
+        built["inp"], built["cand_rows"], built["cand_valid"])
+    cr, cv = frames_from_numpy(built["cand_rows"], built["cand_valid"])
+    inp = multi_inputs_from_numpy(arrs)
+    fr, fv, fj = pmesh.lane_frames(cr, cv, inp.job_count0)
+    k2 = rsel.place_multi_compact_packed_jit(
+        built["inp"]._replace(job_count0=jnp.asarray(fj.numpy())),
+        fr.numpy(), fv.numpy(), rs, 5)
+    for w, k in zip(want, k2):
+        w, k = np.asarray(w), np.asarray(k)
+        assert w.dtype == k.dtype and w.shape == k.shape
+        assert w.tobytes() == k.tobytes()
+    got = pmesh.place_multi_compact_sharded_plain(inp, cr, cv, S, rs, 5)
+    assert_equal(want, got)
+    assert_equal(want, psel.place_multi_compact_packed_plain(
+        inp._replace(job_count0=fj), fr, fv, rs, 5))
 
 
 # ----------------------------------------------------------------- K13

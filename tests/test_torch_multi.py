@@ -1,4 +1,5 @@
-"""K2/K3 plain versions against the JAX multi-eval kernels.
+"""K2/K3 plain versions against the JAX multi-eval kernels, and the
+identity that puts K3 on K2's kernel.
 
 The reference engine lowers each batch (`build_multi_inputs`); its
 inputs go to numpy and into the port through `ops.convert`, so the JAX
@@ -21,12 +22,14 @@ from nomad_tpu_torch.ops.convert import (
 from torch_parity import (
     COMPACT_CASES,
     COMPACT_TOPB,
+    FLAT_CASES,
     add_jobs,
     build_flat_cluster,
     build_zoned_cluster,
     compact_case,
     compact_identities,
     engine,
+    flat_case,
     reference_inputs_numpy,
     reference_multi_inputs,
     set_spread,
@@ -235,6 +238,70 @@ def test_flat_spread_matches_jax():
 @pytest.mark.parametrize("seed", [0, 9])
 def test_flat_chained_matches_jax(seed):
     _assert_flat_equal(_flat_batch(seed), chained=True)
+
+
+@pytest.mark.parametrize("case", sorted(FLAT_CASES))
+def test_flat_cases_match_jax(case):
+    """K3's card cases (torch_parity.FLAT_CASES: two signatures
+    alternating round by round, one job over two groups in consecutive
+    rounds, 150 and 37 rows, round sizes 1 and 1024, idle and memoised
+    rounds): the port's plain version equals the reference's function
+    on each, buffer, usage and last job count row."""
+    arrs, rs = flat_case(REF, case)
+    r_out = rsel.place_multi_packed_jit(reference_multi_inputs(arrs), rs)
+    p_out = psel.place_multi_packed(multi_inputs_from_numpy(arrs), rs)
+    for name, r, p in zip(("buf", "used", "job_count"), r_out, p_out):
+        r = np.asarray(r)
+        p = p.numpy()
+        assert r.dtype == p.dtype and r.shape == p.shape, name
+        assert r.tobytes() == p.tobytes(), name
+    assert int(np.asarray(r_out[0])[:, rs + 12].sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["binpack", "padding_rounds", "spread",
+                                  "two_signatures"])
+def test_reference_flat_output_has_the_memo_identity(case):
+    """The reference's own flat output has what K3's frame on K2's
+    kernel rests on (torch_parity.compact_identities at one lane, the
+    buffer's fill slots as its fills): filled rows a prefix of the slots
+    summing to the placed count, and a round that repeats the group and
+    want of the last computed round, after that round placed nothing,
+    repeats its row."""
+    arrs, rs = flat_case(REF, case)
+    buf = np.asarray(rsel.place_multi_packed_jit(
+        reference_multi_inputs(arrs), rs)[0])
+    held, short = compact_identities(buf, buf[:, :rs], arrs["round_g"],
+                                     arrs["round_want"], 1)
+    assert held > 0
+    if not FLAT_CASES[case].get("spread"):
+        assert short == arrs["round_g"].shape[0]
+
+
+@pytest.mark.parametrize("case", ["binpack", "spread"])
+def test_reference_flat_is_one_lane_compact(case):
+    """At one signature, with no job over two groups in consecutive
+    rounds, the reference's K3 equals its K2 with one lane whose frame
+    is every row (valid where the signature's static row is): the
+    buffer's fill slots are K2's full fills, its meta block K2's, and
+    the usage K2's."""
+    import jax.numpy as jnp
+    from nomad_tpu.ops.feasibility import constraint_mask
+    arrs, rs = flat_case(REF, case)
+    assert arrs["con"].shape[0] == 1          # U = 1
+    inp = reference_multi_inputs(arrs)
+    static = np.asarray(constraint_mask(inp.attrs, inp.con, inp.luts)
+                        & inp.elig[None, :]
+                        & inp.base_mask[inp.u_mask])[0]
+    n = arrs["cap"].shape[0]
+    buf, used, _ = rsel.place_multi_packed_jit(inp, rs)
+    small, fills, used2 = rsel.place_multi_compact_packed_jit(
+        inp, jnp.arange(n, dtype=jnp.int32)[None], jnp.asarray(static)[None],
+        rs, 1)
+    buf, small = np.asarray(buf), np.asarray(small)
+    fill_k = min(psel.FILL_K, rs)
+    assert np.array_equal(buf[:, :rs], np.asarray(fills))
+    assert np.array_equal(buf[:, rs:], small[:, fill_k:])
+    assert np.array_equal(np.asarray(used), np.asarray(used2))
 
 
 def test_convert_round_trip():

@@ -374,11 +374,7 @@ def compact_case(name, case, seed=7):
     built = engine(name).build_multi_inputs(h.state.snapshot(), items,
                                             seed=seed)
     assert built["cand_rows"] is not None
-    inp = built["inp"]
-    arrs = {k: (None if v is None else np.asarray(v) if name == "nomad_tpu"
-                else v.numpy() if isinstance(v, torch.Tensor) else v)
-            for k, v in zip(type(inp)._fields, inp)}
-    arrs["seed"] = np.asarray(arrs["seed"]).astype(np.uint32)
+    arrs = _numpy_inputs(name, built["inp"])
     cr = np.array(built["cand_rows"], np.int32)
     cv = np.array(built["cand_valid"], bool)
     lanes = built["n_lanes"]
@@ -415,6 +411,92 @@ def compact_case(name, case, seed=7):
                 job_count0=np.ascontiguousarray(jc0))
     return (arrs, np.ascontiguousarray(cr), np.ascontiguousarray(cv),
             kw.get("rs", built["rs"]), lanes)
+
+
+# K3's cases (csrc/compact_rounds.cu flat mode) on a 150-node flat
+# cluster of 9 jobs x 30 (N a multiple of neither 8 nor 16): where its
+# frame differs from a one-lane K2 launch (two signatures alternating
+# round by round, one job over two groups in consecutive rounds), the
+# spread fan-out, round sizes 1 and 1024, idle and memoised rounds, and
+# fewer rows than a block takes
+FLAT_CASES = {
+    "binpack": dict(),
+    "spread": dict(spread=True),
+    "two_signatures": dict(signatures=True),
+    "job_over_two_groups": dict(shared_job=True),
+    "round_1": dict(rs=1),
+    "round_1024": dict(spread=True, count=600),
+    "padding_rounds": dict(idle=True),
+    "small_n": dict(n_nodes=37),
+}
+
+
+def _numpy_inputs(name, inp):
+    arrs = {k: (None if v is None else np.asarray(v) if name == "nomad_tpu"
+                else v.numpy() if isinstance(v, torch.Tensor) else v)
+            for k, v in zip(type(inp)._fields, inp)}
+    arrs["seed"] = np.asarray(arrs["seed"]).astype(np.uint32)
+    return arrs
+
+
+def flat_case(name, case, seed=3, n_rows=None):
+    """(arrays, round_size) of one of FLAT_CASES, built with package
+    `name`'s engine on the CPU: numpy MultiEvalInputs fields of a flat
+    batch.  `n_rows` tiles the node axis to that many rows (the card's
+    cases at the flat wave's width)."""
+    kw = FLAT_CASES[case]
+    h = build_flat_cluster(name, n_nodes=kw.get("n_nodes", 150))
+    if kw.get("spread"):
+        set_spread(name, h)
+    _, items = add_jobs(name, h, 9, kw.get("count", 30), zones=0)
+    built = engine(name).build_multi_inputs(h.state.snapshot(), items,
+                                            seed=seed)
+    assert built["cand_rows"] is None
+    arrs = _numpy_inputs(name, built["inp"])
+    rs = built["rs"]
+    rg = arrs["round_g"].copy()
+    rw = arrs["round_want"].copy()
+    g_cnt = arrs["req"].shape[0]
+    if "rs" in kw:
+        # one placement a round, padded to a power of two as the engine
+        rs = kw["rs"]
+        g1 = [g for g, w in zip(rg, rw) for _ in range(w)]
+        r_pad = 1 << max(len(g1) - 1, 0).bit_length()
+        rg = np.array(g1 + [0] * (r_pad - len(g1)), np.int32)
+        rw = np.array([1] * len(g1) + [0] * (r_pad - len(g1)), np.int32)
+    if kw.get("signatures"):
+        # a second signature (the first less every third node, through a
+        # second base mask row), taken by every odd group
+        u = arrs["con"].shape[0]
+        extra = arrs["base_mask"][arrs["u_mask"][0]].copy()
+        extra[::3] = False
+        arrs["u_mask"] = np.append(arrs["u_mask"],
+                                   arrs["base_mask"].shape[0]).astype(np.int32)
+        arrs["base_mask"] = np.concatenate([arrs["base_mask"], extra[None]])
+        arrs["con"] = np.concatenate([arrs["con"], arrs["con"][:1]])
+        arrs["g_static"] = np.where(np.arange(g_cnt) % 2 == 1, u,
+                                    arrs["g_static"]).astype(np.int32)
+    if kw.get("shared_job"):
+        # groups 0 and 1 (rounds 0 and 1) of one job with live allocs
+        jc0 = arrs["job_count0"].copy()
+        jc0[0] = np.random.default_rng(seed).integers(0, 3, jc0.shape[1])
+        arrs["job_count0"] = jc0
+        g_job = arrs["g_job"].copy()
+        g_job[1] = g_job[0]
+        arrs["g_job"] = g_job
+    if kw.get("idle"):
+        # round 3 places nothing, round 4 repeats it (a memoised step)
+        rw[3] = 0
+        rg[4] = rg[3]
+        rw[4] = 0
+    arrs.update(round_g=rg, round_want=rw)
+    if n_rows:
+        idx = np.arange(n_rows) % arrs["cap"].shape[0]
+        for k in ("attrs", "cap", "used0", "elig"):
+            arrs[k] = np.ascontiguousarray(arrs[k][idx])
+        for k in ("base_mask", "job_count0"):
+            arrs[k] = np.ascontiguousarray(arrs[k][:, idx])
+    return arrs, rs
 
 
 def reference_multi_inputs(arrays):
