@@ -19,8 +19,8 @@ into nomad_tpu_torch/csrc/build/), then:
      csrc/compact_rounds.cu: microseconds per real and per padding step
      in the loop top, the pass, the merge, the exchange, the decision,
      the wide path and memoised steps) and what their steps need
-     (`steps`); K3 in both layouts of its frame (`layouts`: 16 blocks
-     with the frame in shared memory, 8 with it in global scratch);
+     (`steps`); K3's cluster size and where its frame lies (`blocks`,
+     `frame`);
   3. the north-star zoned wave through the port's Harness: 50,000 nodes
      in 3 DCs and 5 CSI zones (bench.py _build_bench_cluster), 384 batch
      evals x 260 placements, prepare_batch per eval, ONE place_batch
@@ -713,12 +713,12 @@ def compact_phase_split(inp, cand_rows, cand_valid, rs, lanes,
         n_shards=n_shards, prof=prof))
 
 
-def flat_phase_split(inp, rs, max_cb) -> dict:
-    """K3's split at `inp` on a cluster of up to `max_cb` blocks."""
+def flat_phase_split(inp, rs) -> dict:
+    """K3's split at `inp`."""
     from nomad_tpu_torch.ops import select as S
 
     return rounds_phase_split(lambda prof: S._flat_launch(
-        inp.used0.clone(), inp, rs, prof=prof, max_cb=max_cb))
+        inp.used0.clone(), inp, rs, prof=prof))
 
 
 def phase_us(c, ms, phases, kinds) -> dict:
@@ -965,7 +965,7 @@ def kernel_phase(h, zoned_built, flat_built):
     lane_valid = lambda lane, g: valid_l[lane]
     counts = compact_steps(zin, lanes, got, min(rs, cr.shape[1]), lane_valid)
     blocks = K.MULTI_COMPACT.fn("multi_compact_blocks")(cr.shape[1], rs, 1,
-                                                        0, 8)
+                                                        0)
     mixed = compact_mixed(zin, zcpu, args, lane_valid)
     mixed["bound_ms"] = max(
         k2_bytes / PEAK_BYTES,
@@ -981,8 +981,7 @@ def kernel_phase(h, zoned_built, flat_built):
         phase_split=compact_phase_split(zin, *args),
         mixed_requests=mixed))
 
-    # K3: the flat wave's launch, and its chained form in place; both
-    # layouts of its frame (S.FLAT_CLUSTER the main path's)
+    # K3: the flat wave's launch, and its chained form in place
     fin, frs = flat_built["inp"], flat_built["rs"]
     fcpu = to_cpu(fin)
     got = S.place_multi_packed(fin, frs)
@@ -995,11 +994,6 @@ def kernel_phase(h, zoned_built, flat_built):
         raise AssertionError("multi_flat chained: usage not in place")
     err = max(err, check_exact("multi_flat chained", chained, want_cpu,
                                packed=True))
-    other = 8 if S.FLAT_CLUSTER > 8 else 16
-    err = max(err, check_exact(
-        f"multi_flat at {other} blocks",
-        S._flat_launch(fin.used0.clone(), fin, frs, max_cb=other), want_cpu,
-        packed=True))
     torch.cuda.synchronize()
     k3_bytes = (fn_bytes((fin.cap, fin.used0, fin.elig, fin.luts,
                           fin.base_mask, fin.con, fin.aff, fin.req,
@@ -1015,27 +1009,18 @@ def kernel_phase(h, zoned_built, flat_built):
     g_static = fin.g_static.cpu().tolist()
     counts = compact_steps(fin, 1, (got[0], got[0][:, :frs]), min(frs, n),
                            lambda lane, g: sig_valid[g_static[g]], g_static)
-    plan = K.MULTI_FLAT.fn("multi_compact_blocks")
-    scratch = K.MULTI_FLAT.fn("multi_compact_scratch_bytes")
-    layouts = {}
-    for cb in (S.FLAT_CLUSTER, other):
-        layouts[str(cb)] = {
-            "blocks": plan(n, frs, 1, 1, cb),
-            "frame": ("shared memory" if scratch(1, n, frs, 1, 1, cb) == 0
-                      else "global scratch"),
-            "ms": time_ms(lambda: S._flat_launch(fin.used0.clone(), fin,
-                                                 frs, max_cb=cb), 5),
-            "phase_split": flat_phase_split(fin, frs, cb)}
-    blocks = layouts[str(S.FLAT_CLUSTER)]["blocks"]
+    blocks = K.MULTI_FLAT.fn("multi_compact_blocks")(n, frs, 1, 1)
+    frame = ("shared memory" if K.MULTI_FLAT.fn(
+        "multi_compact_scratch_bytes")(1, n, frs, 1, 1) == 0
+             else "global scratch")
     rows.append(dict(
         kernel=K.MULTI_FLAT, max_abs_err=err,
         **timing(lambda: S.place_multi_packed(fin, frs), 5),
         plain_ms=time_ms(lambda: S.place_multi_packed_plain(fin, frs), 2),
         bytes=k3_bytes, ops=compact_ops(counts, blocks, n), library_ms=None,
         **compact_depth(counts, barrier_ms, compact_exchange_ms(blocks)),
-        blocks=blocks, steps=counts,
-        phase_split=layouts[str(S.FLAT_CLUSTER)]["phase_split"],
-        layouts=layouts))
+        blocks=blocks, frame=frame, steps=counts,
+        phase_split=flat_phase_split(fin, frs)))
 
     # K4: one full replay chunk (SCATTER_CHUNK rows, repeats included)
     from nomad_tpu_torch.ops.engine import SCATTER_CHUNK

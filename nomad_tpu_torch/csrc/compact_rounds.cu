@@ -1025,9 +1025,10 @@ int smem_room(long long* room) {
 
 // The blocks of a lane and the frame slots of each.  K12 (S > 1): one
 // block per shard.  Else at least MIN_ROWS slots a block, at most
-// XCH_BLOCKS blocks, the last holding the remainder; a frame that does
-// not fit in the shared memory of XCH_BLOCKS blocks takes up to `max_cb`
-// blocks (K3's choice) where that makes it fit, else global scratch.
+// XCH_BLOCKS blocks, the last holding the remainder.  A K3 frame that
+// does not fit in the shared memory of XCH_BLOCKS blocks takes up to
+// MAX_CB blocks where that makes it fit; any other frame that does not
+// fit stays on XCH_BLOCKS blocks with its state in global scratch.
 struct Plan {
   int cb, rows;
   long long fixed, frame;
@@ -1044,7 +1045,7 @@ Plan split(int nct, int c, bool flat, long long fixed, long long room) {
   return q;
 }
 
-int plan(int nc, int shards, int rs, bool flat, int max_cb, Plan* q) {
+int plan(int nc, int shards, int rs, bool flat, Plan* q) {
   long long room = 0;
   const int e = smem_room(&room);
   if (e) return e;
@@ -1057,8 +1058,8 @@ int plan(int nc, int shards, int rs, bool flat, int max_cb, Plan* q) {
   const int want = (nct + MIN_ROWS - 1) / MIN_ROWS;
   *q = split(nct, want < 1 ? 1 : want > XCH_BLOCKS ? XCH_BLOCKS : want, flat,
              fixed, room);
-  if (!q->fits && max_cb > XCH_BLOCKS) {
-    const Plan w = split(nct, want > max_cb ? max_cb : want, flat, fixed,
+  if (!q->fits && flat) {
+    const Plan w = split(nct, want > MAX_CB ? MAX_CB : want, flat, fixed,
                          room);
     if (w.fits) *q = w;
   }
@@ -1068,15 +1069,15 @@ int plan(int nc, int shards, int rs, bool flat, int max_cb, Plan* q) {
 // `p.frame_glob` is the wrapper's scratch (multi_compact_scratch_bytes),
 // used only when the frame state does not fit in shared memory
 template <bool PROF, bool FLAT>
-int launch(Params p, int max_cb, cudaStream_t stream) {
+int launch(Params p, cudaStream_t stream) {
   if (p.rs > MAX_RS || p.rs < 1 || p.nc < 1 || p.n_lanes < 1 ||
       p.fill_k < 1 || p.fill_k > p.rs || p.shards < 1 ||
-      p.shards > XCH_BLOCKS || max_cb > MAX_CB ||
+      p.shards > XCH_BLOCKS ||
       (FLAT && (p.n_lanes != 1 || p.shards != 1 || p.nc != p.n ||
                 !p.jc_out)))
     return (int)cudaErrorInvalidValue;
   Plan q;
-  int e = plan(p.nc, p.shards, p.rs, FLAT, max_cb, &q);
+  int e = plan(p.nc, p.shards, p.rs, FLAT, &q);
   if (e) return e;
   long long room = 0;
   e = smem_room(&room);
@@ -1152,7 +1153,7 @@ static Params params(COMPACT_ARGS) {
          n_steps, spread, rs, fill_k, scratch)
 
 // K3: usage `used` [N, 3] updated in place, buf [R, rs + 16], the last
-// step's job counts jc [N]; up to `max_cb` blocks (8 or 16)
+// step's job counts jc [N]
 #define FLAT_ARGS                                                          \
   const int *cap, int *used, const uint8_t *static_u,                      \
       const float *aff_land, const int *aff, const int *req,               \
@@ -1160,7 +1161,7 @@ static Params params(COMPACT_ARGS) {
       const int *g_aff, const int *g_job, const long long *seed,           \
       const int *job_count0, const int *round_g, const int *round_want,    \
       int *buf, int *jc, int n, int ua, int n_aff, int n_rounds,           \
-      int spread, int rs, int max_cb, unsigned char *scratch
+      int spread, int rs, unsigned char *scratch
 
 static Params flat_params(FLAT_ARGS) {
   Params p{};
@@ -1181,35 +1182,34 @@ static Params flat_params(FLAT_ARGS) {
   flat_params(cap, used, static_u, aff_land, aff, req, desired, dh_limit,  \
               g_static, g_aff, g_job, seed, job_count0, round_g,           \
               round_want, buf, jc, n, ua, n_aff, n_rounds, spread, rs,     \
-              max_cb, scratch)
+              scratch)
 
 // The plan of a launch as host functions: the bytes of global scratch it
 // needs (the frame state, when it does not fit in shared memory; 0 when
 // it needs none, -1 when too large), and its blocks a lane.  `nc` frame
 // slots a shard, `n_shards` shards (1: K2, K3), `flat`: K3's frame.
 extern "C" int multi_compact_scratch_bytes(int n_lanes, int nc, int rs,
-                                           int n_shards, int flat,
-                                           int max_cb) {
+                                           int n_shards, int flat) {
   if (n_lanes < 1 || nc < 1 || rs < 1 || n_shards < 1) return -1;
   Plan q;
-  if (plan(nc, n_shards, rs, flat != 0, max_cb, &q) != 0) return -1;
+  if (plan(nc, n_shards, rs, flat != 0, &q) != 0) return -1;
   if (q.fits) return 0;
   const long long b = (long long)n_lanes * q.cb * q.frame;
   return b > 0x7fffffffll ? -1 : (int)b;
 }
 
-extern "C" int multi_compact_blocks(int nc, int rs, int n_shards, int flat,
-                                    int max_cb) {
+extern "C" int multi_compact_blocks(int nc, int rs, int n_shards,
+                                    int flat) {
   Plan q;
   if (nc < 1 || rs < 1 || n_shards < 1 ||
-      plan(nc, n_shards, rs, flat != 0, max_cb, &q) != 0)
+      plan(nc, n_shards, rs, flat != 0, &q) != 0)
     return 0;
   return q.cb;
 }
 
 // K2: frames [L, nc], seeds [J', nc]
 extern "C" int multi_compact(COMPACT_ARGS, cudaStream_t stream) {
-  return launch<false, false>(COMPACT_PARAMS, XCH_BLOCKS, stream);
+  return launch<false, false>(COMPACT_PARAMS, stream);
 }
 
 // The PROF instantiations: the same rounds, with block 0's phase split
@@ -1219,7 +1219,7 @@ extern "C" int multi_compact_prof(COMPACT_ARGS, long long* prof,
   if (!prof) return (int)cudaErrorInvalidValue;
   Params p = COMPACT_PARAMS;
   p.prof = prof;
-  return launch<true, false>(p, XCH_BLOCKS, stream);
+  return launch<true, false>(p, stream);
 }
 
 // K12: frames [S, L, nc] (nc = Nc_loc), seeds [S, n_jrows, nc], affinity
@@ -1229,7 +1229,7 @@ extern "C" int multi_compact_sharded(COMPACT_ARGS, int n_shards,
   Params p = COMPACT_PARAMS;
   p.shards = n_shards;
   p.n_jrows = n_jrows;
-  return launch<false, false>(p, XCH_BLOCKS, stream);
+  return launch<false, false>(p, stream);
 }
 
 extern "C" int multi_compact_sharded_prof(COMPACT_ARGS, int n_shards,
@@ -1240,11 +1240,11 @@ extern "C" int multi_compact_sharded_prof(COMPACT_ARGS, int n_shards,
   p.shards = n_shards;
   p.n_jrows = n_jrows;
   p.prof = prof;
-  return launch<true, false>(p, XCH_BLOCKS, stream);
+  return launch<true, false>(p, stream);
 }
 
 extern "C" int multi_flat(FLAT_ARGS, cudaStream_t stream) {
-  return launch<false, true>(FLAT_PARAMS, max_cb, stream);
+  return launch<false, true>(FLAT_PARAMS, stream);
 }
 
 extern "C" int multi_flat_prof(FLAT_ARGS, long long* prof,
@@ -1252,7 +1252,7 @@ extern "C" int multi_flat_prof(FLAT_ARGS, long long* prof,
   if (!prof) return (int)cudaErrorInvalidValue;
   Params p = FLAT_PARAMS;
   p.prof = prof;
-  return launch<true, true>(p, max_cb, stream);
+  return launch<true, true>(p, stream);
 }
 
 // Probe of the cost of one exchange of the rounds at `cluster` blocks

@@ -296,12 +296,6 @@ def place_multi_packed_plain(inp: MultiEvalInputs, round_size: int,
     return buf, used[0], cur[0].to(torch.int32)
 
 
-# K3's cluster (csrc/compact_rounds.cu plan): up to 16 blocks, so that
-# the flat wave's 50,000-row frame fits in shared memory, rather than 8
-# with the frame in global scratch (both timed in PERF.md §6)
-FLAT_CLUSTER = 16
-
-
 def _exchange(n_clusters: int, n_shards: int, kk_loc: int, dev):
     """Exchange scratch of the sharded rounds kernels (csrc/
     multi_rounds.cu): per cluster, four count rows [4, S, 8], the S
@@ -340,10 +334,9 @@ def _frame_scratch(kern, name, dev, *plan):
 
 
 def _flat_launch(used: torch.Tensor, inp: MultiEvalInputs,
-                 round_size: int, n_shards: int = 0, prof=None,
-                 max_cb: int = FLAT_CLUSTER):
+                 round_size: int, n_shards: int = 0, prof=None):
     """K1 landscapes + one K3 launch (csrc/compact_rounds.cu, one cluster
-    of up to `max_cb` blocks over every row; K11 with `n_shards`: the
+    of up to 16 blocks over every row; K11 with `n_shards`: the
     node axis in that many shards, csrc/multi_rounds.cu); `used` is the
     round state and the usage output (updated in place).  With `prof`
     (int64 [18] on the card) K3's PROF instantiation runs instead and
@@ -394,14 +387,14 @@ def _flat_launch(used: torch.Tensor, inp: MultiEvalInputs,
         return buf, used, jc
     if not n_rounds:
         return buf, used, jc.copy_(inp.job_count0[0])
-    frame = _frame_scratch(kern, name, dev, 1, n, round_size, 1, 1, max_cb)
+    frame = _frame_scratch(kern, name, dev, 1, n, round_size, 1, 1)
     tail = [None if frame is None else frame.data_ptr()]
     symbol = name
     if prof is not None:
         symbol = name + "_prof"
         tail.append(prof.data_ptr())
     kern.launch(dev.index, symbol, *head, jc.data_ptr(), n, ua, af,
-                n_rounds, spread, round_size, max_cb, *tail)
+                n_rounds, spread, round_size, *tail)
     return buf, used, jc
 
 
@@ -558,7 +551,7 @@ def _compact_launch(used_out: torch.Tensor, used_in: torch.Tensor,
     if not (n_steps and nc):
         return buf_small, fills, used_out
     frame = _frame_scratch(kern, name, dev, n_lanes, nc, round_size,
-                           max(n_shards, 1), 0, 8)
+                           max(n_shards, 1), 0)
     tail = [None if frame is None else frame.data_ptr()]
     if n_shards:
         tail += [n_shards, inp.job_count0.shape[1]]

@@ -278,19 +278,15 @@ def _flat_on(case, device, n_rows=None):
     return multi_inputs_from_numpy(arrs, device), rs
 
 
-def _flat_matches_plain(cuda_device, case, n_rows=None, max_cb=None):
-    """K3 (csrc/compact_rounds.cu flat mode, up to `max_cb` blocks) at
-    one of FLAT_CASES against its plain version on the card and on CPU
-    copies, to the bit: one launch, `inp.used0` untouched; then the
-    chained form in place."""
+def _flat_matches_plain(cuda_device, case, n_rows=None):
+    """K3 (csrc/compact_rounds.cu flat mode) at one of FLAT_CASES against
+    its plain version on the card and on CPU copies, to the bit: one
+    launch, `inp.used0` untouched; then the chained form in place."""
     inp, rs = _flat_on(case, cuda_device, n_rows)
     cpu, _ = _flat_on(case, "cpu", n_rows)
     used0 = inp.used0.clone()
     K.reset_launches()
-    if max_cb is None:
-        got = psel.place_multi_packed(inp, rs)
-    else:
-        got = psel._flat_launch(inp.used0.clone(), inp, rs, max_cb=max_cb)
+    got = psel.place_multi_packed(inp, rs)
     torch.cuda.synchronize()
     assert K.MULTI_FLAT.launches == 1
     assert torch.equal(inp.used0, used0)
@@ -312,29 +308,43 @@ def test_multi_flat_cases_match_plain(cuda_device, case):
     _flat_matches_plain(cuda_device, case)
 
 
+# K3's two layouts (csrc/compact_rounds.cu plan) at round size 64: the
+# flat wave's 50,000 rows fit in the shared memory of a 16-block
+# cluster; 100,000 rows do not, and take 8 blocks with the frame in
+# global scratch
+FLAT_LAYOUTS = {50000: (16, False), 100000: (8, True)}
+
+
+def _flat_layout(n_rows):
+    blocks, glob = FLAT_LAYOUTS[n_rows]
+    assert K.MULTI_FLAT.fn("multi_compact_blocks")(n_rows, 64, 1, 1) == blocks
+    scratch = K.MULTI_FLAT.fn("multi_compact_scratch_bytes")(1, n_rows, 64,
+                                                             1, 1)
+    assert (scratch > 0) == glob
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("max_cb", [8, 16])
+@pytest.mark.parametrize("n_rows", sorted(FLAT_LAYOUTS))
 @pytest.mark.parametrize("case", ["binpack", "spread"])
-def test_multi_flat_wide_frame_matches_plain(cuda_device, case, max_cb):
+def test_multi_flat_wide_frame_matches_plain(cuda_device, case, n_rows):
     """K3 over 50,000 rows (the flat wave's width, the case's node axis
-    tiled) in both layouts: 8 blocks with the frame in global scratch,
-    and a cluster of 16 blocks with the frame in shared memory."""
-    blocks = K.MULTI_FLAT.fn("multi_compact_blocks")(50000, 64, 1, 1,
-                                                     max_cb)
-    assert blocks == max_cb
-    _flat_matches_plain(cuda_device, case, 50000, max_cb)
+    tiled) on a cluster of 16 blocks with the frame in shared memory,
+    and over 100,000 rows on 8 blocks with the frame in global
+    scratch."""
+    _flat_layout(n_rows)
+    _flat_matches_plain(cuda_device, case, n_rows)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("max_cb", [8, 16])
-def test_multi_flat_prof_entry(cuda_device, max_cb):
+@pytest.mark.parametrize("n_rows", sorted(FLAT_LAYOUTS))
+def test_multi_flat_prof_entry(cuda_device, n_rows):
     """K3's PROF instantiation gives the main path's outputs and counts
-    its real and padding steps."""
-    inp, rs = _flat_on("padding_rounds", cuda_device, 50000)
-    got = psel._flat_launch(inp.used0.clone(), inp, rs, max_cb=max_cb)
+    its real and padding steps, in both layouts."""
+    _flat_layout(n_rows)
+    inp, rs = _flat_on("padding_rounds", cuda_device, n_rows)
+    got = psel._flat_launch(inp.used0.clone(), inp, rs)
     prof = torch.zeros(18, dtype=torch.int64, device=cuda_device)
-    again = psel._flat_launch(inp.used0.clone(), inp, rs, prof=prof,
-                              max_cb=max_cb)
+    again = psel._flat_launch(inp.used0.clone(), inp, rs, prof=prof)
     torch.cuda.synchronize()
     _same(again, got)
     c = prof.tolist()
