@@ -86,7 +86,16 @@ After every wall-time measurement:
  16. launch_path: K4's wall time per call split by the host clock, the
      median of 11 loops of 1,000 calls each (the wrapper's Python, the
      call into the launcher, the same call launching nothing, both again
-     through ctypes) and its device time per call;
+     through ctypes) and its device time per call; then (`k1`) K1's calls
+     split alike: the K1 row's pair at the zoned wave's inputs (the
+     mask, the frames' affinity) and the flat waves' two calls (the
+     mask, the affinity), each with the pair's wall and device time per
+     call;
+     eager_ops: the main path's eager device ops (kernels.EAGER, the
+     copies, fills and stacks around the kernels, counted where they run)
+     with each op's host and device time per call at the waves' shapes,
+     and per phase their counts and count x per-call time (each phase
+     line also carries its `eager` counts);
  17. device_times: each kernel row's timed loop run again under one
      torch.profiler window, giving `device_ms` (and `library_device_ms`
      for the rows that have a library call).
@@ -484,6 +493,26 @@ def device_phase(rows) -> dict:
     return by
 
 
+def host_us(f, *a, calls: int = 1000) -> float:
+    """`f(*a)`'s wall time per call by the host clock: the median of
+    REPLAY_ROUNDS loops of `calls` calls (after 10 warm-up calls and a
+    synchronize each).  For a call whose device work is shorter than its
+    host work this is the host's time."""
+    import torch
+
+    per_call = []
+    for _ in range(REPLAY_ROUNDS):
+        for _ in range(10):
+            f(*a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            f(*a)
+        per_call.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(per_call)
+
+
 def launch_path(row, calls: int = 1000) -> dict:
     """K4's wall time per call split by the host clock, `calls` calls
     each (the chunk of the kernel row `row`): the wrapper's Python before
@@ -507,21 +536,6 @@ def launch_path(row, calls: int = 1000) -> dict:
     args = (work.data_ptr(), work.shape[0], rows.data_ptr(),
             vals.data_ptr(), rows.shape[0], K.stream_of(work))
     empty = args[:4] + (0, args[5])
-
-    def host_us(f, *a):
-        """Median of REPLAY_ROUNDS loops of `calls` calls, per call."""
-        per_call = []
-        for _ in range(REPLAY_ROUNDS):
-            for _ in range(10):
-                f(*a)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                f(*a)
-            per_call.append((time.perf_counter() - t0) / calls * 1e6)
-            torch.cuda.synchronize()
-        return statistics.median(per_call)
-
     out = {"phase": "launch_path", "kernel": kern.name, "calls": calls,
            "rows": rows.shape[0],
            "stream": "torch._C._cuda_getCurrentRawStream",
@@ -545,6 +559,157 @@ def launch_path(row, calls: int = 1000) -> dict:
     dev_ms = device_ms(lambda: scatter_add_(work, rows, vals), calls)
     out["device_us"] = dev_ms * 1e3 if dev_ms else None
     return out
+
+
+# K1's launchers (csrc/landscape.cu): the argument that counts the
+# launch's work (signatures, frame sets), set to 0 for the launcher call
+# that launches nothing
+K1_COUNT_ARG = {"landscape_mask": 4, "landscape_affinity": 4}
+
+
+def k1_split(pairs, calls: int = 1000) -> dict:
+    """K1's wall time per call split by the host clock, as launch_path
+    splits K4's: for each wrapper call of each labelled sequence in
+    `pairs` ({label: [(wrapper, args), ...]}), the wrapper's Python
+    before the launcher (its bound launchers swapped for a no-op), the
+    launcher call with the arguments the wrapper passed, the same call
+    with its count argument 0 (K1_COUNT_ARG: no kernel runs), the whole
+    wrapper, and its device time per call from one profiler window; then
+    the whole sequence by wall and on the device."""
+    from nomad_tpu_torch.ops import kernels as K
+
+    kern = K.LANDSCAPE
+    out = {}
+    for label, seq in pairs.items():
+        for fn, args in seq:       # bind every launcher the calls use
+            fn(*args)
+        entries = []
+        for fn, args in seq:
+            saved = dict(kern._fns)
+            got = []
+            for sym in saved:
+                kern._fns[sym] = functools.partial(
+                    lambda s, *a: got.append((s, a)) or 0, sym)
+            try:
+                fn(*args)
+                for sym in saved:
+                    kern._fns[sym] = lambda *a: 0
+                python_us = host_us(fn, *args, calls=calls)
+            finally:
+                kern._fns.update(saved)
+            if len(got) != 1:
+                raise AssertionError(f"k1_split: {fn.__name__} launched "
+                                     f"{len(got)} times")
+            sym, cargs = got[0]
+            i = K1_COUNT_ARG[sym]
+            empty = cargs[:i] + (0,) + cargs[i + 1:]
+            entries.append({
+                "wrapper": fn.__name__, "symbol": sym,
+                "wrapper_host_us": host_us(fn, *args, calls=calls),
+                "python_us": python_us,
+                "launcher_us": host_us(saved[sym], *cargs, calls=calls),
+                "launcher_no_launch_us": host_us(saved[sym], *empty,
+                                                 calls=calls),
+                "_run": functools.partial(fn, *args)})
+
+        def run(seq=seq):
+            for fn, args in seq:
+                fn(*args)
+
+        out[label] = {"calls": entries,
+                      "wall_us": host_us(run, calls=calls), "_run": run}
+    # the profiler windows after every host-clock loop
+    for split in out.values():
+        for r in split["calls"] + [split]:
+            dev_ms = device_ms(r.pop("_run"), calls)
+            r["device_us"] = dev_ms * 1e3 if dev_ms else None
+    return out
+
+
+def eager_replays(zoned_built, flat_built) -> dict:
+    """Each counted eager device op (kernels.EAGER) as the main path runs
+    it, at the zoned and flat waves' shapes: {op: (call, shape)}."""
+    import numpy as np
+    import torch
+
+    zin, fin = zoned_built["inp"], flat_built["inp"]
+    dev = zin.attrs.device
+    npad = zin.attrs.shape[0]
+    u = zoned_built["n_lanes"]
+    con_np = zin.con[:u].cpu().numpy()
+    base_rows = [zin.base_mask[zin.u_mask[i]] for i in range(u)]
+    m_rows = list(zin.base_mask)
+    g_pad = fin.req.shape[0]
+    jc0 = torch.zeros((g_pad, npad), dtype=torch.int32, device=dev)
+    jrow = torch.zeros((1, npad), dtype=torch.int32, device=dev)
+
+    def jc0_set():
+        jc0[torch.tensor([0], device=dev)] = jrow
+
+    return {
+        "prover_con_h2d": (lambda: torch.tensor(np.stack(list(con_np)),
+                                                device=dev),
+                           list(con_np.shape)),
+        "prover_base_stack": (lambda: torch.stack(base_rows), [u, npad]),
+        "prover_arange": (lambda: torch.arange(u, dtype=torch.int32,
+                                               device=dev), [u]),
+        "stack_base_mask": (lambda: torch.stack(m_rows),
+                            [len(m_rows), npad]),
+        "elig_and_node_ok": (lambda: fin.elig & fin.elig, [npad]),
+        "compact_used0_clone": (lambda: zin.used0.clone(), [npad, 3]),
+        "flat_used0_clone": (lambda: fin.used0.clone(), [npad, 3]),
+        "flat_jc0_zeros": (lambda: torch.zeros(
+            (g_pad, npad), dtype=torch.int32, device=dev), [g_pad, npad]),
+        "flat_jc0_set": (jc0_set, [1, npad]),
+        "flat_g_job_arange": (lambda: torch.arange(
+            g_pad, dtype=torch.int32, device=dev), [g_pad]),
+        "solo_used0_delta": (lambda: fin.used0 + fin.used0, [npad, 3]),
+    }
+
+
+def eager_phase(replays, calls: int = 200) -> dict:
+    """Per-call host and device time of each eager op (its replay at the
+    main path's shapes), and per main-path phase the ops' counts and
+    count x per-call times."""
+    per = {op: {"shape": shape, "host_us": host_us(fn, calls=calls)}
+           for op, (fn, shape) in replays.items()}
+    for op, (fn, _) in replays.items():
+        dev_ms = device_ms(fn, calls)
+        per[op]["device_us"] = dev_ms * 1e3 if dev_ms else None
+    by_phase = {}
+    for ph, counts in EAGER_BY_PHASE.items():
+        unknown = set(counts) - set(per)
+        if unknown:
+            raise AssertionError(f"eager ops without a replay: {unknown}")
+        by_phase[ph] = {
+            "counts": {op: counts.get(op, 0) for op in per},
+            "host_ms": sum(c * per[op]["host_us"]
+                           for op, c in counts.items()) / 1e3,
+            "device_ms": sum(c * (per[op]["device_us"] or 0.0)
+                             for op, c in counts.items()) / 1e3}
+    return {"phase": "eager_ops", "per_call": per, "by_phase": by_phase}
+
+
+# the main path's eager device ops of each phase (kernels.EAGER)
+EAGER_BY_PHASE = {}
+
+
+def reset_counts() -> None:
+    """Zero the kernels' launch counts and the eager-op counts."""
+    from nomad_tpu_torch.ops import kernels as K
+
+    K.reset_launches()
+    K.reset_eager()
+
+
+def read_counts(name: str):
+    """(launches by kernel, eager ops by name) since reset_counts; the
+    eager counts are kept for the eager_ops line under `name`."""
+    from nomad_tpu_torch.ops import kernels as K
+
+    eager = dict(K.EAGER)
+    EAGER_BY_PHASE[name] = eager
+    return {k.name: k.launches for k in K.KERNELS}, eager
 
 
 def nbytes(*tensors) -> int:
@@ -932,10 +1097,16 @@ def kernel_phase(h, zoned_built, flat_built):
     k1_bytes = (fn_bytes((*m_args, zin.aff, cr), zin.attrs, zin.luts,
                          m_args[1], zin.aff) + u * n + nbytes(got[1]))
     k1_ops = u * n * c_rows * 4 + valid * zin.aff.shape[0] * af_rows * 6
+    fin = flat_built["inp"]
+    split = {"zoned": [(landscape_mask, m_args), (affinity_landscape, a_args)],
+             "flat": [(landscape_mask, (fin.attrs, fin.con, fin.luts,
+                                        fin.elig, fin.base_mask,
+                                        fin.u_mask)),
+                      (affinity_landscape, (fin.attrs, fin.aff, fin.luts))]}
     rows.append(dict(kernel=K.LANDSCAPE, max_abs_err=err,
                      **timing(k1, 20), plain_ms=time_ms(k1_plain, 3),
                      bytes=k1_bytes, ops=k1_ops, library_ms=None,
-                     depth_ms=None))
+                     depth_ms=None, _split=split))
 
     # K2: the zoned wave's compact launch
     args = (cr, cv, rs, lanes)
@@ -1210,16 +1381,17 @@ def solo_phases(card, launches):
     rec.wrap(SY, "feasible_mask", "feasible")
 
     def phase(name, must, body):
-        K.reset_launches()
+        reset_counts()
         rec.phase = name
         out = body()
         rec.phase = None
-        ph = {k.name: k.launches for k in K.KERNELS}
+        ph, eager = read_counts(name)
         for k, v in ph.items():
             launches[k] += v
         if min(ph[k] for k in must) < 1:
             raise AssertionError(f"{name} launches {ph}, want {must}")
-        emit({"phase": name, "card": card, **out, "launches": ph})
+        emit({"phase": name, "card": card, **out, "launches": ph,
+              "eager": eager})
 
     # config 1: one node, 3 groups x 2
     h1 = Harness()
@@ -1707,17 +1879,17 @@ def mesh_phases(card, launches, waves, solo_placed):
         rec.wrap(PM, attr, kind)
 
     def phase(name, must, body):
-        K.reset_launches()
+        reset_counts()
         rec.phase = name
         out = body()
         rec.phase = None
-        ph = {k.name: k.launches for k in K.KERNELS}
+        ph, eager = read_counts(name)
         for k, v in ph.items():
             launches[k] += v
         if min(ph[k] for k in must) < 1:
             raise AssertionError(f"{name} launches {ph}, want {must}")
         emit({"phase": name, "card": card, "shards": MESH_SHARDS, **out,
-              "launches": ph})
+              "launches": ph, "eager": eager})
 
     # mesh_waves: a second cluster built as the first, the harness's own
     # single-device engine kept as the twin
@@ -2049,6 +2221,7 @@ def main() -> int:
     emit({"phase": "kernel_checks", "card": card, "tolerance": "exact",
           "checks": [{k: (v.name if k == "kernel" else v)
                       for k, v in r.items() if k[0] != "_"} for r in krows]})
+    replays = eager_replays(zoned_built, flat_built)
     del zoned_built, flat_built
 
     # 3-6. the main path: each wave through the Harness, launch counts
@@ -2061,9 +2234,9 @@ def main() -> int:
         all_jobs += jobs
         chain = ((prev["used"], prev["node_version"], prev["npad"])
                  if chained else None)
-        K.reset_launches()
+        reset_counts()
         pend, _, tm, _ = run_wave(h, evals, used0_dev=chain)
-        ph = {k.name: k.launches for k in K.KERNELS}
+        ph, eager = read_counts(name)
         for k, v in ph.items():
             launches[k] += v
         if bool(pend["chained"]) != chained:
@@ -2082,7 +2255,8 @@ def main() -> int:
               "placements": placed, "lanes": pend["n_lanes"],
               "round_size": pend["rs"], **tm,
               "evals_per_s": n_ev / tm["wall_s"],
-              "placements_per_s": placed / tm["wall_s"], "launches": ph})
+              "placements_per_s": placed / tm["wall_s"], "launches": ph,
+              "eager": eager})
         prev = pend
 
     # 7-11. the solo path, then 12. its kernels against the plain versions
@@ -2112,9 +2286,14 @@ def main() -> int:
     # K4's launch path split, then every row's device window (after all
     # wall-time measurements)
     lp = launch_path(next(r for r in krows if r["kernel"] is K.SCATTER_ADD))
+    lp["k1"] = k1_split(next(r for r in krows
+                             if r["kernel"] is K.LANDSCAPE).pop("_split"))
     lp["card"] = card
+    eager = eager_phase(replays)
+    eager["card"] = card
     device_by = device_phase(krows + srows + mrows)
     emit(lp)
+    emit(eager)
     emit({"phase": "device_times", "card": card, "source": device_by,
           "rows": [{"name": r["kernel"].name, "ms": r["ms"],
                     "device_ms": r["device_ms"],

@@ -228,6 +228,8 @@ def _host_signature_masks(attrs, elig, base_by_sig, con_by_sig, luts):
     [C, 3] int32 host rows); returns the [U, n] bool mask on the host."""
     dev = attrs.device
     u = len(con_by_sig)
+    for op in ("prover_con_h2d", "prover_base_stack", "prover_arange"):
+        K.count_eager(op)
     mask = landscape_mask(
         attrs, torch.tensor(np.stack(con_by_sig), device=dev), luts, elig,
         torch.stack(base_by_sig),
@@ -742,6 +744,7 @@ class PlacementEngine:
                 if a.job_id == job.id and job_count[row] > 0:
                     job_count[row] -= 1
             used0 = used0 + self._to_dev(delta)
+            K.count_eager("solo_used0_delta")
 
         dcm, pm = self.job_masks(t, job, ctx)
         luts_dev = self._dev_const(
@@ -1224,6 +1227,7 @@ class PlacementEngine:
                 node_ok = np.ones(npad, bool)
                 node_ok[rows] = False
                 elig_dev = elig_dev & self._to_dev(node_ok)
+                K.count_eager("elig_and_node_ok")
         algo = snapshot.scheduler_config().scheduler_algorithm
 
         G = len(items)
@@ -1305,6 +1309,7 @@ class PlacementEngine:
         sig_base = [mask_rows[mi] for mi in static_mi]
         mask_rows.extend([zrow] * (m_pad - len(mask_rows)))
         base_mask = torch.stack(mask_rows)
+        K.count_eager("stack_base_mask")
         u_pad = _pad_pow2(len(static_con), lo=1)
         con = np.zeros((u_pad, c_max, 3), np.int32)
         u_mask = np.zeros(u_pad, np.int32)
@@ -1451,12 +1456,15 @@ class PlacementEngine:
         else:
             jc0 = torch.zeros((g_pad, npad), dtype=torch.int32,
                               device=self.device)
+            K.count_eager("flat_jc0_zeros")
             if jc_nz_idx:
                 jc0[torch.tensor(jc_nz_idx, device=self.device)] = \
                     self._to_dev(_pad_cols(np.stack(jc_nz_rows), npad)
                                  .astype(np.int32))
+                K.count_eager("flat_jc0_set")
             g_job_dev = torch.arange(g_pad, dtype=torch.int32,
                                      device=self.device)
+            K.count_eager("flat_g_job_arange")
 
         inp = MultiEvalInputs(
             attrs=dev["attrs"], cap=dev["cap"], used0=used0,

@@ -219,6 +219,21 @@ def reset_launches() -> None:
         k.launches = 0
 
 
+# The main path's eager device ops: PyTorch calls around the kernels that
+# run a device op of their own (a copy, a fill, a stack), counted at
+# their call sites as the wrappers count launches, so a run can show
+# which of them remain (chip_smoke.py prints them per phase).
+EAGER: Dict[str, int] = {}
+
+
+def count_eager(name: str) -> None:
+    EAGER[name] = EAGER.get(name, 0) + 1
+
+
+def reset_eager() -> None:
+    EAGER.clear()
+
+
 def stream_of(t) -> int:
     """Raw handle of PyTorch's current stream on `t`'s (CUDA) device,
     read without building a `torch.cuda.Stream`."""

@@ -405,6 +405,7 @@ def place_multi_packed(inp: MultiEvalInputs, round_size: int):
     tensors launch K1 and K3 (or raise).  `inp.used0` is not modified."""
     if inp.attrs.device.type == "cpu":
         return place_multi_packed_plain(inp, round_size)
+    K.count_eager("flat_used0_clone")
     return _flat_launch(inp.used0.clone(), inp, round_size)
 
 
@@ -577,6 +578,7 @@ def place_multi_compact_packed(inp: MultiEvalInputs, cand_rows, cand_valid,
     if inp.attrs.device.type == "cpu":
         return place_multi_compact_packed_plain(inp, cand_rows, cand_valid,
                                                 round_size, n_lanes)
+    K.count_eager("compact_used0_clone")
     return _compact_launch(inp.used0.clone(), inp.used0, inp, cand_rows,
                            cand_valid, round_size, n_lanes)
 

@@ -308,6 +308,7 @@ def place_multi_sharded_packed(inp: MultiEvalInputs, mesh: Mesh,
     modified."""
     if _on_mesh(mesh, inp.attrs):
         return place_multi_sharded_plain(inp, mesh.n_shards, round_size)
+    K.count_eager("flat_used0_clone")
     return S._flat_launch(inp.used0.clone(), inp, round_size,
                           n_shards=mesh.n_shards)
 
@@ -332,6 +333,7 @@ def place_multi_compact_sharded(inp: MultiEvalInputs, cand_rows, cand_valid,
     if _on_mesh(mesh, inp.attrs):
         return place_multi_compact_sharded_plain(
             inp, cand_rows, cand_valid, mesh.n_shards, round_size, n_lanes)
+    K.count_eager("compact_used0_clone")
     return S._compact_launch(inp.used0.clone(), inp.used0, inp, cand_rows,
                              cand_valid, round_size, n_lanes,
                              n_shards=mesh.n_shards)
