@@ -63,8 +63,8 @@ Then the node-sharded mesh: a second engine on make_mesh(8) of the card
 
  13. mesh_waves: the four waves above on a second 50,000-node cluster
      built alike (K12, K2's kernel over 5 lanes of 8 shard slices, K12
-     chained, K12, then K11
-     with K13 replaying the small wave's deltas), every eval held against
+     chained, K12, then K11, K3's flat mode over the padded rows, with
+     K13 replaying the small wave's deltas), every eval held against
      the single-device engine at the same snapshot and seeds (bench.py
      _sharded_parity_gate: sorted picks and nodes_filtered equal), and
      the store gates as above;
@@ -74,12 +74,12 @@ Then the node-sharded mesh: a second engine on make_mesh(8) of the card
      alloc, the bulk's as sorted lists;
  15. mesh kernel checks: K9-K13 against their plain versions at those
      phases' inputs, on the card and on CPU copies, K9's phase split at
-     the mesh spread eval's inputs, K12's split and steps.  The
-     `exchange_probes` line, before the solo kernel checks, times one
-     cluster exchange through global scratch (K10's and K11's) and one
-     exchange through distributed shared memory (K9's, and K5's above
-     512 rows), each at 8 blocks, and one of K2, K3 and K12 at 8 and at
-     16 blocks.
+     the mesh spread eval's inputs, K12's split and steps, K11's steps.
+     The `exchange_probes` line, before the solo kernel checks, times one
+     cluster exchange through global scratch (K10's) and one exchange
+     through distributed shared memory (K9's, and K5's above 512 rows),
+     each at 8 blocks, and one of K2, K3, K11 and K12 at 8 and at 16
+     blocks.
 
 After every wall-time measurement:
 
@@ -88,9 +88,8 @@ After every wall-time measurement:
      call into the launcher, the same call launching nothing, both again
      through ctypes) and its device time per call; then (`k1`) K1's calls
      split alike: the K1 row's pair at the zoned wave's inputs (the
-     mask, the frames' affinity) and the flat waves' two calls (the
-     mask, the affinity), each with the pair's wall and device time per
-     call;
+     mask, the frames' affinity) and the flat waves' one launch of both
+     landscapes, each with the pair's wall and device time per call;
      eager_ops: the main path's eager device ops (kernels.EAGER, the
      copies, fills and stacks around the kernels, counted where they run)
      with each op's host and device time per call at the waves' shapes,
@@ -133,7 +132,7 @@ FLAT_PER_EVAL = 100
 # (f64 runs at half of it, so the bound stays a lower bound)
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
-# Arithmetic of the rounds template (csrc/multi_rounds.cu: K6, K10, K11)
+# Arithmetic of the rounds template (csrc/multi_rounds.cu: K6, K10)
 # per valid row and real step, counted from the source:
 # intake_score's intake (3 subtractions, 3 floor divisions at 7
 # operations, request and distinct_hosts clamps) 47; its score
@@ -142,7 +141,7 @@ PEAK_OPS = 67e12
 # orderable bits) 25; the 8 radix passes' key compare and digit 56; the
 # exhaustion metrics 20.
 OPS_PER_ROW_STEP = 47 + 70 + 25 + 56 + 20
-# K2, K3 and K12 (csrc/compact_rounds.cu) counted from the source.  A
+# K2, K3, K11 and K12 (csrc/compact_rounds.cu) counted from the source.  A
 # cache entry
 # (refresh_row: rounds_kcap's 3 subtractions, 3 floor divisions at 7 and
 # clamps 32; rounds_binpack's conversions, 2 divisions, 2 libm_pow10f at
@@ -564,7 +563,8 @@ def launch_path(row, calls: int = 1000) -> dict:
 # K1's launchers (csrc/landscape.cu): the argument that counts the
 # launch's work (signatures, frame sets), set to 0 for the launcher call
 # that launches nothing
-K1_COUNT_ARG = {"landscape_mask": 4, "landscape_affinity": 4}
+K1_COUNT_ARG = {"landscape_mask": 4, "landscape_affinity": 4,
+                "landscape_pair": 1}
 
 
 def k1_split(pairs, calls: int = 1000) -> dict:
@@ -808,12 +808,12 @@ def sort_barriers(kk: int) -> int:
 
 
 # __syncthreads per step of rounds_kernel (csrc/multi_rounds.cu: K6,
-# K10, K11) outside the sort: block_sum of the viable rows 3 and of the
+# K10) outside the sort: block_sum of the viable rows 3 and of the
 # static rows 3, of the feasible rows 3, radix select 8 passes x 4,
 # gather 2, fill block_scan 3 + block_sum 3, commit 1, metrics 4
 # block_sums 12, end 1
 BARRIERS_FLAT = 3 + 3 + 3 + 32 + 2 + 6 + 1 + 12 + 1
-# K2, K3 and K12 (csrc/compact_rounds.cu) per computed step: a block
+# K2, K3, K11 and K12 (csrc/compact_rounds.cu) per computed step: a block
 # barrier after the pass and one after the decision, one exchange
 # through distributed shared memory between them; a memoised step none.
 # A step on the wide path adds 4 radix passes x 3, the quota 1, the
@@ -880,10 +880,12 @@ def compact_phase_split(inp, cand_rows, cand_valid, rs, lanes,
 
 def flat_phase_split(inp, rs) -> dict:
     """K3's split at `inp`."""
+    import torch
+
     from nomad_tpu_torch.ops import select as S
 
     return rounds_phase_split(lambda prof: S._flat_launch(
-        inp.used0.clone(), inp, rs, prof=prof))
+        torch.empty_like(inp.used0), inp.used0, inp, rs, prof=prof))
 
 
 def phase_us(c, ms, phases, kinds) -> dict:
@@ -1039,6 +1041,44 @@ def compact_mixed(zin, zcpu, args, valid) -> dict:
             "phase_split": compact_phase_split(mix, *args)}
 
 
+def used_base(inp):
+    """The rows of `inp.base_mask` that its signatures read (u_mask): the
+    engine passes its resident table, whose other rows no launch reads."""
+    return inp.base_mask[inp.u_mask.unique().long()]
+
+
+def flat_stats(kern, fin, frs, got, barrier_ms) -> dict:
+    """What a launch of K3's flat mode (K3, or K11 over the padded rows)
+    at `fin` must move and compute (each input read once, K1's two
+    landscapes included), its depth, cluster size, frame placement and
+    steps (compact_steps)."""
+    from nomad_tpu_torch.ops.feasibility import and_rows, landscape_mask_plain
+
+    n = fin.attrs.shape[0]
+    k_bytes = (fn_bytes((fin.cap, fin.used0, and_rows(fin.elig, fin.node_ok),
+                         fin.luts, used_base(fin), fin.con, fin.aff, fin.req,
+                         fin.desired, fin.dh_limit, fin.g_static, fin.g_aff,
+                         fin.g_job, fin.seed, fin.job_count0, fin.round_g,
+                         fin.round_want), fin.attrs, fin.luts, fin.con,
+                        fin.aff)
+               + nbytes(*got))
+    # the valid rows of each signature (K1's static rows)
+    sig_valid = landscape_mask_plain(
+        fin.attrs, fin.con, fin.luts, and_rows(fin.elig, fin.node_ok),
+        fin.base_mask, fin.u_mask).sum(1).cpu().tolist()
+    g_static = fin.g_static.cpu().tolist()
+    counts = compact_steps(fin, 1, (got[0], got[0][:, :frs]), min(frs, n),
+                           lambda lane, g: sig_valid[g_static[g]], g_static)
+    blocks = kern.fn("multi_compact_blocks")(n, frs, 1, 1)
+    frame = ("shared memory" if kern.fn(
+        "multi_compact_scratch_bytes")(1, n, frs, 1, 1) == 0
+             else "global scratch")
+    return dict(bytes=k_bytes, ops=compact_ops(counts, blocks, n),
+                **compact_depth(counts, barrier_ms,
+                                compact_exchange_ms(blocks)),
+                blocks=blocks, frame=frame, steps=counts)
+
+
 def kernel_phase(h, zoned_built, flat_built):
     """Each kernel's wrapper against its plain version, on the card and
     on CPU copies, at the main path's shapes (the zoned and flat waves'
@@ -1050,12 +1090,14 @@ def kernel_phase(h, zoned_built, flat_built):
     from nomad_tpu_torch.ops import select as S
     from nomad_tpu_torch.ops.engine import scatter_add_, scatter_add_plain
     from nomad_tpu_torch.ops.feasibility import (
+        and_rows,
         landscape_mask,
         landscape_mask_plain,
     )
     from nomad_tpu_torch.ops.scoring import (
         affinity_landscape,
         affinity_landscape_plain,
+        landscapes,
     )
 
     dev = h.engine.device
@@ -1097,12 +1139,22 @@ def kernel_phase(h, zoned_built, flat_built):
     k1_bytes = (fn_bytes((*m_args, zin.aff, cr), zin.attrs, zin.luts,
                          m_args[1], zin.aff) + u * n + nbytes(got[1]))
     k1_ops = u * n * c_rows * 4 + valid * zin.aff.shape[0] * af_rows * 6
+    # the flat waves' one launch of both landscapes
     fin = flat_built["inp"]
+    p_args = (fin.attrs, fin.con, fin.luts, fin.elig, fin.base_mask,
+              fin.u_mask, fin.aff, fin.node_ok)
+
+    def pair_plain(attrs, con, luts, elig, base, u_mask, aff, node_ok):
+        return (landscape_mask_plain(attrs, con, luts,
+                                     and_rows(elig, node_ok), base, u_mask),
+                affinity_landscape_plain(attrs, aff, luts))
+
+    err = max(err, check_exact("landscape pair", landscapes(*p_args),
+                               pair_plain(*p_args),
+                               landscapes(*to_cpu(p_args))))
+    torch.cuda.synchronize()
     split = {"zoned": [(landscape_mask, m_args), (affinity_landscape, a_args)],
-             "flat": [(landscape_mask, (fin.attrs, fin.con, fin.luts,
-                                        fin.elig, fin.base_mask,
-                                        fin.u_mask)),
-                      (affinity_landscape, (fin.attrs, fin.aff, fin.luts))]}
+             "flat": [(landscapes, p_args)]}
     rows.append(dict(kernel=K.LANDSCAPE, max_abs_err=err,
                      **timing(k1, 20), plain_ms=time_ms(k1_plain, 3),
                      bytes=k1_bytes, ops=k1_ops, library_ms=None,
@@ -1166,31 +1218,11 @@ def kernel_phase(h, zoned_built, flat_built):
     err = max(err, check_exact("multi_flat chained", chained, want_cpu,
                                packed=True))
     torch.cuda.synchronize()
-    k3_bytes = (fn_bytes((fin.cap, fin.used0, fin.elig, fin.luts,
-                          fin.base_mask, fin.con, fin.aff, fin.req,
-                          fin.desired, fin.dh_limit, fin.g_static, fin.g_aff,
-                          fin.g_job, fin.seed, fin.job_count0, fin.round_g,
-                          fin.round_want), fin.attrs, fin.luts, fin.con,
-                         fin.aff)
-                + nbytes(*got))
-    # the valid rows of each signature (K1's static rows)
-    sig_valid = landscape_mask_plain(
-        fin.attrs, fin.con, fin.luts, fin.elig, fin.base_mask,
-        fin.u_mask).sum(1).cpu().tolist()
-    g_static = fin.g_static.cpu().tolist()
-    counts = compact_steps(fin, 1, (got[0], got[0][:, :frs]), min(frs, n),
-                           lambda lane, g: sig_valid[g_static[g]], g_static)
-    blocks = K.MULTI_FLAT.fn("multi_compact_blocks")(n, frs, 1, 1)
-    frame = ("shared memory" if K.MULTI_FLAT.fn(
-        "multi_compact_scratch_bytes")(1, n, frs, 1, 1) == 0
-             else "global scratch")
     rows.append(dict(
         kernel=K.MULTI_FLAT, max_abs_err=err,
         **timing(lambda: S.place_multi_packed(fin, frs), 5),
         plain_ms=time_ms(lambda: S.place_multi_packed_plain(fin, frs), 2),
-        bytes=k3_bytes, ops=compact_ops(counts, blocks, n), library_ms=None,
-        **compact_depth(counts, barrier_ms, compact_exchange_ms(blocks)),
-        blocks=blocks, frame=frame, steps=counts,
+        library_ms=None, **flat_stats(K.MULTI_FLAT, fin, frs, got, barrier_ms),
         phase_split=flat_phase_split(fin, frs)))
 
     # K4: one full replay chunk (SCATTER_CHUNK rows, repeats included)
@@ -1808,7 +1840,7 @@ def dsmem_exchange_ms(rounds: int = 20000) -> float:
 
 @functools.lru_cache(maxsize=None)
 def compact_exchange_ms(cluster: int, rounds: int = 20000) -> float:
-    """Measured cost of one exchange of K2, K3 and K12 at `cluster`
+    """Measured cost of one exchange of K2, K3, K11 and K12 at `cluster`
     blocks (csrc/compact_rounds.cu compact_exchange_probe: each block's
     warp pushes its 176-byte post into every peer's shared memory,
     arrives on the peer's mbarrier and waits on its own, as a step's
@@ -2065,32 +2097,27 @@ def mesh_kernel_phase(rec, barrier_ms, cluster_ms, dsmem_ms):
         **depth(real, BARRIERS_FLAT + 35 + sort_barriers(kk_loc)
                 + sort_barriers(kk), 3)))
 
-    # K11: the mesh flat wave's launch
+    # K11: the mesh flat wave's launch, K3's flat mode over the npad rows
+    # (one cluster of up to 16 blocks, as K3), and its chained form
     fin, mesh, frs = rec.get("mesh_flat_wave", "flat")
     got = PM.place_multi_sharded_packed(fin, mesh, frs)
     want, plain_ms = timed(lambda: PM.place_multi_sharded_plain(fin, ns, frs))
-    err = check_exact("multi_flat_sharded", got, want,
-                      PM.place_multi_sharded_packed(to_cpu(fin), cpu_mesh,
-                                                    frs), packed=True)
+    want_cpu = PM.place_multi_sharded_packed(to_cpu(fin), cpu_mesh, frs)
+    err = check_exact("multi_flat_sharded", got, want, want_cpu, packed=True)
+    used0 = fin.used0.clone()
+    chained = PM.place_multi_sharded_chained(used0, fin._replace(used0=None),
+                                             mesh, frs)
+    if chained[1] is not used0:
+        raise AssertionError("multi_flat_sharded chained: usage not in "
+                             "place")
+    err = max(err, check_exact("multi_flat_sharded chained", chained,
+                               want_cpu, packed=True))
     torch.cuda.synchronize()
-    n = fin.attrs.shape[0]
-    f_real = int((fin.round_want > 0).sum())
-    kk_loc = min(frs, n // ns)
-    kk = min(frs, ns * kk_loc)
     rows.append(dict(
         kernel=K.MULTI_FLAT_SHARDED, max_abs_err=err,
         **timing(lambda: PM.place_multi_sharded_packed(fin, mesh, frs), 5),
-        plain_ms=plain_ms,
-        bytes=fn_bytes((fin.cap, fin.used0, fin.elig, fin.luts,
-                        fin.base_mask, fin.con, fin.aff, fin.req,
-                        fin.desired, fin.dh_limit, fin.g_static, fin.g_aff,
-                        fin.g_job, fin.seed, fin.job_count0, fin.round_g,
-                        fin.round_want), fin.attrs, fin.luts, fin.con,
-                       fin.aff) + nbytes(*got)
-        + exchange_bytes(f_real, kk_loc, kk),
-        ops=f_real * n * OPS_PER_ROW_STEP, library_ms=None,
-        **depth(f_real, BARRIERS_FLAT + 35 + sort_barriers(kk_loc)
-                + sort_barriers(kk), 3)))
+        plain_ms=plain_ms, library_ms=None,
+        **flat_stats(K.MULTI_FLAT_SHARDED, fin, frs, got, barrier_ms)))
 
     # K12: the mesh zoned wave's launch, and the chained wave's in place
     zin, cr, cv, mesh, rs, lanes = rec.get("mesh_zoned_wave", "compact")

@@ -1,18 +1,20 @@
-// K2 "multi_compact", K12 "multi_compact_sharded" and K3 "multi_flat":
-// the batched multi-eval water-fill rounds, one launch per wave, one
-// thread-block cluster per lane.
+// K2 "multi_compact", K12 "multi_compact_sharded", K3 "multi_flat" and
+// K11 "multi_flat_sharded": the batched multi-eval water-fill rounds, one
+// launch per wave, one thread-block cluster per lane.
 //
 // Replaces (TPU side, jax.jit): nomad_tpu/ops/select.py:836
 // place_multi_compact_packed (+ :1006 place_multi_compact_chained) for
 // K2; nomad_tpu/parallel/mesh.py:590 place_multi_compact_sharded_fn
 // (_multi_compact_local :503, chained form :639, its fill
 // _sharded_waterfill :255) for K12; nomad_tpu/ops/select.py:733
-// place_multi_packed (+ :997 place_multi_chained) for K3; with their
+// place_multi_packed (+ :997 place_multi_chained) for K3;
+// nomad_tpu/parallel/mesh.py:454 place_multi_sharded_packed_fn
+// (_multi_local :390, chained form :497) for K11; with their
 // round core round_scores_g (:342), waterfill_round (:413),
 // round_metrics_g (:393), tiebreak_noise (:43) and pack_round_buffer
 // (:531).
 //
-// One kernel body, three launches:
+// One kernel body, four launches:
 //   K2   lanes over zoned frames [L, Nc] (padding slots hold row n);
 //   K12  the same over per-shard frames [S, L, Nc_loc]: lane l's frame is
 //        its S shard slices laid end to end, shard-major (slot
@@ -26,8 +28,17 @@
 //        (static_u[g_static[g]]) cached in each slot's valid bit and
 //        refreshed only when the signature changes, job counts chained by
 //        job (K2 chains by group) and reseeded from job_count0 [J, N] in
-//        the pass, buf [R, rs + 16] with every fill slot, usage updated
-//        in place, and the last step's job count row as an output.
+//        the pass, buf [R, rs + 16] with every fill slot, every row's
+//        usage read from used_in and written to used (the same buffer
+//        in the chained form), and the last step's job count row as an
+//        output;
+//   K11  K3 over the npad rows of S node shards.  Shard s owns rows
+//        [s n_loc, (s + 1) n_loc), so the reference's stable top rs of
+//        the shards' top min(rs, n_loc) lists, laid out shard-major, is
+//        the exact top rs over all rows in row order; the noise runs
+//        over global rows and the counts are sums over the mesh, so K11
+//        is K3 over those rows (the entry checks that the shards divide
+//        them).
 //
 // What bounds it on the H100: sequential depth.  Lane l's step t must see
 // the usage and job counts its steps < t committed, so a wave is T
@@ -1152,10 +1163,11 @@ static Params params(COMPACT_ARGS) {
          round_want, buf_small, fills_full, n, n_lanes, nc, ua, n_aff,     \
          n_steps, spread, rs, fill_k, scratch)
 
-// K3: usage `used` [N, 3] updated in place, buf [R, rs + 16], the last
-// step's job counts jc [N]
+// K3: usage read from `used_in` [N, 3] and written to `used` [N, 3]
+// (every row; the same buffer for the chained form, updated in place),
+// buf [R, rs + 16], the last step's job counts jc [N]
 #define FLAT_ARGS                                                          \
-  const int *cap, int *used, const uint8_t *static_u,                      \
+  const int *cap, const int *used_in, int *used, const uint8_t *static_u, \
       const float *aff_land, const int *aff, const int *req,               \
       const int *desired, const int *dh_limit, const int *g_static,        \
       const int *g_aff, const int *g_job, const long long *seed,           \
@@ -1165,7 +1177,8 @@ static Params params(COMPACT_ARGS) {
 
 static Params flat_params(FLAT_ARGS) {
   Params p{};
-  p.cap = cap; p.used_in = used; p.used_out = used; p.static_u = static_u;
+  p.cap = cap; p.used_in = used_in; p.used_out = used;
+  p.static_u = static_u;
   p.aff_land = aff_land; p.aff = aff; p.req = req; p.desired = desired;
   p.dh_limit = dh_limit; p.g_static = g_static; p.g_aff = g_aff;
   p.g_job = g_job; p.seed = seed; p.job_count0 = job_count0;
@@ -1179,8 +1192,8 @@ static Params flat_params(FLAT_ARGS) {
 }
 
 #define FLAT_PARAMS                                                         \
-  flat_params(cap, used, static_u, aff_land, aff, req, desired, dh_limit,  \
-              g_static, g_aff, g_job, seed, job_count0, round_g,           \
+  flat_params(cap, used_in, used, static_u, aff_land, aff, req, desired,   \
+              dh_limit, g_static, g_aff, g_job, seed, job_count0, round_g, \
               round_want, buf, jc, n, ua, n_aff, n_rounds, spread, rs,     \
               scratch)
 
@@ -1255,6 +1268,17 @@ extern "C" int multi_flat_prof(FLAT_ARGS, long long* prof,
   return launch<true, true>(p, stream);
 }
 
+// K11: the flat rounds over npad = n rows that n_shards shards hold in
+// order (shard s rows [s n / n_shards, (s + 1) n / n_shards)).  The
+// shard-major union of the shards' top lists is the top over all rows in
+// row order, so K11 is K3 over the npad rows.
+extern "C" int multi_flat_sharded(FLAT_ARGS, int n_shards,
+                                  cudaStream_t stream) {
+  if (n_shards < 1 || n_shards > XCH_BLOCKS || n % n_shards != 0)
+    return (int)cudaErrorInvalidValue;
+  return launch<false, true>(FLAT_PARAMS, stream);
+}
+
 // Probe of the cost of one exchange of the rounds at `cluster` blocks
 // (up to 16); the placement path never calls it.
 extern "C" int compact_exchange_probe(int rounds, int cluster, int* sink,
@@ -1273,4 +1297,5 @@ PY_LAUNCHERS(compact_rounds,
              PY_LAUNCHER(multi_compact_sharded_prof),
              PY_LAUNCHER(multi_flat),
              PY_LAUNCHER(multi_flat_prof),
+             PY_LAUNCHER(multi_flat_sharded),
              PY_LAUNCHER(compact_exchange_probe))

@@ -1,7 +1,6 @@
 // K1 "landscape": the static constraint and affinity landscapes of a
 // multi-eval wave and of the solo kernels' statics.
-// K8 "feasible_mask": the [G, N] static feasibility of one eval, through
-// the same mask pass.
+// K8 "feasible_mask": the [G, N] static feasibility of one eval.
 //
 // Replaces (TPU side, jax.jit): K1 nomad_tpu/ops/feasibility.py:29
 // constraint_mask (with the host-side _cpu_mask_jit,
@@ -11,21 +10,35 @@
 // nomad_tpu/ops/engine.py:1114 (preemption fallback) and
 // nomad_tpu/scheduler/system.py:132 (system scheduler).
 //
-// What bounds it on the H100: bytes.  Each output element reads C (or Af)
-// attribute words of one node row plus as many LUT bytes, and does a
-// handful of integer compares per row; at the north-star shape (U = 5
-// signatures, C <= 8 rows, N = 50,000 nodes) the pass reads the [N, A]
-// attribute table once per signature from L2 and writes U*N bytes, a few
-// microseconds of memory time against no arithmetic to speak of.
+// What bounds it on the H100: bytes, and far below them the latency of
+// a few dependent loads and the launch.  Each output element reads C
+// (or Af) attribute words of one node row plus as many LUT bytes; at the
+// north-star shape (U = 5 signatures, C = 4 rows, N = 50,000 nodes) the
+// pass reads the [N, A] attribute table and writes U N bytes, well under
+// a microsecond of memory time, and a call's host path (checks,
+// allocation, launch) takes several times its device time.
 //
-// Design: one thread per (signature, node).  Consecutive threads take
-// consecutive nodes, so the output row is written coalesced; the
-// attribute table (a few MB) and the LUT matrix stay L2-resident across
-// the signatures.  The mask entry fuses the reference's
-// `constraint_mask & elig & base_mask[u_mask]`; the affinity entry
-// optionally reads nodes through a frame of row ids (the compact kernel's
-// per-lane candidate frames), clamping out-of-range ids as a JAX gather
-// does.
+// Design (K1).  One thread per (signature row, node): 50,000 nodes and 5
+// signatures fill the card with 250,000 threads.  (One thread per node
+// over every signature, with or without the block's attribute rows tiled
+// in shared memory, was measured slower at this shape: a fifth of the
+// threads, each with a five times longer chain of loads; PERF.md, PR 9.)
+// A thread's time is its chain of dependent loads, so it reads the
+// attribute words of up to PF predicate rows at once, then their LUT
+// bytes at once, and ANDs (or sums) them without an early exit: two
+// round trips where the rows one after the other took one or two each.
+// A block's signature rows are the same for all its threads (read by
+// broadcast).  Each output row is written coalesced.  One kernel, three
+// entries: the mask `constraint_mask & elig & node_ok &
+// base_mask[u_mask]` [U, N] (node_ok optional, the refuted-node row);
+// the affinity [Ua, N], or [Lr, Ua, Nc] through frames of row ids, out of
+// range ids clamped as a JAX gather clamps them; and both landscapes of
+// the same rows in one launch (the flat multi-eval path's pair: grid rows
+// [0, U) the mask, [U, U + Ua) the affinity).
+//
+// K8 keeps its pass, one thread per (group, node) with an early exit,
+// with one base row `dc & pool` and a zero group map built by its
+// wrapper.
 
 #include "py_launchers.cuh"  // first: it includes Python.h
 #include <cuda_runtime.h>
@@ -40,21 +53,20 @@ constexpr int DOP_IS_SET = 3;
 constexpr int DOP_IS_NOT_SET = 4;
 constexpr int DOP_LUT = 5;
 
+constexpr int NT = 256;   // threads a block
+constexpr int PF = 8;     // K1: predicate rows whose loads go out together
+
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-// One packed predicate row (col, op, arg) against one node's attribute
-// row; `other` is the value of any other opcode (padding rows).
-__device__ __forceinline__ bool predicate(const int* __restrict__ arow,
-                                          int n_attr, const int* row,
-                                          const uint8_t* __restrict__ luts,
-                                          int n_lut, int n_vocab,
-                                          bool other) {
-  int col = clampi(row[0], 0, n_attr - 1);
-  int op = row[1];
-  int arg = row[2];
-  int av = arow[col];
+// One packed predicate row (op, arg) on the attribute value `av`; the LUT
+// row `arg` is read for DOP_LUT; `other` is the value of any other opcode
+// (padding rows).
+__device__ __forceinline__ bool predicate_on(int av, int op, int arg,
+                                             const uint8_t* __restrict__ luts,
+                                             int n_lut, int n_vocab,
+                                             bool other) {
   bool is_set = av != UNSET;
   switch (op) {
     case DOP_EQ: return is_set && av == arg;
@@ -69,6 +81,19 @@ __device__ __forceinline__ bool predicate(const int* __restrict__ arow,
     default: return other;
   }
 }
+
+// One packed predicate row (col, op, arg) against one node's attribute
+// row.
+__device__ __forceinline__ bool predicate(const int* __restrict__ arow,
+                                          int n_attr, const int* row,
+                                          const uint8_t* __restrict__ luts,
+                                          int n_lut, int n_vocab,
+                                          bool other) {
+  return predicate_on(arow[clampi(row[0], 0, n_attr - 1)], row[1], row[2],
+                      luts, n_lut, n_vocab, other);
+}
+
+// ------------------------------------------------------------- K8 pass
 
 __global__ void mask_kernel(const int* __restrict__ attrs, int n, int n_attr,
                             const int* __restrict__ con, int n_con,
@@ -88,63 +113,168 @@ __global__ void mask_kernel(const int* __restrict__ attrs, int n, int n_attr,
   out[(int64_t)u * n + node] = ok;
 }
 
-// out[(set * ua + a) * nc + j]: signature a's affinity at node
-// rows[set][j] (or node j when rows is null).
-__global__ void affinity_kernel(const int* __restrict__ attrs, int n,
-                                int n_attr, const int* __restrict__ rows,
-                                int nc, const int* __restrict__ aff, int ua,
-                                int n_aff, const uint8_t* __restrict__ luts,
-                                int n_lut, int n_vocab,
-                                float* __restrict__ out) {
-  int j = blockIdx.x * blockDim.x + threadIdx.x;
-  int set = blockIdx.y / ua;
-  int a = blockIdx.y % ua;
-  if (j >= nc) return;
-  int node = rows ? clampi(rows[(int64_t)set * nc + j], 0, n - 1) : j;
-  const int* arow = attrs + (int64_t)node * n_attr;
-  const int* arows = aff + (int64_t)a * n_aff * 4;
-  float got = 0.0f, total = 0.0f;
-  for (int q = 0; q < n_aff; ++q) {
-    float w = (float)arows[4 * q + 3];
-    total += fabsf(w);
-    bool m = predicate(arow, n_attr, arows + 4 * q, luts, n_lut, n_vocab,
-                       false);
-    got += (m ? 1.0f : 0.0f) * w;   // integer-valued: exact in any order
+// ------------------------------------------------------------- K1 pass
+
+struct Params {
+  const int* attrs;          // [N, A]
+  int n, n_attr;
+  const uint8_t* luts;       // [L, V]
+  int n_lut, n_vocab;
+  // the mask (n_sig = 0: none)
+  const int* con;            // [U, C, 3]
+  int n_sig, n_con;
+  const uint8_t* elig;       // [N]
+  const uint8_t* base;       // [M, N]
+  const int* u_mask;         // [U] -> base row
+  const uint8_t* node_ok;    // [N] or null
+  uint8_t* mask_out;         // [U, N]
+  // the affinity (ua = 0: none)
+  const int* aff;            // [Ua, Af, 4]
+  int ua, n_aff;
+  const int* rows;           // [Lr, Nc] frame rows, or null (Nc = N)
+  int nc;
+  float* aff_out;            // [Lr, Ua, Nc]
+};
+
+// Grid row y of frame set y / (U + Ua): y % (U + Ua) < U is signature
+// u's mask row, the rest affinity signature a's row.
+__global__ void __launch_bounds__(NT) landscape_kernel(Params p) {
+  const int j = blockIdx.x * NT + threadIdx.x;
+  const int per_set = p.n_sig + p.ua;
+  const int set = blockIdx.y / per_set;
+  const int y = blockIdx.y - set * per_set;
+  if (j >= p.nc) return;
+  const int node =
+      p.rows ? clampi(p.rows[(int64_t)set * p.nc + j], 0, p.n - 1) : j;
+  const int* __restrict__ arow = p.attrs + (int64_t)node * p.n_attr;
+
+  if (y < p.n_sig) {
+    const int u = y;
+    // no short circuit: the loads go out together
+    bool ok = (p.elig[node] != 0) &
+              (p.base[(int64_t)p.u_mask[u] * p.n + node] != 0);
+    if (p.node_ok != nullptr) ok &= p.node_ok[node] != 0;
+    const int* crow = p.con + (int64_t)u * p.n_con * 3;
+    for (int c0 = 0; c0 < p.n_con; c0 += PF) {
+      int av[PF];
+#pragma unroll
+      for (int q = 0; q < PF; ++q)
+        if (c0 + q < p.n_con)
+          av[q] = arow[clampi(crow[3 * (c0 + q)], 0, p.n_attr - 1)];
+#pragma unroll
+      for (int q = 0; q < PF; ++q)
+        if (c0 + q < p.n_con)
+          ok &= predicate_on(av[q], crow[3 * (c0 + q) + 1],
+                             crow[3 * (c0 + q) + 2], p.luts, p.n_lut,
+                             p.n_vocab, true);
+    }
+    p.mask_out[(int64_t)u * p.n + node] = ok;
+    return;
   }
-  out[((int64_t)set * ua + a) * nc + j] =
+
+  const int a = y - p.n_sig;
+  const int* arows = p.aff + (int64_t)a * p.n_aff * 4;
+  float got = 0.0f, total = 0.0f;
+  for (int q0 = 0; q0 < p.n_aff; q0 += PF) {
+    int av[PF];
+#pragma unroll
+    for (int q = 0; q < PF; ++q)
+      if (q0 + q < p.n_aff)
+        av[q] = arow[clampi(arows[4 * (q0 + q)], 0, p.n_attr - 1)];
+#pragma unroll
+    for (int q = 0; q < PF; ++q)
+      if (q0 + q < p.n_aff) {
+        const int* r = arows + 4 * (q0 + q);
+        float w = (float)r[3];
+        total += fabsf(w);
+        bool m = predicate_on(av[q], r[1], r[2], p.luts, p.n_lut, p.n_vocab,
+                              false);
+        got += (m ? 1.0f : 0.0f) * w;   // integer-valued: exact in any order
+      }
+  }
+  p.aff_out[((int64_t)set * p.ua + a) * p.nc + j] =
       total > 0.0f ? got / fmaxf(total, 1.0f) : 0.0f;
+}
+
+int launch(const Params& p, int n_sets, cudaStream_t stream) {
+  if (p.n_attr < 1 || p.n_lut < 1 || p.n_vocab < 1 || p.n < 0 || p.nc < 0 ||
+      n_sets < 0 || p.n_sig < 0 || p.n_con < 0 || p.ua < 0 || p.n_aff < 0)
+    return (int)cudaErrorInvalidValue;
+  const long long ys = (long long)n_sets * (p.n_sig + p.ua);
+  if (ys > 65535) return (int)cudaErrorInvalidValue;
+  // nothing to compute: no launch
+  if (p.n == 0 || p.nc == 0 || ys == 0) return (int)cudaSuccess;
+  dim3 grid((p.nc + NT - 1) / NT, (unsigned)ys);
+  landscape_kernel<<<grid, NT, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+Params base_params(const int* attrs, int n, int n_attr, const uint8_t* luts,
+                   int n_lut, int n_vocab) {
+  Params p{};
+  p.attrs = attrs; p.n = n; p.n_attr = n_attr;
+  p.luts = luts; p.n_lut = n_lut; p.n_vocab = n_vocab;
+  p.nc = n;
+  return p;
+}
+
+void mask_params(Params* p, const int* con, int n_sig, int n_con,
+                 const uint8_t* elig, const uint8_t* base,
+                 const int* u_mask, const uint8_t* node_ok, uint8_t* out) {
+  p->con = con; p->n_sig = n_sig; p->n_con = n_con;
+  p->elig = elig; p->base = base; p->u_mask = u_mask;
+  p->node_ok = node_ok; p->mask_out = out;
 }
 
 }  // namespace
 
+// K1's mask: out [n_sig, n] = constraint_mask & elig & node_ok (null:
+// every row) & base[u_mask]
 extern "C" int landscape_mask(const int* attrs, int n, int n_attr,
                               const int* con, int n_sig, int n_con,
                               const uint8_t* luts, int n_lut, int n_vocab,
                               const uint8_t* elig, const uint8_t* base,
-                              const int* u_mask, uint8_t* out,
-                              cudaStream_t stream) {
-  dim3 grid((n + 255) / 256, n_sig);
-  mask_kernel<<<grid, 256, 0, stream>>>(attrs, n, n_attr, con, n_con, luts,
-                                        n_lut, n_vocab, elig, base, u_mask,
-                                        out);
-  return (int)cudaGetLastError();
+                              const int* u_mask, const uint8_t* node_ok,
+                              uint8_t* out, cudaStream_t stream) {
+  Params p = base_params(attrs, n, n_attr, luts, n_lut, n_vocab);
+  mask_params(&p, con, n_sig, n_con, elig, base, u_mask, node_ok, out);
+  return launch(p, 1, stream);
 }
 
+// K1's affinity: out[(set * ua + a) * nc + j], signature a's affinity at
+// node rows[set][j] (or node j when rows is null, nc = n)
 extern "C" int landscape_affinity(const int* attrs, int n, int n_attr,
                                   const int* rows, int n_sets, int nc,
                                   const int* aff, int ua, int n_aff,
                                   const uint8_t* luts, int n_lut,
                                   int n_vocab, float* out,
                                   cudaStream_t stream) {
-  dim3 grid((nc + 255) / 256, n_sets * ua);
-  affinity_kernel<<<grid, 256, 0, stream>>>(attrs, n, n_attr, rows, nc, aff,
-                                            ua, n_aff, luts, n_lut, n_vocab,
-                                            out);
-  return (int)cudaGetLastError();
+  Params p = base_params(attrs, n, n_attr, luts, n_lut, n_vocab);
+  if (rows == nullptr && (n_sets != 1 || nc != n))
+    return (int)cudaErrorInvalidValue;
+  p.rows = rows; p.nc = nc;
+  p.aff = aff; p.ua = ua; p.n_aff = n_aff; p.aff_out = out;
+  return launch(p, n_sets, stream);
 }
 
-// K8: the same mask pass; the wrapper passes one base row
-// `dc & pool` and maps every group to it
+// K1's two landscapes of the same n rows in one launch: the mask as
+// landscape_mask's, the affinity [ua, n] as landscape_affinity's
+extern "C" int landscape_pair(const int* attrs, int n, int n_attr,
+                              const int* con, int n_sig, int n_con,
+                              const uint8_t* luts, int n_lut, int n_vocab,
+                              const uint8_t* elig, const uint8_t* base,
+                              const int* u_mask, const uint8_t* node_ok,
+                              uint8_t* mask_out, const int* aff, int ua,
+                              int n_aff, float* aff_out,
+                              cudaStream_t stream) {
+  Params p = base_params(attrs, n, n_attr, luts, n_lut, n_vocab);
+  mask_params(&p, con, n_sig, n_con, elig, base, u_mask, node_ok, mask_out);
+  p.aff = aff; p.ua = ua; p.n_aff = n_aff; p.aff_out = aff_out;
+  return launch(p, 1, stream);
+}
+
+// K8: its mask pass; the wrapper passes one base row `dc & pool` and
+// maps every group to it
 extern "C" int feasible_mask(const int* attrs, int n, int n_attr,
                              const int* con, int n_groups, int n_con,
                              const uint8_t* luts, int n_lut, int n_vocab,
@@ -161,4 +291,5 @@ extern "C" int feasible_mask(const int* attrs, int n, int n_attr,
 PY_LAUNCHERS(landscape,
              PY_LAUNCHER(landscape_mask),
              PY_LAUNCHER(landscape_affinity),
+             PY_LAUNCHER(landscape_pair),
              PY_LAUNCHER(feasible_mask))

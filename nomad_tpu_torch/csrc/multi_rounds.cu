@@ -1,9 +1,9 @@
 // K6 "multi_bulk": one eval's homogeneous batch in water-fill rounds,
-// one persistent launch.  K10 "multi_bulk_sharded" and K11
-// "multi_flat_sharded": the bulk rounds and the flat multi-eval rounds
-// over a node axis split into S shards on one card (see "Sharded rounds"
-// below).  K2, K3 and K12, the multi-eval rounds over lanes, every row or
-// shard frames, have their own design (compact_rounds.cu).
+// one persistent launch.  K10 "multi_bulk_sharded": the bulk rounds over
+// a node axis split into S shards on one card (see "Sharded rounds"
+// below).  K2, K3, K11 and K12, the multi-eval rounds over lanes, every
+// row (on one card or in shards) or shard frames, have their own design
+// (compact_rounds.cu).
 //
 // Replaces (TPU side, jax.jit): nomad_tpu/ops/select.py:554
 // place_bulk_packed (_bulk_scan :517, _bulk_step :460, _bulk_static
@@ -21,7 +21,7 @@
 // each pass walks the whole node axis with one block.
 //
 // Design: one thread block of 1024 threads for the whole launch, over
-// every node row, the static row from the caller's [U, N] mask (K6: one
+// every node row, the static row from the caller's [1, N] mask (one
 // group, every round of it), with the bulk kernel's three output layouts
 // (full, with a score block, compact prefix plus full fills).  The round
 // state (usage, job counts, intake, scores, selection keys) lives in
@@ -47,10 +47,9 @@
 // so scores (and hence picks) agree to the bit with the reference, whose
 // XLA CPU pow is the C library's powf.
 //
-// Sharded rounds (K10, K11).  Replaces (TPU side, jax.jit under
-// shard_map): nomad_tpu/parallel/mesh.py:645 place_bulk_sharded_packed_fn
-// (_bulk_local :346) and :454 place_multi_sharded_packed_fn (_multi_local
-// :390, chained form :497), with their round _sharded_waterfill (:255).
+// Sharded rounds (K10).  Replaces (TPU side, jax.jit under shard_map):
+// nomad_tpu/parallel/mesh.py:645 place_bulk_sharded_packed_fn
+// (_bulk_local :346), with its round _sharded_waterfill (:255).
 // Shard s owns the rows [s n_loc, (s+1) n_loc).  One cluster of S
 // blocks, each running the round body above on its shard, with global
 // rows for the noise.  Per round the blocks meet three times at the
@@ -87,24 +86,22 @@ constexpr int META = 16;
 
 #include "score_common.cuh"
 
+// one group: its static row, affinity row and rows, request and limits,
+// seed and job counts, in every round
 struct Params {
   const int* cap;            // [N, 3]
   int* used;                 // [N, 3] state and output
   int n;
-  const uint8_t* static_u;   // [U, N]
-  const float* aff_land;     // [Ua, N]
-  const int* aff;            // [Ua, Af, 4]
-  int ua, n_aff;
-  const int* req;            // [G, 3]
-  const int* desired;        // [G]
-  const int* dh_limit;       // [G]
-  const int* g_static;       // [G]
-  const int* g_aff;          // [G]
-  const int* g_job;          // [G]
-  const long long* seed;     // [G], uint32 values
-  const int* job_count0;     // [J, N]
-  const int* round_g;        // [R]
-  const int* round_want;
+  const uint8_t* static_u;   // [N]
+  const float* aff_land;     // [N]
+  const int* aff;            // [Af, 4]
+  int n_aff;
+  const int* req;            // [3]
+  const int* desired;        // [1]
+  const int* dh_limit;       // [1]
+  const long long* seed;     // [1], a uint32 value
+  const int* job_count0;     // [N]
+  const int* round_want;     // [R]
   int n_steps, nc, spread, rs, fill_k;
   int out_mode;              // K6 layout: 0 full, 1 + scores, 2 compact
   int* jc;                   // [N] current job counts (output)
@@ -113,8 +110,6 @@ struct Params {
   unsigned* keyb;            // [N] orderable key bits
   int* buf;                  // [R, rs + 16 | 2 rs + 16 | fill_k + 16]
   int* fills;                // K6 compact: [R, rs]
-  int row_stride;            // node rows of static_u, aff_land and
-                             // job_count0 (N or npad)
   int n_shards;              // sharded: cluster size S; nc = n_loc
   int* xcnt;                 // sharded: [4, S, 8] count rows
   unsigned long long* xkey;  // sharded: [S * kk_loc] keys
@@ -314,7 +309,7 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
   const int S = SHARDED ? p.n_shards : 1;
   const int s = SHARDED ? (int)cg::this_cluster().block_rank() : 0;
   const int nc = p.nc;
-  // this block's first row (K10/K11: shard s's)
+  // this block's first row (K10: shard s's)
   const int64_t fb = (int64_t)s * nc;
   int* used_state = p.used + fb * 3;
   int* jc = p.jc + fb;
@@ -329,29 +324,25 @@ __global__ void __launch_bounds__(BS, 1) rounds_kernel(Params p) {
   unsigned long long* xkey = p.xkey;
   int* xval = p.xval;
 
-  for (int t = 0; t < p.n_steps; ++t) {
-    const int g = p.round_g[t];
-    const int want = p.round_want[t];
-    const bool same = t > 0 && p.g_job[p.round_g[t - 1]] == p.g_job[g];
-    int req[3] = {p.req[3 * g], p.req[3 * g + 1], p.req[3 * g + 2]};
-    const int desired = p.desired[g];
-    const int dh = p.dh_limit[g];
-    const int a = p.g_aff[g];
-    const unsigned sd = (unsigned)(p.seed[g] & 0xffffffffll);
-    bool aff_any = false;
-    for (int q = 0; q < p.n_aff; ++q)
-      aff_any |= p.aff[((int64_t)a * p.n_aff + q) * 4 + 3] != 0;
-    const float* aff_row = p.aff_land + (int64_t)a * p.row_stride + fb;
-    const uint8_t* stat_row =
-        p.static_u + (int64_t)p.g_static[g] * p.row_stride + fb;
-    const int* jc0 = p.job_count0 + (int64_t)p.g_job[g] * p.row_stride + fb;
+  const int req[3] = {p.req[0], p.req[1], p.req[2]};
+  const int desired = p.desired[0];
+  const int dh = p.dh_limit[0];
+  const unsigned sd = (unsigned)(p.seed[0] & 0xffffffffll);
+  bool aff_any = false;
+  for (int q = 0; q < p.n_aff; ++q) aff_any |= p.aff[q * 4 + 3] != 0;
+  const float* aff_row = p.aff_land + fb;
+  const uint8_t* stat_row = p.static_u + fb;
+  const int* jc0 = p.job_count0 + fb;
 
-    // 1. job counts, intake, rank score
+  for (int t = 0; t < p.n_steps; ++t) {
+    const int want = p.round_want[t];
+
+    // 1. job counts (from the seed row, then carried), intake, rank score
     int viable = 0, n_static = 0;
     for (int it = 0; it < n_iter; ++it) {
       int j = it * BS + tid;
       if (j < nc) {
-        int jcount = same ? jc[j] : jc0[j];
+        int jcount = t > 0 ? jc[j] : jc0[j];
         jc[j] = jcount;
         bool st = stat_row[j] != 0;
         const int64_t row = fb + j;
@@ -574,30 +565,28 @@ int launch_sharded(Params p, cudaStream_t stream) {
                          stream, p);
 }
 
-int run_flat(const int* cap, int* used, const uint8_t* static_u,
-             const float* aff_land, const int* aff, const int* req,
-             const int* desired, const int* dh_limit, const int* g_static,
-             const int* g_aff, const int* g_job, const long long* seed,
-             const int* job_count0, const int* round_g,
-             const int* round_want, int* buf, int n, int ua, int n_aff,
-             int n_rounds, int spread, int rs, int out_mode, int fill_k,
-             int* fills, int* jc, int* ki, float* score, unsigned* keyb,
-             int n_shards, int* xcnt, unsigned long long* xkey, int* xval,
-             cudaStream_t stream) {
+int run_rounds(const int* cap, int* used, const uint8_t* static_row,
+               const float* aff_row, const int* aff, const int* req,
+               const int* desired, const int* dh_limit,
+               const long long* seed, const int* job_count0,
+               const int* round_want, int* buf, int n, int n_aff,
+               int n_rounds, int spread, int rs, int out_mode, int fill_k,
+               int* fills, int* jc, int* ki, float* score, unsigned* keyb,
+               int n_shards, int* xcnt, unsigned long long* xkey, int* xval,
+               cudaStream_t stream) {
   if (rs > MAX_RS || rs < 1 || out_mode < 0 || out_mode > 2 ||
       (out_mode == 2 && (fill_k < 1 || fill_k > rs || fills == nullptr)) ||
       (n_shards && (out_mode != 0 || n % n_shards != 0)))
     return (int)cudaErrorInvalidValue;
   Params p{};
   p.cap = cap; p.used = used; p.n = n;
-  p.static_u = static_u; p.aff_land = aff_land; p.aff = aff; p.ua = ua;
+  p.static_u = static_row; p.aff_land = aff_row; p.aff = aff;
   p.n_aff = n_aff; p.req = req; p.desired = desired; p.dh_limit = dh_limit;
-  p.g_static = g_static; p.g_aff = g_aff; p.g_job = g_job; p.seed = seed;
-  p.job_count0 = job_count0; p.round_g = round_g; p.round_want = round_want;
+  p.seed = seed; p.job_count0 = job_count0; p.round_want = round_want;
   p.n_steps = n_rounds; p.spread = spread;
   p.rs = rs; p.fill_k = fill_k; p.out_mode = out_mode;
   p.jc = jc; p.ki = ki; p.score = score; p.keyb = keyb; p.buf = buf;
-  p.fills = fills; p.row_stride = n;
+  p.fills = fills;
   p.n_shards = n_shards; p.xcnt = xcnt; p.xkey = xkey; p.xval = xval;
   if (n_shards) {
     p.nc = n / n_shards;
@@ -637,53 +626,35 @@ extern "C" int cluster_barrier_probe(int rounds, int cluster, int* rows,
                          stream, rounds, rows, sink);
 }
 
-// K11: the flat rounds over npad = n rows in n_shards shards
-extern "C" int multi_flat_sharded(
-    const int* cap, int* used, const uint8_t* static_u, const float* aff_land,
-    const int* aff, const int* req, const int* desired, const int* dh_limit,
-    const int* g_static, const int* g_aff, const int* g_job,
-    const long long* seed, const int* job_count0, const int* round_g,
-    const int* round_want, int* buf, int n, int ua, int n_aff, int n_rounds,
-    int spread, int rs, int* jc, int* ki, float* score, unsigned* keyb,
-    int n_shards, int* xcnt, unsigned long long* xkey, int* xval,
-    cudaStream_t stream) {
-  if (n_shards < 1) return (int)cudaErrorInvalidValue;
-  return run_flat(cap, used, static_u, aff_land, aff, req, desired, dh_limit,
-                  g_static, g_aff, g_job, seed, job_count0, round_g,
-                  round_want, buf, n, ua, n_aff, n_rounds, spread, rs, 0, 0,
-                  nullptr, jc, ki, score, keyb, n_shards, xcnt, xkey, xval,
-                  stream);
-}
-
+// K6: one group's rows (static_row, aff_row and job_count0 [N]; req [3];
+// desired, dh_limit, seed [1]; aff [Af, 4]) in rounds of round_want [R]
 extern "C" int multi_bulk(
-    const int* cap, int* used, const uint8_t* static_u, const float* aff_land,
-    const int* aff, const int* req, const int* desired, const int* dh_limit,
-    const int* g_ix, const long long* seed, const int* job_count0,
-    const int* round_g, const int* round_want, int* buf, int n, int ua,
-    int n_aff, int n_rounds, int spread, int rs, int out_mode, int fill_k,
-    int* fills, int* jc, int* ki, float* score, unsigned* keyb,
-    cudaStream_t stream) {
-  return run_flat(cap, used, static_u, aff_land, aff, req, desired, dh_limit,
-                  g_ix, g_ix, g_ix, seed, job_count0, round_g, round_want,
-                  buf, n, ua, n_aff, n_rounds, spread, rs, out_mode, fill_k,
-                  fills, jc, ki, score, keyb, 0, nullptr, nullptr, nullptr,
-                  stream);
+    const int* cap, int* used, const uint8_t* static_row,
+    const float* aff_row, const int* aff, const int* req, const int* desired,
+    const int* dh_limit, const long long* seed, const int* job_count0,
+    const int* round_want, int* buf, int n, int n_aff, int n_rounds,
+    int spread, int rs, int out_mode, int fill_k, int* fills, int* jc,
+    int* ki, float* score, unsigned* keyb, cudaStream_t stream) {
+  return run_rounds(cap, used, static_row, aff_row, aff, req, desired,
+                    dh_limit, seed, job_count0, round_want, buf, n, n_aff,
+                    n_rounds, spread, rs, out_mode, fill_k, fills, jc, ki,
+                    score, keyb, 0, nullptr, nullptr, nullptr, stream);
 }
 
 // K10: the bulk rounds (full layout) over npad = n rows in n_shards shards
 extern "C" int multi_bulk_sharded(
-    const int* cap, int* used, const uint8_t* static_u, const float* aff_land,
-    const int* aff, const int* req, const int* desired, const int* dh_limit,
-    const int* g_ix, const long long* seed, const int* job_count0,
-    const int* round_g, const int* round_want, int* buf, int n, int ua,
-    int n_aff, int n_rounds, int spread, int rs, int* jc, int* ki,
-    float* score, unsigned* keyb, int n_shards, int* xcnt,
-    unsigned long long* xkey, int* xval, cudaStream_t stream) {
+    const int* cap, int* used, const uint8_t* static_row,
+    const float* aff_row, const int* aff, const int* req, const int* desired,
+    const int* dh_limit, const long long* seed, const int* job_count0,
+    const int* round_want, int* buf, int n, int n_aff, int n_rounds,
+    int spread, int rs, int* jc, int* ki, float* score, unsigned* keyb,
+    int n_shards, int* xcnt, unsigned long long* xkey, int* xval,
+    cudaStream_t stream) {
   if (n_shards < 1) return (int)cudaErrorInvalidValue;
-  return run_flat(cap, used, static_u, aff_land, aff, req, desired, dh_limit,
-                  g_ix, g_ix, g_ix, seed, job_count0, round_g, round_want,
-                  buf, n, ua, n_aff, n_rounds, spread, rs, 0, 0, nullptr, jc,
-                  ki, score, keyb, n_shards, xcnt, xkey, xval, stream);
+  return run_rounds(cap, used, static_row, aff_row, aff, req, desired,
+                    dh_limit, seed, job_count0, round_want, buf, n, n_aff,
+                    n_rounds, spread, rs, 0, 0, nullptr, jc, ki, score, keyb,
+                    n_shards, xcnt, xkey, xval, stream);
 }
 
 PY_LAUNCHERS(multi_rounds,
@@ -691,5 +662,4 @@ PY_LAUNCHERS(multi_rounds,
              PY_LAUNCHER(pow10_f32),
              PY_LAUNCHER(barrier_probe),
              PY_LAUNCHER(cluster_barrier_probe),
-             PY_LAUNCHER(multi_flat_sharded),
              PY_LAUNCHER(multi_bulk_sharded))

@@ -19,7 +19,7 @@ import torch
 
 from .select import BulkInputs, MultiEvalInputs, PlacementInputs
 
-_BOOL_FIELDS = ("elig", "luts", "base_mask")
+_BOOL_FIELDS = ("elig", "luts", "base_mask", "node_ok")
 
 
 def multi_inputs_from_numpy(arrays: Dict[str, np.ndarray],
@@ -27,19 +27,19 @@ def multi_inputs_from_numpy(arrays: Dict[str, np.ndarray],
     """`arrays` holds one numpy array per MultiEvalInputs field (integer
     fields int32, masks bool, `seed` uint32 of shape [G] or [],
     `spread_algo` a bool scalar; `job_count0` [G, N], [J', Nc] or, on a
-    mesh, [S, J', Nc_loc])."""
+    mesh, [S, J', Nc_loc]); `node_ok` may be missing or None."""
     out = {}
     for name in MultiEvalInputs._fields:
-        a = arrays[name]
+        a = arrays[name] if name != "node_ok" else arrays.get(name)
         if name == "spread_algo":
             out[name] = bool(np.asarray(a))
         elif name == "seed":
             out[name] = torch.tensor(np.asarray(a, np.uint32).astype(np.int64),
                                      device=device)
-        elif name in _BOOL_FIELDS:
-            out[name] = torch.tensor(np.asarray(a, bool), device=device)
         elif a is None:
             out[name] = None
+        elif name in _BOOL_FIELDS:
+            out[name] = torch.tensor(np.asarray(a, bool), device=device)
         else:
             out[name] = torch.tensor(np.asarray(a, np.int32), device=device)
     return MultiEvalInputs(**out)

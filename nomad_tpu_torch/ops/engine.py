@@ -219,22 +219,21 @@ def _sig_disjoint(con_a, con_b, luts) -> bool:
     return False
 
 
-def _host_signature_masks(attrs, elig, base_by_sig, con_by_sig, luts):
-    """Per-signature static feasibility masks for the lane prover,
-    computed by K1 on the device with the SAME landscape code the
-    kernels run (reference: engine._host_signature_masks, which ran
-    constraint_mask on the host CPU).  Arguments are device tensors
-    (`base_by_sig` a list of [n] bool rows, `con_by_sig` a list of
-    [C, 3] int32 host rows); returns the [U, n] bool mask on the host."""
-    dev = attrs.device
-    u = len(con_by_sig)
-    for op in ("prover_con_h2d", "prover_base_stack", "prover_arange"):
-        K.count_eager(op)
-    mask = landscape_mask(
-        attrs, torch.tensor(np.stack(con_by_sig), device=dev), luts, elig,
-        torch.stack(base_by_sig),
-        torch.arange(u, dtype=torch.int32, device=dev))
-    return mask.cpu().numpy()
+def _host_signature_masks(attrs, con, luts, elig, base_mask, u_mask,
+                          node_ok, sigs):
+    """Static feasibility masks of the signatures `sigs` for the lane
+    prover, computed by K1 on the device with the SAME landscape code
+    the kernels run (reference: engine._host_signature_masks, which ran
+    constraint_mask on the host CPU, then ANDed the refuted-node row).
+    The arguments are the launch's own device inputs (`con` [U, C, 3]
+    and `u_mask` [U] as uploaded for the wave, `base_mask` the engine's
+    resident table, `node_ok` the refuted-node row or None): K1 runs
+    over signatures [0, max(sigs)] and nothing is stacked or uploaded
+    for the prover.  Returns the [len(sigs), n] bool rows on the host."""
+    u = max(sigs) + 1
+    mask = landscape_mask(attrs, con[:u], luts, elig, base_mask, u_mask[:u],
+                          node_ok)
+    return mask.cpu().numpy()[list(sigs)]
 
 
 def _disjoint_cliques(sig_rows, luts, weights):
@@ -401,6 +400,9 @@ class PlacementEngine:
         self._used_version: int = -1
         self._used_dev: Optional[torch.Tensor] = None
         self._const_cache: Dict[tuple, torch.Tensor] = {}
+        # the resident base-mask table: (node-table version, npad), key
+        # -> row, host rows, device table [cap, npad] bool
+        self._base: Optional[list] = None
         self._dc_cache: Optional[Tuple[int, Dict[str, int]]] = None
         # mesh meters: bytes re-uploaded by dirty-shard patches, and the
         # analytic cross-shard exchange payload of each launch
@@ -602,6 +604,35 @@ class PlacementEngine:
                     self._const_cache.pop(old, None)
             self._const_cache[key] = val
         return val
+
+    def _base_row(self, t: NodeTensors, npad: int, key, ctx):
+        """(row, table): the row of the job's `dc & pool` mask in the
+        resident base table (`self._base`: one row per (datacenters,
+        pool) key seen at this node-table version and padding), uploading
+        the row for a new key, and the table that holds it and every
+        earlier row.  K1 reads base rows by index (`u_mask`), so a wave
+        passes the table itself and stacks nothing."""
+        with self.packer.lock:
+            tab = self._base
+            if tab is None or tab[0] != (t.version, npad):
+                tab = self._base = [(t.version, npad), {}, [], None]
+            _, index, host, dev = tab
+            i = index.get(key)
+            if i is not None:
+                return i, dev
+            i = len(host)
+            row = _pad_rows(ctx.dc_mask & ctx.pool_mask, npad, False)
+            host.append(row)
+            index[key] = i
+            if dev is not None and i < dev.shape[0]:
+                dev[i].copy_(torch.from_numpy(row))
+            else:
+                # a new table, twice the rows, from the host rows (an
+                # earlier wave's launch keeps the old one)
+                full = np.zeros((max(8, 2 * i), npad), bool)
+                full[:i + 1] = host
+                tab[3] = self._to_dev(full)
+            return i, tab[3]
 
     def _dc_counts(self, t: NodeTensors) -> Dict[str, int]:
         """Ready-node count per datacenter (AllocMetric.nodes_available),
@@ -1217,17 +1248,15 @@ class PlacementEngine:
         chained = used0 is not None
         if used0 is None:
             used0 = self._used_device(t)
-        # refuted-node mask: host bool overlay ANDed into eligibility
-        elig_dev = dev["elig"]
+        # refuted-node mask: a bool row that K1 ANDs into eligibility
         node_ok = None
         if masked_node_ids:
             rows = np.array([t.id_to_row[nid] for nid in masked_node_ids
                              if nid in t.id_to_row], np.int64)
             if rows.size:
-                node_ok = np.ones(npad, bool)
-                node_ok[rows] = False
-                elig_dev = elig_dev & self._to_dev(node_ok)
-                K.count_eager("elig_and_node_ok")
+                ok = np.ones(npad, bool)
+                ok[rows] = False
+                node_ok = self._to_dev(ok)
         algo = snapshot.scheduler_config().scheduler_algorithm
 
         G = len(items)
@@ -1263,8 +1292,6 @@ class PlacementEngine:
         static_mi: List[int] = []
         aff_keys: Dict[bytes, int] = {}
         aff_rows: List[np.ndarray] = []
-        mask_keys: Dict[tuple, int] = {}
-        mask_rows: List[torch.Tensor] = []
         jc_nz_idx: List[int] = []
         jc_nz_rows: List[np.ndarray] = []
         for gi, it in enumerate(items):
@@ -1272,15 +1299,8 @@ class PlacementEngine:
             req[gi] = tt.req[0]
             desired[gi] = max(it.tg.count, 1)
             dh_limit[gi] = tt.dh_limit[0]
-            key = (tuple(it.job.datacenters), it.job.node_pool)
-            mi = mask_keys.get(key)
-            if mi is None:
-                mi = len(mask_rows)
-                mask_keys[key] = mi
-                mask_rows.append(self._dev_const(
-                    ("basemask", t.version, npad) + key,
-                    lambda ctx=ctx: _pad_rows(ctx.dc_mask & ctx.pool_mask,
-                                              npad, False)))
+            mi, base_mask = self._base_row(
+                t, npad, (tuple(it.job.datacenters), it.job.node_pool), ctx)
             con_row = np.zeros((c_max, 3), np.int32)
             con_row[:tt.con.shape[1]] = tt.con[0]
             skey = con_row.tobytes() + mi.to_bytes(4, "little")
@@ -1303,19 +1323,14 @@ class PlacementEngine:
             if ctx.job_count.any():
                 jc_nz_idx.append(gi)
                 jc_nz_rows.append(ctx.job_count)
-        m_pad = _pad_pow2(len(mask_rows), lo=1)
-        zrow = self._dev_const(("zrow", npad),
-                               lambda: np.zeros(npad, bool))
-        sig_base = [mask_rows[mi] for mi in static_mi]
-        mask_rows.extend([zrow] * (m_pad - len(mask_rows)))
-        base_mask = torch.stack(mask_rows)
-        K.count_eager("stack_base_mask")
         u_pad = _pad_pow2(len(static_con), lo=1)
         con = np.zeros((u_pad, c_max, 3), np.int32)
         u_mask = np.zeros(u_pad, np.int32)
         for si, row in enumerate(static_con):
             con[si] = row
             u_mask[si] = static_mi[si]
+        con = self._to_dev(con)
+        u_mask = self._to_dev(u_mask)
         ua_pad = _pad_pow2(len(aff_rows), lo=1)
         aff = np.zeros((ua_pad, a_max, 4), np.int32)
         for ai, row in enumerate(aff_rows):
@@ -1365,13 +1380,10 @@ class PlacementEngine:
             if len(cliques) == 1 and len(cliques[0]) > 1:
                 clique = cliques[0]
                 width = len(clique)
+                # the frame IS the static mask on the compact path
                 masks = _host_signature_masks(
-                    dev["attrs"], dev["elig"],
-                    [sig_base[s] for s in clique],
-                    [static_con[s] for s in clique], luts_dev)
-                if node_ok is not None:
-                    # the frame IS the static mask on the compact path
-                    masks = masks & node_ok[None, :]
+                    dev["attrs"], con, luts_dev, dev["elig"], base_mask,
+                    u_mask, node_ok, clique)
                 rows_l = [np.nonzero(masks[i])[0].astype(np.int32)
                           for i in range(width)]
                 if self.mesh is None:
@@ -1468,8 +1480,8 @@ class PlacementEngine:
 
         inp = MultiEvalInputs(
             attrs=dev["attrs"], cap=dev["cap"], used0=used0,
-            elig=elig_dev, luts=luts_dev, base_mask=base_mask,
-            con=self._to_dev(con), u_mask=self._to_dev(u_mask),
+            elig=dev["elig"], luts=luts_dev, base_mask=base_mask,
+            con=con, u_mask=u_mask,
             aff=self._to_dev(aff),
             req=self._to_dev(req), desired=self._to_dev(desired),
             dh_limit=self._to_dev(dh_limit),
@@ -1480,6 +1492,7 @@ class PlacementEngine:
             round_g=self._to_dev(np.array(round_g, np.int32)),
             round_want=self._to_dev(np.array(round_want, np.int32)),
             seed=self._to_dev(seed_g.astype(np.int64)),
+            node_ok=node_ok,
         )
         return {"inp": inp, "rs": rs, "spans": spans, "counts": counts,
                 "t": t, "ctxs": ctxs, "n": n, "npad": npad, "t0": t0,

@@ -6,14 +6,20 @@ against every node.  Two wrappers launch kernels of `csrc/landscape.cu`:
 
   landscape_mask  K1's mask entry: the deduped per-signature static
                   landscape `constraint_mask(attrs, con, luts) & elig &
-                  base_mask[u_mask]` that the multi-eval launches, the
-                  solo kernels' statics and the lane prover consume;
+                  base_mask[u_mask]` that the multi-eval launches and the
+                  lane prover consume, with an optional `node_ok` row
+                  (the refuted nodes) ANDed in;
   feasible_mask   K8: the [G, N] static feasibility of the preemption
                   fallback and the system scheduler (one base row
                   `elig & dc & pool`, every group mapped to it).
+
+K1's affinity entry and its fused mask + affinity entry are in
+scoring.py; all three go through `_k1_launch`.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -80,8 +86,8 @@ def feasible_mask(attrs: torch.Tensor,       # [N, A] int32
                   ) -> torch.Tensor:         # [G, N] bool
     """Full static feasibility (reference: feasibility.feasible_mask).  A
     CPU tensor takes the plain version; a CUDA tensor launches K8 (or
-    raises): K1's mask pass with one base row `dc & pool` and every
-    group mapped to it."""
+    raises): its mask pass with one base row `dc & pool` and every group
+    mapped to it."""
     if attrs.device.type == "cpu":
         return feasible_mask_plain(attrs, elig, dc_mask, pool_mask, con,
                                    luts)
@@ -99,8 +105,7 @@ def feasible_mask(attrs: torch.Tensor,       # [N, A] int32
     base = (dc_mask & pool_mask)[None]
     u_mask = torch.zeros(con.shape[0], dtype=torch.int32,
                          device=attrs.device)
-    return _mask_launch(K.FEASIBLE, name, attrs, con, luts, elig, base,
-                        u_mask)
+    return _mask_launch(attrs, con, luts, elig, base, u_mask)
 
 
 def landscape_mask_plain(attrs, con, luts, elig, base_mask, u_mask):
@@ -115,19 +120,93 @@ def landscape_mask(attrs: torch.Tensor,      # [N, A] int32
                    elig: torch.Tensor,       # [N] bool
                    base_mask: torch.Tensor,  # [M, N] bool
                    u_mask: torch.Tensor,     # [U] int32 -> base_mask row
+                   node_ok: Optional[torch.Tensor] = None,  # [N] bool
                    ) -> torch.Tensor:        # [U, N] bool
-    """Per-signature static landscape.  A CPU tensor takes the plain
-    version; a CUDA tensor launches K1 (or raises)."""
-    if attrs.device.type == "cpu":
-        return landscape_mask_plain(attrs, con, luts, elig, base_mask,
-                                    u_mask)
-    return _mask_launch(K.LANDSCAPE, "landscape_mask", attrs, con, luts,
-                        elig, base_mask, u_mask)
+    """Per-signature static landscape, `node_ok` (when given) ANDed into
+    the eligibility.  A CPU tensor takes the plain version; a CUDA tensor
+    launches K1 (or raises)."""
+    if attrs.is_cpu:
+        return landscape_mask_plain(attrs, con, luts, and_rows(elig, node_ok),
+                                    base_mask, u_mask)
+    return _k1_launch("landscape_mask", attrs, luts,
+                      mask=(con, elig, base_mask, u_mask, node_ok))[0]
 
 
-def _mask_launch(kernel, name, attrs, con, luts, elig, base_mask, u_mask):
-    """One launch of csrc/landscape.cu's mask pass through `name`'s entry,
-    counted on `kernel`."""
+def and_rows(elig: torch.Tensor, node_ok: Optional[torch.Tensor]):
+    """`elig & node_ok`, or `elig` without a node_ok row."""
+    return elig if node_ok is None else elig & node_ok
+
+
+_I32, _BOOL = torch.int32, torch.bool
+
+
+def _k1_launch(symbol: str, attrs, luts, mask=None, aff=None, rows=None):
+    """One launch of csrc/landscape.cu's K1 pass through entry `symbol`,
+    counted on K1.  `mask` = (con, elig, base_mask, u_mask, node_ok or
+    None) asks for the [U, N] static landscape, `aff` ([Ua, Af, 4]) for
+    the [Ua, N] affinity landscape, or with `rows` ([Lr, Nc] node rows)
+    the per-frame [Lr, Ua, Nc] one.  Returns (mask, affinity), None where
+    not asked.  The checks are one pass over the inputs (dtype and rank,
+    then device and layout) and each output one allocation: the call's
+    host time is most of its time."""
+    specs = [("attrs", attrs, _I32, 2), ("luts", luts, _BOOL, 2)]
+    if mask is not None:
+        con, elig, base_mask, u_mask, node_ok = mask
+        specs += [("con", con, _I32, 3), ("elig", elig, _BOOL, 1),
+                  ("base_mask", base_mask, _BOOL, 2),
+                  ("u_mask", u_mask, _I32, 1)]
+        if node_ok is not None:
+            specs.append(("node_ok", node_ok, _BOOL, 1))
+    if aff is not None:
+        specs.append(("aff", aff, _I32, 3))
+        if rows is not None:
+            specs.append(("rows", rows, _I32, 2))
+    d = K.check_launch(symbol, specs)
+    n, a = attrs.shape
+    n_lut, n_vocab = luts.shape
+    if a == 0 or n_lut == 0 or n_vocab == 0:
+        raise ValueError(f"{symbol}: inconsistent shapes")
+    args = [attrs.data_ptr(), n, a]
+    m_out = a_out = None
+    work = False
+    if mask is not None:
+        u, c, three = con.shape
+        if (three != 3 or elig.shape[0] != n or base_mask.shape[1] != n
+                or u_mask.shape[0] != u
+                or (node_ok is not None and node_ok.shape[0] != n)):
+            raise ValueError(f"{symbol}: inconsistent shapes")
+        m_out = attrs.new_empty((u, n), dtype=_BOOL)
+        work = u > 0 and n > 0
+        args += [con.data_ptr(), u, c, luts.data_ptr(), n_lut, n_vocab,
+                 elig.data_ptr(), base_mask.data_ptr(), u_mask.data_ptr(),
+                 None if node_ok is None else node_ok.data_ptr(),
+                 m_out.data_ptr()]
+    if aff is not None:
+        ua, af, four = aff.shape
+        if four != 4 or n == 0:
+            raise ValueError(f"{symbol}: inconsistent shapes")
+        if rows is None:
+            a_out = attrs.new_empty((ua, n), dtype=torch.float32)
+            work = work or ua > 0
+            if mask is None:
+                args += [None, 1, n]
+        else:
+            n_sets, nc = rows.shape
+            a_out = attrs.new_empty((n_sets, ua, nc), dtype=torch.float32)
+            work = work or (ua > 0 and n_sets > 0 and nc > 0)
+            args += [rows.data_ptr(), n_sets, nc]
+        args += [aff.data_ptr(), ua, af]
+        if mask is None:
+            args += [luts.data_ptr(), n_lut, n_vocab]
+        args.append(a_out.data_ptr())
+    if work:
+        K.LANDSCAPE.launch(d, symbol, *args)
+    return m_out, a_out
+
+
+def _mask_launch(attrs, con, luts, elig, base_mask, u_mask):
+    """One launch of K8's mask pass (csrc/landscape.cu `feasible_mask`)."""
+    name = "feasible_mask"
     K.check_cuda(name, attrs=attrs, con=con, luts=luts, elig=elig,
                  base_mask=base_mask, u_mask=u_mask)
     K.check_dtype(name, attrs, torch.int32, 2)
@@ -143,7 +222,7 @@ def _mask_launch(kernel, name, attrs, con, luts, elig, base_mask, u_mask):
         raise ValueError(f"{name}: inconsistent shapes")
     out = torch.empty((u, n), dtype=torch.bool, device=attrs.device)
     if u and n:
-        kernel.launch(
+        K.FEASIBLE.launch(
             attrs.get_device(), name, attrs.data_ptr(), n, a,
             con.data_ptr(), u, c, luts.data_ptr(), luts.shape[0],
             luts.shape[1],

@@ -115,7 +115,7 @@ PLACE_SCAN_SHARDED = Kernel("place_scan_sharded", "place_scan.cu",
                             "nomad_tpu/parallel/mesh.py:221")
 MULTI_BULK_SHARDED = Kernel("multi_bulk_sharded", "multi_rounds.cu",
                             "nomad_tpu/parallel/mesh.py:645")
-MULTI_FLAT_SHARDED = Kernel("multi_flat_sharded", "multi_rounds.cu",
+MULTI_FLAT_SHARDED = Kernel("multi_flat_sharded", "compact_rounds.cu",
                             "nomad_tpu/parallel/mesh.py:454")
 MULTI_COMPACT_SHARDED = Kernel("multi_compact_sharded",
                                "compact_rounds.cu",
@@ -290,6 +290,28 @@ def check_scatter(name: str, used, rows, vals):
             and vals.is_contiguous()):
         raise ValueError(f"{name}: used, rows and vals must be contiguous")
     return d, us[0], rs[0]
+
+
+def check_launch(name: str, specs) -> int:
+    """A launch's checks in two lean passes over `specs`, a sequence of
+    (key, tensor, dtype, ndim): every dtype and rank first, then that
+    every tensor is contiguous on the first one's CUDA device.  Returns
+    that device's index."""
+    for key, t, dtype, ndim in specs:
+        if t.dtype is not dtype:
+            raise ValueError(f"{name}.{key}: expected {dtype}, got "
+                             f"{t.dtype}")
+        if t.dim() != ndim:
+            raise ValueError(f"{name}.{key}: expected {ndim} dims, got "
+                             f"{tuple(t.shape)}")
+    d = specs[0][1].get_device()
+    for key, t, _, _ in specs:
+        if not t.is_cuda or t.get_device() != d:
+            raise ValueError(f"{name}: {key} is on {t.device}, not CUDA "
+                             f"device {d}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} is not contiguous")
+    return d
 
 
 def check_dtype(name: str, t, dtype, ndim: Optional[int] = None) -> None:

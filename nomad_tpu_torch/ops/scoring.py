@@ -3,8 +3,10 @@
 Plain PyTorch versions of the reference's score components, in the
 reference's order of operations (the f32 results must agree bit for bit
 with the JAX functions on the CPU, and with the CUDA kernels' arithmetic
-on the card), plus the wrapper of kernel K1's affinity entry
-(`affinity_landscape`, `csrc/landscape.cu`).
+on the card), plus the wrappers of kernel K1's affinity entry (`affinity_landscape`)
+and of its entry that computes the static mask and the affinity of the
+same rows in one launch (`landscapes`, the flat multi-eval path's),
+both in `csrc/landscape.cu`.
 
 Score components (all bounded like the reference's):
   binpack     [0, 18]   structs.ScoreFit exponential (or inverted for spread)
@@ -21,7 +23,12 @@ from typing import Optional, Sequence
 import torch
 
 from . import kernels as K
-from .feasibility import _row_predicates
+from .feasibility import (
+    _k1_launch,
+    _row_predicates,
+    and_rows,
+    landscape_mask_plain,
+)
 
 MAX_FIT_SCORE = 18.0
 
@@ -237,32 +244,22 @@ def affinity_landscape(attrs: torch.Tensor, aff: torch.Tensor,
                        rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Affinity landscape per signature.  A CPU tensor takes the plain
     version; a CUDA tensor launches K1 (or raises)."""
-    if attrs.device.type == "cpu":
+    if attrs.is_cpu:
         return affinity_landscape_plain(attrs, aff, luts, rows)
-    name = "landscape_affinity"
-    tensors = dict(attrs=attrs, aff=aff, luts=luts)
-    if rows is not None:
-        tensors["rows"] = rows
-    K.check_cuda(name, **tensors)
-    K.check_dtype(name, attrs, torch.int32, 2)
-    K.check_dtype(name, aff, torch.int32, 3)
-    K.check_dtype(name, luts, torch.bool, 2)
-    n, a = attrs.shape
-    ua, af, four = aff.shape
-    if four != 4 or 0 in luts.shape or a == 0 or n == 0:
-        raise ValueError(f"{name}: inconsistent shapes")
-    if rows is None:
-        n_sets, nc, rows_ptr = 1, n, 0
-        out = torch.empty((ua, n), dtype=torch.float32, device=attrs.device)
-    else:
-        K.check_dtype(name, rows, torch.int32, 2)
-        n_sets, nc = rows.shape
-        rows_ptr = rows.data_ptr()
-        out = torch.empty((n_sets, ua, nc), dtype=torch.float32,
-                          device=attrs.device)
-    if ua and nc and n_sets:
-        K.LANDSCAPE.launch(
-            attrs.get_device(), name, attrs.data_ptr(), n, a, rows_ptr,
-            n_sets, nc, aff.data_ptr(), ua, af, luts.data_ptr(),
-            luts.shape[0], luts.shape[1], out.data_ptr())
-    return out
+    return _k1_launch("landscape_affinity", attrs, luts, aff=aff,
+                      rows=rows)[1]
+
+
+def landscapes(attrs, con, luts, elig, base_mask, u_mask, aff,
+               node_ok: Optional[torch.Tensor] = None):
+    """K1's two landscapes of the same N rows: (landscape_mask's [U, N]
+    static mask, affinity_landscape's [Ua, N] affinity).  A CPU tensor
+    takes the plain versions; a CUDA tensor launches K1 once for both
+    (or raises)."""
+    if attrs.is_cpu:
+        return (landscape_mask_plain(attrs, con, luts,
+                                     and_rows(elig, node_ok), base_mask,
+                                     u_mask),
+                affinity_landscape_plain(attrs, aff, luts))
+    return _k1_launch("landscape_pair", attrs, luts,
+                      mask=(con, elig, base_mask, u_mask, node_ok), aff=aff)

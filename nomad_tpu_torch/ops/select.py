@@ -16,8 +16,9 @@ hand-written CUDA kernel for a CUDA tensor:
   place_multi_packed          K3 (csrc/compact_rounds.cu, flat rounds)
   place_multi_compact_packed  K2 (csrc/compact_rounds.cu, laned rounds)
 
-all on top of K1's landscapes (feasibility.landscape_mask,
-scoring.affinity_landscape); K5 and K6 take their static mask from K8
+all on top of K1's landscapes (scoring.landscapes, the mask and the
+affinity in one launch, for K3; scoring.affinity_landscape for the
+others); K5 and K6 take their static mask from K8
 (feasibility.feasible_mask).
 
 Top-k order: `jax.lax.top_k` puts the lower index first among equal
@@ -33,9 +34,9 @@ import torch
 
 from . import kernels as K
 from .feasibility import (
+    and_rows,
     feasible_mask,
     feasible_mask_plain,
-    landscape_mask,
     landscape_mask_plain,
 )
 from .scoring import (
@@ -45,6 +46,7 @@ from .scoring import (
     binpack_score,
     capacity_fit,
     job_anti_affinity,
+    landscapes,
     normalize_scores,
     spread_boost,
 )
@@ -81,7 +83,9 @@ class MultiEvalInputs(NamedTuple):
     """Device inputs for ONE batched multi-eval launch (field meanings
     and shapes as the reference's select.MultiEvalInputs).  `seed` holds
     per-task-group uint32 values in int64 ([G], or a 0-dim tensor that
-    broadcasts); `spread_algo` is a Python bool."""
+    broadcasts); `spread_algo` is a Python bool.  `node_ok` (the port's
+    own field) is the refuted-node row ANDed into `elig` by K1, where
+    the reference's engine passes `elig & node_ok` as `elig`."""
     attrs: torch.Tensor       # [N, A] int32
     cap: torch.Tensor         # [N, 3] int32
     used0: Optional[torch.Tensor]  # [N, 3] int32 (None in a chained call)
@@ -102,6 +106,7 @@ class MultiEvalInputs(NamedTuple):
     round_g: torch.Tensor     # [R] int32
     round_want: torch.Tensor  # [R] int32
     seed: torch.Tensor        # [G] int64 (uint32 values) or 0-dim
+    node_ok: Optional[torch.Tensor] = None  # [N] bool
 
 
 def round_seeds(seed: torch.Tensor, rg: torch.Tensor) -> torch.Tensor:
@@ -247,7 +252,8 @@ def place_multi_packed_plain(inp: MultiEvalInputs, round_size: int,
     n = inp.attrs.shape[0]
     _check_rounds(n, round_size)
     top_k = min(TOP_K, n)
-    static_u = landscape_mask_plain(inp.attrs, inp.con, inp.luts, inp.elig,
+    static_u = landscape_mask_plain(inp.attrs, inp.con, inp.luts,
+                                    and_rows(inp.elig, inp.node_ok),
                                     inp.base_mask, inp.u_mask)    # [U, N]
     aff_u = affinity_landscape_plain(inp.attrs, inp.aff, inp.luts)  # [Ua, N]
     aff_any_u = (inp.aff[..., 3] != 0).any(dim=1)
@@ -297,9 +303,9 @@ def place_multi_packed_plain(inp: MultiEvalInputs, round_size: int,
 
 
 def _exchange(n_clusters: int, n_shards: int, kk_loc: int, dev):
-    """Exchange scratch of the sharded rounds kernels (csrc/
-    multi_rounds.cu): per cluster, four count rows [4, S, 8], the S
-    shards' sorted keys [S * kk_loc] and their values [S * kk_loc, 4]."""
+    """Exchange scratch of K10 (csrc/multi_rounds.cu): per cluster, four
+    count rows [4, S, 8], the S shards' sorted keys [S * kk_loc] and
+    their values [S * kk_loc, 4]."""
     return [torch.empty(n_clusters * 4 * n_shards * 8, dtype=torch.int32,
                         device=dev),
             torch.empty(n_clusters * n_shards * kk_loc, dtype=torch.int64,
@@ -333,68 +339,64 @@ def _frame_scratch(kern, name, dev, *plan):
             if nbytes else None)
 
 
-def _flat_launch(used: torch.Tensor, inp: MultiEvalInputs,
-                 round_size: int, n_shards: int = 0, prof=None):
-    """K1 landscapes + one K3 launch (csrc/compact_rounds.cu, one cluster
-    of up to 16 blocks over every row; K11 with `n_shards`: the
-    node axis in that many shards, csrc/multi_rounds.cu); `used` is the
-    round state and the usage output (updated in place).  With `prof`
-    (int64 [18] on the card) K3's PROF instantiation runs instead and
-    writes block 0's phase split there (chip_smoke.py)."""
+def _flat_launch(used: torch.Tensor, used_in: torch.Tensor,
+                 inp: MultiEvalInputs, round_size: int, n_shards: int = 0,
+                 prof=None):
+    """K1's landscapes (one launch for both) + one K3 launch
+    (csrc/compact_rounds.cu, one cluster of up to 16 blocks over every
+    row; K11 with `n_shards`: the same launch over rows that many shards
+    hold in order, counted on K11's entry).  The kernel reads the usage
+    from `used_in` and writes every row of `used` (the same tensor for
+    the chained form, updated in place).  With `prof` (int64 [18] on the
+    card) K3's PROF instantiation runs instead and writes block 0's
+    phase split there (chip_smoke.py)."""
     kern = K.MULTI_FLAT_SHARDED if n_shards else K.MULTI_FLAT
     name = kern.name
     n = inp.attrs.shape[0]
     _check_rounds(n, round_size)
     _check_shards(name, n, n_shards)
     dev = inp.attrs.device
-    static_u = landscape_mask(inp.attrs, inp.con, inp.luts, inp.elig,
-                              inp.base_mask, inp.u_mask)
-    aff_u = affinity_landscape(inp.attrs, inp.aff, inp.luts)
+    static_u, aff_u = landscapes(inp.attrs, inp.con, inp.luts, inp.elig,
+                                 inp.base_mask, inp.u_mask, inp.aff,
+                                 inp.node_ok)
     seed = _multi_seed(inp)
-    tensors = dict(cap=inp.cap, used=used, static_u=static_u, aff_u=aff_u,
-                   aff=inp.aff, req=inp.req, desired=inp.desired,
-                   dh_limit=inp.dh_limit, g_static=inp.g_static,
-                   g_aff=inp.g_aff, g_job=inp.g_job, seed=seed,
-                   job_count0=inp.job_count0, round_g=inp.round_g,
-                   round_want=inp.round_want)
+    tensors = dict(cap=inp.cap, used_in=used_in, used=used,
+                   static_u=static_u, aff_u=aff_u, aff=inp.aff, req=inp.req,
+                   desired=inp.desired, dh_limit=inp.dh_limit,
+                   g_static=inp.g_static, g_aff=inp.g_aff, g_job=inp.g_job,
+                   seed=seed, job_count0=inp.job_count0,
+                   round_g=inp.round_g, round_want=inp.round_want)
     K.check_cuda(name, **tensors)
-    for key in ("cap", "used", "aff", "req", "desired", "dh_limit",
-                "g_static", "g_aff", "g_job", "job_count0", "round_g",
-                "round_want"):
+    for key in ("cap", "used_in", "used", "aff", "req", "desired",
+                "dh_limit", "g_static", "g_aff", "g_job", "job_count0",
+                "round_g", "round_want"):
         K.check_dtype(f"{name}.{key}", tensors[key], torch.int32)
-    if (used.shape != (n, 3) or inp.cap.shape != (n, 3)
+    if (used.shape != (n, 3) or used_in.shape != (n, 3)
+            or inp.cap.shape != (n, 3)
             or inp.job_count0.dim() != 2 or inp.job_count0.shape[1] != n
             or seed.shape[0] != inp.req.shape[0]
             or inp.round_g.shape != inp.round_want.shape):
         raise ValueError(f"{name}: inconsistent shapes")
     n_rounds = inp.round_g.shape[0]
     ua, af = inp.aff.shape[:2]
-    spread = int(bool(inp.spread_algo))
     buf = torch.empty((n_rounds, round_size + 16), dtype=torch.int32,
                       device=dev)
     jc = torch.empty(n, dtype=torch.int32, device=dev)
-    head = [t.data_ptr() for t in (*tensors.values(), buf)]
-    if n_shards:
-        # the old rounds template's per-row scratch and its exchange
-        scratch = [torch.empty(n, dtype=dt, device=dev) for dt in (
-            torch.int32, torch.float32, torch.int32)]
-        xch = _exchange(1, n_shards, min(round_size, n // n_shards), dev)
-        if n_rounds:
-            kern.launch(dev.index, name, *head, n, ua, af, n_rounds, spread,
-                        round_size, jc.data_ptr(),
-                        *[t.data_ptr() for t in scratch], n_shards,
-                        *[t.data_ptr() for t in xch])
-        return buf, used, jc
     if not n_rounds:
+        if used is not used_in:
+            used.copy_(used_in)
         return buf, used, jc.copy_(inp.job_count0[0])
     frame = _frame_scratch(kern, name, dev, 1, n, round_size, 1, 1)
     tail = [None if frame is None else frame.data_ptr()]
     symbol = name
-    if prof is not None:
+    if n_shards:
+        tail.append(n_shards)
+    elif prof is not None:
         symbol = name + "_prof"
         tail.append(prof.data_ptr())
-    kern.launch(dev.index, symbol, *head, jc.data_ptr(), n, ua, af,
-                n_rounds, spread, round_size, *tail)
+    kern.launch(dev.index, symbol, *[t.data_ptr() for t in (
+        *tensors.values(), buf, jc)], n, ua, af, n_rounds,
+        int(bool(inp.spread_algo)), round_size, *tail)
     return buf, used, jc
 
 
@@ -405,8 +407,8 @@ def place_multi_packed(inp: MultiEvalInputs, round_size: int):
     tensors launch K1 and K3 (or raise).  `inp.used0` is not modified."""
     if inp.attrs.device.type == "cpu":
         return place_multi_packed_plain(inp, round_size)
-    K.count_eager("flat_used0_clone")
-    return _flat_launch(inp.used0.clone(), inp, round_size)
+    return _flat_launch(torch.empty_like(inp.used0), inp.used0, inp,
+                        round_size)
 
 
 def place_multi_chained(used0: torch.Tensor, inp: MultiEvalInputs,
@@ -420,7 +422,7 @@ def place_multi_chained(used0: torch.Tensor, inp: MultiEvalInputs,
             inp._replace(used0=used0), round_size)
         used0.copy_(used)
         return buf, used0, jc
-    return _flat_launch(used0, inp, round_size)
+    return _flat_launch(used0, used0, inp, round_size)
 
 
 # ------------------------------------------------------------------ K2
@@ -1135,7 +1137,6 @@ def _bulk_launch(inp: BulkInputs, round_size: int, n_rounds: int,
     score = torch.empty(n, dtype=torch.float32, device=dev)
     keyb = torch.empty(n, dtype=torch.int32, device=dev)
     if n_rounds:
-        zero = torch.zeros(1, dtype=torch.int32, device=dev)
         if n_shards:
             xch = _exchange(1, n_shards,
                             min(round_size, n // n_shards), dev)
@@ -1149,11 +1150,10 @@ def _bulk_launch(inp: BulkInputs, round_size: int, n_rounds: int,
             dev.index, name, *[t.data_ptr() for t in (
                 inp.cap, used, static.contiguous(), aff_sc, aff,
                 inp.req[gs].contiguous(), inp.desired[gs].contiguous(),
-                inp.dh_limit[gs].contiguous(), zero,
+                inp.dh_limit[gs].contiguous(),
                 _seed_t(inp.seed, dev).reshape(1), inp.job_count0,
-                torch.zeros(n_rounds, dtype=torch.int32, device=dev),
                 torch.tensor(want, dtype=torch.int32, device=dev), buf)],
-            n, 1, aff.shape[1], n_rounds, int(bool(inp.spread_algo)),
+            n, aff.shape[1], n_rounds, int(bool(inp.spread_algo)),
             round_size, *layout,
             *[t.data_ptr() for t in (jc, ki, score, keyb)],
             *mesh_args)

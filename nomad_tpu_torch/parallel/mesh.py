@@ -13,11 +13,14 @@ count and one `torch.device`.  The plain versions below carry the shard
 axis as a leading tensor dimension (`all_gather` is a reshape over it,
 `psum` a sum, `axis_index` an arange) and reuse ops/select.py's round
 and step cores.  On a CUDA tensor each wrapper launches its kernel, one
-thread-block cluster of S blocks per exchange group:
+thread-block cluster per exchange group (S blocks, or K3's plan for
+K11's rows):
 
   place_sharded_packed               K9  (exact scan, csrc/place_scan.cu)
   place_bulk_sharded_packed          K10 (bulk rounds, csrc/multi_rounds.cu)
-  place_multi_sharded_packed         K11 (flat multi-eval rounds, the same)
+  place_multi_sharded_packed         K11 (flat multi-eval rounds: K3's
+                                          flat mode, csrc/compact_rounds.cu,
+                                          over the npad rows in order)
   place_multi_compact_sharded        K12 (laned rounds over shard frames:
                                           K2's kernel, csrc/compact_rounds.cu,
                                           over lane_frames' layout)
@@ -305,12 +308,14 @@ def place_multi_sharded_packed(inp: MultiEvalInputs, mesh: Mesh,
                                round_size: int):
     """K11 (reference: mesh.place_multi_sharded_packed_fn): (buf
     [R, round_size + 16], used, last job count row).  `inp.used0` is not
-    modified."""
+    modified.  Shard s owns rows [s n_loc, (s + 1) n_loc), so the
+    shard-major union of the shards' top lists is the top over all npad
+    rows in row order, and the card runs K3's flat mode over those rows
+    (tests/test_torch_mesh.py::test_k11_is_k3_on_padded_rows)."""
     if _on_mesh(mesh, inp.attrs):
         return place_multi_sharded_plain(inp, mesh.n_shards, round_size)
-    K.count_eager("flat_used0_clone")
-    return S._flat_launch(inp.used0.clone(), inp, round_size,
-                          n_shards=mesh.n_shards)
+    return S._flat_launch(torch.empty_like(inp.used0), inp.used0, inp,
+                          round_size, n_shards=mesh.n_shards)
 
 
 def place_multi_sharded_chained(used0: torch.Tensor, inp: MultiEvalInputs,
@@ -322,7 +327,8 @@ def place_multi_sharded_chained(used0: torch.Tensor, inp: MultiEvalInputs,
             inp._replace(used0=used0), mesh.n_shards, round_size)
         used0.copy_(used)
         return buf, used0, jc
-    return S._flat_launch(used0, inp, round_size, n_shards=mesh.n_shards)
+    return S._flat_launch(used0, used0, inp, round_size,
+                          n_shards=mesh.n_shards)
 
 
 def place_multi_compact_sharded(inp: MultiEvalInputs, cand_rows, cand_valid,

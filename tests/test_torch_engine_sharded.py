@@ -267,6 +267,38 @@ def test_zoned_laned_batch_matches_reference():
             [m.nodes_filtered for m in b.metrics]
 
 
+@pytest.mark.parametrize("wave", ["flat", "zoned"])
+@pytest.mark.parametrize("engine", ["mesh", "single"])
+def test_refuted_nodes_match_reference(engine, wave):
+    """A wave with refuted nodes (`masked_node_ids`, the wave pipeline's
+    refute-repair input): the port ANDs its node_ok row into K1's mask
+    (and into the lane prover's masks), the reference into `elig` before
+    K1.  The packed buffers byte for byte and the decisions agree, and
+    no pick lands on a refuted node."""
+    make = mesh_engine if engine == "mesh" else single_engine
+    res = {}
+    for name in PACKAGES:
+        if wave == "flat":
+            h = build(name, 603, seed=5, engine=make)
+            items = _batch(name, h, [150, 40, 700, 5, 260])
+        else:
+            h, items = _zoned(name, engine=make)
+        masked = [f"node-{i:05d}" for i in range(0, 300, 7)]
+        pend = h.engine.dispatch_batch(h.state.snapshot(), items, seed=21,
+                                       masked_node_ids=masked)
+        if name == PORT:
+            assert (pend["cand_rows"] is None) == (wave == "flat")
+        res[name] = (_pending_buf(pend), h.engine.collect_batch(pend),
+                     h.engine.packer.update(h.state.snapshot()))
+    assert res[REF][0].tobytes() == res[PORT][0].tobytes()
+    for a, b in zip(res[REF][1], res[PORT][1]):
+        assert_bulk_equal(a, b)
+    t = res[PORT][2]
+    refuted = {t.id_to_row[f"node-{i:05d}"] for i in range(0, 300, 7)}
+    picks = np.concatenate([np.asarray(d.picks) for d in res[PORT][1]])
+    assert picks.size and not refuted & set(picks.tolist())
+
+
 def test_padded_rows_after_gc_shrink_across_shard():
     """13 -> 7 nodes on 8 shards (npad 16 -> 8, every row remaps)."""
     hs = {name: build(name, 13, seed=9) for name in PACKAGES}

@@ -142,27 +142,100 @@ def test_cpu_tensors_take_the_plain_versions():
     assert all(k.launches == 0 for k in K.KERNELS)
 
 
+def _random_landscape_inputs(case, device, n=3000, n_lut=4, vocab=20):
+    """Seeded K1 inputs of LANDSCAPE_CASES[case]: attributes [n, a] (-1
+    unset), LUTs [n_lut, vocab], constraint [u, c, 3] and affinity
+    [ua, af, 4] tables drawing every opcode, eligibility, a base table
+    [4, n] with u_mask into it, a node_ok row or None, and frames
+    [3, 700] of rows (some past n)."""
+    u, c, ua, af, with_ok, a = LANDSCAPE_CASES[case]
+    rng = np.random.default_rng(len(case))
+    ops = rng.integers(0, 6, (u, c))         # DOP_TRUE .. DOP_LUT
+
+    def rows(g, k, ops):
+        return np.stack([rng.integers(0, a, (g, k)), ops,
+                         rng.integers(-1, vocab + 1, (g, k))], axis=2)
+
+    t = lambda x, dt: torch.tensor(np.asarray(x), dtype=dt, device=device)
+    aff = np.concatenate([rows(ua, af, rng.integers(0, 6, (ua, af))),
+                          rng.integers(-50, 50, (ua, af, 1))], axis=2)
+    return dict(
+        attrs=t(rng.integers(-1, vocab, (n, a)), torch.int32),
+        luts=t(rng.random((n_lut, vocab)) < 0.5, torch.bool),
+        con=t(rows(u, c, ops), torch.int32),
+        elig=t(rng.random(n) < 0.9, torch.bool),
+        base=t(rng.random((4, n)) < 0.8, torch.bool),
+        u_mask=t(rng.integers(0, 4, u), torch.int32),
+        node_ok=t(rng.random(n) < 0.8, torch.bool) if with_ok else None,
+        aff=t(aff, torch.int32),
+        frames=t(rng.integers(0, n + 50, (3, 700)), torch.int32))
+
+
+# (signatures, constraint rows, affinity signatures, affinity rows,
+# node_ok, attribute columns): "many_signatures" fills 550 grid rows,
+# "wide_rows" takes 88 and 75 passes of eight predicate rows, one
+# partial, "wide_attrs" reads 80-column attribute rows
+LANDSCAPE_CASES = {
+    "node_ok": (5, 4, 2, 3, True, 6),
+    "no_constraint_rows": (3, 0, 2, 0, True, 6),
+    "many_signatures": (400, 4, 150, 8, False, 6),
+    "wide_rows": (3, 700, 2, 600, True, 6),
+    "wide_attrs": (9, 4, 3, 2, True, 80),
+}
+
+
 @pytest.mark.gpu
-def test_landscape_matches_plain(cuda_device):
-    built = _zoned_built()
-    inp = _on(built["inp"], cuda_device)
-    got = landscape_mask(inp.attrs, inp.con, inp.luts, inp.elig,
-                         inp.base_mask, inp.u_mask)
-    want = landscape_mask_plain(inp.attrs, inp.con, inp.luts, inp.elig,
-                                inp.base_mask, inp.u_mask)
-    cpu = built["inp"]
-    want_cpu = landscape_mask_plain(cpu.attrs, cpu.con, cpu.luts, cpu.elig,
-                                    cpu.base_mask, cpu.u_mask)
-    _same([got], [want], [want_cpu])
-    cr, _ = frames_from_numpy(built["cand_rows"], built["cand_valid"],
-                              cuda_device)
-    for rows in (None, cr):
-        got = affinity_landscape(inp.attrs, inp.aff, inp.luts, rows)
-        want = affinity_landscape_plain(inp.attrs, inp.aff, inp.luts, rows)
+@pytest.mark.parametrize("case", ["zoned"] + sorted(LANDSCAPE_CASES))
+def test_landscape_matches_plain(cuda_device, case):
+    """K1's three entries (the mask with or without a node_ok row, the
+    affinity over every row or through frames, both in one launch)
+    against their plain versions on the card and on CPU copies: at the
+    zoned wave's inputs, and on random tables with no constraint rows,
+    hundreds of signatures, hundreds of predicate rows and wide attribute
+    rows.  One launch per call."""
+    from nomad_tpu_torch.ops.scoring import landscapes
+
+    if case == "zoned":
+        built = _zoned_built()
+        inp = _on(built["inp"], cuda_device)
+        cr, _ = frames_from_numpy(built["cand_rows"], built["cand_valid"],
+                                  cuda_device)
+        d = dict(attrs=inp.attrs, luts=inp.luts, con=inp.con, elig=inp.elig,
+                 base=inp.base_mask, u_mask=inp.u_mask, node_ok=None,
+                 aff=inp.aff, frames=cr)
+    else:
+        d = _random_landscape_inputs(case, cuda_device)
+    c = {k: None if v is None else v.cpu() for k, v in d.items()}
+    for x in (d, c):
+        x["ok"] = (x["elig"] if x["node_ok"] is None
+                   else x["elig"] & x["node_ok"])
+
+    def mask_args(x):
+        return x["attrs"], x["con"], x["luts"], x["elig"], x["base"], \
+            x["u_mask"], x["node_ok"]
+
+    def plain_mask(x):
+        return landscape_mask_plain(x["attrs"], x["con"], x["luts"],
+                                    x["ok"], x["base"], x["u_mask"])
+
+    K.reset_launches()
+    got = landscape_mask(*mask_args(d))
+    _same([got], [plain_mask(d)], [plain_mask(c)])
+    for rows in (None, "frames"):
+        r = None if rows is None else d[rows]
+        got = affinity_landscape(d["attrs"], d["aff"], d["luts"], r)
+        want = affinity_landscape_plain(d["attrs"], d["aff"], d["luts"], r)
         want_cpu = affinity_landscape_plain(
-            cpu.attrs, cpu.aff, cpu.luts, None if rows is None else rows.cpu())
+            c["attrs"], c["aff"], c["luts"], None if r is None else c[rows])
         torch.cuda.synchronize()
         _same([got], [want], [want_cpu])
+    got = landscapes(*mask_args(d)[:6], d["aff"], d["node_ok"])
+    torch.cuda.synchronize()
+    _same(got, [plain_mask(d),
+                affinity_landscape_plain(d["attrs"], d["aff"], d["luts"])],
+          [plain_mask(c),
+           affinity_landscape_plain(c["attrs"], c["aff"], c["luts"])])
+    assert K.LANDSCAPE.launches == 4
 
 
 @pytest.mark.gpu
@@ -342,9 +415,10 @@ def test_multi_flat_prof_entry(cuda_device, n_rows):
     its real and padding steps, in both layouts."""
     _flat_layout(n_rows)
     inp, rs = _flat_on("padding_rounds", cuda_device, n_rows)
-    got = psel._flat_launch(inp.used0.clone(), inp, rs)
+    got = psel._flat_launch(torch.empty_like(inp.used0), inp.used0, inp, rs)
     prof = torch.zeros(18, dtype=torch.int64, device=cuda_device)
-    again = psel._flat_launch(inp.used0.clone(), inp, rs, prof=prof)
+    again = psel._flat_launch(torch.empty_like(inp.used0), inp.used0, inp,
+                              rs, prof=prof)
     torch.cuda.synchronize()
     _same(again, got)
     c = prof.tolist()
@@ -615,12 +689,12 @@ def _mesh_engine():
     return PlacementEngine(device="cpu", mesh=pmesh.make_mesh(S, "cpu"))
 
 
-def _mesh_built(zoned, spread=False, n_zones=5, count=40):
+def _mesh_built(zoned, spread=False, n_zones=5, count=40, n_flat=150):
     if zoned:
         h = build_zoned_cluster(PORT, n_nodes=301, n_zones=n_zones)
         n_items, zones = 11, n_zones
     else:
-        h = build_flat_cluster(PORT, n_nodes=150)
+        h = build_flat_cluster(PORT, n_nodes=n_flat)
         n_items, count, zones = 9, 30, 0
     if spread:
         set_spread(PORT, h)
@@ -689,17 +763,35 @@ def test_k10_sharded_bulk_matches_plain(cuda_device, spread_algo):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("spread", [False, True])
-def test_k11_sharded_flat_matches_plain(cuda_device, spread):
+@pytest.mark.parametrize("case", ["binpack", "spread", "padded_1001",
+                                  "few_feasible"])
+def test_k11_sharded_flat_matches_plain(cuda_device, case):
+    """K11 (K3's flat mode over the npad rows, csrc/compact_rounds.cu):
+    one launch of its entry there and none in multi_rounds.cu.  150 and
+    1,001 rows pad to 152 and 1,008 (rows a shard below and above the
+    round size); few_feasible: every 13th row eligible, fewer feasible
+    rows than a round."""
     mesh = pmesh.make_mesh(S, cuda_device)
-    built = _mesh_built(False, spread)
-    inp = _on(built["inp"], cuda_device)
+    built = _mesh_built(False, case == "spread",
+                        n_flat=1001 if case == "padded_1001" else 150)
+    cpu = built["inp"]
+    if case == "few_feasible":
+        elig = torch.zeros_like(cpu.elig)
+        elig[:150:13] = True
+        cpu = cpu._replace(elig=elig)
+    inp = _on(cpu, cuda_device)
     rs = built["rs"]
+    K.reset_launches()
     got = pmesh.place_multi_sharded_packed(inp, mesh, rs)
+    assert K.MULTI_FLAT_SHARDED.source == "compact_rounds.cu"
+    assert K.MULTI_FLAT_SHARDED.launches == 1
+    assert all(k.launches == 0 for k in K.KERNELS
+               if k.source == "multi_rounds.cu")
     want = pmesh.place_multi_sharded_plain(inp, S, rs)
-    want_cpu = pmesh.place_multi_sharded_plain(built["inp"], S, rs)
+    want_cpu = pmesh.place_multi_sharded_plain(cpu, S, rs)
     torch.cuda.synchronize()
     _same(got, want, want_cpu)
+    assert torch.equal(inp.used0.cpu(), cpu.used0)
     used0 = inp.used0.clone()
     chained = pmesh.place_multi_sharded_chained(
         used0, inp._replace(used0=None), mesh, rs)

@@ -144,3 +144,63 @@ def test_landscape_entries_match_reference_expressions():
         want = np.asarray(ref_affinity(jnp.asarray(sub), jnp.asarray(aff),
                                        jnp.asarray(luts)))
         assert np.array_equal(want, got[li].numpy())
+
+
+def _signature_tables(rng, u, c, ua, af):
+    """Random packed constraint [u, c, 3] and affinity [ua, af, 4] tables
+    over the small cluster, every opcode drawn."""
+    def rows(g, k):
+        return np.stack([rng.integers(0, N_ATTR, (g, k)),
+                         rng.choice(OPS, (g, k)),
+                         rng.integers(-1, N_VOCAB + 1, (g, k))],
+                        axis=2).astype(np.int32)
+    con = rows(u, c)
+    aff = np.concatenate([rows(ua, af),
+                          rng.integers(-50, 50, (ua, af, 1)).astype(np.int32)],
+                         axis=2)
+    return con, aff
+
+
+# (signatures, constraint rows, affinity signatures, affinity rows,
+# node_ok, base table rows)
+FUSED_CASES = {
+    "one_signature": (1, 3, 1, 2, False, 1),
+    "five_signatures_node_ok": (5, 4, 2, 3, True, 3),
+    "no_constraint_rows": (3, 0, 1, 1, True, 2),
+    "resident_table": (4, 2, 3, 2, False, 8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_fused_landscapes_match_reference_expressions(case):
+    """K1's one-launch pair (`scoring.landscapes`) and the mask's node_ok
+    row against the reference's expressions: the mask is
+    `constraint_mask & (elig & node_ok) & base_mask[u_mask]`, the refuted
+    rows ANDed into `elig` as the reference's engine does, with base rows
+    read by index from a table that holds rows no signature takes; the
+    affinity is affinity_score over every row."""
+    from nomad_tpu_torch.ops.scoring import landscapes
+
+    u, c, ua, af, with_ok, m = FUSED_CASES[case]
+    attrs, luts = _cluster(5)
+    rng = np.random.default_rng(6)
+    con, aff = _signature_tables(rng, u, c, ua, af)
+    elig = rng.random(N_NODES) < 0.9
+    base = rng.random((m, N_NODES)) < 0.7
+    u_mask = rng.integers(0, m, u).astype(np.int32)
+    node_ok = rng.random(N_NODES) < 0.8 if with_ok else None
+    ok = elig if node_ok is None else elig & node_ok
+    want_mask = (np.asarray(ref_mask(jnp.asarray(attrs), jnp.asarray(con),
+                                     jnp.asarray(luts)))
+                 & ok[None] & base[u_mask])
+    want_aff = np.asarray(ref_affinity(jnp.asarray(attrs), jnp.asarray(aff),
+                                       jnp.asarray(luts)))
+    t = lambda x: None if x is None else torch.tensor(x)
+    got_mask, got_aff = landscapes(t(attrs), t(con), t(luts), t(elig),
+                                   t(base), t(u_mask), t(aff), t(node_ok))
+    assert np.array_equal(want_mask, got_mask.numpy())
+    assert want_aff.dtype == got_aff.numpy().dtype
+    assert np.array_equal(want_aff, got_aff.numpy())
+    got = landscape_mask(t(attrs), t(con), t(luts), t(elig), t(base),
+                         t(u_mask), t(node_ok))
+    assert np.array_equal(want_mask, got.numpy())

@@ -37,6 +37,7 @@ from torch_parity import (
     pad_arrays,
     random_placement_arrays,
     reference_inputs_numpy,
+    reference_multi_inputs,
     reference_placement_inputs,
     scatter_case,
     set_spread,
@@ -197,14 +198,15 @@ def _mesh_engine():
     return PlacementEngine(mesh=rmesh.make_mesh(S))
 
 
-def _flat_built(seed=3, spread=False):
-    h = build_flat_cluster("nomad_tpu", n_nodes=150)
+def _flat_built(seed=3, spread=False, n_nodes=150, count=30):
+    h = build_flat_cluster("nomad_tpu", n_nodes=n_nodes)
     if spread:
         set_spread("nomad_tpu", h)
-    _, items = add_jobs("nomad_tpu", h, 9, 30, zones=0)
+    _, items = add_jobs("nomad_tpu", h, 9, count, zones=0)
     built = _mesh_engine().build_multi_inputs(h.state.snapshot(), items,
                                               seed=seed)
-    assert built["cand_rows"] is None and built["npad"] == 152
+    assert built["cand_rows"] is None
+    assert built["npad"] == -(-n_nodes // S) * S
     return built
 
 
@@ -312,6 +314,97 @@ def test_k12_is_k2_on_shard_major_frames(ref_mesh, case):
     assert_equal(want, got)
     assert_equal(want, psel.place_multi_compact_packed_plain(
         inp._replace(job_count0=fj), fr, fv, rs, 5))
+
+
+# K11 = K3 on the npad rows: (nodes, count, spread, variant, chained) ->
+# (round size, rows a shard), all on 8 shards
+K11_IDENTITY_CASES = {
+    # 150 rows padded to 152: every shard gives all of its 19 rows
+    "padded_binpack": ((150, 30, False, None, False), (64, 19)),
+    "padded_spread": ((150, 30, True, None, False), (64, 19)),
+    "padded_chained": ((150, 30, False, None, True), (64, 19)),
+    # a shard gives its top 64 of 125 rows
+    "rs_below_shard": ((1000, 30, False, None, False), (64, 125)),
+    "rs256_spread": ((300, 200, True, None, False), (256, 38)),
+    # every 13th row eligible: ~46 feasible rows < 64, so each round's
+    # fill prefix ends in NEG_INF picks (the lowest infeasible rows)
+    "few_feasible": ((600, 30, False, "few_feasible", False), (64, 75)),
+    "few_feasible_spread": ((600, 30, True, "few_feasible", False),
+                            (64, 75)),
+    # odd groups take a second signature (every third row removed)
+    "two_signatures": ((150, 30, False, "two_signatures", True), (64, 19)),
+}
+
+
+def _k11_arrays(n_nodes, count, spread, variant):
+    built = _flat_built(spread=spread, n_nodes=n_nodes, count=count)
+    arrs = reference_inputs_numpy(built["inp"])
+    if variant == "few_feasible":
+        elig = np.zeros_like(arrs["elig"])
+        elig[:n_nodes:13] = True
+        arrs["elig"] = elig
+    elif variant == "two_signatures":
+        u = arrs["con"].shape[0]
+        extra = arrs["base_mask"][arrs["u_mask"][0]].copy()
+        extra[::3] = False
+        arrs["u_mask"] = np.append(arrs["u_mask"], arrs["base_mask"].shape[0]
+                                   ).astype(np.int32)
+        arrs["base_mask"] = np.concatenate([arrs["base_mask"], extra[None]])
+        arrs["con"] = np.concatenate([arrs["con"], arrs["con"][:1]])
+        g = np.arange(arrs["req"].shape[0])
+        arrs["g_static"] = np.where(g % 2 == 1, u, arrs["g_static"]
+                                    ).astype(np.int32)
+    return built["rs"], arrs
+
+
+@pytest.mark.parametrize("case", sorted(K11_IDENTITY_CASES))
+def test_k11_is_k3_on_padded_rows(ref_mesh, case):
+    """The reference's K11 equals the reference's K3 on the same npad
+    rows: shard s owns rows [s n_loc, (s + 1) n_loc), so the stable top
+    round_size of the shards' top min(round_size, n_loc) lists, laid out
+    shard-major, is the exact top round_size over all rows in row order
+    (NEG_INF picks included: the lowest infeasible rows); the noise runs
+    over global rows, and the counts and metrics are sums over the mesh.
+    The port's plain K11 equals the port's plain K3 on those inputs.
+    This is what runs K11 on K3's flat mode (csrc/compact_rounds.cu)."""
+    (n_nodes, count, spread, variant, chained), (rs, n_loc) = \
+        K11_IDENTITY_CASES[case]
+    built_rs, arrs = _k11_arrays(n_nodes, count, spread, variant)
+    npad = arrs["attrs"].shape[0]
+    assert built_rs == rs and npad == S * n_loc
+    rinp = reference_multi_inputs(arrs)
+    inp = multi_inputs_from_numpy(arrs)
+    if chained:
+        sharded = rmesh.place_multi_sharded_packed_fn(ref_mesh, rs,
+                                                      chained=True)
+        want = sharded(jnp.asarray(arrs["used0"]), rinp._replace(used0=None))
+        k3 = rsel.place_multi_chained_jit(jnp.asarray(arrs["used0"]),
+                                          rinp._replace(used0=None), rs)
+        mesh = pmesh.make_mesh(S, "cpu")
+        got = pmesh.place_multi_sharded_chained(
+            inp.used0.clone(), inp._replace(used0=None), mesh, rs)
+        k3p = psel.place_multi_chained(inp.used0.clone(),
+                                       inp._replace(used0=None), rs)
+    else:
+        want = rmesh.place_multi_sharded_packed_fn(ref_mesh, rs)(rinp)
+        k3 = rsel.place_multi_packed_jit(rinp, rs)
+        got = pmesh.place_multi_sharded_plain(inp, S, rs)
+        k3p = psel.place_multi_packed_plain(inp, rs)
+    assert len(want) == len(k3) == 3
+    for w, k in zip(want, k3):
+        w, k = np.asarray(w), np.asarray(k)
+        assert w.dtype == k.dtype and w.shape == k.shape
+        assert w.tobytes() == k.tobytes()
+    assert_equal(want, got)
+    assert_equal(want, k3p)
+    buf = np.asarray(want[0])
+    placed = buf[:, -16 + 12]
+    assert placed.sum() > 0
+    if variant == "few_feasible":
+        # every real round has fewer feasible rows than its round size,
+        # so its top round_size holds NEG_INF picks
+        n_feas = buf[placed > 0, -16 + 6]
+        assert 0 < n_feas.max() < rs
 
 
 # ----------------------------------------------------------------- K13
