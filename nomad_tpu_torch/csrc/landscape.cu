@@ -18,27 +18,26 @@
 // a microsecond of memory time, and a call's host path (checks,
 // allocation, launch) takes several times its device time.
 //
-// Design (K1).  One thread per (signature row, node): 50,000 nodes and 5
-// signatures fill the card with 250,000 threads.  (One thread per node
-// over every signature, with or without the block's attribute rows tiled
-// in shared memory, was measured slower at this shape: a fifth of the
-// threads, each with a five times longer chain of loads; PERF.md, PR 9.)
-// A thread's time is its chain of dependent loads, so it reads the
-// attribute words of up to PF predicate rows at once, then their LUT
-// bytes at once, and ANDs (or sums) them without an early exit: two
-// round trips where the rows one after the other took one or two each.
-// A block's signature rows are the same for all its threads (read by
-// broadcast).  Each output row is written coalesced.  One kernel, three
-// entries: the mask `constraint_mask & elig & node_ok &
-// base_mask[u_mask]` [U, N] (node_ok optional, the refuted-node row);
-// the affinity [Ua, N], or [Lr, Ua, Nc] through frames of row ids, out of
-// range ids clamped as a JAX gather clamps them; and both landscapes of
-// the same rows in one launch (the flat multi-eval path's pair: grid rows
-// [0, U) the mask, [U, U + Ua) the affinity).
+// Design (K1), chosen from a measured split of the call: of a mask or
+// affinity call's ~20-25 us on the host clock, two thirds are the
+// wrapper's Python and 3 us the launch; the device takes 2-6 us.  So the
+// flat path's two landscapes of the same rows go out in one launch (grid
+// rows [0, U) the mask, [U, U + Ua) the affinity), the wrappers check
+// their inputs in one pass, and the engine folds the eager ops around
+// the call (the refuted-node row is ANDed in here as `node_ok`).  On the
+// device, one thread per (signature row, node) with an early exit, as
+// before: 50,000 nodes and 5 signatures fill the card with 250,000
+// threads.  Three alternatives measured slower at that shape and were
+// dropped (PERF.md, PR 9): one thread per node over every signature
+// (7.2 against 5.4 us), the same with the block's attribute rows tiled
+// in shared memory (11.8 us), and each thread loading the attribute
+// words of eight predicate rows, then their LUT bytes, together,
+// without an early exit (6.0 us).  Each output row is written
+// coalesced; frames of row ids clamp out of range ids as a JAX gather
+// clamps them.
 //
-// K8 keeps its pass, one thread per (group, node) with an early exit,
-// with one base row `dc & pool` and a zero group map built by its
-// wrapper.
+// K8 keeps its own entry and kernel, the same per-element pass with one
+// base row `dc & pool` and a zero group map built by its wrapper.
 
 #include "py_launchers.cuh"  // first: it includes Python.h
 #include <cuda_runtime.h>
@@ -54,19 +53,22 @@ constexpr int DOP_IS_NOT_SET = 4;
 constexpr int DOP_LUT = 5;
 
 constexpr int NT = 256;   // threads a block
-constexpr int PF = 8;     // K1: predicate rows whose loads go out together
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-// One packed predicate row (op, arg) on the attribute value `av`; the LUT
-// row `arg` is read for DOP_LUT; `other` is the value of any other opcode
-// (padding rows).
-__device__ __forceinline__ bool predicate_on(int av, int op, int arg,
-                                             const uint8_t* __restrict__ luts,
-                                             int n_lut, int n_vocab,
-                                             bool other) {
+// One packed predicate row (col, op, arg) against one node's attribute
+// row; `other` is the value of any other opcode (padding rows).
+__device__ __forceinline__ bool predicate(const int* __restrict__ arow,
+                                          int n_attr, const int* row,
+                                          const uint8_t* __restrict__ luts,
+                                          int n_lut, int n_vocab,
+                                          bool other) {
+  int col = clampi(row[0], 0, n_attr - 1);
+  int op = row[1];
+  int arg = row[2];
+  int av = arow[col];
   bool is_set = av != UNSET;
   switch (op) {
     case DOP_EQ: return is_set && av == arg;
@@ -82,15 +84,15 @@ __device__ __forceinline__ bool predicate_on(int av, int op, int arg,
   }
 }
 
-// One packed predicate row (col, op, arg) against one node's attribute
-// row.
-__device__ __forceinline__ bool predicate(const int* __restrict__ arow,
-                                          int n_attr, const int* row,
-                                          const uint8_t* __restrict__ luts,
-                                          int n_lut, int n_vocab,
-                                          bool other) {
-  return predicate_on(arow[clampi(row[0], 0, n_attr - 1)], row[1], row[2],
-                      luts, n_lut, n_vocab, other);
+// `ok` and every constraint row of one signature (crow [C, 3]) at one node
+__device__ __forceinline__ bool mask_at(const int* __restrict__ arow,
+                                        int n_attr, const int* crow,
+                                        int n_con,
+                                        const uint8_t* __restrict__ luts,
+                                        int n_lut, int n_vocab, bool ok) {
+  for (int c = 0; c < n_con && ok; ++c)
+    ok = predicate(arow, n_attr, crow + 3 * c, luts, n_lut, n_vocab, true);
+  return ok;
 }
 
 // ------------------------------------------------------------- K8 pass
@@ -107,10 +109,9 @@ __global__ void mask_kernel(const int* __restrict__ attrs, int n, int n_attr,
   if (node >= n) return;
   const int* arow = attrs + (int64_t)node * n_attr;
   bool ok = elig[node] != 0 && base[(int64_t)u_mask[u] * n + node] != 0;
-  const int* crow = con + (int64_t)u * n_con * 3;
-  for (int c = 0; c < n_con && ok; ++c)
-    ok = predicate(arow, n_attr, crow + 3 * c, luts, n_lut, n_vocab, true);
-  out[(int64_t)u * n + node] = ok;
+  out[(int64_t)u * n + node] =
+      mask_at(arow, n_attr, con + (int64_t)u * n_con * 3, n_con, luts, n_lut,
+              n_vocab, ok);
 }
 
 // ------------------------------------------------------------- K1 pass
@@ -150,47 +151,23 @@ __global__ void __launch_bounds__(NT) landscape_kernel(Params p) {
 
   if (y < p.n_sig) {
     const int u = y;
-    // no short circuit: the loads go out together
-    bool ok = (p.elig[node] != 0) &
-              (p.base[(int64_t)p.u_mask[u] * p.n + node] != 0);
-    if (p.node_ok != nullptr) ok &= p.node_ok[node] != 0;
-    const int* crow = p.con + (int64_t)u * p.n_con * 3;
-    for (int c0 = 0; c0 < p.n_con; c0 += PF) {
-      int av[PF];
-#pragma unroll
-      for (int q = 0; q < PF; ++q)
-        if (c0 + q < p.n_con)
-          av[q] = arow[clampi(crow[3 * (c0 + q)], 0, p.n_attr - 1)];
-#pragma unroll
-      for (int q = 0; q < PF; ++q)
-        if (c0 + q < p.n_con)
-          ok &= predicate_on(av[q], crow[3 * (c0 + q) + 1],
-                             crow[3 * (c0 + q) + 2], p.luts, p.n_lut,
-                             p.n_vocab, true);
-    }
-    p.mask_out[(int64_t)u * p.n + node] = ok;
+    const bool ok = p.elig[node] != 0 &&
+                    (p.node_ok == nullptr || p.node_ok[node] != 0) &&
+                    p.base[(int64_t)p.u_mask[u] * p.n + node] != 0;
+    p.mask_out[(int64_t)u * p.n + node] =
+        mask_at(arow, p.n_attr, p.con + (int64_t)u * p.n_con * 3, p.n_con,
+                p.luts, p.n_lut, p.n_vocab, ok);
     return;
   }
-
   const int a = y - p.n_sig;
   const int* arows = p.aff + (int64_t)a * p.n_aff * 4;
   float got = 0.0f, total = 0.0f;
-  for (int q0 = 0; q0 < p.n_aff; q0 += PF) {
-    int av[PF];
-#pragma unroll
-    for (int q = 0; q < PF; ++q)
-      if (q0 + q < p.n_aff)
-        av[q] = arow[clampi(arows[4 * (q0 + q)], 0, p.n_attr - 1)];
-#pragma unroll
-    for (int q = 0; q < PF; ++q)
-      if (q0 + q < p.n_aff) {
-        const int* r = arows + 4 * (q0 + q);
-        float w = (float)r[3];
-        total += fabsf(w);
-        bool m = predicate_on(av[q], r[1], r[2], p.luts, p.n_lut, p.n_vocab,
-                              false);
-        got += (m ? 1.0f : 0.0f) * w;   // integer-valued: exact in any order
-      }
+  for (int q = 0; q < p.n_aff; ++q) {
+    float w = (float)arows[4 * q + 3];
+    total += fabsf(w);
+    bool m = predicate(arow, p.n_attr, arows + 4 * q, p.luts, p.n_lut,
+                       p.n_vocab, false);
+    got += (m ? 1.0f : 0.0f) * w;   // integer-valued: exact in any order
   }
   p.aff_out[((int64_t)set * p.ua + a) * p.nc + j] =
       total > 0.0f ? got / fmaxf(total, 1.0f) : 0.0f;

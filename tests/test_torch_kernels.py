@@ -173,8 +173,8 @@ def _random_landscape_inputs(case, device, n=3000, n_lut=4, vocab=20):
 
 # (signatures, constraint rows, affinity signatures, affinity rows,
 # node_ok, attribute columns): "many_signatures" fills 550 grid rows,
-# "wide_rows" takes 88 and 75 passes of eight predicate rows, one
-# partial, "wide_attrs" reads 80-column attribute rows
+# "wide_rows" has 700 constraint and 600 affinity rows a signature,
+# "wide_attrs" reads 80-column attribute rows
 LANDSCAPE_CASES = {
     "node_ok": (5, 4, 2, 3, True, 6),
     "no_constraint_rows": (3, 0, 2, 0, True, 6),
