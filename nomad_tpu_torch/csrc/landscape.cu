@@ -25,10 +25,10 @@
 // rows [0, U) the mask, [U, U + Ua) the affinity), the wrappers check
 // their inputs in one pass, and the engine folds the eager ops around
 // the call (the refuted-node row is ANDed in here as `node_ok`).  On the
-// device, one thread per (signature row, node) with an early exit, as
-// before: 50,000 nodes and 5 signatures fill the card with 250,000
-// threads.  Three alternatives measured slower at that shape and were
-// dropped (PERF.md, PR 9): one thread per node over every signature
+// device, one thread per (signature row, node) with an early exit:
+// 50,000 nodes and 5 signatures fill the card with 250,000 threads.
+// Three alternatives measured slower at that shape on an H100 and were
+// dropped (PERF.md, section 6): one thread per node over every signature
 // (7.2 against 5.4 us), the same with the block's attribute rows tiled
 // in shared memory (11.8 us), and each thread loading the attribute
 // words of eight predicate rows, then their LUT bytes, together,

@@ -3,10 +3,10 @@
 Plain PyTorch versions of the reference's score components, in the
 reference's order of operations (the f32 results must agree bit for bit
 with the JAX functions on the CPU, and with the CUDA kernels' arithmetic
-on the card), plus the wrappers of kernel K1's affinity entry (`affinity_landscape`)
-and of its entry that computes the static mask and the affinity of the
-same rows in one launch (`landscapes`, the flat multi-eval path's),
-both in `csrc/landscape.cu`.
+on the card), plus the wrappers of kernel K1's affinity entry
+(`affinity_landscape`) and of its entry that computes the static mask
+and the affinity of the same rows in one launch (`landscapes`, the flat
+multi-eval path's), both in `csrc/landscape.cu`.
 
 Score components (all bounded like the reference's):
   binpack     [0, 18]   structs.ScoreFit exponential (or inverted for spread)
