@@ -326,7 +326,7 @@ K11_IDENTITY_CASES = {
     # a shard gives its top 64 of 125 rows
     "rs_below_shard": ((1000, 30, False, None, False), (64, 125)),
     "rs256_spread": ((300, 200, True, None, False), (256, 38)),
-    # every 13th row eligible: ~46 feasible rows < 64, so each round's
+    # every 13th row eligible: 47 rows < 64, so each round's
     # fill prefix ends in NEG_INF picks (the lowest infeasible rows)
     "few_feasible": ((600, 30, False, "few_feasible", False), (64, 75)),
     "few_feasible_spread": ((600, 30, True, "few_feasible", False),
