@@ -39,7 +39,7 @@ bench.py's configs 1-4 (bench.py:409, :442, :484, :553):
 
   7. dev_eval: one node, a service job of 3 groups x 2 (K5 with N < 3);
   8. bulk_eval: 1,000 nodes, one batch job of 10,000 x cpu 10/mem 10
-     (K1 + K6, compact output);
+     (K8 + K1 + K6, compact output; K6 is K3's flat mode at one group);
   9. spread_eval: 5,000 nodes in 3 DCs, 3,000 placements spread
      50/30/20 over the DCs with a rack affinity (K1 + K5); prints the
      spread deviation;
@@ -56,7 +56,8 @@ bench.py's configs 1-4 (bench.py:409, :442, :484, :553):
      K5's phase split at the spread eval's inputs (the PROF launcher of
      csrc/place_scan.cu, blocks of 256 and of 1024 threads: microseconds
      per active and per padding step in the loop top, the pass, the
-     merge, the exchange or decode, the commit and memoised steps).
+     merge, the exchange or decode, the commit and memoised steps); K6's
+     split and steps (csrc/compact_rounds.cu's PROF launcher, as K3's).
 
 Then the node-sharded mesh: a second engine on make_mesh(8) of the card
 (8 shards of the node axis, parallel/mesh.py) over the same clusters:
@@ -69,17 +70,17 @@ Then the node-sharded mesh: a second engine on make_mesh(8) of the card
      _sharded_parity_gate: sorted picks and nodes_filtered equal), and
      the store gates as above;
  14. mesh_solo: spread_eval (K9, 5,000 nodes in shards of 625) and
-     bulk_eval (K10, 1,000 nodes) through Harness.process on the mesh
+     bulk_eval (K10, K6's entry over the padded rows, 1,000 nodes)
+     through Harness.process on the mesh
      engine: the scan's allocs on the single-device eval's nodes alloc by
      alloc, the bulk's as sorted lists;
  15. mesh kernel checks: K9-K13 against their plain versions at those
      phases' inputs, on the card and on CPU copies, K9's phase split at
-     the mesh spread eval's inputs, K12's split and steps, K11's steps.
-     The `exchange_probes` line, before the solo kernel checks, times one
-     cluster exchange through global scratch (K10's) and one exchange
-     through distributed shared memory (K9's, and K5's above 512 rows),
-     each at 8 blocks, and one of K2, K3, K11 and K12 at 8 and at 16
-     blocks.
+     the mesh spread eval's inputs, K12's split and steps, K10's and
+     K11's steps.  The `exchange_probes` line, before the solo kernel
+     checks, times one exchange through distributed shared memory of
+     K9 (and K5 above 512 rows) at 8 blocks, and one of the rounds (K2,
+     K3, K6, K10, K11, K12) at 8 and at 16 blocks.
 
 After every wall-time measurement:
 
@@ -132,17 +133,8 @@ FLAT_PER_EVAL = 100
 # (f64 runs at half of it, so the bound stays a lower bound)
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
-# Arithmetic of the rounds template (csrc/multi_rounds.cu: K6, K10)
-# per valid row and real step, counted from the source:
-# intake_score's intake (3 subtractions, 3 floor divisions at 7
-# operations, request and distinct_hosts clamps) 47; its score
-# (conversions, 2 divisions, 2 libm_pow10f at 14, clamps, the three
-# components and their mean) 70; the selection key (cap, noise hash,
-# orderable bits) 25; the 8 radix passes' key compare and digit 56; the
-# exhaustion metrics 20.
-OPS_PER_ROW_STEP = 47 + 70 + 25 + 56 + 20
-# K2, K3, K11 and K12 (csrc/compact_rounds.cu) counted from the source.  A
-# cache entry
+# K2, K3, K6, K10, K11 and K12 (csrc/compact_rounds.cu) counted from the
+# source.  A cache entry
 # (refresh_row: rounds_kcap's 3 subtractions, 3 floor divisions at 7 and
 # clamps 32; rounds_binpack's conversions, 2 divisions, 2 libm_pow10f at
 # 14, clamps and scale 54; the metrics' fit bits 22) is built per valid
@@ -801,25 +793,15 @@ def check_exact(name, got, *wants, packed=False, score_cols=None) -> float:
     return err
 
 
-def sort_barriers(kk: int) -> int:
-    """__syncthreads of the bitonic sort of the selected keys."""
-    lg = max(kk - 1, 0).bit_length()
-    return lg * (lg + 1) // 2
-
-
-# __syncthreads per step of rounds_kernel (csrc/multi_rounds.cu: K6,
-# K10) outside the sort: block_sum of the viable rows 3 and of the
-# static rows 3, of the feasible rows 3, radix select 8 passes x 4,
-# gather 2, fill block_scan 3 + block_sum 3, commit 1, metrics 4
-# block_sums 12, end 1
-BARRIERS_FLAT = 3 + 3 + 3 + 32 + 2 + 6 + 1 + 12 + 1
-# K2, K3, K11 and K12 (csrc/compact_rounds.cu) per computed step: a block
+# K2, K3, K6, K10, K11 and K12 (csrc/compact_rounds.cu) per computed
+# step: a block
 # barrier after the pass and one after the decision, one exchange
 # through distributed shared memory between them; a memoised step none.
 # A step on the wide path adds 4 radix passes x 3, the quota 1, the
 # entry count 1, the sort 1, the fill scan 2 and its sums 2 block
 # barriers, and 6 cluster barriers (4 histograms, the entry counts, the
-# entries).  K3's refresh of the valid bits adds 3 block barriers.
+# entries).  K3's (and K6's) refresh of the valid bits adds 3 block
+# barriers.
 TOPB_K2 = 4
 K2_WARPS = 8      # warps a block (256 threads)
 BARRIERS_K2 = 2
@@ -832,13 +814,13 @@ BARRIERS_K3_STATIC = 3
 def barrier_round_ms(rounds: int = 20000) -> float:
     """Measured cost of one barrier round: the probe kernel's dependent
     __syncthreads (with a shared-memory exchange between them) in one
-    1024-thread block, as the rounds kernels run."""
+    1024-thread block (csrc/compact_rounds.cu barrier_probe)."""
     import torch
 
     from nomad_tpu_torch.ops import kernels as K
 
     sink = torch.zeros(1, dtype=torch.int32, device="cuda")
-    probe = K.MULTI_BULK.fn("barrier_probe")
+    probe = K.MULTI_COMPACT.fn("barrier_probe")
 
     def run():
         rc = probe(rounds, sink.data_ptr(), K.stream_of(sink))
@@ -888,15 +870,49 @@ def flat_phase_split(inp, rs) -> dict:
         torch.empty_like(inp.used0), inp.used0, inp, rs, prof=prof))
 
 
+def bulk_phase_split(binp, rs, n_rounds) -> dict:
+    """K6's split at `binp`, in the main path's compact layout."""
+    from nomad_tpu_torch.ops import select as S
+
+    return rounds_phase_split(lambda prof: S._bulk_launch(
+        binp, rs, n_rounds, False, S.FILL_K, prof=prof))
+
+
+def bulk_stats(kern, binp, rs, n_rounds, buf, fills, k_bytes,
+               barrier_ms) -> dict:
+    """flat_stats of a K6 (or K10) launch at `binp`: K3's flat mode at
+    one group, on `bulk_as_flat`'s inputs."""
+    from nomad_tpu_torch.ops import select as S
+
+    return flat_stats(kern, S.bulk_as_flat(binp, rs, n_rounds), rs, buf,
+                      fills, k_bytes, barrier_ms)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_mhz(cycles: int = 20_000_000) -> float:
+    """The SM clock in MHz: a spin of `cycles` clock64() cycles
+    (torch.cuda._sleep) timed by CUDA events."""
+    import torch
+
+    torch.cuda._sleep(cycles)
+    _, ms = timed(lambda: torch.cuda._sleep(cycles))
+    return cycles / (ms * 1e3)
+
+
 def phase_us(c, ms, phases, kinds) -> dict:
     """A PROF launch's phase split (PhaseClock, csrc/score_common.cuh:
     block 0's clock64() cycles per phase of the two step kinds, the step
-    counts, the set-up and the whole launch) in microseconds, by the
-    launch's own CUDA-event time `ms` over its total cycles."""
+    counts, the set-up and the whole launch) in microseconds at the SM
+    clock `sm_mhz` (`event_mhz`: the cycles over the launch's CUDA-event
+    time `ms`, which also holds the wrapper's host time and its other
+    launches, so it reads low for a launch of tens of microseconds)."""
     nph = len(phases)
     total, setup = c[2 * nph + 3], c[2 * nph + 2]
-    us_per_cycle = ms * 1e3 / max(total, 1)
-    out = {"prof_ms": ms, "cycles": total, "mhz": 1 / us_per_cycle,
+    mhz = sm_mhz()
+    us_per_cycle = 1 / mhz
+    out = {"prof_ms": ms, "cycles": total, "mhz": mhz,
+           "event_mhz": total / max(ms * 1e3, 1e-9),
+           "kernel_us": total * us_per_cycle,
            "setup_us": setup * us_per_cycle}
     for k, kind in enumerate(kinds):
         n = c[2 * nph + k]
@@ -1047,27 +1063,34 @@ def used_base(inp):
     return inp.base_mask[inp.u_mask.unique().long()]
 
 
-def flat_stats(kern, fin, frs, got, barrier_ms) -> dict:
-    """What a launch of K3's flat mode (K3, or K11 over the padded rows)
-    at `fin` must move and compute (each input read once, K1's two
-    landscapes included), its depth, cluster size, frame placement and
-    steps (compact_steps)."""
+def flat_bytes(fin, got) -> int:
+    """What a launch of K3 (or K11) at `fin` must move: each input read
+    once, K1's two landscapes included, and its outputs `got`."""
+    from nomad_tpu_torch.ops.feasibility import and_rows
+
+    return (fn_bytes((fin.cap, fin.used0, and_rows(fin.elig, fin.node_ok),
+                      fin.luts, used_base(fin), fin.con, fin.aff, fin.req,
+                      fin.desired, fin.dh_limit, fin.g_static, fin.g_aff,
+                      fin.g_job, fin.seed, fin.job_count0, fin.round_g,
+                      fin.round_want), fin.attrs, fin.luts, fin.con, fin.aff)
+            + nbytes(*got))
+
+
+def flat_stats(kern, fin, frs, buf, fills, k_bytes, barrier_ms) -> dict:
+    """What a launch of K3's flat mode (K3, K11 over the padded rows, K6
+    and K10 at `bulk_as_flat`'s inputs) at `fin` computes, by the
+    compact_rounds.cu count (compact_steps and compact_ops) from its
+    output `buf` (meta last) and `fills`, with `k_bytes` moved; its
+    depth, cluster size, frame placement and steps."""
     from nomad_tpu_torch.ops.feasibility import and_rows, landscape_mask_plain
 
     n = fin.attrs.shape[0]
-    k_bytes = (fn_bytes((fin.cap, fin.used0, and_rows(fin.elig, fin.node_ok),
-                         fin.luts, used_base(fin), fin.con, fin.aff, fin.req,
-                         fin.desired, fin.dh_limit, fin.g_static, fin.g_aff,
-                         fin.g_job, fin.seed, fin.job_count0, fin.round_g,
-                         fin.round_want), fin.attrs, fin.luts, fin.con,
-                        fin.aff)
-               + nbytes(*got))
     # the valid rows of each signature (K1's static rows)
     sig_valid = landscape_mask_plain(
         fin.attrs, fin.con, fin.luts, and_rows(fin.elig, fin.node_ok),
         fin.base_mask, fin.u_mask).sum(1).cpu().tolist()
     g_static = fin.g_static.cpu().tolist()
-    counts = compact_steps(fin, 1, (got[0], got[0][:, :frs]), min(frs, n),
+    counts = compact_steps(fin, 1, (buf, fills), min(frs, n),
                            lambda lane, g: sig_valid[g_static[g]], g_static)
     blocks = kern.fn("multi_compact_blocks")(n, frs, 1, 1)
     frame = ("shared memory" if kern.fn(
@@ -1222,7 +1245,9 @@ def kernel_phase(h, zoned_built, flat_built):
         kernel=K.MULTI_FLAT, max_abs_err=err,
         **timing(lambda: S.place_multi_packed(fin, frs), 5),
         plain_ms=time_ms(lambda: S.place_multi_packed_plain(fin, frs), 2),
-        library_ms=None, **flat_stats(K.MULTI_FLAT, fin, frs, got, barrier_ms),
+        library_ms=None, **flat_stats(K.MULTI_FLAT, fin, frs, got[0],
+                                      got[0][:, :frs], flat_bytes(fin, got),
+                                      barrier_ms),
         phase_split=flat_phase_split(fin, frs)))
 
     # K4: one full replay chunk (SCATTER_CHUNK rows, repeats included)
@@ -1730,22 +1755,21 @@ def solo_kernel_phase(rec, barrier_ms, dsmem_ms):
                 S.place_bulk_packed(b_cpu, rs, n_rounds, ws, fk),
                 packed=True))
             torch.cuda.synchronize()
-    n = binp.attrs.shape[0]
-    real = -(-binp.p_real // rs)
+    # the main path's compact layout, counted as K3's flat mode at one
+    # group (bulk_as_flat)
     k6_out = S.place_bulk_packed(binp, rs, n_rounds, False, S.FILL_K)
-    k6_barriers = BARRIERS_FLAT + sort_barriers(min(rs, n))
+    k6_bytes = fn_bytes(tensors(binp), binp.attrs, binp.luts, binp.con,
+                        binp.aff) + nbytes(*k6_out)
     rows.append(dict(
         kernel=K.MULTI_BULK, max_abs_err=err,
         **timing(lambda: S.place_bulk_packed(binp, rs, n_rounds, False,
                                                S.FILL_K), 5),
         plain_ms=time_ms(lambda: S.place_bulk_packed_plain(
             binp, rs, n_rounds, False, S.FILL_K), 1, 0),
-        bytes=fn_bytes(tensors(binp), binp.attrs, binp.luts, binp.con,
-                       binp.aff)
-        + nbytes(*k6_out),
-        ops=real * n * OPS_PER_ROW_STEP, library_ms=None,
-        depth_ms=real * k6_barriers * barrier_ms, depth_steps=real,
-        barriers_per_step=k6_barriers))
+        library_ms=None,
+        **bulk_stats(K.MULTI_BULK, binp, rs, n_rounds, k6_out[0], k6_out[1],
+                     k6_bytes, barrier_ms),
+        phase_split=bulk_phase_split(binp, rs, n_rounds)))
 
     # K7: the preempt eval's launch
     args = rec.get("preempt_eval", "preempt")
@@ -1793,29 +1817,6 @@ def solo_kernel_phase(rec, barrier_ms, dsmem_ms):
 
 
 # ------------------------------------------------------------- the mesh
-
-def cluster_round_ms(rounds: int = 20000) -> float:
-    """Measured cost of one cluster exchange of the sharded kernels at
-    MESH_SHARDS blocks (csrc/multi_rounds.cu cluster_barrier_probe: a
-    post to global scratch, a fence, the cluster barrier and the read of
-    the MESH_SHARDS slots)."""
-    import torch
-
-    from nomad_tpu_torch.ops import kernels as K
-
-    rows = torch.zeros(4 * MESH_SHARDS * 8, dtype=torch.int32, device="cuda")
-    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
-    probe = K.MULTI_BULK.fn("cluster_barrier_probe")
-
-    def run():
-        rc = probe(rounds, MESH_SHARDS, rows.data_ptr(), sink.data_ptr(),
-                   K.stream_of(rows))
-        if rc != 0:
-            raise RuntimeError(f"cluster_barrier_probe failed with "
-                               f"cudaError {rc}")
-
-    return time_ms(run, 5) / rounds
-
 
 def dsmem_exchange_ms(rounds: int = 20000) -> float:
     """Measured cost of one of K9's exchanges at MESH_SHARDS blocks
@@ -2020,15 +2021,7 @@ def mesh_phases(card, launches, waves, solo_placed):
     return rec
 
 
-def exchange_bytes(rounds, kk_loc, kk):
-    """Bytes of the sharded rounds kernels' exchange: per round each of
-    the S blocks posts kk_loc keys with their values (24 bytes), then
-    reads all S lists' keys and the kk winners' values."""
-    s = MESH_SHARDS
-    return rounds * (s * kk_loc * 24 + s * (s * kk_loc * 8 + kk * 16))
-
-
-def mesh_kernel_phase(rec, barrier_ms, cluster_ms, dsmem_ms):
+def mesh_kernel_phase(rec, barrier_ms, dsmem_ms):
     """K9-K13 against their plain versions, on the card and on CPU
     copies, at the mesh phases' own inputs."""
     import torch
@@ -2042,7 +2035,7 @@ def mesh_kernel_phase(rec, barrier_ms, cluster_ms, dsmem_ms):
     rows = []
     tensors = lambda x: [v for v in x if isinstance(v, torch.Tensor)]
 
-    def depth(steps, block_barriers, cluster_barriers, meet_ms=cluster_ms):
+    def depth(steps, block_barriers, cluster_barriers, meet_ms):
         return dict(depth_ms=steps * (block_barriers * barrier_ms
                                       + cluster_barriers * meet_ms),
                     depth_steps=steps, barriers_per_step=block_barriers,
@@ -2081,21 +2074,15 @@ def mesh_kernel_phase(rec, barrier_ms, cluster_ms, dsmem_ms):
                                                    rs, n_rounds),
                       packed=True)
     torch.cuda.synchronize()
-    n = binp.attrs.shape[0]
-    real = -(-binp.p_real // rs)
-    kk_loc = min(rs, n // ns)
-    kk = min(rs, ns * kk_loc)
     rows.append(dict(
         kernel=K.MULTI_BULK_SHARDED, max_abs_err=err,
         **timing(lambda: PM.place_bulk_sharded_packed(binp, mesh, rs,
                                                         n_rounds), 5),
-        plain_ms=plain_ms,
-        bytes=fn_bytes(tensors(binp), binp.attrs, binp.luts, binp.con,
-                       binp.aff) + nbytes(*got)
-        + exchange_bytes(real, kk_loc, kk),
-        ops=real * n * OPS_PER_ROW_STEP, library_ms=None,
-        **depth(real, BARRIERS_FLAT + 35 + sort_barriers(kk_loc)
-                + sort_barriers(kk), 3)))
+        plain_ms=plain_ms, library_ms=None,
+        **bulk_stats(K.MULTI_BULK_SHARDED, binp, rs, n_rounds, got[0],
+                     got[0][:, :rs],
+                     fn_bytes(tensors(binp), binp.attrs, binp.luts, binp.con,
+                              binp.aff) + nbytes(*got), barrier_ms)))
 
     # K11: the mesh flat wave's launch, K3's flat mode over the npad rows
     # (one cluster of up to 16 blocks, as K3), and its chained form
@@ -2117,7 +2104,8 @@ def mesh_kernel_phase(rec, barrier_ms, cluster_ms, dsmem_ms):
         kernel=K.MULTI_FLAT_SHARDED, max_abs_err=err,
         **timing(lambda: PM.place_multi_sharded_packed(fin, mesh, frs), 5),
         plain_ms=plain_ms, library_ms=None,
-        **flat_stats(K.MULTI_FLAT_SHARDED, fin, frs, got, barrier_ms)))
+        **flat_stats(K.MULTI_FLAT_SHARDED, fin, frs, got[0],
+                     got[0][:, :frs], flat_bytes(fin, got), barrier_ms)))
 
     # K12: the mesh zoned wave's launch, and the chained wave's in place
     zin, cr, cv, mesh, rs, lanes = rec.get("mesh_zoned_wave", "compact")
@@ -2181,7 +2169,6 @@ def mesh_kernel_phase(rec, barrier_ms, cluster_ms, dsmem_ms):
         r["bound_ms"] = max(b_ms, o_ms)
         r["bound_by"] = "bytes" if b_ms >= o_ms else "operations"
         r["barrier_ms"] = barrier_ms
-        r["cluster_barrier_ms"] = cluster_ms
         r["dsmem_exchange_ms"] = dsmem_ms
     return rows
 
@@ -2240,7 +2227,6 @@ def main() -> int:
         raise AssertionError("main-path inputs took the wrong kernel")
     # the probes of the cluster exchanges (the rounds' depth needs their
     # own, at 8 and at 16 blocks)
-    cluster_ms = cluster_round_ms()
     dsmem_ms = dsmem_exchange_ms()
     xch_us = {cb: compact_exchange_ms(cb) * 1e3 for cb in (8, 16)}
     krows = kernel_phase(h, zoned_built, flat_built)
@@ -2290,7 +2276,6 @@ def main() -> int:
     # (after the line of the two exchange probes)
     rec = solo_phases(card, launches)
     emit({"phase": "exchange_probes", "card": card,
-          "cluster_barrier_us": cluster_ms * 1e3,
           "dsmem_exchange_us": dsmem_ms * 1e3, "blocks": MESH_SHARDS,
           "compact_exchange_us": xch_us})
     srows = solo_kernel_phase(rec, krows[0]["barrier_ms"], dsmem_ms)
@@ -2303,8 +2288,7 @@ def main() -> int:
     # versions
     mrec = mesh_phases(card, launches, waves, rec.placed)
     del rec
-    mrows = mesh_kernel_phase(mrec, krows[0]["barrier_ms"], cluster_ms,
-                              dsmem_ms)
+    mrows = mesh_kernel_phase(mrec, krows[0]["barrier_ms"], dsmem_ms)
     torch.cuda.synchronize()
     emit({"phase": "mesh_kernel_checks", "card": card, "tolerance": "exact",
           "checks": [{k: (v.name if k == "kernel" else v)

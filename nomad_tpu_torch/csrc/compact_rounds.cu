@@ -1,6 +1,7 @@
-// K2 "multi_compact", K12 "multi_compact_sharded", K3 "multi_flat" and
-// K11 "multi_flat_sharded": the batched multi-eval water-fill rounds, one
-// launch per wave, one thread-block cluster per lane.
+// K2 "multi_compact", K12 "multi_compact_sharded", K3 "multi_flat", K11
+// "multi_flat_sharded", K6 "multi_bulk" and K10 "multi_bulk_sharded": the
+// water-fill rounds, batched over evals or over one eval's homogeneous
+// batch, one launch per wave or eval, one thread-block cluster per lane.
 //
 // Replaces (TPU side, jax.jit): nomad_tpu/ops/select.py:836
 // place_multi_compact_packed (+ :1006 place_multi_compact_chained) for
@@ -9,12 +10,15 @@
 // _sharded_waterfill :255) for K12; nomad_tpu/ops/select.py:733
 // place_multi_packed (+ :997 place_multi_chained) for K3;
 // nomad_tpu/parallel/mesh.py:454 place_multi_sharded_packed_fn
-// (_multi_local :390, chained form :497) for K11; with their
-// round core round_scores_g (:342), waterfill_round (:413),
-// round_metrics_g (:393), tiebreak_noise (:43) and pack_round_buffer
-// (:531).
+// (_multi_local :390, chained form :497) for K11;
+// nomad_tpu/ops/select.py:554 place_bulk_packed (_bulk_scan :517,
+// _bulk_step :460, _bulk_static :505; place_bulk :615) for K6;
+// nomad_tpu/parallel/mesh.py:645 place_bulk_sharded_packed_fn (_bulk_local
+// :346) for K10; with their round core round_scores_g (:342),
+// waterfill_round (:413), round_metrics_g (:393), tiebreak_noise (:43)
+// and pack_round_buffer (:531).
 //
-// One kernel body, four launches:
+// One kernel body, six launches:
 //   K2   lanes over zoned frames [L, Nc] (padding slots hold row n);
 //   K12  the same over per-shard frames [S, L, Nc_loc]: lane l's frame is
 //        its S shard slices laid end to end, shard-major (slot
@@ -38,13 +42,26 @@
 //        the exact top rs over all rows in row order; the noise runs
 //        over global rows and the counts are sums over the mesh, so K11
 //        is K3 over those rows (the entry checks that the shards divide
-//        them).
+//        them);
+//   K6   K3 at one group: one signature (K8's [1, N] mask, with the
+//        group's device mask row `extra` ANDed into the valid bits), one
+//        job whose counts carry from round to round, one seed, and round
+//        r wanting clip(p_real - r rs, 0, rs), derived here from p_real
+//        (tests/test_torch_bulk.py shows the identity on the reference).
+//        K6's three layouts: the full one (K3's), the compact one (a
+//        prefix of fill_k slots, the full fills beside it: K2's) and the
+//        one with scores ([R, 2 rs + 16]: the score of each of the round's
+//        top min(rs, N) keys in rank order, NEG_INF for an infeasible row
+//        and past them), which takes the wide path at every computed step
+//        with T = min(rs, N) so that every rank is known;
+//   K10  K6 over the npad rows of S node shards, as K11 is K3's
+//        (tests/test_torch_mesh.py shows K10 = K6 on those rows).
 //
 // What bounds it on the H100: sequential depth.  Lane l's step t must see
 // the usage and job counts its steps < t committed, so a wave is T
 // dependent rounds of a frame (the north-star zoned wave: 128 steps, 77
 // of them real, over ~10,240 rows, 5 lanes; the flat wave 64 rounds over
-// 50,000 rows).  The bytes and operations are microseconds for the whole
+// 50,000 rows; the bulk eval 10 rounds over 1,000 rows).  The bytes and operations are microseconds for the whole
 // wave; the chain of each step is what costs.
 //
 // Design.  A lane's frame is split over a cluster of up to 8 blocks of
@@ -147,12 +164,16 @@ struct Params {
   const int* g_job;          // [G]
   const long long* seed;     // [G], uint32 values
   const int* job_count0;     // [S, J', nc]
-  const int* round_g;        // [T * L] step-major
+  const int* round_g;        // [T * L] step-major (K6: none)
   const int* round_want;
-  int* buf;                  // [T * L, fill_k + 16]
+  const uint8_t* extra;      // K6: [N] the group's device mask, or none
+  int* buf;                  // [T * L, fill_k + sc_w + 16]
   int* fills;                // [T * L, rs] (K3: none)
   int* jc_out;               // K3: [N] the last step's job counts
   int n, n_lanes, nc, ua, n_aff, n_steps, spread, rs, fill_k;
+  int sc_w;                  // K6 with scores: rs score words a row, else 0
+  int p_real;                // K6: the placements, a prefix of the rounds
+  unsigned seed0;            // K6: the seed (no seed array)
   int shards, n_jrows;       // S, J'
   int cb, rows;              // blocks per lane, frame slots per block
   unsigned char* frame_glob; // scratch for the frame state per block,
@@ -437,7 +458,7 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
   const int64_t in0 = ((int64_t)sb * L + l) * nc + jb;
   const int kk = min(rs, nct);
   const int nbk = min(TOPB, kk);
-  const int width = p.fill_k + META;
+  const int width = p.fill_k + p.sc_w + META;
   const Dyn dl = dyn_layout(kk);
   unsigned long long* gkey = (unsigned long long*)(s_dyn + dl.gkey);
   int* gval = (int*)(s_dyn + dl.gval);
@@ -488,23 +509,27 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
       for (int i = tid; i < STAGE && t + i < p.n_steps; i += NT) {
         int* w = s_stage + i * SW;
         const int rr = (t + i) * L + l;
-        const int g = p.round_g[rr];
+        // K6: every round of group 0, round r wanting
+        // clip(p_real - r rs, 0, rs)
+        const int g = p.round_g ? p.round_g[rr] : 0;
         w[0] = g;
-        w[1] = p.round_want[rr];
+        w[1] = p.round_g ? p.round_want[rr]
+                         : min(max(p.p_real - (t + i) * rs, 0), rs);
         w[2] = p.req[3 * g];
         w[3] = p.req[3 * g + 1];
         w[4] = p.req[3 * g + 2];
         w[5] = p.desired[g];
         w[6] = p.dh_limit[g];
-        const int a = p.g_aff[g];
+        const int a = p.g_aff ? p.g_aff[g] : 0;
         bool any = false;
         for (int q = 0; q < p.n_aff; ++q)
           any |= p.aff[((int64_t)a * p.n_aff + q) * 4 + 3] != 0;
         w[7] = a;
         w[8] = any;
-        w[9] = (int)(unsigned)(p.seed[g] & 0xffffffffll);
-        w[10] = p.g_job[g];
-        w[11] = FLAT ? p.g_static[g] : 0;
+        w[9] = p.seed ? (int)(unsigned)(p.seed[g] & 0xffffffffll)
+                      : (int)p.seed0;
+        w[10] = p.g_job ? p.g_job[g] : 0;
+        w[11] = FLAT && p.g_static ? p.g_static[g] : 0;
       }
       __syncthreads();
     }
@@ -564,11 +589,14 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
     }
     if (FLAT && st[11] != u_have) {
       // K3: the signature's static row into the valid bits (the cache
-      // does not depend on them: every slot holds its row's usage)
+      // does not depend on them: every slot holds its row's usage); K6
+      // ANDs its group's device mask in
       const uint8_t* srow = p.static_u + (int64_t)st[11] * n + row0;
+      const uint8_t* xrow = p.extra ? p.extra + row0 : nullptr;
       nvalid = 0;
       for (int j = tid; j < nb; j += NT) {
-        const bool v = __ldg(srow + j) != 0;
+        const bool v =
+            __ldg(srow + j) != 0 && (!xrow || __ldg(xrow + j) != 0);
         F.fl[j] = (uint8_t)((F.fl[j] & ~F_VALID) | (v ? F_VALID : 0u));
         nvalid += v ? 1 : 0;
       }
@@ -752,7 +780,9 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
       const int placed = __reduce_add_sync(FULL, c);
       const int csum_b = __shfl_sync(FULL, csum, nbk - 1);
       const bool last_feas = __shfl_sync(FULL, feas, nbk - 1);
-      const bool wide = !(nbk == kk || !last_feas || csum_b >= want);
+      // K6's score layout needs every rank's score: always wide
+      const bool wide =
+          p.sc_w > 0 || !(nbk == kk || !last_feas || csum_b >= want);
       if (lane == 0) {
         s_ctl[C_WIDE] = wide;
         s_ctl[C_VIABLE] = vt[0];
@@ -781,7 +811,7 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
             if (frow) frow[i] = f;
             if (i < p.fill_k) brow[i] = f;
           }
-          int* meta = brow + p.fill_k;
+          int* meta = brow + p.fill_k + p.sc_w;
           const int topn = min(min(kk, TOP_K), n);
           if (lane < TOP_K) {
             const bool v = lane < topn && feas;
@@ -797,8 +827,9 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
     __syncthreads();
     int placed = s_ctl[C_PLACED];
     if (s_ctl[C_WIDE]) {
-      // the wide path: the exact top T of the lane's keys
-      const int T = min(kk, want);
+      // the wide path: the exact top T of the lane's keys (K6's score
+      // layout: of all kk)
+      const int T = p.sc_w ? kk : min(kk, want);
       const int cap_round = s_ctl[C_CAP];
       unsigned prefix = 0;
       int krem = T;
@@ -958,14 +989,23 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
         const int64_t r = (int64_t)t * L + l;
         int* frow = p.fills ? p.fills + r * rs : nullptr;
         int* brow = p.buf + r * width;
+        // K6's scores: each rank's (NEG_INF where infeasible, and past kk)
+        int* sblk = brow + p.fill_k;
         for (int i = tid; i < rs; i += NT) {
           const int f = i < T && gc[i] > 0
                             ? gval[gord[i] * GV + 2] * 2048 + gc[i]
                             : 0;
           if (frow) frow[i] = f;
           if (i < p.fill_k) brow[i] = f;
+          if (i < p.sc_w) {
+            const int e = i < T ? gord[i] : 0;
+            sblk[i] = i < T && from_orderable((unsigned)(gkey[e] >> 32)) >
+                                   HALF_NEG_INF
+                          ? gval[e * GV]
+                          : __float_as_int(NEG_INF);
+          }
         }
-        int* meta = brow + p.fill_k;
+        int* meta = brow + p.fill_k + p.sc_w;
         const int topn = min(min(kk, TOP_K), n);
         if (tid < TOP_K) {
           const int e = gord[tid];
@@ -1085,7 +1125,9 @@ int launch(Params p, cudaStream_t stream) {
       p.fill_k < 1 || p.fill_k > p.rs || p.shards < 1 ||
       p.shards > XCH_BLOCKS ||
       (FLAT && (p.n_lanes != 1 || p.shards != 1 || p.nc != p.n ||
-                !p.jc_out)))
+                !p.jc_out)) ||
+      (p.sc_w && (p.sc_w != p.rs || p.fill_k != p.rs || p.fills)) ||
+      (!p.round_g && (!FLAT || p.p_real < 0)))
     return (int)cudaErrorInvalidValue;
   Plan q;
   int e = plan(p.nc, p.shards, p.rs, FLAT, &q);
@@ -1127,6 +1169,29 @@ __global__ void __launch_bounds__(32, 1) exchange_kernel(int rounds,
     __syncwarp();
   }
   cg::this_cluster().sync();
+  if (v == 0x7fffffff) *sink = v;
+}
+
+// the kernels' 10^x (libm_pow10f) over an array
+__global__ void pow10_kernel(const float* __restrict__ x,
+                             float* __restrict__ y, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = libm_pow10f(x[i]);
+}
+
+// `rounds` dependent block-wide barriers in one block of PROBE_BS
+// threads, each round a shared-memory write and a read across warps
+constexpr int PROBE_BS = 1024;
+__global__ void __launch_bounds__(PROBE_BS, 1) barrier_kernel(int rounds,
+                                                              int* sink) {
+  __shared__ int s[PROBE_BS];
+  int v = threadIdx.x;
+  for (int i = 0; i < rounds; ++i) {
+    s[threadIdx.x] = v;
+    __syncthreads();
+    v += s[(threadIdx.x + 32 * (i + 1)) & (PROBE_BS - 1)];
+    __syncthreads();
+  }
   if (v == 0x7fffffff) *sink = v;
 }
 
@@ -1195,6 +1260,39 @@ static Params flat_params(FLAT_ARGS) {
   flat_params(cap, used_in, used, static_u, aff_land, aff, req, desired,   \
               dh_limit, g_static, g_aff, g_job, seed, job_count0, round_g, \
               round_want, buf, jc, n, ua, n_aff, n_rounds, spread, rs,     \
+              scratch)
+
+// K6: the flat mode at one group.  static_row [N] (K8's), extra_row [N]
+// (the group's device mask, or NULL), aff_row [N] (K1's), aff [Af, 4],
+// req [3], desired and dh_limit [1] of the group; job_count0 [N]; the
+// rounds' demands from p_real; buf [R, rs + 16] (full layout), [R, 2 rs
+// + 16] (with_scores) or [R, fill_k + 16] with fills [R, rs] (compact).
+#define BULK_ARGS                                                          \
+  const int *cap, const int *used_in, int *used, const uint8_t *static_row, \
+      const uint8_t *extra_row, const float *aff_row, const int *aff,      \
+      const int *req, const int *desired, const int *dh_limit,             \
+      const int *job_count0, int *buf, int *fills, int *jc, int n,         \
+      int n_aff, int n_rounds, int spread, int rs, int fill_k,             \
+      int with_scores, int p_real, unsigned seed, unsigned char *scratch
+
+static Params bulk_params(BULK_ARGS) {
+  Params p = flat_params(cap, used_in, used, static_row, aff_row, aff, req,
+                         desired, dh_limit, nullptr, nullptr, nullptr,
+                         nullptr, job_count0, nullptr, nullptr, buf, jc, n,
+                         1, n_aff, n_rounds, spread, rs, scratch);
+  p.extra = extra_row;
+  p.fills = fills;
+  p.fill_k = fill_k;
+  p.sc_w = with_scores ? rs : 0;
+  p.p_real = p_real;
+  p.seed0 = seed;
+  return p;
+}
+
+#define BULK_PARAMS                                                         \
+  bulk_params(cap, used_in, used, static_row, extra_row, aff_row, aff, req, \
+              desired, dh_limit, job_count0, buf, fills, jc, n, n_aff,     \
+              n_rounds, spread, rs, fill_k, with_scores, p_real, seed,     \
               scratch)
 
 // The plan of a launch as host functions: the bytes of global scratch it
@@ -1279,6 +1377,45 @@ extern "C" int multi_flat_sharded(FLAT_ARGS, int n_shards,
   return launch<false, true>(FLAT_PARAMS, stream);
 }
 
+// K6 (csrc comment at the top: K3's flat mode at one group)
+extern "C" int multi_bulk(BULK_ARGS, cudaStream_t stream) {
+  return launch<false, true>(BULK_PARAMS, stream);
+}
+
+extern "C" int multi_bulk_prof(BULK_ARGS, long long* prof,
+                               cudaStream_t stream) {
+  if (!prof) return (int)cudaErrorInvalidValue;
+  Params p = BULK_PARAMS;
+  p.prof = prof;
+  return launch<true, true>(p, stream);
+}
+
+// K10: K6 over npad = n rows that n_shards shards hold in order, as K11
+// is K3 over them
+extern "C" int multi_bulk_sharded(BULK_ARGS, int n_shards,
+                                  cudaStream_t stream) {
+  if (n_shards < 1 || n_shards > XCH_BLOCKS || n % n_shards != 0)
+    return (int)cudaErrorInvalidValue;
+  return launch<false, true>(BULK_PARAMS, stream);
+}
+
+// The kernels' 10^x over an array, to hold it against the C library's
+// powf; the placement path never calls it.
+extern "C" int pow10_f32(const float* x, float* y, long long n,
+                         cudaStream_t stream) {
+  if (n > 0)
+    pow10_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(x, y, n);
+  return (int)cudaGetLastError();
+}
+
+// Probe of the cost of one barrier round (2 * rounds __syncthreads in a
+// block of 1,024 threads), to price the kernels' sequential depth; the
+// placement path never calls it.
+extern "C" int barrier_probe(int rounds, int* sink, cudaStream_t stream) {
+  barrier_kernel<<<1, PROBE_BS, 0, stream>>>(rounds, sink);
+  return (int)cudaGetLastError();
+}
+
 // Probe of the cost of one exchange of the rounds at `cluster` blocks
 // (up to 16); the placement path never calls it.
 extern "C" int compact_exchange_probe(int rounds, int cluster, int* sink,
@@ -1298,4 +1435,9 @@ PY_LAUNCHERS(compact_rounds,
              PY_LAUNCHER(multi_flat),
              PY_LAUNCHER(multi_flat_prof),
              PY_LAUNCHER(multi_flat_sharded),
+             PY_LAUNCHER(multi_bulk),
+             PY_LAUNCHER(multi_bulk_prof),
+             PY_LAUNCHER(multi_bulk_sharded),
+             PY_LAUNCHER(pow10_f32),
+             PY_LAUNCHER(barrier_probe),
              PY_LAUNCHER(compact_exchange_probe))

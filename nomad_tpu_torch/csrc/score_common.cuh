@@ -1,8 +1,8 @@
-// Scoring helpers shared by the rounds kernels (multi_rounds.cu,
-// compact_rounds.cu) and the exact scan (place_scan.cu): floor division, the C library's powf(10, x),
-// the reference's tie-break hash, float <-> orderable key bits, the
-// cluster launch of the sharded kernels, the exchange through distributed
-// shared memory, and the PROF instantiations' phase clock.
+// Scoring helpers shared by the rounds kernels (compact_rounds.cu) and
+// the exact scan (place_scan.cu): floor division, the C library's
+// powf(10, x), the reference's tie-break hash, float <-> orderable key
+// bits, the cluster launch of the sharded kernels, the exchange through
+// distributed shared memory, and the PROF instantiations' phase clock.
 // Included inside each source's anonymous namespace.
 
 #pragma once

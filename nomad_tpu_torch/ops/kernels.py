@@ -46,8 +46,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 # every source with launchers (the .cuh headers are included by them)
-SOURCES = ("compact_rounds.cu", "landscape.cu", "multi_rounds.cu",
-           "place_scan.cu", "preempt.cu", "scatter_add.cu")
+SOURCES = ("compact_rounds.cu", "landscape.cu", "place_scan.cu",
+           "preempt.cu", "scatter_add.cu")
 # PyTorch's current CUDA device and the raw handle of a device's current
 # stream (PyTorch's generated Triton launchers read it the same way);
 # None in a CPU build, where nothing launches
@@ -104,7 +104,7 @@ SCATTER_ADD = Kernel("scatter_add", "scatter_add.cu",
                      "nomad_tpu/ops/engine.py:50")
 PLACE_SCAN = Kernel("place_scan", "place_scan.cu",
                     "nomad_tpu/ops/select.py:297")
-MULTI_BULK = Kernel("multi_bulk", "multi_rounds.cu",
+MULTI_BULK = Kernel("multi_bulk", "compact_rounds.cu",
                     "nomad_tpu/ops/select.py:554")
 PREEMPT_BULK = Kernel("preempt_bulk", "preempt.cu",
                       "nomad_tpu/ops/preempt.py:108")
@@ -113,7 +113,7 @@ FEASIBLE = Kernel("feasible_mask", "landscape.cu",
 # the node-sharded mesh on one card (parallel/mesh.py)
 PLACE_SCAN_SHARDED = Kernel("place_scan_sharded", "place_scan.cu",
                             "nomad_tpu/parallel/mesh.py:221")
-MULTI_BULK_SHARDED = Kernel("multi_bulk_sharded", "multi_rounds.cu",
+MULTI_BULK_SHARDED = Kernel("multi_bulk_sharded", "compact_rounds.cu",
                             "nomad_tpu/parallel/mesh.py:645")
 MULTI_FLAT_SHARDED = Kernel("multi_flat_sharded", "compact_rounds.cu",
                             "nomad_tpu/parallel/mesh.py:454")

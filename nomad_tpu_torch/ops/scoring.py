@@ -93,14 +93,15 @@ def pow10(x: torch.Tensor) -> torch.Tensor:
 
 
 def pow10_on_card(x: torch.Tensor) -> torch.Tensor:
-    """The rounds kernels' device 10^x (`libm_pow10f`) over a float32
-    CUDA tensor, to hold it against the C library's powf.  The placement
+    """The kernels' device 10^x (`libm_pow10f`, csrc/score_common.cuh)
+    over a float32 CUDA tensor, through csrc/compact_rounds.cu's
+    `pow10_f32`, to hold it against the C library's powf.  The placement
     path never calls it, so it counts no launch."""
     K.check_cuda("pow10_f32", x=x)
     K.check_dtype("pow10_f32", x, torch.float32)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        rc = K.MULTI_BULK.fn("pow10_f32")(
+        rc = K.MULTI_COMPACT.fn("pow10_f32")(
             x.data_ptr(), y.data_ptr(), x.numel(), K.stream_of(x))
     if rc != 0:
         raise RuntimeError(f"pow10_f32: CUDA launch failed with "

@@ -12,7 +12,8 @@ with the JAX functions on the CPU, and a wrapper that launches the
 hand-written CUDA kernel for a CUDA tensor:
 
   place, place_packed         K5 (csrc/place_scan.cu, exact scan)
-  place_bulk_packed           K6 (csrc/multi_rounds.cu, bulk rounds)
+  place_bulk_packed           K6 (csrc/compact_rounds.cu, bulk rounds:
+                              the flat mode at one group, bulk_as_flat)
   place_multi_packed          K3 (csrc/compact_rounds.cu, flat rounds)
   place_multi_compact_packed  K2 (csrc/compact_rounds.cu, laned rounds)
 
@@ -302,18 +303,6 @@ def place_multi_packed_plain(inp: MultiEvalInputs, round_size: int,
     return buf, used[0], cur[0].to(torch.int32)
 
 
-def _exchange(n_clusters: int, n_shards: int, kk_loc: int, dev):
-    """Exchange scratch of K10 (csrc/multi_rounds.cu): per cluster, four
-    count rows [4, S, 8], the S shards' sorted keys [S * kk_loc] and
-    their values [S * kk_loc, 4]."""
-    return [torch.empty(n_clusters * 4 * n_shards * 8, dtype=torch.int32,
-                        device=dev),
-            torch.empty(n_clusters * n_shards * kk_loc, dtype=torch.int64,
-                        device=dev),
-            torch.empty(n_clusters * n_shards * kk_loc * 4,
-                        dtype=torch.int32, device=dev)]
-
-
 def _check_shards(name: str, n: int, n_shards: int) -> None:
     if n_shards and (not 1 <= n_shards <= 8 or n % n_shards):
         raise ValueError(f"{name}: {n} rows do not split into {n_shards} "
@@ -339,17 +328,33 @@ def _frame_scratch(kern, name, dev, *plan):
             if nbytes else None)
 
 
+def _flat_mode_launch(kern, dev, n: int, round_size: int, args,
+                      n_shards: int = 0, prof=None) -> None:
+    """One launch of csrc/compact_rounds.cu's flat mode (K3, K6, and K11,
+    K10 with `n_shards`: the same launch over rows that many shards hold
+    in order), on a cluster that `plan()` sizes for `n` rows, with global
+    scratch when the frame does not fit in its shared memory.  `args`
+    are the entry's arguments before its scratch.  With `prof` (int64
+    [18] on the card) the PROF instantiation runs instead and writes
+    block 0's phase split there (chip_smoke.py)."""
+    frame = _frame_scratch(kern, kern.name, dev, 1, n, round_size, 1, 1)
+    tail = [None if frame is None else frame.data_ptr()]
+    symbol = kern.name
+    if n_shards:
+        tail.append(n_shards)
+    elif prof is not None:
+        symbol += "_prof"
+        tail.append(prof.data_ptr())
+    kern.launch(dev.index, symbol, *args, *tail)
+
+
 def _flat_launch(used: torch.Tensor, used_in: torch.Tensor,
                  inp: MultiEvalInputs, round_size: int, n_shards: int = 0,
                  prof=None):
     """K1's landscapes (one launch for both) + one K3 launch
-    (csrc/compact_rounds.cu, one cluster of up to 16 blocks over every
-    row; K11 with `n_shards`: the same launch over rows that many shards
-    hold in order, counted on K11's entry).  The kernel reads the usage
-    from `used_in` and writes every row of `used` (the same tensor for
-    the chained form, updated in place).  With `prof` (int64 [18] on the
-    card) K3's PROF instantiation runs instead and writes block 0's
-    phase split there (chip_smoke.py)."""
+    (`_flat_mode_launch`; K11 with `n_shards`, counted on K11's entry).
+    The kernel reads the usage from `used_in` and writes every row of
+    `used` (the same tensor for the chained form, updated in place)."""
     kern = K.MULTI_FLAT_SHARDED if n_shards else K.MULTI_FLAT
     name = kern.name
     n = inp.attrs.shape[0]
@@ -386,17 +391,9 @@ def _flat_launch(used: torch.Tensor, used_in: torch.Tensor,
         if used is not used_in:
             used.copy_(used_in)
         return buf, used, jc.copy_(inp.job_count0[0])
-    frame = _frame_scratch(kern, name, dev, 1, n, round_size, 1, 1)
-    tail = [None if frame is None else frame.data_ptr()]
-    symbol = name
-    if n_shards:
-        tail.append(n_shards)
-    elif prof is not None:
-        symbol = name + "_prof"
-        tail.append(prof.data_ptr())
-    kern.launch(dev.index, symbol, *[t.data_ptr() for t in (
-        *tensors.values(), buf, jc)], n, ua, af, n_rounds,
-        int(bool(inp.spread_algo)), round_size, *tail)
+    _flat_mode_launch(kern, dev, n, round_size, [
+        *[t.data_ptr() for t in (*tensors.values(), buf, jc)], n, ua, af,
+        n_rounds, int(bool(inp.spread_algo)), round_size], n_shards, prof)
     return buf, used, jc
 
 
@@ -976,6 +973,42 @@ def _to_bulk_inputs(inp: PlacementInputs) -> BulkInputs:
         extra_mask=inp.extra_mask)
 
 
+def bulk_want(p_real: int, round_size: int, n_rounds: int) -> list:
+    """The bulk rounds' demands: clip(p_real - r round_size, 0,
+    round_size) for round r (reference: select._bulk_scan)."""
+    return [min(max(p_real - r * round_size, 0), round_size)
+            for r in range(n_rounds)]
+
+
+def bulk_as_flat(inp: BulkInputs, round_size: int,
+                 n_rounds: int) -> MultiEvalInputs:
+    """K6's inputs as K3's at one group (on `inp`'s device): the group's
+    rows of con, aff, req, desired and dh_limit; one signature whose base
+    row is dc & pool (& the group's extra_mask row); one job count row,
+    carried from round to round as K6 carries it; every round of group
+    0, wanting `bulk_want`; one seed.  K3 on these inputs is K6 in the
+    full layout (tests/test_torch_bulk.py shows it on the reference);
+    on the card K6 launches K3's flat mode through its own entry, which
+    derives the round schedule from `p_real` (`_bulk_launch`)."""
+    dev = inp.attrs.device
+    gs = slice(inp.g, inp.g + 1)
+    base = inp.dc_mask & inp.pool_mask
+    if inp.extra_mask is not None:
+        base = base & inp.extra_mask[inp.g]
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    return MultiEvalInputs(
+        attrs=inp.attrs, cap=inp.cap, used0=inp.used0, elig=inp.elig,
+        luts=inp.luts, base_mask=base[None], con=inp.con[gs], u_mask=zero,
+        aff=inp.aff[gs], req=inp.req[gs], desired=inp.desired[gs],
+        dh_limit=inp.dh_limit[gs], g_static=zero, g_aff=zero, g_job=zero,
+        job_count0=inp.job_count0[None], spread_algo=inp.spread_algo,
+        round_g=torch.zeros(n_rounds, dtype=torch.int32, device=dev),
+        round_want=torch.tensor(bulk_want(inp.p_real, round_size, n_rounds),
+                                dtype=torch.int32, device=dev),
+        seed=torch.tensor([int(inp.seed) & _U32], dtype=torch.int64,
+                          device=dev))
+
+
 def _bulk_static(inp: BulkInputs, g: int):
     """Plain statics of the bulk rounds: (static [N], aff_sc [N],
     aff_any [], noise [N])."""
@@ -1046,8 +1079,7 @@ def _bulk_scan(inp: BulkInputs, round_size: int, n_rounds: int,
     static_t = _bulk_static(inp, inp.g)
     carry = (inp.used0, inp.job_count0)
     outs = []
-    for r in range(n_rounds):
-        want = min(max(inp.p_real - r * round_size, 0), round_size)
+    for want in bulk_want(inp.p_real, round_size, n_rounds):
         carry, out = _bulk_step(inp, round_size, top_k, static_t, carry,
                                 want, fill)
         outs.append(out)
@@ -1089,18 +1121,33 @@ def place_bulk_packed_plain(inp: BulkInputs, round_size: int,
     return buf, used, job_count
 
 
-_BULK_I32 = ("attrs", "cap", "used0", "con", "aff", "req", "desired",
-             "dh_limit", "job_count0")
-_BULK_BOOL = ("elig", "dc_mask", "pool_mask", "luts")
+# K6's tensor fields: (field, dtype, rank), checked in one lean pass
+_BULK_SPECS = (("attrs", torch.int32, 2), ("cap", torch.int32, 2),
+               ("used0", torch.int32, 2), ("elig", torch.bool, 1),
+               ("dc_mask", torch.bool, 1), ("pool_mask", torch.bool, 1),
+               ("luts", torch.bool, 2), ("con", torch.int32, 3),
+               ("aff", torch.int32, 3), ("req", torch.int32, 2),
+               ("desired", torch.int32, 1), ("dh_limit", torch.int32, 1),
+               ("job_count0", torch.int32, 1))
 
 
 def _bulk_launch(inp: BulkInputs, round_size: int, n_rounds: int,
-                 with_scores: bool, fill_k: int, n_shards: int = 0):
-    """K1 statics of group g + one K6 launch (the rounds kernel at a
-    fixed group; K10 with `n_shards`, full layout only)."""
+                 with_scores: bool, fill_k: int, n_shards: int = 0,
+                 prof=None):
+    """K8's static row and K1's affinity of group g, then one K6 launch:
+    K3's flat mode at one group (csrc/compact_rounds.cu `multi_bulk`,
+    `bulk_as_flat`'s identity), which ANDs the group's `extra_mask` row
+    into the static row and derives each round's demand from `p_real`;
+    K10 with `n_shards` (`multi_bulk_sharded`, full layout only).  The
+    kernel reads `inp.used0` and writes every row of a fresh usage.
+    `prof` as in `_flat_mode_launch`."""
     kern = K.MULTI_BULK_SHARDED if n_shards else K.MULTI_BULK
     name = kern.name
-    _check_inputs(name, inp, _BULK_I32, (), _BULK_BOOL)
+    specs = [(f, getattr(inp, f), dtype, ndim)
+             for f, dtype, ndim in _BULK_SPECS]
+    if inp.extra_mask is not None:
+        specs.append(("extra_mask", inp.extra_mask, torch.bool, 2))
+    K.check_launch(name, specs)
     n = inp.attrs.shape[0]
     _check_bulk(n, round_size, with_scores, fill_k)
     _check_shards(name, n, n_shards)
@@ -1110,56 +1157,39 @@ def _bulk_launch(inp: BulkInputs, round_size: int, n_rounds: int,
     g = inp.g
     if (inp.cap.shape != (n, 3) or inp.used0.shape != (n, 3)
             or inp.job_count0.shape != (n,)
-            or not 0 <= g < inp.req.shape[0]):
+            or not 0 <= g < inp.req.shape[0] or inp.p_real < 0
+            or (inp.extra_mask is not None
+                and inp.extra_mask.shape != (inp.req.shape[0], n))):
         raise ValueError(f"{name}: inconsistent shapes")
     dev = inp.attrs.device
     gs = slice(g, g + 1)
-    extra = None if inp.extra_mask is None else inp.extra_mask[gs]
-    aff = inp.aff[gs].contiguous()
+    aff = inp.aff[gs]
     static, aff_sc = _solo_statics(inp.attrs, inp.elig, inp.dc_mask,
-                                   inp.pool_mask, inp.con[gs].contiguous(),
-                                   aff, inp.luts, extra)
-    want = [min(max(inp.p_real - r * round_size, 0), round_size)
-            for r in range(n_rounds)]
-    used = inp.used0.clone()
-    slot_k = min(fill_k, round_size) if fill_k else 0
-    if slot_k:
-        mode, width = 2, slot_k + 16
-        fills = torch.empty((n_rounds, round_size), dtype=torch.int32,
-                            device=dev)
-    else:
-        mode = 1 if with_scores else 0
-        width = (2 if with_scores else 1) * round_size + 16
-        fills = None
-    buf = torch.empty((n_rounds, width), dtype=torch.int32, device=dev)
-    jc = torch.empty(n, dtype=torch.int32, device=dev)
-    ki = torch.empty(n, dtype=torch.int32, device=dev)
-    score = torch.empty(n, dtype=torch.float32, device=dev)
-    keyb = torch.empty(n, dtype=torch.int32, device=dev)
+                                   inp.pool_mask, inp.con[gs], aff,
+                                   inp.luts, None)
+    slot_k = min(fill_k, round_size) if fill_k else round_size
+    width = slot_k + (round_size if with_scores else 0) + 16
+    buf = inp.used0.new_empty((n_rounds, width))
+    fills = (inp.used0.new_empty((n_rounds, round_size)) if fill_k
+             else None)
+    used = torch.empty_like(inp.used0)
+    jc = torch.empty_like(inp.job_count0)
     if n_rounds:
-        if n_shards:
-            xch = _exchange(1, n_shards,
-                            min(round_size, n // n_shards), dev)
-            layout = []
-            mesh_args = [n_shards] + [t.data_ptr() for t in xch]
-        else:
-            layout = [mode, slot_k,
-                      0 if fills is None else fills.data_ptr()]
-            mesh_args = []
-        kern.launch(
-            dev.index, name, *[t.data_ptr() for t in (
-                inp.cap, used, static.contiguous(), aff_sc, aff,
-                inp.req[gs].contiguous(), inp.desired[gs].contiguous(),
-                inp.dh_limit[gs].contiguous(),
-                _seed_t(inp.seed, dev).reshape(1), inp.job_count0,
-                torch.tensor(want, dtype=torch.int32, device=dev), buf)],
-            n, aff.shape[1], n_rounds, int(bool(inp.spread_algo)),
-            round_size, *layout,
-            *[t.data_ptr() for t in (jc, ki, score, keyb)],
-            *mesh_args)
+        extra = None if inp.extra_mask is None else inp.extra_mask[g]
+        _flat_mode_launch(kern, dev, n, round_size, [
+            inp.cap.data_ptr(), inp.used0.data_ptr(), used.data_ptr(),
+            static.data_ptr(), None if extra is None else extra.data_ptr(),
+            aff_sc.data_ptr(), aff.data_ptr(), inp.req[g].data_ptr(),
+            inp.desired[g].data_ptr(), inp.dh_limit[g].data_ptr(),
+            inp.job_count0.data_ptr(), buf.data_ptr(),
+            None if fills is None else fills.data_ptr(), jc.data_ptr(), n,
+            aff.shape[1], n_rounds, int(bool(inp.spread_algo)), round_size,
+            slot_k, int(bool(with_scores)), inp.p_real,
+            int(inp.seed) & _U32], n_shards, prof)
     else:
+        used.copy_(inp.used0)
         jc.copy_(inp.job_count0)
-    if slot_k:
+    if fill_k:
         return buf, fills, used, jc
     return buf, used, jc
 

@@ -17,7 +17,9 @@ thread-block cluster per exchange group (S blocks, or K3's plan for
 K11's rows):
 
   place_sharded_packed               K9  (exact scan, csrc/place_scan.cu)
-  place_bulk_sharded_packed          K10 (bulk rounds, csrc/multi_rounds.cu)
+  place_bulk_sharded_packed          K10 (bulk rounds: K6's entry in K3's
+                                          flat mode, csrc/compact_rounds.cu,
+                                          over the npad rows in order)
   place_multi_sharded_packed         K11 (flat multi-eval rounds: K3's
                                           flat mode, csrc/compact_rounds.cu,
                                           over the npad rows in order)

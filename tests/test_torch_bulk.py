@@ -5,22 +5,46 @@ output layouts and `place_bulk_jit`, on the same seeded inputs.
 Covers a cluster smaller than the round (padded prefix slots), a
 `p_real` that is not a multiple of the round, distinct_hosts limits,
 the spread algorithm, a device AND-mask, and a node over capacity in a
-dimension the group does not request (tests/test_ops.py:418)."""
+dimension the group does not request (tests/test_ops.py:418).
 
-import jax.numpy as jnp
+K6 runs on the card as K3's flat mode at one group
+(csrc/compact_rounds.cu `multi_bulk`): the reference's K6 equals its K3
+on the converted inputs (`test_reference_bulk_is_one_group_flat`), and
+the port's converter `select.bulk_as_flat` builds those inputs
+(`test_bulk_as_flat_matches_bulk`)."""
+
 import numpy as np
 import pytest
 import torch
 
-from nomad_tpu.ops.select import BulkInputs as RefBulk
-from nomad_tpu.ops.select import place_bulk_jit, place_bulk_packed_jit
+from nomad_tpu.ops.select import (
+    place_bulk_jit,
+    place_bulk_packed_jit,
+    place_multi_packed_jit,
+)
 from nomad_tpu_torch.ops.convert import (
     bulk_inputs_from_numpy,
     bulk_inputs_to_numpy,
+    multi_inputs_to_numpy,
     placement_inputs_from_numpy,
 )
-from nomad_tpu_torch.ops.select import place_bulk, place_bulk_packed
-from torch_parity import random_placement_arrays, reference_placement_inputs
+from nomad_tpu_torch.ops.select import (
+    bulk_as_flat,
+    place_bulk,
+    place_bulk_packed,
+    place_bulk_packed_plain,
+    place_multi_packed_plain,
+)
+from torch_parity import (
+    BULK_FLAT_CASES,
+    bulk_arrays,
+    bulk_flat_arrays,
+    bulk_flat_case,
+    random_placement_arrays,
+    reference_bulk_inputs,
+    reference_multi_inputs,
+    reference_placement_inputs,
+)
 
 
 @pytest.fixture(autouse=True)
@@ -40,17 +64,6 @@ CASES = {
 }
 
 
-def bulk_arrays(arr, g, p_real):
-    b = {k: arr[k] for k in RefBulk._fields if k in arr}
-    b.update(g=np.int32(g), p_real=np.int32(p_real))
-    return b
-
-
-def ref_bulk(b):
-    return RefBulk(**{k: (None if v is None else jnp.asarray(v))
-                      for k, v in b.items()})
-
-
 @pytest.mark.parametrize("mode", sorted(MODES))
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_bulk_packed_matches_reference(case, mode):
@@ -59,7 +72,8 @@ def test_bulk_packed_matches_reference(case, mode):
     arr = random_placement_arrays(np.random.default_rng(9), g=2,
                                   p=rs * rounds, **kw)
     b = bulk_arrays(arr, 1, p_real)
-    want = place_bulk_packed_jit(ref_bulk(b), rs, rounds, ws, fk)
+    want = place_bulk_packed_jit(reference_bulk_inputs(b), rs, rounds,
+                                 ws, fk)
     got = place_bulk_packed(bulk_inputs_from_numpy(b), rs, rounds, ws, fk)
     assert len(got) == len(want)
     for w, g in zip(want, got):
@@ -121,3 +135,63 @@ def test_numpy_round_trip():
     back = bulk_inputs_to_numpy(bulk_inputs_from_numpy(b))
     for k, v in b.items():
         assert np.array_equal(np.asarray(v), np.asarray(back[k])), k
+
+
+def _same_bytes(want, got):
+    assert len(want) == len(got)
+    for i, (w, g) in enumerate(zip(want, got)):
+        w = np.asarray(w)
+        g = g.numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+        assert w.dtype == g.dtype and w.shape == g.shape, i
+        assert w.tobytes() == g.tobytes(), i
+
+
+@pytest.mark.parametrize("case", sorted(BULK_FLAT_CASES))
+def test_reference_bulk_is_one_group_flat(case):
+    """The reference's K6 (full layout) equals its K3 at one group: one
+    static signature dc & pool (& the group's extra_mask row), the job's
+    count row carried from round to round, one seed, and round r
+    wanting clip(p_real - r round_size, 0, round_size).  Buffer, usage
+    and job count row are equal byte for byte.  This is what runs K6 on
+    K3's flat mode (csrc/compact_rounds.cu `multi_bulk`)."""
+    b, rs, rounds = bulk_flat_case(case)
+    want = place_bulk_packed_jit(reference_bulk_inputs(b), rs, rounds,
+                                 False, 0)
+    flat = place_multi_packed_jit(
+        reference_multi_inputs(bulk_flat_arrays(b, rs, rounds)), rs)
+    _same_bytes(want, flat)
+    placed = np.asarray(want[0])[:, rs + 12]
+    assert (placed.sum() > 0) == (case != "infeasible_group")
+    if case == "p_real_not_multiple":
+        assert placed.tolist()[-2:] == [226 - 3 * 64, 0]
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("case", sorted(BULK_FLAT_CASES))
+def test_bulk_as_flat_matches_bulk(case, mode):
+    """`select.bulk_as_flat` builds the flat inputs of the identity
+    above, and the port's plain K3 on them gives the port's plain K6's
+    output in each layout: its fill slots and meta block are the full
+    layout's buffer, the score layout's fills and meta, and the compact
+    layout's prefix, meta and full fills.  The plain K6 equals the
+    reference in that layout (the score block included)."""
+    b, rs, rounds = bulk_flat_case(case)
+    ws, fk = MODES[mode]
+    binp = bulk_inputs_from_numpy(b)
+    fin = bulk_as_flat(binp, rs, rounds)
+    arrays = multi_inputs_to_numpy(fin)
+    for k, v in bulk_flat_arrays(b, rs, rounds).items():
+        assert arrays[k].dtype == np.asarray(v).dtype, k
+        assert np.array_equal(arrays[k], v), k
+    buf, used, jc = place_multi_packed_plain(fin, rs)
+    got = place_bulk_packed_plain(binp, rs, rounds, ws, fk)
+    _same_bytes(place_bulk_packed_jit(reference_bulk_inputs(b), rs, rounds,
+                                      ws, fk), got)
+    fills, meta = buf[:, :rs], buf[:, rs:]
+    if fk:
+        parts = (torch.cat([fills[:, :min(fk, rs)], meta], dim=1), fills)
+    elif ws:
+        parts = (torch.cat([fills, got[0][:, rs:2 * rs], meta], dim=1),)
+    else:
+        parts = (buf,)
+    _same_bytes(got, parts + (used, jc))

@@ -110,7 +110,7 @@ def _same(got, *wants):
 
 def test_pow10_libm_matches_c_library():
     """The card's 10^x steps (`pow10_libm`, which `libm_pow10f` in
-    csrc/multi_rounds.cu mirrors) against the C library's powf on a
+    csrc/score_common.cuh mirrors) against the C library's powf on a
     strided sweep of every float in [0, 1] and on the capacity ratios
     the binpack score takes."""
     x = (torch.arange(0, 0x3F800001, 997, dtype=torch.int64)
@@ -494,10 +494,11 @@ def _scan_inputs(case, device="cpu"):
     return placement_inputs_from_numpy(arr, device)
 
 
-def _bulk_inputs(device="cpu", spread_algo=False, n=200, p_real=700):
+def _bulk_inputs(device="cpu", spread_algo=False, n=200, p_real=700,
+                 extra=True):
     arr = random_placement_arrays(np.random.default_rng(5), n=n, g=2,
                                   p=8, spread_algo=spread_algo, dh=True,
-                                  extra=True)
+                                  extra=extra)
     arr = {k: arr[k] for k in psel.BulkInputs._fields if k in arr}
     arr.update(g=np.int32(1), p_real=np.int32(p_real))
     return bulk_inputs_from_numpy(arr, device)
@@ -509,6 +510,14 @@ def _preempt_args(device="cpu", **kw):
 
 
 BULK_MODES = {"full": (False, 0), "scores": (True, 0), "compact": (False, 32)}
+# K6 on the card at a round size of 256, 3 rounds: (rows, p_real, a device
+# AND-mask)
+BULK_CARD_CASES = {
+    "extra_mask": (200, 700, True),
+    "n_below_round": (50, 600, True),          # 50 rows < round size
+    "no_extra_mask": (200, 768, False),        # p_real = 3 whole rounds
+    "p_real_not_multiple": (200, 300, False),  # 256, 44, then padding
+}
 
 
 def test_solo_wrappers_take_plain_versions_on_cpu():
@@ -593,18 +602,25 @@ def test_ops_place_on_card_launches_k5(cuda_device, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(BULK_CARD_CASES))
 @pytest.mark.parametrize("mode", sorted(BULK_MODES))
 @pytest.mark.parametrize("spread_algo", [False, True])
-def test_bulk_matches_plain(cuda_device, mode, spread_algo):
+def test_bulk_matches_plain(cuda_device, mode, spread_algo, case):
+    """K6 (K3's flat mode at one group, csrc/compact_rounds.cu
+    `multi_bulk`) in each layout: one launch of its entry, equal to the
+    plain version on the card and on CPU copies."""
     ws, fk = BULK_MODES[mode]
-    for n, p_real in ((200, 700), (50, 600)):   # 50 < round size
-        b = _bulk_inputs(cuda_device, spread_algo, n, p_real)
-        got = psel.place_bulk_packed(b, 256, 3, ws, fk)
-        want = psel.place_bulk_packed_plain(b, 256, 3, ws, fk)
-        want_cpu = psel.place_bulk_packed(
-            _bulk_inputs("cpu", spread_algo, n, p_real), 256, 3, ws, fk)
-        torch.cuda.synchronize()
-        _same(got, want, want_cpu)
+    n, p_real, extra = BULK_CARD_CASES[case]
+    b = _bulk_inputs(cuda_device, spread_algo, n, p_real, extra)
+    K.reset_launches()
+    got = psel.place_bulk_packed(b, 256, 3, ws, fk)
+    assert K.MULTI_BULK.source == "compact_rounds.cu"
+    assert K.MULTI_BULK.launches == 1
+    want = psel.place_bulk_packed_plain(b, 256, 3, ws, fk)
+    want_cpu = psel.place_bulk_packed(
+        _bulk_inputs("cpu", spread_algo, n, p_real, extra), 256, 3, ws, fk)
+    torch.cuda.synchronize()
+    _same(got, want, want_cpu)
 
 
 @pytest.mark.gpu
@@ -751,10 +767,16 @@ def test_k9_sharded_scan_matches_plain(cuda_device, case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("spread_algo", [False, True])
 def test_k10_sharded_bulk_matches_plain(cuda_device, spread_algo):
+    """K10 (K6's entry over the npad rows, csrc/compact_rounds.cu
+    `multi_bulk_sharded`): one launch each, equal to the plain version
+    on the card and on CPU copies."""
     mesh = pmesh.make_mesh(S, cuda_device)
     for n, p_real in ((200, 700), (50, 600)):   # n_loc < round size
         b = _mesh_bulk_inputs(cuda_device, spread_algo, n, p_real)
+        K.reset_launches()
         got = pmesh.place_bulk_sharded_packed(b, mesh, 256, 3)
+        assert K.MULTI_BULK_SHARDED.source == "compact_rounds.cu"
+        assert K.MULTI_BULK_SHARDED.launches == 1
         want = pmesh.place_bulk_sharded_plain(b, S, 256, 3)
         want_cpu = pmesh.place_bulk_sharded_plain(
             _mesh_bulk_inputs("cpu", spread_algo, n, p_real), S, 256, 3)
@@ -767,7 +789,8 @@ def test_k10_sharded_bulk_matches_plain(cuda_device, spread_algo):
                                   "few_feasible"])
 def test_k11_sharded_flat_matches_plain(cuda_device, case):
     """K11 (K3's flat mode over the npad rows, csrc/compact_rounds.cu):
-    one launch of its entry there and none in multi_rounds.cu.  150 and
+    one launch of its entry there, and every kernel's source among the
+    sources that build.  150 and
     1,001 rows pad to 152 and 1,008 (rows a shard below and above the
     round size); few_feasible: every 13th row eligible, fewer feasible
     rows than a round."""
@@ -785,8 +808,7 @@ def test_k11_sharded_flat_matches_plain(cuda_device, case):
     got = pmesh.place_multi_sharded_packed(inp, mesh, rs)
     assert K.MULTI_FLAT_SHARDED.source == "compact_rounds.cu"
     assert K.MULTI_FLAT_SHARDED.launches == 1
-    assert all(k.launches == 0 for k in K.KERNELS
-               if k.source == "multi_rounds.cu")
+    assert all(k.source in K.SOURCES for k in K.KERNELS)
     want = pmesh.place_multi_sharded_plain(inp, S, rs)
     want_cpu = pmesh.place_multi_sharded_plain(cpu, S, rs)
     torch.cuda.synchronize()
@@ -912,11 +934,12 @@ def test_dsmem_exchange_probe_runs(cuda_device):
 
 
 @pytest.mark.gpu
-def test_cluster_barrier_probe_runs(cuda_device):
-    rows = torch.zeros(4 * S * 8, dtype=torch.int32, device=cuda_device)
+def test_barrier_probe_runs(cuda_device):
+    """The block barrier probe that prices every depth (chip_smoke.py),
+    from csrc/compact_rounds.cu."""
     sink = torch.zeros(1, dtype=torch.int32, device=cuda_device)
-    rc = K.MULTI_BULK.fn("cluster_barrier_probe")(
-        100, S, rows.data_ptr(), sink.data_ptr(), K.stream_of(rows))
+    rc = K.MULTI_COMPACT.fn("barrier_probe")(100, sink.data_ptr(),
+                                             K.stream_of(sink))
     torch.cuda.synchronize()
     assert rc == 0
 

@@ -16,7 +16,6 @@ import pytest
 import torch
 
 from nomad_tpu.ops import select as rsel
-from nomad_tpu.ops.select import BulkInputs as RefBulk
 from nomad_tpu.parallel import mesh as rmesh
 from nomad_tpu_torch.ops.convert import (
     bulk_inputs_from_numpy,
@@ -33,10 +32,12 @@ from torch_parity import (
     add_jobs,
     build_flat_cluster,
     build_zoned_cluster,
+    bulk_arrays,
     memo_identity,
     pad_arrays,
     random_placement_arrays,
     reference_inputs_numpy,
+    reference_bulk_inputs,
     reference_multi_inputs,
     reference_placement_inputs,
     scatter_case,
@@ -175,20 +176,72 @@ def _bulk_arrays(case):
     arr = random_placement_arrays(np.random.default_rng(11), g=2,
                                   p=rs * rounds, **kw)
     arr = pad_arrays(arr, pmesh.pad_nodes(kw["n"], S))
-    b = {k: arr[k] for k in RefBulk._fields if k in arr}
-    b.update(g=np.int32(1), p_real=np.int32(p_real))
-    return b, rs, rounds
+    return bulk_arrays(arr, 1, p_real), rs, rounds
 
 
 @pytest.mark.parametrize("case", sorted(BULK_CASES))
 def test_k10_bulk_matches_reference(case, ref_mesh):
     b, rs, rounds = _bulk_arrays(case)
-    ref = RefBulk(**{k: (None if v is None else jnp.asarray(v))
-                     for k, v in b.items()})
-    want = rmesh.place_bulk_sharded_packed_fn(ref_mesh, rs, rounds)(ref)
+    want = rmesh.place_bulk_sharded_packed_fn(ref_mesh, rs, rounds)(
+        reference_bulk_inputs(b))
     got = pmesh.place_bulk_sharded_packed(
         bulk_inputs_from_numpy(b), pmesh.make_mesh(S, "cpu"), rs, rounds)
     assert_equal(want, got)
+
+
+# K10 = K6 on the npad rows: (nodes, spread, variant) -> round size, rows
+# a shard (8 shards), p_real, rounds
+K10_IDENTITY_CASES = {
+    # 150 rows padded to 152: every shard gives all of its 19 rows
+    "padded_150_binpack": ((150, False, None), (64, 19, 150, 3)),
+    "padded_150_spread": ((150, True, None), (64, 19, 150, 3)),
+    # 1,001 rows padded to 1,008: a shard gives its top 64 of 126
+    "padded_1001_binpack": ((1001, False, None), (64, 126, 300, 5)),
+    "padded_1001_spread": ((1001, True, None), (256, 126, 700, 3)),
+    # every 13th row eligible: 47 feasible rows against a round of 64,
+    # so each round's fill prefix ends in NEG_INF picks
+    "few_feasible": ((600, False, "few_feasible"), (64, 75, 150, 3)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K10_IDENTITY_CASES))
+def test_reference_k10_is_k6_on_padded_rows(ref_mesh, case):
+    """The reference's K10 equals the reference's K6 (full layout) on the
+    same npad rows, the padding rows statically infeasible: as for K11,
+    the stable top round_size of the shards' top min(round_size, n_loc)
+    lists laid out shard-major is the exact top round_size in row order,
+    the noise runs over global rows and the counts and metrics are sums
+    over the mesh.  The port's plain K10 and K6 equal both.  This is
+    what runs K10 as K6's entry in K3's flat mode over the npad rows
+    (csrc/compact_rounds.cu `multi_bulk_sharded`)."""
+    (n, spread, variant), (rs, n_loc, p_real, rounds) = \
+        K10_IDENTITY_CASES[case]
+    arr = random_placement_arrays(np.random.default_rng(12), n=n, g=2,
+                                  p=rs * rounds, spread_algo=spread)
+    if variant == "few_feasible":
+        arr["elig"][:] = False
+        arr["elig"][::13] = True
+        arr["dc_mask"][:] = True
+        arr["pool_mask"][:] = True
+    arr = pad_arrays(arr, pmesh.pad_nodes(n, S))
+    assert arr["attrs"].shape[0] == S * n_loc
+    b = bulk_arrays(arr, 1, p_real)
+    ref = reference_bulk_inputs(b)
+    want = rmesh.place_bulk_sharded_packed_fn(ref_mesh, rs, rounds)(ref)
+    k6 = rsel.place_bulk_packed_jit(ref, rs, rounds, False, 0)
+    for w, k in zip(want, k6):
+        w, k = np.asarray(w), np.asarray(k)
+        assert w.dtype == k.dtype and w.shape == k.shape
+        assert w.tobytes() == k.tobytes()
+    binp = bulk_inputs_from_numpy(b)
+    assert_equal(want, pmesh.place_bulk_sharded_plain(binp, S, rs, rounds))
+    assert_equal(want, psel.place_bulk_packed_plain(binp, rs, rounds))
+    buf = np.asarray(want[0])
+    placed = buf[:, rs + 12]
+    assert placed.sum() > 0
+    if variant == "few_feasible":
+        n_feas = buf[placed > 0, rs + 6]
+        assert 0 < n_feas.max() < rs
 
 
 # ---------------------------------------------------------- K11 / K12

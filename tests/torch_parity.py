@@ -564,6 +564,82 @@ def pad_arrays(arr, npad):
     return out
 
 
+_BULK_FIELDS = ("attrs", "cap", "used0", "elig", "dc_mask", "pool_mask",
+                "luts", "con", "aff", "req", "desired", "dh_limit",
+                "job_count0", "spread_algo", "seed", "extra_mask")
+
+
+def bulk_arrays(arr, g, p_real):
+    """The BulkInputs fields of `random_placement_arrays` output, the
+    rounds placing `p_real` of group `g`."""
+    b = {k: arr[k] for k in _BULK_FIELDS}
+    b.update(g=np.int32(g), p_real=np.int32(p_real))
+    return b
+
+
+# K6 as K3 at one group, and on the card K6's entry in K3's flat mode:
+# (random_placement_arrays kwargs, round size, rounds, p_real, variant)
+BULK_FLAT_CASES = {
+    "binpack": (dict(n=300), 64, 4, 256, None),
+    "spread": (dict(n=300, spread_algo=True), 64, 4, 256, None),
+    "extra_mask": (dict(n=300, extra=True, tight=True), 64, 4, 256, None),
+    # 50 rows against a round of 256: padded fill slots
+    "n_below_round": (dict(n=50), 256, 3, 700, None),
+    # a last real round of 34, then a padding round
+    "p_real_not_multiple": (dict(n=200), 64, 5, 226, None),
+    # no row admits the group: every round places nothing
+    "infeasible_group": (dict(n=200, extra=True), 64, 3, 150, "infeasible"),
+    # job counts of up to 4 against distinct_hosts limits
+    "job_count0": (dict(n=200, dh=True), 64, 3, 150, "job_count0"),
+}
+
+
+def bulk_flat_case(case, seed=21):
+    """(BulkInputs arrays, round size, rounds) of BULK_FLAT_CASES[case]
+    for group 1 of two."""
+    kw, rs, rounds, p_real, variant = BULK_FLAT_CASES[case]
+    rng = np.random.default_rng(seed)
+    arr = random_placement_arrays(rng, g=2, p=rs * rounds, **kw)
+    if variant == "infeasible":
+        arr["extra_mask"][1] = False
+    elif variant == "job_count0":
+        arr["job_count0"] = rng.integers(0, 5, kw["n"]).astype(np.int32)
+        arr["dh_limit"][1] = 3
+    return bulk_arrays(arr, 1, p_real), rs, rounds
+
+
+def bulk_flat_arrays(b, round_size, n_rounds):
+    """K6's inputs (BulkInputs arrays) as K3's (MultiEvalInputs arrays)
+    at one group: the group's rows of con, aff, req, desired and
+    dh_limit; one base row dc & pool (& the group's extra_mask row), one
+    job count row, every round of group 0 wanting
+    clip(p_real - r round_size, 0, round_size), one seed."""
+    g = int(b["g"])
+    base = b["dc_mask"] & b["pool_mask"]
+    if b.get("extra_mask") is not None:
+        base = base & b["extra_mask"][g]
+    zero = np.zeros(1, np.int32)
+    want = np.clip(int(b["p_real"]) - np.arange(n_rounds) * round_size, 0,
+                   round_size).astype(np.int32)
+    return dict(
+        attrs=b["attrs"], cap=b["cap"], used0=b["used0"], elig=b["elig"],
+        luts=b["luts"], base_mask=base[None], con=b["con"][g:g + 1],
+        u_mask=zero, aff=b["aff"][g:g + 1], req=b["req"][g:g + 1],
+        desired=b["desired"][g:g + 1], dh_limit=b["dh_limit"][g:g + 1],
+        g_static=zero, g_aff=zero, g_job=zero,
+        job_count0=b["job_count0"][None], spread_algo=b["spread_algo"],
+        round_g=np.zeros(n_rounds, np.int32), round_want=want,
+        seed=np.array([b["seed"]], np.uint32))
+
+
+def reference_bulk_inputs(b):
+    """The reference's BulkInputs from `bulk_arrays` output."""
+    import jax.numpy as jnp
+    from nomad_tpu.ops.select import BulkInputs
+    return BulkInputs(**{k: (None if v is None else jnp.asarray(v))
+                         for k, v in b.items()})
+
+
 def reference_placement_inputs(arrays):
     """The reference's PlacementInputs from `random_placement_arrays`."""
     import jax.numpy as jnp
