@@ -51,13 +51,15 @@ bench.py's configs 1-4 (bench.py:409, :442, :484, :553):
  12. solo kernel checks: K5 (the spread and dev evals' inputs, and a
      variant with distinct_property, reschedule rows and a device mask),
      K6 (the bulk eval's inputs in all three output layouts, and with the
-     spread algorithm), K7 and K8 (the preempt and system evals' inputs)
+     spread algorithm; the preempt eval's inputs in the layout the
+     engine used there), K7 and K8 (the preempt and system evals' inputs)
      against their plain versions, on the card and on CPU copies, and
      K5's phase split at the spread eval's inputs (the PROF launcher of
      csrc/place_scan.cu, blocks of 256 and of 1024 threads: microseconds
      per active and per padding step in the loop top, the pass, the
      merge, the exchange or decode, the commit and memoised steps); K6's
-     split and steps (csrc/compact_rounds.cu's PROF launcher, as K3's).
+     split and steps (csrc/compact_rounds.cu's PROF launcher, as K3's)
+     and its wall and device ms in each layout (`layouts`).
 
 Then the node-sharded mesh: a second engine on make_mesh(8) of the card
 (8 shards of the node axis, parallel/mesh.py) over the same clusters:
@@ -106,6 +108,11 @@ path phase and read after it; the line before the last carries them.
 The last line is {"ok": true, "device": {...}}.  Without CUDA the script
 exits non-zero before printing any result.  Imports nothing of JAX and
 nothing of the JAX package.
+
+    python3 chip_smoke.py --bulk-layouts
+
+times K6 alone at bulk_eval's inputs in its three layouts (one JSON
+line); copied into an older checkout, it times that checkout's K6.
 """
 
 from __future__ import annotations
@@ -479,6 +486,8 @@ def device_phase(rows) -> dict:
         lib = r.pop("_library_timed", None)
         r["device_ms"] = device_ms(fn, reps)
         r["library_device_ms"] = device_ms(*lib) if lib else None
+        for name, (f, n) in r.pop("_layouts_timed", {}).items():
+            r["layouts"][name]["device_ms"] = device_ms(f, n)
         by[r["kernel"].name] = ("torch.profiler" if r["device_ms"]
                                 else "not measured")
     return by
@@ -870,12 +879,14 @@ def flat_phase_split(inp, rs) -> dict:
         torch.empty_like(inp.used0), inp.used0, inp, rs, prof=prof))
 
 
-def bulk_phase_split(binp, rs, n_rounds) -> dict:
-    """K6's split at `binp`, in the main path's compact layout."""
+def bulk_phase_split(binp, rs, n_rounds, with_scores=False) -> dict:
+    """K6's split at `binp`, in the main path's compact layout (or with
+    scores)."""
     from nomad_tpu_torch.ops import select as S
 
+    fill_k = 0 if with_scores else S.FILL_K
     return rounds_phase_split(lambda prof: S._bulk_launch(
-        binp, rs, n_rounds, False, S.FILL_K, prof=prof))
+        binp, rs, n_rounds, with_scores, fill_k, prof=prof))
 
 
 def bulk_stats(kern, binp, rs, n_rounds, buf, fills, k_bytes,
@@ -886,6 +897,22 @@ def bulk_stats(kern, binp, rs, n_rounds, buf, fills, k_bytes,
 
     return flat_stats(kern, S.bulk_as_flat(binp, rs, n_rounds), rs, buf,
                       fills, k_bytes, barrier_ms)
+
+
+def bulk_layouts(binp, rs, n_rounds, reps: int = 5) -> dict:
+    """K6's wrapper at `binp` in each of its three layouts (full, with
+    scores, compact): the wall ms of `reps` back-to-back calls, and each
+    loop kept for its device window (`_layouts_timed`, device_phase)."""
+    from nomad_tpu_torch.ops import select as S
+
+    out, timed = {}, {}
+    for name, ws, fk in (("full", False, 0), ("scores", True, 0),
+                         ("compact", False, S.FILL_K)):
+        fn = functools.partial(S.place_bulk_packed, binp, rs, n_rounds, ws,
+                               fk)
+        out[name] = {"ms": time_ms(fn, reps)}
+        timed[name] = (fn, reps)
+    return {"layouts": out, "_layouts_timed": timed}
 
 
 @functools.lru_cache(maxsize=None)
@@ -1416,6 +1443,51 @@ def check_capacity(h):
             raise AssertionError(f"node {n.id} over capacity: {used}")
 
 
+def config2_job(mock):
+    """bench.py config 2's job: one batch group of 10,000 placements of
+    cpu 10, memory 10."""
+    job = mock.batch_job(id="config2")
+    job.task_groups[0].count = 10000
+    job.task_groups[0].tasks[0].resources.cpu = 10
+    job.task_groups[0].tasks[0].resources.memory_mb = 10
+    return job
+
+
+def bulk_layouts_main() -> int:
+    """`chip_smoke.py --bulk-layouts`: K6 at bulk_eval's inputs (config
+    2 through the Harness, the engine's call recorded) in each of its
+    three layouts, wall and device ms, as one JSON line.  It reads only
+    the package's public K6 API, so the same file can time an older
+    checkout's package (copy it into that checkout and run it there)."""
+    import torch
+
+    import nomad_tpu_torch.ops.engine as E
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops import kernels as K
+    from nomad_tpu_torch.scheduler import Harness
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    K.build_all()
+    rec = Recorder()
+    rec.wrap(E, "place_bulk_packed", "bulk")
+    h = Harness()
+    bench_cluster(h, 1000)
+    h.engine.packer.update(h.snapshot())
+    rec.phase = "bulk_eval"
+    process(h, config2_job(mock), "batch")
+    rec.phase = None
+    binp, rs, n_rounds = rec.get("bulk_eval", "bulk")[:3]
+    out = bulk_layouts(binp, rs, n_rounds)
+    for name, (f, n) in out.pop("_layouts_timed").items():
+        out["layouts"][name]["device_ms"] = device_ms(f, n)
+    emit({"phase": "bulk_layouts", "card": card_line(), "rows": binp.attrs.shape[0],
+          "round_size": rs, "rounds": n_rounds,
+          **out})
+    return 0
+
+
 def solo_phases(card, launches):
     """The solo path through Harness.process at bench.py configs 1-4
     and a system job; returns the Recorder with each phase's kernel
@@ -1475,10 +1547,7 @@ def solo_phases(card, launches):
     h2.engine.packer.update(h2.snapshot())
 
     def bulk_eval():
-        job = mock.batch_job(id="config2")
-        job.task_groups[0].count = 10000
-        job.task_groups[0].tasks[0].resources.cpu = 10
-        job.task_groups[0].tasks[0].resources.memory_mb = 10
+        job = config2_job(mock)
         dt = process(h2, job, "batch")
         placed = len(live_allocs(h2, job))
         if placed != 10000:
@@ -1755,11 +1824,29 @@ def solo_kernel_phase(rec, barrier_ms, dsmem_ms):
                 S.place_bulk_packed(b_cpu, rs, n_rounds, ws, fk),
                 packed=True))
             torch.cuda.synchronize()
+    # and the preempt eval's launch (500 full rows, nearly all infeasible,
+    # one round), in the layout the engine used there
+    pargs = rec.get("preempt_eval", "bulk")
+    pre = S.place_bulk_packed(*pargs)
+    err = max(err, check_exact(
+        "multi_bulk preempt_eval", pre, S.place_bulk_packed_plain(*pargs),
+        S.place_bulk_packed(*to_cpu(pargs)), packed=True))
+    torch.cuda.synchronize()
+    pmeta = pre[0][:, -16:].cpu()
+    preempt_check = {"rows": pargs[0].attrs.shape[0], "round_size": pargs[1],
+                     "rounds": pargs[2], "with_scores": bool(pargs[3]),
+                     "fill_k": int(pargs[4]) if len(pargs) > 4 else 0,
+                     "feasible": int(pmeta[0, 6]),
+                     "exhausted": int(pmeta[0, 8]),
+                     "placed": int(pmeta[:, 12].sum())}
     # the main path's compact layout, counted as K3's flat mode at one
     # group (bulk_as_flat)
     k6_out = S.place_bulk_packed(binp, rs, n_rounds, False, S.FILL_K)
     k6_bytes = fn_bytes(tensors(binp), binp.attrs, binp.luts, binp.con,
                         binp.aff) + nbytes(*k6_out)
+    layouts = bulk_layouts(binp, rs, n_rounds)
+    layouts["layouts"]["scores"]["phase_split"] = bulk_phase_split(
+        binp, rs, n_rounds, with_scores=True)
     rows.append(dict(
         kernel=K.MULTI_BULK, max_abs_err=err,
         **timing(lambda: S.place_bulk_packed(binp, rs, n_rounds, False,
@@ -1769,6 +1856,7 @@ def solo_kernel_phase(rec, barrier_ms, dsmem_ms):
         library_ms=None,
         **bulk_stats(K.MULTI_BULK, binp, rs, n_rounds, k6_out[0], k6_out[1],
                      k6_bytes, barrier_ms),
+        **layouts, preempt_check=preempt_check,
         phase_split=bulk_phase_split(binp, rs, n_rounds)))
 
     # K7: the preempt eval's launch
@@ -2309,7 +2397,8 @@ def main() -> int:
           "rows": [{"name": r["kernel"].name, "ms": r["ms"],
                     "device_ms": r["device_ms"],
                     "library_ms": r["library_ms"],
-                    "library_device_ms": r["library_device_ms"]}
+                    "library_device_ms": r["library_device_ms"],
+                    **({"layouts": r["layouts"]} if "layouts" in r else {})}
                    for r in krows + srows + mrows]})
 
     missing = [k for k, v in launches.items() if v < 1]
@@ -2337,4 +2426,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(bulk_layouts_main() if sys.argv[1:] == ["--bulk-layouts"]
+             else main())

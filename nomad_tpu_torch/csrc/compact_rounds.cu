@@ -44,7 +44,7 @@
 //        is K3 over those rows (the entry checks that the shards divide
 //        them);
 //   K6   K3 at one group: one signature (K8's [1, N] mask, with the
-//        group's device mask row `extra` ANDed into the valid bits), one
+//        group's device mask row ANDed in by the wrapper), one
 //        job whose counts carry from round to round, one seed, and round
 //        r wanting clip(p_real - r rs, 0, rs), derived here from p_real
 //        (tests/test_torch_bulk.py shows the identity on the reference).
@@ -102,8 +102,10 @@
 //      algorithm's fan-out) the step takes the wide path: an exact top
 //      T = min(round_size, frame, want) by a cluster-wide MSB radix
 //      select over the keys' score bits (histograms read across the
-//      cluster), ties at the threshold taken in frame-slot order, the T
-//      entries pushed to every block, sorted by rank and water-filled.
+//      cluster; none when T is the whole frame), ties at the threshold
+//      taken in frame-slot order, the T entries pushed to every block,
+//      ranked by the cluster's threads together (each rank written into
+//      every block) and water-filled.
 //   4. the memo: a step whose group and `want` repeat the last computed
 //      step's, after that step placed nothing, has the same state and
 //      inputs (job counts carry over for a repeated group, and so for its
@@ -134,7 +136,9 @@ constexpr int PW = 9;              // post words per key (hi lo sc k row f0
 constexpr int NCNT = 5;            // pass counts: viable exh dim(3)
 constexpr int NPC = NCNT + 1;      // post counts: those, valid slots
 constexpr int XW = 44;             // post words (TOPB PW + NPC, padded)
-constexpr int GV = 7;              // wide-path entry words besides the key
+constexpr int GV = 8;              // wide-path entry words besides the key
+                                   // (7 and a pad: two 16-byte stores)
+constexpr int KPT = MAX_RS / BS;   // wide-path entries a thread holds
 constexpr int STAGE = 128;         // steps staged in shared memory at once
 constexpr int SW = 12;             // staged words per step
 constexpr int MIN_ROWS = 256;      // frame slots a block takes at least
@@ -166,7 +170,6 @@ struct Params {
   const int* job_count0;     // [S, J', nc]
   const int* round_g;        // [T * L] step-major (K6: none)
   const int* round_want;
-  const uint8_t* extra;      // K6: [N] the group's device mask, or none
   int* buf;                  // [T * L, fill_k + sc_w + 16]
   int* fills;                // [T * L, rs] (K3: none)
   int* jc_out;               // K3: [N] the last step's job counts
@@ -438,6 +441,7 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
   // filtered rows
   __shared__ int s_ctl[14];
   __shared__ int s_sel;   // read by the peers
+  __shared__ int s_seg[MAX_CB + 1];
 
   enum { C_WIDE, C_VIABLE, C_CAP, C_PLACED, C_EXH, C_DIG = 8, C_ACC, C_QUOTA,
          C_EQ, C_CNT, C_FILT };
@@ -589,14 +593,11 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
     }
     if (FLAT && st[11] != u_have) {
       // K3: the signature's static row into the valid bits (the cache
-      // does not depend on them: every slot holds its row's usage); K6
-      // ANDs its group's device mask in
+      // does not depend on them: every slot holds its row's usage)
       const uint8_t* srow = p.static_u + (int64_t)st[11] * n + row0;
-      const uint8_t* xrow = p.extra ? p.extra + row0 : nullptr;
       nvalid = 0;
       for (int j = tid; j < nb; j += NT) {
-        const bool v =
-            __ldg(srow + j) != 0 && (!xrow || __ldg(xrow + j) != 0);
+        const bool v = __ldg(srow + j) != 0;
         F.fl[j] = (uint8_t)((F.fl[j] & ~F_VALID) | (v ? F_VALID : 0u));
         nvalid += v ? 1 : 0;
       }
@@ -830,10 +831,12 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
       // the wide path: the exact top T of the lane's keys (K6's score
       // layout: of all kk)
       const int T = p.sc_w ? kk : min(kk, want);
+      // every slot of the frame among the top T: no select
+      const bool all = T == nct;
       const int cap_round = s_ctl[C_CAP];
       unsigned prefix = 0;
       int krem = T;
-      for (int pass = 0; pass < 4; ++pass) {
+      for (int pass = 0; pass < 4 && !all; ++pass) {
         const int shift = 24 - 8 * pass;
         const unsigned mask = pass == 0 ? 0u : (~0u << (shift + 8));
         int* h = hist + pass * 256;
@@ -887,7 +890,9 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
       }
       // keys above the threshold, and the first `quota` of this block's
       // keys at it in slot order (blocks hold consecutive slots)
-      if (warp == 0) {
+      if (warp == 0 && all) {
+        if (lane == 0) s_ctl[C_QUOTA] = s_ctl[C_EQ] = s_ctl[C_CNT] = 0;
+      } else if (warp == 0) {
         const int bin = (int)(prefix & 255u);
         const int e = lane < CB ? cl.map_shared_rank(hist + 768, lane)[bin]
                                 : 0;
@@ -907,7 +912,7 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
         const int j = j0 + tid;
         const unsigned x = j < nb ? F.hi[j] : 0u;
         const bool tie = j < nb && x == prefix;
-        bool take = j < nb && x > prefix;
+        bool take = j < nb && (all || x > prefix);
         if (ordered) {
           const unsigned bal = __ballot_sync(FULL, tie);
           if (lane == 0) s_tie[it & 1][warp] = __popc(bal);
@@ -928,32 +933,78 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
       __syncthreads();
       const int sel = s_ctl[C_CNT];
       if (tid == 0) s_sel = sel;
+      // this block's entries in key order (keys are unique): their keys
+      // staged in its own gkey, which no peer writes before the next
+      // cluster barrier, and each entry's order kept in a register
+      auto key_at = [&](int j) {
+        return ((unsigned long long)F.hi[j] << 32) | (unsigned)~(row0 + j);
+      };
+      for (int i = tid; i < sel; i += NT) gkey[i] = key_at(gord[i]);
+      __syncthreads();
+      int lr[KPT];
+#pragma unroll
+      for (int q = 0; q < KPT; ++q) {
+        const int i = tid + q * NT;
+        lr[q] = 0;
+        if (i < sel) {
+          const unsigned long long ki = gkey[i];
+          for (int i2 = 0; i2 < sel; ++i2) lr[q] += gkey[i2] > ki ? 1 : 0;
+        }
+      }
       cl.sync();   // every block's entry count
-      int off = 0;
-      for (int r = 0; r < sh; ++r) off += *cl.map_shared_rank(&s_sel, r);
-      // push this block's entries into every block of the cluster
-      for (int i = tid; i < sel; i += NT) {
-        const int j = gord[i];
-        const unsigned long long key =
-            ((unsigned long long)F.hi[j] << 32) | (unsigned)~(row0 + j);
-        const int v[GV] = {__float_as_int(F.sc[j]), F.k[j],
-                           row_of<FLAT>(F, j, row0), F.c0[j] - F.u0[j],
-                           F.c1[j] - F.u1[j], F.c2[j] - F.u2[j], F.jc[j]};
+      // block r's entries lie at [s_seg[r], s_seg[r + 1]) of every block
+      if (tid == 0) {
+        int o = 0;
         for (int r = 0; r < CB; ++r) {
-          cl.map_shared_rank(gkey, r)[off + i] = key;
-          int* dv = cl.map_shared_rank(gval, r) + (off + i) * GV;
-          for (int q = 0; q < GV; ++q) dv[q] = v[q];
+          s_seg[r] = o;
+          o += *cl.map_shared_rank(&s_sel, r);
+        }
+        s_seg[CB] = o;
+      }
+      __syncthreads();
+      const int off = s_seg[sh];
+      // push this block's entries, in key order, into every block
+#pragma unroll
+      for (int q = 0; q < KPT; ++q) {
+        const int i = tid + q * NT;
+        if (i >= sel) break;
+        const int j = gord[i];
+        const unsigned long long key = key_at(j);
+        const int4 v0 = make_int4(__float_as_int(F.sc[j]), F.k[j],
+                                  row_of<FLAT>(F, j, row0), F.c0[j] - F.u0[j]);
+        const int4 v1 =
+            make_int4(F.c1[j] - F.u1[j], F.c2[j] - F.u2[j], F.jc[j], 0);
+        const int at = off + lr[q];
+        for (int r = 0; r < CB; ++r) {
+          cl.map_shared_rank(gkey, r)[at] = key;
+          int4* dv = (int4*)(cl.map_shared_rank(gval, r) + at * GV);
+          dv[0] = v0;
+          dv[1] = v1;
         }
       }
       cl.sync();   // the T entries in every block
-      // sort by rank (keys unique), water-fill, commit
-      for (int i = tid; i < T; i += NT) {
-        const unsigned long long ki = gkey[i];
-        int rank = 0;
-        for (int i2 = 0; i2 < T; ++i2) rank += gkey[i2] > ki ? 1 : 0;
-        gord[rank] = i;
+      // rank: an entry's order in its block, plus the keys above it in
+      // each peer's run (a binary search), written into every block
+#pragma unroll
+      for (int q = 0; q < KPT; ++q) {
+        if (tid + q * NT >= sel) break;
+        const int at = off + lr[q];
+        const unsigned long long ki = gkey[at];
+        int rank = lr[q];
+        for (int r = 0; r < CB; ++r) {
+          if (r == sh) continue;
+          int a = s_seg[r], b = s_seg[r + 1];
+          const int a0 = a;
+          while (a < b) {
+            const int m = (a + b) >> 1;
+            if (gkey[m] > ki) a = m + 1;
+            else b = m;
+          }
+          rank += a - a0;
+        }
+        for (int r = 0; r < CB; ++r) cl.map_shared_rank(gord, r)[rank] = at;
       }
-      __syncthreads();
+      cl.sync();   // every rank in every block; then water-fill, commit
       const int ch = (T + NT - 1) / NT;
       const int lo = min(T, tid * ch), hi = min(T, lo + ch);
       auto ks_at = [&](int i) {
@@ -1262,16 +1313,16 @@ static Params flat_params(FLAT_ARGS) {
               round_want, buf, jc, n, ua, n_aff, n_rounds, spread, rs,     \
               scratch)
 
-// K6: the flat mode at one group.  static_row [N] (K8's), extra_row [N]
-// (the group's device mask, or NULL), aff_row [N] (K1's), aff [Af, 4],
+// K6: the flat mode at one group.  static_row [N] (K8's, with the
+// group's device mask ANDed in), aff_row [N] (K1's), aff [Af, 4],
 // req [3], desired and dh_limit [1] of the group; job_count0 [N]; the
 // rounds' demands from p_real; buf [R, rs + 16] (full layout), [R, 2 rs
 // + 16] (with_scores) or [R, fill_k + 16] with fills [R, rs] (compact).
 #define BULK_ARGS                                                          \
   const int *cap, const int *used_in, int *used, const uint8_t *static_row, \
-      const uint8_t *extra_row, const float *aff_row, const int *aff,      \
-      const int *req, const int *desired, const int *dh_limit,             \
-      const int *job_count0, int *buf, int *fills, int *jc, int n,         \
+      const float *aff_row, const int *aff, const int *req,                \
+      const int *desired, const int *dh_limit, const int *job_count0,      \
+      int *buf, int *fills, int *jc, int n,                                \
       int n_aff, int n_rounds, int spread, int rs, int fill_k,             \
       int with_scores, int p_real, unsigned seed, unsigned char *scratch
 
@@ -1280,7 +1331,6 @@ static Params bulk_params(BULK_ARGS) {
                          desired, dh_limit, nullptr, nullptr, nullptr,
                          nullptr, job_count0, nullptr, nullptr, buf, jc, n,
                          1, n_aff, n_rounds, spread, rs, scratch);
-  p.extra = extra_row;
   p.fills = fills;
   p.fill_k = fill_k;
   p.sc_w = with_scores ? rs : 0;
@@ -1290,8 +1340,8 @@ static Params bulk_params(BULK_ARGS) {
 }
 
 #define BULK_PARAMS                                                         \
-  bulk_params(cap, used_in, used, static_row, extra_row, aff_row, aff, req, \
-              desired, dh_limit, job_count0, buf, fills, jc, n, n_aff,     \
+  bulk_params(cap, used_in, used, static_row, aff_row, aff, req, desired,   \
+              dh_limit, job_count0, buf, fills, jc, n, n_aff,              \
               n_rounds, spread, rs, fill_k, with_scores, p_real, seed,     \
               scratch)
 

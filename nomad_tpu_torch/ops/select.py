@@ -1136,10 +1136,11 @@ def _bulk_launch(inp: BulkInputs, round_size: int, n_rounds: int,
                  prof=None):
     """K8's static row and K1's affinity of group g, then one K6 launch:
     K3's flat mode at one group (csrc/compact_rounds.cu `multi_bulk`,
-    `bulk_as_flat`'s identity), which ANDs the group's `extra_mask` row
-    into the static row and derives each round's demand from `p_real`;
-    K10 with `n_shards` (`multi_bulk_sharded`, full layout only).  The
-    kernel reads `inp.used0` and writes every row of a fresh usage.
+    `bulk_as_flat`'s identity), which derives each round's demand from
+    `p_real`; K10 with `n_shards` (`multi_bulk_sharded`, full layout
+    only).  The group's `extra_mask` row is ANDed into the static row
+    here (one counted eager op; the engine sends no mask on this path).
+    The kernel reads `inp.used0` and writes every row of a fresh usage.
     `prof` as in `_flat_mode_launch`."""
     kern = K.MULTI_BULK_SHARDED if n_shards else K.MULTI_BULK
     name = kern.name
@@ -1164,9 +1165,13 @@ def _bulk_launch(inp: BulkInputs, round_size: int, n_rounds: int,
     dev = inp.attrs.device
     gs = slice(g, g + 1)
     aff = inp.aff[gs]
+    extra = None
+    if inp.extra_mask is not None:
+        K.count_eager("bulk_extra_mask")
+        extra = inp.extra_mask[gs]
     static, aff_sc = _solo_statics(inp.attrs, inp.elig, inp.dc_mask,
                                    inp.pool_mask, inp.con[gs], aff,
-                                   inp.luts, None)
+                                   inp.luts, extra)
     slot_k = min(fill_k, round_size) if fill_k else round_size
     width = slot_k + (round_size if with_scores else 0) + 16
     buf = inp.used0.new_empty((n_rounds, width))
@@ -1175,11 +1180,9 @@ def _bulk_launch(inp: BulkInputs, round_size: int, n_rounds: int,
     used = torch.empty_like(inp.used0)
     jc = torch.empty_like(inp.job_count0)
     if n_rounds:
-        extra = None if inp.extra_mask is None else inp.extra_mask[g]
         _flat_mode_launch(kern, dev, n, round_size, [
             inp.cap.data_ptr(), inp.used0.data_ptr(), used.data_ptr(),
-            static.data_ptr(), None if extra is None else extra.data_ptr(),
-            aff_sc.data_ptr(), aff.data_ptr(), inp.req[g].data_ptr(),
+            static.data_ptr(), aff_sc.data_ptr(), aff.data_ptr(), inp.req[g].data_ptr(),
             inp.desired[g].data_ptr(), inp.dh_limit[g].data_ptr(),
             inp.job_count0.data_ptr(), buf.data_ptr(),
             None if fills is None else fills.data_ptr(), jc.data_ptr(), n,

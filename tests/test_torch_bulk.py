@@ -9,8 +9,9 @@ dimension the group does not request (tests/test_ops.py:418).
 
 K6 runs on the card as K3's flat mode at one group
 (csrc/compact_rounds.cu `multi_bulk`): the reference's K6 equals its K3
-on the converted inputs (`test_reference_bulk_is_one_group_flat`), and
-the port's converter `select.bulk_as_flat` builds those inputs
+on the inputs that the port's converter `select.bulk_as_flat` builds
+(`test_reference_bulk_is_one_group_flat`), and the port's plain K3 on
+them gives its plain K6 in every layout
 (`test_bulk_as_flat_matches_bulk`)."""
 
 import numpy as np
@@ -38,7 +39,6 @@ from nomad_tpu_torch.ops.select import (
 from torch_parity import (
     BULK_FLAT_CASES,
     bulk_arrays,
-    bulk_flat_arrays,
     bulk_flat_case,
     random_placement_arrays,
     reference_bulk_inputs,
@@ -151,14 +151,16 @@ def test_reference_bulk_is_one_group_flat(case):
     """The reference's K6 (full layout) equals its K3 at one group: one
     static signature dc & pool (& the group's extra_mask row), the job's
     count row carried from round to round, one seed, and round r
-    wanting clip(p_real - r round_size, 0, round_size).  Buffer, usage
-    and job count row are equal byte for byte.  This is what runs K6 on
-    K3's flat mode (csrc/compact_rounds.cu `multi_bulk`)."""
+    wanting clip(p_real - r round_size, 0, round_size), as the port's
+    `select.bulk_as_flat` builds them.  Buffer, usage and job count row
+    are equal byte for byte.  This is what runs K6 on K3's flat mode
+    (csrc/compact_rounds.cu `multi_bulk`)."""
     b, rs, rounds = bulk_flat_case(case)
     want = place_bulk_packed_jit(reference_bulk_inputs(b), rs, rounds,
                                  False, 0)
-    flat = place_multi_packed_jit(
-        reference_multi_inputs(bulk_flat_arrays(b, rs, rounds)), rs)
+    flat = place_multi_packed_jit(reference_multi_inputs(
+        multi_inputs_to_numpy(bulk_as_flat(bulk_inputs_from_numpy(b), rs,
+                                           rounds))), rs)
     _same_bytes(want, flat)
     placed = np.asarray(want[0])[:, rs + 12]
     assert (placed.sum() > 0) == (case != "infeasible_group")
@@ -179,10 +181,6 @@ def test_bulk_as_flat_matches_bulk(case, mode):
     ws, fk = MODES[mode]
     binp = bulk_inputs_from_numpy(b)
     fin = bulk_as_flat(binp, rs, rounds)
-    arrays = multi_inputs_to_numpy(fin)
-    for k, v in bulk_flat_arrays(b, rs, rounds).items():
-        assert arrays[k].dtype == np.asarray(v).dtype, k
-        assert np.array_equal(arrays[k], v), k
     buf, used, jc = place_multi_packed_plain(fin, rs)
     got = place_bulk_packed_plain(binp, rs, rounds, ws, fk)
     _same_bytes(place_bulk_packed_jit(reference_bulk_inputs(b), rs, rounds,

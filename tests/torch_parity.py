@@ -608,30 +608,6 @@ def bulk_flat_case(case, seed=21):
     return bulk_arrays(arr, 1, p_real), rs, rounds
 
 
-def bulk_flat_arrays(b, round_size, n_rounds):
-    """K6's inputs (BulkInputs arrays) as K3's (MultiEvalInputs arrays)
-    at one group: the group's rows of con, aff, req, desired and
-    dh_limit; one base row dc & pool (& the group's extra_mask row), one
-    job count row, every round of group 0 wanting
-    clip(p_real - r round_size, 0, round_size), one seed."""
-    g = int(b["g"])
-    base = b["dc_mask"] & b["pool_mask"]
-    if b.get("extra_mask") is not None:
-        base = base & b["extra_mask"][g]
-    zero = np.zeros(1, np.int32)
-    want = np.clip(int(b["p_real"]) - np.arange(n_rounds) * round_size, 0,
-                   round_size).astype(np.int32)
-    return dict(
-        attrs=b["attrs"], cap=b["cap"], used0=b["used0"], elig=b["elig"],
-        luts=b["luts"], base_mask=base[None], con=b["con"][g:g + 1],
-        u_mask=zero, aff=b["aff"][g:g + 1], req=b["req"][g:g + 1],
-        desired=b["desired"][g:g + 1], dh_limit=b["dh_limit"][g:g + 1],
-        g_static=zero, g_aff=zero, g_job=zero,
-        job_count0=b["job_count0"][None], spread_algo=b["spread_algo"],
-        round_g=np.zeros(n_rounds, np.int32), round_want=want,
-        seed=np.array([b["seed"]], np.uint32))
-
-
 def reference_bulk_inputs(b):
     """The reference's BulkInputs from `bulk_arrays` output."""
     import jax.numpy as jnp
