@@ -561,25 +561,26 @@ def launch_path(row, calls: int = 1000) -> dict:
     return out
 
 
-# K1's launchers (csrc/landscape.cu): the argument that counts the
-# launch's work (signatures, frame sets), set to 0 for the launcher call
-# that launches nothing
+# K1's and K8's launchers (csrc/landscape.cu): the argument that counts
+# the launch's work (signatures, groups, frame sets), set to 0 for the
+# launcher call that launches nothing
 K1_COUNT_ARG = {"landscape_mask": 4, "landscape_affinity": 4,
-                "landscape_pair": 1}
+                "landscape_pair": 1, "feasible_mask": 4}
 
 
-def k1_split(pairs, calls: int = 1000) -> dict:
-    """K1's wall time per call split by the host clock, as launch_path
-    splits K4's: for each wrapper call of each labelled sequence in
-    `pairs` ({label: [(wrapper, args), ...]}), the wrapper's Python
-    before the launcher (its bound launchers swapped for a no-op), the
-    launcher call with the arguments the wrapper passed, the same call
-    with its count argument 0 (K1_COUNT_ARG: no kernel runs), the whole
-    wrapper, and its device time per call from one profiler window; then
-    the whole sequence by wall and on the device."""
+def k1_split(pairs, calls: int = 1000, kern=None) -> dict:
+    """K1's (or `kern`'s: K8's) wall time per call split by the host
+    clock, as launch_path splits K4's: for each wrapper call of each
+    labelled sequence in `pairs` ({label: [(wrapper, args), ...]}), the
+    wrapper's Python before the launcher (its bound launchers swapped for
+    a no-op), the launcher call with the arguments the wrapper passed,
+    the same call with its count argument 0 (K1_COUNT_ARG: no kernel
+    runs), the whole wrapper, and its device time per call from one
+    profiler window; then the whole sequence by wall and on the
+    device."""
     from nomad_tpu_torch.ops import kernels as K
 
-    kern = K.LANDSCAPE
+    kern = kern or K.LANDSCAPE
     out = {}
     for label, seq in pairs.items():
         for fn, args in seq:       # bind every launcher the calls use
@@ -1714,6 +1715,25 @@ def scan_phase_split_nt(inp, n_shards: int, nt: int) -> dict:
     return phase_us(prof.tolist(), ms, SCAN_PHASES, ("active", "inactive"))
 
 
+PREEMPT_PHASES = ("pass", "min", "commit")
+
+
+def preempt_phase_split(args) -> dict:
+    """K7's split at `args` (the PROF instantiation of csrc/preempt.cu:
+    block 0's cycles per real and per padding step in the pass over the
+    rows, the block minimum and thread 0's commit, and the set-up)."""
+    import torch
+
+    from nomad_tpu_torch.ops import preempt as P
+
+    prof = torch.zeros(2 * len(PREEMPT_PHASES) + 4, dtype=torch.int64,
+                       device=args[0].device)
+    P.preempt_bulk(*args, prof=prof)                 # warm-up
+    prof.zero_()
+    _, ms = timed(lambda: P.preempt_bulk(*args, prof=prof))
+    return phase_us(prof.tolist(), ms, PREEMPT_PHASES, ("real", "padding"))
+
+
 def scan_steps(inp, buf) -> dict:
     """The steps of a scan that need a pass, by the kernel's memo rule
     (csrc/place_scan.cu): a step whose group and committed state equal
@@ -1874,7 +1894,8 @@ def solo_kernel_phase(rec, barrier_ms, dsmem_ms):
         bytes=nbytes(*tensors(args), *got),
         ops=n_real * m * (OPS_PREEMPT_VICTIM * a + OPS_PREEMPT_ROW),
         library_ms=None, depth_ms=n_real * BARRIERS_PREEMPT * barrier_ms,
-        depth_steps=n_real, barriers_per_step=BARRIERS_PREEMPT))
+        depth_steps=n_real, barriers_per_step=BARRIERS_PREEMPT,
+        phase_split=preempt_phase_split(args)))
 
     # K8: the system eval's [G, 5,000] mask and the preempt eval's
     err = 0.0
@@ -2272,6 +2293,7 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     from nomad_tpu_torch.ops import kernels as K
+    from nomad_tpu_torch.ops.feasibility import feasible_mask
     from nomad_tpu_torch.scheduler import Harness
 
     card = card_line()
@@ -2375,6 +2397,8 @@ def main() -> int:
     # 13-14. the node-sharded mesh, then 15. its kernels against the plain
     # versions
     mrec = mesh_phases(card, launches, waves, rec.placed)
+    k8_calls = {"system_eval": [(feasible_mask,
+                                 rec.get("system_eval", "feasible"))]}
     del rec
     mrows = mesh_kernel_phase(mrec, krows[0]["barrier_ms"], dsmem_ms)
     torch.cuda.synchronize()
@@ -2387,6 +2411,7 @@ def main() -> int:
     lp = launch_path(next(r for r in krows if r["kernel"] is K.SCATTER_ADD))
     lp["k1"] = k1_split(next(r for r in krows
                              if r["kernel"] is K.LANDSCAPE).pop("_split"))
+    lp["k8"] = k1_split(k8_calls, kern=K.FEASIBLE)
     lp["card"] = card
     eager = eager_phase(replays)
     eager["card"] = card

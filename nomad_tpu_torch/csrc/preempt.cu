@@ -52,7 +52,12 @@ struct PreParams {
   int* ks;                   // [n_place]
   unsigned* consumed;        // [M] scratch: consumed-victim mask
   float* vcost;              // [M, A] scratch: per-victim cost
+  long long* prof;           // PROF: [10] phase cycles (PhaseClock)
 };
+
+// Phase split of the PROF instantiation (PhaseClock, score_common.cuh):
+// the pass over every row, the block minimum, thread 0's commit
+enum { PH_PASS, PH_MIN, PH_COMMIT, NPHASE };
 
 // first index k whose alive prefix frees enough, or -1
 __device__ __forceinline__ int first_fit(const PreParams& p, int i,
@@ -91,10 +96,13 @@ __device__ __forceinline__ float cost_at(const float* c, unsigned alive,
   return a > SCAN_BLOCK ? local + carry : local;
 }
 
+template <bool PROF>
 __global__ void __launch_bounds__(BS, 1) preempt_kernel(PreParams p) {
   __shared__ unsigned long long s_min[NWARP];
   __shared__ unsigned long long s_best;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  PhaseClock<PROF, NPHASE> pc;
+  pc.start(tid == 0);
   const unsigned all = p.a == 32 ? FULL : ((1u << p.a) - 1u);
   for (int i = tid; i < p.m; i += BS) {
     const int k0 = min(max(p.k0[i], 0), p.a);
@@ -107,8 +115,11 @@ __global__ void __launch_bounds__(BS, 1) preempt_kernel(PreParams p) {
     }
   }
   __syncthreads();
+  pc.setup_done();
 
   for (int t = 0; t < p.n_place; ++t) {
+    const bool real = t < p.n_real;
+    pc.step(real);
     unsigned long long mn = ~0ull;
     for (int i = tid; i < p.m; i += BS) {
       const unsigned alive = ~p.consumed[i] & all;
@@ -121,6 +132,7 @@ __global__ void __launch_bounds__(BS, 1) preempt_kernel(PreParams p) {
           ((unsigned long long)orderable(cost) << 32) | (unsigned)i;
       mn = key < mn ? key : mn;
     }
+    pc.mark(PH_PASS, real);
     for (int o = 16; o > 0; o >>= 1) {
       unsigned long long y = __shfl_xor_sync(FULL, mn, o);
       mn = y < mn ? y : mn;
@@ -136,6 +148,7 @@ __global__ void __launch_bounds__(BS, 1) preempt_kernel(PreParams p) {
       if (lane == 0) s_best = v;
     }
     __syncthreads();
+    pc.mark(PH_MIN, real);
     if (tid == 0) {
       const unsigned long long key = s_best;
       const int b = (int)(key & 0xffffffffull);
@@ -161,7 +174,27 @@ __global__ void __launch_bounds__(BS, 1) preempt_kernel(PreParams p) {
       p.ks[t] = ok ? n_take : 0;
     }
     __syncthreads();
+    pc.mark(PH_COMMIT, real);
   }
+  pc.finish(p.prof);
+}
+
+template <bool PROF>
+int launch_preempt(const int* cap, int* used, const uint8_t* stat,
+                   int* job_count, const int* prio, const int* res,
+                   const int* req, const int* k0, int m, int a, int dh,
+                   int n_place, int n_real, int* best, int* ks,
+                   unsigned* consumed, float* vcost, long long* prof,
+                   cudaStream_t stream) {
+  if (a < 1 || a > MAX_A || m < 1) return (int)cudaErrorInvalidValue;
+  PreParams p{};
+  p.cap = cap; p.used = used; p.stat = stat; p.jc = job_count;
+  p.prio = prio; p.res = res; p.req = req; p.k0 = k0;
+  p.m = m; p.a = a; p.dh = dh; p.n_place = n_place; p.n_real = n_real;
+  p.best = best; p.ks = ks; p.consumed = consumed; p.vcost = vcost;
+  p.prof = prof;
+  preempt_kernel<PROF><<<1, BS, 0, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -172,15 +205,25 @@ extern "C" int preempt_bulk(const int* cap, int* used, const uint8_t* stat,
                             int dh, int n_place, int n_real, int* best,
                             int* ks, unsigned* consumed, float* vcost,
                             cudaStream_t stream) {
-  if (a < 1 || a > MAX_A || m < 1) return (int)cudaErrorInvalidValue;
-  PreParams p{};
-  p.cap = cap; p.used = used; p.stat = stat; p.jc = job_count;
-  p.prio = prio; p.res = res; p.req = req; p.k0 = k0;
-  p.m = m; p.a = a; p.dh = dh; p.n_place = n_place; p.n_real = n_real;
-  p.best = best; p.ks = ks; p.consumed = consumed; p.vcost = vcost;
-  preempt_kernel<<<1, BS, 0, stream>>>(p);
-  return (int)cudaGetLastError();
+  return launch_preempt<false>(cap, used, stat, job_count, prio, res, req,
+                               k0, m, a, dh, n_place, n_real, best, ks,
+                               consumed, vcost, nullptr, stream);
+}
+
+// The PROF instantiation: the same launch, with block 0's phase split
+// written to prof [2 NPHASE + 4] (pass, block minimum, commit)
+extern "C" int preempt_bulk_prof(const int* cap, int* used,
+                                 const uint8_t* stat, int* job_count,
+                                 const int* prio, const int* res,
+                                 const int* req, const int* k0, int m, int a,
+                                 int dh, int n_place, int n_real, int* best,
+                                 int* ks, unsigned* consumed, float* vcost,
+                                 long long* prof, cudaStream_t stream) {
+  return launch_preempt<true>(cap, used, stat, job_count, prio, res, req,
+                              k0, m, a, dh, n_place, n_real, best, ks,
+                              consumed, vcost, prof, stream);
 }
 
 PY_LAUNCHERS(preempt,
-             PY_LAUNCHER(preempt_bulk))
+             PY_LAUNCHER(preempt_bulk),
+             PY_LAUNCHER(preempt_bulk_prof))

@@ -174,10 +174,13 @@ def preempt_bulk_plain(cap, used0, static_g, dh_limit_g: int, job_count0,
 
 
 def preempt_bulk(cap, used0, static_g, dh_limit_g: int, job_count0,
-                 pre_prio, pre_res, req, k0, n_place: int, n_real: int):
+                 pre_prio, pre_res, req, k0, n_place: int, n_real: int,
+                 prof=None):
     """Device preemption for one task group's failed placements (see
     `preempt_bulk_plain`).  CPU tensors take the plain version; CUDA
-    tensors launch K7 (or raise).  The inputs are not modified."""
+    tensors launch K7 (or raise).  The inputs are not modified.  With
+    `prof` (int64 [10] on the card) the PROF instantiation runs and
+    writes its phase split there (chip_smoke.py)."""
     if cap.device.type == "cpu":
         return preempt_bulk_plain(cap, used0, static_g, dh_limit_g,
                                   job_count0, pre_prio, pre_res, req, k0,
@@ -203,13 +206,15 @@ def preempt_bulk(cap, used0, static_g, dh_limit_g: int, job_count0,
     consumed = torch.empty(m, dtype=torch.int32, device=dev)
     vcost = torch.empty((m, a), dtype=torch.float32, device=dev)
     if n_place and m:
+        tail = [] if prof is None else [prof.data_ptr()]
         PREEMPT_BULK.launch(
-            dev.index, name, *[t.data_ptr() for t in (
+            dev.index, name if prof is None else name + "_prof",
+            *[t.data_ptr() for t in (
                 cap, used, static_g, job_count, pre_prio, pre_res, req,
                 k0)],
             m, a, int(dh_limit_g), n_place, int(n_real),
             best.data_ptr(), ks.data_ptr(), consumed.data_ptr(),
-            vcost.data_ptr())
+            vcost.data_ptr(), *tail)
     elif n_place:
         best.fill_(-1)
         ks.zero_()
