@@ -53,7 +53,11 @@ bench.py's configs 1-4 (bench.py:409, :442, :484, :553):
      K6 (the bulk eval's inputs in all three output layouts, and with the
      spread algorithm; the preempt eval's inputs in the layout the
      engine used there), K7 and K8 (the preempt and system evals' inputs)
-     against their plain versions, on the card and on CPU copies, and
+     against their plain versions, on the card and on CPU copies (K7 also
+     at 65,536 rows of one victim and 256 placements, past shared
+     memory: `large`, timed, split and checked; K7's row and that record
+     carry its PROF split: µs per computed step in the commit, the new
+     key and the tree path), and
      K5's phase split at the spread eval's inputs (the PROF launcher of
      csrc/place_scan.cu, blocks of 256 and of 1024 threads: microseconds
      per active and per padding step in the loop top, the pass, the
@@ -77,8 +81,11 @@ Then the node-sharded mesh: a second engine on make_mesh(8) of the card
      engine: the scan's allocs on the single-device eval's nodes alloc by
      alloc, the bulk's as sorted lists;
  15. mesh kernel checks: K9-K13 against their plain versions at those
-     phases' inputs, on the card and on CPU copies, K9's phase split at
-     the mesh spread eval's inputs, K12's split and steps, K10's and
+     phases' inputs, on the card and on CPU copies (K9 also through
+     `parallel.place_sharded`, the unpacked entry: one launch, equal to
+     the packed entry's buffer unpacked and to the plain version), K9's
+     phase split at the mesh spread eval's inputs, K12's split and
+     steps, K10's and
      K11's steps.  The `exchange_probes` line, before the solo kernel
      checks, times one exchange through distributed shared memory of
      K9 (and K5 above 512 rows) at 8 blocks, and one of the rounds (K2,
@@ -93,6 +100,7 @@ After every wall-time measurement:
      split alike: the K1 row's pair at the zoned wave's inputs (the
      mask, the frames' affinity) and the flat waves' one launch of both
      landscapes, each with the pair's wall and device time per call;
+     and (`k8`) K8's call at the system eval's inputs;
      eager_ops: the main path's eager device ops (kernels.EAGER, the
      copies, fills and stacks around the kernels, counted where they run)
      with each op's host and device time per call at the waves' shapes,
@@ -178,10 +186,14 @@ OPS_SCAN_STEP = 3 + 9 + 4 + 3
 OPS_SCAN_FEAS = 3
 OPS_SCAN_SPREAD = 4
 OPS_SCAN_DISTINCT = 4
-# Device preemption (csrc/preempt.cu) per candidate row and step: the
-# first-fit prefix 7 and the cost prefix 2 per victim, then the key 6.
+# Device preemption (csrc/preempt.cu) per key it computes (every row
+# once at set-up, the chosen row again at each computed step): the
+# first-fit prefix 7 and the cost prefix 2 per victim, then the key 6;
+# per tree level of a computed step, the minimum over 32 keys; building
+# the tree, about one comparison a row.
 OPS_PREEMPT_VICTIM = 9
 OPS_PREEMPT_ROW = 6
+OPS_PREEMPT_LEVEL = 32
 # K8 (csrc/landscape.cu feasible entry) per node and group: the base
 # mask 3 and about 4 per constraint row.
 OPS_FEASIBLE_ROW = 4
@@ -201,7 +213,16 @@ REPLAY_ROUNDS = 11
 BARRIERS_SCAN = 3
 # bytes of one block's post in the scan's exchange (csrc/place_scan.cu XW)
 XCH_POST = 64
-BARRIERS_PREEMPT = 3
+# K7's step (csrc/preempt.cu) is one warp's chain and has no block
+# barrier: per computed step, the chosen row's read and then one round
+# per tree level above the leaves, each a dependent shared-memory read
+# of 32 keys and a warp minimum (the probe `preempt_level_probe` times
+# one round), so depth = computed steps x (levels + 1) x round
+ROUNDS_PREEMPT_EXTRA = 1
+# K7 past shared memory: the candidate rows of a 50,000-node cluster
+# with one victim a node (build_victim_tables pads to 65,536), 256
+# placements
+PREEMPT_LARGE = (65_536, 1, 256)
 
 
 def emit(obj) -> None:
@@ -488,6 +509,9 @@ def device_phase(rows) -> dict:
         r["library_device_ms"] = device_ms(*lib) if lib else None
         for name, (f, n) in r.pop("_layouts_timed", {}).items():
             r["layouts"][name]["device_ms"] = device_ms(f, n)
+        large = r.pop("_large_timed", None)
+        if large:
+            r["large"]["device_ms"] = device_ms(*large)
         by[r["kernel"].name] = ("torch.profiler" if r["device_ms"]
                                 else "not measured")
     return by
@@ -1715,13 +1739,15 @@ def scan_phase_split_nt(inp, n_shards: int, nt: int) -> dict:
     return phase_us(prof.tolist(), ms, SCAN_PHASES, ("active", "inactive"))
 
 
-PREEMPT_PHASES = ("pass", "min", "commit")
+PREEMPT_PHASES = ("commit", "key", "tree")
 
 
 def preempt_phase_split(args) -> dict:
     """K7's split at `args` (the PROF instantiation of csrc/preempt.cu:
-    block 0's cycles per real and per padding step in the pass over the
-    rows, the block minimum and thread 0's commit, and the set-up)."""
+    warp 0's cycles per computed step in the commit of the root's row,
+    that row's new key and the tree path, the count of steps that
+    computed nothing (padding), and the set-up: every row's key and the
+    tree)."""
     import torch
 
     from nomad_tpu_torch.ops import preempt as P
@@ -1732,6 +1758,94 @@ def preempt_phase_split(args) -> dict:
     prof.zero_()
     _, ms = timed(lambda: P.preempt_bulk(*args, prof=prof))
     return phase_us(prof.tolist(), ms, PREEMPT_PHASES, ("real", "padding"))
+
+
+def preempt_levels(m: int) -> int:
+    """Levels of K7's 32-ary tree above its m leaves."""
+    levels = 0
+    while m > 1:
+        m = (m + 31) // 32
+        levels += 1
+    return levels
+
+
+def preempt_level_ms(rounds: int = 20000) -> float:
+    """Measured cost of one round of K7's tree path: the probe's
+    dependent shared-memory reads and warp minima (csrc/preempt.cu
+    preempt_level_probe)."""
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as K
+
+    sink = torch.zeros(1, dtype=torch.int64, device="cuda")
+    probe = K.PREEMPT_BULK.fn("preempt_level_probe")
+
+    def run():
+        rc = probe(rounds, sink.data_ptr(), K.stream_of(sink))
+        if rc != 0:
+            raise RuntimeError(f"preempt_level_probe failed with cudaError "
+                               f"{rc}")
+
+    return time_ms(run, 5) / rounds
+
+
+def preempt_large_args(m: int, a: int, n_place: int, seed: int = 0):
+    """K7's arguments over m full candidate rows of up to `a` victims
+    each, made from `seed` with numpy as the card tests make theirs
+    (tests/torch_parity.py random_preempt_args): every placement real."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    cap = np.tile(np.array([4000, 8192, 10 ** 8], np.int32), (m, 1))
+    depth = rng.integers(1, a + 1, m)
+    live = np.arange(a)[None, :] < depth[:, None]
+    prio = np.where(live, np.sort(rng.integers(10, 60, (m, a)), axis=1),
+                    1 << 30).astype(np.int32)
+    res = np.stack([rng.integers(100, 2000, (m, a)),
+                    rng.integers(64, 4000, (m, a)),
+                    rng.integers(0, 500, (m, a))], axis=2)
+    res = np.where(live[..., None], res, 0).astype(np.int32)
+    used = np.minimum(res.sum(1), cap).astype(np.int32)
+    dev = lambda x: torch.from_numpy(np.ascontiguousarray(x)).cuda()
+    return (dev(cap), dev(used), dev(rng.random(m) < 0.9), 0,
+            dev(rng.integers(0, 2, m).astype(np.int32)), dev(prio),
+            dev(res), dev(np.array([1500, 512, 0], np.int32)),
+            dev(np.zeros(m, np.int32)), n_place, n_place)
+
+
+def bound(n_bytes: int, n_ops: int) -> dict:
+    """The least time of `n_bytes` moved and `n_ops` done on the card
+    (PEAK_BYTES, PEAK_OPS), and which of the two bounds it."""
+    b_ms = n_bytes / PEAK_BYTES * 1e3
+    o_ms = n_ops / PEAK_OPS * 1e3
+    return {"bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+
+
+def preempt_stats(args, got, level_ms) -> dict:
+    """What a K7 launch at `args` needs, from its own output `got`: the
+    bytes (inputs once, outputs once), the operations (OPS_PREEMPT_*),
+    the computed steps and the depth of their chain; and where the
+    rows' state lies (csrc/preempt.cu make_plan)."""
+    from nomad_tpu_torch.ops import kernels as K
+
+    m, a = args[5].shape
+    steps = int((got[0] >= 0).sum())
+    levels = preempt_levels(m)
+    tensors = [x for x in args if hasattr(x, "data_ptr")]
+    return dict(
+        bytes=nbytes(*tensors, *got),
+        ops=(m + steps) * (OPS_PREEMPT_VICTIM * a + OPS_PREEMPT_ROW)
+        + m + steps * levels * OPS_PREEMPT_LEVEL,
+        depth_ms=steps * (levels + ROUNDS_PREEMPT_EXTRA) * level_ms,
+        **bound(nbytes(*tensors, *got),
+                (m + steps) * (OPS_PREEMPT_VICTIM * a + OPS_PREEMPT_ROW)
+                + m + steps * levels * OPS_PREEMPT_LEVEL),
+        depth_steps=steps, levels=levels, rows=m, victims=a,
+        placements=args[9], level_round_ms=level_ms,
+        state="shared" if K.PREEMPT_BULK.fn("preempt_scratch_bytes")(m) == 0
+        else "global")
 
 
 def scan_steps(inp, buf) -> dict:
@@ -1879,23 +1993,30 @@ def solo_kernel_phase(rec, barrier_ms, dsmem_ms):
         **layouts, preempt_check=preempt_check,
         phase_split=bulk_phase_split(binp, rs, n_rounds)))
 
-    # K7: the preempt eval's launch
+    # K7: the preempt eval's launch, then a table past shared memory
     args = rec.get("preempt_eval", "preempt")
     got = P.preempt_bulk(*args)
     err = check_exact("preempt_bulk", got, P.preempt_bulk_plain(*args),
                       P.preempt_bulk(*to_cpu(args)))
     torch.cuda.synchronize()
-    m, a = args[5].shape
-    n_real = args[10]
+    level_ms = preempt_level_ms()
+    large_args = preempt_large_args(*PREEMPT_LARGE)
+    large = P.preempt_bulk(*large_args)
+    err = max(err, check_exact("preempt_bulk large", large,
+                               P.preempt_bulk_plain(*to_cpu(large_args))))
+    torch.cuda.synchronize()
+    large_fn = functools.partial(P.preempt_bulk, *large_args)
     rows.append(dict(
         kernel=K.PREEMPT_BULK, max_abs_err=err,
         **timing(lambda: P.preempt_bulk(*args), 10),
         plain_ms=time_ms(lambda: P.preempt_bulk_plain(*args), 1, 0),
-        bytes=nbytes(*tensors(args), *got),
-        ops=n_real * m * (OPS_PREEMPT_VICTIM * a + OPS_PREEMPT_ROW),
-        library_ms=None, depth_ms=n_real * BARRIERS_PREEMPT * barrier_ms,
-        depth_steps=n_real, barriers_per_step=BARRIERS_PREEMPT,
-        phase_split=preempt_phase_split(args)))
+        library_ms=None, **preempt_stats(args, got, level_ms),
+        smem_rows=K.PREEMPT_BULK.fn("preempt_smem_rows")(),
+        phase_split=preempt_phase_split(args),
+        large={"ms": time_ms(large_fn, 10),
+               **preempt_stats(large_args, large, level_ms),
+               "phase_split": preempt_phase_split(large_args)},
+        _large_timed=(large_fn, 10)))
 
     # K8: the system eval's [G, 5,000] mask and the preempt eval's
     err = 0.0
@@ -2159,11 +2280,24 @@ def mesh_kernel_phase(rec, barrier_ms, dsmem_ms):
     err = check_exact("place_scan_sharded", got, want,
                       PM.place_sharded_packed(to_cpu(inp), cpu_mesh),
                       score_cols=[1, 5, 6, 7])
+    # the unpacked entry (reference: place_sharded_fn): one K9 launch,
+    # its buffer split as the packed entry's, and the plain version
+    before = K.PLACE_SCAN_SHARDED.launches
+    unpacked = PM.place_sharded(inp, mesh)
+    torch.cuda.synchronize()
+    place_sharded = {"k9_launches": K.PLACE_SCAN_SHARDED.launches - before}
+    if place_sharded["k9_launches"] != 1:
+        raise AssertionError(f"place_sharded launched K9 "
+                             f"{place_sharded['k9_launches']} times")
+    place_sharded["max_abs_err"] = check_exact(
+        "place_sharded", unpacked, S.unpack_outputs(*got),
+        PM.place_sharded(to_cpu(inp), cpu_mesh))
     torch.cuda.synchronize()
     n, p = inp.attrs.shape[0], inp.tg_idx.shape[0]
     real = steps["active"] + steps["inactive"]
     rows.append(dict(
         kernel=K.PLACE_SCAN_SHARDED, max_abs_err=err,
+        place_sharded=place_sharded,
         **timing(lambda: PM.place_sharded_packed(inp, mesh), 3),
         plain_ms=plain_ms,
         # plus each computed step's posts, from every block to every block

@@ -36,8 +36,11 @@
 // coalesced; frames of row ids clamp out of range ids as a JAX gather
 // clamps them.
 //
-// K8 keeps its own entry and kernel, the same per-element pass with one
-// base row `dc & pool` and a zero group map built by its wrapper.
+// K8 is K1's mask pass through its own entry (`feasible_mask`, counted
+// on its own kernel by the wrapper): the datacenter row is the one base
+// row, the pool row is `node_ok`, and a null group map sends every group
+// to base row 0, so its wrapper builds nothing on the device and takes
+// K1's one-pass checks.
 
 #include "py_launchers.cuh"  // first: it includes Python.h
 #include <cuda_runtime.h>
@@ -95,25 +98,6 @@ __device__ __forceinline__ bool mask_at(const int* __restrict__ arow,
   return ok;
 }
 
-// ------------------------------------------------------------- K8 pass
-
-__global__ void mask_kernel(const int* __restrict__ attrs, int n, int n_attr,
-                            const int* __restrict__ con, int n_con,
-                            const uint8_t* __restrict__ luts, int n_lut,
-                            int n_vocab, const uint8_t* __restrict__ elig,
-                            const uint8_t* __restrict__ base,
-                            const int* __restrict__ u_mask,
-                            uint8_t* __restrict__ out) {
-  int node = blockIdx.x * blockDim.x + threadIdx.x;
-  int u = blockIdx.y;
-  if (node >= n) return;
-  const int* arow = attrs + (int64_t)node * n_attr;
-  bool ok = elig[node] != 0 && base[(int64_t)u_mask[u] * n + node] != 0;
-  out[(int64_t)u * n + node] =
-      mask_at(arow, n_attr, con + (int64_t)u * n_con * 3, n_con, luts, n_lut,
-              n_vocab, ok);
-}
-
 // ------------------------------------------------------------- K1 pass
 
 struct Params {
@@ -126,7 +110,7 @@ struct Params {
   int n_sig, n_con;
   const uint8_t* elig;       // [N]
   const uint8_t* base;       // [M, N]
-  const int* u_mask;         // [U] -> base row
+  const int* u_mask;         // [U] -> base row, or null (every row 0)
   const uint8_t* node_ok;    // [N] or null
   uint8_t* mask_out;         // [U, N]
   // the affinity (ua = 0: none)
@@ -153,7 +137,8 @@ __global__ void __launch_bounds__(NT) landscape_kernel(Params p) {
     const int u = y;
     const bool ok = p.elig[node] != 0 &&
                     (p.node_ok == nullptr || p.node_ok[node] != 0) &&
-                    p.base[(int64_t)p.u_mask[u] * p.n + node] != 0;
+                    p.base[(int64_t)(p.u_mask ? p.u_mask[u] : 0) * p.n +
+                           node] != 0;
     p.mask_out[(int64_t)u * p.n + node] =
         mask_at(arow, p.n_attr, p.con + (int64_t)u * p.n_con * 3, p.n_con,
                 p.luts, p.n_lut, p.n_vocab, ok);
@@ -250,19 +235,17 @@ extern "C" int landscape_pair(const int* attrs, int n, int n_attr,
   return launch(p, 1, stream);
 }
 
-// K8: its mask pass; the wrapper passes one base row `dc & pool` and
-// maps every group to it
+// K8: out [n_groups, n] = constraint_mask & elig & pool & dc, K1's mask
+// pass with `dc` [n] the one base row and `pool` [n] the node_ok row
 extern "C" int feasible_mask(const int* attrs, int n, int n_attr,
                              const int* con, int n_groups, int n_con,
                              const uint8_t* luts, int n_lut, int n_vocab,
-                             const uint8_t* elig, const uint8_t* base,
-                             const int* u_mask, uint8_t* out,
+                             const uint8_t* elig, const uint8_t* dc,
+                             const uint8_t* pool, uint8_t* out,
                              cudaStream_t stream) {
-  dim3 grid((n + 255) / 256, n_groups);
-  mask_kernel<<<grid, 256, 0, stream>>>(attrs, n, n_attr, con, n_con, luts,
-                                        n_lut, n_vocab, elig, base, u_mask,
-                                        out);
-  return (int)cudaGetLastError();
+  Params p = base_params(attrs, n, n_attr, luts, n_lut, n_vocab);
+  mask_params(&p, con, n_groups, n_con, elig, dc, nullptr, pool, out);
+  return launch(p, 1, stream);
 }
 
 PY_LAUNCHERS(landscape,

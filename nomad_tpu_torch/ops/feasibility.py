@@ -10,11 +10,12 @@ against every node.  Two wrappers launch kernels of `csrc/landscape.cu`:
                   lane prover consume, with an optional `node_ok` row
                   (the refuted nodes) ANDed in;
   feasible_mask   K8: the [G, N] static feasibility of the preemption
-                  fallback and the system scheduler (one base row
-                  `elig & dc & pool`, every group mapped to it).
+                  fallback, the system scheduler and the solo kernels'
+                  statics: K1's mask pass with `dc_mask` the one base
+                  row, `pool_mask` the node_ok row and no group map.
 
 K1's affinity entry and its fused mask + affinity entry are in
-scoring.py; all three go through `_k1_launch`.
+scoring.py; all four go through `_k1_launch`.
 """
 
 from __future__ import annotations
@@ -86,26 +87,14 @@ def feasible_mask(attrs: torch.Tensor,       # [N, A] int32
                   ) -> torch.Tensor:         # [G, N] bool
     """Full static feasibility (reference: feasibility.feasible_mask).  A
     CPU tensor takes the plain version; a CUDA tensor launches K8 (or
-    raises): its mask pass with one base row `dc & pool` and every group
-    mapped to it."""
-    if attrs.device.type == "cpu":
+    raises): K1's pass in one launch, counted on K8, with `dc_mask` the
+    one base row (a view) and `pool_mask` ANDed in as node_ok."""
+    if attrs.is_cpu:
         return feasible_mask_plain(attrs, elig, dc_mask, pool_mask, con,
                                    luts)
-    name = "feasible_mask"
-    K.check_dtype(name, attrs, torch.int32, 2)
-    K.check_dtype(name, con, torch.int32, 3)
-    K.check_dtype(name, luts, torch.bool, 2)
-    for key, t in (("elig", elig), ("dc_mask", dc_mask),
-                   ("pool_mask", pool_mask)):
-        K.check_dtype(f"{name}.{key}", t, torch.bool, 1)
-    K.check_cuda(name, attrs=attrs, elig=elig, dc_mask=dc_mask,
-                 pool_mask=pool_mask, con=con, luts=luts)
-    if dc_mask.shape != pool_mask.shape:
-        raise ValueError(f"{name}: inconsistent shapes")
-    base = (dc_mask & pool_mask)[None]
-    u_mask = torch.zeros(con.shape[0], dtype=torch.int32,
-                         device=attrs.device)
-    return _mask_launch(attrs, con, luts, elig, base, u_mask)
+    return _k1_launch("feasible_mask", attrs, luts,
+                      mask=(con, elig, dc_mask[None], None, pool_mask),
+                      kernel=K.FEASIBLE)[0]
 
 
 def landscape_mask_plain(attrs, con, luts, elig, base_mask, u_mask):
@@ -140,10 +129,13 @@ def and_rows(elig: torch.Tensor, node_ok: Optional[torch.Tensor]):
 _I32, _BOOL = torch.int32, torch.bool
 
 
-def _k1_launch(symbol: str, attrs, luts, mask=None, aff=None, rows=None):
+def _k1_launch(symbol: str, attrs, luts, mask=None, aff=None, rows=None,
+               kernel=None):
     """One launch of csrc/landscape.cu's K1 pass through entry `symbol`,
-    counted on K1.  `mask` = (con, elig, base_mask, u_mask, node_ok or
-    None) asks for the [U, N] static landscape, `aff` ([Ua, Af, 4]) for
+    counted on `kernel` (K1 unless given).  `mask` = (con, elig,
+    base_mask, u_mask or None, node_ok or None) asks for the [U, N]
+    static landscape (a None u_mask, K8's entry, maps every row to base
+    row 0 and is not passed), `aff` ([Ua, Af, 4]) for
     the [Ua, N] affinity landscape, or with `rows` ([Lr, Nc] node rows)
     the per-frame [Lr, Ua, Nc] one.  Returns (mask, affinity), None where
     not asked.  The checks are one pass over the inputs (dtype and rank,
@@ -153,8 +145,9 @@ def _k1_launch(symbol: str, attrs, luts, mask=None, aff=None, rows=None):
     if mask is not None:
         con, elig, base_mask, u_mask, node_ok = mask
         specs += [("con", con, _I32, 3), ("elig", elig, _BOOL, 1),
-                  ("base_mask", base_mask, _BOOL, 2),
-                  ("u_mask", u_mask, _I32, 1)]
+                  ("base_mask", base_mask, _BOOL, 2)]
+        if u_mask is not None:
+            specs.append(("u_mask", u_mask, _I32, 1))
         if node_ok is not None:
             specs.append(("node_ok", node_ok, _BOOL, 1))
     if aff is not None:
@@ -172,14 +165,16 @@ def _k1_launch(symbol: str, attrs, luts, mask=None, aff=None, rows=None):
     if mask is not None:
         u, c, three = con.shape
         if (three != 3 or elig.shape[0] != n or base_mask.shape[1] != n
-                or u_mask.shape[0] != u
+                or (u_mask is not None and u_mask.shape[0] != u)
                 or (node_ok is not None and node_ok.shape[0] != n)):
             raise ValueError(f"{symbol}: inconsistent shapes")
         m_out = attrs.new_empty((u, n), dtype=_BOOL)
         work = u > 0 and n > 0
         args += [con.data_ptr(), u, c, luts.data_ptr(), n_lut, n_vocab,
-                 elig.data_ptr(), base_mask.data_ptr(), u_mask.data_ptr(),
-                 None if node_ok is None else node_ok.data_ptr(),
+                 elig.data_ptr(), base_mask.data_ptr()]
+        if u_mask is not None:
+            args.append(u_mask.data_ptr())
+        args += [None if node_ok is None else node_ok.data_ptr(),
                  m_out.data_ptr()]
     if aff is not None:
         ua, af, four = aff.shape
@@ -200,32 +195,6 @@ def _k1_launch(symbol: str, attrs, luts, mask=None, aff=None, rows=None):
             args += [luts.data_ptr(), n_lut, n_vocab]
         args.append(a_out.data_ptr())
     if work:
-        K.LANDSCAPE.launch(d, symbol, *args)
+        (kernel or K.LANDSCAPE).launch(d, symbol, *args)
     return m_out, a_out
 
-
-def _mask_launch(attrs, con, luts, elig, base_mask, u_mask):
-    """One launch of K8's mask pass (csrc/landscape.cu `feasible_mask`)."""
-    name = "feasible_mask"
-    K.check_cuda(name, attrs=attrs, con=con, luts=luts, elig=elig,
-                 base_mask=base_mask, u_mask=u_mask)
-    K.check_dtype(name, attrs, torch.int32, 2)
-    K.check_dtype(name, con, torch.int32, 3)
-    K.check_dtype(name, luts, torch.bool, 2)
-    K.check_dtype(name, elig, torch.bool, 1)
-    K.check_dtype(name, base_mask, torch.bool, 2)
-    K.check_dtype(name, u_mask, torch.int32, 1)
-    n, a = attrs.shape
-    u, c, three = con.shape
-    if (three != 3 or elig.shape[0] != n or base_mask.shape[1] != n
-            or u_mask.shape[0] != u or 0 in luts.shape or a == 0):
-        raise ValueError(f"{name}: inconsistent shapes")
-    out = torch.empty((u, n), dtype=torch.bool, device=attrs.device)
-    if u and n:
-        K.FEASIBLE.launch(
-            attrs.get_device(), name, attrs.data_ptr(), n, a,
-            con.data_ptr(), u, c, luts.data_ptr(), luts.shape[0],
-            luts.shape[1],
-            elig.data_ptr(), base_mask.data_ptr(), u_mask.data_ptr(),
-            out.data_ptr())
-    return out

@@ -18,7 +18,10 @@ Two implementations share the packed victim tables:
     sums over the priority-sorted victim table) and its priority-weighted
     cost, picks the cheapest node (lowest row on ties) and commits, so
     later placements see earlier evictions.  `preempt_bulk_plain` is its
-    plain version.
+    plain version.  A step changes its chosen row only, and a row's
+    consumed victims are always a prefix of its table
+    (tests/test_torch_preempt.py), so the kernel caches every row's key
+    and recomputes one row a step.
   - `Preemptor`, the host implementation for the long tail (deep victim
     tables, heterogeneous asks, leftovers of the kernel).
 """
@@ -42,7 +45,7 @@ from nomad_tpu_torch.structs import (
     SchedulerConfiguration,
 )
 
-from .kernels import PREEMPT_BULK, check_cuda, check_dtype
+from .kernels import PREEMPT_BULK, check_launch, count_eager
 from .scoring import fmaf
 
 # victim-table depth: nodes with more evictable allocs are truncated to
@@ -53,6 +56,7 @@ BIG_COST = 1e30
 # of this length: each block sequentially, then the blocks' running sums
 # added on (its reduce-window rewrite)
 _XLA_SCAN_BLOCK = 16
+_I32 = torch.int32
 
 
 def build_victim_tables(job: Job, snapshot, tensors
@@ -178,46 +182,56 @@ def preempt_bulk(cap, used0, static_g, dh_limit_g: int, job_count0,
                  prof=None):
     """Device preemption for one task group's failed placements (see
     `preempt_bulk_plain`).  CPU tensors take the plain version; CUDA
-    tensors launch K7 (or raise).  The inputs are not modified.  With
-    `prof` (int64 [10] on the card) the PROF instantiation runs and
-    writes its phase split there (chip_smoke.py)."""
-    if cap.device.type == "cpu":
+    tensors launch K7 (or raise): it reads `used0` and `job_count0` and
+    writes every row of fresh `used` and `job_count` outputs.  The inputs
+    are not modified.  With `prof` (int64 [10] on the card) the PROF
+    instantiation runs and writes its phase split there
+    (chip_smoke.py)."""
+    if cap.is_cpu:
         return preempt_bulk_plain(cap, used0, static_g, dh_limit_g,
                                   job_count0, pre_prio, pre_res, req, k0,
                                   n_place, n_real)
     name = "preempt_bulk"
-    tensors = dict(cap=cap, used0=used0, job_count0=job_count0,
-                   pre_prio=pre_prio, pre_res=pre_res, req=req, k0=k0)
-    for key, t in tensors.items():
-        check_dtype(f"{name}.{key}", t, torch.int32)
-    check_dtype(f"{name}.static_g", static_g, torch.bool, 1)
-    check_cuda(name, static_g=static_g, **tensors)
+    d = check_launch(name, (
+        ("cap", cap, _I32, 2), ("used0", used0, _I32, 2),
+        ("static_g", static_g, torch.bool, 1),
+        ("job_count0", job_count0, _I32, 1), ("pre_prio", pre_prio, _I32, 2),
+        ("pre_res", pre_res, _I32, 3), ("req", req, _I32, 1),
+        ("k0", k0, _I32, 1)))
     m, a = pre_prio.shape
     if (cap.shape != (m, 3) or used0.shape != (m, 3)
             or static_g.shape != (m,) or job_count0.shape != (m,)
             or pre_res.shape != (m, a, 3) or req.shape != (3,)
             or k0.shape != (m,) or not 1 <= a <= MAX_VICTIMS):
         raise ValueError(f"{name}: inconsistent shapes")
-    used = used0.clone()
-    job_count = job_count0.clone()
     dev = cap.device
-    best = torch.empty(n_place, dtype=torch.int32, device=dev)
-    ks = torch.empty(n_place, dtype=torch.int32, device=dev)
-    consumed = torch.empty(m, dtype=torch.int32, device=dev)
-    vcost = torch.empty((m, a), dtype=torch.float32, device=dev)
-    if n_place and m:
-        tail = [] if prof is None else [prof.data_ptr()]
-        PREEMPT_BULK.launch(
-            dev.index, name if prof is None else name + "_prof",
-            *[t.data_ptr() for t in (
-                cap, used, static_g, job_count, pre_prio, pre_res, req,
-                k0)],
-            m, a, int(dh_limit_g), n_place, int(n_real),
-            best.data_ptr(), ks.data_ptr(), consumed.data_ptr(),
-            vcost.data_ptr(), *tail)
-    elif n_place:
-        best.fill_(-1)
-        ks.zero_()
+    best = torch.empty(n_place, dtype=_I32, device=dev)
+    ks = torch.empty(n_place, dtype=_I32, device=dev)
+    used = torch.empty_like(used0)
+    job_count = torch.empty_like(job_count0)
+    if not m:
+        if n_place:
+            count_eager("preempt_no_rows_fill")
+            best.fill_(-1)
+            count_eager("preempt_no_rows_zero")
+            ks.zero_()
+        return best, ks, used, job_count
+    # the keys and (consumed, first fit) of rows past shared memory
+    # (csrc/preempt.cu make_plan)
+    nbytes = PREEMPT_BULK.fn("preempt_scratch_bytes")(m)
+    if nbytes < 0:
+        raise ValueError(f"{name}: {m} candidate rows do not fit")
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+               if nbytes else None)
+    tail = [] if prof is None else [prof.data_ptr()]
+    PREEMPT_BULK.launch(
+        d, name if prof is None else name + "_prof",
+        *[t.data_ptr() for t in (
+            cap, used0, static_g, job_count0, pre_prio, pre_res, req, k0)],
+        m, a, int(dh_limit_g), n_place, int(n_real),
+        best.data_ptr(), ks.data_ptr(), used.data_ptr(),
+        job_count.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        *tail)
     return best, ks, used, job_count
 
 

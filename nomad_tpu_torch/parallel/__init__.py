@@ -5,5 +5,6 @@ from .mesh import (  # noqa: F401
     Mesh,
     make_mesh,
     pad_nodes,
+    place_sharded,
     place_sharded_packed,
 )

@@ -16,7 +16,9 @@ and step cores.  On a CUDA tensor each wrapper launches its kernel, one
 thread-block cluster per exchange group (S blocks, or K3's plan for
 K11's rows):
 
-  place_sharded_packed               K9  (exact scan, csrc/place_scan.cu)
+  place_sharded_packed               K9  (exact scan, csrc/place_scan.cu;
+                                          `place_sharded` unpacks its
+                                          buffer)
   place_bulk_sharded_packed          K10 (bulk rounds: K6's entry in K3's
                                           flat mode, csrc/compact_rounds.cu,
                                           over the npad rows in order)
@@ -293,6 +295,16 @@ def place_sharded_packed(inp: PlacementInputs, mesh: Mesh):
     if _on_mesh(mesh, inp.attrs):
         return S.pack_outputs(place_sharded_plain(inp, mesh.n_shards))
     return S._scan_launch(inp, n_shards=mesh.n_shards)
+
+
+def place_sharded(inp: PlacementInputs, mesh: Mesh) -> PlacementOutputs:
+    """The sharded exact scan with per-placement outputs (reference:
+    mesh.place_sharded_fn(mesh)(inp)): K9's packed buffer split by
+    `select.unpack_outputs`, as `select.place` splits K5's.  `used` and
+    `job_count` keep the npad rows.  `inp` is not modified."""
+    if _on_mesh(mesh, inp.attrs):
+        return place_sharded_plain(inp, mesh.n_shards)
+    return S.unpack_outputs(*S._scan_launch(inp, n_shards=mesh.n_shards))
 
 
 def place_bulk_sharded_packed(inp: BulkInputs, mesh: Mesh, round_size: int,

@@ -623,18 +623,79 @@ def test_bulk_matches_plain(cuda_device, mode, spread_algo, case):
     _same(got, want, want_cpu)
 
 
+def _device_kernels(fn):
+    """`fn()` under a torch.profiler window: its result and the names of
+    the device activities (kernels, copies, fills) it ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+
+
+# K7's card cases beyond the first four: one row, every row infeasible,
+# padding steps (n_real < n_place), ties on every row, the 65,536 rows of
+# a 50,000-node cluster with one victim a node, the engine's largest
+# table at 32 victims, and one row past what the kernel keeps in shared
+# memory (its launcher `preempt_smem_rows`)
+PREEMPT_CARD_CASES = {
+    "one_row": dict(m=1, a=4, n_fail=6),
+    "every_row_infeasible": dict(m=64, a=4, n_fail=20),
+    "padding_steps": dict(m=100, a=2, n_fail=37),
+    "ties_every_row": dict(m=128, a=2, ties=True, n_fail=100),
+    "rows_65536_a1": dict(m=65536, a=1, n_fail=256),
+    "rows_8192_a32": dict(m=8192, a=32, big=True, k0max=3, n_fail=64),
+    "past_shared_memory": dict(a=4, k0max=2, n_fail=120),
+}
+
+
+def _preempt_case(case, device):
+    kw = dict(PREEMPT_CARD_CASES[case])
+    if case == "past_shared_memory":
+        kw["m"] = K.PREEMPT_BULK.fn("preempt_smem_rows")() + 1
+    args = _preempt_args(device, **kw)
+    if case == "every_row_infeasible":
+        args = args._replace(static_g=torch.zeros_like(args.static_g))
+    return args
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kw", [dict(m=300, a=1), dict(m=500, a=32, big=True,
                                 k0max=5, n_fail=60),
                                 dict(m=64, a=8, ties=True, n_fail=40),
-                                dict(m=40, a=16, dh=1, n_fail=20)])
+                                dict(m=40, a=16, dh=1, n_fail=20)]
+                         + [pytest.param(c, id=c)
+                            for c in sorted(PREEMPT_CARD_CASES)])
 def test_preempt_matches_plain(cuda_device, kw):
-    args = _preempt_args(cuda_device, **kw)
-    got = preempt_bulk(*args)
+    """K7 (csrc/preempt.cu) equal to its plain version on the card and on
+    CPU copies; one launch, and no other device op in the wrapper (the
+    profiler sees one kernel)."""
+    if isinstance(kw, str):
+        args = _preempt_case(kw, cuda_device)
+        args_cpu = _preempt_case(kw, "cpu")
+    else:
+        args = _preempt_args(cuda_device, **kw)
+        args_cpu = _preempt_args("cpu", **kw)
+    preempt_bulk(*args)                    # built and bound
+    K.reset_launches()
+    K.reset_eager()
+    got, ops = _device_kernels(lambda: preempt_bulk(*args))
+    assert K.PREEMPT_BULK.launches == 1 and not K.EAGER
+    assert len(ops) == 1 and "preempt" in ops[0], ops
     want = preempt_bulk_plain(*args)
-    want_cpu = preempt_bulk(*_preempt_args("cpu", **kw))
+    want_cpu = preempt_bulk(*args_cpu)
     torch.cuda.synchronize()
     _same(got, want, want_cpu)
+    if kw == "every_row_infeasible":
+        assert (got[0] == -1).all()
+    elif isinstance(kw, str):
+        assert (got[0][:args.n_real] >= 0).any()
+        assert (got[0][args.n_real:] == -1).all()
 
 
 @pytest.mark.gpu
@@ -653,6 +714,28 @@ def test_feasible_mask_matches_plain(cuda_device):
 
 
 @pytest.mark.gpu
+def test_feasible_mask_is_one_k1_pass(cuda_device):
+    """K8 with datacenter and pool rows that differ and ineligible rows:
+    one launch of K1's pass counted on K8 (none on K1), no other device
+    op in the wrapper, equal to its plain version."""
+    rng = np.random.default_rng(8)
+    c = _scan_inputs("spread_affinity")
+    n = c.attrs.shape[0]
+    c = c._replace(dc_mask=torch.from_numpy(rng.random(n) < 0.7),
+                   pool_mask=torch.from_numpy(rng.random(n) < 0.7))
+    assert not torch.equal(c.dc_mask, c.pool_mask) and not c.elig.all()
+    fm = [c.attrs, c.elig, c.dc_mask, c.pool_mask, c.con, c.luts]
+    i = [t.to(cuda_device) for t in fm]
+    feasible_mask(*i)
+    K.reset_launches()
+    K.reset_eager()
+    got, ops = _device_kernels(lambda: feasible_mask(*i))
+    assert K.FEASIBLE.launches == 1 and K.LANDSCAPE.launches == 0
+    assert not K.EAGER and len(ops) == 1 and "landscape" in ops[0], ops
+    _same([got], [feasible_mask_plain(*i)], [feasible_mask_plain(*fm)])
+
+
+@pytest.mark.gpu
 def test_solo_wrappers_refuse_wrong_dtype_on_card(cuda_device):
     inp = _scan_inputs("binpack", cuda_device)
     with pytest.raises(ValueError):
@@ -665,6 +748,7 @@ def test_solo_wrappers_refuse_wrong_dtype_on_card(cuda_device):
 # ------------------------------------------------------ mesh kernels
 
 from nomad_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from nomad_tpu_torch.parallel import place_sharded  # noqa: E402
 from torch_parity import pad_arrays  # noqa: E402
 
 S = 8
@@ -761,6 +845,28 @@ def test_k9_sharded_scan_matches_plain(cuda_device, case):
     want_cpu = pmesh.place_sharded_packed(_mesh_scan_inputs(case),
                                           pmesh.make_mesh(S, "cpu"))
     torch.cuda.synchronize()
+    _same(got, want, want_cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["padding_spread_distinct", "few_feasible",
+                                  "n_loc_below_3"])
+def test_place_sharded_on_card_launches_k9(cuda_device, case):
+    """`parallel.place_sharded` on a card mesh launches K9 once and
+    equals `unpack_outputs` of K9's packed output and the plain version
+    on CPU copies."""
+    mesh = pmesh.make_mesh(S, cuda_device)
+    inp = _mesh_scan_inputs(case, cuda_device)
+    K.reset_launches()
+    got = place_sharded(inp, mesh)
+    torch.cuda.synchronize()
+    assert K.PLACE_SCAN_SHARDED.launches == 1
+    assert all(t.device.type == "cuda" for t in got)
+    want = psel.unpack_outputs(*pmesh.place_sharded_packed(inp, mesh))
+    want_cpu = place_sharded(_mesh_scan_inputs(case),
+                             pmesh.make_mesh(S, "cpu"))
+    torch.cuda.synchronize()
+    assert got._fields == want_cpu._fields
     _same(got, want, want_cpu)
 
 

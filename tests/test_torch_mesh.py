@@ -17,6 +17,7 @@ import torch
 
 from nomad_tpu.ops import select as rsel
 from nomad_tpu.parallel import mesh as rmesh
+from nomad_tpu.parallel import place_sharded_fn
 from nomad_tpu_torch.ops.convert import (
     bulk_inputs_from_numpy,
     frames_from_numpy,
@@ -26,6 +27,7 @@ from nomad_tpu_torch.ops.convert import (
 from nomad_tpu_torch.ops import select as psel
 from nomad_tpu_torch.ops.select import pack_outputs
 from nomad_tpu_torch.parallel import mesh as pmesh
+from nomad_tpu_torch.parallel import place_sharded
 from torch_parity import (
     MEMO_SCAN_CASES,
     SCATTER_ROW_CASES,
@@ -117,6 +119,53 @@ def test_k9_scan_matches_reference_on_memo_inputs(case, ref_mesh):
     assert_equal(want, got)
     assert memo_identity(np.asarray(want[0]), arr["tg_idx"],
                          arr["active"]) > 0
+
+
+# tests/test_parallel.py's sharded-placement shapes (16 nodes x 12
+# placements, a spread over 12 nodes x 10, 10 nodes padded to 16 x 8),
+# and two eligible rows of 32, fewer than the top 3
+PLACE_SHARDED_CASES = {
+    "sixteen_nodes": dict(n=16, p=12),
+    "spread": dict(n=12, p=10, s=1, k=3),
+    "padded_to_16": dict(n=10, p=8),
+    "fewer_feasible_than_top_k": dict(n=32, p=16, tight=True),
+}
+
+
+def _place_sharded_arrays(case):
+    kw = PLACE_SHARDED_CASES[case]
+    arr = random_placement_arrays(np.random.default_rng(400), **kw)
+    if case == "fewer_feasible_than_top_k":
+        arr["elig"][:] = False
+        arr["elig"][[9, 30]] = True
+        arr["con"][:] = 0
+        arr["used0"][:] = 0
+    return pad_arrays(arr, pmesh.pad_nodes(kw["n"], S))
+
+
+@pytest.mark.parametrize("case", sorted(PLACE_SHARDED_CASES))
+def test_place_sharded_matches_reference(case, ref_mesh):
+    """`parallel.place_sharded` on a CPU mesh against the reference's
+    `place_sharded_fn` on the 8-device mesh: picks, top-k rows, the
+    metric columns, `used` and `job_count` (npad rows) exactly; scores
+    and top-k scores to 1e-6 (they agree to the bit so far)."""
+    arr = _place_sharded_arrays(case)
+    want = place_sharded_fn(ref_mesh)(reference_placement_inputs(arr))
+    got = place_sharded(placement_inputs_from_numpy(arr),
+                        pmesh.make_mesh(S, "cpu"))
+    assert got._fields == want._fields
+    for f in got._fields:
+        w, g = np.asarray(getattr(want, f)), getattr(got, f).numpy()
+        assert w.dtype == g.dtype and w.shape == g.shape, f
+        if f in ("scores", "topk_scores"):
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-6)
+        else:
+            assert np.array_equal(w, g), f
+    assert got.used.shape[0] == pmesh.pad_nodes(arr["attrs"].shape[0], S)
+    picks, top = got.picks.numpy(), got.topk_rows.numpy()
+    assert (picks >= 0).any()
+    if case == "fewer_feasible_than_top_k":
+        assert ((picks >= 0) & (top == -1).any(axis=1)).any()
 
 
 def test_k9_shard_without_feasible_rows(ref_mesh):

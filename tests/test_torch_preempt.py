@@ -58,6 +58,64 @@ def test_preempt_bulk_matches_reference(case):
         assert (want[0][args[10]:] == -1).all()     # padding steps
 
 
+def _chained(args):
+    """The reference's launch over all of `args`' steps, and the same
+    steps as a chain of one-step launches: each step's usage and job
+    count carried, and its row's consumed victims carried as a count
+    (`k0 += ks` on the chosen row).  Returns (whole, chain, states):
+    `states[t]` is (used, job_count, k0) before step t, and the last
+    entry the state after the chain."""
+    cap, used, static, dh, jc, prio, res, req, k0, n_place, n_real = args
+    whole = _ref(args)
+    k0 = k0.copy()
+    best, ks, states = [], [], [(used, jc, k0.copy())]
+    for t in range(n_place):
+        b, k, used, jc = _ref((cap, used, static, dh, jc, prio, res, req,
+                               k0, 1, np.int32(1 if t < n_real else 0)))
+        if b[0] >= 0:
+            k0[b[0]] += k[0]
+        best.append(b[0])
+        ks.append(k[0])
+        states.append((used, jc, k0.copy()))
+    chain = [np.array(best, np.int32), np.array(ks, np.int32), used, jc]
+    return whole, chain, states
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_reference_consumed_is_a_prefix(case):
+    """The reference's consumed victims of a row are always a prefix of
+    its table, so a count carries them: one-step launches chained with
+    `k0 += ks` equal one launch of every step (best rows, counts, usage,
+    job counts).  K7 keeps a count a row on this identity
+    (csrc/preempt.cu)."""
+    for rep in range(2):
+        args = random_preempt_args(np.random.default_rng(rep), **CASES[case])
+        whole, chain, _ = _chained(args)
+        for w, c in zip(whole, chain):
+            assert w.dtype == c.dtype and np.array_equal(w, c)
+        assert (whole[0] >= 0).any()
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_reference_step_changes_one_row(case):
+    """Row locality: a step of the reference changes the usage, job
+    count and consumed count of its chosen row and of no other row (none
+    at all when it places nothing).  So every other row's key carries
+    over to the next step, and K7 recomputes one key a step."""
+    for rep in range(2):
+        args = random_preempt_args(np.random.default_rng(rep), **CASES[case])
+        _, chain, states = _chained(args)
+        m = args[0].shape[0]
+        for t, b in enumerate(chain[0]):
+            before, after = states[t], states[t + 1]
+            others = np.arange(m) != b
+            for x, y in zip(before, after):
+                assert np.array_equal(x[others], y[others])
+            if b >= 0:
+                assert any(not np.array_equal(x[b], y[b])
+                           for x, y in zip(before, after))
+
+
 def test_inexact_costs_and_ties_are_exercised():
     """The f32 cost prefixes of the `big` tables are inexact (a float64
     sum differs), and the `ties` tables hold equal costs on many rows."""
