@@ -742,6 +742,15 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def bound(n_bytes: int, n_ops: int) -> dict:
+    """The least time of `n_bytes` moved and `n_ops` done on the card
+    (PEAK_BYTES, PEAK_OPS), and which of the two bounds it."""
+    b_ms = n_bytes / PEAK_BYTES * 1e3
+    o_ms = n_ops / PEAK_OPS * 1e3
+    return {"bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+
+
 def tree_map(fn, x):
     """`x` (a tensor, or an inputs tuple or argument list holding some)
     with `fn` applied to every tensor."""
@@ -1327,10 +1336,7 @@ def kernel_phase(h, zoned_built, flat_built):
         ops=SCATTER_CHUNK * 3,
         depth_ms=None, _args=(work, r4, v4, r4l)))
     for r in rows:
-        b_ms = r["bytes"] / PEAK_BYTES * 1e3
-        o_ms = r["ops"] / PEAK_OPS * 1e3
-        r["bound_ms"] = max(b_ms, o_ms)
-        r["bound_by"] = "bytes" if b_ms >= o_ms else "operations"
+        r.update(bound(r["bytes"], r["ops"]))
         r["barrier_ms"] = barrier_ms
     return rows
 
@@ -1814,38 +1820,26 @@ def preempt_large_args(m: int, a: int, n_place: int, seed: int = 0):
             dev(np.zeros(m, np.int32)), n_place, n_place)
 
 
-def bound(n_bytes: int, n_ops: int) -> dict:
-    """The least time of `n_bytes` moved and `n_ops` done on the card
-    (PEAK_BYTES, PEAK_OPS), and which of the two bounds it."""
-    b_ms = n_bytes / PEAK_BYTES * 1e3
-    o_ms = n_ops / PEAK_OPS * 1e3
-    return {"bound_ms": max(b_ms, o_ms),
-            "bound_by": "bytes" if b_ms >= o_ms else "operations"}
-
-
 def preempt_stats(args, got, level_ms) -> dict:
     """What a K7 launch at `args` needs, from its own output `got`: the
-    bytes (inputs once, outputs once), the operations (OPS_PREEMPT_*),
-    the computed steps and the depth of their chain; and where the
-    rows' state lies (csrc/preempt.cu make_plan)."""
+    bytes (inputs once, outputs once), the operations (OPS_PREEMPT_*)
+    and the bound they give, the computed steps and the depth of their
+    chain; and where the rows' state lies (csrc/preempt.cu make_plan)."""
     from nomad_tpu_torch.ops import kernels as K
 
     m, a = args[5].shape
     steps = int((got[0] >= 0).sum())
     levels = preempt_levels(m)
-    tensors = [x for x in args if hasattr(x, "data_ptr")]
+    n_bytes = nbytes(*[x for x in args if hasattr(x, "data_ptr")], *got)
+    n_ops = ((m + steps) * (OPS_PREEMPT_VICTIM * a + OPS_PREEMPT_ROW)
+             + m + steps * levels * OPS_PREEMPT_LEVEL)
+    in_smem = K.PREEMPT_BULK.fn("preempt_scratch_bytes")(m) == 0
     return dict(
-        bytes=nbytes(*tensors, *got),
-        ops=(m + steps) * (OPS_PREEMPT_VICTIM * a + OPS_PREEMPT_ROW)
-        + m + steps * levels * OPS_PREEMPT_LEVEL,
+        bytes=n_bytes, ops=n_ops, **bound(n_bytes, n_ops),
         depth_ms=steps * (levels + ROUNDS_PREEMPT_EXTRA) * level_ms,
-        **bound(nbytes(*tensors, *got),
-                (m + steps) * (OPS_PREEMPT_VICTIM * a + OPS_PREEMPT_ROW)
-                + m + steps * levels * OPS_PREEMPT_LEVEL),
         depth_steps=steps, levels=levels, rows=m, victims=a,
         placements=args[9], level_round_ms=level_ms,
-        state="shared" if K.PREEMPT_BULK.fn("preempt_scratch_bytes")(m) == 0
-        else "global")
+        state="shared" if in_smem else "global")
 
 
 def scan_steps(inp, buf) -> dict:
@@ -2038,10 +2032,7 @@ def solo_kernel_phase(rec, barrier_ms, dsmem_ms):
         ops=g * n * (OPS_FEASIBLE_ROW * c + OPS_FEASIBLE_BASE),
         library_ms=None, depth_ms=None))
     for r in rows:
-        b_ms = r["bytes"] / PEAK_BYTES * 1e3
-        o_ms = r["ops"] / PEAK_OPS * 1e3
-        r["bound_ms"] = max(b_ms, o_ms)
-        r["bound_by"] = "bytes" if b_ms >= o_ms else "operations"
+        r.update(bound(r["bytes"], r["ops"]))
         r["barrier_ms"] = barrier_ms
     return rows
 
@@ -2407,10 +2398,7 @@ def mesh_kernel_phase(rec, barrier_ms, dsmem_ms):
         ops=m * 3,
         depth_ms=None, replay_rows=m))
     for r in rows:
-        b_ms = r["bytes"] / PEAK_BYTES * 1e3
-        o_ms = r["ops"] / PEAK_OPS * 1e3
-        r["bound_ms"] = max(b_ms, o_ms)
-        r["bound_by"] = "bytes" if b_ms >= o_ms else "operations"
+        r.update(bound(r["bytes"], r["ops"]))
         r["barrier_ms"] = barrier_ms
         r["dsmem_exchange_ms"] = dsmem_ms
     return rows
@@ -2557,7 +2545,7 @@ def main() -> int:
                     "device_ms": r["device_ms"],
                     "library_ms": r["library_ms"],
                     "library_device_ms": r["library_device_ms"],
-                    **({"layouts": r["layouts"]} if "layouts" in r else {})}
+                    **{k: r[k] for k in ("layouts", "large") if k in r}}
                    for r in krows + srows + mrows]})
 
     missing = [k for k, v in launches.items() if v < 1]

@@ -33,11 +33,14 @@
 // by lane), and replace the leaf-to-root path (each level one warp
 // minimum over the 32 siblings).  Steps past n_real, or after a root
 // with no feasible row, compute nothing: their (-1, 0) is written at
-// set-up.  The row state (keys, usage, job counts, c and k) lives in
-// shared memory when the M rows fit (8 KB of rows and more: 26 bytes a
-// row), else the keys and (c, k) in the wrapper's global scratch and the
-// usage and job counts in the outputs themselves (the L2 holds them);
-// the tree's upper levels (M / 31 keys) always live in shared memory.
+// set-up.  The row state (keys, usage, job counts, c and k: 26 bytes a
+// row) lives in shared memory when the M rows fit (up to 8,852 rows on
+// an H100: `preempt_smem_rows`), else the keys and (c, k) in the
+// wrapper's global scratch and the usage and job counts in the outputs
+// themselves (the L2 holds them); the tree's upper levels (M / 31 keys)
+// always live in shared memory.  Set-up computes keys one thread a row
+// (its loads spread over 1024 threads), a step one warp a row (lane v
+// victim v): two forms of one key that the card tests hold equal.
 // The victim cost (prio + 1) * 1000 + resource sum is one fma, as XLA
 // fuses it.
 
@@ -84,10 +87,10 @@ enum { PH_COMMIT, PH_KEY, PH_TREE, NPHASE };
 // (shared when they fit, else the keys and (c, k) in global scratch and
 // usage and job counts in the outputs).
 struct Plan {
-  int levels;                     // tree levels above the leaves
-  long long lvl_off[MAX_LEVELS];  // key offset of level l + 1 in the tree
-  long long tree_keys;
-  long long smem, scratch;        // bytes
+  int levels;                         // tree levels above the leaves
+  long long lvl_off[MAX_LEVELS + 1];  // key offset of level l + 1 in the
+                                      // tree; [levels]: its key count
+  long long smem, scratch;            // bytes
   bool rows_in_smem;
 };
 
@@ -98,15 +101,15 @@ __host__ __device__ inline long long align8(long long x) {
 __host__ __device__ inline bool make_plan(int m, long long smem_max,
                                           Plan* pl) {
   pl->levels = 0;
-  pl->tree_keys = 0;
-  long long n = m;
+  long long n = m, keys = 0;
   while (n > 1) {
     if (pl->levels == MAX_LEVELS) return false;
     n = (n + 31) / 32;
-    pl->lvl_off[pl->levels++] = pl->tree_keys;
-    pl->tree_keys += n;
+    pl->lvl_off[pl->levels++] = keys;
+    keys += n;
   }
-  const long long tree = pl->tree_keys * 8;
+  pl->lvl_off[pl->levels] = keys;
+  const long long tree = keys * 8;
   // keys, usage, job counts, (c, k)
   const long long rows = (long long)m * 8 + (long long)m * 12 +
                          (long long)m * 4 + align8((long long)m * 2);
@@ -196,15 +199,14 @@ __device__ __forceinline__ unsigned long long row_key(bool feasible,
          (unsigned)i;
 }
 
-// The warp's least key.  Lane j holds the least key of the j-th block of
-// rows (or one row), in row order, so among equal costs the lowest lane
-// holds the lowest row.
+// The warp's least key: the least cost bits, then the least row among
+// the lanes that hold them (two 32-bit warp reductions)
 __device__ __forceinline__ unsigned long long warp_min_key(
     unsigned long long x) {
   const unsigned hi = (unsigned)(x >> 32);
   const unsigned mh = __reduce_min_sync(FULL, hi);
-  const int src = __ffs(__ballot_sync(FULL, hi == mh)) - 1;
-  return __shfl_sync(FULL, x, src);
+  const unsigned ml = __reduce_min_sync(FULL, hi == mh ? (unsigned)x : ~0u);
+  return ((unsigned long long)mh << 32) | ml;
 }
 
 template <bool SMEM, bool PROF>
@@ -223,7 +225,7 @@ __global__ void __launch_bounds__(BS, 1) preempt_kernel(PreParams p,
   int* sj;
   uint16_t* ck;
   if (SMEM) {
-    key = tree + pl.tree_keys;
+    key = tree + pl.lvl_off[pl.levels];
     su = reinterpret_cast<int*>(key + m);
     sj = su + 3 * m;
     ck = reinterpret_cast<uint16_t*>(sj + m);
@@ -294,7 +296,6 @@ __global__ void __launch_bounds__(BS, 1) preempt_kernel(PreParams p,
       const int u0 = su[3 * b], u1 = su[3 * b + 1], u2 = su[3 * b + 2];
       const int jb = sj[b] + 1;
       const int ckb = ck[b];
-      const bool stat = p.stat[b] != 0;
       const int c = ckb & 0xff, k = (ckb >> 8) - 1;
       // commit: take the victims [c, k]
       const bool take = lane >= c && lane <= k;
@@ -329,7 +330,8 @@ __global__ void __launch_bounds__(BS, 1) preempt_kernel(PreParams p,
       const bool fits = lane < a && g0 + s0 >= rq0 && g1 + s1 >= rq1 &&
                         g2 + s2 >= rq2;
       const int k2 = __ffs(__ballot_sync(FULL, fits)) - 1;
-      const bool ok = stat && k2 >= 0 && (p.dh > 0 ? jb < p.dh : true);
+      // (the row is static-feasible: the root's cost is below BIG_COST)
+      const bool ok = k2 >= 0 && (p.dh > 0 ? jb < p.dh : true);
       const float cost = ok ? cost_warp(alive ? vc : 0.0f, a, k2) : 0.0f;
       unsigned long long cur = row_key(ok, cost, b);
       if (lane == 0) {
@@ -337,18 +339,22 @@ __global__ void __launch_bounds__(BS, 1) preempt_kernel(PreParams p,
         ck[b] = pack_ck(c2, k2);
       }
       pc.mark_nb(PH_KEY, true);
-      // the path from the leaf to the root
+      // the path from the leaf to the root (unrolled: the level offsets
+      // stay in the parameter space, not in local memory)
       int idx = b;
-      for (int l = 0; l < pl.levels; ++l) {
-        if (lane == (idx & 31)) x = cur;
-        cur = warp_min_key(x);
-        idx >>= 5;
-        unsigned long long* lv = tree + pl.lvl_off[l];
-        if (lane == 0) lv[idx] = cur;
-        if (l + 1 < pl.levels) {   // idx's siblings on this level
-          const long long n = pl.lvl_off[l + 1] - pl.lvl_off[l];
-          const int s = (idx & ~31) + lane;
-          x = s < n ? lv[s] : NO_KEY;
+#pragma unroll
+      for (int l = 0; l < MAX_LEVELS; ++l) {
+        if (l < pl.levels) {
+          if (lane == (idx & 31)) x = cur;
+          cur = warp_min_key(x);
+          idx >>= 5;
+          unsigned long long* lv = tree + pl.lvl_off[l];
+          if (lane == 0) lv[idx] = cur;
+          if (l + 1 < pl.levels) {   // idx's siblings on this level
+            const long long n = pl.lvl_off[l + 1] - pl.lvl_off[l];
+            const int s = (idx & ~31) + lane;
+            x = s < n ? lv[s] : NO_KEY;
+          }
         }
       }
       root = cur;

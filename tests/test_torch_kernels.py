@@ -698,41 +698,39 @@ def test_preempt_matches_plain(cuda_device, kw):
         assert (got[0][args.n_real:] == -1).all()
 
 
-@pytest.mark.gpu
-def test_feasible_mask_matches_plain(cuda_device):
-    for case in ("spread_affinity", "distinct_prev_extra"):
-        i = _scan_inputs(case, cuda_device)
-        c = _scan_inputs(case)
-        got = feasible_mask(i.attrs, i.elig, i.dc_mask, i.pool_mask, i.con,
-                            i.luts)
-        want = feasible_mask_plain(i.attrs, i.elig, i.dc_mask, i.pool_mask,
-                                   i.con, i.luts)
-        want_cpu = feasible_mask_plain(c.attrs, c.elig, c.dc_mask,
-                                       c.pool_mask, c.con, c.luts)
-        torch.cuda.synchronize()
-        _same([got], [want], [want_cpu])
-
-
-@pytest.mark.gpu
-def test_feasible_mask_is_one_k1_pass(cuda_device):
-    """K8 with datacenter and pool rows that differ and ineligible rows:
-    one launch of K1's pass counted on K8 (none on K1), no other device
-    op in the wrapper, equal to its plain version."""
+def _feasible_inputs(case, device="cpu"):
+    """K8's arguments from a scan case; `dc_pool_differ` draws datacenter
+    and pool rows that differ over a case with ineligible rows."""
+    if case != "dc_pool_differ":
+        i = _scan_inputs(case, device)
+        return [i.attrs, i.elig, i.dc_mask, i.pool_mask, i.con, i.luts]
     rng = np.random.default_rng(8)
-    c = _scan_inputs("spread_affinity")
-    n = c.attrs.shape[0]
-    c = c._replace(dc_mask=torch.from_numpy(rng.random(n) < 0.7),
-                   pool_mask=torch.from_numpy(rng.random(n) < 0.7))
-    assert not torch.equal(c.dc_mask, c.pool_mask) and not c.elig.all()
-    fm = [c.attrs, c.elig, c.dc_mask, c.pool_mask, c.con, c.luts]
-    i = [t.to(cuda_device) for t in fm]
-    feasible_mask(*i)
+    i = _scan_inputs("spread_affinity")
+    n = i.attrs.shape[0]
+    fm = [i.attrs, i.elig, torch.from_numpy(rng.random(n) < 0.7),
+          torch.from_numpy(rng.random(n) < 0.7), i.con, i.luts]
+    assert not torch.equal(fm[2], fm[3]) and not fm[1].all()
+    return [t.to(device) for t in fm]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["spread_affinity", "distinct_prev_extra",
+                                  "dc_pool_differ"])
+def test_feasible_mask_matches_plain(cuda_device, case):
+    """K8: one launch of K1's pass counted on K8 (none on K1), no other
+    device op in the wrapper, equal to its plain version on the card and
+    on CPU copies."""
+    fm = _feasible_inputs(case, cuda_device)
+    feasible_mask(*fm)                     # built and bound
     K.reset_launches()
     K.reset_eager()
-    got, ops = _device_kernels(lambda: feasible_mask(*i))
+    got, ops = _device_kernels(lambda: feasible_mask(*fm))
     assert K.FEASIBLE.launches == 1 and K.LANDSCAPE.launches == 0
     assert not K.EAGER and len(ops) == 1 and "landscape" in ops[0], ops
-    _same([got], [feasible_mask_plain(*i)], [feasible_mask_plain(*fm)])
+    want = feasible_mask_plain(*fm)
+    want_cpu = feasible_mask_plain(*_feasible_inputs(case))
+    torch.cuda.synchronize()
+    _same([got], [want], [want_cpu])
 
 
 @pytest.mark.gpu
