@@ -34,6 +34,31 @@ into nomad_tpu_torch/csrc/build/), then:
      deltas, so after a 384-eval wave the next dispatch re-uploads the
      usage instead.)
 
+The four waves dispatch and collect through one TorchExecutor (the
+device executor seam, ops/executor.py) attached to the store; the
+chained wave's usage triple is the one the zoned wave retained
+(`retain_chain`, then `claim_chain`, as the worker does).  Then:
+
+  executor: the executor's device ledger (compile sites with misses and
+     first-launch seconds, the `kernels.nvcc/*` builds among them;
+     uploads and their bytes by cause, each wave's too; d2h fetches and
+     bytes; dispatches, resident waves, invalidations; the residency
+     estimate and its watermark beside torch.cuda.memory_allocated and
+     max_memory_allocated), the host µs `_launch` adds to a launch, and
+     the registry's nomad.executor.* and nomad.engine.* rows;
+  executor_invalidation: the flat wave's chain retained, one node
+     written through the store, the chain dropped (reason node-write)
+     and a small zoned wave (128 x 260, K1 + K2) unchained, re-uploading
+     the node tensors and the usage;
+  device_wait: WAIT_WAVES zoned waves (384 x 260 each, K1 + K2) under
+     the port's sampling profiler at WAIT_HZ, each collect's wait marked
+     device-wait: the window's bucket split, the main thread's innermost
+     frames, each wait's seconds and the dispatch's pinned-copy set-up.
+
+Every wave line (the mesh waves' too) counts the interpreter's full
+collections inside the wave (`gc2_n`, `gc2_s`); the summary line, the
+run's.
+
 Then the solo path, each eval through Harness.process at the widths of
 bench.py's configs 1-4 (bench.py:409, :442, :484, :553):
 
@@ -126,6 +151,7 @@ line); copied into an older checkout, it times that checkout's K6.
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import statistics
 import subprocess
@@ -229,6 +255,23 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+# the interpreter's full (generation 2) collections: count and seconds,
+# kept by `gc_meter` once main() installs it; each wave line carries its
+# own (`gc2_n`, `gc2_s`), since a full collection over the store's
+# objects takes a large part of a second on that host
+GC2 = {"n": 0, "s": 0.0, "t0": 0.0}
+
+
+def gc_meter(phase: str, info: dict) -> None:
+    if info["generation"] != 2:
+        return
+    if phase == "start":
+        GC2["t0"] = time.perf_counter()
+    else:
+        GC2["n"] += 1
+        GC2["s"] += time.perf_counter() - GC2["t0"]
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -320,14 +363,23 @@ def prepare(h, evals):
     return snap, scheds, preps, items, seeds
 
 
-def run_wave(h, evals, used0_dev=None, twin=None):
+def run_wave(h, evals, used0_dev=None, twin=None, executor=None,
+             mark_wait=False):
     """prepare -> ONE dispatch/collect -> submit/finalize per eval, as
     the worker runs a wave; returns (pending, decisions, timings, twin
-    pending).  `twin` = (engine, used0_dev): that engine places the same
-    items at the same snapshot and seeds first (untimed), and each eval's
-    decisions must pass `parity_gate` against its."""
+    pending).  `executor` (a DeviceExecutor over h.engine) dispatches
+    and collects in place of the bare engine.  `mark_wait`: the wait for
+    the result runs under profiling.activity("device-wait") before the
+    collect, as the reference's wave pipeline marks it.  `twin` =
+    (engine, used0_dev): that engine places the same items at the same
+    snapshot and seeds first (untimed), and each eval's decisions must
+    pass `parity_gate` against its."""
     import torch
 
+    from nomad_tpu_torch.core import profiling
+
+    place = executor if executor is not None else h.engine
+    gc0 = GC2["n"], GC2["s"]
     t0 = time.perf_counter()
     snap, scheds, preps, items, seeds = prepare(h, evals)
     t1 = time.perf_counter()
@@ -338,9 +390,15 @@ def run_wave(h, evals, used0_dev=None, twin=None):
         twin_dec = twin[0].collect_batch(twin_pend)
         torch.cuda.synchronize()
     t1b = time.perf_counter()
-    pending = h.engine.dispatch_batch(snap, items, seed=seeds,
-                                      used0_dev=used0_dev)
-    decisions = h.engine.collect_batch(pending)
+    pending = place.dispatch_batch(snap, items, seed=seeds,
+                                   used0_dev=used0_dev)
+    wait_s = None
+    if mark_wait and pending["ready"] is not None:
+        tw = time.perf_counter()
+        with profiling.activity("device-wait"):
+            pending["ready"].synchronize()
+        wait_s = time.perf_counter() - tw
+    decisions = place.collect_batch(pending)
     t2 = time.perf_counter()
     if twin is not None:
         parity_gate(decisions, twin_dec)
@@ -351,9 +409,12 @@ def run_wave(h, evals, used0_dev=None, twin=None):
     if h.engine.device.type == "cuda":
         torch.cuda.synchronize()
     t3 = time.perf_counter()
-    return pending, decisions, {
-        "prepare_s": t1 - t0, "place_s": t2 - t1b, "commit_s": t3 - t2,
-        "wall_s": t3 - t0 - (t1b - t1)}, twin_pend
+    tm = {"prepare_s": t1 - t0, "place_s": t2 - t1b, "commit_s": t3 - t2,
+          "wall_s": t3 - t0 - (t1b - t1), "gc2_n": GC2["n"] - gc0[0],
+          "gc2_s": GC2["s"] - gc0[1]}
+    if wait_s is not None:
+        tm["wait_s"] = wait_s
+    return pending, decisions, tm, twin_pend
 
 
 def parity_gate(got, want):
@@ -426,6 +487,245 @@ def used_matches_store(h, used_dev, usage):
         bad = np.nonzero((got != want).any(axis=1))[0]
         raise AssertionError(f"device usage differs from the store on "
                              f"{len(bad)} rows, e.g. {bad[:5].tolist()}")
+
+
+# ------------------------------------------------------------ executor
+
+# the device-wait record: a zoned wave's collect waits 0.1-0.5 ms, and
+# the sampler, whose sleep and sample take some 0.1-0.2 ms at any higher
+# rate, lands 0-3 samples in it; WAIT_WAVES waves of it
+WAIT_HZ = 100_000.0
+WAIT_WAVES = 6
+# the nomad.* series the executor line prints from the registry
+EXECUTOR_SERIES = ("nomad.executor.", "nomad.engine.")
+
+
+def cause_delta(executor, before: dict) -> dict:
+    """upload_bytes_by_cause's growth since `before`."""
+    now = executor.upload_bytes_by_cause
+    return {c: now[c] - before.get(c, 0) for c in sorted(now)
+            if now[c] != before.get(c, 0)}
+
+
+def launch_meter_us(engine, calls: int = 20_000, loops: int = 5) -> float:
+    """Host µs that `PlacementEngine._launch` adds to one launch (a
+    no-op in its place, median of `loops`), timed on a private compile
+    ledger."""
+    import nomad_tpu_torch.ops.engine as E
+    from nomad_tpu_torch.core.profiling import CompileLedger
+
+    def noop():
+        return None
+
+    led = CompileLedger()
+    orig = E._compile_ledger
+    E._compile_ledger = lambda: led
+    try:
+        engine._launch("meter_probe", (1,), noop)
+        per = []
+        for _ in range(loops):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                engine._launch("meter_probe", (1,), noop)
+            t1 = time.perf_counter()
+            for _ in range(calls):
+                noop()
+            t2 = time.perf_counter()
+            per.append(((t1 - t0) - (t2 - t1)) / calls * 1e6)
+    finally:
+        E._compile_ledger = orig
+    return statistics.median(per)
+
+
+def executor_phase(card, executor, n_waves, wave_uploads, flat_replayed):
+    """The executor's device ledger after the four waves, the allocator's
+    figures beside its residency estimate, and the registry's
+    nomad.executor.* / nomad.engine.* rows."""
+    import torch
+
+    from nomad_tpu_torch.core.telemetry import REGISTRY
+    from nomad_tpu_torch.ops import kernels as K
+
+    led = executor.ledger()
+    alloc = torch.cuda.memory_allocated()
+    if led["resident_waves"] != 1:
+        raise AssertionError(f"resident_waves {led['resident_waves']}")
+    if led["dispatches"] != n_waves:
+        raise AssertionError(f"dispatches {led['dispatches']}, want "
+                             f"{n_waves}")
+    flat = wave_uploads["flat_wave"]
+    cause = "invalidation-replay" if flat_replayed else "initial-upload"
+    if flat.get(cause, 0) <= 0:
+        raise AssertionError(f"flat wave uploads {flat}, want {cause}")
+    if not 0 < led["hbm_resident_bytes"] <= alloc:
+        raise AssertionError(f"hbm_resident_bytes "
+                             f"{led['hbm_resident_bytes']}, allocated "
+                             f"{alloc}")
+    sites = led["compile"]["sites"]
+    if K.build_seconds is not None:
+        missing = [src for src in K.SOURCES
+                   if sites.get(f"kernels.nvcc/{src}", {}).get("misses", 0)
+                   < 1]
+        if missing:
+            raise AssertionError(f"nvcc builds not in the ledger: "
+                                 f"{missing}")
+    snap = REGISTRY.snapshot()
+    emit({"phase": "executor", "card": card, "backend": led["backend"],
+          "compile_sites": {k: v for k, v in sorted(sites.items())
+                            if v["misses"]},
+          "compile": {k: led["compile"][k] for k in
+                      ("hits", "misses", "hit_rate", "first_launch_s",
+                       "steady_s")},
+          **{k: led[k] for k in ("uploads", "upload_bytes",
+                                 "upload_bytes_by_cause", "d2h_fetches",
+                                 "d2h_bytes", "dispatches",
+                                 "resident_waves", "invalidations",
+                                 "hbm_resident_bytes",
+                                 "hbm_high_watermark_bytes")},
+          "wave_upload_bytes_by_cause": wave_uploads,
+          "memory_allocated": alloc,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launch_meter_us": launch_meter_us(executor.engine),
+          "registry": {kind: {k: v for k, v in snap[kind].items()
+                              if k.startswith(EXECUTOR_SERIES)}
+                       for kind in ("counters", "gauges", "histograms")}})
+
+
+def invalidation_phase(card, h, executor, prev, all_jobs, zone_of,
+                       launches):
+    """Retain the flat wave's chain, write one node through the store the
+    executor is attached to, and show the chain dropped (reason
+    node-write) and the next wave (a small zoned wave) unchained with
+    its re-upload."""
+    from nomad_tpu_torch.core.telemetry import REGISTRY
+
+    jobs, evals = register_wave(h, "reupload_wave", SMALL_EVALS, PER_EVAL,
+                                N_ZONES)
+    all_jobs += jobs
+    executor.retain_chain("flat_wave", 0, executor.chain_state(prev))
+    inv0 = executor.stats["invalidations"]
+    reg0 = REGISTRY.counter("nomad.executor.invalidations",
+                            reason="node-write")
+    node = h.state.node_by_id("node-000007").copy()
+    node.attributes["platform.rack"] = "r8"
+    h.state.upsert_node(node)
+    inv = executor.stats["invalidations"] - inv0
+    reg = REGISTRY.counter("nomad.executor.invalidations",
+                           reason="node-write") - reg0
+    if inv != 1 or reg != 1:
+        raise AssertionError(f"invalidations +{inv} (node-write +{reg}), "
+                             "want +1")
+    claimed = executor.claim_chain()
+    if claimed is not None:
+        raise AssertionError("the chain survived a node write")
+    up0 = dict(executor.upload_bytes_by_cause)
+    n_up0 = executor.stats["uploads"]
+    reset_counts()
+    pend, _, tm, _ = run_wave(h, evals, used0_dev=None, executor=executor)
+    ph, eager = read_counts("reupload_wave")
+    for k, v in ph.items():
+        launches[k] += v
+    if pend["chained"]:
+        raise AssertionError("reupload_wave chained after a node write")
+    placed, usage = check_store(h, jobs, PER_EVAL, all_jobs, zone_of,
+                                N_ZONES)
+    used_matches_store(h, pend["used"], usage)
+    eng = executor.engine
+    want = (sum(v.nbytes for v in eng._dev_cache.values())
+            + eng._used_dev.nbytes)
+    delta = cause_delta(executor, up0)
+    if delta != {"initial-upload": want} \
+            or executor.stats["uploads"] - n_up0 != 2:
+        raise AssertionError(f"re-upload {delta} in "
+                             f"{executor.stats['uploads'] - n_up0} "
+                             f"uploads, want {want} in 2")
+    emit({"phase": "executor_invalidation", "card": card,
+          "invalidations": executor.stats["invalidations"],
+          "reason": "node-write", "chained": pend["chained"],
+          "evals": len(evals), "placements": placed, **tm,
+          "reupload_bytes_by_cause": delta, "launches": ph,
+          "eager": eager})
+
+
+def device_wait_phase(card, h, executor, all_jobs, zone_of, launches):
+    """WAIT_WAVES zoned waves under the port's PROFILER at WAIT_HZ, each
+    collect's wait marked device-wait: the window's bucket split, the
+    main thread's innermost frames (where the port's waits show, the
+    frames profiling._DEVICE_WAIT_FUNCS names), each wait's seconds and
+    the seconds of the result's pinned copy set-up in dispatch.  (A
+    zoned wave's collect waits ~0.3 ms, the longest wait of the waves;
+    the small wave's ends before the sampler's next sample.)"""
+    from nomad_tpu_torch.core import profiling
+
+    prof = profiling.PROFILER
+    waves = [register_wave(h, f"device_wait_wave{i}", N_EVALS, PER_EVAL,
+                           N_ZONES) for i in range(WAIT_WAVES)]
+
+    def folds():
+        out = {}
+        for line in prof.folded().splitlines():
+            stack, n = line.rsplit(" ", 1)
+            out[stack] = int(n)
+        return out
+
+    eng = executor.engine
+    start_fetch = eng._start_fetch
+    fetch_s = []
+
+    def timed_start_fetch(buf):
+        t0 = time.perf_counter()
+        out = start_fetch(buf)
+        fetch_s.append(time.perf_counter() - t0)
+        return out
+
+    eng._start_fetch = timed_start_fetch
+    timings = []
+    prof.start(hz=WAIT_HZ)
+    try:
+        base, base_folds = prof.snapshot(), folds()
+        reset_counts()
+        for jobs, evals in waves:
+            all_jobs += jobs
+            pend, _, tm, _ = run_wave(h, evals, executor=executor,
+                                      mark_wait=True)
+            timings.append(tm)
+        ph, eager = read_counts("device_wait_waves")
+        cur, cur_folds = prof.snapshot(), folds()
+    finally:
+        prof.stop()
+        del eng._start_fetch
+    for k, v in ph.items():
+        launches[k] += v
+    # each wave's allocs and zones, then capacity once over every job
+    placed = sum(check_store(h, jobs, PER_EVAL, [], zone_of, N_ZONES)[0]
+                 for jobs, _ in waves)
+    _, usage = check_store(h, [], PER_EVAL, all_jobs)
+    used_matches_store(h, pend["used"], usage)
+    buckets = {b: round(cur["buckets"].get(b, 0.0)
+                        - base["buckets"].get(b, 0.0), 3)
+               for b in profiling.BUCKETS}
+    leaves = {}
+    for stack, n in cur_folds.items():
+        d = n - base_folds.get(stack, 0)
+        if d > 0 and stack.startswith("other;"):
+            leaf = stack.rsplit(";", 1)[-1]
+            leaves[leaf] = leaves.get(leaf, 0) + d
+    by_frames = sum(n for leaf, n in leaves.items()
+                    if leaf.rsplit(":", 1)[-1]
+                    in profiling._DEVICE_WAIT_FUNCS)
+    if buckets["device-wait"] <= 0 or by_frames <= 0:
+        raise AssertionError(f"no device-wait sample: buckets {buckets}, "
+                             f"innermost frames {leaves}")
+    emit({"phase": "device_wait", "card": card, "hz": WAIT_HZ,
+          "samples": cur["samples"] - base["samples"],
+          "buckets": buckets, "roles": profiling.role_window(base, cur),
+          "main_thread_leaf_frames": dict(sorted(
+              leaves.items(), key=lambda kv: -kv[1])[:10]),
+          "device_wait_frames": sorted(profiling._DEVICE_WAIT_FUNCS),
+          "samples_in_device_wait_frames": by_frames,
+          "overhead_fraction": cur["overhead_fraction"],
+          "waves": len(waves), "placements": placed, "timings": timings,
+          "start_fetch_s": fetch_s, "launches": ph, "eager": eager})
 
 
 # ------------------------------------------------------------- timing
@@ -2415,11 +2715,13 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     from nomad_tpu_torch.ops import kernels as K
+    from nomad_tpu_torch.ops import TorchExecutor
     from nomad_tpu_torch.ops.feasibility import feasible_mask
     from nomad_tpu_torch.scheduler import Harness
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
+    gc.callbacks.append(gc_meter)
     t0 = time.perf_counter()
     K.build_all()
     build_s = time.perf_counter() - t0
@@ -2432,6 +2734,8 @@ def main() -> int:
 
     # cluster + the four waves' jobs, registered up front
     h = Harness()
+    executor = TorchExecutor(h.engine)
+    executor.attach_store(h.state)
     t0 = time.perf_counter()
     zone_of = build_cluster(h, N_NODES, N_ZONES)
     waves = [  # (phase, evals, placements each, zones, chained, kernels)
@@ -2469,19 +2773,29 @@ def main() -> int:
     replays = eager_replays(zoned_built, flat_built)
     del zoned_built, flat_built
 
-    # 3-6. the main path: each wave through the Harness, launch counts
-    # zeroed just before it and read just after
+    # 3-6. the main path: each wave through the Harness's schedulers and
+    # one TorchExecutor, launch counts zeroed just before it and read just
+    # after; the chained wave claims the chain the zoned wave retained
     launches = {k.name: 0 for k in K.KERNELS}
     all_jobs = []
-    prev = None
+    prev = prev_name = None
+    wave_uploads = {}
     for (name, n_ev, per, zones, chained, must), (jobs, evals) in zip(
             waves, registered):
         all_jobs += jobs
-        chain = ((prev["used"], prev["node_version"], prev["npad"])
-                 if chained else None)
+        chain = None
+        if chained:
+            executor.retain_chain(prev_name, 0, executor.chain_state(prev))
+            claimed = executor.claim_chain()
+            if claimed is None or claimed[0] != prev_name:
+                raise AssertionError(f"{name}: claimed {claimed}")
+            chain = claimed[2]
+        up0 = dict(executor.upload_bytes_by_cause)
         reset_counts()
-        pend, _, tm, _ = run_wave(h, evals, used0_dev=chain)
+        pend, _, tm, _ = run_wave(h, evals, used0_dev=chain,
+                                  executor=executor)
         ph, eager = read_counts(name)
+        wave_uploads[name] = cause_delta(executor, up0)
         for k, v in ph.items():
             launches[k] += v
         if bool(pend["chained"]) != chained:
@@ -2501,8 +2815,21 @@ def main() -> int:
               "round_size": pend["rs"], **tm,
               "evals_per_s": n_ev / tm["wall_s"],
               "placements_per_s": placed / tm["wall_s"], "launches": ph,
-              "eager": eager})
-        prev = pend
+              "eager": eager,
+              "upload_bytes_by_cause": wave_uploads[name]})
+        prev, prev_name = pend, name
+        if name == "flat_wave":
+            flat_replayed = ph["scatter_add"] > 0
+
+    # the executor's ledger, then a node write that drops the retained
+    # chain, then a wave under the sampler with its wait marked
+    executor_phase(card, executor, len(waves), wave_uploads, flat_replayed)
+    # (their jobs registered only now, so that the four waves run on the
+    # store the parent's do: a full collection's timing follows the
+    # objects alive)
+    invalidation_phase(card, h, executor, prev, all_jobs, zone_of,
+                       launches)
+    device_wait_phase(card, h, executor, all_jobs, zone_of, launches)
 
     # 7-11. the solo path, then 12. its kernels against the plain versions
     # (after the line of the two exchange probes)
@@ -2564,7 +2891,8 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "depth_ms": r["depth_ms"], "device_ms": r["device_ms"],
             "library_device_ms": r["library_device_ms"]})
-    emit({"phase": "summary", "total_s": time.perf_counter() - t_start})
+    emit({"phase": "summary", "total_s": time.perf_counter() - t_start,
+          "gc2_n": GC2["n"], "gc2_s": GC2["s"]})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

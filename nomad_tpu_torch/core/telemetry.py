@@ -1,0 +1,636 @@
+"""Process-wide telemetry: metrics registry + eval-lifecycle span tracer
+(reference: the go-metrics sink behind `nomad.*` series in
+command/agent/metrics_endpoint.go, plus the span shape of OpenTelemetry).
+
+Two process-global singletons, mirroring `core.logging.RING` (one agent
+per process in practice):
+
+  - `REGISTRY` — thread-safe counters, gauges, and FIXED-BUCKET
+    histograms (p50/p95/p99 + sum/count), with optional labels.
+    `/v1/metrics?format=prometheus` renders it as exposition text.
+  - `TRACER`   — a bounded ring of completed spans keyed by
+    `trace_id`/`span_id`/`parent`.  Context propagates by carrying
+    `trace_id` on `Evaluation`/`Plan`/`Allocation` structs (the wire
+    codec ships it for free), so one eval's journey — broker enqueue →
+    dequeue → worker schedule → plan queue → plan apply → client alloc
+    start — joins into a single span tree across server and client.
+
+Both read the injectable chaos `Clock` (`configure()`, called by every
+Server from its own clock): under a `VirtualClock` all recorded timings
+are virtual-time deltas, so same-seed scenario runs produce
+byte-identical timings.  Durations and span stamps use `monotonic()`
+exclusively — `VirtualClock.time()` is anchored to the wall epoch and
+would break that determinism.
+"""
+
+from __future__ import annotations
+
+import bisect
+import threading
+from collections import deque
+from contextlib import contextmanager
+from typing import Dict, Iterable, List, Optional, Tuple
+
+from nomad_tpu_torch.chaos.clock import Clock, SystemClock
+
+# default latency buckets (seconds) — wide enough for a device compile,
+# fine enough for sub-millisecond broker hops
+DEFAULT_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                   0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
+
+_QUANTILES = (("p50", 0.50), ("p95", 0.95), ("p99", 0.99))
+
+LabelKey = Tuple[str, Tuple[Tuple[str, str], ...]]
+
+
+def _key(name: str, labels: Dict[str, str]) -> LabelKey:
+    if not labels:
+        return (name, ())
+    return (name, tuple(sorted((k, str(v)) for k, v in labels.items())))
+
+
+class Histogram:
+    """Fixed-bucket histogram: per-bucket counts + sum/count.  NOT
+    internally locked — the registry serializes every access."""
+
+    __slots__ = ("buckets", "counts", "sum", "count")
+
+    def __init__(self, buckets: Tuple[float, ...] = DEFAULT_BUCKETS) -> None:
+        self.buckets = tuple(buckets)
+        self.counts = [0] * (len(self.buckets) + 1)   # last = +Inf
+        self.sum = 0.0
+        self.count = 0
+
+    def observe(self, value: float) -> None:
+        # bucket i holds values <= buckets[i] (prometheus `le` semantics)
+        self.counts[bisect.bisect_left(self.buckets, value)] += 1
+        self.sum += value
+        self.count += 1
+
+    def quantile(self, q: float) -> float:
+        """Linear interpolation inside the target bucket (the standard
+        prometheus histogram_quantile estimate)."""
+        if self.count == 0:
+            return 0.0
+        target = q * self.count
+        cum = 0
+        for i, c in enumerate(self.counts):
+            if c and cum + c >= target:
+                lo = self.buckets[i - 1] if i > 0 else 0.0
+                hi = (self.buckets[i] if i < len(self.buckets)
+                      else self.buckets[-1])
+                return lo + (hi - lo) * ((target - cum) / c)
+            cum += c
+        return self.buckets[-1]
+
+    def summary(self) -> Dict[str, float]:
+        out = {"sum": round(self.sum, 9), "count": self.count}
+        for label, q in _QUANTILES:
+            out[label] = round(self.quantile(q), 9)
+        return out
+
+
+class WindowedHistogram:
+    """Rolling-window histogram: a ring of sub-window `Histogram`s
+    rotated by the injected clock, so windowed quantiles cover only the
+    last `window_s` seconds of samples.  A cumulative histogram drowns a
+    p99 regression in hours of healthy history; this one forgets.
+
+    Rotation is purely a function of `now` (sub-window index =
+    `now // sub_s`), so under a `VirtualClock` the same observation
+    schedule yields byte-identical windowed summaries — the property the
+    flight-recorder determinism tests pin.  NOT internally locked — the
+    registry serializes every access, like `Histogram`."""
+
+    __slots__ = ("window_s", "n_sub", "sub_s", "buckets", "_subs",
+                 "rotations")
+
+    def __init__(self, window_s: float = 60.0, n_sub: int = 6,
+                 buckets: Tuple[float, ...] = DEFAULT_BUCKETS) -> None:
+        self.window_s = float(window_s)
+        self.n_sub = max(int(n_sub), 1)
+        self.sub_s = self.window_s / self.n_sub
+        self.buckets = tuple(buckets)
+        # (sub-window index, Histogram), oldest first
+        self._subs: deque = deque()
+        self.rotations = 0
+
+    def _rotate(self, now: float) -> int:
+        epoch = int(now // self.sub_s)
+        while self._subs and self._subs[0][0] <= epoch - self.n_sub:
+            self._subs.popleft()
+            self.rotations += 1
+        return epoch
+
+    def observe(self, value: float, now: float) -> None:
+        epoch = self._rotate(now)
+        if not self._subs or self._subs[-1][0] != epoch:
+            self._subs.append((epoch, Histogram(self.buckets)))
+        self._subs[-1][1].observe(value)
+
+    def merged(self, now: float) -> Histogram:
+        """One Histogram over every sample still inside the window."""
+        self._rotate(now)
+        h = Histogram(self.buckets)
+        for _, sub in self._subs:
+            for i, c in enumerate(sub.counts):
+                h.counts[i] += c
+            h.sum += sub.sum
+            h.count += sub.count
+        return h
+
+    def summary(self, now: float) -> Dict[str, float]:
+        out = self.merged(now).summary()
+        out["window_s"] = self.window_s
+        return out
+
+
+class MetricsRegistry:
+    """Thread-safe metric store.  Names are dotted (`nomad.broker.wait_s`);
+    a trailing `_s` marks seconds and renders as `_seconds` in the
+    prometheus exposition.  Labels are optional keyword args on every
+    record call."""
+
+    def __init__(self, clock: Optional[Clock] = None,
+                 window_s: float = 60.0, window_subs: int = 6) -> None:
+        self._lock = threading.Lock()
+        self.clock: Clock = clock if clock is not None else SystemClock()
+        self._counters: Dict[LabelKey, float] = {}
+        self._gauges: Dict[LabelKey, float] = {}
+        self._hists: Dict[LabelKey, Histogram] = {}
+        # rolling-window companions for series recorded through
+        # observe_windowed (eval latency, plan-queue wait, wave device
+        # time): the cumulative histogram keeps the lifetime view, the
+        # window keeps the last `window_s` seconds for SLO verdicts
+        self._windows: Dict[LabelKey, WindowedHistogram] = {}
+        self._window_s = float(window_s)
+        self._window_subs = int(window_subs)
+
+    def set_clock(self, clock: Clock) -> None:
+        self.clock = clock
+
+    # ---------------------------------------------------------- recording
+
+    def inc(self, name: str, n: float = 1, **labels) -> None:
+        k = _key(name, labels)
+        with self._lock:
+            self._counters[k] = self._counters.get(k, 0) + n
+
+    def set_gauge(self, name: str, value: float, **labels) -> None:
+        with self._lock:
+            self._gauges[_key(name, labels)] = value
+
+    def observe(self, name: str, value: float, **labels) -> None:
+        k = _key(name, labels)
+        with self._lock:
+            self._observe_locked(k, value)
+
+    def observe_windowed(self, name: str, value: float, **labels) -> None:
+        """Record into BOTH the cumulative histogram and the series'
+        rolling window, under one lock acquisition.  The window's
+        rotation reads the injected clock, so virtual-time runs produce
+        byte-identical windowed summaries."""
+        k = _key(name, labels)
+        now = self.clock.monotonic()
+        with self._lock:
+            self._observe_locked(k, value)
+            w = self._windows.get(k)
+            if w is None:
+                self._windows[k] = w = WindowedHistogram(
+                    self._window_s, self._window_subs)
+            w.observe(value, now)
+
+    def set_window(self, window_s: float, n_sub: int = 6) -> None:
+        """Resize the rolling window for FUTURE series (agent_config
+        server.slo.window_s); existing windows keep their span."""
+        with self._lock:
+            self._window_s = float(window_s)
+            self._window_subs = int(n_sub)
+
+    def _observe_locked(self, k: LabelKey, value: float) -> None:
+        h = self._hists.get(k)
+        if h is None:
+            self._hists[k] = h = Histogram()
+        h.observe(value)
+
+    @contextmanager
+    def time(self, name: str, **labels):
+        """Time a block into histogram `name`, on the injected clock."""
+        t0 = self.clock.monotonic()
+        try:
+            yield
+        finally:
+            self.observe(name, self.clock.monotonic() - t0, **labels)
+
+    # ------------------------------------------------------------ reading
+
+    def counter(self, name: str, **labels) -> float:
+        with self._lock:
+            return self._counters.get(_key(name, labels), 0)
+
+    def gauge(self, name: str, **labels) -> float:
+        with self._lock:
+            return self._gauges.get(_key(name, labels), 0.0)
+
+    def histogram(self, name: str, **labels) -> Optional[Dict[str, float]]:
+        with self._lock:
+            h = self._hists.get(_key(name, labels))
+            return h.summary() if h is not None else None
+
+    def window_summary(self, name: str,
+                       **labels) -> Optional[Dict[str, float]]:
+        """Rolling-window p50/p95/p99+sum/count for a series recorded
+        via observe_windowed; None when the series has no window."""
+        now = self.clock.monotonic()
+        with self._lock:
+            w = self._windows.get(_key(name, labels))
+            return w.summary(now) if w is not None else None
+
+    def counter_sum(self, name: str) -> float:
+        """Sum of one counter name across ALL of its label sets (e.g.
+        `nomad.executor.invalidations` regardless of reason)."""
+        with self._lock:
+            return sum(v for (n, _), v in self._counters.items()
+                       if n == name)
+
+    def counter_labels(self, name: str) -> Dict[str, float]:
+        """Per-label-set values for one counter name, keyed by the
+        flattened label string (`cause=initial-upload`); the unlabeled
+        series appears under ``""``.  Lets bench/profile surfaces break
+        a counter down by cause without reaching into internals."""
+        with self._lock:
+            out: Dict[str, float] = {}
+            for (n, labels), v in sorted(self._counters.items()):
+                if n != name:
+                    continue
+                out[",".join(f"{lk}={lv}" for lk, lv in labels)] = v
+            return out
+
+    def clear_series(self, prefix: str) -> int:
+        """Drop every counter/gauge/histogram/window whose name starts
+        with `prefix`.  The soak runner clears the point-in-time series
+        the timeline samples (rolling windows, quality gauges) at run
+        start: they are process-global and would otherwise leak one
+        run's residue into the next, breaking same-seed byte-identity
+        of the timeline's canonical dump.  Returns how many series
+        were removed."""
+        n = 0
+        with self._lock:
+            for store in (self._counters, self._gauges,
+                          self._hists, self._windows):
+                for k in [k for k in store if k[0].startswith(prefix)]:
+                    del store[k]
+                    n += 1
+        return n
+
+    @staticmethod
+    def _flat(k: LabelKey) -> str:
+        name, labels = k
+        if not labels:
+            return name
+        inner = ",".join(f"{lk}={lv}" for lk, lv in labels)
+        return f"{name}{{{inner}}}"
+
+    def snapshot(self) -> Dict[str, Dict]:
+        """JSON-safe dump: {counters, gauges, histograms, windows} keyed
+        by `name` or `name{label=value,...}`."""
+        now = self.clock.monotonic()
+        with self._lock:
+            return {
+                "counters": {self._flat(k): v
+                             for k, v in sorted(self._counters.items())},
+                "gauges": {self._flat(k): v
+                           for k, v in sorted(self._gauges.items())},
+                "histograms": {self._flat(k): h.summary()
+                               for k, h in sorted(self._hists.items())},
+                "windows": {self._flat(k): w.summary(now)
+                            for k, w in sorted(self._windows.items())},
+            }
+
+    # --------------------------------------------------------- exposition
+
+    @staticmethod
+    def _prom_name(name: str) -> str:
+        if name.endswith("_s"):
+            name = name[:-2] + "_seconds"
+        return "".join(c if (c.isalnum() or c == "_") else "_"
+                       for c in name.replace(".", "_"))
+
+    @staticmethod
+    def _prom_labels(labels: Tuple[Tuple[str, str], ...],
+                     extra: str = "") -> str:
+        parts = [f'{k}="{v}"' for k, v in labels]
+        if extra:
+            parts.append(extra)
+        return "{" + ",".join(parts) + "}" if parts else ""
+
+    @staticmethod
+    def _fmt(v: float) -> str:
+        if isinstance(v, float) and v.is_integer():
+            return str(int(v))
+        return repr(v)
+
+    def prometheus(self) -> str:
+        """Text exposition (format 0.0.4): counters, gauges, and
+        histograms with CUMULATIVE `_bucket{le=...}` series plus
+        `_sum`/`_count`, and `_p50/_p95/_p99` estimate gauges."""
+        now = self.clock.monotonic()
+        with self._lock:
+            counters = sorted(self._counters.items())
+            gauges = sorted(self._gauges.items())
+            hists = sorted((k, (h.buckets, list(h.counts), h.sum, h.count,
+                                {q: h.quantile(val)
+                                 for q, val in _QUANTILES}))
+                           for k, h in self._hists.items())
+            windows = sorted((k, w.summary(now))
+                             for k, w in self._windows.items())
+        lines: List[str] = []
+        typed: set = set()
+
+        def head(pname: str, kind: str) -> None:
+            if pname not in typed:
+                typed.add(pname)
+                lines.append(f"# TYPE {pname} {kind}")
+
+        for (name, labels), v in counters:
+            pname = self._prom_name(name)
+            head(pname, "counter")
+            lines.append(f"{pname}{self._prom_labels(labels)} "
+                         f"{self._fmt(v)}")
+        for (name, labels), v in gauges:
+            pname = self._prom_name(name)
+            head(pname, "gauge")
+            lines.append(f"{pname}{self._prom_labels(labels)} "
+                         f"{self._fmt(v)}")
+        for (name, labels), (buckets, counts, total, n, qs) in hists:
+            pname = self._prom_name(name)
+            head(pname, "histogram")
+            cum = 0
+            for bound, c in zip(buckets, counts):
+                cum += c
+                lab = self._prom_labels(labels, f'le="{bound!r}"')
+                lines.append(f"{pname}_bucket{lab} {cum}")
+            lab = self._prom_labels(labels, 'le="+Inf"')
+            lines.append(f"{pname}_bucket{lab} {n}")
+            lines.append(f"{pname}_sum{self._prom_labels(labels)} "
+                         f"{self._fmt(round(total, 9))}")
+            lines.append(f"{pname}_count{self._prom_labels(labels)} {n}")
+            for q, est in qs.items():
+                qname = f"{pname}_{q}"
+                head(qname, "gauge")
+                lines.append(f"{qname}{self._prom_labels(labels)} "
+                             f"{self._fmt(round(est, 9))}")
+        # rolling-window estimates as gauges: <name>_window_pXX/_count —
+        # the SLO plane's view (the cumulative family above never forgets)
+        for (name, labels), s in windows:
+            pname = self._prom_name(name)
+            for q in ("p50", "p95", "p99"):
+                qname = f"{pname}_window_{q}"
+                head(qname, "gauge")
+                lines.append(f"{qname}{self._prom_labels(labels)} "
+                             f"{self._fmt(round(s[q], 9))}")
+            cname = f"{pname}_window_count"
+            head(cname, "gauge")
+            lines.append(f"{cname}{self._prom_labels(labels)} "
+                         f"{self._fmt(float(s['count']))}")
+        return "\n".join(lines) + "\n"
+
+    def reset(self) -> None:
+        with self._lock:
+            self._counters.clear()
+            self._gauges.clear()
+            self._hists.clear()
+            self._windows.clear()
+
+    def mem_stats(self) -> Dict:
+        """Ledger sizer (core/memledger): series counts across the four
+        stores.  Flat estimate per series kind — scalar series are a
+        keyed float, hist/window series carry bucket arrays / sample
+        deques — so the scrape never walks the stores."""
+        with self._lock:
+            scalars = len(self._counters) + len(self._gauges)
+            hists = len(self._hists)
+            windows = len(self._windows)
+            win_subs = sum(len(w._subs) for w in self._windows.values())
+        return {"bytes": (scalars * 160 + hists * 640
+                          + windows * 256 + win_subs * 640),
+                "entries": scalars + hists + windows,
+                "cap": 0, "evictions": 0,
+                "series": {"scalar": scalars, "hist": hists,
+                           "window": windows}}
+
+
+class StatCounters:
+    """Dict-shaped stat block whose increments are ATOMIC and mirrored
+    into the process registry under `<prefix>.<name>` — the drop-in
+    replacement for the bare `self.stats = {...}` dicts whose `+= 1`
+    from concurrent worker/applier threads could lose updates.  Reads
+    (`stats["acked"]`, `dict(stats)`) keep the old shape; explicit
+    assignment (`stats["depth_peak"] = v`, bench resets) stays local and
+    does not touch the registry's monotonic counters."""
+
+    def __init__(self, prefix: str, names: Iterable[str],
+                 registry: Optional[MetricsRegistry] = None) -> None:
+        self._lock = threading.Lock()
+        self._prefix = prefix
+        self._reg = registry
+        self._v: Dict[str, float] = {n: 0 for n in names}
+
+    def inc(self, name: str, n: float = 1) -> None:
+        with self._lock:
+            self._v[name] = self._v.get(name, 0) + n
+        reg = self._reg if self._reg is not None else REGISTRY
+        if self._prefix:
+            reg.inc(f"{self._prefix}.{name}", n)
+
+    # ------------------------------------------------- mapping protocol
+
+    def __getitem__(self, name: str) -> float:
+        with self._lock:
+            return self._v[name]
+
+    def __setitem__(self, name: str, value: float) -> None:
+        with self._lock:
+            self._v[name] = value
+
+    def get(self, name: str, default=None):
+        with self._lock:
+            return self._v.get(name, default)
+
+    def update(self, *args, **kwargs) -> None:
+        with self._lock:
+            self._v.update(*args, **kwargs)
+
+    def keys(self):
+        with self._lock:
+            return list(self._v.keys())
+
+    def items(self):
+        with self._lock:
+            return list(self._v.items())
+
+    def values(self):
+        with self._lock:
+            return list(self._v.values())
+
+    def __iter__(self):
+        return iter(self.keys())
+
+    def __contains__(self, name: str) -> bool:
+        with self._lock:
+            return name in self._v
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._v)
+
+    def __repr__(self) -> str:
+        with self._lock:
+            return f"StatCounters({self._v!r})"
+
+
+# --------------------------------------------------------------- tracing
+
+
+def span_id(trace_id: str, name: str) -> str:
+    """Deterministic span id: spans are addressable by (trace, name), so
+    a child recorded in another thread/process phase can reference its
+    parent without any handle passing."""
+    return f"{trace_id[:8]}-{name}"
+
+
+class Tracer:
+    """Bounded ring of COMPLETED spans.  Spans are recorded
+    retroactively — `record(name, trace_id, start, end)` — because the
+    lifecycle points (broker dequeue, applier pop) know both stamps and
+    retroactive recording needs no cross-thread span handles.  Stamps
+    are `clock.monotonic()` seconds."""
+
+    def __init__(self, clock: Optional[Clock] = None,
+                 max_spans: int = 8192) -> None:
+        self._lock = threading.Lock()
+        self.clock: Clock = clock if clock is not None else SystemClock()
+        self._spans: deque = deque(maxlen=max_spans)
+        self._seq = 0
+        # overflow accounting: the bounded ring trims the oldest span per
+        # append once full — counted, never silent (the LogRing posture,
+        # `nomad.logring.dropped`), and surfaced in the debug bundle
+        self.dropped = 0
+
+    def set_clock(self, clock: Clock) -> None:
+        self.clock = clock
+
+    def record(self, name: str, trace_id: str, start: float, end: float,
+               parent: Optional[str] = None, **attrs) -> Optional[Dict]:
+        if not trace_id:
+            return None
+        rec: Dict = {
+            "TraceID": trace_id,
+            "SpanID": span_id(trace_id, name),
+            "ParentID": parent or "",
+            "Name": name,
+            "Start": round(start, 9),
+            "End": round(end, 9),
+            "Duration": round(end - start, 9),
+        }
+        if attrs:
+            rec["Attrs"] = dict(attrs)
+        overflow = False
+        with self._lock:
+            self._seq += 1
+            rec["Seq"] = self._seq
+            if len(self._spans) == self._spans.maxlen:
+                overflow = True          # append below trims the oldest
+                self.dropped += 1
+            self._spans.append(rec)
+        if overflow:
+            REGISTRY.inc("nomad.tracer.dropped_spans")
+        return rec
+
+    @contextmanager
+    def span(self, name: str, trace_id: str,
+             parent: Optional[str] = None, **attrs):
+        t0 = self.clock.monotonic()
+        try:
+            yield
+        finally:
+            self.record(name, trace_id, t0, self.clock.monotonic(),
+                        parent=parent, **attrs)
+
+    def spans(self, trace_id: Optional[str] = None) -> List[Dict]:
+        with self._lock:
+            out = [dict(s) for s in self._spans]
+        if trace_id is not None:
+            out = [s for s in out if s["TraceID"] == trace_id]
+        return out
+
+    def trace(self, trace_id: str) -> List[Dict]:
+        """Every completed span of one trace, in (start, record) order."""
+        return sorted(self.spans(trace_id),
+                      key=lambda s: (s["Start"], s["Seq"]))
+
+    def traces(self) -> List[Dict]:
+        """Recent-trace summaries, oldest first."""
+        by_trace: Dict[str, Dict] = {}
+        for s in self.spans():
+            row = by_trace.get(s["TraceID"])
+            if row is None:
+                by_trace[s["TraceID"]] = row = {
+                    "TraceID": s["TraceID"], "Spans": 0,
+                    "Start": s["Start"], "End": s["End"],
+                    "Root": "", "FirstSeq": s["Seq"]}
+            row["Spans"] += 1
+            row["Start"] = min(row["Start"], s["Start"])
+            row["End"] = max(row["End"], s["End"])
+            if not s["ParentID"]:
+                row["Root"] = s["Name"]
+        out = sorted(by_trace.values(), key=lambda r: r["FirstSeq"])
+        for row in out:
+            row.pop("FirstSeq")
+        return out
+
+    def reset(self) -> None:
+        with self._lock:
+            self._spans.clear()
+            self._seq = 0
+            self.dropped = 0
+
+    def mem_stats(self) -> Dict:
+        """Ledger sizer (core/memledger): span-ring occupancy, newest
+        span sized as the per-record estimate."""
+        from nomad_tpu_torch.core.memledger import approx_sizeof
+        with self._lock:
+            entries = len(self._spans)
+            cap = self._spans.maxlen
+            dropped = self.dropped
+            newest = self._spans[-1] if self._spans else None
+        per = approx_sizeof(newest, depth=2) if newest is not None else 0
+        return {"bytes": per * entries, "entries": entries,
+                "cap": cap, "evictions": dropped}
+
+
+# -------------------------------------------------------------- globals
+
+REGISTRY = MetricsRegistry()
+TRACER = Tracer()
+
+
+def configure(clock: Clock) -> None:
+    """Bind the process telemetry to an injected clock (every Server
+    calls this with its own; chaos scenarios thereby own the timeline —
+    all agents of one simulated cluster share one clock already)."""
+    REGISTRY.set_clock(clock)
+    TRACER.set_clock(clock)
+
+
+# Two bus planes out of one module: the registry and the tracer rebind
+# and snapshot independently (the tracer's ring is the trace-stitching
+# source, the registry feeds exposition/federation).
+from nomad_tpu_torch.core.obsbus import OBSBUS  # noqa: E402 - after globals
+
+OBSBUS.register("telemetry", configure=REGISTRY.set_clock,
+                snapshot=REGISTRY.snapshot, reset=REGISTRY.reset)
+OBSBUS.register("tracer", configure=TRACER.set_clock,
+                snapshot=lambda: {"traces": TRACER.traces(),
+                                  "dropped": TRACER.dropped},
+                reset=TRACER.reset)

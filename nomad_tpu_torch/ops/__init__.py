@@ -9,6 +9,12 @@ from .engine import (  # noqa: F401
     PlacementEngine,
     PlacementRequest,
 )
+from .executor import (  # noqa: F401
+    DeviceExecutor,
+    ExecutorUnavailable,
+    TorchExecutor,
+    make_executor,
+)
 from .feasibility import constraint_mask, feasible_mask  # noqa: F401
 from .scoring import (  # noqa: F401
     affinity_score,

@@ -23,9 +23,24 @@ Differences from the reference's engine:
     reference donates it to XLA);
   - a mesh runs its shards on one card: `mesh=None` means one device
     (no automatic sharding), and a mesh across cards raises;
-    `shard_h2d_bytes` and `collective_bytes` are plain attributes;
-  - no compile ledger, no metrics registry hooks, no h2d/d2h observers:
-    those come with later slices (ROADMAP queue 1).
+  - the compile ledger (`_launch`) sees no per-shape compile: the CUDA
+    sources are built once, at the first launch of any kernel, and
+    `kernels.build_all` notes that build on `kernels.nvcc/<source>`.  A
+    first launch of a shape bucket pays the module load and the first
+    allocations, and the ledger splits it from the steady launches as
+    the reference's does.  The delta-replay scatter launches its chunk
+    unpadded (K4 takes any length); its site still names the
+    reference's pad bucket, so the two ledgers list the same sites, and
+    its upload bytes are the unpadded int32 arrays';
+  - the d2h meter sees every `_fetch` (the preemption path's reads
+    too, which the reference takes unmetered with np.asarray) and the
+    pinned copy that `collect_batch` waits for, its seconds the wait on
+    the copy's CUDA event; the lane prover's [U, N] mask copy (the
+    reference computes that mask on the host) is not metered;
+  - `device_resident_bytes` also counts the resident base-mask table
+    (`_base`), which the reference does not have, and sums the storage
+    bytes of the resident tensors (an estimate from tensor sizes, not
+    an allocator query).
 """
 
 from __future__ import annotations
@@ -88,6 +103,27 @@ SCATTER_CHUNK = 16384
 # lane-parallel scheduling cap: lanes beyond this stop paying (each step's
 # [L, N] math grows linearly while the sequential depth shrinks as 1/L)
 MAX_LANES = 8
+
+# shape buckets already launched at least once in this process — the
+# compile-ledger mirror of the reference's process-global jit caches (a
+# second engine in the same process must not count a first launch).
+# See `PlacementEngine._launch`.
+_KERNEL_SHAPES_SEEN: set = set()
+
+
+def _compile_ledger():
+    """Process compile ledger (core/profiling.py), imported lazily for
+    the same first-importer-order reason as `_registry` below."""
+    from nomad_tpu_torch.core.profiling import COMPILE
+    return COMPILE
+
+
+def _registry():
+    """Process metrics registry, imported lazily, so the order in which
+    the core and ops modules are first imported does not matter."""
+    from nomad_tpu_torch.core.telemetry import REGISTRY
+    return REGISTRY
+
 
 def scatter_add_plain(used: torch.Tensor, rows: torch.Tensor,
                       vals: torch.Tensor) -> torch.Tensor:
@@ -408,6 +444,13 @@ class PlacementEngine:
         # analytic cross-shard exchange payload of each launch
         self.shard_h2d_bytes: int = 0
         self.collective_bytes: int = 0
+        # host->device sync meter (ops/executor.py installs it): called
+        # with (bytes, seconds, cause) for every node-state upload —
+        # full node tensors ("initial-upload"), dirty-shard patches
+        # ("dirty-shard-patch"), and the per-eval delta-replay scatters
+        # ("invalidation-replay"); the d2h twin meters result fetches
+        self.h2d_observer = None
+        self.d2h_observer = None
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         """Copy a host array to the device (always a copy: the packer
@@ -432,7 +475,67 @@ class PlacementEngine:
         summed metrics."""
         nbytes = rounds * (width * kk * 4 * self._ndev + extra)
         self.collective_bytes += nbytes
+        _registry().inc("nomad.engine.collective_bytes", nbytes)
         return nbytes
+
+    def _note_h2d(self, nbytes: int, seconds: float,
+                  cause: str = "initial-upload") -> None:
+        obs = self.h2d_observer
+        if obs is not None and nbytes:
+            obs(nbytes, seconds, cause)
+
+    def _note_d2h(self, nbytes: int, seconds: float,
+                  cause: str = "result-fetch") -> None:
+        obs = self.d2h_observer
+        if obs is not None and nbytes:
+            obs(nbytes, seconds, cause)
+
+    def _launch(self, kind: str, shape_key: tuple, fn, *args):
+        """Run one kernel launch under the compile ledger
+        (core/profiling.py): the FIRST launch of a shape bucket in this
+        process counts as a miss with its seconds, later ones as steady
+        launches.  The bucket key is the reference's — kernel kind + the
+        static shape arguments.  Host time only: no synchronize."""
+        key = (kind, shape_key)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        dt = time.perf_counter() - t0
+        site = f"engine.{kind}/" + "x".join(str(s) for s in shape_key)
+        led = _compile_ledger()
+        if key in _KERNEL_SHAPES_SEEN:
+            led.note_hit(site)
+            led.note_steady(site, dt)
+        else:
+            _KERNEL_SHAPES_SEEN.add(key)
+            led.note_miss(site, dt)
+        return out
+
+    def device_resident_bytes(self) -> int:
+        """Estimated device residency of this engine's retained tensors
+        (node tensors, resident `used`, const cache, and the base-mask
+        table, which the reference has no counterpart of): the storage
+        bytes of each, a storage counted once.  Reads WITHOUT the packer
+        lock — callers sit inside _note_h2d, some of whose call sites
+        already hold it — so a concurrent eviction can tear an
+        iteration; this is a gauge, report the partial sum rather than
+        block the hot path."""
+        total = 0
+        seen = set()
+        try:
+            base = self._base
+            for v in (*tuple(self._dev_cache.values()), self._used_dev,
+                      *tuple(self._const_cache.values()),
+                      base[3] if base is not None else None):
+                if v is None:
+                    continue
+                st = v.untyped_storage()
+                ptr = st.data_ptr()
+                if ptr not in seen:
+                    seen.add(ptr)
+                    total += st.nbytes()
+        except RuntimeError:
+            pass
+        return total
 
     def _padded_n(self, n: int) -> int:
         """Node count padded to a mesh multiple (identity unsharded)."""
@@ -464,8 +567,10 @@ class PlacementEngine:
         padding re-uploads only the shards that hold dirty rows."""
         key = (t.version, len(self.packer.interner), t.attrs.shape[1])
         if self._cache_version != key:
+            t0h = time.perf_counter()
             with self.packer.lock:
                 npad = self._padded_n(t.n)
+                h2d = 0
                 patched = False
                 if (self.mesh is not None and self._dev_cache
                         and self._cache_version[2] == key[2]
@@ -473,7 +578,7 @@ class PlacementEngine:
                     rows = self.packer.node_rows_dirty_since(
                         self._cache_version[0])
                     if rows is not None:
-                        self._patch_node_shards(t, npad, rows)
+                        h2d = self._patch_node_shards(t, npad, rows)
                         patched = True
                 if not patched:
                     self._dev_cache = {
@@ -483,6 +588,7 @@ class PlacementEngine:
                         "elig": self._to_dev(_pad_rows(t.elig, npad,
                                                        False)),
                     }
+                    h2d = sum(v.nbytes for v in self._dev_cache.values())
                     # a full re-upload invalidates the resident `used`
                     # copy too (row remap / width change); a shard patch
                     # keeps it and _used_device heals the dirty shards
@@ -490,6 +596,9 @@ class PlacementEngine:
                     self._used_dev = None
                 self._cache_version = key
                 self._cache_npad = npad
+            self._note_h2d(h2d, time.perf_counter() - t0h,
+                           "dirty-shard-patch" if patched
+                           else "initial-upload")
         return self._dev_cache
 
     def _shard_of(self, rows: np.ndarray, npad: int) -> set:
@@ -534,6 +643,7 @@ class PlacementEngine:
             nbytes += nb
         self._dev_cache = cache
         self.shard_h2d_bytes += nbytes
+        _registry().inc("nomad.engine.shard_h2d_bytes", nbytes)
         return nbytes
 
     def _used_device(self, t: NodeTensors) -> torch.Tensor:
@@ -546,6 +656,8 @@ class PlacementEngine:
             ver = t.used_version
             if self._used_dev is not None and self._used_version == ver:
                 return self._used_dev
+            t0h = time.perf_counter()
+            h2d_bytes = 0
             deltas = None
             if self._used_dev is not None:
                 deltas = self.packer.used_deltas_since(self._used_version)
@@ -559,8 +671,13 @@ class PlacementEngine:
                         self._used_dev, nb = self._patch_shards(
                             self._used_dev, t.used, 0, self._cache_npad,
                             self._shard_of(sync_rows, self._cache_npad))
+                        h2d_bytes += nb
                         self.shard_h2d_bytes += nb
+                        _registry().inc("nomad.engine.shard_h2d_bytes",
+                                        nb)
                     self._used_version = ver
+                    self._note_h2d(h2d_bytes, time.perf_counter() - t0h,
+                                   "dirty-shard-patch")
                     return self._used_dev
             if deltas is not None:
                 rows = np.concatenate([d[0] for d in deltas])
@@ -574,18 +691,32 @@ class PlacementEngine:
                     rows, vals = uniq, agg
                 dev = self._used_dev
                 for lo in range(0, len(rows), SCATTER_CHUNK):
-                    r_c = self._to_dev(rows[lo:lo + SCATTER_CHUNK]
-                                       .astype(np.int32))
-                    v_c = self._to_dev(vals[lo:lo + SCATTER_CHUNK]
-                                       .astype(np.int32))
+                    r_h = rows[lo:lo + SCATTER_CHUNK].astype(np.int32)
+                    v_h = vals[lo:lo + SCATTER_CHUNK].astype(np.int32)
+                    # the reference's pad bucket names the ledger site
+                    for pad in (512, 2048, 8192, SCATTER_CHUNK):
+                        if len(r_h) <= pad:
+                            break
+                    r_c, v_c = self._to_dev(r_h), self._to_dev(v_h)
                     if self.mesh is not None:
-                        self._sharded("scatter")(dev, r_c, v_c, self.mesh)
+                        self._launch("scatter", (int(dev.shape[0]), pad),
+                                     self._sharded("scatter"), dev, r_c,
+                                     v_c, self.mesh)
                     else:
-                        scatter_add_(dev, r_c, v_c)
+                        self._launch("scatter", (int(dev.shape[0]), pad),
+                                     scatter_add_, dev, r_c, v_c)
+                    h2d_bytes += r_h.nbytes + v_h.nbytes
             else:
                 self._used_dev = self._to_dev(
                     _pad_rows(t.used, self._padded_n(t.n)))
+                h2d_bytes += self._used_dev.nbytes
             self._used_version = ver
+            # the delta-log scatter replays stale usage after a chain
+            # invalidation / plan commit; a full upload is the initial
+            # (or post-rebuild) sync
+            self._note_h2d(h2d_bytes, time.perf_counter() - t0h,
+                           "invalidation-replay" if deltas is not None
+                           else "initial-upload")
             return self._used_dev
 
     def _dev_const(self, key, builder) -> torch.Tensor:
@@ -675,8 +806,12 @@ class PlacementEngine:
         return metrics
 
     def _fetch(self, t: torch.Tensor) -> np.ndarray:
-        """A device result as a host array (waits for the kernels)."""
-        return t.cpu().numpy()
+        """A device result as a host array (waits for the kernels), with
+        the d2h ledger fed ("result-fetch" cause)."""
+        t0 = time.perf_counter_ns()
+        out = t.cpu().numpy()
+        self._note_d2h(out.nbytes, (time.perf_counter_ns() - t0) / 1e9)
+        return out
 
     # -------------------------------------------------------------- solo
 
@@ -836,8 +971,10 @@ class PlacementEngine:
             fills_full = None
             slot_k = 0
             if self.mesh is not None:
-                buf, used_dev, job_count_dev = self._sharded("bulk")(
-                    binp, self.mesh, round_size, n_rounds)
+                buf, used_dev, job_count_dev = self._launch(
+                    "bulk", (round_size, n_rounds, npad),
+                    self._sharded("bulk"), binp, self.mesh, round_size,
+                    n_rounds)
                 self._note_collective(n_rounds,
                                       min(round_size, npad // self._ndev))
             elif bulk_api and algo != SCHED_ALGO_SPREAD:
@@ -846,12 +983,15 @@ class PlacementEngine:
                 # (the spread algorithm fans each round over ~want nodes
                 # and keeps the full layout)
                 slot_k = min(FILL_K, round_size)
-                buf, fills_full, used_dev, job_count_dev = \
-                    place_bulk_packed(binp, round_size, n_rounds, False,
-                                      slot_k)
+                buf, fills_full, used_dev, job_count_dev = self._launch(
+                    "bulk_compact", (round_size, n_rounds, npad, slot_k),
+                    place_bulk_packed, binp, round_size, n_rounds, False,
+                    slot_k)
             else:
-                buf, used_dev, job_count_dev = place_bulk_packed(
-                    binp, round_size, n_rounds, not bulk_api)
+                buf, used_dev, job_count_dev = self._launch(
+                    "bulk", (round_size, n_rounds, npad, bulk_api),
+                    place_bulk_packed, binp, round_size, n_rounds,
+                    not bulk_api)
             tg_idx = np.full(p_real, g_idx, np.int32)
             if bulk_api:
                 buf_np, slot_k = _resolve_compact_fills(
@@ -910,13 +1050,15 @@ class PlacementEngine:
                 seed=seed & 0xFFFFFFFF,
                 extra_mask=extra_mask)
             if self.mesh is not None:
-                buf, used_dev, job_count_dev = self._sharded("scan")(
-                    inp, self.mesh)
+                buf, used_dev, job_count_dev = self._launch(
+                    "scan", (npad, p_pad), self._sharded("scan"), inp,
+                    self.mesh)
                 self._note_collective(
                     p_pad, min(TOP_K, npad // self._ndev), width=2,
                     extra=128)
             else:
-                buf, used_dev, job_count_dev = place_packed(inp)
+                buf, used_dev, job_count_dev = self._launch(
+                    "scan", (npad, p_pad), place_packed, inp)
             b = self._fetch(buf)[:p_real]
             picks = b[:, 0].copy()
             scores = b[:, 1].view(np.float32)
@@ -1161,43 +1303,53 @@ class PlacementEngine:
         fill_k = None
         coll_bytes = 0
         mesh = self.mesh
+        launch = self._launch
+        skey = (rs, aux["npad"], aux["n_lanes"])
         if aux["cand_rows"] is not None:
             cr = self._to_dev(aux["cand_rows"])
             cv = self._to_dev(aux["cand_valid"])
             if mesh is not None:
                 if chained:
-                    buf, fills_full, used_out = self._sharded(
-                        "multi_compact_chained")(
-                            inp.used0, inp._replace(used0=None), cr, cv,
-                            mesh, rs, aux["n_lanes"])
+                    buf, fills_full, used_out = launch(
+                        "multi_compact_chained", skey,
+                        self._sharded("multi_compact_chained"),
+                        inp.used0, inp._replace(used0=None), cr, cv,
+                        mesh, rs, aux["n_lanes"])
                 else:
-                    buf, fills_full, used_out = self._sharded(
-                        "multi_compact")(inp, cr, cv, mesh, rs,
-                                         aux["n_lanes"])
+                    buf, fills_full, used_out = launch(
+                        "multi_compact", skey,
+                        self._sharded("multi_compact"), inp, cr, cv, mesh,
+                        rs, aux["n_lanes"])
                 coll_bytes = self._note_collective(
                     int(inp.round_g.shape[0]),
                     min(rs, int(aux["cand_rows"].shape[-1])))
             elif chained:
-                buf, fills_full, used_out = place_multi_compact_chained(
-                    inp.used0, inp._replace(used0=None), cr, cv, rs,
-                    aux["n_lanes"])
+                buf, fills_full, used_out = launch(
+                    "multi_compact_chained", skey,
+                    place_multi_compact_chained, inp.used0,
+                    inp._replace(used0=None), cr, cv, rs, aux["n_lanes"])
             else:
-                buf, fills_full, used_out = place_multi_compact_packed(
-                    inp, cr, cv, rs, aux["n_lanes"])
+                buf, fills_full, used_out = launch(
+                    "multi_compact", skey, place_multi_compact_packed, inp,
+                    cr, cv, rs, aux["n_lanes"])
             fill_k = min(FILL_K, rs)
         elif mesh is not None:
             if chained:
-                buf, used_out, _ = self._sharded("multi_chained")(
+                buf, used_out, _ = launch(
+                    "multi_chained", skey, self._sharded("multi_chained"),
                     inp.used0, inp._replace(used0=None), mesh, rs)
             else:
-                buf, used_out, _ = self._sharded("multi")(inp, mesh, rs)
+                buf, used_out, _ = launch(
+                    "multi", skey, self._sharded("multi"), inp, mesh, rs)
             coll_bytes = self._note_collective(
                 int(inp.round_g.shape[0]), min(rs, aux["npad"] // self._ndev))
         elif chained:
-            buf, used_out, _ = place_multi_chained(
-                inp.used0, inp._replace(used0=None), rs)
+            buf, used_out, _ = launch(
+                "multi_chained", skey, place_multi_chained, inp.used0,
+                inp._replace(used0=None), rs)
         else:
-            buf, used_out, _ = place_multi_packed(inp, rs)
+            buf, used_out, _ = launch("multi", skey, place_multi_packed,
+                                      inp, rs)
         host_buf, ready = self._start_fetch(buf)
         return {"buf": host_buf, "ready": ready, "used": used_out,
                 "items": list(items), "spans": aux["spans"],
@@ -1511,9 +1663,13 @@ class PlacementEngine:
                              pending["rs"])
         t, ctxs, n = pending["t"], pending["ctxs"], pending["n"]
         t1 = time.perf_counter_ns()
+        # the d2h meter: the pinned copy's bytes, its seconds the wait on
+        # the copy's event (the copy itself was queued at dispatch)
+        tw = time.perf_counter()
         if pending["ready"] is not None:
             pending["ready"].synchronize()
         buf_np = pending["buf"].numpy()
+        self._note_d2h(buf_np.nbytes, time.perf_counter() - tw)
         perm = pending.get("perm")
         if perm is not None:
             # laned schedule: reorder rows back to eval-major order so
@@ -1522,7 +1678,7 @@ class PlacementEngine:
         fill_k = pending.get("fill_k")
 
         def _full_fills():
-            full = pending["fills_full"].cpu().numpy()
+            full = self._fetch(pending["fills_full"])
             return full[perm] if perm is not None else full
 
         buf_np, slot_eff = _resolve_compact_fills(

@@ -8,7 +8,9 @@ only Python.h is included, no PyTorch headers, so a build takes
 seconds).  All sources build together, one `nvcc` process each, at the
 first launch of any kernel; the modules land in `BUILD_DIR` (listed in
 .gitignore) under a name carrying a hash of the sources and flags, so an
-edited source rebuilds and an unchanged one is reused.
+edited source rebuilds and an unchanged one is reused.  Each source built
+is noted in the compile ledger (core/profiling.COMPILE) as a miss on
+`kernels.nvcc/<source>`.
 
 Each `Kernel` carries `launches`, the count its wrappers bump once per
 launch of the CUDA kernel (never for the plain version), so a run can
@@ -185,6 +187,13 @@ def build_all() -> Dict[str, Path]:
         raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
     if todo:
         build_seconds = time.perf_counter() - t0
+        # the port's analogue of a jit compile: one miss per source built,
+        # each with its share of the parallel build's seconds (a cached
+        # build notes nothing)
+        from nomad_tpu_torch.core.profiling import COMPILE
+        for src in todo:
+            COMPILE.note_miss(f"kernels.nvcc/{src}",
+                              build_seconds / len(todo))
     return paths
 
 

@@ -9,9 +9,6 @@ candidates one placement at a time through the iterator stack; here ALL
 placements of the eval go to the device kernels as one batch
 (nomad_tpu_torch.ops.PlacementEngine) and come back as node picks +
 AllocMetrics in a single device round-trip.
-
-Port status: the port-carve counters of the reference's metrics registry
-come with the telemetry slice.
 """
 
 from __future__ import annotations
@@ -990,6 +987,8 @@ class GenericScheduler(Scheduler):
                 self._note_placed(tg.name, metrics[0], n=n_ok)
                 if ports_arr is not None:
                     self.last_port_carve = n_ok
+                    from nomad_tpu_torch.core.telemetry import REGISTRY
+                    REGISTRY.inc("nomad.ports.batched_rows", n_ok)
                 # block-local node table: unique picked rows only
                 # (hundreds), never the full cluster table
                 uniq, inv = np.unique(picks_ok, return_inverse=True)
@@ -1093,6 +1092,12 @@ class GenericScheduler(Scheduler):
             if victims_n > len(victims_sample):
                 self._tg_stats[tg.name]["preempted"] += (
                     victims_n - len(victims_sample))
+            if has_net:
+                # the sequential oracle ran (ineligible shape, pool
+                # shortfall, or PORT_BATCHED off): meter it so the
+                # batched-vs-sequential split is visible in /v1/metrics
+                from nomad_tpu_torch.core.telemetry import REGISTRY
+                REGISTRY.inc("nomad.ports.sequential_rows", placed_n)
 
     def _record_failure_shared(self, tg_name: str, metric: AllocMetric,
                                copied: bool = False) -> None:

@@ -82,3 +82,33 @@ def test_mesh_modules_stand_alone():
             "nomad_tpu_torch.parallel.mesh"} <= names
     with pytest.raises(NotImplementedError):
         make_mesh(8, ["cuda:0", "cuda:1"])
+
+
+
+def test_observability_and_executor_modules_stand_alone():
+    """The planes and the executor seam are among the modules the probe
+    imports, and the port's core package imports none of them eagerly
+    (the reference's imports its server)."""
+    import pkgutil
+
+    import nomad_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(
+        nomad_tpu_torch.__path__, "nomad_tpu_torch.")}
+    new = {f"nomad_tpu_torch.core.{m}" for m in (
+        "obsbus", "telemetry", "memledger", "logging", "profiling",
+        "timeline", "flightrec", "identity")} | {
+        "nomad_tpu_torch.ops.executor"}
+    assert new <= names
+    probe = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["nomad_tpu"] = None
+        import nomad_tpu_torch.core
+        eager = sorted(k for k in sys.modules
+                       if k.startswith("nomad_tpu_torch.core."))
+        from nomad_tpu_torch.ops import TorchExecutor  # noqa: F401
+        print(eager)
+    """)
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]"

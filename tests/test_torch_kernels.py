@@ -1169,3 +1169,104 @@ def test_replay_wrappers_refuse_bad_tensors(cuda_device, kernel):
                                        pmesh.make_mesh(S, "cpu"))
     torch.cuda.synchronize()
     assert sum(k.launches for k in K.KERNELS) == 0
+
+
+# ------------------------------------------ the executor seam on the card
+
+def _card_harness(cuda_device, n_items=13, count=40):
+    """A zoned test cluster whose engine lies on the card."""
+    from nomad_tpu_torch.ops import PlacementEngine
+    h = build_zoned_cluster(PORT)
+    h.engine = PlacementEngine(device=cuda_device)
+    h.engine.packer.attach(h.state)
+    _, items = add_jobs(PORT, h, n_items, count)
+    _, items2 = add_jobs(PORT, h, 7, 30, prefix="second")
+    return h, items, items2
+
+
+@pytest.mark.gpu
+def test_executor_wave_on_card_equals_bare_engine(cuda_device):
+    """A zoned wave, then a wave chained on its usage (claimed from the
+    executor's slot), through TorchExecutor equal the same waves through
+    the bare engine, to the bit."""
+    from nomad_tpu_torch.ops import TorchExecutor
+    runs = []
+    for through in (False, True):
+        h, items, items2 = _card_harness(cuda_device)
+        ex = TorchExecutor(h.engine) if through else h.engine
+        snap = h.state.snapshot()
+        seeds = list(range(1, len(items) + 1))
+        p1 = ex.dispatch_batch(snap, items, seed=seeds)
+        d1 = ex.collect_batch(p1)
+        chain = (p1["used"], p1["node_version"], p1["npad"])
+        if through:
+            ex.retain_chain("b1", 0, ex.chain_state(p1))
+            chain = ex.claim_chain()[2]
+        p2 = ex.dispatch_batch(snap, items2, seed=7, used0_dev=chain)
+        d2 = ex.collect_batch(p2)
+        assert p2["chained"]
+        torch.cuda.synchronize()
+        runs.append((p1["buf"].numpy().copy(), p2["buf"].numpy().copy(),
+                     p2["used"].cpu(), d1 + d2))
+        if through:
+            assert ex.stats["dispatches"] == 2
+            assert ex.stats["resident_waves"] == 1
+    (a1, a2, au, ad), (b1, b2, bu, bd) = runs
+    assert np.array_equal(a1, b1) and np.array_equal(a2, b2)
+    assert torch.equal(au, bu)
+    for x, y in zip(ad, bd):
+        assert np.array_equal(x.picks, y.picks)
+        assert [m.nodes_filtered for m in x.metrics] == \
+            [m.nodes_filtered for m in y.metrics]
+
+
+@pytest.mark.gpu
+def test_executor_meters_count_the_bytes_that_moved(cuda_device):
+    from nomad_tpu_torch.ops import TorchExecutor
+    h, items, _ = _card_harness(cuda_device)
+    ex = TorchExecutor(h.engine)
+    snap = h.state.snapshot()
+    pend = ex.dispatch_batch(snap, items)
+    ex.collect_batch(pend)
+    torch.cuda.synchronize()
+    t = h.engine.packer.update(snap)
+    # the node tensors and the usage, each uploaded once as the host
+    # arrays are
+    assert ex.stats["uploads"] == 2
+    assert ex.upload_bytes_by_cause == {
+        "initial-upload": (t.attrs.nbytes + t.cap.nbytes + t.elig.nbytes
+                           + t.used.nbytes)}
+    # the result buffer's pinned copy, and the full fills only when the
+    # compact prefix overflowed
+    fills = (pend["fills_full"].nbytes if ex.stats["d2h_fetches"] == 2
+             else 0)
+    assert ex.stats["d2h_bytes"] == pend["buf"].nbytes + fills
+    resident = h.engine.device_resident_bytes()
+    assert 0 < resident <= torch.cuda.memory_allocated(cuda_device)
+    led = ex.ledger()
+    assert 0 < led["hbm_resident_bytes"] <= \
+        torch.cuda.memory_allocated(cuda_device)
+
+
+@pytest.mark.gpu
+def test_nvcc_builds_are_noted_in_the_compile_ledger(cuda_device, tmp_path,
+                                                     monkeypatch):
+    """A build into a fresh directory notes one miss per source on
+    kernels.nvcc/<source>; a cached build notes nothing."""
+    from nomad_tpu_torch.core.profiling import COMPILE
+    monkeypatch.setattr(K, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(K, "build_seconds", K.build_seconds)
+
+    def nvcc_sites():
+        return {s: dict(v) for s, v in COMPILE.snapshot()["sites"].items()
+                if s.startswith("kernels.nvcc/")}
+
+    before = nvcc_sites()
+    K.build_all()
+    after = nvcc_sites()
+    assert {s: v["misses"] - before.get(s, {}).get("misses", 0)
+            for s, v in after.items()} == \
+        {f"kernels.nvcc/{src}": 1 for src in K.SOURCES}
+    assert all(v["first_launch_s"] > 0 for v in after.values())
+    K.build_all()
+    assert nvcc_sites() == after
