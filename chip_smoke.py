@@ -55,6 +55,24 @@ chained wave's usage triple is the one the zoned wave retained
      device-wait: the window's bucket split, the main thread's innermost
      frames, each wait's seconds and the dispatch's pinned-copy set-up.
 
+  server_waves: bench.py config 5 through the port's Server in thread
+     mode (dev_mode=False, one worker, eval_batch 384, a TorchExecutor,
+     the sampler at its default rate) on a fresh 50,000-node cluster
+     built alike: a warm-up wave (384 x 260 at cpu 1 / mem 1) and the
+     measured wave (384 x 260 at cpu 10 / mem 10), each registered
+     through Server.register_job and drained as bench.py's drain does
+     (the packer synced outside the timed window, start_scheduling,
+     the eval statuses polled, stop_scheduling).  Each wave's line
+     (`server_warmup_wave`, `server_wave`): wall, evals/s, placements/s,
+     the plan queue's p50 and p99, the stage timers, the pipeline's,
+     the applier's and the executor's counts, launches, memory and
+     full collections.  Gates: every eval complete and every placement
+     committed, zones, capacity, the retained chain's usage equal to
+     the store's, K1 and K2 launched and K5 and K6 not, none of the
+     worker's or the applier's recovery records in the log ring, one
+     `device` interval per dispatched wave.  Then shutdown, and the
+     Server's engine must be freed.
+
 Every wave line (the mesh waves' too) counts the interpreter's full
 collections inside the wave (`gc2_n`, `gc2_s`); the summary line, the
 run's.
@@ -472,10 +490,11 @@ def check_store(h, jobs, per_eval, all_jobs, zone_of=None, n_zones=0):
 
 def used_matches_store(h, used_dev, usage):
     """A device usage tensor equals the per-node usage recomputed from
-    the store, row for row in the packer's order."""
+    the store, row for row in the packer's order (`h`: a Harness or a
+    Server, read for its store and its engine)."""
     import numpy as np
 
-    t = h.engine.packer.update(h.snapshot())
+    t = h.engine.packer.update(h.state.snapshot())
     want = np.zeros((t.n, 3), np.int64)
     for node_id, u in usage.items():
         want[t.id_to_row[node_id]] = u
@@ -726,6 +745,235 @@ def device_wait_phase(card, h, executor, all_jobs, zone_of, launches):
           "overhead_fraction": cur["overhead_fraction"],
           "waves": len(waves), "placements": placed, "timings": timings,
           "start_fetch_s": fetch_s, "launches": ph, "eager": eager})
+
+
+# -------------------------------------------------------------- server
+
+# the records by which the worker and the applier report a failure that
+# their loop recovered from (nomad_tpu/core/worker.py:132, :202, :243,
+# :341, :403; core/plan_apply.py:253): a kernel failure that the worker
+# turned into a solo eval or a nack must not pass the server phase
+RECOVERY_RECORDS = {
+    ("worker", "worker iteration failed"),
+    ("worker", "eval nacked"),
+    ("worker", "batch pass failed; nacking remainder"),
+    ("worker", "batch launch failed; going solo"),
+    ("worker", "prefetch dispatch failed"),
+    ("plan", "applier iteration failed"),
+}
+# the applier's refute warnings (core/plan_apply.py:357, :540, :749):
+# the reference's behaviour, counted and printed, not gated
+REFUTE_RECORDS = {("plan", "plan partially refuted"),
+                  ("plan", "plan nodes refuted"),
+                  ("plan", "block nodes refuted")}
+# the waves of the server phase (bench.py config 5): a warm-up at
+# cpu 1 / mem 1, then the measured wave at cpu 10 / mem 10
+SERVER_WAVES = (("server_warmup_wave", 1), ("server_wave", 10))
+# the kernels of a zoned server wave (K1, K2), and the solo path's (K5,
+# K6), which a batched wave must not launch
+SERVER_KERNELS = ("landscape", "multi_compact")
+SOLO_KERNELS = ("place_scan", "multi_bulk")
+SERVER_DEADLINE_S = 600.0
+
+
+def server_jobs(s, prefix: str, n_evals: int, per_eval: int, cpu: int,
+                n_zones: int):
+    """bench.py run_config_5's make_job: batch jobs of `per_eval`
+    placements, job i claiming vol-zone{i % n_zones}, each registered
+    through Server.register_job (the job endpoint: upsert, eval,
+    enqueue).  Returns (jobs, evals)."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import VolumeRequest
+
+    jobs, evals = [], []
+    for i in range(n_evals):
+        job = mock.batch_job(id=f"{prefix}-{i:04d}")
+        job.datacenters = ["dc1", "dc2", "dc3"]
+        tg = job.task_groups[0]
+        tg.count = per_eval
+        tg.tasks[0].resources.cpu = cpu
+        tg.tasks[0].resources.memory_mb = cpu
+        tg.volumes = {"data": VolumeRequest(
+            name="data", type="csi", source=f"vol-zone{i % n_zones}",
+            read_only=True)}
+        evals.append(s.register_job(job))
+        jobs.append(job)
+    return jobs, evals
+
+
+def drain(s, evals, deadline_s: float = SERVER_DEADLINE_S) -> float:
+    """bench.py run_config_5's drain: the packer synced outside the timed
+    window, then start_scheduling, the evals' statuses polled on the
+    live store until each settles or the deadline passes, then
+    stop_scheduling.  Returns the wall seconds from the start to the
+    last settled eval's poll."""
+    s.engine.packer.update(s.state.snapshot())
+    t0 = time.perf_counter()
+    s.start_scheduling()
+    try:
+        pending = {e.id for e in evals}
+        end = t0 + deadline_s
+        while pending and time.perf_counter() < end:
+            pending = {eid for eid in pending
+                       if (ev := s.state.eval_by_id(eid)) is None
+                       or ev.status not in ("complete", "failed",
+                                            "canceled")}
+            if pending:
+                time.sleep(0.005)
+        dt = time.perf_counter() - t0
+    finally:
+        s.stop_scheduling()
+    if pending:
+        raise AssertionError(f"{len(pending)} evals unsettled after "
+                             f"{deadline_s} s")
+    return dt
+
+
+def server_wave(s, name, jobs, evals, all_jobs, zone_of, n_zones,
+                per_eval):
+    """One drained wave through the Server's threaded loop, with the
+    kernels' counts zeroed just before it and read just after, the log
+    ring's records of the wave, the plan queue's latencies, the stage
+    timers, the pipeline's and the applier's stats and the executor's
+    dispatches and uploads of the wave.  Gates: every eval complete and
+    every placement committed, allocs in their zones, no node over
+    capacity, the retained chain's usage equal to the store's, each of
+    SERVER_KERNELS launched and no solo kernel, no recovery record, one
+    `device` interval per dispatched wave."""
+    import torch
+
+    from nomad_tpu_torch.core.logging import RING
+    from nomad_tpu_torch.core.telemetry import REGISTRY
+
+    pipe = s.workers[0].pipeline
+    ex = s.executor
+    s.plan_queue.latencies.clear()
+    s.plan_applier.stats.update(plans=0, plans_refuted=0)
+    s.stage_timers.reset()
+    pipe0 = dict(pipe.stats)
+    ex0 = dict(ex.stats)
+    up0 = dict(ex.upload_bytes_by_cause)
+    dropped0 = REGISTRY.counter("nomad.logring.dropped",
+                                reason="subscriber")
+    gc0 = GC2["n"], GC2["s"]
+    sub = RING.subscribe(maxsize=1 << 20)
+    try:
+        reset_counts()
+        wall = drain(s, evals)
+        ph, eager = read_counts(name)
+    finally:
+        RING.unsubscribe(sub)
+    records = []
+    while not sub.empty():
+        records.append(sub.get_nowait())
+    if REGISTRY.counter("nomad.logring.dropped",
+                        reason="subscriber") != dropped0:
+        raise AssertionError(f"{name}: log records dropped")
+    failures = [r for r in records
+                if (r["component"], r["msg"]) in RECOVERY_RECORDS]
+    if failures:
+        raise AssertionError(f"{name}: the loop recovered from a failure: "
+                             f"{failures[:5]}")
+    refutes = {}
+    for r in records:
+        if (r["component"], r["msg"]) in REFUTE_RECORDS:
+            refutes[r["msg"]] = refutes.get(r["msg"], 0) + 1
+    statuses = [s.state.eval_by_id(e.id).status for e in evals]
+    if any(st != "complete" for st in statuses):
+        by = {st: statuses.count(st) for st in set(statuses)}
+        raise AssertionError(f"{name}: eval statuses {by}")
+    placed, usage = check_store(s, jobs, per_eval, all_jobs, zone_of,
+                                n_zones)
+    chain = ex._chains.get("")
+    if chain is None:
+        raise AssertionError(f"{name}: no chain retained after the wave")
+    used_matches_store(s, chain[2][0], usage)
+    if (any(ph[k] < 1 for k in SERVER_KERNELS)
+            or any(ph[k] for k in SOLO_KERNELS)):
+        raise AssertionError(f"{name} launches {ph}: want "
+                             f"{SERVER_KERNELS}, no {SOLO_KERNELS}")
+    waves = pipe.stats["waves"] - pipe0["waves"]
+    counts = s.stage_timers.counts()
+    if waves < 1 or counts.get("device", 0) != waves:
+        raise AssertionError(f"{name}: {waves} waves dispatched, "
+                             f"{counts.get('device', 0)} device intervals")
+    q = s.plan_queue.latency_quantiles((0.5, 0.99))
+    return {"evals": len(evals), "placements": placed, "wall_s": wall,
+            "evals_per_s": len(evals) / wall,
+            "placements_per_s": placed / wall,
+            "plan_queue_p50_s": q["p50"], "plan_queue_p99_s": q["p99"],
+            "stage_s": s.stage_timers.totals(), "stage_counts": counts,
+            "pipeline": {k: pipe.stats[k] - pipe0[k] for k in pipe0},
+            "plans": s.plan_applier.stats["plans"],
+            "plans_refuted": s.plan_applier.stats["plans_refuted"],
+            "refute_records": refutes,
+            "dispatches": ex.stats["dispatches"] - ex0["dispatches"],
+            "resident_waves": (ex.stats["resident_waves"]
+                               - ex0["resident_waves"]),
+            "upload_bytes_by_cause": cause_delta(ex, up0),
+            "launches": ph, "eager": eager,
+            "memory_allocated": (torch.cuda.memory_allocated()
+                                 if torch.cuda.is_available() else 0),
+            "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                     if torch.cuda.is_available() else 0),
+            "gc2_n": GC2["n"] - gc0[0], "gc2_s": GC2["s"] - gc0[1]}
+
+
+def server_phase(card, launches, n_nodes: int = N_NODES,
+                 n_evals: int = N_EVALS, per_eval: int = PER_EVAL,
+                 n_zones: int = N_ZONES, device=None):
+    """bench.py config 5 through the port's Server in thread mode
+    (dev_mode=False, one worker, eval_batch n_evals, a TorchExecutor):
+    a fresh cluster built through the Server's store, leadership, then
+    each of SERVER_WAVES registered through the job endpoint and
+    drained (server_wave).  The sampler runs at its default rate, as in
+    a fresh process's Server, and is stopped after shutdown; the
+    Server's hooks on the process planes are cleared so that its
+    tensors are freed before the next phase (the store's subscribers
+    hold the executor, and through it the engine)."""
+    import weakref
+
+    import torch
+
+    from nomad_tpu_torch.core import memledger, profiling
+    from nomad_tpu_torch.core.server import Server
+
+    profiling.PROFILER.hz = profiling.DEFAULT_HZ
+    t0 = time.perf_counter()
+    s = Server(dev_mode=False, num_workers=1, eval_batch=n_evals,
+               heartbeat_ttl=1e9, nack_timeout=600.0,
+               device_executor="torch", device=device)
+    engine_ref = weakref.ref(s.engine)
+    try:
+        s.establish_leadership()
+        zone_of = build_cluster(s, n_nodes, n_zones)
+        build_s = time.perf_counter() - t0
+        all_jobs = []
+        for name, cpu in SERVER_WAVES:
+            t1 = time.perf_counter()
+            jobs, evals = server_jobs(s, name, n_evals, per_eval, cpu,
+                                      n_zones)
+            all_jobs += jobs
+            register_s = time.perf_counter() - t1
+            line = server_wave(s, name, jobs, evals, all_jobs, zone_of,
+                               n_zones, per_eval)
+            for k, v in line["launches"].items():
+                launches[k] += v
+            emit({"phase": name, "card": card, "nodes": n_nodes,
+                  "cluster_build_s": build_s, "register_s": register_s,
+                  **line})
+    finally:
+        s.shutdown()
+        profiling.PROFILER.stop()
+        profiling.PROFILER.device_ledger_provider = None
+        for plane in ("state", "journal", "watch_hub", "events"):
+            memledger.MEMLEDGER.unregister(plane)
+    del s
+    gc.collect()
+    if engine_ref() is not None:
+        raise AssertionError("the Server's engine outlived its shutdown")
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------- timing
@@ -2830,6 +3078,9 @@ def main() -> int:
     invalidation_phase(card, h, executor, prev, all_jobs, zone_of,
                        launches)
     device_wait_phase(card, h, executor, all_jobs, zone_of, launches)
+    # the same waves through the port's Server: broker, worker, wave
+    # pipeline, plan queue and threaded applier
+    server_phase(card, launches)
 
     # 7-11. the solo path, then 12. its kernels against the plain versions
     # (after the line of the two exchange probes)

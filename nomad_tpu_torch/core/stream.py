@@ -1,0 +1,298 @@
+"""Event broker: in-memory pub/sub of state-change events
+(reference: nomad/stream/event_broker.go + nomad/state/events.go).
+
+The state store emits one callback per commit; this broker appends ONE
+entry per commit to a single shared EventRing (core/fanout.py) and
+subscribers pull through per-subscriber topic CURSORS — the read-path
+fanout design:
+
+  * a commit is O(ring append + wake), not O(subs × events) match/offer
+    under a broker lock;
+  * slow consumers fall behind on their own cursor — counted into
+    `nomad.stream.dropped` and the per-subscriber lag ledger, never
+    blocking the publisher;
+  * late subscribers replay by cursor seek over the already-expanded
+    ring instead of re-expanding the whole raw buffer per subscribe.
+
+Hot-path note: the store's commit callback runs under the store write
+lock (plan apply at bench scale lands here), so the callback only
+appends ONE raw entry per commit — per-alloc Event expansion happens
+lazily on first read, cached on the ring entry so K subscribers cost
+one expansion.
+
+Filter semantics (reference: SubscribeRequest): `topics` maps topic name
+to a list of keys; `"*"` as a topic or key matches everything.  Events
+older than the ring are dropped and counted (the reference behaves the
+same once its buffer wraps).  Allocation events always carry the key
+with a NULL payload — consumers re-fetch current state — so live
+delivery and replay are identical regardless of who was subscribed at
+commit time (a 100k-alloc plan apply must not pin full payloads in the
+ring either).
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+from nomad_tpu_torch.core.fanout import EventRing
+from nomad_tpu_torch.structs import codec
+
+TOPIC_ALL = "*"
+
+_TYPE_BY_TOPIC = {
+    "Node": "NodeRegistration",
+    "Job": "JobRegistered",
+    "Evaluation": "EvaluationUpdated",
+    "Allocations": "AllocationUpdated",
+    "Deployment": "DeploymentStatusUpdate",
+    # health watchdog SLO breaches (core/flightrec.py): published by the
+    # Server's on_breach hook, not by a store commit — payload is the
+    # breach verdict dict, keyed by rule name
+    "HealthBreach": "HealthBreach",
+}
+
+
+@dataclass
+class Event:
+    topic: str
+    type: str
+    key: str
+    index: int
+    payload: object            # original struct (encoded lazily)
+
+    def wire(self) -> Dict:
+        return {
+            "Topic": self.topic,
+            "Type": self.type,
+            "Key": self.key,
+            "Index": self.index,
+            "Payload": codec.encode(self.payload),
+        }
+
+
+class _AllocIds:
+    """Alloc commits buffer as an id stub, never the full alloc list: a
+    100k-alloc plan apply must not stay pinned in the ring.  Alloc
+    events always carry the key with a null payload (consumers re-fetch
+    current state) — deterministic regardless of who was subscribed at
+    commit time."""
+
+    __slots__ = ("ids",)
+
+    def __init__(self, ids) -> None:
+        self.ids = ids
+
+
+def _expand(topic: str, index: int, payload) -> List[Event]:
+    if topic == "Allocations":
+        if isinstance(payload, _AllocIds):
+            return [Event("Allocation", "AllocationUpdated", aid, index,
+                          None) for aid in payload.ids]
+        return [Event("Allocation", "AllocationUpdated", a.id, index, None)
+                for a in payload]
+    if topic not in _TYPE_BY_TOPIC:
+        return []
+    if topic == "HealthBreach":
+        key = payload.get("Rule", "") if isinstance(payload, dict) else ""
+        return [Event("HealthBreach", "HealthBreach", key, index, payload)]
+    if isinstance(payload, (str, tuple)):
+        key = payload if isinstance(payload, str) else payload[-1]
+        return [Event(topic, f"{topic}Deregistered", key, index, None)]
+    events = [Event(topic, _TYPE_BY_TOPIC[topic],
+                    getattr(payload, "id", ""), index, payload)]
+    if topic == "Evaluation" and getattr(payload, "status", "") == "blocked":
+        # a blocked eval IS a placement failure: operators watching
+        # /v1/event/stream see it live, keyed by job id so a watcher can
+        # filter to its job.  The payload (the eval) carries the
+        # failed_tg_allocs rollups that explain WHY it is pending.
+        # Derived here so replay from the ring reproduces it too.
+        events.append(Event("PlacementFailure", "PlacementFailure",
+                            getattr(payload, "job_id", ""), index, payload))
+    return events
+
+
+def _expected_count(topic: str, payload) -> int:
+    """Exact `_expand` output size, computed O(1) at append time (the
+    drop ledger needs event counts for entries trimmed before any
+    reader expanded them) — keep in lockstep with `_expand`."""
+    if topic == "Allocations":
+        return (len(payload.ids) if isinstance(payload, _AllocIds)
+                else len(payload))
+    if topic == "HealthBreach" or isinstance(payload, (str, tuple)):
+        return 1
+    if topic == "Evaluation" and getattr(payload, "status", "") == "blocked":
+        return 2
+    return 1
+
+
+class Subscription:
+    """A cursor over the shared ring: (entry seq, intra-entry offset)
+    plus the absolute event position `abs_pos` that the drop ledger
+    differences against the ring's cum ledger when the cursor falls off
+    the tail.  Pull-only; the publisher never touches a subscription."""
+
+    def __init__(self, topics: Dict[str, List[str]], ring: EventRing,
+                 seq: int, abs_pos: int) -> None:
+        self.topics = topics
+        self._ring = ring
+        self._seq = seq
+        self._intra = 0
+        self._abs_pos = abs_pos
+        self.dropped = 0           # events lost to cursor lag
+        self.closed = False
+
+    def matches(self, ev: Event) -> bool:
+        for topic, keys in self.topics.items():
+            if topic not in (TOPIC_ALL, ev.topic):
+                continue
+            if not keys or TOPIC_ALL in keys or ev.key in keys:
+                return True
+        return False
+
+    def lag(self) -> int:
+        """Entries between this cursor and the ring head."""
+        return max(self._ring.stats()["next_seq"] - self._seq, 0)
+
+    def _scan(self) -> Optional[Event]:
+        """Advance the cursor to the next matching event without
+        parking; None at the head.  Expansion happens OUTSIDE the ring
+        lock and is cached on the entry (idempotent, GIL-safe single
+        store) so K subscribers cost one expansion per entry."""
+        while True:
+            probe = self._ring.fetch(self._seq)
+            if probe[0] == "behind":
+                _, base_seq, cum_base = probe
+                lost = max(cum_base - self._abs_pos, 0)
+                if lost:
+                    self.dropped += lost
+                    self._ring.note_dropped(lost)
+                self._seq, self._intra, self._abs_pos = base_seq, 0, cum_base
+                continue
+            if probe[0] == "head":
+                return None
+            entry = probe[1]
+            evs = entry.expanded
+            if evs is None:
+                evs = _expand(entry.topic, entry.index, entry.payload)
+                entry.expanded = evs
+            while self._intra < len(evs):
+                ev = evs[self._intra]
+                self._intra += 1
+                if self.matches(ev):
+                    return ev
+            self._seq += 1
+            self._intra = 0
+            self._abs_pos = entry.cum_end
+
+    def next(self, timeout: Optional[float] = None) -> Optional[Event]:
+        """Blocking pull; None on close or timeout.  A single bounded
+        park per call keeps the old queue-get semantics (callers loop)."""
+        ev = self._scan()
+        if ev is not None or self.closed:
+            return ev
+        self._ring.wait_for(self._seq,
+                            timeout if timeout is not None else 0.5,
+                            lambda: self.closed)
+        if self.closed:
+            return None
+        return self._scan()
+
+    def __iter__(self):
+        while not self.closed:
+            ev = self.next(timeout=0.5)
+            if ev is not None:
+                yield ev
+
+    def stats(self) -> Dict:
+        return {"Topics": {t: list(k) for t, k in self.topics.items()},
+                "Lag": self.lag(), "Dropped": self.dropped}
+
+
+class EventBroker:
+    def __init__(self, buffer_size: int = 4096) -> None:
+        self._lock = threading.Lock()
+        self._ring = EventRing(capacity=buffer_size)
+        self._subs: List[Subscription] = []
+
+    # ------------------------------------------------------------- attach
+
+    def attach(self, store) -> None:
+        """Subscribe to a StateStore; its commit callbacks become events.
+        Runs under the store's write lock — O(1) append, no expansion."""
+        store.subscribe(self._on_state_event)
+
+    def _on_state_event(self, topic: str, index: int, payload) -> None:
+        if topic == "AllocBlock":
+            # columnar bulk commit: surfaces as ordinary alloc events with
+            # null payloads (consumers re-fetch) — the ids list already
+            # exists on the block, so this stays O(1) python work here
+            topic, payload = "Allocations", _AllocIds(payload.ids)
+        if topic not in _TYPE_BY_TOPIC:
+            return
+        if topic == "Allocations" and not isinstance(payload, _AllocIds):
+            payload = _AllocIds([a.id for a in payload])
+        self._ring.append(topic, index, payload,
+                          _expected_count(topic, payload))
+
+    # ------------------------------------------------------------ pub/sub
+
+    def subscribe(self, topics: Optional[Dict[str, List[str]]] = None,
+                  from_index: int = 0, maxsize: int = 1024) -> Subscription:
+        """`topics={"Allocation": ["*"]}`; None/empty = everything.
+        Ring entries with index > from_index replay first, by cursor
+        seek.  `maxsize` is accepted for API compatibility; backpressure
+        is now cursor lag bounded by the ring capacity, not a
+        per-subscriber queue."""
+        del maxsize
+        seq, abs_pos = self._ring.seek(from_index)
+        sub = Subscription(topics or {TOPIC_ALL: [TOPIC_ALL]},
+                           self._ring, seq, abs_pos)
+        with self._lock:
+            self._subs.append(sub)
+        return sub
+
+    def unsubscribe(self, sub: Subscription) -> None:
+        sub.closed = True
+        with self._lock:
+            if sub in self._subs:
+                self._subs.remove(sub)
+        # wake any parked next() so the close is observed promptly
+        self._ring.wake()
+
+    def close(self) -> None:
+        """Wake and end every subscriber (server shutdown)."""
+        with self._lock:
+            subs = list(self._subs)
+            self._subs.clear()
+        for sub in subs:
+            sub.closed = True
+        self._ring.close()
+
+    # -------------------------------------------------------------- intro
+
+    def stats(self) -> Dict:
+        """Ring + per-subscriber cursor/drop ledger, surfaced in
+        /v1/operator/debug."""
+        with self._lock:
+            subs = list(self._subs)
+        ring = self._ring.stats()
+        return {
+            "Subscribers": len(subs),
+            "Ring": ring,
+            "DroppedTotal": ring["dropped_total"],
+            "Cursors": [s.stats() for s in subs],
+        }
+
+    def mem_stats(self) -> Dict:
+        """Ledger sizer (core/memledger): the shared ring's incremental
+        byte estimate + entry occupancy; drops count as evictions."""
+        ring = self._ring.stats()
+        with self._lock:
+            n_subs = len(self._subs)
+        return {"bytes": ring["bytes"] + 256 * n_subs,
+                "entries": ring["entries"],
+                "cap": ring["capacity"],
+                "evictions": ring["dropped_total"],
+                "subscribers": n_subs}

@@ -1,0 +1,608 @@
+"""Eval worker (reference: nomad/worker.go).
+
+Dequeue an eval → wait for the state store to reach the eval's index →
+snapshot → instantiate the scheduler from the factory map → process → submit
+plans through the plan queue → ack/nack.  Implements the scheduler.Planner
+seam for production (the Harness is the test implementation).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional, Tuple
+
+from nomad_tpu_torch.core import profiling
+from nomad_tpu_torch.core.flightrec import FLIGHT
+from nomad_tpu_torch.core.logging import log, trace_scope
+from nomad_tpu_torch.core.telemetry import (
+    REGISTRY,
+    TRACER,
+    StatCounters,
+    span_id,
+)
+from nomad_tpu_torch.core.wavepipe import WavePipeline
+from nomad_tpu_torch.ops import PlacementEngine
+from nomad_tpu_torch.scheduler import new_scheduler
+from nomad_tpu_torch.structs import Evaluation, Plan, PlanResult, new_id
+
+SCHEDULERS_SERVED = ["service", "batch", "system", "sysbatch",
+                     "service-tpu", "batch-tpu", "_core"]
+
+# eval types whose scheduler supports the multi-eval batched device
+# launch (GenericScheduler.prepare_batch / process_batched)
+BATCHABLE_TYPES = {"service", "batch", "service-tpu", "batch-tpu"}
+
+
+class Worker:
+    """One eval worker.  The server runs `count` of these; each holds its
+    own reference to the shared PlacementEngine so packed tensors and jit
+    caches are shared across workers (device work is serialized by JAX)."""
+
+    def __init__(self, server, worker_id: int = 0,
+                 served: Optional[List[str]] = None) -> None:
+        self.server = server
+        self.id = worker_id
+        # scheduler types this worker dequeues; the multi-process pool
+        # (core/workerpool) splits the namespace — children serve the
+        # batchable types, the parent's thread worker keeps the rest
+        self.served = (list(served) if served is not None
+                       else list(SCHEDULERS_SERVED))
+        # extra optimistic-concurrency plan attempts for schedulers this
+        # worker builds: pool children set it on their server shim
+        # (replica staleness needs more retry headroom than the shared
+        # store's near-immediate visibility)
+        self.schedule_attempt_boost = getattr(
+            server, "schedule_attempt_boost", 0)
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.stats = StatCounters("nomad.worker",
+                                  ("invoked", "acked", "nacked"))
+        # telemetry (core/telemetry.py): per-eval schedule-start stamps
+        # (dequeue -> settle feeds the schedule histogram + span) and the
+        # trace id each in-flight eval carries, so submitted plans join
+        # their eval's span tree
+        self._sched_t0: Dict[str, float] = {}
+        self._batch_trace: Dict[str, str] = {}
+        # set per-eval by process():
+        self._snapshot = None
+        self._snapshot_seq: Optional[int] = None
+        self._eval_token = ""
+        # delivery tokens of the batch in flight, keyed by eval id: every
+        # submitted plan carries its eval's CURRENT token so the applier
+        # can reject plans from superseded deliveries (see
+        # PlanApplier.token_check)
+        self._batch_tokens: Dict[str, str] = {}
+        # the timebase of the eval currently being processed: eval
+        # updates (and their delayed follow-ups) must use the SAME clock
+        # the scheduler ran with, not a fresh wall-clock read (tests and
+        # deterministic replays inject synthetic time)
+        self._now: Optional[float] = None
+        # the wave pipeline (core/wavepipe.py): every batched launch
+        # dispatches/collects through it, so wave sequencing, stage
+        # timers, and the refuted-node mask are shared machinery — the
+        # server's StageTimers make the device/commit overlap provable.
+        # Launches go through the server's shared device executor
+        # (ops/executor.py) so retained buffer handles and the resident
+        # usage chain are one slot across all workers.
+        self.pipeline = WavePipeline(
+            getattr(server, "executor", None) or server.engine,
+            getattr(server, "stage_timers", None))
+        # cross-batch pipeline: a dequeued batch whose kernel launch was
+        # dispatched (chained on the previous batch's device-side
+        # proposed usage) while the previous batch's host phase ran
+        self._prefetch = None
+        # when set (batched phase 3), planner eval updates buffer here
+        # and flush as ONE store transaction per settle window instead of
+        # one per eval (store-lock churn was a measurable wall slice)
+        self._defer_evals: Optional[List[Evaluation]] = None
+
+    # ------------------------------------------------------------ running
+
+    def start(self) -> None:
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._run, name=f"worker-{self.id}", daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            # generous join: a worker mid-device-call must be allowed to
+            # finish — abandoning a daemon thread inside the PJRT plugin
+            # aborts the whole process at interpreter exit
+            self._thread.join(timeout=60)
+        pf = self._prefetch
+        self._prefetch = None
+        if pf is not None:
+            # give the undrained batch's evals back immediately instead
+            # of stranding them until the nack timeout
+            t = self.server.clock.time()
+            for ev, token in pf["batch"]:
+                self._sched_t0.pop(ev.id, None)
+                self.server.eval_broker.nack(ev.id, token, now=t)
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            # run_once nacks scheduler failures itself; anything escaping
+            # it (broker dequeue, settle) must not kill the worker thread
+            # silently — log and keep serving the queue
+            try:
+                self.run_once(timeout=0.1)
+            except Exception as exc:  # noqa: BLE001 - keep the loop alive
+                log("worker", "warn", "worker iteration failed",
+                    worker=self.id, error=repr(exc))
+
+    # ------------------------------------------------------------- steps
+
+    def run_once(self, timeout: float = 0.0, now: Optional[float] = None
+                 ) -> int:
+        """Dequeue + process one batch of evals (batch size 1 when the
+        server's eval batching is off).  Returns the number of evals
+        handled (0 = nothing ready; used by tests and the drain loop)."""
+        batch_n = getattr(self.server, "eval_batch", 0)
+        if batch_n and batch_n > 1:
+            return self.run_batch(batch_n, timeout=timeout, now=now)
+        broker = self.server.eval_broker
+        t = now if now is not None else self.server.clock.time()
+        # profiling marker: an empty queue parks the worker inside the
+        # broker's condition wait — mark the whole dequeue idle so the
+        # sampler's worker-role buckets separate "no work" from GIL/host
+        # time (a busy dequeue returns in microseconds; its share of
+        # samples is negligible)
+        with profiling.activity("idle"):
+            evaluation, token = broker.dequeue(self.served, now=t,
+                                               timeout=timeout)
+        if evaluation is None:
+            return 0
+        self._eval_token = token
+        self._batch_tokens = {evaluation.id: token}
+        self._batch_trace = {evaluation.id: evaluation.trace_id}
+        self._sched_t0[evaluation.id] = TRACER.clock.monotonic()
+        try:
+            err = self._invoke(evaluation, t)
+        except Exception as e:  # noqa: BLE001 - a scheduler bug must nack,
+            err = e             # not kill the worker thread
+        self._settle(evaluation, token, err, t)
+        return 1
+
+    def _settle(self, evaluation: Evaluation, token: str,
+                err: Optional[Exception], t: float) -> None:
+        broker = self.server.eval_broker
+        # schedule duration = dequeue -> settle, per scheduler type: the
+        # batched path's span covers its share of the shared device wait
+        # too (that IS this eval's schedule latency).  Windowed: this is
+        # the health plane's eval-latency SLO series.
+        t1 = TRACER.clock.monotonic()
+        t0 = self._sched_t0.pop(evaluation.id, t1)
+        outcome = "ack" if err is None else "nack"
+        REGISTRY.observe_windowed("nomad.worker.schedule_s", t1 - t0,
+                                  type=evaluation.type)
+        # flight-recorder eval tail (core/flightrec.py): joins the
+        # applier's queue-wait/apply stamps recorded under the same id
+        FLIGHT.record_eval(evaluation.id, type=evaluation.type,
+                           worker=self.id, outcome=outcome,
+                           schedule_s=round(t1 - t0, 9),
+                           trace_id=evaluation.trace_id,
+                           job_id=evaluation.job_id)
+        if evaluation.trace_id:
+            TRACER.record("worker.schedule", evaluation.trace_id, t0, t1,
+                          parent=span_id(evaluation.trace_id, "eval"),
+                          worker=self.id, type=evaluation.type,
+                          outcome=outcome)
+        with trace_scope(evaluation.trace_id):
+            if err is None:
+                broker.ack(evaluation.id, token)
+                self.stats.inc("acked")
+                log("worker", "debug", "eval acked", worker=self.id,
+                    eval_id=evaluation.id, job_id=evaluation.job_id,
+                    type=evaluation.type)
+            else:
+                broker.nack(evaluation.id, token, now=t)
+                self.stats.inc("nacked")
+                log("worker", "warn", "eval nacked", worker=self.id,
+                    eval_id=evaluation.id, job_id=evaluation.job_id,
+                    error=str(err))
+
+    def run_batch(self, max_n: int, timeout: float = 0.0,
+                  now: Optional[float] = None) -> int:
+        """Dequeue up to `max_n` ready evals and process them as ONE
+        batch: the reconcile phase runs per eval on a shared snapshot,
+        every batch-eligible eval's placement block goes to the device in
+        a single multi-eval launch (engine.place_batch), and the
+        resulting plans — mutually consistent by construction — submit
+        through the plan queue individually.  Ineligible evals (system,
+        core GC, spread/device jobs, updates/stops) process through the
+        normal per-eval path in dequeue order.
+
+        Cross-batch pipelining: when a batch is fully coupled, the NEXT
+        ready batch is dequeued and its kernel DISPATCHED (chained on
+        this batch's device-side proposed usage) before this batch's
+        host phase runs — the device computes batch k+1 while the host
+        materializes and commits batch k."""
+        broker = self.server.eval_broker
+        t = now if now is not None else self.server.clock.time()
+        pf = self._prefetch
+        self._prefetch = None
+        if pf is None:
+            with profiling.activity("idle"):   # see run_once's marker
+                batch = broker.dequeue_batch(self.served, max_n,
+                                             now=t, timeout=timeout)
+            if not batch:
+                return 0
+        else:
+            batch = pf["batch"]
+        settled: set = set()
+        try:
+            if pf is None:
+                pf = self._start_batch(batch, t)
+            return self._finish_batch(pf, t, settled, max_n)
+        except Exception as e:  # noqa: BLE001 - the solo path nacks on
+            # any failure; the batched path must give every dequeued
+            # eval the same guarantee or a single bad snapshot kills the
+            # worker thread with the whole batch's tokens outstanding
+            log("worker", "error", "batch pass failed; nacking remainder",
+                worker=self.id, error=repr(e))
+            for ev, token in batch:
+                if ev.id not in settled:
+                    self._settle(ev, token, e, t)
+            return len(batch)
+
+    def _start_batch(self, batch, t: float, chain=None):
+        """Phases 1-2: snapshot, per-eval reconcile, and the (async)
+        device dispatch.  `chain` = (batch_id, seq0, used_dev) continues
+        a coupled chain: the launch starts from the previous batch's
+        device-side proposed usage and its plans join the same applier
+        fence.  Returns the pending-batch dict for _finish_batch."""
+        import zlib
+
+        from nomad_tpu_torch.ops.engine import BatchItem
+        from nomad_tpu_torch.scheduler.generic import GenericScheduler
+
+        state = self.server.state
+        max_idx = max((ev.modify_index or 0) for ev, _ in batch)
+        if max_idx:
+            # waiting on the applier to reach the eval's index is a
+            # pipeline stall, not host work — lock-wait for the sampler
+            with profiling.activity("lock-wait"):
+                state.wait_for_index(max_idx, timeout=5.0)
+        # placement-write fence read ATOMICALLY with the snapshot: a
+        # foreign write between separate reads would be invisible to the
+        # fence yet missing from the snapshot (the applier would then
+        # skip the fit re-check against state the scheduler never saw)
+        snapshot, batch_seq0 = state.snapshot_and_placement_seq()
+
+        # phase 1: build schedulers, reconcile batch-eligible evals
+        t0m = TRACER.clock.monotonic()
+        work = []          # (ev, token, sched_or_None, prep_or_err)
+        for ev, token in batch:
+            self.stats.inc("invoked")
+            self._sched_t0.setdefault(ev.id, t0m)
+            if ev.type == "_core":
+                kwargs = {"now": t, "store": state}
+            else:
+                kwargs = {"now": t, "engine": self.server.engine}
+            try:
+                sched = new_scheduler(ev.type, snapshot, self, **kwargs)
+            except Exception as e:  # noqa: BLE001 - factory/init error
+                work.append((ev, token, None, e))
+                continue
+            prep = None
+            if (len(batch) > 1 and ev.type in BATCHABLE_TYPES
+                    and isinstance(sched, GenericScheduler)):
+                try:
+                    prep = sched.prepare_batch(ev)
+                except Exception:  # noqa: BLE001 - fall back to solo
+                    prep = None
+            work.append((ev, token, sched, prep))
+
+        # phase 2: ONE device dispatch for all eligible placement blocks
+        prepared = [(i, w) for i, w in enumerate(work)
+                    if w[2] is not None
+                    and isinstance(w[3], GenericScheduler.BatchPrep)]
+        pending = None
+        prepared_idx = []
+        batch_id = ""
+        if len(prepared) >= 2:
+            if chain is None:
+                # resident continuation (ops/executor.py): a previous
+                # pass's final wave parked its proposed-usage handle in
+                # the executor; claiming it makes this launch chain
+                # device-resident instead of re-syncing used0 from the
+                # packer through the host.  Claimed only here — a solo
+                # batch must not pop (and strand) the chain it cannot
+                # ride.  The claim pops atomically, so concurrent
+                # workers can never share one chain id (the applier
+                # fence exempts a chain's own writes; a shared id would
+                # let two blind-to-each-other waves wholesale-commit).
+                chain = self.pipeline.claim_chain()
+            if chain is not None:
+                batch_id, batch_seq0, used_dev = chain
+            else:
+                batch_id, used_dev = new_id(), None
+            items = [BatchItem(job=w[3].job, tg=w[3].tg, count=w[3].count)
+                     for _, w in prepared]
+            # per-item seeds, the SAME formula GenericScheduler.process
+            # uses at attempt 0: an eval drawing identical tie-break
+            # noise on the batched and solo paths is what makes the
+            # wave pipeline's output bit-identical to serial processing
+            seeds = [(zlib.crc32(w[0].id.encode()) & 0xFFFFFFFF) or 1
+                     for _, w in prepared]
+            try:
+                pending = self.pipeline.dispatch(
+                    snapshot, items, seed=seeds, used0_dev=used_dev)
+                prepared_idx = [i for i, _ in prepared]
+                # the batch now heads into a device wait that may include
+                # a first-time compile: restart the delivery deadlines so
+                # the broker doesn't redeliver mid-launch
+                self.server.eval_broker.extend_outstanding(
+                    [(ev.id, token) for ev, token in batch],
+                    now=self.server.clock.time())
+            except Exception as e:  # noqa: BLE001 - solo fallback
+                log("worker", "warn", "batch launch failed; going solo",
+                    worker=self.id, error=str(e))
+                pending = None
+        elif chain is not None:
+            # a prefetch-handed chain this batch cannot ride (fewer than
+            # two coupled evals): park it back for a later coupled batch
+            # instead of stranding the resident handle
+            self.pipeline.retain_chain(*chain)
+        return {"batch": batch, "work": work, "pending": pending,
+                "prepared_idx": prepared_idx, "batch_id": batch_id,
+                "batch_seq0": batch_seq0, "snapshot": snapshot, "t": t}
+
+    def _finish_batch(self, pf, t: float, settled: set,
+                      max_n: int) -> int:
+        work = pf["work"]
+        batch_id = pf["batch_id"]
+        batch_seq0 = pf["batch_seq0"]
+        self._snapshot = pf["snapshot"]
+        self._snapshot_seq = batch_seq0
+        # a prefetched batch's schedulers were built with the PREVIOUS
+        # call's clock; eval updates (and their delayed follow-ups) must
+        # use that same clock, not this call's
+        self._now = pf["t"]
+        # the prefetched evals sat out the previous batch's host phase;
+        # restart their delivery deadlines so a long phase cannot expire
+        # them into redelivery while this worker is mid-processing
+        self.server.eval_broker.extend_outstanding(
+            [(ev.id, token) for ev, token in pf["batch"]], now=t)
+        self._batch_tokens = {ev.id: token for ev, token in pf["batch"]}
+        self._batch_trace = {ev.id: ev.trace_id for ev, _ in pf["batch"]}
+        bds = {}
+        if pf["pending"] is not None:
+            decisions = self.pipeline.collect(pf["pending"])
+            # the collect may have sat in a first-time device compile for
+            # longer than the redelivery deadline: restart the batch's
+            # deadlines so the HOST phase doesn't run superseded (plans
+            # from a superseded delivery are rejected at the applier)
+            self.server.eval_broker.extend_outstanding(
+                [(ev.id, token) for ev, token in pf["batch"]],
+                now=self.server.clock.time())
+            bds = {i: d for i, d in zip(pf["prepared_idx"], decisions)}
+
+        # cross-batch prefetch: with this batch fully coupled and more
+        # evals ready, dispatch the next launch NOW so the device works
+        # through it while this thread runs phase 3.  Chained decisions
+        # start from this batch's proposed usage — a superset of what
+        # will commit, so they can under-pack but never oversubscribe.
+        chain_used = self.pipeline.chain_state(pf["pending"])
+        chain_ok = (chain_used is not None and bds
+                    and len(bds) == len(work))
+        chain_handed_off = False
+        if chain_ok and not self._stop.is_set():
+            nxt = self.server.eval_broker.dequeue_batch(
+                self.served, max_n, now=t, timeout=0.0)
+            if nxt:
+                # the chain buffer is DONATED to the prefetched launch
+                # (alive or failed) — it must not also be retained below
+                chain_handed_off = True
+                try:
+                    self._prefetch = self._start_batch(
+                        nxt, t, chain=(batch_id, batch_seq0, chain_used))
+                except Exception as e:  # noqa: BLE001 - hand them back
+                    log("worker", "warn", "prefetch dispatch failed",
+                        worker=self.id, error=repr(e))
+                    for ev, token in nxt:
+                        self.server.eval_broker.nack(ev.id, token, now=t)
+
+        # phase 3: coupled plans FIRST — a solo eval's commit is a
+        # placement write the batch snapshot never saw, which would break
+        # the applier's fence and force full re-checks for the whole
+        # chain — then everything else in dequeue order.  Coupled plans
+        # submit a BOUNDED window ahead of the finalize pass, so the
+        # applier commits plan k while this thread materializes plan k+1
+        # without letting plans pool in the queue (queue-wait is the
+        # north star's p99 plan-queue latency — an unbounded submit-all
+        # pass inflated it ~60x for zero wall-time gain).
+        coupled = [i for i in range(len(work)) if i in bds]
+        handles: Dict[int, object] = {}
+        window = 2
+        # ONE port cache for the whole batch: mates materialize
+        # sequentially in this thread, so each sees the previous mates'
+        # in-plan port commitments (round-5 verdict #6 — networked
+        # groups ride the batch without colliding).  Now each
+        # mate's ports are carved COLUMNAR per node against this shared
+        # cache (scheduler/generic._carve_ports_batch), so networked
+        # plans stay on the block path — wave coupling, refute-repair
+        # and the resident chain included — instead of demoting to
+        # per-alloc materialize.
+        shared_net: Dict[str, object] = {}
+
+        wave = pf["pending"].wave if pf["pending"] is not None else -1
+
+        def submit(i):
+            ev, token, sched, prep = work[i]
+            try:
+                sched.last_port_carve = 0
+                with trace_scope(ev.trace_id), \
+                        self.pipeline.materialize(wave):
+                    handles[i] = sched.submit_batched(
+                        ev, prep, bds[i],
+                        coupled_batch=(batch_id, batch_seq0),
+                        net_index_cache=shared_net)
+                self.pipeline.note_ports_batched(sched.last_port_carve,
+                                                 wave)
+            except Exception as e:  # noqa: BLE001 - finalize pass nacks
+                handles[i] = e
+
+        # eval-status updates buffer and flush as ONE store transaction
+        # per settle window; an eval is only acked AFTER its status write
+        # flushed (ack-implies-persisted, like the solo path)
+        self._defer_evals = []
+        to_settle: List[tuple] = []
+
+        def flush_window():
+            if self._defer_evals:
+                self.server.apply_eval_update(self._defer_evals,
+                                              now=self._now)
+                self._defer_evals.clear()
+            for ev_, token_, err_ in to_settle:
+                self._settle(ev_, token_, err_, t)
+                settled.add(ev_.id)
+            to_settle.clear()
+
+        try:
+            for i in coupled[:window]:
+                submit(i)
+            for pos, i in enumerate(coupled):
+                if pos + window < len(coupled):
+                    submit(coupled[pos + window])
+                # finalize i right here so the window stays bounded
+                ev, token, sched, prep = work[i]
+                try:
+                    h = handles.get(i)
+                    if isinstance(h, Exception):
+                        err = h
+                    else:
+                        with trace_scope(ev.trace_id):
+                            err = (sched.finalize_batched(
+                                       ev, h, pipeline=self.pipeline)
+                                   if h is not None
+                                   else sched.process(ev))  # solo fallback
+                except Exception as e:  # noqa: BLE001 - nack, don't die
+                    err = e
+                to_settle.append((ev, token, err))
+                if len(to_settle) >= 16:
+                    flush_window()
+            flush_window()
+        finally:
+            self._defer_evals = None
+        for i in [i for i in range(len(work)) if i not in bds]:
+            ev, token, sched, prep = work[i]
+            if sched is None:
+                self._settle(ev, token, prep, t)      # factory error
+                settled.add(ev.id)
+                continue
+            try:
+                err = sched.process(ev)
+            except Exception as e:  # noqa: BLE001 - nack, don't die
+                err = e
+            self._settle(ev, token, err, t)
+            settled.add(ev.id)
+        # no successor was ready to chain on this batch's proposed
+        # usage: park the handle in the executor so the NEXT dequeued
+        # batch (this worker's or a sibling's) starts device-resident.
+        # Only after the coupled plans committed (the finalize passes
+        # above waited on the applier) — their commits carry the chain's
+        # own origin and must not read as foreign invalidations.
+        if chain_ok and not chain_handed_off:
+            self.pipeline.retain_chain(batch_id, batch_seq0, chain_used)
+        return len(work)
+
+    def _invoke(self, evaluation: Evaluation, now: float) -> Optional[Exception]:
+        self._now = now
+        state = self.server.state
+        # wait for the state to catch up to the eval (waitForIndex)
+        if evaluation.modify_index:
+            state.wait_for_index(evaluation.modify_index, timeout=5.0)
+        self._snapshot, self._snapshot_seq = \
+            state.snapshot_and_placement_seq()
+        self.stats.inc("invoked")
+        if evaluation.type == "_core":
+            kwargs = {"now": now, "store": state}
+        else:
+            kwargs = {"now": now, "engine": self.server.engine}
+        try:
+            sched = new_scheduler(evaluation.type, self._snapshot, self,
+                                  **kwargs)
+        except ValueError as e:
+            return e
+        # log records emitted while scheduling carry the eval's trace id
+        # (core/logging.trace_scope): a dump bundle's logs join its traces
+        with trace_scope(evaluation.trace_id):
+            return sched.process(evaluation)
+
+    # ----------------------------------------------------------- Planner
+
+    def submit_plan_async(self, plan: Plan):
+        """Enqueue a plan WITHOUT waiting for the applier — the batched
+        path submits a whole chain first and collects results after, so
+        plan apply overlaps the next plan's materialization.
+
+        Solo plans are fence-tagged by their SCHEDULER (generic/system)
+        from the snapshot they were actually computed against — never
+        from mutable worker state, which can advance past a stale
+        scheduler's view mid-batch."""
+        plan.snapshot_index = self._snapshot.index if self._snapshot else 0
+        plan.eval_token = self._batch_tokens.get(plan.eval_id, "")
+        if not plan.trace_id:
+            plan.trace_id = self._batch_trace.get(plan.eval_id, "")
+        pending = self.server.plan_queue.enqueue(plan)
+        # the applier thread evaluates + commits; in single-threaded test
+        # mode the server applies inline
+        self.server.maybe_apply_inline(pending)
+        return pending
+
+    def refreshed_snapshot(self):
+        """Fresh state view after a partial commit (the retry loop must
+        see the refuting writes) — the fence tracks it so the retry's
+        next plan may fast-path again.  Pool children first pull the
+        parent's journal delta into their replica: a replica only
+        advances at dequeue, and a retry against the pre-refute view
+        would re-pick the exact assignment that just refuted."""
+        refresh = getattr(self.server, "refresh_state", None)
+        if refresh is not None:
+            refresh()
+        snap, self._snapshot_seq = \
+            self.server.state.snapshot_and_placement_seq()
+        self._snapshot = snap
+        return snap
+
+    def submit_plan(self, plan: Plan
+                    ) -> Tuple[Optional[PlanResult], object, Optional[Exception]]:
+        pending = self.submit_plan_async(plan)
+        result, err = pending.wait()
+        if err is not None:
+            return None, None, err
+        refreshed = None
+        if result is not None and result.refuted_nodes:
+            refreshed = self.refreshed_snapshot()
+        return result, refreshed, None
+
+    def _apply_or_defer(self, evaluation: Evaluation) -> None:
+        if self._defer_evals is not None:
+            self._defer_evals.append(evaluation)
+        else:
+            self.server.apply_eval_update([evaluation], now=self._now)
+
+    def update_eval(self, evaluation: Evaluation) -> None:
+        self._apply_or_defer(evaluation)
+
+    def create_eval(self, evaluation: Evaluation) -> None:
+        self._apply_or_defer(evaluation)
+
+    def reblock_eval(self, evaluation: Evaluation) -> None:
+        # apply_eval_update routes blocked evals to the tracker (and
+        # cancels duplicates)
+        self._apply_or_defer(evaluation)
+
+    def record_decision(self, decision) -> None:
+        """EvalDecision seam (core/explain.py): ride the local store's
+        bounded decision ring.  Node-local observability — never raft-
+        replicated (ReplicatedState serves non-mutation attrs locally)."""
+        rec = getattr(self.server.state, "record_eval_decision", None)
+        if rec is not None:
+            rec(decision)
+
+    def serves_plan(self) -> bool:
+        return True

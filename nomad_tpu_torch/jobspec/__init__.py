@@ -1,2 +1,3 @@
-"""Jobspec helpers (reference: nomad_tpu.jobspec).  Only the duration
-parser the struct codec needs is ported so far."""
+"""Jobspec helpers (reference: nomad_tpu.jobspec).  Ported so far: the
+duration parser the struct codec needs (`schema`) and the HCL parser
+and evaluator (`hcl`), which the ACL policy parser reads."""

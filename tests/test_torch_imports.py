@@ -2,6 +2,7 @@
 JAX and the reference package made unimportable, and its entry points
 default to CUDA, raising where there is none."""
 
+import ast
 import subprocess
 import sys
 import textwrap
@@ -36,7 +37,7 @@ def test_every_module_imports_without_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", PROBE], capture_output=True,
                          text=True, timeout=120, check=True)
     count, leaked = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 30
+    assert int(count) >= 68
     assert leaked == "[]"
 
 
@@ -87,8 +88,8 @@ def test_mesh_modules_stand_alone():
 
 def test_observability_and_executor_modules_stand_alone():
     """The planes and the executor seam are among the modules the probe
-    imports, and the port's core package imports none of them eagerly
-    (the reference's imports its server)."""
+    imports, and the port's core package, like the reference's, imports
+    its server and with it the planes and the executor seam."""
     import pkgutil
 
     import nomad_tpu_torch
@@ -111,4 +112,61 @@ def test_observability_and_executor_modules_stand_alone():
     """)
     out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
                          text=True, timeout=120, check=True)
-    assert out.stdout.strip() == "[]"
+    eager = set(ast.literal_eval(out.stdout.strip()))
+    assert {"nomad_tpu_torch.core.server"} | {
+        m for m in new if m.startswith("nomad_tpu_torch.core.")} <= eager
+
+
+SERVER_SLICE = ("acl", "acl.acl", "acl.policy", "acl.auth_methods",
+                "jobspec.hcl") + tuple(f"core.{m}" for m in (
+                    "eval_broker", "blocked_evals", "heartbeat", "fanout",
+                    "stream", "plan_apply", "wavepipe", "worker",
+                    "periodic", "drainer", "deployment_watcher",
+                    "volume_watcher", "server"))
+
+
+def test_server_slice_modules_stand_alone():
+    """The acl package and the server loop's modules are among those the
+    probe imports; the fanout copy leaves out the read follower."""
+    import pkgutil
+
+    import nomad_tpu_torch
+    from nomad_tpu_torch.core import fanout
+    names = {m.name for m in pkgutil.walk_packages(
+        nomad_tpu_torch.__path__, "nomad_tpu_torch.")}
+    assert {f"nomad_tpu_torch.{m}" for m in SERVER_SLICE} <= names
+    assert not hasattr(fanout, "ReadFollower")
+
+
+# modules whose import runs core/__init__ (and with it server -> ops ->
+# the executor -> core planes) from another package's import first
+FIRST_IMPORTS = ("nomad_tpu_torch.core.telemetry",
+                 "nomad_tpu_torch.core.server",
+                 "nomad_tpu_torch.core.wavepipe",
+                 "nomad_tpu_torch.ops.executor",
+                 "nomad_tpu_torch.ops.engine",
+                 "nomad_tpu_torch.state",
+                 "nomad_tpu_torch.scheduler.generic",
+                 "nomad_tpu_torch.acl")
+
+
+@pytest.mark.parametrize("first", FIRST_IMPORTS)
+def test_import_order_from_a_fresh_interpreter(first):
+    """Each of these imported first in a fresh interpreter, then the
+    server: the core package's exports, which import the server, do not
+    meet a partly initialised module on the way (the whole-package probe
+    above imports in one order only)."""
+    probe = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["nomad_tpu"] = None
+        import {first}
+        import nomad_tpu_torch.core.server as server
+        from nomad_tpu_torch.core import Server, Worker
+        assert Server is server.Server
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "ok"

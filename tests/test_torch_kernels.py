@@ -50,12 +50,14 @@ from torch_parity import (  # noqa: F401
     FLAT_CASES,
     MEMO_SCAN_CASES,
     add_jobs,
+    add_zoned_cluster,
     build_flat_cluster,
     build_zoned_cluster,
     compact_case,
     cuda_device,
     engine,
     flat_case,
+    make_evals,
     random_placement_arrays,
     random_preempt_args,
     set_spread,
@@ -1270,3 +1272,117 @@ def test_nvcc_builds_are_noted_in_the_compile_ledger(cuda_device, tmp_path,
     assert all(v["first_launch_s"] > 0 for v in after.values())
     K.build_all()
     assert nvcc_sites() == after
+
+
+# ----------------------------------------- the server loop on the card
+
+def _card_server(device, dev_mode=True, n_items=12, count=30):
+    """A port Server (one worker, eval_batch 16) over a zoned test
+    cluster, its evals pinned (so their tie-break seeds are), on
+    `device`.  Returns (server, evals)."""
+    from nomad_tpu_torch.core.server import Server
+    s = Server(dev_mode=dev_mode, num_workers=1, eval_batch=16,
+               heartbeat_ttl=1e9, profile_hz=0, device=device)
+    s.establish_leadership()
+    add_zoned_cluster(PORT, s.state)
+    jobs, _ = add_jobs(PORT, s, n_items, count)
+    evals = make_evals(PORT, jobs)
+    s.apply_eval_update(evals)
+    return s, evals
+
+
+def _server_fingerprint(s):
+    snap = s.state.snapshot()
+    return sorted((a.job_id, a.name, a.node_id, a.resources.cpu)
+                  for j in snap.jobs()
+                  for a in snap.allocs_by_job(j.namespace, j.id)
+                  if not a.terminal_status())
+
+
+def _drain_threaded(s, evals, deadline_s=120.0):
+    import time
+    s.start_scheduling()
+    try:
+        end = time.monotonic() + deadline_s
+        while time.monotonic() < end and not all(
+                s.state.eval_by_id(e.id).status == "complete"
+                for e in evals):
+            time.sleep(0.01)
+    finally:
+        s.stop_scheduling()
+
+
+@pytest.mark.gpu
+def test_server_wave_on_card_equals_cpu(cuda_device):
+    """One batched wave through the port's Server in dev_mode on the
+    card places what the same Server places on the CPU, launching K1
+    and K2 and no solo kernel."""
+    prints = []
+    for device in ("cpu", cuda_device):
+        s, evals = _card_server(device)
+        try:
+            K.reset_launches()
+            assert s.process_all() == len(evals)
+            torch.cuda.synchronize()
+            launches = {k.name: k.launches for k in K.KERNELS}
+            assert [s.state.eval_by_id(e.id).status for e in evals] == \
+                ["complete"] * len(evals)
+            prints.append(_server_fingerprint(s))
+            assert s.workers[0].pipeline.stats["waves"] >= 1
+        finally:
+            s.shutdown()
+    assert len(prints[0]) == 12 * 30
+    assert prints[0] == prints[1]
+    assert launches["landscape"] >= 1 and launches["multi_compact"] >= 1
+    assert launches["place_scan"] == launches["multi_bulk"] == 0
+
+
+@pytest.mark.gpu
+def test_threaded_server_records_a_device_interval_per_wave(cuda_device):
+    s, evals = _card_server(cuda_device, dev_mode=False)
+    try:
+        K.reset_launches()
+        _drain_threaded(s, evals)
+        assert [s.state.eval_by_id(e.id).status for e in evals] == \
+            ["complete"] * len(evals)
+        waves = s.workers[0].pipeline.stats["waves"]
+        assert waves >= 1
+        assert s.stage_timers.counts()["device"] == waves
+        for _, t0, t1 in s.stage_timers.intervals("device"):
+            assert t1 >= t0
+        assert K.MULTI_COMPACT.launches >= 1
+    finally:
+        s.shutdown()
+
+
+@pytest.mark.gpu
+def test_failed_batched_launch_writes_the_worker_record(cuda_device):
+    """A chain whose usage tensor is int64 (K2's wrapper refuses it
+    before its launch): the worker logs "batch launch failed; going
+    solo" and places the evals through the solo kernels, which is what
+    chip_smoke.py's server phase gates on."""
+    from nomad_tpu_torch.core.logging import RING
+    s, evals = _card_server(cuda_device)
+    try:
+        t = s.engine.packer.update(s.state.snapshot())
+        npad = s.engine._padded_n(t.n)
+        bad = torch.zeros((npad, 3), dtype=torch.int64, device=cuda_device)
+        s.workers[0].pipeline.claim_chain = \
+            lambda: ("bad-chain", 0, (bad, t.version, npad))
+        sub = RING.subscribe(maxsize=1 << 16)
+        try:
+            K.reset_launches()
+            s.process_all()
+            torch.cuda.synchronize()
+        finally:
+            RING.unsubscribe(sub)
+        records = []
+        while not sub.empty():
+            records.append(sub.get_nowait())
+        msgs = [(r["component"], r["msg"]) for r in records
+                if r["level"] in ("warn", "error")]
+        assert ("worker", "batch launch failed; going solo") in msgs
+        assert K.MULTI_COMPACT.launches == 0
+        assert K.PLACE_SCAN.launches + K.MULTI_BULK.launches >= 1
+    finally:
+        s.shutdown()

@@ -49,10 +49,17 @@ def build_zoned_cluster(name, n_nodes=300, n_zones=5, seed=0,
     """Bench-shaped cluster (bench.py _build_bench_cluster at test size):
     3 DCs, per-zone CSI volumes whose topologies pin jobs to disjoint
     node sets.  `tiny` nodes hold two 100/100 asks each."""
+    h = harness(name)
+    add_zoned_cluster(name, h.state, n_nodes, n_zones, seed, tiny)
+    return h
+
+
+def add_zoned_cluster(name, state, n_nodes=300, n_zones=5, seed=0,
+                      tiny=False):
+    """build_zoned_cluster's nodes and volumes, into `state`."""
     mock = pkg(name, "mock")
     structs = pkg(name, "structs")
     rng = random.Random(seed)
-    h = harness(name)
     nodes = []
     zone_nodes = {z: [] for z in range(n_zones)}
     for i in range(n_nodes):
@@ -69,13 +76,12 @@ def build_zoned_cluster(name, n_nodes=300, n_zones=5, seed=0,
             n.resources.memory_mb = rng.choice([8192, 16384, 32768])
         nodes.append(n)
         zone_nodes[i % n_zones].append(n.id)
-    h.state.upsert_nodes(nodes)
+    state.upsert_nodes(nodes)
     for z in range(n_zones):
-        h.state.upsert_csi_volume(structs.CSIVolume(
+        state.upsert_csi_volume(structs.CSIVolume(
             id=f"vol-zone{z}", plugin_id="ebs0",
             access_mode="multi-node-multi-writer",
             topology_node_ids=tuple(zone_nodes[z])))
-    return h
 
 
 def build_flat_cluster(name, n_nodes=200, seed=0):
