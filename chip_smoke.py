@@ -72,6 +72,27 @@ chained wave's usage triple is the one the zoned wave retained
      worker's or the applier's recovery records in the log ring, one
      `device` interval per dispatched wave.  Then shutdown, and the
      Server's engine must be freed.
+  agent_waves: the same config 5 through the port's own front door: an
+     in-process Agent (one worker, eval_batch 384, a TorchExecutor, two
+     in-process clients on the mock driver in a datacenter of their
+     own, HTTP on a free port) fed through its APIClient only: 50,000
+     nodes built alike by `PUT /v1/nodes`, the five zone volumes by the
+     CSI volume endpoint, the two waves by `PUT /v1/jobs` with
+     scheduling paused around each registration, settlement polled over
+     HTTP every 20 ms, placements read back through `GET
+     /v1/allocations?columnar=true`.  Lines `agent_warmup_wave`,
+     `agent_wave`: the server wave's fields and gates, plus
+     `node_register_s`, `register_s`, jobs/s and the polls; then
+     `agent_web`: examples/web.hcl to three running allocs on the two
+     clients (and stopped again).  The Agent's engine must be freed.
+  agent_cli: `python -m nomad_tpu_torch agent -bind 127.0.0.1:<port>
+     -clients 2` in a subprocess (on CUDA), the CLI in subprocesses:
+     `job run examples/web.hcl`, `job status web` to three running
+     allocs, both nodes made ineligible, three batch jobs run, one node
+     eligible again (their blocked evals are released together: one
+     wave); /v1/metrics and /v1/operator/debug must show an upload and
+     a dispatch; SIGINT must end the agent with exit code 0 and no
+     traceback.  Its files go to .smoke/agent_cli/ (git-ignored).
 
 Every wave line (the mesh waves' too) counts the interpreter's full
 collections inside the wave (`gc2_n`, `gc2_s`); the summary line, the
@@ -303,10 +324,24 @@ def build_cluster(h, n_nodes: int, n_zones: int, seed: int = 0):
     """bench.py _build_bench_cluster: 3 DCs, n_zones storage zones, a CSI
     node plugin on every node, one CSI volume per zone restricted to the
     zone's nodes.  Returns {node id: zone}."""
+    from nomad_tpu_torch.structs import CSIVolume
+
+    nodes, zone_of, zone_nodes = cluster_nodes(n_nodes, n_zones, seed)
+    h.state.upsert_nodes(nodes)
+    for z in range(n_zones):
+        h.state.upsert_csi_volume(CSIVolume(
+            id=f"vol-zone{z}", plugin_id="ebs0",
+            access_mode="multi-node-multi-writer",
+            topology_node_ids=tuple(zone_nodes[z])))
+    return zone_of
+
+
+def cluster_nodes(n_nodes: int, n_zones: int, seed: int = 0):
+    """build_cluster's nodes: (nodes, {node id: zone}, {zone: node
+    ids})."""
     import random
 
     from nomad_tpu_torch import mock
-    from nomad_tpu_torch.structs import CSIVolume
 
     rng = random.Random(seed)
     nodes = []
@@ -323,13 +358,7 @@ def build_cluster(h, n_nodes: int, n_zones: int, seed: int = 0):
         nodes.append(n)
         zone_nodes[i % n_zones].append(n.id)
         zone_of[n.id] = i % n_zones
-    h.state.upsert_nodes(nodes)
-    for z in range(n_zones):
-        h.state.upsert_csi_volume(CSIVolume(
-            id=f"vol-zone{z}", plugin_id="ebs0",
-            access_mode="multi-node-multi-writer",
-            topology_node_ids=tuple(zone_nodes[z])))
-    return zone_of
+    return nodes, zone_of, zone_nodes
 
 
 def register_wave(h, prefix: str, n_evals: int, per_eval: int,
@@ -776,26 +805,34 @@ SOLO_KERNELS = ("place_scan", "multi_bulk")
 SERVER_DEADLINE_S = 600.0
 
 
-def server_jobs(s, prefix: str, n_evals: int, per_eval: int, cpu: int,
+def config5_job(prefix: str, i: int, per_eval: int, cpu: int,
                 n_zones: int):
-    """bench.py run_config_5's make_job: batch jobs of `per_eval`
-    placements, job i claiming vol-zone{i % n_zones}, each registered
-    through Server.register_job (the job endpoint: upsert, eval,
-    enqueue).  Returns (jobs, evals)."""
+    """bench.py run_config_5's make_job: job i of a wave, a batch job of
+    `per_eval` placements at cpu `cpu` / mem `cpu`, claiming
+    vol-zone{i % n_zones}."""
     from nomad_tpu_torch import mock
     from nomad_tpu_torch.structs import VolumeRequest
 
+    job = mock.batch_job(id=f"{prefix}-{i:04d}")
+    job.datacenters = ["dc1", "dc2", "dc3"]
+    tg = job.task_groups[0]
+    tg.count = per_eval
+    tg.tasks[0].resources.cpu = cpu
+    tg.tasks[0].resources.memory_mb = cpu
+    tg.volumes = {"data": VolumeRequest(
+        name="data", type="csi", source=f"vol-zone{i % n_zones}",
+        read_only=True)}
+    return job
+
+
+def server_jobs(s, prefix: str, n_evals: int, per_eval: int, cpu: int,
+                n_zones: int):
+    """A wave's jobs (config5_job), each registered through
+    Server.register_job (the job endpoint: upsert, eval, enqueue).
+    Returns (jobs, evals)."""
     jobs, evals = [], []
     for i in range(n_evals):
-        job = mock.batch_job(id=f"{prefix}-{i:04d}")
-        job.datacenters = ["dc1", "dc2", "dc3"]
-        tg = job.task_groups[0]
-        tg.count = per_eval
-        tg.tasks[0].resources.cpu = cpu
-        tg.tasks[0].resources.memory_mb = cpu
-        tg.volumes = {"data": VolumeRequest(
-            name="data", type="csi", source=f"vol-zone{i % n_zones}",
-            read_only=True)}
+        job = config5_job(prefix, i, per_eval, cpu, n_zones)
         evals.append(s.register_job(job))
         jobs.append(job)
     return jobs, evals
@@ -830,7 +867,7 @@ def drain(s, evals, deadline_s: float = SERVER_DEADLINE_S) -> float:
 
 
 def server_wave(s, name, jobs, evals, all_jobs, zone_of, n_zones,
-                per_eval):
+                per_eval, settle=drain):
     """One drained wave through the Server's threaded loop, with the
     kernels' counts zeroed just before it and read just after, the log
     ring's records of the wave, the plan queue's latencies, the stage
@@ -839,7 +876,9 @@ def server_wave(s, name, jobs, evals, all_jobs, zone_of, n_zones,
     every placement committed, allocs in their zones, no node over
     capacity, the retained chain's usage equal to the store's, each of
     SERVER_KERNELS launched and no solo kernel, no recovery record, one
-    `device` interval per dispatched wave."""
+    `device` interval per dispatched wave.  `settle(s, evals)` runs the
+    wave and returns its wall seconds (`drain`, or the agent phase's
+    `http_drain`)."""
     import torch
 
     from nomad_tpu_torch.core.logging import RING
@@ -859,7 +898,7 @@ def server_wave(s, name, jobs, evals, all_jobs, zone_of, n_zones,
     sub = RING.subscribe(maxsize=1 << 20)
     try:
         reset_counts()
-        wall = drain(s, evals)
+        wall = settle(s, evals)
         ph, eager = read_counts(name)
     finally:
         RING.unsubscribe(sub)
@@ -974,6 +1013,365 @@ def server_phase(card, launches, n_nodes: int = N_NODES,
         raise AssertionError("the Server's engine outlived its shutdown")
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------- agent
+
+# the agent phases: config 5 through the port's own front door.  The
+# waves of agent_waves (bench.py config 5, as SERVER_WAVES), the
+# datacenter of its two in-process clients (no config 5 placement can
+# land there: the waves' jobs ask for dc1-dc3), and the least gap
+# between two settlement polls.  One caller registers the cluster and
+# the jobs: eight caller threads were no faster (they share the agent's
+# interpreter lock with its request threads)
+AGENT_WAVES = (("agent_warmup_wave", 1), ("agent_wave", 10))
+AGENT_DC = "dc-agent"
+AGENT_POLL_S = 0.02
+# the batch jobs of agent_cli, three so that their blocked evals are
+# released together and the worker takes them as one wave
+CLI_BATCH_JOBS = 3
+CLI_BATCH_HCL = """job "%s" {
+  datacenters = ["dc1"]
+  type        = "batch"
+  group "g" {
+    count = 2
+    task "t" {
+      driver = "mock"
+      config { run_for_s = 1 }
+      resources {
+        cpu    = 100
+        memory = 64
+      }
+    }
+  }
+}
+"""
+
+
+def http_drain(s, api, eval_ids, deadline_s: float = SERVER_DEADLINE_S,
+               poll_s: float = AGENT_POLL_S, polls=None) -> float:
+    """`drain` through the HTTP API: the packer synced outside the timed
+    window, start_scheduling, then settlement polled through the API no
+    more often than every `poll_s`: GET /v1/evaluation/<id> of the last
+    unsettled eval (the last registered first), and once it has
+    settled, GET /v1/evaluations for the rest; then stop_scheduling.
+    Returns the wall seconds from the start to the poll that saw the
+    last eval settled; `polls` (a list) gets the number of requests."""
+    done = ("complete", "failed", "canceled")
+    s.engine.packer.update(s.state.snapshot())
+    t0 = time.perf_counter()
+    s.start_scheduling()
+    n = 0
+    try:
+        pending = list(eval_ids)
+        end = t0 + deadline_s
+        while pending and time.perf_counter() < end:
+            t_poll = time.perf_counter()
+            n += 1
+            if api.evaluations.info(pending[-1])["Status"] in done:
+                n += 1
+                status = {e["ID"]: e["Status"]
+                          for e in api.evaluations.list()}
+                pending = [e for e in pending if status.get(e) not in done]
+            if pending:
+                time.sleep(max(0.0, poll_s - (time.perf_counter()
+                                              - t_poll)))
+        dt = time.perf_counter() - t0
+    finally:
+        s.stop_scheduling()
+    if polls is not None:
+        polls.append(n)
+    if pending:
+        raise AssertionError(f"{len(pending)} evals unsettled after "
+                             f"{deadline_s} s")
+    return dt
+
+
+def columnar_gate(api, name, jobs, per_eval, zone_of, n_zones) -> int:
+    """Every placement of `jobs` read back through GET
+    /v1/allocations?columnar=true, each on a node of its volume's zone.
+    Returns the rows read."""
+    doc = api.request("GET", "/v1/allocations",
+                      params={"columnar": "true"})
+    cols = doc["Columns"]
+    want = {job.id: i for i, job in enumerate(jobs)}
+    count = dict.fromkeys(want, 0)
+    for jid, nid in zip(cols["JobID"], cols["NodeID"]):
+        i = want.get(jid)
+        if i is None:
+            continue
+        count[jid] += 1
+        if zone_of.get(nid) != i % n_zones:
+            raise AssertionError(f"{name}: an alloc of {jid} on {nid}, "
+                                 f"outside zone{i % n_zones}")
+    short = {j: c for j, c in count.items() if c != per_eval}
+    if short:
+        raise AssertionError(f"{name}: allocs read back per job differ "
+                             f"from {per_eval}: "
+                             f"{list(short.items())[:5]}")
+    return doc["Count"]
+
+
+def agent_web(agent, api, timeout_s: float = 120.0) -> float:
+    """examples/web.hcl through the agent's HTTP API, its datacenters
+    set to the clients' own, until its three allocs run on the two
+    in-process clients.  Returns the seconds from the register."""
+    from nomad_tpu_torch import jobspec
+    from nomad_tpu_torch.structs import codec
+
+    job = jobspec.parse_file("examples/web.hcl")
+    job.datacenters = [AGENT_DC]
+    clients = {c.node.id for c in agent.clients}
+    agent.server.start_scheduling()
+    t0 = time.perf_counter()
+    api.jobs.register(codec.encode(job))
+    while time.perf_counter() - t0 < timeout_s:
+        allocs = api.jobs.allocations("web")
+        if (len(allocs) == 3
+                and all(a["ClientStatus"] == "running" for a in allocs)):
+            break
+        time.sleep(0.05)
+    else:
+        raise AssertionError(f"web did not run: {allocs}")
+    if {a["NodeID"] for a in allocs} - clients:
+        raise AssertionError(f"web ran off the clients: {allocs}")
+    running_s = time.perf_counter() - t0
+    # stopped through the API too: its task runners end, and with them
+    # the clients' references to the server
+    api.jobs.deregister("web")
+    while time.perf_counter() - t0 < 2 * timeout_s:
+        if all(a["ClientStatus"] != "running"
+               for a in api.jobs.allocations("web")):
+            return running_s
+        time.sleep(0.05)
+    raise AssertionError("web's allocs did not stop")
+
+
+def agent_phase(card, launches, n_nodes: int = N_NODES,
+                n_evals: int = N_EVALS, per_eval: int = PER_EVAL,
+                n_zones: int = N_ZONES, device=None):
+    """bench.py config 5 through the HTTP API of an in-process port
+    Agent: one worker (eval_batch n_evals), a TorchExecutor, two
+    in-process clients on the mock driver in AGENT_DC, HTTP on a free
+    port.  Through the agent's APIClient only: the cluster's nodes
+    (`PUT /v1/nodes`), the zones' volumes (the CSI volume endpoint),
+    then each of AGENT_WAVES (`PUT /v1/jobs`) with scheduling paused
+    around its registration and settled through the API (http_drain),
+    its placements read back through the columnar allocations;
+    server_wave's gates.  Then web.hcl on the two clients.  Shut down
+    and freed as server_phase's Server."""
+    import types
+    import weakref
+
+    import torch
+
+    from nomad_tpu_torch.agent import Agent
+    from nomad_tpu_torch.api.client import APIClient
+    from nomad_tpu_torch.core import memledger, profiling
+    from nomad_tpu_torch.structs import Node, codec
+
+    profiling.PROFILER.hz = profiling.DEFAULT_HZ
+    t0 = time.perf_counter()
+    agent = Agent(num_clients=2, num_workers=1, http_host="127.0.0.1",
+                  http_port=0, heartbeat_ttl=1e9, device_executor="torch",
+                  device=device,
+                  nodes=[Node(id=f"agent-client-{i}",
+                              name=f"agent-client-{i}", datacenter=AGENT_DC)
+                         for i in range(2)])
+    s = agent.server
+    s.eval_batch = n_evals
+    s.eval_broker.nack_timeout = 600.0
+    engine_ref = weakref.ref(s.engine)
+    try:
+        agent.start()
+        start_s = time.perf_counter() - t0
+        api = APIClient(address=agent.address)
+        nodes, zone_of, zone_nodes = cluster_nodes(n_nodes, n_zones)
+        t1 = time.perf_counter()
+        wires = [{"Node": codec.encode(n)} for n in nodes]
+        encode_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        for w in wires:
+            api.put("/v1/nodes", w)
+        node_register_s = time.perf_counter() - t1
+        del wires
+        t1 = time.perf_counter()
+        for z in range(n_zones):
+            api.volumes.register(
+                f"vol-zone{z}", "ebs0",
+                AccessMode="multi-node-multi-writer",
+                TopologyNodeIDs=zone_nodes[z])
+        volume_register_s = time.perf_counter() - t1
+        counts = s.state.counts()
+        if counts["nodes"] != n_nodes + 2:
+            raise AssertionError(f"{counts['nodes']} nodes in the store, "
+                                 f"want {n_nodes} + 2 clients")
+        all_jobs = []
+        for name, cpu in AGENT_WAVES:
+            s.stop_scheduling()
+            jobs = [config5_job(name, i, per_eval, cpu, n_zones)
+                    for i in range(n_evals)]
+            wires = [codec.encode(j) for j in jobs]
+            t1 = time.perf_counter()
+            resp = [api.jobs.register(w) for w in wires]
+            register_s = time.perf_counter() - t1
+            all_jobs += jobs
+            eval_ids = [r["EvalID"] for r in resp]
+            polls = []
+            line = server_wave(
+                s, name, jobs,
+                [types.SimpleNamespace(id=e) for e in eval_ids], all_jobs,
+                zone_of, n_zones, per_eval,
+                settle=lambda s, evals: http_drain(s, api, eval_ids,
+                                                   polls=polls))
+            rows = columnar_gate(api, name, jobs, per_eval, zone_of,
+                                 n_zones)
+            for k, v in line["launches"].items():
+                launches[k] += v
+            emit({"phase": name, "card": card, "nodes": n_nodes,
+                  "agent_start_s": start_s, "node_encode_s": encode_s,
+                  "node_register_s": node_register_s,
+                  "nodes_per_s": n_nodes / node_register_s,
+                  "volume_register_s": volume_register_s,
+                  "register_s": register_s,
+                  "jobs_per_s": n_evals / register_s,
+                  "settle_polls": polls[0], "columnar_rows": rows,
+                  **line})
+        web_s = agent_web(agent, api)
+        emit({"phase": "agent_web", "card": card, "clients": 2,
+              "web_running_s": web_s})
+    finally:
+        agent.shutdown()
+        profiling.PROFILER.stop()
+        profiling.PROFILER.device_ledger_provider = None
+        for plane in ("state", "journal", "watch_hub", "events"):
+            memledger.MEMLEDGER.unregister(plane)
+    del s, agent
+    gc.collect()
+    if engine_ref() is not None:
+        raise AssertionError("the Agent's engine outlived its shutdown")
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def agent_cli_phase(card, out_dir: str = ".smoke/agent_cli",
+                    timeout_s: float = 120.0):
+    """The user's own path in subprocesses: `python -m nomad_tpu_torch
+    agent -bind 127.0.0.1:<free port> -clients 2` (on CUDA, its default),
+    /v1/status/leader waited for, `job run examples/web.hcl` and `job
+    status web` until three allocs run; then both clients made
+    ineligible, CLI_BATCH_JOBS batch jobs run (their evals block), one
+    client made eligible again (the blocked evals are released together
+    and scheduled as one wave) and each job's allocs waited for; then
+    the executor's registry counters (GET /v1/metrics) and its ledger
+    (GET /v1/operator/debug): at least one upload and one dispatch.
+    SIGINT ends the agent: exit code 0 and no traceback required."""
+    import os
+    import signal
+    import urllib.request
+
+    os.makedirs(out_dir, exist_ok=True)
+    port = free_port()
+    addr = f"http://127.0.0.1:{port}"
+    py = [sys.executable, "-m", "nomad_tpu_torch"]
+
+    def cli(*argv):
+        return subprocess.run(py + ["-address", addr, *argv],
+                              capture_output=True, text=True, timeout=60,
+                              check=True).stdout
+
+    def get(path):
+        with urllib.request.urlopen(addr + path, timeout=10) as r:
+            return json.loads(r.read())
+
+    def wait(what, ok):
+        end = time.perf_counter() + timeout_s
+        while time.perf_counter() < end:
+            if proc.poll() is not None:
+                with open(err_path) as f:
+                    tail = f.read()[-2000:]
+                raise AssertionError(f"the agent exited ({proc.returncode}) "
+                                     f"waiting for {what}: {tail}")
+            if ok():
+                return
+            time.sleep(0.2)
+        raise AssertionError(f"timed out waiting for {what}")
+
+    def leader():
+        try:
+            return bool(get("/v1/status/leader"))
+        except OSError:
+            return False
+
+    for i in range(CLI_BATCH_JOBS):
+        with open(os.path.join(out_dir, f"batch{i}.hcl"), "w") as f:
+            f.write(CLI_BATCH_HCL % f"smoke-batch-{i}")
+    err_path = os.path.join(out_dir, "agent.stderr")
+    t0 = time.perf_counter()
+    with open(os.path.join(out_dir, "agent.stdout"), "w") as out, \
+            open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            py + [
+                "agent", "-bind", f"127.0.0.1:{port}", "-clients", "2",
+                "-data-dir", os.path.join(out_dir, "data")],
+            stdout=out, stderr=err)
+        try:
+            wait("/v1/status/leader", leader)
+            leader_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            cli("job", "run", "examples/web.hcl")
+            wait("three running web allocs", lambda: cli(
+                "job", "status", "web").count("run/running") == 3)
+            web_s = time.perf_counter() - t1
+            node_ids = [ln.split()[0] for ln in
+                        cli("node", "status").splitlines() if ln.strip()]
+            if len(node_ids) != 2:
+                raise AssertionError(f"nodes: {node_ids}")
+            for nid in node_ids:
+                cli("node", "eligibility", "-disable", nid)
+            for i in range(CLI_BATCH_JOBS):
+                cli("job", "run", os.path.join(out_dir, f"batch{i}.hcl"))
+            cli("node", "eligibility", "-enable", node_ids[0])
+            for i in range(CLI_BATCH_JOBS):
+                wait(f"smoke-batch-{i}'s allocs", lambda i=i: cli(
+                    "job", "status", f"smoke-batch-{i}").count(
+                    "  g  ") == 2)
+            metrics = get("/v1/metrics")
+            ledger = get("/v1/operator/debug")["DeviceLedger"]
+        finally:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGINT)
+            try:
+                rc = proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                raise AssertionError("the agent did not exit on SIGINT")
+    with open(err_path) as f:
+        stderr = f.read()
+    if rc != 0 or "Traceback" in stderr:
+        raise AssertionError(f"the agent exited {rc}: {stderr[-2000:]}")
+    executor = {k: v for k, v in metrics.items()
+                if k.startswith("nomad.executor.")}
+    if (metrics.get("nomad.executor.uploads", 0) < 1
+            or ledger["dispatches"] < 1):
+        raise AssertionError(f"executor: {executor}, ledger dispatches "
+                             f"{ledger['dispatches']}")
+    emit({"phase": "agent_cli", "card": card, "leader_s": leader_s,
+          "web_running_s": web_s, "total_s": time.perf_counter() - t0,
+          "exit_code": rc, "uploads": metrics["nomad.executor.uploads"],
+          "dispatches": ledger["dispatches"],
+          "resident_waves": ledger["resident_waves"],
+          "compile_sites": sorted(ledger["compile"]["sites"]),
+          "executor_metrics": executor})
 
 
 # ------------------------------------------------------------- timing
@@ -3079,8 +3477,11 @@ def main() -> int:
                        launches)
     device_wait_phase(card, h, executor, all_jobs, zone_of, launches)
     # the same waves through the port's Server: broker, worker, wave
-    # pipeline, plan queue and threaded applier
+    # pipeline, plan queue and threaded applier; then through the HTTP
+    # API of the port's Agent, and the agent and CLI in subprocesses
     server_phase(card, launches)
+    agent_phase(card, launches)
+    agent_cli_phase(card)
 
     # 7-11. the solo path, then 12. its kernels against the plain versions
     # (after the line of the two exchange probes)

@@ -16,18 +16,25 @@ def _threads():
     torch.set_num_threads(2)
 
 
+# msgpack and cryptography are blocked too: they are not among the
+# packages the port may rely on, and only the cluster plane
+# (core/wire.py, not ported yet) needs them.  The
+# package's __main__ is the CLI's script (it runs the CLI on import), so
+# the probe imports the CLI module instead.
 PROBE = textwrap.dedent("""
     import importlib, pkgutil, sys
-    sys.modules["jax"] = None
-    sys.modules["nomad_tpu"] = None
+    for blocked in ("jax", "nomad_tpu", "msgpack", "cryptography"):
+        sys.modules[blocked] = None
     import nomad_tpu_torch
     names = [m.name for m in pkgutil.walk_packages(
-        nomad_tpu_torch.__path__, "nomad_tpu_torch.")]
+        nomad_tpu_torch.__path__, "nomad_tpu_torch.")
+        if m.name != "nomad_tpu_torch.__main__"]
     for name in names:
         importlib.import_module(name)
     leaked = sorted(k for k in sys.modules
                     if (k == "jax" or k.startswith("jax.")
-                        or k == "nomad_tpu" or k.startswith("nomad_tpu."))
+                        or k == "nomad_tpu" or k.startswith("nomad_tpu.")
+                        or k.split(".")[0] in ("msgpack", "cryptography"))
                     and sys.modules[k] is not None)
     print(len(names), leaked)
 """)
@@ -37,7 +44,7 @@ def test_every_module_imports_without_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", PROBE], capture_output=True,
                          text=True, timeout=120, check=True)
     count, leaked = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 68
+    assert int(count) >= 97
     assert leaked == "[]"
 
 
@@ -170,3 +177,54 @@ def test_import_order_from_a_fresh_interpreter(first):
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip() == "ok"
+
+
+AGENT_SLICE = (
+    "agent", "agent_config", "cli", "__main__", "api", "api.client",
+    "api.http_server", "api.ui", "client", "client.alloc_runner",
+    "client.client", "client.exec_session", "client.fingerprint",
+    "client.restarts", "client.services", "client.state",
+    "client.task_runner", "client.taskenv", "client.drivers",
+    "client.drivers.base", "client.drivers.docker",
+    "client.drivers.execdriver", "client.drivers.java",
+    "client.drivers.mock", "client.drivers.qemu", "client.drivers.rawexec",
+    "integrations", "integrations.secrets", "core.regions", "jobspec",
+    "jobspec.schema", "jobspec.api_json")
+
+
+def test_agent_slice_modules_stand_alone():
+    """The agent, API, CLI, client and jobspec modules are among those
+    the probe imports, and none of them reaches the cluster plane's
+    modules, which the port does not have yet."""
+    import pkgutil
+
+    import nomad_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(
+        nomad_tpu_torch.__path__, "nomad_tpu_torch.")}
+    assert {f"nomad_tpu_torch.{m}" for m in AGENT_SLICE} <= names
+    assert not {f"nomad_tpu_torch.{m}" for m in (
+        "core.wire", "core.raft", "core.cluster", "core.federation",
+        "chaos.transport", "plugins")} & names
+
+
+def test_agent_and_cli_agent_default_to_cuda(tmp_path):
+    """The Agent and the CLI's `agent` command build the Server on CUDA
+    unless told otherwise, and raise without it."""
+    from nomad_tpu_torch import cli
+    from nomad_tpu_torch.agent import Agent
+    if torch.cuda.is_available():
+        agent = Agent(data_dir=str(tmp_path), num_clients=0, profile_hz=0)
+        assert agent.server.engine.device.type == "cuda"
+        agent.start().shutdown()
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Agent(data_dir=str(tmp_path), num_clients=0, profile_hz=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["agent", "-bind", "127.0.0.1:0", "-clients", "0",
+                  "-data-dir", str(tmp_path)])
+    agent = Agent(data_dir=str(tmp_path), num_clients=0, profile_hz=0,
+                  device="cpu").start()
+    try:
+        assert agent.server.engine.device.type == "cpu"
+    finally:
+        agent.shutdown()

@@ -1386,3 +1386,110 @@ def test_failed_batched_launch_writes_the_worker_record(cuda_device):
         assert K.PLACE_SCAN.launches + K.MULTI_BULK.launches >= 1
     finally:
         s.shutdown()
+
+
+# ----------------------------------------- the agent on the card
+
+def _card_agent(device, data_dir):
+    """A started port Agent on `device`: one worker, no in-process
+    clients, HTTP on a free port, no heartbeat expiry, sampler off."""
+    from nomad_tpu_torch.agent import Agent
+    return Agent(num_clients=0, heartbeat_ttl=1e9, profile_hz=0,
+                 data_dir=str(data_dir), device=device).start()
+
+
+def _wait_evals(api, eval_ids, deadline_s=120.0):
+    import time
+    end = time.monotonic() + deadline_s
+    while time.monotonic() < end:
+        status = [api.evaluations.info(e)["Status"] for e in eval_ids]
+        if all(s == "complete" for s in status):
+            return
+        time.sleep(0.02)
+    raise AssertionError(f"evals unsettled: {status}")
+
+
+@pytest.mark.gpu
+def test_agent_on_card_takes_a_job_through_http(cuda_device, tmp_path):
+    """A port Agent on the card: nodes through `PUT /v1/nodes`, one job
+    through `PUT /v1/jobs`, placed by the card's kernels."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.api.client import APIClient
+    from nomad_tpu_torch.structs import codec
+    agent = _card_agent(cuda_device, tmp_path)
+    try:
+        assert agent.server.engine.device.type == "cuda"
+        api = APIClient(address=agent.address)
+        for i in range(6):
+            api.nodes.register(codec.encode(mock.node(id=f"card-{i}")))
+        job = mock.batch_job(id="card-job")
+        job.task_groups[0].count = 4
+        K.reset_launches()
+        resp = api.jobs.register(codec.encode(job))
+        _wait_evals(api, [resp["EvalID"]])
+        torch.cuda.synchronize()
+        launched = {k.name: k.launches for k in K.KERNELS if k.launches}
+        allocs = api.jobs.allocations("card-job")
+    finally:
+        agent.shutdown()
+    assert launched, "no kernel launched on the card"
+    assert len(allocs) == 4
+    assert {a["NodeID"] for a in allocs} <= {f"card-{i}" for i in range(6)}
+
+
+@pytest.mark.gpu
+def test_agent_launch_failure_surfaces_as_the_worker_record(cuda_device,
+                                                            tmp_path):
+    """A wave whose claimed chain holds an int64 usage tensor (K2's
+    wrapper refuses it before its launch), driven through the agent's
+    HTTP API: the worker's recovery record reaches the log ring, the
+    evals are placed through the solo kernels, and K2 never launched; a
+    refused launch is never a silent success."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.api.client import APIClient
+    from nomad_tpu_torch.core.logging import RING
+    from nomad_tpu_torch.structs import VolumeRequest, codec
+    agent = _card_agent(cuda_device, tmp_path)
+    s = agent.server
+    s.eval_batch = 16
+    try:
+        api = APIClient(address=agent.address)
+        add_zoned_cluster(PORT, s.state)
+        s.stop_scheduling()
+        jobs = []
+        for i in range(6):
+            job = mock.batch_job(id=f"fail-{i:04d}")
+            job.datacenters = ["dc1", "dc2", "dc3"]
+            tg = job.task_groups[0]
+            tg.count = 10
+            tg.volumes = {"data": VolumeRequest(
+                name="data", type="csi", source=f"vol-zone{i % 5}",
+                read_only=True)}
+            jobs.append(job)
+        eval_ids = [api.jobs.register(codec.encode(j))["EvalID"]
+                    for j in jobs]
+        t = s.engine.packer.update(s.state.snapshot())
+        npad = s.engine._padded_n(t.n)
+        bad = torch.zeros((npad, 3), dtype=torch.int64, device=cuda_device)
+        s.workers[0].pipeline.claim_chain = \
+            lambda: ("bad-chain", 0, (bad, t.version, npad))
+        sub = RING.subscribe(maxsize=1 << 16)
+        try:
+            K.reset_launches()
+            s.start_scheduling()
+            _wait_evals(api, eval_ids)
+            torch.cuda.synchronize()
+        finally:
+            RING.unsubscribe(sub)
+        records = []
+        while not sub.empty():
+            records.append(sub.get_nowait())
+        allocs = [api.jobs.allocations(j.id) for j in jobs]
+    finally:
+        agent.shutdown()
+    msgs = [(r["component"], r["msg"]) for r in records
+            if r["level"] in ("warn", "error")]
+    assert ("worker", "batch launch failed; going solo") in msgs
+    assert K.MULTI_COMPACT.launches == 0
+    assert K.PLACE_SCAN.launches + K.MULTI_BULK.launches >= 1
+    assert [len(a) for a in allocs] == [10] * 6

@@ -759,3 +759,78 @@ def view(h):
              for e in h.evals]
     created = [(e.job_id, e.triggered_by, e.status) for e in h.create_evals]
     return allocs, evals, created
+
+
+# ------------------------------------------------------------- agents
+
+@pytest.fixture
+def pinned(monkeypatch):
+    """`reset(seed)` before each package's run: os.urandom draws from
+    random.Random(seed), both id pools are emptied and `random` is
+    seeded, so the two runs mint the same ids in the same order."""
+    import os
+    stream = {}
+    monkeypatch.setattr(os, "urandom",
+                        lambda n: stream["rng"].randbytes(n))
+
+    def reset(seed: int = 0) -> None:
+        stream["rng"] = random.Random(seed)
+        for name in PACKAGES:
+            pkg(name, "structs.structs")._ID_POOL.clear()
+        random.seed(seed)
+
+    return reset
+
+
+@pytest.fixture
+def one_device(monkeypatch):
+    """The reference's Server builds `PlacementEngine(mesh=None)`, which
+    shards over the test session's 8 virtual CPU devices; its agents
+    here run on one device, as the port's do."""
+    import nomad_tpu.core.server as ref_server
+    from nomad_tpu.ops import PlacementEngine
+
+    def single(mesh=None, **kw):
+        return PlacementEngine(mesh=False if mesh is None else mesh, **kw)
+
+    monkeypatch.setattr(ref_server, "PlacementEngine", single)
+
+
+def make_agent(name, data_dir, **kw):
+    """An Agent of `name` on the CPU (the port's `device="cpu"`, the
+    reference's default "jax" executor), HTTP on a free port, the
+    sampler off, no heartbeat expiry, in `data_dir` (a default would
+    draw a temporary name from os.urandom).  Not started."""
+    kw.setdefault("num_clients", 0)
+    kw.setdefault("heartbeat_ttl", 1e6)
+    kw.setdefault("profile_hz", 0)
+    if name == "nomad_tpu_torch":
+        kw.setdefault("device", "cpu")
+    return pkg(name, "agent").Agent(data_dir=str(data_dir), **kw)
+
+
+def agent_nodes(name, n, dc="dc1"):
+    """`n` client nodes with explicit ids and names for an Agent's
+    in-process clients."""
+    structs = pkg(name, "structs")
+    return [structs.Node(id=f"client-{i:04d}", name=f"client-{i:04d}",
+                         datacenter=dc) for i in range(n)]
+
+
+def settle(agent, timeout: float = 60.0) -> None:
+    """Wait until the agent's server has nothing in flight: no eval in
+    the broker (ready, delayed or outstanding), no plan queued, and no
+    pending eval in the store, for three polls in a row."""
+    import time
+    s = agent.server
+    deadline = time.monotonic() + timeout
+    quiet = 0
+    while quiet < 3:
+        if time.monotonic() > deadline:
+            raise AssertionError("the agent did not settle")
+        busy = (s.eval_broker.pending_evals() or s.eval_broker._outstanding
+                or s.plan_queue.depth()
+                or any(e.status == "pending"
+                       for e in s.state.snapshot().evals()))
+        quiet = 0 if busy else quiet + 1
+        time.sleep(0.02)
