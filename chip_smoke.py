@@ -93,6 +93,30 @@ chained wave's usage triple is the one the zoned wave retained
      wave); /v1/metrics and /v1/operator/debug must show an upload and
      a dispatch; SIGINT must end the agent with exit code 0 and no
      traceback.  Its files go to .smoke/agent_cli/ (git-ignored).
+  cluster_waves: the same config 5 through a three-server port cluster
+     in this process: three Agents in cluster mode (server_name s1-s3,
+     bootstrap_expect 3, each joining the other two's gossip ports, TCP
+     on loopback, no encrypt, one worker with eval_batch 384, a
+     TorchExecutor, a large heartbeat TTL; CLUSTER_RAFT's timings:
+     elections after 5-10 s, past a full collection's pause), and
+     two in-process clients in the agents' datacenter on a follower,
+     through RemoteRPC.  The leader is awaited through GET
+     /v1/status/leader on all three; the 50,000 nodes go through the
+     leader's replicated upsert_nodes in chunks of CLUSTER_SEED_CHUNK
+     (set-up: `node_seed_s`, the Raft entries and bytes) and the volumes
+     through a follower's HTTP API.  Wave 1 (`cluster_wave`): 384 x 260
+     registered through a follower's HTTP API (forwarded to the leader)
+     with the leader's scheduling paused, settled and gated as
+     agent_waves (server_wave on the leader), then each follower caught
+     up to the leader's Raft index with the same allocs and per-node
+     usage, and its executor without a dispatch or an upload; its Raft
+     commits and bytes, the followers' catch-up after the settle, the
+     executors' invalidations by reason.  Then the leader is shut down,
+     a survivor elected (`failover_s`) and `cluster_failover_wave`:
+     CLUSTER_FAIL_EVALS x 260 through the surviving follower, K2
+     launched by the new leader, no alloc placed twice, capacity with
+     wave 1's allocs.  Every Agent and client is shut down and each
+     engine must be freed.
 
 Every wave line (the mesh waves' too) counts the interpreter's full
 collections inside the wave (`gc2_n`, `gc2_s`); the summary line, the
@@ -185,6 +209,11 @@ nothing of the JAX package.
 
 times K6 alone at bulk_eval's inputs in its three layouts (one JSON
 line); copied into an older checkout, it times that checkout's K6.
+
+    python3 chip_smoke.py --cluster
+
+builds the kernels and runs cluster_waves alone (its two lines and a
+`cluster_only` line with the launches and the seconds).
 """
 
 from __future__ import annotations
@@ -195,6 +224,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import zlib
 
@@ -1374,6 +1404,332 @@ def agent_cli_phase(card, out_dir: str = ".smoke/agent_cli",
           "executor_metrics": executor})
 
 
+# ------------------------------------------------------------- cluster
+
+# the cluster phase: config 5 through a three-server port cluster, each
+# server an in-process Agent in cluster mode (Raft, gossip, RPC on
+# loopback TCP).  The 50,000 nodes go through the leader's replicated
+# store in chunks of CLUSTER_SEED_CHUNK (one Raft entry each, a few MB:
+# the AppendEntries frame stays well inside the transport's 5 s read
+# timeout and the 10 s commit timeout); wave 1 is config 5 at its full
+# width through a follower's HTTP API; the failover wave, after the
+# leader's shutdown, is CLUSTER_FAIL_EVALS x PER_EVAL through the
+# surviving follower
+CLUSTER_SERVERS = 3
+CLUSTER_SEED_CHUNK = 5_000
+CLUSTER_FAIL_EVALS = 48
+CLUSTER_WAIT_S = 120.0
+# Raft timings of the cluster's servers, set on each RaftNode before it
+# starts (the Agent has no knob for them; Nomad's is raft_multiplier):
+# three servers share one interpreter here, and by this phase a full
+# collection of its heap stops every thread for 2-3 s (`gc2_s`), longer
+# than the default 0.3-0.6 s election window, so elections wait 5-10 s
+CLUSTER_RAFT = {"heartbeat_interval": 0.2, "election_timeout": (5.0, 10.0)}
+# the executor's invalidation reasons (ops/executor.py)
+INVALIDATION_REASONS = ("foreign-plan", "node-write", "restore",
+                        "capacity-freed", "stale-node-table",
+                        "client-drop", "close", "explicit")
+
+
+def cluster_leader(agents, deadline_s: float = CLUSTER_WAIT_S):
+    """Poll GET /v1/status/leader on every agent until all answer the
+    same non-empty RPC address and that server has established its
+    leadership.  Returns (the leader's agent, seconds waited)."""
+    from nomad_tpu_torch.api.client import APIClient, APIException
+
+    apis = [APIClient(address=a.address) for a in agents]
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < deadline_s:
+        try:
+            seen = {api.get("/v1/status/leader") for api in apis}
+        except (OSError, APIException):
+            seen = set()
+        if len(seen) == 1 and "" not in seen:
+            addr = seen.pop()
+            for a in agents:
+                rpc = a.server.rpc.addr
+                if (f"{rpc[0]}:{rpc[1]}" == addr
+                        and getattr(a.server, "_leader", False)):
+                    return a, time.perf_counter() - t0
+        time.sleep(0.05)
+    raise AssertionError(f"no leader within {deadline_s} s")
+
+
+def raft_span(raft, lo: int, hi: int):
+    """(entries, command bytes) of the leader's log in (lo, hi]."""
+    ents = [e for e in raft.log if lo < e.index <= hi and e.cmd]
+    return len(ents), sum(len(e.cmd) for e in ents)
+
+
+def caught_up(agents, index: int, deadline_s: float = CLUSTER_WAIT_S):
+    """Wait until every agent's FSM has applied `index`; seconds."""
+    t0 = time.perf_counter()
+    while any(a.server.raft.last_applied < index for a in agents):
+        if time.perf_counter() - t0 > deadline_s:
+            raise AssertionError(
+                f"followers behind {index}: "
+                f"{[a.server.raft.last_applied for a in agents]}")
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+def invalidations():
+    from nomad_tpu_torch.core.telemetry import REGISTRY
+
+    return {r: REGISTRY.counter("nomad.executor.invalidations", reason=r)
+            for r in INVALIDATION_REASONS}
+
+
+def follower_gates(name, leader, followers, jobs, per_eval, all_jobs,
+                   zone_of, n_zones, ex0, up0):
+    """Each follower's store holds the leader's allocs of `all_jobs` with
+    the same per-node usage (store_gates on the follower's store), and
+    its executor dispatched and uploaded nothing since (ex0, up0)."""
+    placed, usage = check_store(leader.server, jobs, per_eval, all_jobs,
+                                zone_of, n_zones)
+    ids = {a.id for j in all_jobs for a in leader.server.state.allocs_by_job(
+        j.namespace, j.id)}
+    for f in followers:
+        s = f.server
+        f_placed, f_usage = check_store(s, jobs, per_eval, all_jobs,
+                                        zone_of, n_zones)
+        f_ids = {a.id for j in all_jobs
+                 for a in s.state.allocs_by_job(j.namespace, j.id)}
+        if (f_placed, f_usage, f_ids) != (placed, usage, ids):
+            raise AssertionError(f"{name}: follower {s.name}'s store "
+                                 f"differs from the leader's")
+        if (s.executor.stats["dispatches"] != ex0[s.name]["dispatches"]
+                or s.executor.stats["uploads"] != ex0[s.name]["uploads"]
+                or dict(s.executor.upload_bytes_by_cause) != up0[s.name]):
+            raise AssertionError(f"{name}: follower {s.name}'s executor "
+                                 f"dispatched or uploaded")
+    return placed
+
+
+def no_duplicates(name, server, all_jobs):
+    """No alloc id and no (job, alloc name) held twice by live allocs."""
+    seen_ids, seen_names = set(), set()
+    for j in all_jobs:
+        for a in server.state.allocs_by_job(j.namespace, j.id):
+            if a.terminal_status():
+                continue
+            if a.id in seen_ids or (j.id, a.name) in seen_names:
+                raise AssertionError(f"{name}: alloc {a.id} ({a.name}) "
+                                     f"placed twice")
+            seen_ids.add(a.id)
+            seen_names.add((j.id, a.name))
+    return len(seen_ids)
+
+
+def cluster_wave(name, leader, followers, api, n_evals, per_eval, cpu,
+                 n_zones, all_jobs, zone_of):
+    """One wave of config5_job through `api` (a follower's HTTP API: the
+    writes are forwarded to the leader) with the leader's scheduling
+    paused around the registration, then settled as agent_waves does
+    (http_drain, polling through the same follower) and gated by
+    server_wave on the leader; then the followers caught up to the
+    leader's commit index and their stores and executors checked
+    (follower_gates).  Returns the wave's line."""
+    import types
+
+    from nomad_tpu_torch.structs import codec
+
+    s = leader.server
+    raft = s.raft
+    s.stop_scheduling()
+    jobs = [config5_job(name, i, per_eval, cpu, n_zones)
+            for i in range(n_evals)]
+    wires = [codec.encode(j) for j in jobs]
+    t1 = time.perf_counter()
+    resp = [api.jobs.register(w) for w in wires]
+    register_s = time.perf_counter() - t1
+    all_jobs += jobs
+    eval_ids = [r["EvalID"] for r in resp]
+    ex0 = {f.server.name: dict(f.server.executor.stats) for f in followers}
+    up0 = {f.server.name: dict(f.server.executor.upload_bytes_by_cause)
+           for f in followers}
+    inv0 = invalidations()
+    c0 = raft.commit_index
+    line = server_wave(
+        s, name, jobs, [types.SimpleNamespace(id=e) for e in eval_ids],
+        all_jobs, zone_of, n_zones, per_eval,
+        settle=lambda s, evals: http_drain(s, api, eval_ids))
+    c1 = raft.commit_index
+    lag_s = caught_up(followers, c1)
+    commits, commit_bytes = raft_span(raft, c0, c1)
+    follower_gates(name, leader, followers, jobs, per_eval, all_jobs,
+                   zone_of, n_zones, ex0, up0)
+    live = no_duplicates(name, s, all_jobs)
+    inv1 = invalidations()
+    line.update({
+        "register_s": register_s, "jobs_per_s": n_evals / register_s,
+        "raft_commits": commits, "raft_commit_bytes": commit_bytes,
+        "raft_index": c1, "follower_catch_up_s": lag_s,
+        "live_allocs": live,
+        "invalidations_by_reason": {r: inv1[r] - inv0[r] for r in inv1
+                                    if inv1[r] != inv0[r]}})
+    return line
+
+
+def cluster_phase(card, launches, n_nodes: int = N_NODES,
+                  n_evals: int = N_EVALS, per_eval: int = PER_EVAL,
+                  n_zones: int = N_ZONES,
+                  fail_evals: int = CLUSTER_FAIL_EVALS,
+                  chunk: int = CLUSTER_SEED_CHUNK, device=None,
+                  out_dir: str = ".smoke/cluster_waves"):
+    """bench.py config 5 through a three-server port cluster in one
+    process: CLUSTER_SERVERS Agents in cluster mode (server_name s1-s3,
+    bootstrap_expect 3, each joining the others' gossip ports, TCP on
+    loopback, no encrypt, one worker with eval_batch n_evals, a
+    TorchExecutor, a large heartbeat TTL), then two in-process clients
+    in AGENT_DC on a follower, reaching the servers through RemoteRPC.
+    Elect (GET /v1/status/leader on all three), seed the nodes through
+    the leader's replicated upsert_nodes in chunks and the zones'
+    volumes through a follower's HTTP API, wave 1 (config 5 at full
+    width, cluster_wave), then the leader shut down, a survivor elected
+    and the failover wave (fail_evals x per_eval) through the surviving
+    follower: the new leader's executor launches K2, no alloc is placed
+    twice and capacity holds with wave 1's allocs.  Shut down and freed
+    as agent_phase's Agent."""
+    import os
+    import weakref
+
+    import torch
+
+    from nomad_tpu_torch.agent import Agent
+    from nomad_tpu_torch.api.client import APIClient
+    from nomad_tpu_torch.client.client import Client
+    from nomad_tpu_torch.core import memledger, profiling
+    from nomad_tpu_torch.core.cluster import RemoteRPC
+    from nomad_tpu_torch.structs import Node
+
+    profiling.PROFILER.hz = profiling.DEFAULT_HZ
+    threads0 = set(threading.enumerate())
+    t0 = time.perf_counter()
+    serf = [free_port() for _ in range(CLUSTER_SERVERS)]
+    agents, clients = [], []
+    for i in range(CLUSTER_SERVERS):
+        a = Agent(num_clients=0, num_workers=1, http_host="127.0.0.1",
+                  http_port=0, heartbeat_ttl=1e9, device_executor="torch",
+                  device=device, server_name=f"s{i + 1}",
+                  bootstrap_expect=CLUSTER_SERVERS, serf_port=serf[i],
+                  join=[f"127.0.0.1:{p}" for j, p in enumerate(serf)
+                        if j != i])
+        a.server.eval_batch = n_evals
+        a.server.eval_broker.nack_timeout = 600.0
+        for k, v in CLUSTER_RAFT.items():
+            setattr(a.server.raft, k, v)
+        agents.append(a)
+    engine_refs = [weakref.ref(a.server.engine) for a in agents]
+    try:
+        for a in agents:
+            a.start()
+        build_s = time.perf_counter() - t0
+        leader, election_s = cluster_leader(agents)
+        followers = [a for a in agents if a is not leader]
+        fapi = APIClient(address=followers[0].address)
+        os.makedirs(out_dir, exist_ok=True)
+        rpc = RemoteRPC([followers[1].server.rpc.addr])
+        for i in range(2):
+            cdir = os.path.join(out_dir, f"client{i}")
+            os.makedirs(cdir, exist_ok=True)
+            clients.append(Client(rpc, node=Node(
+                id=f"cluster-client-{i}", name=f"cluster-client-{i}",
+                datacenter=AGENT_DC), data_dir=cdir))
+        for c in clients:
+            c.start()
+
+        # seed: the nodes through the leader's replicated store, the
+        # volumes through a follower's HTTP API (forwarded)
+        nodes, zone_of, zone_nodes = cluster_nodes(n_nodes, n_zones)
+        raft = leader.server.raft
+        c0 = raft.commit_index
+        t1 = time.perf_counter()
+        for k in range(0, n_nodes, chunk):
+            leader.server.state.upsert_nodes(nodes[k:k + chunk])
+        node_seed_s = time.perf_counter() - t1
+        seed_entries, seed_bytes = raft_span(raft, c0, raft.commit_index)
+        seed_catch_up_s = caught_up(followers, raft.commit_index)
+        del nodes
+        t1 = time.perf_counter()
+        for z in range(n_zones):
+            fapi.volumes.register(
+                f"vol-zone{z}", "ebs0",
+                AccessMode="multi-node-multi-writer",
+                TopologyNodeIDs=zone_nodes[z])
+        volume_register_s = time.perf_counter() - t1
+        caught_up(followers, raft.commit_index)
+        for a in agents:
+            counts = a.server.state.counts()
+            if counts["nodes"] != n_nodes + len(clients):
+                raise AssertionError(
+                    f"{a.server.name}: {counts['nodes']} nodes, want "
+                    f"{n_nodes} + {len(clients)} clients")
+
+        # wave 1: config 5 at full width through a follower
+        all_jobs = []
+        line = cluster_wave("cluster_wave", leader, followers, fapi,
+                            n_evals, per_eval, 10, n_zones, all_jobs,
+                            zone_of)
+        for k, v in line["launches"].items():
+            launches[k] += v
+        emit({"phase": "cluster_wave", "card": card, "nodes": n_nodes,
+              "servers": CLUSTER_SERVERS, "leader": leader.server.name,
+              "cluster_start_s": build_s, "election_s": election_s,
+              "node_seed_s": node_seed_s, "seed_chunk": chunk,
+              "seed_raft_entries": seed_entries,
+              "seed_raft_bytes": seed_bytes,
+              "seed_catch_up_s": seed_catch_up_s,
+              "volume_register_s": volume_register_s, **line})
+
+        # wave 2: the leader shut down, a survivor leads
+        old = leader
+        t1 = time.perf_counter()
+        agents.remove(old)
+        old.shutdown()
+        old_name = old.server.name
+        del old
+        leader, _ = cluster_leader(agents)
+        failover_s = time.perf_counter() - t1
+        followers = [a for a in agents if a is not leader]
+        line = cluster_wave("cluster_failover_wave", leader, followers,
+                            APIClient(address=followers[0].address),
+                            fail_evals, per_eval, 10, n_zones, all_jobs,
+                            zone_of)
+        for k, v in line["launches"].items():
+            launches[k] += v
+        emit({"phase": "cluster_failover_wave", "card": card,
+              "old_leader": old_name, "leader": leader.server.name,
+              "failover_s": failover_s,
+              "memory_allocated": (torch.cuda.memory_allocated()
+                                   if torch.cuda.is_available() else 0),
+              **line})
+    finally:
+        for c in clients:
+            c.shutdown()
+        for a in agents:
+            a.shutdown()
+        profiling.PROFILER.stop()
+        profiling.PROFILER.device_ledger_provider = None
+        for plane in ("state", "journal", "watch_hub", "events"):
+            memledger.MEMLEDGER.unregister(plane)
+    del agents, leader, followers, a, raft
+    # the servers' daemon threads (Raft, gossip, RPC serving, autopilot)
+    # end within their join timeouts after shutdown; their frames hold
+    # the servers until then
+    end = time.perf_counter() + CLUSTER_WAIT_S
+    while (set(threading.enumerate()) - threads0
+           and time.perf_counter() < end):
+        time.sleep(0.1)
+    gc.collect()
+    if any(r() is not None for r in engine_refs):
+        raise AssertionError(
+            "a cluster Agent's engine outlived its shutdown; threads "
+            f"left: {[t.name for t in set(threading.enumerate()) - threads0]}")
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------- timing
 
 def time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -2430,6 +2786,29 @@ def config2_job(mock):
     return job
 
 
+def cluster_main() -> int:
+    """`chip_smoke.py --cluster`: the kernels built, then cluster_waves
+    alone (cluster_phase at config 5's full width on the card), its
+    lines and the launches it made.  The whole script runs the same
+    phase after agent_cli."""
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as K
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    card = card_line()
+    gc.callbacks.append(gc_meter)
+    K.build_all()
+    launches = {k.name: 0 for k in K.KERNELS}
+    cluster_phase(card, launches)
+    emit({"phase": "cluster_only", "card": card, "launches": launches,
+          "total_s": time.perf_counter() - t0})
+    return 0
+
+
 def bulk_layouts_main() -> int:
     """`chip_smoke.py --bulk-layouts`: K6 at bulk_eval's inputs (config
     2 through the Harness, the engine's call recorded) in each of its
@@ -3482,6 +3861,9 @@ def main() -> int:
     server_phase(card, launches)
     agent_phase(card, launches)
     agent_cli_phase(card)
+    # the same waves through a three-server port cluster (Raft, gossip,
+    # forwarding), then a failover wave
+    cluster_phase(card, launches)
 
     # 7-11. the solo path, then 12. its kernels against the plain versions
     # (after the line of the two exchange probes)
@@ -3554,4 +3936,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit(bulk_layouts_main() if sys.argv[1:] == ["--bulk-layouts"]
+             else cluster_main() if sys.argv[1:] == ["--cluster"]
              else main())

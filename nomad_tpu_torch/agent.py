@@ -2,27 +2,21 @@
 (reference: command/agent/agent.go; `-dev` runs both).
 
 Differences from the reference (nomad_tpu/agent.py), because the port
-runs on PyTorch and CUDA and has not ported the cluster plane yet
-(ROADMAP queue 1 item 4):
+runs on PyTorch and CUDA:
   - `device=None` is a keyword the reference lacks.  It is forwarded to
-    `Server(device=...)`: CUDA unless given, raising when CUDA is
-    absent.  Tests pass `device="cpu"`;
+    the `Server` (or, in cluster mode, the `ClusterServer`):
+    CUDA unless given, raising when CUDA is absent.  Tests pass
+    `device="cpu"`;
   - `device_executor="torch"` is the default (the Server's rule: "bridge"
     raises `ExecutorUnavailable`, any other name ValueError);
-  - cluster mode (`server_name`, `join`, `bootstrap_expect > 1`), a read
-    follower (`follow`) and a non-empty `encrypt` raise
-    NotImplementedError before anything starts: they need
-    `core/{cluster,raft,membership,wire,federation}.py`,
-    `chaos/transport.py` and `fanout.ReadFollower`, which are item 4.
-    So does a `plugin_dir` for the clients (`Client` refuses it too):
-    `plugins/` is item 3b;
-  - in single-server mode no transport is resolved (the reference's
-    `self.transport` is read only in cluster mode), so `transport`
-    selects nothing and `self.transport` is None;
-  - `_federation_targets` (cluster mode's gossip scrape targets) is
-    left out with the cluster mode that calls it.
-`start`, `shutdown`, `address`, `stats`, `_refresh_gauges` and `metrics`
-are the reference's."""
+  - a `plugin_dir` for the clients raises NotImplementedError before
+    anything starts (`Client` refuses it too): `plugins/` is not ported
+    yet (ROADMAP queue 1 item 3b).  `worker_mode="process"` is refused by
+    the Server, naming the worker pool (item 4b).
+Cluster mode (`server_name`, `join`, `bootstrap_expect > 1`), the read
+follower (`follow`), a non-empty `encrypt` and the transport and
+federation wiring are the reference's, as are `start`, `shutdown`,
+`address`, `stats`, `_refresh_gauges` and `metrics`."""
 
 from __future__ import annotations
 
@@ -65,23 +59,12 @@ class Agent:
                  worker_mode: str = "thread",
                  follow: str = "",
                  device=None) -> None:
-        # the cluster plane and the plugins are not ported: refuse their
-        # options before anything is built or started
-        cluster = ("the cluster plane (core/cluster.py, core/raft.py, "
-                   "core/wire.py, core/federation.py, chaos/transport.py)",
-                   "4")
-        for opt, given, (what, item) in (
-                ("server_name", bool(server_name), cluster),
-                ("join", bool(join), cluster),
-                ("bootstrap_expect > 1", bootstrap_expect > 1, cluster),
-                ("follow", bool(follow), cluster),
-                ("encrypt", bool(encrypt), cluster),
-                ("plugin_dir", bool(plugin_dir) and client_enabled,
-                 ("the external plugins (plugins/)", "3b"))):
-            if given:
-                raise NotImplementedError(
-                    f"{opt} needs {what}, which is not ported yet "
-                    f"(ROADMAP queue 1 item {item})")
+        # the external plugins are not ported: refuse them before
+        # anything is built or started
+        if plugin_dir and client_enabled:
+            raise NotImplementedError(
+                "plugin_dir needs the external plugins (plugins/), which "
+                "are not ported yet (ROADMAP queue 1 item 3b)")
         # producer-side log gate (agent_config log_level): records below
         # this level never reach the ring or its subscribers.  Only set
         # when explicitly configured — the process-wide ring default
@@ -92,6 +75,21 @@ class Agent:
                 raise ValueError(f"unknown log_level {log_level!r} "
                                  f"(expected one of {sorted(LEVELS)})")
             RING.min_level = log_level
+        # cluster shared secret: encrypt + authenticate every server-plane
+        # wire frame (raft/gossip/RPC) — core/wire.py.  The key is
+        # process-global (one cluster per process): set_key raises on a
+        # conflicting non-empty key, and a plaintext agent in a keyed
+        # process is a loud config error — neither silent inheritance of
+        # the old key nor a silent downgrade that would strip encryption
+        # out from under the running cluster.
+        from nomad_tpu_torch.core import wire
+        if encrypt:
+            wire.set_key(encrypt)
+        elif wire.has_key():
+            raise ValueError(
+                "this process already has a cluster encrypt key installed; "
+                "in-process agents must share it (pass the same encrypt "
+                "value, or reset deliberately with wire.set_key(None))")
         if not server_enabled:
             raise NotImplementedError(
                 "client-only agents need a remote RPC transport; "
@@ -105,22 +103,82 @@ class Agent:
             data_dir = tempfile.mkdtemp(prefix="nomad-tpu-agent-")
         self.data_dir = data_dir
         # cluster-plane seams (agent_config server { transport, clock }):
-        # "virtual" puts this agent's server plane on the process-shared
-        # VirtualClock.  One server needs no transport: none is resolved
-        from nomad_tpu_torch.chaos import resolve_clock
+        # "sim"/"virtual" put this agent's whole server plane on the
+        # process-shared SimNetwork/VirtualClock — fault injection by
+        # config, not by test-only monkeypatching.  Transport/Clock
+        # instances pass through for embedding scenarios directly.
+        from nomad_tpu_torch.chaos import resolve_clock, resolve_transport
         self.clock = resolve_clock(clock)
-        self.follow: List[str] = []
+        # read-follower role (core/fanout.ReadFollower): `follow` is a
+        # comma-separated candidate list of upstream HTTP addresses.  A
+        # follower embeds a normal server whose store is the replica
+        # target, but NEVER establishes leadership (no schedulers, no
+        # tick-driven expiry — replicated writes land via apply_export)
+        # and runs no clients (an in-process client would write to the
+        # non-authoritative local store).  Writes proxy to the upstream
+        # through the HTTP router.  ACL/variable tables only replicate
+        # via full exports, so follower mode pairs with the upstream's
+        # enforcement (writes + consistent reads) rather than local ACLs.
+        self.follow = [u.strip() for u in follow.split(",") if u.strip()]
         self.follower = None
-        self.transport = None
-        self.server = Server(num_workers=num_workers, dev_mode=False,
-                             heartbeat_ttl=heartbeat_ttl,
-                             acl_enabled=acl_enabled, clock=self.clock,
-                             device_executor=device_executor,
-                             slo=slo, profile_hz=profile_hz,
-                             worker_mode=worker_mode, device=device)
+        if self.follow:
+            if server_name or join or bootstrap_expect > 1:
+                raise ValueError("follow= is exclusive with cluster mode "
+                                 "(a raft member replicates via raft)")
+            client_enabled = False
+        cluster_mode = bool(server_name or join or bootstrap_expect > 1)
+        if cluster_mode:
+            # multi-server: raft-replicated state + gossip membership
+            # (reference: server { bootstrap_expect, server_join })
+            from .core.cluster import ClusterServer
+            import uuid
+            seeds = []
+            for s in (join or []):
+                if not isinstance(s, str):
+                    seeds.append((str(s[0]), int(s[1])))
+                    continue
+                host, sep, port = s.rpartition(":")
+                if not sep or not port.isdigit():
+                    raise ValueError(
+                        f"-join expects host:port, got {s!r}")
+                seeds.append((host, int(port)))
+            name = server_name or f"server-{uuid.uuid4().hex[:8]}"
+            self.transport = resolve_transport(transport, node_name=name,
+                                               clock=self.clock)
+            self.server = ClusterServer(
+                name,
+                rpc_port=rpc_port, raft_port=raft_port, serf_port=serf_port,
+                join=seeds, data_dir=data_dir,
+                bootstrap_expect=bootstrap_expect,
+                num_workers=num_workers, heartbeat_ttl=heartbeat_ttl,
+                acl_enabled=acl_enabled,
+                transport=self.transport, clock=self.clock,
+                device_executor=device_executor, slo=slo,
+                profile_hz=profile_hz, worker_mode=worker_mode,
+                device=device)
+        else:
+            self.transport = resolve_transport(transport, node_name="agent",
+                                               clock=self.clock)
+            self.server = Server(num_workers=num_workers, dev_mode=False,
+                                 heartbeat_ttl=heartbeat_ttl,
+                                 acl_enabled=acl_enabled, clock=self.clock,
+                                 device_executor=device_executor,
+                                 slo=slo, profile_hz=profile_hz,
+                                 worker_mode=worker_mode, device=device)
         self.clients: List[Client] = []
         if client_enabled:
-            rpc = InProcessRPC(self.server)
+            if cluster_mode:
+                # in cluster mode the local server may be a follower (or
+                # mid-election): clients go through the TCP RPC, which
+                # forwards writes to the leader and retries transitions
+                from .core.cluster import RemoteRPC
+                # same transport as the server plane: under "sim" the
+                # clients' RPC frames ride the simulated fabric too
+                rpc = RemoteRPC([self.server.rpc.addr],
+                                transport=self.transport,
+                                clock=self.clock)
+            else:
+                rpc = InProcessRPC(self.server)
             import os
             for i in range(num_clients):
                 node = nodes[i] if nodes and i < len(nodes) else None
@@ -128,7 +186,31 @@ class Agent:
                 os.makedirs(cdir, exist_ok=True)
                 self.clients.append(Client(rpc, node=node, data_dir=cdir,
                                            plugin_dir=plugin_dir))
+        if self.follow:
+            from nomad_tpu_torch.core.fanout import ReadFollower
+            self.follower = ReadFollower(self.server.state, self.clock,
+                                         self.follow)
         self.http = HTTPAPIServer(self, host=http_host, port=http_port)
+        if cluster_mode:
+            # cluster-scope metric federation (core/federation.py): the
+            # gossip meta carries each server's HTTP address (the meta
+            # dict is shared by reference with the local Member, so the
+            # mutation rides every subsequent ping/sync), and the leader
+            # side of Server.tick drives the puller.  Distinct from the
+            # multi-REGION federation below: this one is intra-cluster.
+            from nomad_tpu_torch.core.federation import FederationPuller
+            self.server.gossip.meta["http"] = self.address
+            self.server.federation = FederationPuller(
+                self.server.name,
+                targets=self._federation_targets,
+                clock=self.clock,
+                state=self.server.state)
+        if self.follower is not None:
+            # announce this read follower to whichever upstream it pulls
+            # from, so the leader's puller scrapes it too (follower lag
+            # rides the cluster SLO rules)
+            port = self.address.rsplit(":", 1)[-1]
+            self.follower.announce = (f"follower-{port}", self.address)
         # multi-region federation (reference: nomad/regions.go + WAN serf):
         # this agent's region + the push-pull address table; ?region=X
         # requests proxy through it (api/http_server.Router.route)
@@ -174,6 +256,17 @@ class Agent:
     @property
     def address(self) -> str:
         return self.http.addr
+
+    def _federation_targets(self) -> List:
+        """Gossip-derived (origin, http-url) scrape targets for the
+        metric-federation puller (peers whose agents published an HTTP
+        address into their gossip meta)."""
+        out = []
+        for name, m in sorted(self.server.gossip.alive_members().items()):
+            url = (m.meta or {}).get("http")
+            if url:
+                out.append((name, url))
+        return out
 
     # -------------------------------------------------------------- intro
 

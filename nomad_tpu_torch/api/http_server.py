@@ -11,15 +11,8 @@ carry `X-Nomad-Index`.
 `/v1/event/stream` streams newline-delimited JSON event batches with
 `?topic=Topic:Key` filters, mirroring the reference's endpoint.
 
-Differences from the reference (nomad_tpu/api/http_server.py): three
-endpoints speak the cluster plane's msgpack frames (`core/wire.py`) or
-its federation (`core/federation.py`), which the port has not ported
-(ROADMAP queue 1 item 4).  They answer HTTP 501 with an error naming
-that item: the read follower's journal tail `GET /v1/operator/export`,
-the metric-federation scrape `GET /v1/agent/self?compact=true`, and
-`GET /v1/trace/<id>?cluster=true`.  The catch-all handler leaves out
-the reference's `core.raft.NotLeaderError` branch, which no port server
-can raise before item 4.  Every other route is the reference's.
+A copy of the reference's nomad_tpu/api/http_server.py with its imports
+rewritten; every route is the reference's.
 """
 
 from __future__ import annotations
@@ -48,13 +41,6 @@ class APIError(Exception):
     def __init__(self, status: int, msg: str) -> None:
         super().__init__(msg)
         self.status = status
-
-
-def _cluster_plane(what: str) -> APIError:
-    """The 501 of an endpoint that needs the cluster plane."""
-    return APIError(501, f"{what} needs the cluster plane (core/wire.py, "
-                         "core/federation.py), which is not ported yet "
-                         "(ROADMAP queue 1 item 4)")
 
 
 class TextResponse(str):
@@ -550,7 +536,8 @@ class Router:
                     raise APIError(400, "bad since/wait")
                 if wait > 0 and s.state.latest_index() <= since:
                     s.state.wait_for_index(since + 1, timeout=wait)
-                raise _cluster_plane("the journal export")
+                from nomad_tpu_torch.core import wire
+                return BytesResponse(wire.packb(s.state.export_since(since)))
             if p[1:2] == ["raft"] and p[2:3] == ["configuration"]:
                 # reference: Operator.RaftGetConfiguration /
                 # `nomad operator raft list-peers`
@@ -894,7 +881,19 @@ class Router:
                     # occupancy + mem doc + follower tail + a timeline
                     # delta since ?since_seq=.  msgpack over core/wire —
                     # the leader's puller decodes it, not a human
-                    raise _cluster_plane("the compact scrape")
+                    from nomad_tpu_torch.core import wire
+                    from nomad_tpu_torch.core.federation import agent_snapshot
+                    try:
+                        since = int((qs.get("since_seq") or ["0"])[0])
+                    except ValueError:
+                        raise APIError(400, "bad since_seq")
+                    fol = getattr(self.agent, "follower", None)
+                    origin = getattr(s, "name", None) or "local"
+                    if fol is not None and fol.announce is not None:
+                        origin = fol.announce[0]
+                    return BytesResponse(wire.packb(agent_snapshot(
+                        origin, state=s.state, follower=fol,
+                        since_seq=since)))
                 return {"config": {"Server": {"Enabled": True},
                                    "Client": {
                                        "Enabled": bool(self.agent.clients)}},
@@ -933,10 +932,39 @@ class Router:
         raise APIError(404, f"no handler for {method} /v1/{'/'.join(p)}")
 
     def _cluster_trace(self, trace_id: str, token: str = "") -> Dict:
-        """`GET /v1/trace/<id>?cluster=true` — the reference scatter-gathers
-        the trace from every gossip peer and stitches it
-        (core/federation.stitch_trace); the port has neither yet."""
-        raise _cluster_plane("the cluster trace")
+        """`GET /v1/trace/<id>?cluster=true` — scatter-gather the trace
+        from every gossip peer and stitch one joined tree
+        (core/federation.stitch_trace): the forwarded-RPC span on the
+        follower parents the leader's commit spans parents the serving
+        follower's read spans.  A dark peer only narrows the view; the
+        stitch is best-effort over whoever answered."""
+        import urllib.request
+        from nomad_tpu_torch.core.federation import local_trace, stitch_trace
+        s = self.server
+        origin = getattr(s, "name", None) or "local"
+        by_origin: Dict[str, List[Dict]] = {origin: local_trace(trace_id)}
+        members = (sorted(s.gossip.alive_members().items())
+                   if hasattr(s, "gossip") else [])
+        for name, member in members:
+            url = (member.meta or {}).get("http")
+            if not url or name == origin:
+                continue
+            req = urllib.request.Request(
+                f"{url}/v1/trace/{urllib.parse.quote(trace_id)}")
+            if token:
+                req.add_header("X-Nomad-Token", token)
+            try:
+                with urllib.request.urlopen(req, timeout=5.0) as resp:
+                    doc = json.loads(resp.read().decode("utf-8"))
+                by_origin[name] = list(doc.get("Spans") or [])
+            except Exception:
+                # includes the peer's own 404 (no spans there): either
+                # way that origin contributes nothing to the stitch
+                by_origin[name] = []
+        stitched = stitch_trace(trace_id, by_origin)
+        if stitched["SpanCount"] == 0:
+            raise APIError(404, "trace not found")
+        return stitched
 
     # ----------------------------------------------------------- sub-trees
 
@@ -1887,8 +1915,23 @@ class HTTPAPIServer:
                 except APIError as e:
                     self._respond(e.status, {"Error": str(e)})
                 except Exception as e:  # noqa: BLE001 - endpoint isolation
-                    self._respond(
-                        500, {"Error": f"{type(e).__name__}: {e}"})
+                    from nomad_tpu_torch.core.raft import NotLeaderError
+                    if isinstance(e, NotLeaderError):
+                        # cluster mode: leadership in flux (normally the
+                        # server forwards writes itself; this surfaces
+                        # only when no leader is known).  Resolve the hint
+                        # to an RPC address if the server can.
+                        srv = router.agent.server
+                        addr = None
+                        if hasattr(srv, "leader_rpc_addr"):
+                            addr = srv.leader_rpc_addr()
+                        self._respond(500, {
+                            "Error": "rpc error: no cluster leader",
+                            "LeaderRPCAddr":
+                                f"{addr[0]}:{addr[1]}" if addr else ""})
+                    else:
+                        self._respond(
+                            500, {"Error": f"{type(e).__name__}: {e}"})
 
             def _chunked_loop(self, pull, cleanup) -> None:
                 """Shared chunked-streaming scaffold for the event and

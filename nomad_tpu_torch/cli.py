@@ -10,10 +10,11 @@ Entry point: `python -m nomad_tpu_torch <subcommand> ...`.
 
 Differences from the reference (nomad_tpu/cli.py): `agent` builds the
 port's Agent, which runs on CUDA and raises without it (no `-device`
-flag); its cluster-mode, follower and plugin flags reach the Agent's
-NotImplementedError (ROADMAP queue 1 items 3b and 4).  `soak` exits 1
-with a message naming ROADMAP queue 1 item 5 (`chaos/soak.py`).  Every
-other command is the reference's.
+flag); its plugin flag reaches the Agent's NotImplementedError (ROADMAP
+queue 1 item 3b), while its cluster-mode, follower and encrypt flags
+work as the reference's.  `soak` exits 1 with a message naming ROADMAP
+queue 1 item 5 (`chaos/soak.py`).  Every other command is the
+reference's.
 """
 
 from __future__ import annotations

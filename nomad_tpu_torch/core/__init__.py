@@ -4,23 +4,51 @@ The single-server loop (`Server`, the eval broker, blocked evals,
 heartbeats, the plan queue and applier, the wave pipeline, the workers,
 the periodic dispatcher, the drainer and the deployment and volume
 watchers), the event stream with its fanout ring, the decision records
-(`explain`) and the observability planes.  The cluster plane (`raft`,
-`cluster`, `membership`, `regions`, `wire`, `federation`, `workerpool`)
-is not ported yet.
+(`explain`), the observability planes and the cluster plane (`wire`,
+`membership`, `raft`, `cluster`, `federation`).  The worker pool
+(`workerpool`) is not ported yet.
 
-The exports are the reference's.  Importing them runs `server`, which
-imports `ops`, whose executor imports core planes back: that holds
-because `ops/__init__` binds the engine before it imports the executor,
-so each module of the port imports first in a fresh interpreter
-(`tests/test_torch_imports.py` checks the orders that cross)."""
+The exports are the reference's.  Unlike the reference's, this init
+binds them lazily, at first access (`from nomad_tpu_torch.core import
+Server`): the state store reaches `core.wire` through `chaos` (its clock
+import runs `chaos/__init__`, which imports the transport, which imports
+the wire codec), and an eager init would pull the server, the engine
+and the executor into every `StateStore()`.  `tests/test_torch_imports.py`
+checks both that and the import orders that cross."""
 
-from .blocked_evals import BlockedEvals  # noqa: F401
-from .deployment_watcher import DeploymentWatcher  # noqa: F401
-from .drainer import NodeDrainer  # noqa: F401
-from .eval_broker import EvalBroker  # noqa: F401
-from .heartbeat import HeartbeatTimers, invalidate_heartbeat  # noqa: F401
-from .periodic import CronSpec, PeriodicDispatch  # noqa: F401
-from .plan_apply import PendingPlan, PlanApplier, PlanQueue  # noqa: F401
-from .server import Server  # noqa: F401
-from .stream import Event, EventBroker as StreamBroker, Subscription  # noqa: F401,E501
-from .worker import Worker  # noqa: F401
+import importlib
+
+_EXPORTS = {
+    "BlockedEvals": "blocked_evals",
+    "DeploymentWatcher": "deployment_watcher",
+    "NodeDrainer": "drainer",
+    "EvalBroker": "eval_broker",
+    "HeartbeatTimers": "heartbeat",
+    "invalidate_heartbeat": "heartbeat",
+    "CronSpec": "periodic",
+    "PeriodicDispatch": "periodic",
+    "PendingPlan": "plan_apply",
+    "PlanApplier": "plan_apply",
+    "PlanQueue": "plan_apply",
+    "Server": "server",
+    "Event": "stream",
+    "StreamBroker": "stream",
+    "Subscription": "stream",
+    "Worker": "worker",
+}
+
+# the stream module's EventBroker is exported under another name
+_RENAMED = {"StreamBroker": "EventBroker"}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f".{module}", __name__),
+                    _RENAMED.get(name, name))
+    globals()[name] = value
+    return value

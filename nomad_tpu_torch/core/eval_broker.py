@@ -10,6 +10,16 @@ Priority + FIFO queue of evaluations by scheduler type with:
 
 Timebase is injected (`now` arguments) so tests are deterministic; the
 server's tick loop supplies wall-clock time.
+
+A copy of the reference's nomad_tpu/core/eval_broker.py with its imports
+rewritten and one difference: `dequeue` with a non-zero timeout on a
+DISABLED broker waits out the timeout (set_enabled wakes it) before it
+returns (None, ""), where the reference's returns at once.  A worker's
+loop polls with a 0.1 s timeout, so on a follower, whose broker stays
+disabled, the reference's worker spins on the interpreter lock; in a
+three-server cluster in one process two such followers slow every Raft
+round trip of the leader by tens of times
+(tests/test_torch_broker.py holds the difference).
 """
 
 from __future__ import annotations
@@ -136,9 +146,17 @@ class EvalBroker:
         """Pop the highest-priority ready eval for any of `schedulers`.
         Returns (eval, token) or (None, "") on timeout/disabled."""
         deadline = None if timeout is None else now + timeout
+        parked = False
         with self._cv:
             while True:
                 if not self._enabled:
+                    # a blocking caller on a disabled broker (a worker on
+                    # a follower) waits out its timeout, woken early by
+                    # set_enabled, instead of returning at once
+                    if timeout != 0.0 and not parked:
+                        parked = True
+                        self._cv.wait(timeout=timeout)
+                        continue
                     return None, ""
                 self._tick_locked(now)
                 ev = self._pop_ready_locked(schedulers)

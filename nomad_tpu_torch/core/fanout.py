@@ -41,10 +41,8 @@ primitive) because the transport is real even when time is simulated —
 a VirtualClock that never advances must not park a TCP connection
 forever.
 
-Differences from the reference (nomad_tpu/core/fanout.py):
-  - `ReadFollower` is not ported yet: its pull reads the journal
-    through `core/wire.py`, which belongs to the cluster plane (ROADMAP
-    queue 1 item 4).  `WatchHub` and `EventRing` are copies.
+A copy of the reference's nomad_tpu/core/fanout.py with its imports
+rewritten; nothing else differs.
 """
 
 from __future__ import annotations
@@ -55,6 +53,7 @@ import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 from nomad_tpu_torch.core import telemetry
+from nomad_tpu_torch.core.logging import log
 
 # ---------------------------------------------------------------------------
 # WatchHub — coalesced blocking-query watches
@@ -401,3 +400,211 @@ class EventRing:
                 "bytes": self._approx_bytes,
                 "capacity": self._capacity,
             }
+
+
+# ---------------------------------------------------------------------------
+# ReadFollower — journal-tailing read replica over HTTP
+# ---------------------------------------------------------------------------
+
+
+class ReadFollower:
+    """Tails a leader's `/v1/operator/export` journal into a local
+    StateStore (apply_export notifies the store's index condition, so
+    local blocking queries and the WatchHub work unchanged on the
+    replica).  `upstreams` is an ordered candidate list — on pull
+    failure the tail rotates to the next candidate (leader failover).
+
+    Staleness contract: the applied index NEVER regresses.  An upstream
+    behind our head (a lagging server right after failover) is skipped
+    until it catches up — reads served by this follower are
+    stale-bounded but monotonic."""
+
+    def __init__(self, state, clock, upstreams: List[str],
+                 token: str = "", poll_wait: float = 2.0,
+                 backoff: float = 0.5) -> None:
+        if not upstreams:
+            raise ValueError("ReadFollower needs at least one upstream URL")
+        self.state = state
+        self.clock = clock
+        # accept bare host:port (the CLI/HCL form) as well as full URLs
+        self.upstreams = [u if "://" in u else f"http://{u}"
+                          for u in (s.rstrip("/") for s in upstreams)]
+        self.token = token
+        self.poll_wait = poll_wait
+        self.backoff = backoff
+        self.known_leader = False
+        self._active = 0                # index into upstreams
+        self._last_contact = None       # clock.monotonic() of last pull
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.pulls = 0
+        self.failures = 0
+        self.skipped_regressions = 0
+        # metric-federation registration (core/federation.py): when the
+        # Agent sets `announce = (origin, own-http-url)`, each upstream
+        # this follower successfully pulls from is told where to scrape
+        # it (PUT /v1/operator/federation/register).  Re-announced after
+        # every upstream rotation, so a failover re-registers with the
+        # new leader on the first successful pull.
+        self.announce: Optional[Tuple[str, str]] = None
+        self._announced_to = ""
+
+    # ---------------------------------------------------------- control
+
+    def start(self) -> "ReadFollower":
+        self._thread = threading.Thread(target=self._run,
+                                        name="read-follower", daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+
+    # ------------------------------------------------------------- tail
+
+    @property
+    def upstream(self) -> str:
+        return self.upstreams[self._active]
+
+    def last_contact_s(self) -> Optional[float]:
+        """Seconds since the last successful pull (clock time)."""
+        if self._last_contact is None:
+            return None
+        return max(self.clock.monotonic() - self._last_contact, 0.0)
+
+    def publish_gauges(self) -> None:
+        """Registry gauges for applied index + staleness, so federation
+        and the soak verdict gate follower lag without scraping the
+        X-Nomad-* HTTP headers.  Refreshed on every pull outcome (the
+        staleness gauge must keep growing while the upstream is dark)
+        and on demand from stats()/the agent snapshot."""
+        telemetry.REGISTRY.set_gauge("nomad.follower.applied_index",
+                                     float(self.state.latest_index()))
+        last = self.last_contact_s()
+        if last is not None:
+            telemetry.REGISTRY.set_gauge("nomad.follower.last_contact_s",
+                                         round(last, 6))
+
+    def _fetch(self, url: str) -> bytes:
+        import urllib.request
+        req = urllib.request.Request(url)
+        if self.token:
+            req.add_header("X-Nomad-Token", self.token)
+        with urllib.request.urlopen(req,
+                                    timeout=self.poll_wait + 5.0) as resp:
+            return resp.read()
+
+    def _pull_once(self) -> bool:
+        from nomad_tpu_torch.core import wire
+        since = self.state.latest_index()
+        url = (f"{self.upstream}/v1/operator/export"
+               f"?since={since}&wait={self.poll_wait}")
+        try:
+            export = wire.unpackb(self._fetch(url))
+        except Exception as exc:  # noqa: BLE001 - any transport/codec fail
+            self.failures += 1
+            if self.known_leader:
+                log("follower", "warn", "export pull failed",
+                    upstream=self.upstream, error=repr(exc))
+            self.known_leader = False
+            self._active = (self._active + 1) % len(self.upstreams)
+            telemetry.REGISTRY.inc("nomad.follower.pull_failures")
+            self.publish_gauges()
+            return False
+        head = int(export.get("index", 0))
+        if head < since:
+            # lagging upstream (fresh follower of a deposed leader):
+            # applying would regress reads we already served — skip and
+            # rotate until someone has caught up past our head
+            self.skipped_regressions += 1
+            telemetry.REGISTRY.inc("nomad.follower.regressions_skipped")
+            self._active = (self._active + 1) % len(self.upstreams)
+            return False
+        if export.get("kind") != "empty":
+            self.state.apply_export(export)
+            telemetry.REGISTRY.inc("nomad.follower.applied_exports")
+        self.pulls += 1
+        self.known_leader = True
+        self._last_contact = self.clock.monotonic()
+        self.publish_gauges()
+        if self.announce is not None and self._announced_to != self.upstream:
+            self._announce_once()
+        return True
+
+    def _announce_once(self) -> None:
+        """Register this follower as a federation scrape target with the
+        active upstream.  Best-effort: a failed announce retries on the
+        next successful pull (the flag only latches on success)."""
+        import json
+        import urllib.request
+        origin, url = self.announce
+        req = urllib.request.Request(
+            f"{self.upstream}/v1/operator/federation/register",
+            data=json.dumps({"Origin": origin, "Url": url}).encode(),
+            method="PUT")
+        req.add_header("Content-Type", "application/json")
+        if self.token:
+            req.add_header("X-Nomad-Token", self.token)
+        try:
+            with urllib.request.urlopen(req, timeout=5.0) as resp:
+                resp.read()
+            self._announced_to = self.upstream
+        except Exception as exc:  # noqa: BLE001 - best-effort registration
+            log("follower", "debug", "federation announce failed",
+                upstream=self.upstream, error=repr(exc))
+
+    def _run(self) -> None:
+        from nomad_tpu_torch.core.flightrec import FLIGHT
+        FLIGHT.record_event("follower.start", upstream=self.upstream)
+        try:
+            while not self._stop.is_set():
+                ok = self._pull_once()
+                if self._stop.is_set():
+                    break
+                if not ok:
+                    # real-time pacing for a real HTTP upstream: the
+                    # clock seam still gates the wait so virtual soaks
+                    # can park it
+                    self.clock.wait(self._stop, self.backoff)
+        except Exception as exc:  # noqa: BLE001 - daemon must not die mute
+            log("follower", "error", "tail loop died", error=repr(exc))
+            FLIGHT.record_event("follower.crash", error=repr(exc))
+            raise
+        finally:
+            FLIGHT.record_event("follower.stop",
+                                applied_index=self.state.latest_index())
+
+    # ------------------------------------------------------------ proxy
+
+    def proxy(self, method: str, path: str, qs: str, body: Optional[bytes],
+              token: str = "") -> Tuple[int, bytes]:
+        """Forward a write (or consistent read) verbatim to the active
+        upstream — the follower serves stale-bounded reads itself and
+        proxies everything that must see the leader."""
+        import urllib.error
+        import urllib.request
+        url = self.upstream + path + (f"?{qs}" if qs else "")
+        req = urllib.request.Request(url, data=body, method=method)
+        req.add_header("Content-Type", "application/json")
+        if token:
+            req.add_header("X-Nomad-Token", token)
+        try:
+            with urllib.request.urlopen(req, timeout=15.0) as resp:
+                return resp.status, resp.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    def stats(self) -> Dict:
+        self.publish_gauges()
+        return {
+            "upstream": self.upstream,
+            "known_leader": self.known_leader,
+            "last_contact_s": self.last_contact_s(),
+            "applied_index": self.state.latest_index(),
+            "pulls": self.pulls,
+            "failures": self.failures,
+            "regressions_skipped": self.skipped_regressions,
+        }

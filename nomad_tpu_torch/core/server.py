@@ -13,8 +13,8 @@ Two run modes:
   dev_mode=False: applier + worker threads, wall-clock ticks.
 
 Differences from the reference (nomad_tpu/core/server.py), because the
-port runs on PyTorch and CUDA, not JAX, and has not ported the cluster
-plane yet:
+port runs on PyTorch and CUDA, not JAX, and has not ported the worker
+pool yet:
   - `device=None` is a keyword the reference lacks.  It is forwarded to
     `PlacementEngine(device=..., mesh=...)`: CUDA unless given, raising
     when CUDA is absent, as `scheduler.testing.Harness` does.  Tests
@@ -29,11 +29,11 @@ plane yet:
     shards of the node axis on the one card, and a mesh across cards
     raises;
   - `worker_mode="process"` raises NotImplementedError before any
-    thread or store is built: the worker pool (`core/workerpool.py`)
-    belongs to the cluster plane, ROADMAP queue 1 item 4;
-  - `self.federation` stays None: the metric federation puller
-    (`core/federation.py`) is queue 1 item 4 too.  `tick` keeps the
-    reference's branch for it.
+    thread or store is built: the worker pool (`core/workerpool.py`) is
+    not ported yet, ROADMAP queue 1 item 4b.
+`self.federation` is None here, as in the reference; the agent's cluster
+mode sets it to a `core.federation.FederationPuller`, which `tick`
+samples on the leader.
 """
 
 from __future__ import annotations
@@ -99,9 +99,8 @@ class Server:
                  device=None) -> None:
         # worker plane: "thread" (default) keeps every
         # scheduler worker as an in-process thread.  The reference's
-        # "process" mode needs the worker pool of the cluster plane,
-        # which the port does not have yet: refuse it before anything
-        # is built
+        # "process" mode needs the worker pool, which the port does not
+        # have yet: refuse it before anything is built
         if worker_mode not in ("thread", "process"):
             raise ValueError(
                 f"worker_mode must be 'thread' or 'process', "
@@ -110,7 +109,7 @@ class Server:
             raise NotImplementedError(
                 "worker_mode='process' runs workers in the pool of "
                 "core/workerpool.py, which the port has not ported yet "
-                "(ROADMAP queue 1 item 4); use worker_mode='thread'")
+                "(ROADMAP queue 1 item 4b); use worker_mode='thread'")
         # injected timebase (chaos/clock.py): every endpoint default
         # `now`, heartbeat deadline, and the tick loop read this clock,
         # so a chaos scenario's VirtualClock owns the whole server's

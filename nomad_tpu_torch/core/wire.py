@@ -1,0 +1,311 @@
+"""Data-only wire codec + authenticated framing for the server plane.
+
+The reference runs msgpack-RPC between servers with optional mTLS
+(reference: nomad/rpc.go, helper/codec); the important property is that
+the wire format is DATA ONLY — a peer (or an attacker who can reach the
+port) can inject garbage state, but never code.  This module gives the
+Python server plane the same property:
+
+  - msgpack framing (never pickle) for every TCP message: raft, gossip,
+    and the server RPC endpoint, plus the raft FSM command encoding.
+  - dataclass payloads ride as a msgpack ext type carrying
+    (class-name, field-dict); decode only constructs classes from an
+    explicit registry (the nomad_tpu_torch.structs dataclasses), so arbitrary
+    types are not reachable from the wire.
+  - optional shared-secret frame encryption (AES-256-GCM, the `encrypt`
+    agent option — the analog of Nomad's serf encrypt key): when a key
+    is set, every frame is encrypted and authenticated, and frames
+    whose timestamp falls outside a freshness window — or whose nonce
+    was already seen inside it — are dropped (bounded replay
+    protection; peers' clocks must agree within the window, like the
+    reference's ACL-token expiry handling assumes).  Frames are bound
+    to their destination via AAD: the transport passes a
+    (channel, direction, listener-address) tag (`channel_tag`) so a
+    frame captured en route to one listener cannot be replayed to a
+    different node, port, or plane (raft/gossip/rpc), and a request
+    cannot be reflected as a reply.  Replay-cache entries are recorded
+    only AFTER successful authentication (forged floods cannot grow the
+    cache or poison legitimate nonces) and the cache is hard-capped
+    with oldest-first eviction.
+
+The key is process-global: one cluster secret per process.  `set_key`
+raises if a DIFFERENT non-empty key is already installed (in-process
+multi-agent setups must share one cluster); an empty value explicitly
+resets to plaintext.
+
+Durable files (raft log/meta on local disk) are NOT wire and keep their
+own encoding — the trust boundary is the socket, not the local disk.
+
+Tuples become lists on the wire (msgpack semantics); all consumers
+tolerate that (the membership/cluster code already re-tuples addresses).
+
+Differences from the reference (nomad_tpu/core/wire.py):
+  - MessagePack comes from the port's own `core/_msgpack.py`, not the
+    `msgpack` package: `packb` gives the bytes the reference's gives, and
+    `unpackb` decodes as its `raw=False, strict_map_key=False` does.  An
+    unknown ext code decodes to `_msgpack.ExtType`;
+  - the registry holds the port's own `structs` dataclasses.  The class
+    name, not the module, keys the ext payload, so the two packages'
+    frames decode in each other.
+AES-GCM stays behind the lazy `cryptography` import in `set_key`: without
+that package a non-empty key raises there, as in the reference.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import itertools
+import os
+import struct
+import threading
+from typing import Any, Dict, Optional
+
+from nomad_tpu_torch.chaos.clock import Clock, SystemClock
+
+from . import _msgpack
+
+_EXT_DATACLASS = 1
+_EXT_SET = 2
+_EXT_NDARRAY = 3
+
+# wire-struct schema generation: bumped whenever the field set of any
+# registered dataclass changes (the analyzer's wireproto pass pins the
+# field sets in scripts/analysis/wire_manifest.json and requires this
+# constant to match the manifest's version, so a silent field drift
+# cannot land).  Mixed-version peers reject frames via channel_tag AAD.
+SCHEMA_VERSION = 1
+
+_NONCE_LEN = 12
+_TS_LEN = 8
+# |sender clock - receiver clock| + network latency must fit here
+REPLAY_WINDOW_S = 120.0
+# hard cap on the replay cache: beyond this, oldest entries are evicted
+# (dict insertion order == expiry order, expiries are now + constant)
+MAX_SEEN_NONCES = 65536
+
+_KEY: Optional[bytes] = None
+_aead = None
+_seen_nonces: Dict[bytes, float] = {}
+_seen_lock = threading.Lock()
+
+_REGISTRY: Dict[str, type] = {}
+_registered_modules: set = set()
+
+# injected timebase for frame timestamps / freshness (chaos/clock.py).
+# NOT rebound by Server.__init__ (unlike telemetry/flightrec): frames
+# cross processes, so their freshness window is wall-clock by nature —
+# only a fully-virtual single-process soak (chaos/soak.py) binds its
+# VirtualClock here, and restores the wall clock on teardown.
+_CLOCK: Clock = SystemClock()
+
+
+def set_clock(clock: Clock) -> None:
+    global _CLOCK
+    _CLOCK = clock
+
+
+def set_key(secret: Optional[str], force: bool = False) -> None:
+    """Install the cluster shared secret (agent `encrypt` option).
+    None/empty disables frame encryption (loopback/dev clusters) —
+    an explicit reset, never silent inheritance of a previous key.
+    Raises ValueError when a DIFFERENT non-empty key is already
+    installed (the key is process-global: one cluster per process);
+    `force=True` overrides (tests / deliberate re-keying)."""
+    global _KEY, _aead
+    if not secret:
+        if _KEY is None:
+            return                     # idempotent: nothing to reset
+        _KEY, _aead = None, None
+    else:
+        from cryptography.hazmat.primitives.ciphers.aead import AESGCM
+        new_key = hashlib.sha256(secret.encode("utf-8")).digest()
+        if _KEY == new_key:
+            return                     # idempotent: keep the replay cache
+        if _KEY is not None and not force:
+            raise ValueError(
+                "a different cluster encrypt key is already installed in "
+                "this process (the wire key is process-global: one cluster "
+                "per process; pass force=True to re-key deliberately)")
+        _KEY = new_key
+        _aead = AESGCM(_KEY)
+    with _seen_lock:
+        _seen_nonces.clear()
+
+
+def has_key() -> bool:
+    return _KEY is not None
+
+
+def register_module(module) -> None:
+    """Add every dataclass defined in `module` to the decode registry."""
+    if module in _registered_modules:
+        return
+    _registered_modules.add(module)
+    for name in dir(module):
+        obj = getattr(module, name)
+        if isinstance(obj, type) and dataclasses.is_dataclass(obj):
+            existing = _REGISTRY.get(obj.__name__)
+            if existing is not None and existing is not obj:
+                raise TypeError(
+                    f"wire registry name collision: {obj.__name__} in "
+                    f"{obj.__module__} vs {existing.__module__}")
+            _REGISTRY[obj.__name__] = obj
+
+
+def _ensure_registry() -> None:
+    if not _REGISTRY:
+        import nomad_tpu_torch.structs as structs
+        import nomad_tpu_torch.structs.structs as structs_impl
+        register_module(structs)
+        register_module(structs_impl)
+
+
+def _default(obj: Any) -> Any:
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        _ensure_registry()
+        cls = type(obj).__name__
+        if _REGISTRY.get(cls) is not type(obj):
+            raise TypeError(
+                f"wire codec: dataclass {type(obj).__module__}.{cls} is "
+                "not registered (register_module its module first)")
+        fields = {f.name: getattr(obj, f.name)
+                  for f in dataclasses.fields(obj)}
+        return _msgpack.ExtType(_EXT_DATACLASS, packb([cls, fields]))
+    if isinstance(obj, (set, frozenset)):
+        return _msgpack.ExtType(_EXT_SET, packb(sorted(obj)))
+    import numpy as _np
+    if isinstance(obj, _np.ndarray):
+        # AllocBlock picks ride replicated plan commits; contiguous
+        # (dtype, shape, raw bytes) is still data-only
+        a = _np.ascontiguousarray(obj)
+        return _msgpack.ExtType(
+            _EXT_NDARRAY, packb([str(a.dtype), list(a.shape),
+                                 a.tobytes()]))
+    if isinstance(obj, _np.generic):
+        return obj.item()
+    raise TypeError(
+        f"wire codec cannot encode {type(obj).__name__} (data-only wire; "
+        "no arbitrary objects)")
+
+
+def _ext_hook(code: int, data: bytes) -> Any:
+    if code == _EXT_DATACLASS:
+        _ensure_registry()
+        cls_name, fields = unpackb(data)
+        cls = _REGISTRY.get(cls_name)
+        if cls is None:
+            raise ValueError(f"wire codec: unknown dataclass {cls_name!r}")
+        return cls(**fields)
+    if code == _EXT_SET:
+        return set(unpackb(data))
+    if code == _EXT_NDARRAY:
+        import numpy as _np
+        dtype, shape, raw = unpackb(data)
+        return _np.frombuffer(raw, dtype=dtype).reshape(shape).copy()
+    return _msgpack.ExtType(code, data)
+
+
+def packb(obj: Any) -> bytes:
+    return _msgpack.packb(obj, _default)
+
+
+def unpackb(data: bytes) -> Any:
+    return _msgpack.unpackb(data, _ext_hook)
+
+
+def channel_tag(channel: str, direction: str, addr) -> bytes:
+    """AAD binding a frame to its destination: the plane
+    (raft/serf/rpc), the direction (req = toward the listener,
+    rep = the listener's reply on that connection), and the listener's
+    advertised host:port.  Senders derive it from the address they
+    dial; the listener from its own advertised address — the two are
+    the same tuple in this codebase (listeners bind concrete addresses,
+    default 127.0.0.1, and gossip propagates the bound tuples).
+    CONSTRAINT: the dialed and advertised strings must match textually —
+    a wildcard bind (0.0.0.0) or hostname seed would make every frame
+    fail auth; an advertise-address knob must be added before either is
+    supported."""
+    host, port = addr
+    return (f"v{SCHEMA_VERSION}|{channel}|{direction}|{host}:{port}"
+            .encode("utf-8"))
+
+
+def encode_frame(msg: Any, tag: bytes = b"") -> bytes:
+    """msg -> length-prefixed (optionally encrypted) frame bytes.
+    `tag` (see channel_tag) rides as additional authenticated data —
+    the receiver must present the identical tag to decode."""
+    body = packb(msg)
+    if _aead is not None:
+        ts = struct.pack(">d", _CLOCK.time())
+        nonce = os.urandom(_NONCE_LEN)
+        body = ts + nonce + _aead.encrypt(nonce, body, ts + tag)
+    return struct.pack(">I", len(body)) + body
+
+
+def _register_nonce(nonce: bytes, ts: float, now: float) -> None:
+    """Record an AUTHENTICATED frame's nonce; raises on a duplicate.
+    Called only after the GCM tag verified — unauthenticated traffic can
+    neither grow this cache nor pre-poison a legitimate frame's nonce.
+    The entry expires at ts + REPLAY_WINDOW_S — the instant the FRAME
+    itself goes stale — so a replay can never slip through an expired
+    entry while the frame is still inside the freshness window (any
+    nonce found present is therefore an unconditional reject)."""
+    with _seen_lock:
+        if nonce in _seen_nonces:
+            raise ValueError("replayed frame")
+        _seen_nonces[nonce] = ts + REPLAY_WINDOW_S
+        # expiries are ts + constant and frames arrive roughly in ts
+        # order (bounded clock skew), so insertion order tracks expiry
+        # order: drop the expired front, then hard-cap oldest-first —
+        # only eviction fairness depends on the ordering, never the
+        # duplicate check above
+        for k in list(itertools.islice(iter(_seen_nonces), 64)):
+            if _seen_nonces[k] < now:
+                del _seen_nonces[k]
+            else:
+                break
+        if len(_seen_nonces) > MAX_SEEN_NONCES:
+            # Overflow: sweep EVERY expired entry (a single
+            # future-timestamped nonce from a clock-skewed peer at the
+            # dict front must not pin expired entries behind it — an
+            # insertion-order-only sweep caused exactly that, a
+            # cluster-wide frame outage).  Only if the cache is still
+            # over the cap after the full sweep — genuinely full of
+            # unexpired nonces — is the NEW frame rejected (fail closed:
+            # evicting an unexpired nonce would let a captured frame
+            # replay inside its freshness window).  Attackers cannot
+            # force this (registration is post-auth); a cluster
+            # organically sustaining > MAX_SEEN_NONCES / REPLAY_WINDOW_S
+            # frames/sec needs the cap raised, and the error says so.
+            expired = [k for k, exp in _seen_nonces.items() if exp < now]
+            for k in expired:
+                del _seen_nonces[k]
+            if len(_seen_nonces) > MAX_SEEN_NONCES:
+                del _seen_nonces[nonce]
+                raise ValueError(
+                    "replay cache full of unexpired nonces; frame "
+                    "rejected (sustained frame rate exceeds "
+                    "MAX_SEEN_NONCES / REPLAY_WINDOW_S — raise the cap)")
+
+
+def decode_body(body: bytes, tag: bytes = b"") -> Any:
+    """Frame body (after the length prefix) -> msg.
+    Raises ValueError on an unauthenticated/stale/replayed frame when a
+    key is set.  `tag` must match the sender's (channel binding)."""
+    if _aead is not None:
+        if len(body) < _TS_LEN + _NONCE_LEN + 16:
+            raise ValueError("unauthenticated frame")
+        ts_raw = body[:_TS_LEN]
+        nonce = body[_TS_LEN:_TS_LEN + _NONCE_LEN]
+        (ts,) = struct.unpack(">d", ts_raw)
+        now = _CLOCK.time()
+        if abs(now - ts) > REPLAY_WINDOW_S:
+            raise ValueError("stale frame")
+        try:
+            body = _aead.decrypt(nonce, body[_TS_LEN + _NONCE_LEN:],
+                                 ts_raw + tag)
+        except Exception:
+            raise ValueError("frame authentication failed")
+        _register_nonce(nonce, ts, now)
+    return unpackb(body)

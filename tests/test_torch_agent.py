@@ -10,10 +10,15 @@ Ids are pinned (`pinned`), the clients' nodes carry explicit ids
 once all three allocs report `running`: alloc ids, names, nodes, desired
 and client statuses, and the deployment's id.
 
-The documented differences have tests of their own: cluster mode, a
-read follower, `encrypt` and `plugin_dir` raise NotImplementedError
-before anything starts; `device_executor="jax"` is refused; and
-`Agent()` without `device` needs CUDA."""
+The documented differences have tests of their own: `plugin_dir` and
+`worker_mode="process"` raise NotImplementedError before anything
+starts; `device_executor="jax"` is refused; and `Agent()` without
+`device` needs CUDA.  Cluster mode (`server_name`, `join`,
+`bootstrap_expect`), a read follower (`follow`) and `encrypt` work as
+the reference's: three port agents form a cluster whose `server members`
+lists all three, an encrypted pair schedules through its follower, and
+the process-global key refuses a second secret or a plaintext agent as
+the reference's does."""
 
 import os
 import threading
@@ -81,6 +86,10 @@ def test_stats_and_metrics_alike(pinned, one_device, tmp_path):
     out = []
     for name in PACKAGES:
         pinned(4)
+        # the wave pipeline's series are process-global: start each
+        # package's run without those of tests run before it here
+        pkg(name, "core.telemetry").REGISTRY.clear_series(
+            "nomad.wavepipe.")
         agent = make_agent(name, tmp_path / name).start()
         try:
             for i in range(2):
@@ -104,23 +113,19 @@ def test_stats_and_metrics_alike(pinned, one_device, tmp_path):
 
 
 REFUSED = {
-    "server_name": {"server_name": "s1"},
-    "join": {"join": ["127.0.0.1:4648"]},
-    "bootstrap_expect": {"bootstrap_expect": 3},
-    "follow": {"follow": "http://127.0.0.1:4646"},
-    "encrypt": {"encrypt": "a" * 32},
     "plugin_dir": {"plugin_dir": "examples/plugins", "num_clients": 1},
+    "worker_mode": {"worker_mode": "process"},
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_unported_options_raise_before_start(case, tmp_path):
-    """The documented difference: each option of the cluster plane (and
-    the plugins) raises NotImplementedError naming its ROADMAP item,
+    """The documented difference: the external plugins and the process
+    worker pool raise NotImplementedError naming their ROADMAP items,
     before a thread, a socket or a data dir exists."""
     before = threading.active_count()
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1 item (4|3b)"):
+                       match="ROADMAP queue 1 item (4b|3b)"):
         pkg(PORT, "agent").Agent(data_dir=str(tmp_path / "d"), device="cpu",
                                  **REFUSED[case])
     assert threading.active_count() == before
@@ -161,7 +166,7 @@ def test_default_executor_is_torch(tmp_path):
     agent = make_agent(PORT, tmp_path).start()
     try:
         assert type(agent.server.executor).__name__ == "TorchExecutor"
-        assert agent.transport is None and agent.follower is None
+        assert agent.transport.kind == "tcp" and agent.follower is None
     finally:
         agent.shutdown()
 
@@ -178,3 +183,149 @@ def test_agent_defaults_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         pkg(PORT, "agent").Agent(data_dir=str(tmp_path), num_clients=0,
                                  profile_hz=0)
+
+
+def _leader_of(agents, timeout=60.0):
+    """The agent every agent names in GET /v1/status/leader, once all
+    agree and it has established its leadership."""
+    import json
+    import urllib.request
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        seen = set()
+        for a in agents:
+            with urllib.request.urlopen(a.address + "/v1/status/leader",
+                                        timeout=10) as r:
+                seen.add(json.loads(r.read()))
+        if len(seen) == 1 and "" not in seen:
+            addr = seen.pop()
+            for a in agents:
+                host, port = a.server.rpc.addr
+                if (f"{host}:{port}" == addr
+                        and getattr(a.server, "_leader", False)):
+                    return a
+        time.sleep(0.05)
+    raise AssertionError("no leader")
+
+
+def _free_ports(n):
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sock in socks:
+            sock.bind(("127.0.0.1", 0))
+        return [sock.getsockname()[1] for sock in socks]
+    finally:
+        for sock in socks:
+            sock.close()
+
+
+def test_cluster_mode_three_agents(tmp_path, capsys):
+    """Three port agents in cluster mode (`server_name`,
+    `bootstrap_expect=3`, each joining the others' gossip ports) elect
+    one leader; `server members` through any of them lists all three
+    alive; a job registered through a follower's HTTP API runs."""
+    from nomad_tpu_torch import cli
+    serf = _free_ports(3)
+    agents = []
+    try:
+        for i in range(3):
+            agents.append(make_agent(
+                PORT, tmp_path / f"s{i}", server_name=f"port-s{i}",
+                bootstrap_expect=3, serf_port=serf[i],
+                join=[f"127.0.0.1:{p}" for j, p in enumerate(serf)
+                      if j != i]))
+        for a in agents:
+            a.start()
+        leader = _leader_of(agents)
+        follower = next(a for a in agents if a is not leader)
+        assert type(follower.server).__name__ == "ClusterServer"
+        assert follower.server.federation is not None
+        assert follower.server.gossip.meta["http"] == follower.address
+        capsys.readouterr()
+        assert cli.main(["-address", follower.address, "server",
+                         "members"]) == 0
+        out = capsys.readouterr().out
+        assert all(f"port-s{i}" in out for i in range(3))
+        assert out.count("alive") == 3
+        api = pkg(PORT, "api.client").APIClient(address=follower.address)
+        api.put("/v1/nodes", {"Node": pkg(PORT, "structs.codec").encode(
+            make_node(PORT, 0))})
+        job = pkg(PORT, "mock").batch_job(id="clustered")
+        job.task_groups[0].count = 2
+        resp = api.jobs.register(pkg(PORT, "structs.codec").encode(job))
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            if len(leader.server.state.allocs_by_job("default",
+                                                     "clustered")) == 2:
+                break
+            time.sleep(0.05)
+        assert len(leader.server.state.allocs_by_job("default",
+                                                     "clustered")) == 2
+        assert resp["EvalID"]
+    finally:
+        for a in agents:
+            a.shutdown()
+
+
+def test_encrypted_pair_schedules_through_follower(tmp_path):
+    """Two port agents sharing an `encrypt` secret form a cluster over
+    the authenticated wire and schedule a job written to the follower;
+    afterwards the key is removed."""
+    wire = pkg(PORT, "core.wire")
+    serf = _free_ports(2)
+    agents = []
+    try:
+        for i in range(2):
+            agents.append(make_agent(
+                PORT, tmp_path / f"e{i}", server_name=f"enc-{i}",
+                bootstrap_expect=2, serf_port=serf[i], encrypt="e2e-secret",
+                join=[f"127.0.0.1:{serf[1 - i]}"]))
+        assert wire.has_key()
+        for a in agents:
+            a.start()
+        leader = _leader_of(agents)
+        follower = next(a for a in agents if a is not leader)
+        follower.server.register_node(make_node(PORT, 0))
+        job = pkg(PORT, "mock").batch_job(id="sealed")
+        job.task_groups[0].count = 2
+        follower.server.register_job(job)
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            if len(follower.server.state.allocs_by_job("default",
+                                                       "sealed")) == 2:
+                break
+            time.sleep(0.05)
+        assert len(follower.server.state.allocs_by_job("default",
+                                                       "sealed")) == 2
+    finally:
+        for a in agents:
+            a.shutdown()
+        wire.set_key(None)
+
+
+def test_encrypt_key_rules_match_reference(tmp_path):
+    """With one agent's secret installed, a second secret and a plaintext
+    agent are refused with the reference's errors, before anything
+    starts; an empty secret resets the process to plaintext."""
+    out = []
+    for name in PACKAGES:
+        wire = pkg(name, "core.wire")
+        first = make_agent(name, tmp_path / name / "a",
+                           encrypt="one").start()
+        try:
+            row = []
+            for kw in ({"encrypt": "two"}, {}):
+                try:
+                    make_agent(name, tmp_path / name / "b", **kw)
+                    row.append(None)
+                except ValueError as e:
+                    row.append(str(e))
+            row.append(wire.has_key())
+        finally:
+            first.shutdown()
+            wire.set_key(None)
+        row.append(wire.has_key())
+        out.append(row)
+    assert out[1] == out[0]
+    assert out[0][0] and out[0][1] and out[0][2:] == [True, False]

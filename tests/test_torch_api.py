@@ -15,10 +15,14 @@ Fields dropped from the comparison, each because it is wall time:
 metric's `AllocationTimeNS` (the scheduler's wall time for the
 placement).
 
-The documented differences have tests of their own: the three
-cluster-plane endpoints answer 501 in the port."""
+The cluster plane's routes have tests of their own: the journal export,
+the compact federation scrape and the cluster trace answer as the
+reference's (they answered 501 before the port had core/wire.py and
+core/federation.py), the catch-all's NotLeaderError answer matches, and
+a read follower tails a port or a reference upstream."""
 
 import json
+import urllib.error
 import urllib.request
 
 import pytest
@@ -26,7 +30,7 @@ import pytest
 from torch_parity import (PACKAGES, make_agent, make_node, one_device,
                           pinned, pkg, settle)  # noqa: F401
 
-PORT = "nomad_tpu_torch"
+REF, PORT = PACKAGES
 WALL_FIELDS = {"CreateTime", "ModifyTime", "AllocationTimeNS"}
 
 
@@ -167,21 +171,144 @@ def _raw_get(address, path):
         return e.code, json.loads(e.read())
 
 
+def _unpack(name, raw):
+    """A msgpack body, decoded by `name`'s wire codec."""
+    return pkg(name, "core.wire").unpackb(raw)
+
+
+def _compact_shape(doc):
+    """The compact scrape's document with its host-dependent values
+    (registry readings, memory sizes, timeline samples) replaced by
+    their types: what must agree is the schema, not this host."""
+    if isinstance(doc, dict):
+        return {k: _compact_shape(v) for k, v in doc.items()}
+    if isinstance(doc, list):
+        return [_compact_shape(v) for v in doc[:1]]
+    return type(doc).__name__
+
+
 @pytest.mark.parametrize("path", [
     "/v1/operator/export?since=0",
     "/v1/agent/self?compact=true",
     "/v1/trace/abc?cluster=true",
 ])
-def test_cluster_plane_endpoints_answer_501(tmp_path, path):
-    """The documented difference: the endpoints that need core/wire.py
-    or core/federation.py answer 501, naming ROADMAP queue 1 item 4."""
-    agent = make_agent(PORT, tmp_path).start()
+def test_cluster_plane_endpoints_answer_501(pinned, one_device, tmp_path,
+                                            path):
+    """The three endpoints of the cluster plane, which answered 501 while
+    the port lacked core/wire.py and core/federation.py, now answer as
+    the reference's: the journal export (msgpack, decoded by either
+    package's codec), the compact scrape (its schema), and the cluster
+    trace of an unknown id on a single server (404)."""
+    out = []
+    for name in PACKAGES:
+        pinned(4)
+        agent = make_agent(name, tmp_path / name).start()
+        try:
+            settle(agent)
+            c = pkg(name, "api.client").APIClient(address=agent.address)
+            c.put("/v1/nodes", {"Node": wire_node(name, 0)})
+            settle(agent)
+            status, body = _raw_get(agent.address, path)
+        finally:
+            agent.shutdown()
+        out.append((name, status, body))
+    (_, ref_status, ref_body), (_, status, body) = out
+    assert status == ref_status
+    if path.startswith("/v1/trace"):
+        assert (status, body) == (404, ref_body)
+        return
+    assert status == 200
+    for decoder in PACKAGES:
+        got, want = _unpack(decoder, body), _unpack(decoder, ref_body)
+        if path.startswith("/v1/operator/export"):
+            assert drop_fields(got, WALL_FIELDS) == \
+                drop_fields(want, WALL_FIELDS)
+        else:
+            assert _compact_shape(got) == _compact_shape(want)
+            assert got["Schema"] == want["Schema"]
+
+
+def test_not_leader_answer_matches_reference(one_device, tmp_path):
+    """A write to a cluster-mode agent that has no leader (it waits for
+    two more servers) gets the catch-all's NotLeaderError answer: 500,
+    "rpc error: no cluster leader", and an empty leader address."""
+    out = []
+    for name in PACKAGES:
+        agent = make_agent(name, tmp_path / name, server_name=f"{name}-1",
+                           bootstrap_expect=3).start()
+        try:
+            req = urllib.request.Request(
+                agent.address + "/v1/jobs", method="PUT",
+                data=json.dumps({"Job": wire_job(name, "lonely")}).encode())
+            try:
+                with urllib.request.urlopen(req, timeout=30) as r:
+                    out.append((r.status, json.loads(r.read())))
+            except urllib.error.HTTPError as e:
+                out.append((e.code, json.loads(e.read())))
+        finally:
+            agent.shutdown()
+    assert out[1] == out[0] == (500, {"Error": "rpc error: no cluster leader",
+                                      "LeaderRPCAddr": ""})
+
+
+def _follow(upstream, follower_pkg, tmp_path):
+    """A read follower of `follower_pkg` tailing an upstream agent: the
+    follower's store after a node and a job were written through the
+    follower's own API (proxied to the upstream)."""
+    import time
+
+    fol = make_agent(follower_pkg, tmp_path / "follower",
+                     follow=upstream.address).start()
     try:
-        status, body = _raw_get(agent.address, path)
+        assert fol.clients == [] and fol.follower is not None
+        c = pkg(follower_pkg, "api.client").APIClient(address=fol.address)
+        c.put("/v1/nodes", {"Node": wire_node(follower_pkg, 0)})
+        settle(upstream)
+        c.put("/v1/jobs", {"Job": wire_job(follower_pkg, "followed")})
+        settle(upstream)
+        want = upstream.server.state.latest_index()
+        deadline = time.monotonic() + 60
+        while (fol.server.state.latest_index() < want
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        codec = pkg(follower_pkg, "structs.codec")
+        snap = fol.server.state.snapshot()
+        jobs = [codec.encode(j) for j in snap.jobs()]
+        nodes = [codec.encode(n) for n in snap.nodes()]
+        stats = (fol.follower.pulls > 0, fol.follower.failures,
+                 fol.server.state.latest_index() == want)
+        return jobs, nodes, stats, c.request("GET", "/v1/jobs")
     finally:
-        agent.shutdown()
-    assert status == 501
-    assert "ROADMAP queue 1 item 4" in body["Error"]
+        fol.shutdown()
+
+
+@pytest.mark.parametrize("upstream_pkg", PACKAGES)
+def test_read_follower_tails_upstream(pinned, one_device, tmp_path,
+                                      upstream_pkg):
+    """A port read follower (`Agent(follow=...)`) of a reference or a
+    port upstream: writes through its API reach the upstream, its store
+    catches up to the upstream's index through the journal export, and
+    it serves what the upstream holds, as a reference follower of the
+    same upstream does."""
+    out = {}
+    for follower_pkg in PACKAGES:
+        pinned(6)
+        up = make_agent(upstream_pkg, tmp_path / follower_pkg / "up").start()
+        try:
+            settle(up)
+            jobs, nodes, stats, listed = _follow(up, follower_pkg,
+                                                 tmp_path / follower_pkg)
+            codec = pkg(upstream_pkg, "structs.codec")
+            snap = up.server.state.snapshot()
+            assert nodes == [codec.encode(n) for n in snap.nodes()]
+            assert jobs == [codec.encode(j) for j in snap.jobs()]
+        finally:
+            up.shutdown()
+        assert stats == (True, 0, True)
+        out[follower_pkg] = drop_fields((jobs, nodes, listed),
+                                        WALL_FIELDS | {"SubmitTime"})
+    assert out[PORT] == out[REF]
+    assert [j["ID"] for j in out[PORT][0]] == ["followed"]
 
 
 def test_agent_self_and_ui_alike(pinned, one_device, tmp_path):

@@ -256,3 +256,64 @@ def test_heartbeat_expiry_alike():
     ref, port = (_heartbeat_run(name) for name in PACKAGES)
     assert ref == port
     assert ref[0] == ["node-2"] and ref[2] == "down"
+
+
+def test_disabled_broker_parks_a_blocking_dequeue():
+    """The port's documented difference: a dequeue with a timeout on a
+    disabled broker (a follower's worker) waits out its timeout, and
+    set_enabled wakes it, where the reference's returns at once.  A
+    zero timeout returns at once in both, and the answer is the same."""
+    import threading
+    import time
+
+    answers = []
+    for name in PACKAGES:
+        b = pkg(name, "core.eval_broker").EvalBroker()
+        t0 = time.monotonic()
+        answers.append(b.dequeue(["batch"], now=0.0, timeout=0.3))
+        waited = time.monotonic() - t0
+        if name == PACKAGES[1]:
+            assert waited >= 0.25
+        else:
+            assert waited < 0.25
+        assert b.dequeue(["batch"], now=0.0, timeout=0.0) == (None, "")
+    assert answers[0] == answers[1] == (None, "")
+    # the port's parked caller is woken by leadership, then dequeues
+    mock = pkg(PACKAGES[1], "mock")
+    b = pkg(PACKAGES[1], "core.eval_broker").EvalBroker()
+    got = []
+    t = threading.Thread(target=lambda: got.append(
+        b.dequeue(["batch"], now=0.0, timeout=30.0)))
+    t.start()
+    time.sleep(0.1)
+    ev = mock.eval(type="batch")
+    b.set_enabled(True)
+    b.enqueue(ev, now=0.0)
+    t.join(timeout=10)
+    assert not t.is_alive()
+    assert got and got[0][0] is not None and got[0][0].id == ev.id
+
+
+def test_follower_worker_does_not_spin():
+    """A worker of a server whose broker is disabled polls about ten
+    times a second (its 0.1 s timeout), not as fast as it can."""
+    import time
+
+    server = pkg(PACKAGES[1], "core.server").Server(
+        dev_mode=False, device="cpu", profile_hz=0)
+    try:
+        worker = server.workers[0]
+        calls = []
+        orig = server.eval_broker.dequeue_batch
+
+        def counted(*a, **k):
+            calls.append(1)
+            return orig(*a, **k)
+
+        server.eval_broker.dequeue_batch = counted
+        worker.start()
+        time.sleep(1.0)
+        worker.stop()
+    finally:
+        server.shutdown()
+    assert 1 <= len(calls) <= 30

@@ -17,8 +17,9 @@ def _threads():
 
 
 # msgpack and cryptography are blocked too: they are not among the
-# packages the port may rely on, and only the cluster plane
-# (core/wire.py, not ported yet) needs them.  The
+# packages the port may rely on.  The cluster plane's wire codec has its
+# own MessagePack (core/_msgpack.py) and imports cryptography only when a
+# key is installed.  The
 # package's __main__ is the CLI's script (it runs the CLI on import), so
 # the probe imports the CLI module instead.
 PROBE = textwrap.dedent("""
@@ -95,8 +96,10 @@ def test_mesh_modules_stand_alone():
 
 def test_observability_and_executor_modules_stand_alone():
     """The planes and the executor seam are among the modules the probe
-    imports, and the port's core package, like the reference's, imports
-    its server and with it the planes and the executor seam."""
+    imports, and the port's core package binds its exports, the server
+    among them, at first access: importing the package alone imports no
+    server, and `from nomad_tpu_torch.core import Server` imports the
+    server and with it the planes and the executor seam."""
     import pkgutil
 
     import nomad_tpu_torch
@@ -112,14 +115,18 @@ def test_observability_and_executor_modules_stand_alone():
         sys.modules["jax"] = None
         sys.modules["nomad_tpu"] = None
         import nomad_tpu_torch.core
+        bare = sorted(k for k in sys.modules
+                      if k.startswith("nomad_tpu_torch.core."))
+        from nomad_tpu_torch.core import Server  # noqa: F401
         eager = sorted(k for k in sys.modules
                        if k.startswith("nomad_tpu_torch.core."))
         from nomad_tpu_torch.ops import TorchExecutor  # noqa: F401
-        print(eager)
+        print([bare, eager])
     """)
     out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
                          text=True, timeout=120, check=True)
-    eager = set(ast.literal_eval(out.stdout.strip()))
+    bare, eager = map(set, ast.literal_eval(out.stdout.strip()))
+    assert "nomad_tpu_torch.core.server" not in bare
     assert {"nomad_tpu_torch.core.server"} | {
         m for m in new if m.startswith("nomad_tpu_torch.core.")} <= eager
 
@@ -134,7 +141,7 @@ SERVER_SLICE = ("acl", "acl.acl", "acl.policy", "acl.auth_methods",
 
 def test_server_slice_modules_stand_alone():
     """The acl package and the server loop's modules are among those the
-    probe imports; the fanout copy leaves out the read follower."""
+    probe imports; the fanout copy holds the read follower."""
     import pkgutil
 
     import nomad_tpu_torch
@@ -142,7 +149,7 @@ def test_server_slice_modules_stand_alone():
     names = {m.name for m in pkgutil.walk_packages(
         nomad_tpu_torch.__path__, "nomad_tpu_torch.")}
     assert {f"nomad_tpu_torch.{m}" for m in SERVER_SLICE} <= names
-    assert not hasattr(fanout, "ReadFollower")
+    assert hasattr(fanout, "ReadFollower")
 
 
 # modules whose import runs core/__init__ (and with it server -> ops ->
@@ -194,17 +201,103 @@ AGENT_SLICE = (
 
 def test_agent_slice_modules_stand_alone():
     """The agent, API, CLI, client and jobspec modules are among those
-    the probe imports, and none of them reaches the cluster plane's
-    modules, which the port does not have yet."""
+    the probe imports, and so are the cluster plane's modules the agent
+    reaches in cluster mode; the external plugins are not ported yet."""
     import pkgutil
 
     import nomad_tpu_torch
     names = {m.name for m in pkgutil.walk_packages(
         nomad_tpu_torch.__path__, "nomad_tpu_torch.")}
     assert {f"nomad_tpu_torch.{m}" for m in AGENT_SLICE} <= names
-    assert not {f"nomad_tpu_torch.{m}" for m in (
-        "core.wire", "core.raft", "core.cluster", "core.federation",
-        "chaos.transport", "plugins")} & names
+    assert {f"nomad_tpu_torch.{m}" for m in CLUSTER_SLICE} <= names
+    assert "nomad_tpu_torch.plugins" not in names
+
+
+CLUSTER_SLICE = ("core._msgpack", "core.wire", "core.membership",
+                 "core.raft", "core.cluster", "core.federation",
+                 "chaos.transport")
+
+
+def test_cluster_slice_modules_stand_alone():
+    """The cluster plane's modules import with jax, the reference,
+    msgpack and cryptography blocked, and export what the reference's
+    export; the chaos package exports the reference's names."""
+    probe = textwrap.dedent("""
+        import sys
+        for blocked in ("jax", "nomad_tpu", "msgpack", "cryptography"):
+            sys.modules[blocked] = None
+        import importlib
+        mods = %r
+        for m in mods:
+            importlib.import_module("nomad_tpu_torch." + m)
+        from nomad_tpu_torch.core.cluster import (  # noqa: F401
+            MUTATIONS, ClusterServer, RemoteRPC, ReplicatedState, RPCServer)
+        from nomad_tpu_torch.core.raft import (  # noqa: F401
+            Entry, NotLeaderError, RaftNode, recv_msg, reply, send_msg)
+        from nomad_tpu_torch.core.membership import Gossip, Member  # noqa
+        from nomad_tpu_torch.core.federation import (  # noqa: F401
+            FederationPuller, agent_snapshot, http_transport, local_trace,
+            stitch_trace)
+        import nomad_tpu_torch.chaos as chaos
+        print(sorted(chaos.__all__))
+    """ % (CLUSTER_SLICE,))
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert ast.literal_eval(out.stdout.strip()) == sorted([
+        "Clock", "SystemClock", "VirtualClock", "resolve_clock",
+        "Connection", "Listener", "Transport", "TCPTransport",
+        "SimNetwork", "SimTransport", "resolve_transport"])
+
+
+def test_state_store_does_not_import_the_server():
+    """A port StateStore reaches core.wire through chaos (its clock
+    import runs chaos/__init__, which imports the transport, which
+    imports the wire codec) and stops there: no server, no engine, no
+    torch."""
+    probe = textwrap.dedent("""
+        import sys
+        for blocked in ("jax", "nomad_tpu", "msgpack", "cryptography"):
+            sys.modules[blocked] = None
+        from nomad_tpu_torch.state import StateStore
+        StateStore()
+        print(sorted(k for k in sys.modules
+                     if k.startswith(("nomad_tpu_torch.core",
+                                      "nomad_tpu_torch.chaos",
+                                      "nomad_tpu_torch.ops", "torch"))))
+    """)
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    loaded = set(ast.literal_eval(out.stdout.strip()))
+    assert {"nomad_tpu_torch.chaos.transport",
+            "nomad_tpu_torch.core.wire"} <= loaded
+    assert not any(m == "torch" or m.startswith(("torch.",
+                                                  "nomad_tpu_torch.ops"))
+                   for m in loaded)
+    assert "nomad_tpu_torch.core.server" not in loaded
+
+
+def test_encrypt_without_cryptography_raises_at_set_key():
+    """AES-GCM stays behind the lazy import in set_key: without the
+    cryptography package a non-empty key raises there and nothing is
+    installed; an empty one is a no-op; plaintext frames still work."""
+    probe = textwrap.dedent("""
+        import sys
+        sys.modules["cryptography"] = None
+        from nomad_tpu_torch.core import wire
+        wire.set_key("")
+        try:
+            wire.set_key("secret")
+        except ImportError as e:
+            print("ImportError", wire.has_key())
+        frame = wire.encode_frame({"a": 1})
+        print(wire.decode_body(frame[4:]))
+    """)
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split("\n")[:2] == ["ImportError False", "{'a': 1}"]
 
 
 def test_agent_and_cli_agent_default_to_cuda(tmp_path):

@@ -625,19 +625,31 @@ def test_bulk_matches_plain(cuda_device, mode, spread_algo, case):
     _same(got, want, want_cpu)
 
 
-def _device_kernels(fn):
-    """`fn()` under a torch.profiler window: its result and the names of
-    the device activities (kernels, copies, fills) it ran."""
+def _device_kernels(fn, windows: int = 5):
+    """`fn()` under a torch.profiler window, with the kernels' launch and
+    eager-op counts zeroed just before it: its result and the names of
+    the device activities (kernels, copies, fills) it ran.  A window in
+    which the profiler recorded no device activity at all is a missed
+    measurement, not a result: `fn` is run again in a fresh window (the
+    counts zeroed again), up to `windows` times, and the test fails with
+    that reason if every window came back empty."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        out = fn()
+    for _ in range(windows):
         torch.cuda.synchronize()
-    return out, [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
+        K.reset_launches()
+        K.reset_eager()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+        if ops:
+            return out, ops
+    pytest.fail(f"torch.profiler recorded no device activity in {windows} "
+                "windows: the launch was not measured")
 
 
 # K7's card cases beyond the first four: one row, every row infeasible,
@@ -684,8 +696,6 @@ def test_preempt_matches_plain(cuda_device, kw):
         args = _preempt_args(cuda_device, **kw)
         args_cpu = _preempt_args("cpu", **kw)
     preempt_bulk(*args)                    # built and bound
-    K.reset_launches()
-    K.reset_eager()
     got, ops = _device_kernels(lambda: preempt_bulk(*args))
     assert K.PREEMPT_BULK.launches == 1 and not K.EAGER
     assert len(ops) == 1 and "preempt" in ops[0], ops
@@ -724,8 +734,6 @@ def test_feasible_mask_matches_plain(cuda_device, case):
     on CPU copies."""
     fm = _feasible_inputs(case, cuda_device)
     feasible_mask(*fm)                     # built and bound
-    K.reset_launches()
-    K.reset_eager()
     got, ops = _device_kernels(lambda: feasible_mask(*fm))
     assert K.FEASIBLE.launches == 1 and K.LANDSCAPE.launches == 0
     assert not K.EAGER and len(ops) == 1 and "landscape" in ops[0], ops

@@ -834,3 +834,35 @@ def settle(agent, timeout: float = 60.0) -> None:
                        for e in s.state.snapshot().evals()))
         quiet = 0 if busy else quiet + 1
         time.sleep(0.02)
+
+
+# ------------------------------------------------------- cluster plane
+
+
+def fsm_snapshot(name, store) -> bytes:
+    """`store`'s state as `name`'s ClusterServer._fsm_snapshot packs it
+    (`wire.packb(store.snapshot_save())`) for a Raft snapshot."""
+    import types
+    cluster = pkg(name, "core.cluster")
+    return cluster.ClusterServer._fsm_snapshot(
+        types.SimpleNamespace(_local_state=store))
+
+
+def fsm_restore(name, data: bytes):
+    """A fresh store of `name` restored from Raft snapshot bytes through
+    its ClusterServer._fsm_restore: the state counterpart of the weight
+    converter (either package's snapshot restores into either store)."""
+    import types
+    store = pkg(name, "state").StateStore()
+    pkg(name, "core.cluster").ClusterServer._fsm_restore(
+        types.SimpleNamespace(_local_state=store), data)
+    return store
+
+
+def reset_mock_counters(monkeypatch) -> None:
+    """Both packages' mock name counters from 0 (mock names nodes from a
+    module counter that earlier tests in the process have advanced)."""
+    import itertools
+    for name in PACKAGES:
+        monkeypatch.setattr(pkg(name, "mock"), "_counter",
+                            itertools.count())
