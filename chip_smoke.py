@@ -72,6 +72,24 @@ chained wave's usage triple is the one the zoned wave retained
      worker's or the applier's recovery records in the log ring, one
      `device` interval per dispatched wave.  Then shutdown, and the
      Server's engine must be freed.
+  pool_waves: the same config 5 through the Server in process mode
+     (bench.py --worker-mode process: two pool worker processes,
+     eval_batch 384, nack_timeout 600) on a fresh 50,000-node cluster
+     built alike.  `pool_bootstrap`: the children spawned (no visible
+     CUDA device) and each bootstrapped from a full export (set-up:
+     each child's `bootstrap_s`, the export's bytes).  Lines
+     `pool_warmup_wave`, `pool_wave`: wall, evals/s, placements/s, the
+     plan queue's p50 and p99, refuted plans, the pool's dequeues,
+     dispatches, plans and replica-sync bytes, each child's bootstrap
+     and dispatches, the parent's launches, and the thread mode's
+     `server_wave` evals/s of the same run beside them.  Gates: every
+     eval complete and every placement committed, zones, capacity, no
+     alloc placed twice, no recovery record (the children's included),
+     K1 and K2 or K3 launched, both children alive with CUDA never
+     initialized and no launch or eager device op of their own.  Then
+     `pool_spread_eval`: config 3's spread job (3,000 placements) through
+     the pool, settled with K5 launched once, by the parent (the child's
+     forwarded `place`).  After shutdown no child process is left.
   agent_waves: the same config 5 through the port's own front door: an
      in-process Agent (one worker, eval_batch 384, a TorchExecutor, two
      in-process clients on the mock driver in a datacenter of their
@@ -84,7 +102,16 @@ chained wave's usage triple is the one the zoned wave retained
      `agent_wave`: the server wave's fields and gates, plus
      `node_register_s`, `register_s`, jobs/s and the polls; then
      `agent_web`: examples/web.hcl to three running allocs on the two
-     clients (and stopped again).  The Agent's engine must be freed.
+     clients (and stopped again); then `plugins`: one more in-process
+     client on the same agent, started with plugin_dir
+     examples/plugins_torch (the port's example plugins, launched as
+     processes over the go-plugin-style handshake), a service job of
+     one `hello` task asking one `gpu`, registered through the HTTP
+     API, placed on that client's node (K8, K1, K5: the exact scan with
+     the host device mask), running through the external driver with
+     the device plugin's ACME_VISIBLE_DEVICES; the job stopped, the
+     client shut down, no plugin process left.  The Agent's engine
+     must be freed.
   agent_cli: `python -m nomad_tpu_torch agent -bind 127.0.0.1:<port>
      -clients 2` in a subprocess (on CUDA), the CLI in subprocesses:
      `job run examples/web.hcl`, `job status web` to three running
@@ -214,6 +241,12 @@ line); copied into an older checkout, it times that checkout's K6.
 
 builds the kernels and runs cluster_waves alone (its two lines and a
 `cluster_only` line with the launches and the seconds).
+
+    python3 chip_smoke.py --pool
+
+builds the kernels and runs server_waves then pool_waves alone (a
+`pool_only` line).  Any other argument prints a usage line and exits
+2.
 """
 
 from __future__ import annotations
@@ -808,10 +841,12 @@ def device_wait_phase(card, h, executor, all_jobs, zone_of, launches):
 
 # -------------------------------------------------------------- server
 
-# the records by which the worker and the applier report a failure that
-# their loop recovered from (nomad_tpu/core/worker.py:132, :202, :243,
-# :341, :403; core/plan_apply.py:253): a kernel failure that the worker
-# turned into a solo eval or a nack must not pass the server phase
+# the records by which the worker, the applier and the worker pool
+# report a failure that their loop recovered from (nomad_tpu/core/
+# worker.py:132, :202, :243, :341, :403; core/plan_apply.py:253;
+# core/workerpool.py:543, :586, :591, :975, :980): a kernel failure that
+# the worker turned into a solo eval or a nack, or a pool child that
+# crashed and was respawned, must not pass a wave
 RECOVERY_RECORDS = {
     ("worker", "worker iteration failed"),
     ("worker", "eval nacked"),
@@ -819,6 +854,11 @@ RECOVERY_RECORDS = {
     ("worker", "batch launch failed; going solo"),
     ("worker", "prefetch dispatch failed"),
     ("plan", "applier iteration failed"),
+    ("workerpool", "pool worker died"),
+    ("workerpool", "pool attendant failed"),
+    ("workerpool", "pool child recovery failed"),
+    ("workerpool", "pool worker exceeded respawn cap; not restarting"),
+    ("workerpool", "pool worker exited; respawning"),
 }
 # the applier's refute warnings (core/plan_apply.py:357, :540, :749):
 # the reference's behaviour, counted and printed, not gated
@@ -896,32 +936,41 @@ def drain(s, evals, deadline_s: float = SERVER_DEADLINE_S) -> float:
     return dt
 
 
-def server_wave(s, name, jobs, evals, all_jobs, zone_of, n_zones,
-                per_eval, settle=drain):
-    """One drained wave through the Server's threaded loop, with the
-    kernels' counts zeroed just before it and read just after, the log
-    ring's records of the wave, the plan queue's latencies, the stage
-    timers, the pipeline's and the applier's stats and the executor's
-    dispatches and uploads of the wave.  Gates: every eval complete and
+def wave_records(records):
+    """(failures, refutes) among a wave's log records.  A pool child's
+    records are re-logged by the parent under `pool-worker-<i>/<its
+    component>` and are matched by that component."""
+    failures, refutes = [], {}
+    for r in records:
+        comp = r["component"]
+        if comp.startswith("pool-worker-") and "/" in comp:
+            comp = comp.split("/", 1)[1]
+        key = (comp, r["msg"])
+        if key in RECOVERY_RECORDS:
+            failures.append(r)
+        elif key in REFUTE_RECORDS:
+            refutes[r["msg"]] = refutes.get(r["msg"], 0) + 1
+    return failures, refutes
+
+
+def drained_wave(s, name, jobs, evals, all_jobs, per_eval, zone_of=None,
+             n_zones=0, settle=drain, inside=None):
+    """One drained wave with the gates of every worker mode: the
+    kernels' counts zeroed just before `settle(s, evals)` (which runs the
+    wave and returns its wall seconds: `drain`, or the agent phase's
+    `http_drain`) and read just after, the log ring's records of the
+    wave (none dropped, no recovery record), every eval complete and
     every placement committed, allocs in their zones, no node over
-    capacity, the retained chain's usage equal to the store's, each of
-    SERVER_KERNELS launched and no solo kernel, no recovery record, one
-    `device` interval per dispatched wave.  `settle(s, evals)` runs the
-    wave and returns its wall seconds (`drain`, or the agent phase's
-    `http_drain`)."""
+    capacity.  `inside(s)` runs after the wave while the ring is still
+    read (the pool's children report their last records).  Returns
+    (the wave's fields, the store's usage, what `inside` returned)."""
     import torch
 
     from nomad_tpu_torch.core.logging import RING
     from nomad_tpu_torch.core.telemetry import REGISTRY
 
-    pipe = s.workers[0].pipeline
-    ex = s.executor
     s.plan_queue.latencies.clear()
     s.plan_applier.stats.update(plans=0, plans_refuted=0)
-    s.stage_timers.reset()
-    pipe0 = dict(pipe.stats)
-    ex0 = dict(ex.stats)
-    up0 = dict(ex.upload_bytes_by_cause)
     dropped0 = REGISTRY.counter("nomad.logring.dropped",
                                 reason="subscriber")
     gc0 = GC2["n"], GC2["s"]
@@ -930,6 +979,7 @@ def server_wave(s, name, jobs, evals, all_jobs, zone_of, n_zones,
         reset_counts()
         wall = settle(s, evals)
         ph, eager = read_counts(name)
+        extra = inside(s) if inside is not None else None
     finally:
         RING.unsubscribe(sub)
     records = []
@@ -938,54 +988,79 @@ def server_wave(s, name, jobs, evals, all_jobs, zone_of, n_zones,
     if REGISTRY.counter("nomad.logring.dropped",
                         reason="subscriber") != dropped0:
         raise AssertionError(f"{name}: log records dropped")
-    failures = [r for r in records
-                if (r["component"], r["msg"]) in RECOVERY_RECORDS]
+    failures, refutes = wave_records(records)
     if failures:
         raise AssertionError(f"{name}: the loop recovered from a failure: "
                              f"{failures[:5]}")
-    refutes = {}
-    for r in records:
-        if (r["component"], r["msg"]) in REFUTE_RECORDS:
-            refutes[r["msg"]] = refutes.get(r["msg"], 0) + 1
     statuses = [s.state.eval_by_id(e.id).status for e in evals]
     if any(st != "complete" for st in statuses):
         by = {st: statuses.count(st) for st in set(statuses)}
         raise AssertionError(f"{name}: eval statuses {by}")
     placed, usage = check_store(s, jobs, per_eval, all_jobs, zone_of,
                                 n_zones)
+    q = s.plan_queue.latency_quantiles((0.5, 0.99))
+    return ({"evals": len(evals), "placements": placed, "wall_s": wall,
+             "evals_per_s": len(evals) / wall,
+             "placements_per_s": placed / wall,
+             "plan_queue_p50_s": q["p50"], "plan_queue_p99_s": q["p99"],
+             "plans": s.plan_applier.stats["plans"],
+             "plans_refuted": s.plan_applier.stats["plans_refuted"],
+             "refute_records": refutes,
+             "launches": ph, "eager": eager,
+             "memory_allocated": (torch.cuda.memory_allocated()
+                                  if torch.cuda.is_available() else 0),
+             "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                      if torch.cuda.is_available() else 0),
+             "gc2_n": GC2["n"] - gc0[0], "gc2_s": GC2["s"] - gc0[1]},
+            usage, extra)
+
+
+def batched_launches(name, ph, want=SERVER_KERNELS):
+    """A batched wave's launches: each of `want` at least once (a tuple
+    among them: any one of it), and no solo kernel (a refuted plan's
+    retry, or an eval that left the batch)."""
+    short = [k for k in want
+             if (sum(ph[x] for x in k) if isinstance(k, tuple)
+                 else ph[k]) < 1]
+    if short or any(ph[k] for k in SOLO_KERNELS):
+        raise AssertionError(f"{name} launches {ph}: want {want}, no "
+                             f"{SOLO_KERNELS}")
+
+
+def server_wave(s, name, jobs, evals, all_jobs, zone_of, n_zones,
+                per_eval, settle=drain):
+    """One drained wave through the Server's threaded loop
+    (drained_wave), with the stage timers, the pipeline's and the
+    executor's stats and uploads of the wave.  Gates beyond
+    drained_wave's: the retained chain's usage equal to the store's,
+    each of SERVER_KERNELS launched and no solo kernel, one `device`
+    interval per dispatched wave."""
+    pipe = s.workers[0].pipeline
+    ex = s.executor
+    s.stage_timers.reset()
+    pipe0 = dict(pipe.stats)
+    ex0 = dict(ex.stats)
+    up0 = dict(ex.upload_bytes_by_cause)
+    line, usage, _ = drained_wave(s, name, jobs, evals, all_jobs,
+                                  per_eval, zone_of, n_zones, settle)
     chain = ex._chains.get("")
     if chain is None:
         raise AssertionError(f"{name}: no chain retained after the wave")
     used_matches_store(s, chain[2][0], usage)
-    if (any(ph[k] < 1 for k in SERVER_KERNELS)
-            or any(ph[k] for k in SOLO_KERNELS)):
-        raise AssertionError(f"{name} launches {ph}: want "
-                             f"{SERVER_KERNELS}, no {SOLO_KERNELS}")
+    batched_launches(name, line["launches"])
     waves = pipe.stats["waves"] - pipe0["waves"]
     counts = s.stage_timers.counts()
     if waves < 1 or counts.get("device", 0) != waves:
         raise AssertionError(f"{name}: {waves} waves dispatched, "
                              f"{counts.get('device', 0)} device intervals")
-    q = s.plan_queue.latency_quantiles((0.5, 0.99))
-    return {"evals": len(evals), "placements": placed, "wall_s": wall,
-            "evals_per_s": len(evals) / wall,
-            "placements_per_s": placed / wall,
-            "plan_queue_p50_s": q["p50"], "plan_queue_p99_s": q["p99"],
-            "stage_s": s.stage_timers.totals(), "stage_counts": counts,
-            "pipeline": {k: pipe.stats[k] - pipe0[k] for k in pipe0},
-            "plans": s.plan_applier.stats["plans"],
-            "plans_refuted": s.plan_applier.stats["plans_refuted"],
-            "refute_records": refutes,
-            "dispatches": ex.stats["dispatches"] - ex0["dispatches"],
-            "resident_waves": (ex.stats["resident_waves"]
-                               - ex0["resident_waves"]),
-            "upload_bytes_by_cause": cause_delta(ex, up0),
-            "launches": ph, "eager": eager,
-            "memory_allocated": (torch.cuda.memory_allocated()
-                                 if torch.cuda.is_available() else 0),
-            "max_memory_allocated": (torch.cuda.max_memory_allocated()
-                                     if torch.cuda.is_available() else 0),
-            "gc2_n": GC2["n"] - gc0[0], "gc2_s": GC2["s"] - gc0[1]}
+    line.update({
+        "stage_s": s.stage_timers.totals(), "stage_counts": counts,
+        "pipeline": {k: pipe.stats[k] - pipe0[k] for k in pipe0},
+        "dispatches": ex.stats["dispatches"] - ex0["dispatches"],
+        "resident_waves": (ex.stats["resident_waves"]
+                           - ex0["resident_waves"]),
+        "upload_bytes_by_cause": cause_delta(ex, up0)})
+    return line
 
 
 def server_phase(card, launches, n_nodes: int = N_NODES,
@@ -1031,6 +1106,7 @@ def server_phase(card, launches, n_nodes: int = N_NODES,
             emit({"phase": name, "card": card, "nodes": n_nodes,
                   "cluster_build_s": build_s, "register_s": register_s,
                   **line})
+            evals_per_s = line["evals_per_s"]
     finally:
         s.shutdown()
         profiling.PROFILER.stop()
@@ -1041,6 +1117,177 @@ def server_phase(card, launches, n_nodes: int = N_NODES,
     gc.collect()
     if engine_ref() is not None:
         raise AssertionError("the Server's engine outlived its shutdown")
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return evals_per_s
+
+
+# ---------------------------------------------------------------- pool
+
+# the pool phase: config 5 through the Server in process mode (bench.py
+# --worker-mode process, :766-792) with two pool workers, the same waves
+# as SERVER_WAVES; then config 3's spread eval through the pool
+POOL_WORKERS = 2
+POOL_WAVES = (("pool_warmup_wave", 1), ("pool_wave", 10))
+POOL_BOOT_S = 600.0
+
+
+def pool_children(pool, after=None, deadline_s: float = 60.0):
+    """pool_stats once every child has reported (every 0.5 s) twice
+    since `after` (an earlier pool_stats), or at all."""
+    last = {c["idx"]: c.get("reports", 0)
+            for c in (after or {"children": []})["children"]}
+    end = time.perf_counter() + deadline_s
+    while True:
+        stats = pool.pool_stats()
+        if all(c.get("reports", 0) >= last.get(c["idx"], -1) + 2
+               for c in stats["children"]):
+            return stats
+        if time.perf_counter() > end:
+            raise AssertionError(f"pool children did not report: "
+                                 f"{stats['children']}")
+        time.sleep(0.1)
+
+
+def children_gate(name, stats, n_workers=POOL_WORKERS):
+    """Every child alive and never respawned (a crash the pool recovered
+    from fails the phase), CUDA never initialized in it, and no kernel
+    launch nor eager device op made by it."""
+    kids = stats["children"]
+    bad = [c for c in kids
+           if not c["alive"] or c["respawns"] or c["cuda_initialized"]
+           or c["launches"] or c["eager_ops"]]
+    if (len(kids) != n_workers or stats["alive"] != n_workers
+            or stats["respawns"] or bad):
+        raise AssertionError(f"{name}: pool children {kids}, respawns "
+                             f"{stats['respawns']}")
+    return [{k: c[k] for k in ("idx", "pid", "bootstrap_s",
+                               "bootstrap_bytes", "dispatches", "respawns",
+                               "cuda_initialized", "launches")}
+            for c in kids]
+
+
+def pool_wave(s, name, evals, jobs, per_eval, all_jobs, zone_of=None,
+              n_zones=0):
+    """One drained wave through the pool (drained_wave), read until each
+    child has reported twice after it, so that their last records are
+    gated too; no alloc placed twice, the children gated
+    (children_gate), and the pool's work of the wave.  Returns the
+    wave's fields and the pool's stats before and after it."""
+    pool = s.worker_pool
+    stats0 = pool.pool_stats()
+    line, _, stats = drained_wave(
+        s, name, jobs, evals, all_jobs, per_eval, zone_of, n_zones,
+        inside=lambda s: pool_children(pool, pool.pool_stats()))
+    no_duplicates(name, s, all_jobs)
+    line.update({
+        "pool": {k: stats[k] - stats0[k]
+                 for k in ("dequeues", "dispatches", "places", "plans",
+                           "export_replies", "export_bytes",
+                           "queue_submits", "queue_queue_waits",
+                           "queue_queue_wait_s")},
+        "children": children_gate(name, stats)})
+    return line, stats0, stats
+
+
+def pool_phase(card, launches, thread_evals_per_s=None,
+               n_nodes: int = N_NODES, n_evals: int = N_EVALS,
+               per_eval: int = PER_EVAL, n_zones: int = N_ZONES,
+               spread_count: int = 3000, device=None):
+    """bench.py config 5 through the port's Server in process mode
+    (POOL_WORKERS pool workers, eval_batch n_evals, nack_timeout 600, a
+    TorchExecutor) on a fresh cluster built alike: the children spawned
+    and bootstrapped (each pulls a full export; set-up, reported as
+    `bootstrap_s` by each child), then each of POOL_WAVES registered and
+    drained (pool_wave), with the thread mode's `server_wave` evals/s
+    beside the line.  Every launch is the parent's: K1 and K2 or K3 (the
+    broker partitions the evals by zone, so a child's batch is mostly
+    of one signature and takes K2's flat mode), and no solo kernel; then
+    config 3's spread eval (bench.py:484, `spread_count` placements)
+    through the pool: it settles with K5 launched once, by the parent
+    (the child's forwarded `place`).  After shutdown no child process
+    is left, and the Server's engine is freed."""
+    import weakref
+
+    import torch
+
+    from nomad_tpu_torch import mock, structs
+    from nomad_tpu_torch.core import memledger, profiling
+    from nomad_tpu_torch.core.server import Server
+
+    profiling.PROFILER.hz = profiling.DEFAULT_HZ
+    t0 = time.perf_counter()
+    s = Server(dev_mode=False, num_workers=POOL_WORKERS, eval_batch=n_evals,
+               heartbeat_ttl=1e9, nack_timeout=600.0,
+               device_executor="torch", device=device,
+               worker_mode="process")
+    engine_ref = weakref.ref(s.engine)
+    pool = s.worker_pool
+    procs = []
+    try:
+        s.establish_leadership()
+        zone_of = build_cluster(s, n_nodes, n_zones)
+        build_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        pool.ensure_started()
+        procs = [c.proc for c in pool._children]
+        stats = pool_children(pool, deadline_s=POOL_BOOT_S)
+        emit({"phase": "pool_bootstrap", "card": card, "nodes": n_nodes,
+              "workers": POOL_WORKERS, "cluster_build_s": build_s,
+              "bootstrap_wall_s": time.perf_counter() - t1,
+              "children": children_gate("pool_bootstrap", stats)})
+        all_jobs = []
+        for name, cpu in POOL_WAVES:
+            t1 = time.perf_counter()
+            jobs, evals = server_jobs(s, name, n_evals, per_eval, cpu,
+                                      n_zones)
+            all_jobs += jobs
+            register_s = time.perf_counter() - t1
+            line, _, _ = pool_wave(s, name, evals, jobs, per_eval,
+                                   all_jobs, zone_of, n_zones)
+            emit({"phase": name, "card": card, "nodes": n_nodes,
+                  "workers": POOL_WORKERS, "register_s": register_s,
+                  "thread_server_wave_evals_per_s": thread_evals_per_s,
+                  **line})
+            batched_launches(name, line["launches"],
+                             want=("landscape",
+                                   ("multi_compact", "multi_flat")))
+            for k, v in line["launches"].items():
+                launches[k] += v
+        job = config3_job(mock, structs)
+        job.task_groups[0].count = spread_count
+        ev = s.register_job(job)
+        all_jobs.append(job)
+        line, stats0, stats = pool_wave(s, "pool_spread_eval", [ev], [job],
+                                        spread_count, all_jobs)
+        ph = line["launches"]
+        if ph["place_scan"] != 1 or stats["places"] - stats0["places"] < 1:
+            raise AssertionError(f"pool_spread_eval: launches {ph}, "
+                                 f"places {stats['places']}")
+        for k, v in ph.items():
+            launches[k] += v
+        allocs = [a for a in s.state.allocs_by_job(job.namespace, job.id)
+                  if not a.terminal_status()]
+        by_dc = {"dc1": 0, "dc2": 0, "dc3": 0}
+        for a in allocs:
+            by_dc[s.state.node_by_id(a.node_id).datacenter] += 1
+        emit({"phase": "pool_spread_eval", "card": card, "nodes": n_nodes,
+              "spread_achieved": by_dc, **line})
+    finally:
+        s.shutdown()
+        profiling.PROFILER.stop()
+        profiling.PROFILER.device_ledger_provider = None
+        for plane in ("state", "journal", "watch_hub", "events",
+                      "worker_pool"):
+            memledger.MEMLEDGER.unregister(plane)
+    left = [p.pid for p in procs if p.is_alive()]
+    if left:
+        raise AssertionError(f"pool children alive after shutdown: {left}")
+    del s, pool
+    gc.collect()
+    if engine_ref() is not None:
+        raise AssertionError("the pool Server's engine outlived its "
+                             "shutdown")
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
 
@@ -1270,6 +1517,7 @@ def agent_phase(card, launches, n_nodes: int = N_NODES,
         web_s = agent_web(agent, api)
         emit({"phase": "agent_web", "card": card, "clients": 2,
               "web_running_s": web_s})
+        plugins_phase(card, launches, agent, api)
     finally:
         agent.shutdown()
         profiling.PROFILER.stop()
@@ -1282,6 +1530,109 @@ def agent_phase(card, launches, n_nodes: int = N_NODES,
         raise AssertionError("the Agent's engine outlived its shutdown")
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
+
+
+# the plugins phase: the port's example plugins, by a path relative to
+# the checkout's root (the script's working directory), so that their
+# default socket directory (`<plugin_dir>/.sockets`) keeps every socket
+# path under the 108-byte Unix limit wherever the checkout lies
+PLUGIN_DIR = "examples/plugins_torch"
+PLUGIN_NODE = "agent-plugin-client"
+
+
+def plugins_phase(card, launches, agent, api, timeout_s: float = 120.0):
+    """The external plugins on a running agent: one more in-process
+    client (node PLUGIN_NODE in AGENT_DC) started with plugin_dir
+    PLUGIN_DIR, whose node then carries the external `hello` driver and
+    the fake-gpu device plugin's two instances; a service job of one
+    `hello` task asking one `gpu`, registered through the agent's HTTP
+    API, lands on that node (the solo path: the exact scan with the
+    host device mask, its kernels' launches counted), reaches `running`
+    through the external driver and carries the device plugin's
+    ACME_VISIBLE_DEVICES; then the job is stopped and the client shut
+    down, and no plugin process is left."""
+    import os
+
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.client import Client, InProcessRPC
+    from nomad_tpu_torch.structs import Node, RequestedDevice, codec
+
+    t0 = time.perf_counter()
+    cdir = os.path.join(agent.data_dir, "plugin-client")
+    os.makedirs(cdir, exist_ok=True)
+    client = Client(InProcessRPC(agent.server),
+                    node=Node(id=PLUGIN_NODE, name=PLUGIN_NODE,
+                              datacenter=AGENT_DC),
+                    data_dir=cdir, plugin_dir=PLUGIN_DIR)
+    procs = []
+    try:
+        procs = [c.proc for c in client.plugin_manager._clients.values()]
+        plugins = (sorted(client.plugin_manager.drivers)
+                   + sorted(client.plugin_manager.devices))
+        client.start()
+        node = agent.server.state.node_by_id(PLUGIN_NODE)
+        start_s = time.perf_counter() - t0
+        if (node is None or node.attributes.get("driver.hello") != "1"
+                or [d.id() for d in node.resources.devices]
+                != ["acme/gpu/fake100"]):
+            raise AssertionError(f"plugin node fingerprint: {node}")
+        job = mock.job(id="plugin-gpu")
+        job.datacenters = [AGENT_DC]
+        tg = job.task_groups[0]
+        tg.count = 1
+        task = tg.tasks[0]
+        task.driver = "hello"
+        task.config = {"message": "on the card's host", "run_for_s": 60}
+        task.resources.devices = [RequestedDevice(name="gpu", count=1)]
+        reset_counts()
+        t1 = time.perf_counter()
+        api.jobs.register(codec.encode(job))
+        runner = None
+        while time.perf_counter() - t1 < timeout_s:
+            runners = list(client.alloc_runners.values())
+            if (runners and runners[0].task_runners
+                    and runners[0].task_runners[0].state.state
+                    == "running"):
+                runner = runners[0]
+                break
+            time.sleep(0.05)
+        running_s = time.perf_counter() - t1
+        ph, eager = read_counts("plugins")
+        if runner is None:
+            raise AssertionError("the hello task never ran on the plugin "
+                                 "client")
+        tr = runner.task_runners[0]
+        iid = runner.alloc.allocated_devices[0].device_ids[0]
+        if (runner.alloc.node_id != PLUGIN_NODE
+                or tr.handle.driver != "hello" or tr.handle.pid <= 0
+                or tr.env.get("ACME_VISIBLE_DEVICES") != iid):
+            raise AssertionError(f"plugin task: node {runner.alloc.node_id}, "
+                                 f"handle {tr.handle}, env "
+                                 f"{tr.env.get('ACME_VISIBLE_DEVICES')}")
+        if ph["place_scan"] < 1:
+            raise AssertionError(f"plugins: launches {ph}, want K5")
+        for k, v in ph.items():
+            launches[k] += v
+        api.jobs.deregister("plugin-gpu")
+        t2 = time.perf_counter()
+        while time.perf_counter() - t2 < timeout_s:
+            if tr.state.state == "dead":
+                break
+            time.sleep(0.05)
+        else:
+            raise AssertionError("the hello task did not stop")
+    finally:
+        client.shutdown()
+    left = [p.pid for p in procs if p.poll() is None]
+    if len(procs) != 2 or left:
+        raise AssertionError(f"plugin processes {len(procs)}, alive after "
+                             f"shutdown: {left}")
+    emit({"phase": "plugins", "card": card, "plugin_dir": PLUGIN_DIR,
+          "plugins": plugins,
+          "client_start_s": start_s, "running_s": running_s,
+          "device_ids": runner.alloc.allocated_devices[0].device_ids,
+          "acme_visible_devices": tr.env["ACME_VISIBLE_DEVICES"],
+          "launches": ph, "eager": eager})
 
 
 def free_port() -> int:
@@ -2809,6 +3160,28 @@ def cluster_main() -> int:
     return 0
 
 
+def pool_main() -> int:
+    """`chip_smoke.py --pool`: the kernels built, then server_waves (for
+    the thread mode's evals/s) and pool_waves alone, their lines and the
+    launches they made.  The whole script runs the same phases."""
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as K
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    card = card_line()
+    gc.callbacks.append(gc_meter)
+    K.build_all()
+    launches = {k.name: 0 for k in K.KERNELS}
+    pool_phase(card, launches, server_phase(card, launches))
+    emit({"phase": "pool_only", "card": card, "launches": launches,
+          "total_s": time.perf_counter() - t0})
+    return 0
+
+
 def bulk_layouts_main() -> int:
     """`chip_smoke.py --bulk-layouts`: K6 at bulk_eval's inputs (config
     2 through the Harness, the engine's call recorded) in each of its
@@ -3858,7 +4231,11 @@ def main() -> int:
     # the same waves through the port's Server: broker, worker, wave
     # pipeline, plan queue and threaded applier; then through the HTTP
     # API of the port's Agent, and the agent and CLI in subprocesses
-    server_phase(card, launches)
+    thread_evals_per_s = server_phase(card, launches)
+    # the same waves through two pool worker processes (the Server in
+    # process mode), then a spread eval placed through a child's
+    # forwarded place
+    pool_phase(card, launches, thread_evals_per_s)
     agent_phase(card, launches)
     agent_cli_phase(card)
     # the same waves through a three-server port cluster (Raft, gossip,
@@ -3934,7 +4311,12 @@ def main() -> int:
     return 0
 
 
+MAINS = {"--bulk-layouts": bulk_layouts_main, "--cluster": cluster_main,
+         "--pool": pool_main}
+
 if __name__ == "__main__":
-    sys.exit(bulk_layouts_main() if sys.argv[1:] == ["--bulk-layouts"]
-             else cluster_main() if sys.argv[1:] == ["--cluster"]
-             else main())
+    if sys.argv[1:] and (len(sys.argv) > 2 or sys.argv[1] not in MAINS):
+        print(f"usage: {sys.argv[0]} [{' | '.join(MAINS)}]",
+              file=sys.stderr)
+        sys.exit(2)
+    sys.exit(MAINS[sys.argv[1]]() if sys.argv[1:] else main())

@@ -8,11 +8,9 @@ runs on PyTorch and CUDA:
     CUDA unless given, raising when CUDA is absent.  Tests pass
     `device="cpu"`;
   - `device_executor="torch"` is the default (the Server's rule: "bridge"
-    raises `ExecutorUnavailable`, any other name ValueError);
-  - a `plugin_dir` for the clients raises NotImplementedError before
-    anything starts (`Client` refuses it too): `plugins/` is not ported
-    yet (ROADMAP queue 1 item 3b).  `worker_mode="process"` is refused by
-    the Server, naming the worker pool (item 4b).
+    raises `ExecutorUnavailable`, any other name ValueError).
+A `plugin_dir` for the clients and `worker_mode="process"` are the
+reference's (the port's `plugins/` and `core/workerpool.py`).
 Cluster mode (`server_name`, `join`, `bootstrap_expect > 1`), the read
 follower (`follow`), a non-empty `encrypt` and the transport and
 federation wiring are the reference's, as are `start`, `shutdown`,
@@ -59,12 +57,6 @@ class Agent:
                  worker_mode: str = "thread",
                  follow: str = "",
                  device=None) -> None:
-        # the external plugins are not ported: refuse them before
-        # anything is built or started
-        if plugin_dir and client_enabled:
-            raise NotImplementedError(
-                "plugin_dir needs the external plugins (plugins/), which "
-                "are not ported yet (ROADMAP queue 1 item 3b)")
         # producer-side log gate (agent_config log_level): records below
         # this level never reach the ring or its subscribers.  Only set
         # when explicitly configured — the process-wide ring default

@@ -8,11 +8,6 @@ registry, and batches client status updates back to the server
 The server is reached through an `rpc` object exposing the node/alloc
 endpoint surface; `InProcessRPC` wraps a core.Server directly and
 nomad_tpu_torch.rpc provides the TCP implementation of the same interface.
-
-Difference from the reference (nomad_tpu/client/client.py): a non-empty
-`plugin_dir` raises NotImplementedError, because the external plugin
-processes (`plugins/`) are not ported yet (ROADMAP queue 1 item 3b).  A
-client never runs without the plugins its configuration names.
 """
 
 from __future__ import annotations
@@ -95,10 +90,15 @@ class Client:
         # fingerprinted device groups
         self.plugin_manager = None
         if plugin_dir:
-            raise NotImplementedError(
-                f"plugin_dir={plugin_dir!r}: external driver and device "
-                "plugins (plugins/) are not ported yet (ROADMAP queue 1 "
-                "item 3b)")
+            from nomad_tpu_torch.plugins import PluginManager
+            self.plugin_manager = PluginManager(plugin_dir)
+            self.plugin_manager.scan()
+            self.plugin_manager.start_supervisor()
+            # the dispensed shims are stable objects (relaunch swaps the
+            # connection inside them), so copying refs here stays live
+            self.drivers.update(self.plugin_manager.drivers)
+            devices = list(devices or [])
+            devices.extend(self.plugin_manager.fingerprint_devices())
         self.node = node or Node()
         self.heartbeat_interval = heartbeat_interval
         self.sync_interval = sync_interval

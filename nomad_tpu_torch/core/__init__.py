@@ -4,9 +4,9 @@ The single-server loop (`Server`, the eval broker, blocked evals,
 heartbeats, the plan queue and applier, the wave pipeline, the workers,
 the periodic dispatcher, the drainer and the deployment and volume
 watchers), the event stream with its fanout ring, the decision records
-(`explain`), the observability planes and the cluster plane (`wire`,
-`membership`, `raft`, `cluster`, `federation`).  The worker pool
-(`workerpool`) is not ported yet.
+(`explain`), the observability planes, the cluster plane (`wire`,
+`membership`, `raft`, `cluster`, `federation`) and the worker pool
+(`workerpool`, which exports nothing here).
 
 The exports are the reference's.  Unlike the reference's, this init
 binds them lazily, at first access (`from nomad_tpu_torch.core import

@@ -349,7 +349,7 @@ class PlanApplier:
                 # are their own origin — foreign to any resident chain
                 self.executor.note_plan_commit(
                     plan.coupled_batch[0] if plan.coupled_batch
-                    else plan.eval_id)
+                    else plan.eval_id, seq=self.state.placement_seq())
             if result.refuted_nodes:
                 self.stats.inc("plans_refuted")
                 REGISTRY.inc("nomad.plan.refuted_nodes",

@@ -13,8 +13,7 @@ Two run modes:
   dev_mode=False: applier + worker threads, wall-clock ticks.
 
 Differences from the reference (nomad_tpu/core/server.py), because the
-port runs on PyTorch and CUDA, not JAX, and has not ported the worker
-pool yet:
+port runs on PyTorch and CUDA, not JAX:
   - `device=None` is a keyword the reference lacks.  It is forwarded to
     `PlacementEngine(device=..., mesh=...)`: CUDA unless given, raising
     when CUDA is absent, as `scheduler.testing.Harness` does.  Tests
@@ -28,9 +27,9 @@ pool yet:
     device (no automatic sharding), a `parallel.mesh.Mesh` is that many
     shards of the node axis on the one card, and a mesh across cards
     raises;
-  - `worker_mode="process"` raises NotImplementedError before any
-    thread or store is built: the worker pool (`core/workerpool.py`) is
-    not ported yet, ROADMAP queue 1 item 4b.
+  - `worker_mode` is checked first, before any store or thread is
+    built.  In "process" mode the pool's children have no engine: their
+    solo placements run on this Server's engine (core/workerpool.py).
 `self.federation` is None here, as in the reference; the agent's cluster
 mode sets it to a `core.federation.FederationPuller`, which `tick`
 samples on the leader.
@@ -97,19 +96,19 @@ class Server:
                  profile_hz: Optional[float] = None,
                  worker_mode: str = "thread",
                  device=None) -> None:
-        # worker plane: "thread" (default) keeps every
-        # scheduler worker as an in-process thread.  The reference's
-        # "process" mode needs the worker pool, which the port does not
-        # have yet: refuse it before anything is built
+        # the worker plane's mode is checked before anything is built
+        # (the reference checks it after the store and engine)
         if worker_mode not in ("thread", "process"):
             raise ValueError(
                 f"worker_mode must be 'thread' or 'process', "
                 f"got {worker_mode!r}")
-        if worker_mode == "process":
-            raise NotImplementedError(
-                "worker_mode='process' runs workers in the pool of "
-                "core/workerpool.py, which the port has not ported yet "
-                "(ROADMAP queue 1 item 4b); use worker_mode='thread'")
+        if (worker_mode == "process" and clock is not None
+                and not isinstance(clock, SystemClock)):
+            # children run on the wall clock of the same host; a
+            # virtual timeline cannot cross the process boundary
+            raise ValueError(
+                "worker_mode='process' requires the wall clock "
+                "(seeded VirtualClock soaks stay thread-mode)")
         # injected timebase (chaos/clock.py): every endpoint default
         # `now`, heartbeat deadline, and the tick loop read this clock,
         # so a chaos scenario's VirtualClock owns the whole server's
@@ -209,13 +208,30 @@ class Server:
         self.failed_follow_up_delay = failed_follow_up_delay
         self.acl_enabled = acl_enabled
         self._acl_cache: Dict[tuple, object] = {}
-        # worker plane: every scheduler worker is an in-process thread
-        # (the only mode a VirtualClock can drive; "process" was
-        # refused above)
+        # worker plane: "thread" (default) keeps every
+        # scheduler worker as an in-process thread — byte-identical to
+        # pre-pool builds, and the only mode a VirtualClock can drive.
+        # "process" runs the batchable scheduler types in N spawned
+        # worker processes (core/workerpool.py) over replica state +
+        # the parent-owned device executor behind a submission queue;
+        # one thread worker stays in-parent for system/sysbatch/_core.
         self.worker_mode = worker_mode
         self.device_front = None
         self.worker_pool = None
-        self.workers = [Worker(self, i) for i in range(num_workers)]
+        if worker_mode == "process":
+            from nomad_tpu_torch.core.workerpool import (PARENT_SCHEDULERS,
+                                                         WorkerPool)
+            from nomad_tpu_torch.ops.executor import SubmissionFrontEnd
+            # every device launch of the pool children (their waves and
+            # forwarded solo placements) funnels through the submission
+            # queue so the resident-buffer chain keeps one owner; the
+            # in-parent worker's system/sysbatch/_core evals call the
+            # engine directly
+            self.device_front = SubmissionFrontEnd(self.executor)
+            self.workers = [Worker(self, 0, served=PARENT_SCHEDULERS)]
+            self.worker_pool = WorkerPool(self, max(num_workers, 1))
+        else:
+            self.workers = [Worker(self, i) for i in range(num_workers)]
         self._applier_running = False
         self._leader = False
         # serializes tick() bodies: the soak runner drives an explicit

@@ -26,7 +26,13 @@ node state the chain cannot observe:
   - node writes (register / drain / eligibility / attribute change),
   - snapshot restore,
   - capacity-freeing alloc writes (terminal transitions),
-  - a committed plan from OUTSIDE the chain (`note_plan_commit`).
+  - a committed plan from OUTSIDE the chain (`note_plan_commit`), and
+    a chain retained AFTER such a commit that its base snapshot
+    predates (`retain_chain`: the chain was in flight, riding its own
+    waves, while a sibling worker committed, so the retained usage
+    misses that commit).  The reference keeps such a chain; with two
+    pool workers its next wave then packs on nodes whose usage it
+    cannot see, and the applier refutes those nodes.
 
 Telemetry (core/telemetry.py):
   nomad.executor.uploads / upload_bytes   host->device node-state syncs
@@ -117,6 +123,10 @@ class DeviceExecutor:
         # child's retained chain survives other children's waves while
         # foreign plan commits still drop every slot they invalidate.
         self._chains: dict = {}
+        # the two latest committing origins, newest first, each with
+        # the store's placement seq after its latest commit: the latest
+        # foreign commit for any chain id is one of them
+        self._commits: list = []
         self.stats = {"dispatches": 0, "resident_waves": 0,
                       "invalidations": 0, "uploads": 0, "upload_bytes": 0,
                       # mesh deployments: per-launch cross-shard
@@ -177,12 +187,22 @@ class DeviceExecutor:
         batch ends with no prefetch to hand the chain to)."""
         if not self.chain_enabled or used_triple is None or not batch_id:
             return
+        chain = (batch_id, seq0, used_triple, frozenset(masked or ()))
         with self._lock:
-            old = self._chains.get(client)
-            self._chains[client] = (
-                batch_id, seq0, used_triple, frozenset(masked or ()))
+            foreign = next((seq for origin, seq in self._commits
+                            if origin != batch_id), 0)
+            stale = foreign > seq0
+            old = (self._chains.pop(client, None) if stale
+                   else self._chains.get(client))
+            if not stale:
+                self._chains[client] = chain
         if old is not None:
             self._release_chain(old)
+        if stale:
+            # a foreign plan committed after the chain's base snapshot
+            # while the chain was in flight: its usage misses that commit
+            self._count_invalidation("foreign-plan")
+            self._release_chain(chain)
 
     def claim_chain(self, client: str = ""):
         """Pop the client's retained chain (single consumer per slot —
@@ -231,12 +251,19 @@ class DeviceExecutor:
 
     # ------------------------------------------------- store coupling
 
-    def note_plan_commit(self, origin: str) -> None:
+    def note_plan_commit(self, origin: str, seq: int = None) -> None:
         """The plan applier committed a plan from `origin` (chain id or
-        eval id).  A foreign plan's usage is invisible to every retained
-        chain EXCEPT the one that proposed it — drop the others so
-        their next wave re-syncs."""
+        eval id), leaving the store at placement seq `seq`.  A foreign
+        plan's usage is invisible to every retained chain EXCEPT the one
+        that proposed it — drop the others so their next wave re-syncs;
+        `seq` lets a chain retained later see that it missed this commit
+        (retain_chain)."""
         with self._lock:
+            if seq is not None:
+                if self._commits and self._commits[0][0] == origin:
+                    self._commits[0] = (origin, seq)
+                else:
+                    self._commits = [(origin, seq)] + self._commits[:1]
             dropped = [c for c in self._chains.values()
                        if c[0] != origin]
             if dropped:
@@ -420,6 +447,18 @@ class SubmissionFrontEnd:
         self._acquire()
         try:
             return self.executor.collect_batch(pending)
+        finally:
+            self._lock.release()
+
+    def place(self, snapshot, job, tgs, requests, **kwargs):
+        """A pool child's solo placement (`PlacementEngine.place`) on
+        the executor's engine, queued with the waves (the port's pool
+        children have no engine of their own)."""
+        self._acquire()
+        try:
+            self.stats["submits"] += 1
+            return self.executor.engine.place(snapshot, job, tgs, requests,
+                                              **kwargs)
         finally:
             self._lock.release()
 

@@ -10,10 +10,10 @@ Ids are pinned (`pinned`), the clients' nodes carry explicit ids
 once all three allocs report `running`: alloc ids, names, nodes, desired
 and client statuses, and the deployment's id.
 
-The documented differences have tests of their own: `plugin_dir` and
-`worker_mode="process"` raise NotImplementedError before anything
-starts; `device_executor="jax"` is refused; and `Agent()` without
-`device` needs CUDA.  Cluster mode (`server_name`, `join`,
+The documented differences have tests of their own:
+`device_executor="jax"` is refused, and `Agent()` without `device` needs
+CUDA.  An agent starts with `plugin_dir` (the external plugins) and with
+`worker_mode="process"` (the worker pool).  Cluster mode (`server_name`, `join`,
 `bootstrap_expect`), a read follower (`follow`) and `encrypt` work as
 the reference's: three port agents form a cluster whose `server members`
 lists all three, an encrypted pair schedules through its follower, and
@@ -21,7 +21,6 @@ the process-global key refuses a second secret or a plaintext agent as
 the reference's does."""
 
 import os
-import threading
 import time
 
 import pytest
@@ -112,24 +111,53 @@ def test_stats_and_metrics_alike(pinned, one_device, tmp_path):
     assert out[0][1]["nomad.state.jobs"] == 1
 
 
-REFUSED = {
-    "plugin_dir": {"plugin_dir": "examples/plugins", "num_clients": 1},
-    "worker_mode": {"worker_mode": "process"},
-}
+STARTS_WITH = ("plugin_dir", "worker_mode")
 
 
-@pytest.mark.parametrize("case", sorted(REFUSED))
-def test_unported_options_raise_before_start(case, tmp_path):
-    """The documented difference: the external plugins and the process
-    worker pool raise NotImplementedError naming their ROADMAP items,
-    before a thread, a socket or a data dir exists."""
-    before = threading.active_count()
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1 item (4b|3b)"):
-        pkg(PORT, "agent").Agent(data_dir=str(tmp_path / "d"), device="cpu",
-                                 **REFUSED[case])
-    assert threading.active_count() == before
-    assert not (tmp_path / "d").exists()
+@pytest.mark.parametrize("case", STARTS_WITH)
+def test_agent_starts_with_plugins_and_process_workers(case, tmp_path):
+    """The reference's options the port now has: a `plugin_dir` (the
+    example plugins copied into a short directory, so that the default
+    socket directory fits the Unix limit) dispenses the external driver
+    and device to the client's node; `worker_mode="process"` runs
+    web.hcl through the pool's children.  Shutdown leaves no plugin or
+    pool process behind."""
+    import shutil
+    import tempfile
+    kw = {"num_clients": 1}
+    plugdir = None
+    if case == "plugin_dir":
+        plugdir = tempfile.mkdtemp(prefix="plg", dir="/tmp")
+        for f in ("hello_driver.py", "fake_gpu_device.py"):
+            shutil.copy(os.path.join(ROOT, "examples", "plugins_torch", f),
+                        plugdir)
+        kw["plugin_dir"] = plugdir
+    else:
+        kw.update(worker_mode="process", num_clients=2)
+    agent = make_agent(PORT, tmp_path / "d", **kw)
+    agent.start()
+    try:
+        if case == "plugin_dir":
+            procs = [c.proc for c in
+                     agent.clients[0].plugin_manager._clients.values()]
+            (node,) = agent.server.state.snapshot().nodes()
+            assert node.attributes.get("driver.hello") == "1"
+            assert [d.id() for d in node.resources.devices] == \
+                ["acme/gpu/fake100"]
+        else:
+            procs = [c.proc for c in agent.server.worker_pool._children]
+            allocs, _ = run_web(PORT, agent)
+            assert len(allocs) == 3
+            stats = agent.server.worker_pool.pool_stats()
+            assert stats["alive"] == 1 and stats["places"] >= 1
+    finally:
+        agent.shutdown()
+        if plugdir:
+            shutil.rmtree(plugdir, ignore_errors=True)
+    if case == "plugin_dir":
+        assert len(procs) == 2 and all(p.poll() is not None for p in procs)
+    else:
+        assert len(procs) == 1 and not procs[0].is_alive()
 
 
 def test_refused_options_alike_where_the_reference_refuses(tmp_path):

@@ -402,20 +402,6 @@ def test_client_runs_batch_job_alike(pinned, tmp_path):
     assert any(e[2] == "alloc-failure" for e in out[0][1])
 
 
-def test_client_plugin_dir_raises(tmp_path):
-    """The documented difference: the port's Client refuses a plugin
-    directory (plugins/ is not ported) before it starts anything."""
-    client_mod = pkg(PORT, "client")
-    s = make_server(PORT)
-    try:
-        with pytest.raises(NotImplementedError, match="item 3b"):
-            client_mod.Client(client_mod.InProcessRPC(s),
-                              node=make_node(PORT, 0),
-                              plugin_dir=str(tmp_path))
-    finally:
-        s.shutdown()
-
-
 def test_secrets_provider_alike(pinned):
     """integrations: the variables provider over each Server's RPC
     surface reads, misses and refuses alike."""

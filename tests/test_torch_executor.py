@@ -136,6 +136,28 @@ class TestChainSlot:
         assert ex.stats["invalidations"] == 1
         assert ex.claim_chain() is None
 
+    def test_chain_retained_after_a_foreign_commit_is_dropped(self):
+        """A chain in flight while a sibling worker's plan committed
+        misses that commit: retained after it, it is dropped (a
+        `foreign-plan` invalidation), not parked for a next wave.  Its
+        own commits and foreign commits its base saw keep it."""
+        ex = TorchExecutor(_engine())
+        ex.note_plan_commit("bid", seq=9)     # the chain's own commit
+        ex.note_plan_commit("other", seq=4)   # seen by a base at seq 5
+        ex.note_plan_commit("bid", seq=12)
+        ex.retain_chain("bid", 5, (object(), 1, 8), client="w1")
+        assert ex.stats["invalidations"] == 0
+        assert ex.claim_chain("w1")[0] == "bid"
+        ex.note_plan_commit("other", seq=13)  # after the base at seq 5
+        ex.retain_chain("bid", 5, (object(), 1, 8), client="w1")
+        assert ex.stats["invalidations"] == 1
+        assert ex.claim_chain("w1") is None
+        ex.retain_chain("b2", 13, (object(), 1, 8), client="w2")
+        ex.retain_chain("other", 12, (object(), 1, 8), client="w3")
+        assert ex.stats["invalidations"] == 1
+        assert ex.claim_chain("w2")[0] == "b2"
+        assert ex.claim_chain("w3")[0] == "other"
+
     def test_store_writes_invalidate(self):
         store = StateStore()
         ex = TorchExecutor(_engine())

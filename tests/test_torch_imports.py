@@ -202,7 +202,7 @@ AGENT_SLICE = (
 def test_agent_slice_modules_stand_alone():
     """The agent, API, CLI, client and jobspec modules are among those
     the probe imports, and so are the cluster plane's modules the agent
-    reaches in cluster mode; the external plugins are not ported yet."""
+    reaches in cluster mode and the process planes' (PROCESS_SLICE)."""
     import pkgutil
 
     import nomad_tpu_torch
@@ -210,7 +210,50 @@ def test_agent_slice_modules_stand_alone():
         nomad_tpu_torch.__path__, "nomad_tpu_torch.")}
     assert {f"nomad_tpu_torch.{m}" for m in AGENT_SLICE} <= names
     assert {f"nomad_tpu_torch.{m}" for m in CLUSTER_SLICE} <= names
-    assert "nomad_tpu_torch.plugins" not in names
+    assert {f"nomad_tpu_torch.{m}" for m in PROCESS_SLICE} <= names
+
+
+PROCESS_SLICE = ("plugins", "plugins.base", "plugins.device",
+                 "plugins.driver", "plugins.manager", "core.workerpool")
+
+
+def test_process_slice_modules_stand_alone():
+    """The worker pool and the plugins import with jax and the reference
+    blocked.  A plugin process's chain (the plugins package, structs,
+    the driver contract, logging) imports no torch; the pool's module
+    imports none until a child needs it, and importing the pool, the
+    server and the engine initializes no CUDA.  The example plugins of
+    the port import neither jax nor the reference."""
+    import pathlib
+    import re
+    probe = textwrap.dedent("""
+        import sys
+        for blocked in ("jax", "nomad_tpu", "msgpack", "cryptography"):
+            sys.modules[blocked] = None
+        import nomad_tpu_torch.plugins
+        import nomad_tpu_torch.structs
+        import nomad_tpu_torch.client.drivers.base
+        import nomad_tpu_torch.core.logging
+        import nomad_tpu_torch.core.workerpool
+        plugin_torch = "torch" in sys.modules
+        import nomad_tpu_torch.core.server
+        import nomad_tpu_torch.ops.engine
+        import torch
+        print([plugin_torch, torch.cuda.is_initialized()])
+    """)
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert ast.literal_eval(out.stdout.strip()) == [False, False]
+    bad = re.compile(r"^\s*(from|import)\s+(jax\b|nomad_tpu(\.|\s|$))")
+    examples = pathlib.Path(__file__).parent.parent / "examples" / \
+        "plugins_torch"
+    files = sorted(examples.glob("*.py"))
+    assert [f.name for f in files] == ["fake_gpu_device.py",
+                                       "hello_driver.py"]
+    assert not [f"{f}:{i}" for f in files
+                for i, line in enumerate(f.read_text().splitlines(), 1)
+                if bad.match(line)]
 
 
 CLUSTER_SLICE = ("core._msgpack", "core.wire", "core.membership",

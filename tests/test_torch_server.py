@@ -619,13 +619,23 @@ def test_server_torch_executor(backend):
 
 def test_process_worker_mode_refused_before_anything_is_built(
         monkeypatch):
+    """A VirtualClock with worker_mode="process" and an unknown mode are
+    refused with the reference's ValueError, and in the port before a
+    store or a thread exists."""
+    for name in PACKAGES:
+        clock = pkg(name, "chaos.clock").VirtualClock(start=NOW, epoch=0.0)
+        kw = {"device": "cpu"} if name == PORT else {"mesh": False}
+        with pytest.raises(ValueError, match="requires the wall clock"):
+            pkg(name, "core.server").Server(worker_mode="process",
+                                            clock=clock, profile_hz=0, **kw)
     server_mod = pkg(PORT, "core.server")
     built = []
     monkeypatch.setattr(server_mod, "StateStore",
                         lambda *a, **k: built.append(1))
     threads0 = threading.active_count()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        server_mod.Server(worker_mode="process", device="cpu")
+    with pytest.raises(ValueError, match="requires the wall clock"):
+        server_mod.Server(worker_mode="process", device="cpu",
+                          clock=pkg(PORT, "chaos.clock").VirtualClock())
     with pytest.raises(ValueError, match="worker_mode"):
         server_mod.Server(worker_mode="fork", device="cpu")
     assert not built and threading.active_count() == threads0
