@@ -93,9 +93,10 @@ chained wave's usage triple is the one the zoned wave retained
   agent_waves: the same config 5 through the port's own front door: an
      in-process Agent (one worker, eval_batch 384, a TorchExecutor, two
      in-process clients on the mock driver in a datacenter of their
-     own, HTTP on a free port) fed through its APIClient only: 50,000
-     nodes built alike by `PUT /v1/nodes`, the five zone volumes by the
-     CSI volume endpoint, the two waves by `PUT /v1/jobs` with
+     own, HTTP on a free port) fed through its APIClient only:
+     AGENT_NODES nodes (10,000, cut from config 5's 50,000 for the
+     script's time limit) built alike by `PUT /v1/nodes`, the five zone
+     volumes by the CSI volume endpoint, the two waves by `PUT /v1/jobs` with
      scheduling paused around each registration, settlement polled over
      HTTP every 20 ms, placements read back through `GET
      /v1/allocations?columnar=true`.  Lines `agent_warmup_wave`,
@@ -128,7 +129,9 @@ chained wave's usage triple is the one the zoned wave retained
      elections after 5-10 s, past a full collection's pause), and
      two in-process clients in the agents' datacenter on a follower,
      through RemoteRPC.  The leader is awaited through GET
-     /v1/status/leader on all three; the 50,000 nodes go through the
+     /v1/status/leader on all three; the nodes (CLUSTER_NODES, 10,000,
+     in the whole script, cut from 50,000 for its time limit; `--cluster`
+     keeps 50,000) go through the
      leader's replicated upsert_nodes in chunks of CLUSTER_SEED_CHUNK
      (set-up: `node_seed_s`, the Raft entries and bytes) and the volumes
      through a follower's HTTP API.  Wave 1 (`cluster_wave`): 384 x 260
@@ -144,6 +147,29 @@ chained wave's usage triple is the one the zoned wave retained
      launched by the new leader, no alloc placed twice, capacity with
      wave 1's allocs.  Every Agent and client is shut down and each
      engine must be freed.
+  soak: first `soak_preflight` (no Agent or Server left alive, and the
+     process idle while the main thread sleeps: the scenarios pace
+     virtual time against the wall), then chaos/soak.py's default
+     profile (two virtual hours, 12 nodes in 3 datacenters,
+     leader_partition and gossip_flap_storm interleaved; what `nomad
+     soak` runs) twice at seed 0: a port Agent on a VirtualClock driven
+     through its HTTP API only.  One line a run: wall seconds,
+     compression, evals, the plan queue's p99, the quality gauges, the
+     digests, each interleaved scenario's wall seconds, launches and
+     eager ops.  Gates: both runs ok with no violation, equal trace
+     digests and converged fingerprints, a kernel launched.
+  scenarios: split_brain_attempt, lossy_link_raft_append and
+     heartbeat_expiry_during_drain at seed 0, each on three port
+     ClusterServers over a SimNetwork and a VirtualClock: digest,
+     fingerprint, wall seconds, launches.  Gate: ok.
+  soak_cli: `python -m nomad_tpu_torch soak -quick -check-determinism`
+     in a subprocess (on CUDA), its launches counted by an exit hook:
+     exit code 0, the command's summary lines, byte-identical runs.
+     Its files go to .smoke/soak_cli/ (git-ignored).
+  soak_fleet: one soak at the CLI's -quick rates on 1,000 nodes in 3
+     zones for 0.1 virtual hours, no chaos: the registration's seconds
+     and the heartbeats a second (every node every 10 virtual s over
+     HTTP).  Gate: ok.
 
 Every wave line (the mesh waves' too) counts the interpreter's full
 collections inside the wave (`gc2_n`, `gc2_s`); the summary line, the
@@ -245,8 +271,13 @@ builds the kernels and runs cluster_waves alone (its two lines and a
     python3 chip_smoke.py --pool
 
 builds the kernels and runs server_waves then pool_waves alone (a
-`pool_only` line).  Any other argument prints a usage line and exits
-2.
+`pool_only` line).
+
+    python3 chip_smoke.py --soak
+
+builds the kernels and runs the soak phases alone (soak_preflight,
+soak, scenarios, soak_cli, soak_fleet; a `soak_only` line).  Any other
+argument prints a usage line and exits 2.
 """
 
 from __future__ import annotations
@@ -1302,6 +1333,10 @@ def pool_phase(card, launches, thread_evals_per_s=None,
 # the jobs: eight caller threads were no faster (they share the agent's
 # interpreter lock with its request threads)
 AGENT_WAVES = (("agent_warmup_wave", 1), ("agent_wave", 10))
+# the agent waves' cluster, cut from config 5's 50,000 nodes: one `PUT
+# /v1/nodes` a node took 171-343 s for 50,000 on the card's host, and
+# with the soak phases the whole script ran 1262 s, past its 1200 s
+AGENT_NODES = 10_000
 AGENT_DC = "dc-agent"
 AGENT_POLL_S = 0.02
 # the batch jobs of agent_cli, three so that their blocked evals are
@@ -1333,7 +1368,12 @@ def http_drain(s, api, eval_ids, deadline_s: float = SERVER_DEADLINE_S,
     unsettled eval (the last registered first), and once it has
     settled, GET /v1/evaluations for the rest; then stop_scheduling.
     Returns the wall seconds from the start to the poll that saw the
-    last eval settled; `polls` (a list) gets the number of requests."""
+    last eval settled; `polls` (a list) gets the number of requests.
+    Read through a follower, an eval the leader created may not have
+    reached it yet: a 404 counts as still pending, any other error
+    raises, and so does an eval still unsettled at the deadline."""
+    from nomad_tpu_torch.api.client import APIException
+
     done = ("complete", "failed", "canceled")
     s.engine.packer.update(s.state.snapshot())
     t0 = time.perf_counter()
@@ -1345,7 +1385,13 @@ def http_drain(s, api, eval_ids, deadline_s: float = SERVER_DEADLINE_S,
         while pending and time.perf_counter() < end:
             t_poll = time.perf_counter()
             n += 1
-            if api.evaluations.info(pending[-1])["Status"] in done:
+            try:
+                last = api.evaluations.info(pending[-1])["Status"]
+            except APIException as e:
+                if e.status != 404:
+                    raise
+                last = None
+            if last in done:
                 n += 1
                 status = {e["ID"]: e["Status"]
                           for e in api.evaluations.list()}
@@ -1759,15 +1805,19 @@ def agent_cli_phase(card, out_dir: str = ".smoke/agent_cli",
 
 # the cluster phase: config 5 through a three-server port cluster, each
 # server an in-process Agent in cluster mode (Raft, gossip, RPC on
-# loopback TCP).  The 50,000 nodes go through the leader's replicated
-# store in chunks of CLUSTER_SEED_CHUNK (one Raft entry each, a few MB:
-# the AppendEntries frame stays well inside the transport's 5 s read
-# timeout and the 10 s commit timeout); wave 1 is config 5 at its full
-# width through a follower's HTTP API; the failover wave, after the
+# loopback TCP).  The nodes go through the leader's replicated store in
+# chunks of CLUSTER_SEED_CHUNK (one Raft entry each, a few MB: the
+# AppendEntries frame stays well inside the transport's 5 s read
+# timeout and the 10 s commit timeout); wave 1 is config 5's 384 x 260
+# through a follower's HTTP API; the failover wave, after the
 # leader's shutdown, is CLUSTER_FAIL_EVALS x PER_EVAL through the
 # surviving follower
 CLUSTER_SERVERS = 3
 CLUSTER_SEED_CHUNK = 5_000
+# the whole script's cluster, cut from config 5's 50,000 nodes for its
+# time limit (seeding 50,000 through Raft took 43-44 s, and the script
+# 1017 s on a slow host with the soak phases); `--cluster` keeps 50,000
+CLUSTER_NODES = 10_000
 CLUSTER_FAIL_EVALS = 48
 CLUSTER_WAIT_S = 120.0
 # Raft timings of the cluster's servers, set on each RaftNode before it
@@ -2079,6 +2129,303 @@ def cluster_phase(card, launches, n_nodes: int = N_NODES,
             f"left: {[t.name for t in set(threading.enumerate()) - threads0]}")
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- soak
+
+# the soak phases (the port's chaos/): the default soak profile twice,
+# as `nomad soak -check-determinism` runs it; the three named scenarios
+# that profile does not interleave, once each at seed 0; `soak -quick
+# -check-determinism` through the CLI in a subprocess; one soak on
+# SOAK_FLEET's nodes
+SOAK_RUNS = 2
+SOAK_SCENARIOS = ("split_brain_attempt", "lossy_link_raft_append",
+                  "heartbeat_expiry_during_drain")
+# the CLI's -quick rates (cli.py cmd_soak) on 1,000 nodes in 3 zones and
+# no chaos: every synthetic node heartbeats over HTTP every 10 virtual s
+SOAK_FLEET = dict(hours=0.1, n_nodes=1000, n_zones=3, service_per_hour=30,
+                  batch_per_hour=30, drains_per_hour=10,
+                  flap_storms_per_hour=10, flap_storm_nodes=2,
+                  preempt_storms_per_hour=10, chaos_scenarios=())
+# the scenarios pace virtual time against the wall: before the first soak
+# phase, no Agent or Server of an earlier phase may be alive, and the
+# process may burn at most SOAK_IDLE_CPU of a SOAK_IDLE_WINDOW_S sleep of
+# the main thread (waited for up to SOAK_IDLE_WAIT_S)
+SOAK_IDLE_WINDOW_S = 1.0
+SOAK_IDLE_CPU = 0.05
+SOAK_IDLE_WAIT_S = 60.0
+# the summary lines of `nomad soak` (cli.py cmd_soak), by their key
+SOAK_CLI_LINES = ("seed", "virtual hours", "wall seconds", "evals",
+                  "watchdog breaches", "p99 plan-queue",
+                  "zone balance max/min", "fill cpu/mem",
+                  "converged fingerprint", "trace digest", "timeline",
+                  "memory", "determinism", "verdict")
+# `python -m nomad_tpu_torch <argv[2:]>` as `-m` runs it (runpy), with an
+# exit hook that writes the child's launch and eager-op counts to argv[1]
+SOAK_CLI_PROBE = """
+import atexit, json, runpy, sys
+from nomad_tpu_torch.ops import kernels as K
+path = sys.argv[1]
+def counts():
+    with open(path, "w") as f:
+        json.dump({"launches": {k.name: k.launches for k in K.KERNELS},
+                   "eager": dict(K.EAGER)}, f)
+atexit.register(counts)
+sys.argv = ["nomad_tpu_torch"] + sys.argv[2:]
+runpy.run_module("nomad_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+def soak_summary(r) -> dict:
+    """The fields of a SoakResult's summary that a soak line reports."""
+    s = r.summary
+    return {k: s[k] for k in (
+        "ok", "soak_virtual_hours", "schedule_events", "wall_s",
+        "compression_x", "soak_evals", "soak_breaches",
+        "p99_plan_queue_ms", "quality", "trace_digest",
+        "converged_fingerprint", "timeline_digest", "timeline_points")}
+
+
+def soak_preflight(card) -> None:
+    """No Agent or Server of an earlier phase alive, and no thread of one
+    loading the host: the process's CPU seconds over a sleep of the main
+    thread, as a share of it, under SOAK_IDLE_CPU."""
+    from nomad_tpu_torch.agent import Agent
+    from nomad_tpu_torch.core.server import Server
+
+    t0 = time.perf_counter()
+    while True:
+        gc.collect()
+        live = sorted(type(o).__name__ for o in gc.get_objects()
+                      if issubclass(type(o), (Agent, Server)))
+        c0, w0 = time.process_time(), time.perf_counter()
+        time.sleep(SOAK_IDLE_WINDOW_S)
+        busy = (time.process_time() - c0) / (time.perf_counter() - w0)
+        if ((not live and busy < SOAK_IDLE_CPU)
+                or time.perf_counter() - t0 > SOAK_IDLE_WAIT_S):
+            break
+    threads = sorted(t.name for t in threading.enumerate()
+                     if t is not threading.main_thread())
+    emit({"phase": "soak_preflight", "card": card,
+          "active_threads": threading.active_count(), "threads": threads,
+          "live_servers": live, "idle_cpu_share": busy,
+          "waited_s": time.perf_counter() - t0})
+    if live or busy >= SOAK_IDLE_CPU:
+        raise AssertionError(f"before the soak: servers alive {live}, "
+                             f"cpu share {busy:.3f} asleep, threads "
+                             f"{threads}")
+
+
+def soak_phase(card, launches, device=None):
+    """`run_soak(seed=0)` on the default TrafficProfile (two virtual
+    hours, 12 nodes in 3 datacenters, leader_partition and
+    gossip_flap_storm interleaved), SOAK_RUNS times.  One `soak` line a
+    run: the summary's numbers and digests, each interleaved scenario's
+    wall seconds, ok and trace digest, the launches and eager ops.  Gates:
+    every run ok with no violation, the trace digest and the converged
+    fingerprint equal across the runs, a kernel launched."""
+    from nomad_tpu_torch.chaos import scenarios
+    from nomad_tpu_torch.chaos.soak import run_soak
+
+    run_scenario = scenarios.run_scenario
+    chaos = []
+
+    def timed_scenario(name, **kw):
+        t = time.perf_counter()
+        r = run_scenario(name, **kw)
+        chaos.append({"scenario": name, "seed": kw.get("seed"),
+                      "wall_s": time.perf_counter() - t, "ok": r.ok,
+                      "trace_digest": r.trace.digest()})
+        return r
+
+    results, total = [], {}
+    scenarios.run_scenario = timed_scenario
+    try:
+        for i in range(SOAK_RUNS):
+            del chaos[:]
+            reset_counts()
+            r = run_soak(seed=0, device=device)
+            ph, eager = read_counts(f"soak_{i + 1}")
+            for k, v in ph.items():
+                launches[k] += v
+                total[k] = total.get(k, 0) + v
+            results.append(r)
+            emit({"phase": "soak", "card": card, "run": i + 1, "seed": 0,
+                  **soak_summary(r), "violations": r.violations,
+                  "chaos": list(chaos), "launches": ph, "eager": eager})
+    finally:
+        scenarios.run_scenario = run_scenario
+    bad = [(i + 1, r.violations) for i, r in enumerate(results)
+           if not r.ok or r.violations]
+    if bad:
+        raise AssertionError(f"soak runs failed: {bad}")
+    for key in ("trace_digest", "converged_fingerprint"):
+        if len({r.summary[key] for r in results}) != 1:
+            raise AssertionError(f"soak {key} differs across runs: "
+                                 f"{[r.summary[key] for r in results]}")
+    if sum(total.values()) < 1:
+        raise AssertionError("the soak launched no kernel")
+    return results
+
+
+def scenarios_phase(card, launches, device=None) -> None:
+    """Each of SOAK_SCENARIOS at seed 0 through `run_scenario`: three port
+    ClusterServers on a SimNetwork and a VirtualClock.  One `scenarios`
+    line each: ok, violations, the canonical trace's digest, the state
+    fingerprint, wall seconds, launches and eager ops.  Gate: ok."""
+    from nomad_tpu_torch.chaos.scenarios import run_scenario
+
+    failed = []
+    for name in SOAK_SCENARIOS:
+        reset_counts()
+        t0 = time.perf_counter()
+        r = run_scenario(name, seed=0, device=device)
+        wall_s = time.perf_counter() - t0
+        ph, eager = read_counts(name)
+        for k, v in ph.items():
+            launches[k] += v
+        emit({"phase": "scenarios", "card": card, "scenario": name,
+              "seed": 0, "ok": r.ok, "violations": r.violations,
+              "converged": r.converged, "failed_ops": r.failed_ops,
+              "trace_digest": r.trace.digest(),
+              "fingerprint": r.fingerprint, "wall_s": wall_s,
+              "launches": ph, "eager": eager})
+        if not r.ok:
+            failed.append((name, r.violations))
+    if failed:
+        raise AssertionError(f"scenarios failed: {failed}")
+
+
+def soak_cli_phase(card, launches, out_dir: str = ".smoke/soak_cli"):
+    """`python -m nomad_tpu_torch soak -quick -check-determinism -json
+    <out_dir>/soak.json` in a subprocess (on CUDA: the CLI has no
+    -device flag), run as `-m` runs it with SOAK_CLI_PROBE's exit hook
+    for the child's launch and eager counts.  Gates: exit code 0, every
+    summary line of the reference's command, both runs byte-identical,
+    verdict PASS."""
+    import os
+
+    os.makedirs(out_dir, exist_ok=True)
+    counts_path = os.path.join(out_dir, "counts.json")
+    summary_path = os.path.join(out_dir, "soak.json")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", SOAK_CLI_PROBE, counts_path, "soak",
+         "-quick", "-check-determinism", "-json", summary_path],
+        capture_output=True, text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "stdout.txt"), "w") as f:
+        f.write(out.stdout)
+    with open(os.path.join(out_dir, "stderr.txt"), "w") as f:
+        f.write(out.stderr)
+    lines = {}
+    for ln in out.stdout.splitlines():
+        if "=" in ln and not ln.startswith("=="):
+            key, val = ln.split("=", 1)
+            lines[key.strip()] = val.strip()
+    if out.returncode != 0:
+        raise AssertionError(f"soak -quick exited {out.returncode}: "
+                             f"{out.stdout[-1500:]} {out.stderr[-1500:]}")
+    missing = [k for k in SOAK_CLI_LINES if k not in lines]
+    if (missing or lines["determinism"] != "byte-identical"
+            or lines["verdict"] != "PASS"
+            or out.stdout.count("== soak run ") != 2):
+        raise AssertionError(f"soak -quick printed {lines}; missing "
+                             f"{missing}")
+    with open(counts_path) as f:
+        counts = json.load(f)
+    with open(summary_path) as f:
+        summary = json.load(f)
+    for k, v in counts["launches"].items():
+        launches[k] += v
+    emit({"phase": "soak_cli", "card": card, "exit_code": out.returncode,
+          "total_s": wall_s, "lines": lines,
+          "summary": {k: summary[k] for k in (
+              "wall_s", "compression_x", "soak_evals", "trace_digest",
+              "converged_fingerprint", "determinism_ok", "ok")},
+          "launches": counts["launches"], "eager": counts["eager"]})
+
+
+def soak_fleet_phase(card, launches, device=None):
+    """One `run_soak(seed=0)` on SOAK_FLEET's 1,000 nodes.
+    Its line: the soak's summary, the nodes' registration (`PUT
+    /v1/nodes` from the first request's start to the last one's end)
+    and the synthetic fleet's heartbeats (`PUT /v1/node/<id>/heartbeat`,
+    a round every 10 virtual s: count, seconds inside the rounds, and
+    heartbeats a second), launches and eager ops.  Gate: ok."""
+    from nomad_tpu_torch.api.client import Nodes
+    from nomad_tpu_torch.chaos.soak import SoakRunner
+    from nomad_tpu_torch.chaos.traffic import TrafficProfile
+
+    meter = {"register_n": 0, "register_t0": None, "register_t1": None,
+             "heartbeats": 0, "heartbeat_s": 0.0, "heartbeat_rounds": 0}
+
+    class FleetSoak(SoakRunner):
+        def _pump_heartbeats(self, c, now):
+            t = time.perf_counter()
+            super()._pump_heartbeats(c, now)
+            meter["heartbeat_s"] += time.perf_counter() - t
+            meter["heartbeat_rounds"] += 1
+            meter["heartbeats"] += sum(
+                1 for s in self.fleet
+                if self._flap_until.get(s["id"], 0.0) <= now)
+
+    register = Nodes.register
+
+    def metered_register(self, node_wire):
+        if meter["register_t0"] is None:
+            meter["register_t0"] = time.perf_counter()
+        try:
+            return register(self, node_wire)
+        finally:
+            meter["register_n"] += 1
+            meter["register_t1"] = time.perf_counter()
+
+    Nodes.register = metered_register
+    try:
+        reset_counts()
+        r = FleetSoak(seed=0, profile=TrafficProfile(**SOAK_FLEET),
+                      device=device).run()
+        ph, eager = read_counts("soak_fleet")
+    finally:
+        Nodes.register = register
+    for k, v in ph.items():
+        launches[k] += v
+    register_s = meter["register_t1"] - meter["register_t0"]
+    emit({"phase": "soak_fleet", "card": card, "seed": 0,
+          "nodes": SOAK_FLEET["n_nodes"], "zones": SOAK_FLEET["n_zones"],
+          "hours": SOAK_FLEET["hours"], **soak_summary(r),
+          "violations": r.violations, "register_s": register_s,
+          "nodes_registered": meter["register_n"],
+          "register_per_s": meter["register_n"] / register_s,
+          "heartbeats": meter["heartbeats"],
+          "heartbeat_rounds": meter["heartbeat_rounds"],
+          "heartbeat_s": meter["heartbeat_s"],
+          "heartbeats_per_s": meter["heartbeats"] / meter["heartbeat_s"],
+          "launches": ph, "eager": eager})
+    if not r.ok or r.violations:
+        raise AssertionError(f"soak_fleet: {r.violations}")
+    return r
+
+
+def soak_phases(card, launches, device=None) -> None:
+    """The soak plane on the card: soak_preflight, then soak, scenarios,
+    soak_cli (only on CUDA: the CLI has no -device flag) and
+    soak_fleet.  The earlier phases' objects (the main Harness's cluster
+    and allocs, kept for the solo phases) are frozen out of the
+    collector meanwhile (gc.freeze), so the soak's full collections scan
+    its own heap, as in a process of its own (`--soak`)."""
+    gc.collect()
+    gc.freeze()
+    try:
+        soak_preflight(card)
+        soak_phase(card, launches, device=device)
+        scenarios_phase(card, launches, device=device)
+        if device is None:
+            soak_cli_phase(card, launches)
+        soak_fleet_phase(card, launches, device=device)
+    finally:
+        gc.unfreeze()
 
 
 # ------------------------------------------------------------- timing
@@ -3182,6 +3529,29 @@ def pool_main() -> int:
     return 0
 
 
+def soak_main() -> int:
+    """`chip_smoke.py --soak`: the kernels built, then the soak phases
+    alone (soak_preflight, soak, scenarios, soak_cli, soak_fleet) and a
+    `soak_only` line with the launches and the seconds.  The whole
+    script runs the same phases after cluster_waves."""
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as K
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    card = card_line()
+    gc.callbacks.append(gc_meter)
+    K.build_all()
+    launches = {k.name: 0 for k in K.KERNELS}
+    soak_phases(card, launches)
+    emit({"phase": "soak_only", "card": card, "launches": launches,
+          "total_s": time.perf_counter() - t0})
+    return 0
+
+
 def bulk_layouts_main() -> int:
     """`chip_smoke.py --bulk-layouts`: K6 at bulk_eval's inputs (config
     2 through the Harness, the engine's call recorded) in each of its
@@ -4236,11 +4606,14 @@ def main() -> int:
     # process mode), then a spread eval placed through a child's
     # forwarded place
     pool_phase(card, launches, thread_evals_per_s)
-    agent_phase(card, launches)
+    agent_phase(card, launches, n_nodes=AGENT_NODES)
     agent_cli_phase(card)
     # the same waves through a three-server port cluster (Raft, gossip,
     # forwarding), then a failover wave
-    cluster_phase(card, launches)
+    cluster_phase(card, launches, n_nodes=CLUSTER_NODES)
+    # the soak plane: the virtual-time soak twice, three named fault
+    # scenarios, `soak -quick` through the CLI, a soak on 1,000 nodes
+    soak_phases(card, launches)
 
     # 7-11. the solo path, then 12. its kernels against the plain versions
     # (after the line of the two exchange probes)
@@ -4312,7 +4685,7 @@ def main() -> int:
 
 
 MAINS = {"--bulk-layouts": bulk_layouts_main, "--cluster": cluster_main,
-         "--pool": pool_main}
+         "--pool": pool_main, "--soak": soak_main}
 
 if __name__ == "__main__":
     if sys.argv[1:] and (len(sys.argv) > 2 or sys.argv[1] not in MAINS):

@@ -40,8 +40,8 @@ therefore recorded as debug trace only, never canonical.
 
 A copy of the reference's nomad_tpu/chaos/transport.py with its imports
 rewritten; nothing else differs.  Frames go through the port's
-`core/wire.py`.  The scenarios it mentions are not ported yet (ROADMAP
-queue 1 item 5).
+`core/wire.py`.  The scenarios it mentions are the port's
+`chaos/scenarios.py`.
 """
 
 from __future__ import annotations

@@ -11,9 +11,9 @@ Entry point: `python -m nomad_tpu_torch <subcommand> ...`.
 Differences from the reference (nomad_tpu/cli.py): `agent` builds the
 port's Agent, which runs on CUDA and raises without it (no `-device`
 flag); its plugin, cluster-mode, follower and encrypt flags work as the
-reference's.  `soak` exits 1 with a message naming ROADMAP
-queue 1 item 5 (`chaos/soak.py`).  Every other command is the
-reference's.
+reference's.  `soak` runs the port's `chaos.soak`, whose agent runs on
+CUDA too and raises without it (no `-device` flag either).  Every other
+command is the reference's.
 """
 
 from __future__ import annotations
@@ -1028,13 +1028,90 @@ def cmd_profile(args) -> int:
 
 
 def cmd_soak(args) -> int:
-    """Virtual-time production soak (`nomad soak`).  The reference boots
-    an in-process agent on a VirtualClock and replays a seeded day of
-    cluster life through `chaos.soak`; the port has not ported the soak
-    yet, so the command exits 1 with a message naming it."""
-    print("Error: soak needs chaos/soak.py and chaos/traffic.py, which "
-          "are not ported yet (ROADMAP queue 1 item 5)", file=sys.stderr)
-    return 1
+    """Virtual-time production soak (`nomad soak`): boot an in-process
+    agent on a VirtualClock, replay a seeded day of cluster life
+    through the real API, and gate on chaos invariants + live SLOs.
+    Needs no running agent — it owns its own.  Exit 0 green (and, with
+    -check-determinism, byte-identical across both runs), 1 otherwise."""
+    from nomad_tpu_torch.chaos.soak import run_soak
+    from nomad_tpu_torch.chaos.traffic import TrafficProfile
+
+    kw = dict(hours=args.hours, n_nodes=args.nodes, n_zones=args.zones)
+    if args.quick:
+        kw.update(hours=min(args.hours, 0.1), n_nodes=min(args.nodes, 4),
+                  n_zones=min(args.zones, 2), service_per_hour=30,
+                  batch_per_hour=30, drains_per_hour=10,
+                  flap_storms_per_hour=10, flap_storm_nodes=2,
+                  preempt_storms_per_hour=10)
+    if args.no_chaos:
+        kw["chaos_scenarios"] = ()
+    profile = TrafficProfile(**kw)
+    runs = 2 if args.check_determinism else 1
+    results = []
+    for i in range(runs):
+        if runs > 1:
+            print(f"== soak run {i + 1}/{runs} (seed {args.seed}) ==")
+        results.append(run_soak(seed=args.seed, profile=profile,
+                                rss_ceiling_mb=args.rss_ceiling_mb))
+    r = results[0]
+    s = r.summary
+    print(f"seed                  = {s['seed']}")
+    print(f"virtual hours         = {s['soak_virtual_hours']:g} "
+          f"({s['schedule_events']} schedule events)")
+    print(f"wall seconds          = {s['wall_s']:g} "
+          f"(compression {s['compression_x']:g}x)")
+    print(f"evals                 = {s['soak_evals']}")
+    print(f"watchdog breaches     = {s['soak_breaches']}")
+    print(f"p99 plan-queue        = {s['p99_plan_queue_ms']:g} ms")
+    q = s["quality"]
+    print(f"zone balance max/min  = {q['zone_balance_max_over_min']:g} "
+          f"({q['nodes_in_use']} nodes in use)")
+    print(f"fill cpu/mem          = {q['fill_cpu']:.3f} / "
+          f"{q['fill_memory']:.3f}")
+    print(f"converged fingerprint = {s['converged_fingerprint'][:16]}…")
+    print(f"trace digest          = {s['trace_digest'][:16]}…")
+    print(f"timeline              = {s['timeline_points']} points, "
+          f"{s['timeline_annotations']} annotations "
+          f"(overhead {s['timeline_overhead_fraction']:.4f}, "
+          f"digest {s['timeline_digest'][:16]}…)")
+    print(f"memory                = rss peak "
+          f"{s['rss_peak_bytes'] / 1048576.0:.1f}M, journal "
+          f"{s['journal_bytes']} B "
+          f"({s['journal_compactions']} compactions, "
+          f"{s['journal_floor_fallbacks']} floor fallbacks), "
+          f"{s['ring_evictions']} ring evictions, ledger overhead "
+          f"{s['mem_overhead_fraction']:.4f}")
+    ok = all(x.ok for x in results)
+    for x in results:
+        for v in x.violations:
+            print(f"VIOLATION: {v}")
+    if runs > 1:
+        match = (results[0].digest == results[1].digest
+                 and results[0].fingerprint == results[1].fingerprint)
+        print("determinism           = "
+              + ("byte-identical" if match else "DIVERGED"))
+        ok = ok and match
+    print(f"verdict               = {'PASS' if ok else 'FAIL'}")
+    if args.json:
+        doc = dict(s)
+        doc["violations"] = sorted(r.violations)
+        if runs > 1:
+            doc["determinism_ok"] = bool(match)
+        with open(args.json, "w") as f:
+            json.dump(doc, f, indent=2, sort_keys=True)
+        print(f"summary written to {args.json}")
+        # the retrospective rides along next to the canonical trace:
+        # full-resolution timeline dump + rendered post-mortem
+        from nomad_tpu_torch.core.timeline import render_report_md
+        base = (args.json[:-5] if args.json.endswith(".json")
+                else args.json)
+        with open(base + ".timeline.json", "w") as f:
+            json.dump(r.timeline, f, indent=2, sort_keys=True)
+        with open(base + ".report.md", "w") as f:
+            f.write(render_report_md(r.report))
+        print(f"timeline written to {base}.timeline.json, "
+              f"report to {base}.report.md")
+    return 0 if ok else 1
 
 
 def cmd_timeline(args) -> int:

@@ -38,8 +38,8 @@ gives the same log; the reference's rewrite costs a follower time
 proportional to its log for every replicated command (tens of MB once
 a 50,000-node cluster has been seeded).  Its durable files pickle
 `Entry`, so a data directory is readable only by the package that
-wrote it.  The chaos invariants and scenarios it mentions are not
-ported yet (ROADMAP queue 1 item 5).
+wrote it.  The chaos invariants and scenarios it mentions are the
+port's `chaos/invariants.py` and `chaos/scenarios.py`.
 """
 
 from __future__ import annotations

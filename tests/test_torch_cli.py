@@ -11,11 +11,14 @@ once the agent has settled, and `job status web` once its three allocs
 run.  Nothing is dropped from the output: the commands print no wall
 time.
 
-The documented differences have tests of their own: `soak` exits 1
-naming ROADMAP queue 1 item 5, and `agent` runs on CUDA, raising
-without it."""
+`soak -quick` runs through both packages, the port's soak on the CPU,
+and prints the same summary but for the lines that are wall facts or
+that the reference's own runs do not repeat, each dropped by name
+(SOAK_DROPPED).  The documented difference has a test of its own:
+`agent` runs on CUDA, raising without it."""
 
 import os
+import re
 import subprocess
 import sys
 import time
@@ -91,12 +94,68 @@ def test_cli_sequence_prints_alike(pinned, one_device, tmp_path,
     assert by["job status nosuch"][1] == 1
 
 
-def test_soak_exits_naming_its_item(capsys):
-    """The documented difference: `soak` needs chaos/soak.py."""
-    rc = pkg(PORT, "cli").main(["soak", "-quick"])
-    err = capsys.readouterr().err
-    assert rc == 1
-    assert "ROADMAP queue 1 item 5" in err
+# summary lines of `soak` that are not a function of the seed: the wall
+# facts (wall seconds, memory, the timeline's self-metered overhead), and
+# what thread timing moves in the reference's own runs of `soak -quick`
+# (three gave evals 29, 31, 31 and zone balance 2, 1.66667, 1.66667: which
+# node a reschedule lands on, and whether a node update races a sweep) and
+# the timeline digest (a drain's completion lands on one sweep or the next;
+# tests/test_torch_soak.py)
+SOAK_DROPPED = ("wall seconds", "memory", "evals", "zone balance max/min")
+SOAK_TIMELINE = re.compile(r"\(overhead [0-9.]+, digest [0-9a-f]+…\)")
+
+
+def soak_lines(out):
+    lines = []
+    for ln in out.splitlines():
+        key = ln.split("=", 1)[0].strip()
+        if key in SOAK_DROPPED:
+            continue
+        if key == "timeline":
+            ln, n = SOAK_TIMELINE.subn("", ln)
+            assert n == 1, ln
+        lines.append(ln)
+    return lines
+
+
+# the reference's interleaved scenarios pace virtual time against the
+# wall and miss their budget on a loaded host (six copies of this test
+# side by side: the reference's soak failed in two on a chaos scenario,
+# the port's in none), so a reference run that failed on its chaos
+# scenarios alone is run again, up to this many runs; the port's gets one
+REF_SOAK_RUNS = 3
+
+
+def chaos_only_failure(rc, out):
+    bad = [ln for ln in out.splitlines() if ln.startswith("VIOLATION: ")]
+    return rc != 0 and bad and all(ln.startswith("VIOLATION: chaos ")
+                                   for ln in bad)
+
+
+def test_soak_quick_prints_alike(pinned, one_device, monkeypatch, capsys):
+    """`soak -quick` (0.1 virtual hours on four nodes, two chaos
+    scenarios interleaved) through both packages' CLIs, the port's soak
+    on the CPU: both pass, and print the same lines but for the wall
+    facts and what the reference's own runs do not repeat
+    (SOAK_DROPPED, the timeline's overhead and digest)."""
+    soak_mod = pkg(PORT, "chaos.soak")
+    run_soak = soak_mod.run_soak
+    monkeypatch.setattr(soak_mod, "run_soak",
+                        lambda *a, **kw: run_soak(*a, device="cpu", **kw))
+    out = {}
+    for name in PACKAGES:
+        for _ in range(REF_SOAK_RUNS if name == "nomad_tpu" else 1):
+            pinned(0)
+            capsys.readouterr()
+            rc = pkg(name, "cli").main(["soak", "-quick"])
+            cap = capsys.readouterr()
+            if not chaos_only_failure(rc, cap.out):
+                break
+        assert rc == 0, (name, cap.out, cap.err)
+        out[name] = soak_lines(cap.out)
+    assert out[PORT] == out["nomad_tpu"]
+    assert out[PORT][-1].endswith("= PASS")
+    assert any(ln.startswith("trace digest") for ln in out[PORT])
 
 
 def test_agent_command_needs_cuda(tmp_path):

@@ -668,3 +668,80 @@ def test_two_waves_invalidations_match_reference(one_device, pinned,  # noqa: F8
     assert out[PORT] == out[REF]
     assert out[REF][2] == [8 * 64, 4 * 64]
     assert not any(out[REF][0].values())
+
+
+# ------------------------------------------- chip_smoke.py's http_drain
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class _DrainStubs:
+    """A Server and an APIClient for chip_smoke.http_drain: GET
+    /v1/evaluation/<id> answers `infos` in turn (an exception is
+    raised), then the last one for ever; GET /v1/evaluations lists every
+    eval with the last status."""
+
+    def __init__(self, infos):
+        from types import SimpleNamespace
+
+        self.infos = list(infos)
+        self.calls = 0
+        self.running = None
+        self.engine = SimpleNamespace(
+            packer=SimpleNamespace(update=lambda snap: None))
+        self.state = SimpleNamespace(snapshot=lambda: None)
+        self.evaluations = self
+
+    def start_scheduling(self):
+        self.running = True
+
+    def stop_scheduling(self):
+        self.running = False
+
+    def info(self, eval_id):
+        out = self.infos[min(self.calls, len(self.infos) - 1)]
+        self.calls += 1
+        if isinstance(out, Exception):
+            raise out
+        return {"ID": eval_id, "Status": out}
+
+    def list(self):
+        return [{"ID": "ev-0", "Status": self.infos[-1]},
+                {"ID": "ev-1", "Status": self.infos[-1]}]
+
+
+def test_http_drain_waits_out_a_followers_404():
+    """Read through a follower, an eval the leader created answers 404
+    until it has replicated there: http_drain counts that as pending and
+    returns once the eval settles; any other error still raises, and so
+    does an eval unsettled at the deadline."""
+    APIException = pkg(PORT, "api.client").APIException
+    smoke = _chip_smoke()
+    not_yet = APIException(404, "eval not found")
+    stubs = _DrainStubs([not_yet, not_yet, "pending", "complete"])
+    polls = []
+    dt = smoke.http_drain(stubs, stubs, ["ev-0", "ev-1"], deadline_s=30.0,
+                          poll_s=0.0, polls=polls)
+    assert dt >= 0.0 and stubs.calls == 4 and polls == [5]
+    assert stubs.running is False
+
+    stubs = _DrainStubs([not_yet, APIException(500, "boom"), "complete"])
+    with pytest.raises(APIException, match="500"):
+        smoke.http_drain(stubs, stubs, ["ev-0"], deadline_s=30.0,
+                         poll_s=0.0)
+    assert stubs.running is False
+
+    stubs = _DrainStubs([not_yet])
+    with pytest.raises(AssertionError, match="unsettled"):
+        smoke.http_drain(stubs, stubs, ["ev-0"], deadline_s=0.2,
+                         poll_s=0.01)
+    assert stubs.running is False

@@ -45,7 +45,7 @@ def test_every_module_imports_without_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", PROBE], capture_output=True,
                          text=True, timeout=120, check=True)
     count, leaked = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 97
+    assert int(count) >= 102
     assert leaked == "[]"
 
 
@@ -291,6 +291,49 @@ def test_cluster_slice_modules_stand_alone():
         "Clock", "SystemClock", "VirtualClock", "resolve_clock",
         "Connection", "Listener", "Transport", "TCPTransport",
         "SimNetwork", "SimTransport", "resolve_transport"])
+
+
+CHAOS_SLICE = ("chaos.trace", "chaos.traffic", "chaos.invariants",
+               "chaos.scenarios", "chaos.soak")
+
+
+def test_chaos_slice_modules_stand_alone():
+    """The traces, traffic, invariants, scenarios and soak import with
+    jax, the reference, msgpack and cryptography blocked, and export the
+    reference's names; the first three are pure (no torch, no server),
+    as the reference's are."""
+    probe = textwrap.dedent("""
+        import sys
+        for blocked in ("jax", "nomad_tpu", "msgpack", "cryptography"):
+            sys.modules[blocked] = None
+        import importlib
+        for m in %r[:3]:
+            importlib.import_module("nomad_tpu_torch." + m)
+        pure = not any(k == "torch" or k.startswith(
+            ("torch.", "nomad_tpu_torch.core.server")) for k in sys.modules)
+        for m in %r[3:]:
+            importlib.import_module("nomad_tpu_torch." + m)
+        from nomad_tpu_torch.chaos.trace import (  # noqa: F401
+            SCHEDULE_KINDS, Trace, schedule_from_trace, state_fingerprint)
+        from nomad_tpu_torch.chaos.traffic import (  # noqa: F401
+            DEFAULT_SCENARIOS, FaultyCall, TrafficProfile, fleet,
+            generate_schedule, retry_idempotent, stable_id)
+        from nomad_tpu_torch.chaos.invariants import (  # noqa: F401
+            alloc_coherence, check_all, committed_entries_survive,
+            leadership_converged, log_consistency, membership_converged,
+            no_deposed_commit, single_leader_per_term)
+        from nomad_tpu_torch.chaos.scenarios import (  # noqa: F401
+            SCENARIOS, ScenarioResult, ScenarioRunner, run_scenario)
+        from nomad_tpu_torch.chaos.soak import (  # noqa: F401
+            SOAK_SLO, SoakResult, SoakRunner, coarse_fingerprint, run_soak)
+        print([pure, sorted(SCENARIOS)])
+    """) % (CHAOS_SLICE, CHAOS_SLICE)
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert ast.literal_eval(out.stdout.strip()) == [True, sorted([
+        "leader_partition", "split_brain_attempt", "gossip_flap_storm",
+        "lossy_link_raft_append", "heartbeat_expiry_during_drain"])]
 
 
 def test_state_store_does_not_import_the_server():

@@ -5,9 +5,8 @@ The reference's fast tests are mirrored, each run through both packages
 in this process with the results compared: the state export and its
 delta bootstrap, an export's wire round trip (across the packages too),
 the submission queue, the sharded dynamic-port scan, the replica's
-attempt limits and the packer's 20-bit row cap.  The reference's
-traffic-knob tests exercise `chaos.traffic`, which the port has not
-ported (ROADMAP queue 1 item 5).
+attempt limits, the packer's 20-bit row cap and the traffic knobs of
+`chaos.traffic` (networked fraction and node classes).
 
 The port's own difference, the child's `_RemoteEngine`: over a loopback
 channel (two threads on a `multiprocessing.Pipe`, no spawn) its
@@ -395,6 +394,40 @@ def test_oversized_cluster_raises_named_error(monkeypatch):
             packer_mod.ClusterPacker().build(store.snapshot())
         return "PACKED_FILL_CAP" in str(exc.value)
     assert _both(run)
+
+
+# =====================================================================
+# traffic knobs (chaos/traffic.py)
+# =====================================================================
+
+
+def test_networked_fraction_and_classes_are_deterministic():
+    def run(name):
+        traffic = pkg(name, "chaos.traffic")
+        prof = traffic.TrafficProfile(hours=0.5, networked_fraction=0.7,
+                                      node_classes=("edge", "core"))
+        a = traffic.generate_schedule(1234, prof)
+        assert a == traffic.generate_schedule(1234, prof)
+        ported = [e for e in a if e.get("ports")]
+        assert ported, "0.7 networked_fraction produced no port asks"
+        assert all(e.get("node_class") in ("edge", "core")
+                   for e in ported)
+        nodes = traffic.fleet(1234, prof)
+        assert {n["node_class"] for n in nodes} == {"edge", "core"}
+        return a, nodes
+    _both(run)
+
+
+def test_zero_knobs_do_not_consume_rng():
+    def run(name):
+        traffic = pkg(name, "chaos.traffic")
+        base = traffic.TrafficProfile(hours=0.5)
+        off = traffic.TrafficProfile(hours=0.5, networked_fraction=0.0,
+                                     node_classes=())
+        a = traffic.generate_schedule(77, base)
+        assert a == traffic.generate_schedule(77, off)
+        return a
+    _both(run)
 
 
 # =====================================================================
