@@ -72,6 +72,30 @@ chained wave's usage triple is the one the zoned wave retained
      worker's or the applier's recovery records in the log ring, one
      `device` interval per dispatched wave.  Then shutdown, and the
      Server's engine must be freed.
+  bridge: the native CUDA bridge (csrc/bridge.cu, a C-ABI library built
+     by nvcc with the kernels it drives and no Python; native/bridge.py's
+     ctypes bindings) on small fixed inputs (2,000 nodes): the K3 program
+     (also with a refuted-node row and one 0-dim seed), K2 and K6 (also
+     with scores) through CudaBridge against the same kernels through
+     their Python launchers, word for word; the resident chain (wave 2
+     from wave 1's usage handle, usage strictly grown); a compile error
+     as BridgeError; no live buffer left; the library's NEEDED entries
+     (`readelf -d`: no libpython, libtorch or libc10); and a subprocess
+     that cannot import torch replaying the K2 call through ctypes and
+     numpy alone, with the same output bytes (its call file in
+     .smoke/bridge/, git-ignored).
+  bridge_harness: one Harness-level zoned wave (384 x 260) and one flat
+     wave (64 x 100) of the same built inputs through a BridgeExecutor
+     and the TorchExecutor, nothing committed: packed buffers, full
+     fills, usage and picks identical.
+  bridge_waves: config 5 through Server(device_executor="bridge") as
+     server_waves (lines `bridge_warmup_wave`, `bridge_wave`, a fresh
+     50,000-node cluster), with server_waves' gates but the launch gate
+     on the library's counters: K1 and K2 launched through the library,
+     the Python wrappers' K2, K3, K5 and K6 not at all; one `device`
+     interval a wave; no library buffer alive after shutdown.  The
+     measured line carries the same run's server_wave (wall, evals/s,
+     plan queue p50/p99, upload and d2h bytes) beside its own.
   pool_waves: the same config 5 through the Server in process mode
      (bench.py --worker-mode process: two pool worker processes,
      eval_batch 384, nack_timeout 600) on a fresh 50,000-node cluster
@@ -253,7 +277,9 @@ After every wall-time measurement:
 
 Every phase prints one JSON line; a failed phase raises and the script
 exits non-zero.  The kernel launch counters are zeroed before each main
-path phase and read after it; the line before the last carries them.
+path phase and read after it; the line before the last carries them
+(`bridge_launches`: the launches through the native library in the
+bridge's waves).
 The last line is {"ok": true, "device": {...}}.  Without CUDA the script
 exits non-zero before printing any result.  Imports nothing of JAX and
 nothing of the JAX package.
@@ -272,6 +298,12 @@ builds the kernels and runs cluster_waves alone (its two lines and a
 
 builds the kernels and runs server_waves then pool_waves alone (a
 `pool_only` line).
+
+    python3 chip_smoke.py --bridge
+
+builds the kernels and the bridge's library and runs the bridge phase,
+bridge_harness (on a 50,000-node Harness of its own), server_waves and
+the bridge's waves alone (a `bridge_only` line).
 
     python3 chip_smoke.py --soak
 
@@ -621,7 +653,9 @@ def used_matches_store(h, used_dev, usage):
     want = np.zeros((t.n, 3), np.int64)
     for node_id, u in usage.items():
         want[t.id_to_row[node_id]] = u
-    got = used_dev.cpu().numpy()
+    # a tensor, or the native bridge's buffer (fetched)
+    got = (used_dev.cpu().numpy() if hasattr(used_dev, "cpu")
+           else np.asarray(used_dev))
     if got[t.n:].any():
         raise AssertionError("usage on mesh padding rows")
     got = got[:t.n]
@@ -1072,13 +1106,20 @@ def server_wave(s, name, jobs, evals, all_jobs, zone_of, n_zones,
     pipe0 = dict(pipe.stats)
     ex0 = dict(ex.stats)
     up0 = dict(ex.upload_bytes_by_cause)
+    bridge = ex._bridge if ex.name == "bridge" else None
+    if bridge is not None:
+        bridge.reset_launches()
     line, usage, _ = drained_wave(s, name, jobs, evals, all_jobs,
                                   per_eval, zone_of, n_zones, settle)
     chain = ex._chains.get("")
     if chain is None:
         raise AssertionError(f"{name}: no chain retained after the wave")
     used_matches_store(s, chain[2][0], usage)
-    batched_launches(name, line["launches"])
+    if bridge is None:
+        batched_launches(name, line["launches"])
+    else:
+        line["bridge_launches"] = bridge_launches(name, bridge,
+                                                  line["launches"])
     waves = pipe.stats["waves"] - pipe0["waves"]
     counts = s.stage_timers.counts()
     if waves < 1 or counts.get("device", 0) != waves:
@@ -1090,22 +1131,28 @@ def server_wave(s, name, jobs, evals, all_jobs, zone_of, n_zones,
         "dispatches": ex.stats["dispatches"] - ex0["dispatches"],
         "resident_waves": (ex.stats["resident_waves"]
                            - ex0["resident_waves"]),
-        "upload_bytes_by_cause": cause_delta(ex, up0)})
+        "upload_bytes_by_cause": cause_delta(ex, up0),
+        "d2h_bytes": ex.stats["d2h_bytes"] - ex0["d2h_bytes"]})
     return line
 
 
 def server_phase(card, launches, n_nodes: int = N_NODES,
                  n_evals: int = N_EVALS, per_eval: int = PER_EVAL,
-                 n_zones: int = N_ZONES, device=None):
+                 n_zones: int = N_ZONES, device=None,
+                 executor: str = "torch", waves=SERVER_WAVES,
+                 beside=None):
     """bench.py config 5 through the port's Server in thread mode
-    (dev_mode=False, one worker, eval_batch n_evals, a TorchExecutor):
-    a fresh cluster built through the Server's store, leadership, then
-    each of SERVER_WAVES registered through the job endpoint and
-    drained (server_wave).  The sampler runs at its default rate, as in
-    a fresh process's Server, and is stopped after shutdown; the
+    (dev_mode=False, one worker, eval_batch n_evals, the `executor`
+    backend): a fresh cluster built through the Server's store,
+    leadership, then each of `waves` registered through the job endpoint
+    and drained (server_wave).  The sampler runs at its default rate, as
+    in a fresh process's Server, and is stopped after shutdown; the
     Server's hooks on the process planes are cleared so that its
     tensors are freed before the next phase (the store's subscribers
-    hold the executor, and through it the engine)."""
+    hold the executor, and through it the engine).  Under the bridge
+    the library must hold no buffer after shutdown, and the measured
+    wave's line carries `beside` (the same run's server_wave).  Returns
+    the measured wave's line."""
     import weakref
 
     import torch
@@ -1117,14 +1164,15 @@ def server_phase(card, launches, n_nodes: int = N_NODES,
     t0 = time.perf_counter()
     s = Server(dev_mode=False, num_workers=1, eval_batch=n_evals,
                heartbeat_ttl=1e9, nack_timeout=600.0,
-               device_executor="torch", device=device)
+               device_executor=executor, device=device)
     engine_ref = weakref.ref(s.engine)
+    bridge = s.executor._bridge if executor == "bridge" else None
     try:
         s.establish_leadership()
         zone_of = build_cluster(s, n_nodes, n_zones)
         build_s = time.perf_counter() - t0
         all_jobs = []
-        for name, cpu in SERVER_WAVES:
+        for name, cpu in waves:
             t1 = time.perf_counter()
             jobs, evals = server_jobs(s, name, n_evals, per_eval, cpu,
                                       n_zones)
@@ -1134,10 +1182,20 @@ def server_phase(card, launches, n_nodes: int = N_NODES,
                                n_zones, per_eval)
             for k, v in line["launches"].items():
                 launches[k] += v
+            for k, v in line.get("bridge_launches", {}).items():
+                kern = BRIDGE_KERNELS.get(k)
+                if kern:
+                    BRIDGE_LAUNCHES[kern] = BRIDGE_LAUNCHES.get(kern, 0) + v
+            extra = {}
+            if beside is not None and name == waves[-1][0]:
+                extra["server_wave"] = {
+                    k: beside[k] for k in (
+                        "wall_s", "evals_per_s", "placements_per_s",
+                        "plan_queue_p50_s", "plan_queue_p99_s",
+                        "upload_bytes_by_cause", "d2h_bytes")}
             emit({"phase": name, "card": card, "nodes": n_nodes,
-                  "cluster_build_s": build_s, "register_s": register_s,
-                  **line})
-            evals_per_s = line["evals_per_s"]
+                  "executor": executor, "cluster_build_s": build_s,
+                  "register_s": register_s, **line, **extra})
     finally:
         s.shutdown()
         profiling.PROFILER.stop()
@@ -1148,9 +1206,284 @@ def server_phase(card, launches, n_nodes: int = N_NODES,
     gc.collect()
     if engine_ref() is not None:
         raise AssertionError("the Server's engine outlived its shutdown")
+    if bridge is not None and bridge.leaked != 0:
+        raise AssertionError(f"{bridge.leaked} library buffers alive at "
+                             "the Server's shutdown")
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
-    return evals_per_s
+    return line
+
+
+# ------------------------------------------------------------- bridge
+
+# the bridge's waves (config 5 through Server(device_executor="bridge"),
+# as SERVER_WAVES), and the library's launchers by the kernel each runs
+BRIDGE_WAVES = (("bridge_warmup_wave", 1), ("bridge_wave", 10))
+BRIDGE_KERNELS = {"landscape_pair": "landscape",
+                  "landscape_affinity": "landscape",
+                  "feasible_mask": "feasible_mask",
+                  "multi_flat": "multi_flat",
+                  "multi_compact": "multi_compact",
+                  "multi_bulk": "multi_bulk"}
+# launches through the library on the main path, by kernel name (the
+# kernels line's `bridge_launches`)
+BRIDGE_LAUNCHES = {}
+# the bridge phase's small fixed inputs: nodes, zoned and flat evals
+BRIDGE_NODES = 2_000
+# a process in which torch cannot be imported: one program through the
+# library with ctypes and numpy alone (native/bridge.py main)
+BRIDGE_TORCH_FREE = ("import sys; sys.modules['torch'] = None; "
+                     "from nomad_tpu_torch.native.bridge import main; "
+                     "raise SystemExit(main(sys.argv[1:]))")
+
+
+def bridge_launches(name, bridge, python):
+    """A bridge wave's launch gate: K1 and K2 launched through the
+    library, and none of K2, K3 or the solo kernels through their Python
+    wrappers (`python`).  Returns the library's launches."""
+    lib = bridge.launches()
+    moved = [k for k in ("multi_compact", "multi_flat", *SOLO_KERNELS)
+             if python[k]]
+    if (lib["landscape_affinity"] + lib["landscape_pair"] < 1
+            or lib["multi_compact"] < 1 or moved):
+        raise AssertionError(f"{name}: library launches {lib}, Python "
+                             f"wrappers' {python}")
+    return lib
+
+
+def bridge_run(br, program, statics, leaves):
+    """One program through the library, every input uploaded from the
+    host: its three outputs fetched, every handle freed."""
+    import numpy as np
+
+    ex = br.compile(program, statics)
+    ins = [br.upload(lf.cpu().numpy() if hasattr(lf, "cpu")
+                     else np.asarray(lf)) for _, lf in leaves]
+    outs = br.execute_resident(ex, ins, 3)
+    got = [br.fetch(h) for h in outs]
+    for h in ins + outs:
+        br.buffer_free(h)
+    return got
+
+
+def bridge_phase(card, out_dir: str = ".smoke/bridge"):
+    """The native bridge on small fixed inputs (BRIDGE_NODES nodes in 5
+    zones, 24 zoned evals x 60 and 8 flat evals x 40 through a Harness
+    on the card): the K3 (also with a refuted-node row and one seed), K2
+    and K6 (also with scores) programs through CudaBridge against the
+    same kernels through their Python launchers, word for word; the
+    resident chain (wave 2 from wave 1's usage handle, the usage
+    strictly grown, equal to the Python launcher from that usage); a
+    compile error surfacing as BridgeError; no live buffer left; the
+    library's NEEDED entries (no libpython, libtorch or libc10); and a
+    process that cannot import torch replaying the K2 call through
+    ctypes and numpy alone, with the same output bytes."""
+    import hashlib
+    import os
+
+    import numpy as np
+    import torch
+
+    from nomad_tpu_torch.native.bridge import (
+        BridgeError,
+        CudaBridge,
+        bulk_program,
+        multi_program,
+        program_inputs,
+        save_program,
+    )
+    from nomad_tpu_torch.ops import select as psel
+    from nomad_tpu_torch.scheduler import Harness
+
+    t0 = time.perf_counter()
+    h = Harness()
+    build_cluster(h, BRIDGE_NODES, N_ZONES, seed=1)
+    _, zevals = register_wave(h, "bridge-zoned", 24, 60, N_ZONES)
+    _, fevals = register_wave(h, "bridge-flat", 8, 40, 0)
+    snap, _, _, items, seeds = prepare(h, zevals)
+    zb = h.engine.build_multi_inputs(snap, items, seed=seeds)
+    snap, _, _, items, seeds = prepare(h, fevals)
+    fb = h.engine.build_multi_inputs(snap, items, seed=seeds)
+    if zb["cand_rows"] is None or fb["cand_rows"] is not None:
+        raise AssertionError("bridge inputs took the wrong kernel")
+    dev = h.engine.device
+    zinp, finp, rs_z, rs_f = zb["inp"], fb["inp"], zb["rs"], fb["rs"]
+    cr = torch.tensor(zb["cand_rows"], device=dev)
+    cv = torch.tensor(zb["cand_valid"], device=dev)
+    n = finp.attrs.shape[0]
+    ok = torch.ones(n, dtype=torch.bool)
+    ok[::7] = False
+    finp_ok = finp._replace(node_ok=ok.to(dev),
+                            seed=torch.tensor(3054198966, device=dev))
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    binp = psel.BulkInputs(
+        attrs=finp.attrs, cap=finp.cap, used0=finp.used0, elig=finp.elig,
+        dc_mask=ones, pool_mask=ones, luts=finp.luts,
+        con=finp.con[:1].contiguous(), aff=finp.aff[:1].contiguous(),
+        req=finp.req[:1].contiguous(), desired=finp.desired[:1].contiguous(),
+        dh_limit=finp.dh_limit[:1].contiguous(),
+        job_count0=torch.zeros(n, dtype=torch.int32, device=dev),
+        spread_algo=False, g=0, p_real=300, seed=12345)
+    cases = {
+        "K3": (multi_program(finp, rs_f),
+               lambda: psel.place_multi_packed(finp, rs_f)),
+        "K3 node_ok, one seed": (
+            multi_program(finp_ok, rs_f),
+            lambda: psel.place_multi_packed(finp_ok, rs_f)),
+        "K2": (multi_program(zinp, rs_z, cr, cv, zb["n_lanes"]),
+               lambda: psel.place_multi_compact_packed(
+                   zinp, cr, cv, rs_z, zb["n_lanes"])),
+        "K6": (bulk_program(binp, 256, 2),
+               lambda: psel.place_bulk_packed(binp, 256, 2)),
+        "K6 scores": (bulk_program(binp, 256, 2, True),
+                      lambda: psel.place_bulk_packed(binp, 256, 2, True)),
+    }
+    br = CudaBridge(torch.cuda.current_device())
+    rows = []
+    for name, ((prog, st, leaves), python) in cases.items():
+        want = [w.cpu().numpy() for w in python()]
+        torch.cuda.synchronize()
+        br.reset_launches()
+        t1 = time.perf_counter()
+        got = bridge_run(br, prog, st, leaves)
+        ms = (time.perf_counter() - t1) * 1e3
+        if len(got) != len(want) or not all(
+                g.dtype == w.dtype and np.array_equal(g, w)
+                for g, w in zip(got, want)):
+            raise AssertionError(f"bridge {name}: the library's outputs "
+                                 "differ from the Python launchers'")
+        rows.append({"case": name, "program": prog, "statics": list(st),
+                     "launches": {k: v for k, v in br.launches().items()
+                                  if v},
+                     "words": int(sum(g.size for g in got)),
+                     "wall_ms": ms})
+    # the resident chain: K6's usage output into its next execute
+    prog, st, leaves = bulk_program(binp, 256, 2)
+    ex = br.compile(prog, st)
+    handles = [br.upload(lf.cpu().numpy()) for _, lf in leaves]
+    outs = br.execute_resident(ex, handles, 3)
+    used1 = br.fetch(outs[1])
+    chain = list(handles)
+    chain[program_inputs(prog, st).index("used0")] = outs[1]
+    outs2 = br.execute_resident(ex, chain, 3)
+    got2 = [br.fetch(x) for x in outs2]
+    want2 = [w.cpu().numpy() for w in psel.place_bulk_packed(
+        binp._replace(used0=torch.from_numpy(used1).to(dev)), 256, 2)]
+    if not (got2[1].sum() > used1.sum() > 0
+            and all(np.array_equal(g, w) for g, w in zip(got2, want2))):
+        raise AssertionError("bridge resident chain: usage did not grow "
+                             "or differs from the Python launcher's")
+    for x in handles + outs + outs2:
+        br.buffer_free(x)
+    try:
+        br.compile("module @not_a_program {}", ())
+        raise AssertionError("bridge: a bad program compiled")
+    except BridgeError as e:
+        compile_error = str(e)
+    live = br.live_buffers()
+    if live:
+        raise AssertionError(f"bridge: {live} buffers left")
+    out = subprocess.run(["readelf", "-d", br.lib_path], check=True,
+                         capture_output=True, text=True).stdout
+    needed = [ln.split("[")[1].rstrip("]") for ln in out.splitlines()
+              if "(NEEDED)" in ln]
+    if not needed or [x for x in needed if x.startswith(
+            ("libpython", "libtorch", "libc10"))]:
+        raise AssertionError(f"bridge library NEEDED: {needed}")
+    # the K2 call replayed where torch cannot be imported
+    os.makedirs(out_dir, exist_ok=True)
+    prog, st, leaves = cases["K2"][0]
+    got = bridge_run(br, prog, st, leaves)
+    call = os.path.join(out_dir, "k2_call.npz")
+    save_program(call, prog, st, leaves)
+    t1 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c", BRIDGE_TORCH_FREE, br.lib_path, call,
+         str(torch.cuda.current_device())],
+        capture_output=True, text=True, timeout=300)
+    torch_free_s = time.perf_counter() - t1
+    if res.returncode != 0:
+        raise AssertionError(f"torch-free bridge process: rc "
+                             f"{res.returncode}: {res.stderr[-2000:]}")
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    digests = [hashlib.sha256(g.tobytes()).hexdigest() for g in got]
+    if line["sha256"] != digests or line["live_buffers"] != 0:
+        raise AssertionError(f"torch-free bridge process: {line}, want "
+                             f"{digests}")
+    br.close()
+    if br.leaked != 0:
+        raise AssertionError(f"bridge: {br.leaked} buffers at close")
+    emit({"phase": "bridge", "card": card, "tolerance": "exact",
+          "nodes": BRIDGE_NODES, "platform": line["platform"],
+          "programs": rows,
+          "resident_chain": {"used1": int(used1.sum()),
+                             "used2": int(got2[1].sum())},
+          "compile_error": compile_error, "needed": needed,
+          "torch_free": {"sha256_equal": True, "seconds": torch_free_s,
+                         "shapes": line["shapes"]},
+          "live_buffers_after": 0, "leaked": br.leaked,
+          "library": os.path.basename(br.lib_path),
+          "seconds": time.perf_counter() - t0})
+
+
+def bridge_harness_phase(card, h, executor):
+    """Before the measured bridge wave: one Harness-level zoned wave
+    (N_EVALS x PER_EVAL, K2) and one flat wave (FLAT_EVALS x
+    FLAT_PER_EVAL, K3) of the same built inputs (snapshot, items, seeds)
+    through a BridgeExecutor and through `executor` (the TorchExecutor
+    on the same engine), nothing committed: their packed buffers, full
+    fills and usage must be identical, and the picks.  The counterpart of
+    the reference's test_production_multi_eval_kernel_via_bridge."""
+    import numpy as np
+
+    from nomad_tpu_torch.ops import BridgeExecutor
+
+    zone = register_wave(h, "bridge-parity-zoned", N_EVALS, PER_EVAL,
+                         N_ZONES)[1]
+    flat = register_wave(h, "bridge-parity-flat", FLAT_EVALS,
+                         FLAT_PER_EVAL, 0)[1]
+    d2h = h.engine.d2h_observer
+    bx = BridgeExecutor(h.engine)
+    waves = {}
+    try:
+        for label, evals in (("zoned", zone), ("flat", flat)):
+            snap, _, _, items, seeds = prepare(h, evals)
+            t0 = time.perf_counter()
+            tp = executor.dispatch_batch(snap, items, seed=seeds)
+            td = executor.collect_batch(tp)
+            t1 = time.perf_counter()
+            bp = bx.dispatch_batch(snap, items, seed=seeds)
+            b_fills = (None if bp["fills_full"] is None
+                       else np.array(bp["fills_full"]))
+            bd = bx.collect_batch(bp)
+            t2 = time.perf_counter()
+            pairs = [(tp["buf"].numpy(), np.asarray(bp["buf"])),
+                     (tp["used"].cpu().numpy(), np.asarray(bp["used"]))]
+            if b_fills is not None:
+                pairs.append((tp["fills_full"].cpu().numpy(), b_fills))
+            if ((tp["cand_rows"] is None) != (label == "flat")
+                    or not all(a.dtype == b.dtype and np.array_equal(a, b)
+                               for a, b in pairs)
+                    or [d.picks.tolist() for d in td]
+                    != [d.picks.tolist() for d in bd]):
+                raise AssertionError(f"bridge_harness {label}: the bridge "
+                                     "and torch executors differ")
+            waves[label] = {"torch_s": t1 - t0, "bridge_s": t2 - t1,
+                            "lanes": bp["n_lanes"],
+                            "words": int(sum(a.size for a, _ in pairs))}
+            # the wave's usage buffer goes with its pending
+            del tp, bp
+        uploads = dict(bx.upload_bytes_by_cause)
+        lib = bx._bridge.launches()
+    finally:
+        bx.close()
+        h.engine.d2h_observer = d2h
+    if bx._bridge.leaked != 0:
+        raise AssertionError(f"bridge_harness: {bx._bridge.leaked} "
+                             "buffers at close")
+    emit({"phase": "bridge_harness", "card": card, "tolerance": "exact",
+          "waves": waves, "upload_bytes_by_cause": uploads,
+          "library_launches": lib})
 
 
 # ---------------------------------------------------------------- pool
@@ -3523,8 +3856,50 @@ def pool_main() -> int:
     gc.callbacks.append(gc_meter)
     K.build_all()
     launches = {k.name: 0 for k in K.KERNELS}
-    pool_phase(card, launches, server_phase(card, launches))
+    pool_phase(card, launches, server_phase(card, launches)["evals_per_s"])
     emit({"phase": "pool_only", "card": card, "launches": launches,
+          "total_s": time.perf_counter() - t0})
+    return 0
+
+
+def bridge_main() -> int:
+    """`chip_smoke.py --bridge`: the kernels and the bridge's library
+    built, then the bridge phase, a 50,000-node Harness for the
+    Harness-level parity, server_waves and the bridge's waves beside
+    them, and a `bridge_only` line with the launches and the seconds.
+    The whole script runs the same phases after server_waves."""
+    import torch
+
+    from nomad_tpu_torch.ops import TorchExecutor
+    from nomad_tpu_torch.ops import kernels as K
+    from nomad_tpu_torch.scheduler import Harness
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    card = card_line()
+    gc.callbacks.append(gc_meter)
+    K.build_all(bridge=True)
+    emit({"phase": "environment", "card": card,
+          "nvcc_parallel_s": K.build_seconds,
+          "ptxas_bridge": [ln.strip() for ln in
+                           K.build_logs().get("bridge", "").splitlines()
+                           if "registers" in ln or "spill" in ln][:8]})
+    launches = {k.name: 0 for k in K.KERNELS}
+    bridge_phase(card)
+    h = Harness()
+    executor = TorchExecutor(h.engine)
+    build_cluster(h, N_NODES, N_ZONES)
+    h.engine.packer.update(h.snapshot())
+    bridge_harness_phase(card, h, executor)
+    del h, executor
+    gc.collect()
+    server_line = server_phase(card, launches)
+    server_phase(card, launches, executor="bridge", waves=BRIDGE_WAVES,
+                 beside=server_line)
+    emit({"phase": "bridge_only", "card": card, "launches": launches,
+          "bridge_launches": BRIDGE_LAUNCHES,
           "total_s": time.perf_counter() - t0})
     return 0
 
@@ -4491,7 +4866,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     gc.callbacks.append(gc_meter)
     t0 = time.perf_counter()
-    K.build_all()
+    K.build_all(bridge=True)
     build_s = time.perf_counter() - t0
     emit({"phase": "environment", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
@@ -4601,7 +4976,15 @@ def main() -> int:
     # the same waves through the port's Server: broker, worker, wave
     # pipeline, plan queue and threaded applier; then through the HTTP
     # API of the port's Agent, and the agent and CLI in subprocesses
-    thread_evals_per_s = server_phase(card, launches)
+    server_line = server_phase(card, launches)
+    # the native bridge: its programs on small inputs, the Harness-level
+    # waves through both executors, then config 5 through the Server on
+    # the bridge, beside server_wave
+    bridge_phase(card)
+    bridge_harness_phase(card, h, executor)
+    server_phase(card, launches, executor="bridge", waves=BRIDGE_WAVES,
+                 beside=server_line)
+    thread_evals_per_s = server_line["evals_per_s"]
     # the same waves through two pool worker processes (the Server in
     # process mode), then a spread eval placed through a child's
     # forwarded place
@@ -4673,6 +5056,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "bridge_launches": BRIDGE_LAUNCHES.get(k.name, 0),
             "depth_ms": r["depth_ms"], "device_ms": r["device_ms"],
             "library_device_ms": r["library_device_ms"]})
     emit({"phase": "summary", "total_s": time.perf_counter() - t_start,
@@ -4684,8 +5068,9 @@ def main() -> int:
     return 0
 
 
-MAINS = {"--bulk-layouts": bulk_layouts_main, "--cluster": cluster_main,
-         "--pool": pool_main, "--soak": soak_main}
+MAINS = {"--bulk-layouts": bulk_layouts_main, "--bridge": bridge_main,
+         "--cluster": cluster_main, "--pool": pool_main,
+         "--soak": soak_main}
 
 if __name__ == "__main__":
     if sys.argv[1:] and (len(sys.argv) > 2 or sys.argv[1] not in MAINS):

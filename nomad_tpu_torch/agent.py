@@ -7,8 +7,9 @@ runs on PyTorch and CUDA:
     the `Server` (or, in cluster mode, the `ClusterServer`):
     CUDA unless given, raising when CUDA is absent.  Tests pass
     `device="cpu"`;
-  - `device_executor="torch"` is the default (the Server's rule: "bridge"
-    raises `ExecutorUnavailable`, any other name ValueError).
+  - `device_executor="torch"` is the default (the Server's rule:
+    "bridge" runs the native CUDA library, and raises on a mesh or on
+    the CPU; any other name raises ValueError).
 A `plugin_dir` for the clients and `worker_mode="process"` are the
 reference's (the port's `plugins/` and `core/workerpool.py`).
 Cluster mode (`server_name`, `join`, `bootstrap_expect > 1`), the read

@@ -42,9 +42,9 @@ Multiple `-config` files merge left to right; CLI flags win last
 Differences from the reference (nomad_tpu/agent_config.py): the
 `device_executor` knob defaults to "torch" and accepts "torch" and
 "bridge", as the port's `ops.executor.make_executor` names them; "jax"
-is an unknown value and raises ValueError here.  "bridge" parses and
-then raises `ExecutorUnavailable` when the Server is built (the native
-executor is ROADMAP queue 1 item 6)."""
+is an unknown value and raises ValueError here.  "bridge" builds the
+native CUDA library's executor when the Server is built (and raises
+there on a mesh or on the CPU)."""
 
 from __future__ import annotations
 
@@ -87,9 +87,9 @@ class AgentConfig:
     clock: str = "wall"
     # device-executor backend for the scheduling workers'
     # wave launches (ops/executor.py): "torch" runs the hand-written
-    # CUDA kernels on resident device tensors; "bridge" names the native
-    # executor, which the port has not built yet, and errors at agent
-    # start (never a silent fallback)
+    # CUDA kernels on resident device tensors; "bridge" runs them through
+    # the native CUDA library (native/bridge.py), and errors at agent
+    # start where it cannot run (never a silent fallback)
     device_executor: str = "torch"
     # continuous-profiling sampler rate (core/profiling.py): the host
     # stack sampler is always-on at profiling.DEFAULT_HZ when this is

@@ -35,8 +35,8 @@ terminal history:
   - `CompileLedger` (the device ledger's compile half): per-site,
     per-shape-bucket compile-cache hits / misses / first-launch
     seconds vs steady-call split.  ops/engine.py records `_sharded_fn`
-    cache traffic here; ops/executor.py records the PJRT bridge's
-    StableHLO compiles.  The HBM-residency half lives on the executor
+    cache traffic here; ops/executor.py records the native bridge's
+    program compiles (`bridge/<dims>`).  The HBM-residency half lives on the executor
     (`DeviceExecutor.ledger()`), built from retained buffer handle
     sizes.
 

@@ -20,9 +20,11 @@ port runs on PyTorch and CUDA, not JAX:
     pass `device="cpu"` to run the kernels' plain versions;
   - `device_executor="torch"` is the default and goes through the
     port's `ops.executor.make_executor`: "", None and "torch" build a
-    `TorchExecutor`, "bridge" raises `ExecutorUnavailable` (the native
-    executor is ROADMAP queue 1 item 6), and any other name, "jax"
-    included, raises ValueError;
+    `TorchExecutor`, "bridge" a `BridgeExecutor` over the native CUDA
+    library (ValueError on a mesh, `ExecutorUnavailable` on the CPU),
+    and any other name, "jax" included, raises ValueError.  `shutdown`
+    also releases the executor (`DeviceExecutor.release`: the bridge
+    frees its device buffers; nothing for "torch");
   - `mesh` takes the port engine's meaning: None or False is one
     device (no automatic sharding), a `parallel.mesh.Mesh` is that many
     shards of the node axis on the one card, and a mesh across cards
@@ -191,8 +193,9 @@ class Server:
         # server.device_executor): the seam the workers' wave pipelines
         # launch through — "torch" (default), riding resident device
         # tensors with the proposed-usage chain held resident ACROSS
-        # worker passes.  Raises loudly for "bridge" (no native
-        # executor in the port) and for any unknown name.
+        # worker passes, or "bridge", the native CUDA library with its
+        # own device buffers.  Raises loudly for "bridge" on a mesh or
+        # on the CPU and for any unknown name.
         from nomad_tpu_torch.ops.executor import make_executor
         self.executor = make_executor(device_executor, self.engine)
         # chain hygiene: node writes / restores / capacity-freeing alloc
@@ -411,6 +414,7 @@ class Server:
             self._applier_running = False
         self.eval_broker.set_enabled(False)
         self.events.close()
+        self.executor.release()
 
     def maybe_apply_inline(self, pending) -> None:
         """dev_mode: the worker's submit_plan applies plans synchronously

@@ -43,7 +43,11 @@ port runs on PyTorch and CUDA, not JAX:
     marker and with no `except`: a failed wait raises to the worker.
     When `ready` is None (a CPU engine) the result is already on the
     host, and the device interval is recorded as ending at once, so
-    the stage keys are the reference's;
+    the stage keys are the reference's.  Under the native bridge
+    (`ops.executor.BridgeExecutor`) `ready` is the wave's result buffer
+    in the library, whose `synchronize()` is its fetch: the fetch is the
+    synchronisation point, as in the reference, and the wave stamps one
+    `device` interval all the same;
   - a bare PlacementEngine is wrapped in a `TorchExecutor` (the
     reference's `JaxExecutor`).
 """
@@ -319,7 +323,8 @@ class WavePipeline:
             if ready is not None:
                 # the pipeline's ONE deliberate sync point: collect()
                 # exists to pay this wait, after the successor wave has
-                # already been dispatched.  The profiling marker pins
+                # already been dispatched (a CUDA event, or the bridge's
+                # result fetch).  The profiling marker pins
                 # the sampler's classification — the GIL is released in
                 # here, so these samples are device-wait, not host time
                 with profiling.activity("device-wait"):

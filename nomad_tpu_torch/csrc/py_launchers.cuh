@@ -12,8 +12,15 @@
 // (chip_smoke.py's launch_path line times both bindings of K4's
 // launcher).  The header needs only Python.h, so a build still takes
 // seconds.
+//
+// Built with -DNTB_NO_PYTHON (the native bridge's library, csrc/bridge.cu)
+// the header includes nothing and PY_LAUNCHERS expands to nothing, so the
+// same sources link into a library with no Python dependency; without the
+// flag the extension modules are what they always were.
 
 #pragma once
+
+#ifndef NTB_NO_PYTHON
 
 #include <Python.h>
 
@@ -75,3 +82,9 @@ PyObject* bind(int (*f)(P...), const char* name, PyObject* const* a,
   static PyModuleDef module##_module = {PyModuleDef_HEAD_INIT, #module,    \
                                         nullptr, -1, module##_launchers}; \
   PyMODINIT_FUNC PyInit_##module(void) { return PyModule_Create(&module##_module); }
+
+#else  // NTB_NO_PYTHON
+
+#define PY_LAUNCHERS(module, ...)
+
+#endif  // NTB_NO_PYTHON

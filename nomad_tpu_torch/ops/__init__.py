@@ -10,6 +10,7 @@ from .engine import (  # noqa: F401
     PlacementRequest,
 )
 from .executor import (  # noqa: F401
+    BridgeExecutor,
     DeviceExecutor,
     ExecutorUnavailable,
     TorchExecutor,

@@ -805,11 +805,14 @@ class PlacementEngine:
             metrics.append(metric)
         return metrics
 
-    def _fetch(self, t: torch.Tensor) -> np.ndarray:
+    def _fetch(self, t) -> np.ndarray:
         """A device result as a host array (waits for the kernels), with
-        the d2h ledger fed ("result-fetch" cause)."""
+        the d2h ledger fed ("result-fetch" cause): a tensor, or the
+        native bridge's result buffer (ops/executor.py `_BridgeArray`,
+        whose fetch waits on the library's stream)."""
         t0 = time.perf_counter_ns()
-        out = t.cpu().numpy()
+        out = (t.cpu().numpy() if isinstance(t, torch.Tensor)
+               else np.asarray(t))
         self._note_d2h(out.nbytes, (time.perf_counter_ns() - t0) / 1e9)
         return out
 
@@ -1665,6 +1668,8 @@ class PlacementEngine:
         t1 = time.perf_counter_ns()
         # the d2h meter: the pinned copy's bytes, its seconds the wait on
         # the copy's event (the copy itself was queued at dispatch)
+        # (a bridge wave's "ready" and "buf" are its result buffer in the
+        # library, ops/executor.py `_BridgeArray`: the wait is its fetch)
         tw = time.perf_counter()
         if pending["ready"] is not None:
             pending["ready"].synchronize()

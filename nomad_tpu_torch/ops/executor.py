@@ -12,9 +12,15 @@ the contract between the wave pipeline and the kernels:
     proposed-usage tensor across worker passes so the next dequeued
     batch starts device-resident instead of re-syncing `used0` from the
     packer through the host.
-  - `TorchExecutor` (the one backend, the reference's `JaxExecutor`):
+  - `TorchExecutor` (default backend, the reference's `JaxExecutor`):
     delegates to `PlacementEngine.dispatch_batch` /
     `collect_batch`, whose hand-written CUDA kernels run on the card.
+  - `BridgeExecutor`: the same kernels driven through the native CUDA
+    bridge (native/bridge.py over csrc/bridge.cu, a C-ABI library with
+    device buffers of its own): stable inputs upload once and are
+    reused by identity, each wave uploads only its own tensors, and the
+    proposed-usage output handle chains into the next wave's `used0`
+    without a host round trip.
 
 Safety of the retained chain: proposed usage is a SUPERSET of what the
 chain's own plans commit, so a chained wave can under-pack but never
@@ -47,15 +53,35 @@ Telemetry (core/telemetry.py):
   nomad.executor.h2d_s                    upload latency histogram
 
 Differences from the reference:
-  - one backend, `torch` (`TorchExecutor`); the reference's `jax`
-    backend is its counterpart.  `make_executor("bridge")` raises
-    `ExecutorUnavailable`: the reference's `BridgeExecutor` drives the
-    C++ PJRT bridge, whose counterpart, a native CUDA executor, is not
-    ported;
-  - a chained wave reuses the usage tensor in place (the reference
+  - the backends are `torch` (`TorchExecutor`, the reference's `jax`
+    backend's counterpart) and `bridge`; `make_executor("bridge")`
+    raises ValueError on a mesh engine (the port's mesh is S shards on
+    one card, and the library runs the unsharded programs) and
+    ExecutorUnavailable on a CPU engine (no card for the library to
+    drive), before anything is built;
+  - `BridgeExecutor(engine, bridge=None)` takes an injected bridge
+    (tests pass `native.bridge.PlainBridge`); it has no plugin path, and
+    its programs are named kernels, compiled once per shape bucket only
+    in name (`COMPILE` site `bridge/<dims>`);
+  - the bridge's identity cache keys an input by what the engine knows
+    of it besides its identity: the engine replays plan deltas into its
+    usage tensor in place through K4, which torch's version counter
+    does not see, so `used0` carries the packer's used version, and
+    every stable input the node-table version and torch's counter.
+    Only the stable inputs (node tensors, LUTs, base masks, the synced
+    usage) are cached; a wave's own tensors are uploaded, read and
+    freed (`upload_bytes_by_cause["per-wave"]`), and a usage re-upload
+    after a commit counts as "invalidation-replay";
+  - a bridge wave's `pending["ready"]` is its result buffer, whose
+    `synchronize()` is the fetch: as in the reference, the fetch is the
+    synchronisation point, and the wave pipeline stamps one `device`
+    interval on it;
+  - a chained torch wave reuses the usage tensor in place (the reference
     donates it to XLA), so a retained chain's tensor must not be read
     after a wave has claimed it; dropping a chain frees its tensor when
-    the last reference goes, so `_release_chain` does nothing.
+    the last reference goes, so `TorchExecutor` needs no
+    `_release_chain`.  A bridge handle is freed when it is consumed,
+    dropped, collected or garbage, and `close()` frees the rest.
 """
 
 from __future__ import annotations
@@ -64,11 +90,13 @@ import threading
 import time
 from typing import Optional, Sequence
 
+import numpy as np
+
 from nomad_tpu_torch.core.flightrec import FLIGHT
 from nomad_tpu_torch.core.telemetry import REGISTRY
 from nomad_tpu_torch.core.timeline import TIMELINE
 
-EXECUTOR_BACKENDS = ("torch",)
+EXECUTOR_BACKENDS = ("torch", "bridge")
 
 
 class ExecutorUnavailable(RuntimeError):
@@ -79,19 +107,26 @@ def make_executor(name: str, engine, plugin: Optional[str] = None,
                   chain_enabled: bool = True) -> "DeviceExecutor":
     """Build the configured executor backend over `engine`
     (agent_config `server.device_executor`).  Raises ValueError on an
-    unknown name, and ExecutorUnavailable for `bridge`, whose native
-    executor the port does not have.  Both raise at SERVER
-    CONSTRUCTION — agent start — never mid-worker-loop; no backend is
-    chosen silently.  `plugin` is the reference's PJRT plugin path,
-    unused here."""
+    unknown name OR on a config the engine cannot honor (bridge over a
+    mesh), and ExecutorUnavailable when `bridge` is requested on a CPU
+    engine or its library does not build (the message carries nvcc's
+    output).  All raise at SERVER CONSTRUCTION — agent start — never
+    mid-worker-loop; no backend is chosen silently.  `plugin` is the
+    reference's PJRT plugin path, unused here."""
     if name in ("", None, "torch"):
         return TorchExecutor(engine, chain_enabled=chain_enabled)
     if name == "bridge":
-        raise ExecutorUnavailable(
-            "device_executor 'bridge' drives the native PJRT bridge, "
-            "which this port does not have (a native CUDA executor is "
-            "ROADMAP queue 1 item 6); configure device_executor = "
-            "\"torch\" instead")
+        if getattr(engine, "mesh", None) is not None:
+            # config validation, not availability: the library runs the
+            # unsharded programs, and this engine shards the node axis.
+            # There is no silent fallback — the operator picks one.
+            raise ValueError(
+                "agent_config: server.device_executor = \"bridge\" runs "
+                "the native library's unsharded programs, but this engine "
+                f"shards the node axis over a {engine.mesh.n_shards}-shard "
+                "mesh; set server.device_executor = \"torch\" (the "
+                "sharded backend), or run the engine without a mesh")
+        return BridgeExecutor(engine, chain_enabled=chain_enabled)
     raise ValueError(
         f"unknown device_executor {name!r} "
         f"(expected one of {EXECUTOR_BACKENDS})")
@@ -370,6 +405,11 @@ class DeviceExecutor:
     def close(self) -> None:
         self.invalidate("close")
 
+    def release(self) -> None:
+        """Server shutdown: free what the backend holds outside Python's
+        reach (the bridge's device buffers and library client); the
+        torch backend holds nothing of the kind."""
+
 
 class TorchExecutor(DeviceExecutor):
     """The in-process PyTorch engine (the reference's `JaxExecutor`).
@@ -400,6 +440,288 @@ class TorchExecutor(DeviceExecutor):
 
     def collect_batch(self, pending):
         return self.engine.collect_batch(pending)
+
+
+def _host(leaf) -> np.ndarray:
+    """An input leaf as a contiguous host array (a device tensor is
+    copied to the host; `.cpu()` waits for the work queued on it)."""
+    if hasattr(leaf, "cpu"):
+        leaf = leaf.cpu().numpy()
+    return np.asarray(leaf, order="C")
+
+
+class _BridgeArray:
+    """A device buffer of the native bridge masquerading as an array:
+    carries shape/dtype for shape-bucket keys and fetches to host lazily
+    (`numpy()`, `np.asarray`): the compact-fills overflow path then pays
+    its fetch only when the prefix actually overflowed.  `synchronize()`
+    is that fetch: for the bridge the fetch IS the synchronisation point
+    (the wave pipeline's device interval and the engine's collect wait on
+    `pending["ready"]`, which is the result buffer itself).  The handle is
+    freed by `free()`, or when the object is garbage."""
+
+    __slots__ = ("shape", "dtype", "_bridge", "handle", "_host")
+
+    def __init__(self, bridge, handle, shape, dtype) -> None:
+        self._bridge = bridge
+        self.handle = handle
+        self.shape = tuple(shape)
+        self.dtype = np.dtype(dtype)
+        self._host = None
+
+    @property
+    def nbytes(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64)) * self.dtype.itemsize
+
+    def fetch(self) -> np.ndarray:
+        if self._host is None:
+            self._host = self._bridge.fetch(self.handle, self.shape,
+                                            self.dtype)
+        return self._host
+
+    synchronize = fetch
+    numpy = fetch
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.fetch()
+        return a if dtype is None else a.astype(dtype)
+
+    def free(self) -> None:
+        h, self.handle = self.handle, 0
+        if h:
+            try:
+                self._bridge.buffer_free(h)
+            except Exception:  # noqa: BLE001 - teardown best-effort
+                pass
+
+    def __del__(self) -> None:
+        self.free()
+
+
+class BridgeExecutor(DeviceExecutor):
+    """The multi-eval programs driven through the native CUDA bridge
+    (native/bridge.py over csrc/bridge.cu) with device buffers the
+    library owns.  Stable inputs (node tensors, LUTs, base masks, the
+    packer-synced usage) upload once and are reused by object identity
+    while the engine's versions of them hold; each wave uploads only its
+    own small tensors and fetches only the compact result buffer; the
+    proposed-usage output handle chains into the next wave's `used0`
+    untouched by the host.  `bridge`: a CudaBridge on the engine's card
+    unless given (tests inject a PlainBridge)."""
+
+    name = "bridge"
+
+    # stable-input handle cache bound (entries are freed on eviction)
+    _CACHE_CAP = 256
+    # the inputs that stay on the device across waves; every other input
+    # is the wave's own
+    _STABLE = frozenset(("attrs", "cap", "elig", "luts", "base_mask",
+                         "used0"))
+
+    def __init__(self, engine, bridge=None,
+                 chain_enabled: bool = True) -> None:
+        # mesh FIRST: a config contradiction (make_executor raises the
+        # agent_config-worded ValueError before ever constructing this
+        # class) must win over mere availability for direct callers
+        if engine.mesh is not None:
+            raise ValueError(
+                "device_executor 'bridge' runs the unsharded programs; "
+                "this engine shards over a mesh — use 'torch'")
+        if bridge is None:
+            if engine.device.type != "cuda":
+                raise ExecutorUnavailable(
+                    "device_executor 'bridge' drives the native CUDA "
+                    f"library, and this engine runs on {engine.device}; "
+                    "configure device_executor = \"torch\" instead")
+            import torch
+
+            from nomad_tpu_torch.native.bridge import BridgeError, CudaBridge
+            index = engine.device.index
+            try:
+                bridge = CudaBridge(torch.cuda.current_device()
+                                    if index is None else index)
+            except BridgeError as e:
+                raise ExecutorUnavailable(
+                    f"device_executor 'bridge': {e}") from e
+        super().__init__(engine, chain_enabled=chain_enabled)
+        self._bridge = bridge
+        # the engine's collect path materializes bridge result buffers
+        # (np.asarray on _BridgeArray): meter those d2h fetches; the
+        # uploads are metered here (_upload), not by the engine
+        engine.d2h_observer = self._observe_d2h
+        self._compiled = {}       # program + shape signature -> exec
+        self._h2d_cache = {}      # id(leaf) -> (leaf, token, handle)
+        self._h2d_order = []      # insertion order for eviction
+        self._cache_lock = threading.Lock()
+
+    # ------------------------------------------------------- uploads
+
+    def _upload(self, arr: np.ndarray, cause: str) -> int:
+        t0 = time.perf_counter()
+        handle = self._bridge.upload(arr)
+        self._observe_h2d(arr.nbytes, time.perf_counter() - t0, cause)
+        return handle
+
+    def _leaf_handle(self, leaf, token) -> int:
+        """Device handle for one stable input, cached by object identity:
+        the engine's version-keyed caches keep node tensors as the SAME
+        objects across waves, so they upload once, and again only when
+        `token` (what the engine knows of their contents) moves.  The
+        caller holds `_cache_lock` until the program that reads the
+        handle is enqueued: a handle freed after that is freed in stream
+        order, behind its readers."""
+        key = id(leaf)
+        hit = self._h2d_cache.get(key)
+        if hit is not None and hit[0] is leaf and hit[1] == token:
+            return hit[2]
+        if hit is not None:
+            self._bridge.buffer_free(hit[2])
+        handle = self._upload(
+            _host(leaf),
+            "invalidation-replay" if hit is not None else "initial-upload")
+        if hit is None:
+            self._h2d_order.append(key)
+        self._h2d_cache[key] = (leaf, token, handle)
+        if len(self._h2d_order) > self._CACHE_CAP:
+            for old in self._h2d_order[:self._CACHE_CAP // 4]:
+                stale = self._h2d_cache.pop(old, None)
+                if stale is not None:
+                    self._bridge.buffer_free(stale[2])
+            del self._h2d_order[:self._CACHE_CAP // 4]
+        return handle
+
+    def _compile(self, program: str, statics, leaves) -> int:
+        """The executable of `program` at `statics` for these input
+        shapes (once per shape bucket, as the reference compiles)."""
+        from nomad_tpu_torch.core.profiling import COMPILE
+        shapes = tuple((tuple(lf.shape), str(lf.dtype).replace("torch.", ""))
+                       for _, lf in leaves)
+        sig = (program, tuple(statics), shapes)
+        # shape-bucket site label: the largest leaf (the node-axis
+        # tensor) tells buckets apart without dumping the whole sig
+        dims = max((s for s, _ in shapes if s), default=(),
+                   key=lambda t: int(np.prod(t)))
+        site = "bridge/" + "x".join(map(str, dims))
+        hit = self._compiled.get(sig)
+        if hit is not None:
+            COMPILE.note_hit(site)
+            return hit
+        t0 = time.perf_counter()
+        ex = self._bridge.compile(program, statics)
+        COMPILE.note_miss(site, time.perf_counter() - t0)
+        self._compiled[sig] = ex
+        return ex
+
+    # --------------------------------------------------------- waves
+
+    def dispatch_batch(self, snapshot, items, seed=0, used0_dev=None,
+                       masked_node_ids=None):
+        from nomad_tpu_torch.native.bridge import multi_program
+
+        from .select import FILL_K
+
+        if not self.chain_enabled and used0_dev is not None:
+            self._release_chain((None, None, used0_dev))
+            used0_dev = None
+        if not items:
+            return None
+        built = self.engine.build_multi_inputs(
+            snapshot, items, seed=seed, used0_dev=used0_dev,
+            masked_node_ids=masked_node_ids)
+        chained = not isinstance(built, tuple) and built["chained"]
+        if used0_dev is not None and not chained:
+            # the version guard rejected the chain: its handle is dead
+            self._release_chain((None, None, used0_dev))
+        if isinstance(built, tuple):
+            return built                       # empty-cluster sentinel
+        inp, rs, t = built["inp"], built["rs"], built["t"]
+        compact = built["cand_rows"] is not None
+        program, statics, leaves = multi_program(
+            inp, rs, built["cand_rows"], built["cand_valid"],
+            built["n_lanes"])
+        ex = self._compile(program, statics, leaves)
+        handles, own, consumed = [], [], None
+        # the workers share the cache: its handles stay put until this
+        # program is enqueued
+        with self._cache_lock:
+            try:
+                for name, leaf in leaves:
+                    if isinstance(leaf, _BridgeArray):
+                        handles.append(leaf.handle)    # the chained used0
+                        consumed = leaf
+                    elif name in self._STABLE:
+                        handles.append(self._leaf_handle(leaf, (
+                            t.version,
+                            t.used_version if name == "used0" else None,
+                            getattr(leaf, "_version", None))))
+                    else:
+                        own.append(self._upload(_host(leaf), "per-wave"))
+                        handles.append(own[-1])
+                outs = self._bridge.execute_resident(ex, handles, 3)
+            finally:
+                # stream-ordered: freed after the programs that read them
+                for h in own:
+                    self._bridge.buffer_free(h)
+                if consumed is not None:
+                    consumed.free()
+        wrapped = [_BridgeArray(self._bridge, h,
+                                *self._bridge.buffer_info(h)) for h in outs]
+        if compact:
+            buf, fills, used = wrapped
+        else:
+            buf, used, jc = wrapped
+            jc.free()
+            fills = None
+        pending = {
+            "bridge": True,
+            "buf": buf, "ready": buf, "used": used,
+            "items": list(items),
+            "spans": built["spans"], "counts": built["counts"],
+            "rs": rs, "t": t, "ctxs": built["ctxs"],
+            "n": built["n"], "npad": built["npad"],
+            "collective_bytes": 0, "shard_h2d_bytes": 0,
+            "padded_fraction":
+                (built["npad"] - built["n"]) / built["npad"],
+            "node_version": t.version, "perm": built["perm"],
+            "fills_full": fills,
+            "fill_k": min(FILL_K, rs) if compact else None,
+            "chained": chained, "n_lanes": built["n_lanes"],
+            "cand_rows": built["cand_rows"],
+            "prep_ns": time.perf_counter_ns() - built["t0"],
+        }
+        self._note_dispatch(pending, used0_dev is not None)
+        return pending
+
+    def collect_batch(self, pending):
+        if not isinstance(pending, dict) or not pending.get("bridge"):
+            return self.engine.collect_batch(pending)
+        try:
+            # engine.collect_batch waits on pending["ready"] (the fetch of
+            # buf) and fetches fills_full only on a prefix overflow
+            return self.engine.collect_batch(pending)
+        finally:
+            for key in ("buf", "fills_full"):
+                arr = pending.get(key)
+                if isinstance(arr, _BridgeArray):
+                    arr.free()
+            # pending["used"] stays alive: it is the chain candidate
+
+    def _release_chain(self, chain) -> None:
+        arr = chain[2][0]
+        if isinstance(arr, _BridgeArray):
+            arr.free()
+
+    def release(self) -> None:
+        self.close()
+
+    def close(self) -> None:
+        super().close()
+        with self._cache_lock:
+            for _, _, handle in self._h2d_cache.values():
+                self._bridge.buffer_free(handle)
+            self._h2d_cache.clear()
+            self._h2d_order.clear()
+        self._bridge.close()
 
 
 class SubmissionFrontEnd:

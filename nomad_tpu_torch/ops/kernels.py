@@ -10,7 +10,9 @@ first launch of any kernel; the modules land in `BUILD_DIR` (listed in
 .gitignore) under a name carrying a hash of the sources and flags, so an
 edited source rebuilds and an unchanged one is reused.  Each source built
 is noted in the compile ledger (core/profiling.COMPILE) as a miss on
-`kernels.nvcc/<source>`.
+`kernels.nvcc/<source>`.  The native bridge's library (csrc/bridge.cu
+with the two sources it drives, no Python) builds the same way, at its
+first use or with `build_all(bridge=True)`, as `kernels.nvcc/bridge`.
 
 Each `Kernel` carries `launches`, the count its wrappers bump once per
 launch of the CUDA kernel (never for the plain version), so a run can
@@ -50,6 +52,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # every source with launchers (the .cuh headers are included by them)
 SOURCES = ("compact_rounds.cu", "landscape.cu", "place_scan.cu",
            "preempt.cu", "scatter_add.cu")
+# the native bridge's library (csrc/bridge.cu, native/bridge.py): the
+# sources it links, with PY_LAUNCHERS compiled out, and cudart only
+BRIDGE_SOURCES = ("bridge.cu", "landscape.cu", "compact_rounds.cu")
+BRIDGE_FLAGS = ("-DNTB_NO_PYTHON",)
 # PyTorch's current CUDA device and the raw handle of a device's current
 # stream (PyTorch's generated Triton launchers read it the same way);
 # None in a CPU build, where nothing launches
@@ -130,12 +136,13 @@ KERNELS = (LANDSCAPE, MULTI_COMPACT, MULTI_FLAT, SCATTER_ADD, PLACE_SCAN,
            SCATTER_ADD_SHARDED)
 
 _lock = threading.Lock()
+_bridge_lock = threading.Lock()
 _libs: Dict[str, object] = {}
 build_seconds: Optional[float] = None
 
 
-def _sources_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _sources_hash(extra=()) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(extra)).encode())
     for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -152,60 +159,92 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build_all() -> Dict[str, Path]:
-    """Compile every source that has no current library yet, one `nvcc`
-    process per source, all started together.  Returns the library
-    paths by source name; raises with nvcc's output when a build fails."""
-    global build_seconds
+def bridge_path() -> Path:
+    """Where the native bridge's library (csrc/bridge.cu) lies once
+    built: BUILD_DIR, under a hash of the sources and its flags."""
+    return BUILD_DIR / f"libnomad_tpu_bridge.{_sources_hash(BRIDGE_FLAGS)}.so"
+
+
+def _targets(sources, bridge: bool):
+    """name -> (library path, nvcc arguments after the flags) of each
+    target to build: an extension module per source, and the bridge's
+    library."""
     tag = _sources_hash()
+    py_include = sysconfig.get_paths()["include"]
+    out = {src: (BUILD_DIR / f"{Path(src).stem}.{tag}.so",
+                 ["-I", py_include, str(CSRC / src)]) for src in sources}
+    if bridge:
+        out["bridge"] = (bridge_path(), [
+            *BRIDGE_FLAGS, *[str(CSRC / src) for src in BRIDGE_SOURCES]])
+    return out
+
+
+def _build(targets) -> Dict[str, Path]:
+    """Compile every target that has no current library yet, one `nvcc`
+    process each, all started together.  Returns the library paths by
+    target name; raises with nvcc's output when a build fails."""
+    global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {src: BUILD_DIR / f"{Path(src).stem}.{tag}.so"
-             for src in SOURCES}
-    todo = {src: p for src, p in paths.items() if not p.exists()}
+    todo = {name: t for name, t in targets.items() if not t[0].exists()}
     t0 = time.perf_counter()
     procs = {}
     nvcc = _nvcc() if todo else ""
-    py_include = sysconfig.get_paths()["include"]
-    for src, p in todo.items():
+    for name, (p, args) in todo.items():
         tmp = p.with_name(p.name + f".{os.getpid()}.tmp")
         log = open(p.with_suffix(".log"), "w")
-        procs[src] = (subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-I", py_include, "-o", str(tmp),
-             str(CSRC / src)],
+        procs[name] = (subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), *args],
             stdout=log, stderr=subprocess.STDOUT), tmp, log)
     failed = []
-    for src, (proc, tmp, log) in procs.items():
+    for name, (proc, tmp, log) in procs.items():
         rc = proc.wait()
         log.close()
         if rc != 0:
-            failed.append(src)
+            failed.append(name)
             continue
-        os.replace(tmp, paths[src])
+        os.replace(tmp, targets[name][0])
     if failed:
-        logs = "\n".join(paths[s].with_suffix(".log").read_text()[-4000:]
-                         for s in failed)
+        logs = "\n".join(
+            targets[s][0].with_suffix(".log").read_text()[-4000:]
+            for s in failed)
         raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
     if todo:
         build_seconds = time.perf_counter() - t0
-        # the port's analogue of a jit compile: one miss per source built,
+        # the port's analogue of a jit compile: one miss per target built,
         # each with its share of the parallel build's seconds (a cached
         # build notes nothing)
         from nomad_tpu_torch.core.profiling import COMPILE
-        for src in todo:
-            COMPILE.note_miss(f"kernels.nvcc/{src}",
+        for name in todo:
+            COMPILE.note_miss(f"kernels.nvcc/{name}",
                               build_seconds / len(todo))
-    return paths
+    return {name: t[0] for name, t in targets.items()}
+
+
+def build_all(bridge: bool = False) -> Dict[str, Path]:
+    """Compile every source that has no current library yet (and, with
+    `bridge`, the native bridge's library under the name "bridge"), one
+    `nvcc` process each, all started together.  Returns the library
+    paths by name; raises with nvcc's output when a build fails."""
+    return _build(_targets(SOURCES, bridge))
+
+
+def build_bridge() -> Path:
+    """The native bridge's library, built at its first use: one `nvcc
+    -shared` over BRIDGE_SOURCES with -DNTB_NO_PYTHON (no libpython, no
+    libtorch), noted as `kernels.nvcc/bridge`.  Raises with nvcc's
+    output when the build fails."""
+    with _bridge_lock:
+        return _build(_targets((), True))["bridge"]
 
 
 def build_logs() -> Dict[str, str]:
-    """nvcc's output (ptxas register and spill report) per source, from
-    the current build."""
-    tag = _sources_hash()
+    """nvcc's output (ptxas register and spill report) per source (and
+    `bridge`), from the current build."""
     out = {}
-    for src in SOURCES:
-        log = BUILD_DIR / f"{Path(src).stem}.{tag}.log"
+    for name, (path, _) in _targets(SOURCES, True).items():
+        log = path.with_suffix(".log")
         if log.exists():
-            out[src] = log.read_text()
+            out[name] = log.read_text()
     return out
 
 

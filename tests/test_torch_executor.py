@@ -79,13 +79,19 @@ class TestMakeExecutor:
 
     @pytest.mark.parametrize("mesh", [False, True])
     def test_bridge_is_unavailable(self, mesh):
-        eng = (PlacementEngine(device="cpu", mesh=make_mesh(8, "cpu"))
-               if mesh else _engine())
+        """On a CPU engine the native library has no card to drive; a
+        mesh engine is a config error, raised before that (the
+        reference's rule)."""
+        eng = (PlacementEngine(device="cpu", mesh=make_mesh(8, "cpu")) if mesh else _engine())
+        if mesh:
+            with pytest.raises(ValueError, match="agent_config.*mesh"):
+                make_executor("bridge", eng)
+            return
         with pytest.raises(ExecutorUnavailable, match="bridge"):
             make_executor("bridge", eng)
 
     def test_backends_registry(self):
-        assert EXECUTOR_BACKENDS == ("torch",)
+        assert EXECUTOR_BACKENDS == ("torch", "bridge")
 
     def test_base_class_is_abstract(self):
         ex = DeviceExecutor(_engine())

@@ -49,6 +49,25 @@ def test_every_module_imports_without_jax_or_reference():
     assert leaked == "[]"
 
 
+def test_native_bridge_bindings_import_without_torch():
+    """nomad_tpu_torch/native/: the bridge's bindings load a built library
+    with ctypes and numpy alone, so a worker without torch imports them
+    (the walk above imports the package with torch present)."""
+    probe = textwrap.dedent("""
+        import sys
+        for blocked in ("torch", "jax", "nomad_tpu"):
+            sys.modules[blocked] = None
+        import nomad_tpu_torch.native
+        from nomad_tpu_torch.native import bridge
+        print(sorted(bridge.PROGRAMS), bridge.BridgeError.__mro__[1].__name__)
+    """)
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.split() == [
+        "['place_bulk_packed',", "'place_multi_compact_packed',",
+        "'place_multi_packed']", "RuntimeError"]
+
+
 def test_no_source_line_imports_jax_or_reference():
     """Lazy imports inside functions count too."""
     import pathlib

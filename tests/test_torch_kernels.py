@@ -1501,3 +1501,250 @@ def test_agent_launch_failure_surfaces_as_the_worker_record(cuda_device,
     assert K.MULTI_COMPACT.launches == 0
     assert K.PLACE_SCAN.launches + K.MULTI_BULK.launches >= 1
     assert [len(a) for a in allocs] == [10] * 6
+
+
+# ------------------------------------------- the native CUDA bridge
+# (csrc/bridge.cu through native/bridge.py's ctypes bindings): each
+# program word for word against the same kernels through their Python
+# launchers, the resident chain, the compile error, the handle counts,
+# the library's dependencies, a process without torch, and the executor
+
+@pytest.fixture
+def cuda_bridge(cuda_device):
+    from nomad_tpu_torch.native.bridge import CudaBridge
+    br = CudaBridge(torch.cuda.current_device())
+    yield br
+    br.close()
+    assert br.leaked == 0
+
+
+def _host_np(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _bridge_run(br, program, statics, leaves):
+    """One program through the library, every input uploaded from the
+    host: its three outputs fetched (as CPU tensors), every handle
+    freed."""
+    ex = br.compile(program, statics)
+    ins = [br.upload(_host_np(lf)) for _, lf in leaves]
+    outs = br.execute_resident(ex, ins, 3)
+    got = [torch.from_numpy(br.fetch(h)) for h in outs]
+    for h in ins + outs:
+        br.buffer_free(h)
+    return got
+
+
+def _bridge_case(case, device):
+    """(program, statics, leaves, the Python entry's outputs on the card,
+    the library's launchers that must run once) of one BRIDGE_CASES
+    case."""
+    from nomad_tpu_torch.native.bridge import bulk_program, multi_program
+    if case.startswith("k3"):
+        built = _flat_built(spread=case == "k3_spread")
+        inp = _on(built["inp"], device)
+        launchers = {"landscape_pair": 1, "multi_flat": 1}
+        if case == "k3_node_ok_scalar_seed":
+            ok = torch.ones(inp.attrs.shape[0], dtype=torch.bool)
+            ok[::7] = False
+            inp = inp._replace(node_ok=ok.to(device),
+                               seed=torch.tensor(3054198966, device=device))
+            launchers["seed_widen"] = 1
+        prog, st, leaves = multi_program(inp, built["rs"])
+        want = psel.place_multi_packed(inp, built["rs"])
+        if case == "k3_uint32_seed":
+            leaves = [(k, inp.seed.cpu().numpy().astype(np.uint32)
+                       if k == "seed" else v) for k, v in leaves]
+            launchers["seed_widen"] = 1
+    elif case.startswith("k2"):
+        built = _zoned_built(spread=case == "k2_spread")
+        inp = _on(built["inp"], device)
+        cr, cv = frames_from_numpy(built["cand_rows"], built["cand_valid"],
+                                   device)
+        prog, st, leaves = multi_program(inp, built["rs"], cr, cv,
+                                         built["n_lanes"])
+        want = psel.place_multi_compact_packed(inp, cr, cv, built["rs"],
+                                               built["n_lanes"])
+        launchers = {"landscape_affinity": 1, "multi_compact": 1}
+    else:
+        b = _bulk_inputs(device, case == "k6_spread", 200, 700, extra=False)
+        ws = case == "k6_scores"
+        prog, st, leaves = bulk_program(b, 256, 3, ws)
+        want = psel.place_bulk_packed(b, 256, 3, ws)
+        launchers = {"feasible_mask": 1, "landscape_affinity": 1,
+                     "multi_bulk": 1}
+    return prog, st, leaves, want, launchers
+
+
+BRIDGE_CASES = ("k3", "k3_spread", "k3_node_ok_scalar_seed",
+                "k3_uint32_seed", "k2", "k2_spread", "k6", "k6_spread",
+                "k6_scores")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BRIDGE_CASES)
+def test_bridge_program_equals_python_launchers(cuda_device, cuda_bridge,
+                                                case):
+    """K3, K2 and K6 (with their K1/K8 landscapes) through the library
+    equal the same kernels through their Python launchers word for word
+    (f32 score columns as bits); the library launches each of its
+    launchers once and the Python wrappers not at all, and leaves no
+    buffer."""
+    br = cuda_bridge
+    prog, st, leaves, want, launchers = _bridge_case(case, cuda_device)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    br.reset_launches()
+    got = _bridge_run(br, prog, st, leaves)
+    assert {k: v for k, v in br.launches().items() if v} == launchers
+    assert all(k.launches == 0 for k in K.KERNELS)
+    assert br.live_buffers() == 0 and br.live_bytes() == 0
+    _same(got, [w.cpu() for w in want])
+
+
+@pytest.mark.gpu
+def test_bridge_resident_chain(cuda_device, cuda_bridge):
+    """Upload once, execute on handles, chain wave 1's usage output into
+    wave 2 (the usage strictly grows), equal to the Python launcher run
+    from the same usage."""
+    from nomad_tpu_torch.native.bridge import bulk_program, program_inputs
+    br = cuda_bridge
+    b = _bulk_inputs(cuda_device, False, 200, 300, extra=False)
+    prog, st, leaves = bulk_program(b, 256, 2)
+    ex = br.compile(prog, st)
+    handles = [br.upload(_host_np(lf)) for _, lf in leaves]
+    outs = br.execute_resident(ex, handles, 3)
+    used = br.fetch(outs[1])
+    chain = list(handles)
+    chain[program_inputs(prog, st).index("used0")] = outs[1]
+    outs2 = br.execute_resident(ex, chain, 3)
+    used2 = br.fetch(outs2[1])
+    assert used2.sum() > used.sum() > 0
+    want = psel.place_bulk_packed(
+        b._replace(used0=torch.from_numpy(used).to(cuda_device)), 256, 2)
+    _same([torch.from_numpy(br.fetch(h)) for h in outs2],
+          [w.cpu() for w in want])
+    # host in, host out (ntb_execute): wave 1 again
+    host = br.execute(ex, [_host_np(lf) for _, lf in leaves],
+                      [br.buffer_info(h) for h in outs])
+    _same([torch.from_numpy(x) for x in host],
+          [torch.from_numpy(br.fetch(h)) for h in outs])
+    for h in handles + outs + outs2:
+        br.buffer_free(h)
+    assert br.live_buffers() == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("program,statics,match", [
+    ("not a program", (), "unknown program"),
+    ("place_multi_packed", (64, 0), "takes 3 static arguments"),
+    ("place_multi_compact_packed", (2048, 5, 0), "round_size"),
+])
+def test_bridge_compile_error_surfaces(cuda_device, cuda_bridge, program,
+                                       statics, match):
+    from nomad_tpu_torch.native.bridge import BridgeError
+    with pytest.raises(BridgeError, match=match):
+        cuda_bridge.compile(program, statics)
+
+
+@pytest.mark.gpu
+def test_bridge_execute_refuses_bad_inputs(cuda_device, cuda_bridge):
+    """A wrong input count or type comes back as an error, with nothing
+    allocated."""
+    from nomad_tpu_torch.native.bridge import BridgeError, bulk_program
+    br = cuda_bridge
+    b = _bulk_inputs(cuda_device, False, 200, 300, extra=False)
+    prog, st, leaves = bulk_program(b, 256, 2)
+    ex = br.compile(prog, st)
+    handles = [br.upload(_host_np(lf)) for _, lf in leaves]
+    with pytest.raises(BridgeError, match="takes 13 inputs"):
+        br.execute_resident(ex, handles[:-1], 3)
+    bad = list(handles)
+    bad[1] = br.upload(_host_np(b.cap).astype(np.int64))
+    with pytest.raises(BridgeError, match="cap .* is int64"):
+        br.execute_resident(ex, bad, 3)
+    for h in handles + [bad[1]]:
+        br.buffer_free(h)
+    assert br.live_buffers() == 0
+
+
+@pytest.mark.gpu
+def test_bridge_library_links_no_python_or_torch(cuda_device):
+    import subprocess
+
+    from nomad_tpu_torch.native.bridge import build_bridge
+    out = subprocess.run(["readelf", "-d", build_bridge()], check=True,
+                         capture_output=True, text=True).stdout
+    needed = [ln.split("[")[1].rstrip("]") for ln in out.splitlines()
+              if "(NEEDED)" in ln]
+    assert needed
+    assert not [n for n in needed
+                if n.startswith(("libpython", "libtorch", "libc10"))]
+
+
+@pytest.mark.gpu
+def test_bridge_driven_without_torch(cuda_device, cuda_bridge, tmp_path):
+    """A process that cannot import torch drives the K2 program through
+    ctypes and numpy alone and gets the same output bytes."""
+    import hashlib
+    import json
+    import subprocess
+    import sys
+
+    from nomad_tpu_torch.native.bridge import save_program
+    prog, st, leaves, _, _ = _bridge_case("k2", cuda_device)
+    got = _bridge_run(cuda_bridge, prog, st, leaves)
+    save_program(str(tmp_path / "call.npz"), prog, st, leaves)
+    code = ("import sys; sys.modules['torch'] = None; "
+            "from nomad_tpu_torch.native.bridge import main; "
+            "raise SystemExit(main(sys.argv[1:]))")
+    out = subprocess.run(
+        [sys.executable, "-c", code, cuda_bridge.lib_path,
+         str(tmp_path / "call.npz"), str(torch.cuda.current_device())],
+        check=True, capture_output=True, text=True, timeout=120)
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    assert line["platform"] == "gpu" and line["live_buffers"] == 0
+    assert line["sha256"] == [hashlib.sha256(g.numpy().tobytes()).hexdigest()
+                              for g in got]
+
+
+@pytest.mark.gpu
+def test_bridge_executor_waves_equal_torch_executor(cuda_device):
+    """A zoned wave, a wave chained on its usage and a flat wave through
+    BridgeExecutor equal the same waves through TorchExecutor on the
+    card, to the bit; K2, K3 launched through the library only."""
+    from nomad_tpu_torch.ops import BridgeExecutor, TorchExecutor
+    runs = []
+    for backend in (TorchExecutor, BridgeExecutor):
+        h, items, items2 = _card_harness(cuda_device)
+        _, flat = add_jobs(PORT, h, 6, 20, zones=0, prefix="flat")
+        ex = backend(h.engine)
+        snap = h.state.snapshot()
+        K.reset_launches()
+        p1 = ex.dispatch_batch(snap, items,
+                               seed=list(range(1, len(items) + 1)))
+        d1 = ex.collect_batch(p1)
+        ex.retain_chain("b1", 0, ex.chain_state(p1))
+        p2 = ex.dispatch_batch(snap, items2, seed=7,
+                               used0_dev=ex.claim_chain()[2])
+        d2 = ex.collect_batch(p2)
+        p3 = ex.dispatch_batch(snap, flat, seed=5)
+        d3 = ex.collect_batch(p3)
+        torch.cuda.synchronize()
+        assert p2["chained"] and p3["cand_rows"] is None
+        runs.append([np.array(p["buf"].numpy(), copy=True)
+                     for p in (p1, p2, p3)]
+                    + [_host_np(p2["used"]).copy(), _host_np(p3["used"]),
+                       [d.picks.tolist() for d in d1 + d2 + d3]])
+        if backend is BridgeExecutor:
+            assert K.MULTI_COMPACT.launches == K.MULTI_FLAT.launches == 0
+            lib = ex._bridge.launches()
+            assert lib["multi_compact"] == 2 and lib["multi_flat"] == 1
+            del p1, p2, p3
+            ex.close()
+            assert ex._bridge.leaked == 0
+    for a, b in zip(*runs):
+        if isinstance(a, list):
+            assert a == b
+        else:
+            assert np.array_equal(a, b)
