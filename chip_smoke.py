@@ -973,6 +973,20 @@ def server_jobs(s, prefix: str, n_evals: int, per_eval: int, cpu: int,
     return jobs, evals
 
 
+def harness():
+    """A Harness on one device.  With more than one card visible
+    `Harness()`'s engine takes the automatic mesh; the one-device phases,
+    and every single-device twin a mesh is held against, keep one
+    device (`mesh=False`, the Harness's own packer)."""
+    from nomad_tpu_torch.ops import PlacementEngine
+    from nomad_tpu_torch.scheduler import Harness
+
+    h = Harness()
+    if h.engine.mesh is not None:
+        h.engine = PlacementEngine(packer=h.engine.packer, mesh=False)
+    return h
+
+
 def drain(s, evals, deadline_s: float = SERVER_DEADLINE_S) -> float:
     """bench.py run_config_5's drain: the packer synced outside the timed
     window, then start_scheduling, the evals' statuses polled on the
@@ -1093,7 +1107,7 @@ def batched_launches(name, ph, want=SERVER_KERNELS):
 
 
 def server_wave(s, name, jobs, evals, all_jobs, zone_of, n_zones,
-                per_eval, settle=drain):
+                per_eval, settle=drain, kernels=SERVER_KERNELS):
     """One drained wave through the Server's threaded loop
     (drained_wave), with the stage timers, the pipeline's and the
     executor's stats and uploads of the wave.  Gates beyond
@@ -1116,7 +1130,7 @@ def server_wave(s, name, jobs, evals, all_jobs, zone_of, n_zones,
         raise AssertionError(f"{name}: no chain retained after the wave")
     used_matches_store(s, chain[2][0], usage)
     if bridge is None:
-        batched_launches(name, line["launches"])
+        batched_launches(name, line["launches"], kernels)
     else:
         line["bridge_launches"] = bridge_launches(name, bridge,
                                                   line["launches"])
@@ -1140,7 +1154,8 @@ def server_phase(card, launches, n_nodes: int = N_NODES,
                  n_evals: int = N_EVALS, per_eval: int = PER_EVAL,
                  n_zones: int = N_ZONES, device=None,
                  executor: str = "torch", waves=SERVER_WAVES,
-                 beside=None):
+                 beside=None, mesh=False, kernels=SERVER_KERNELS,
+                 extra_line=None):
     """bench.py config 5 through the port's Server in thread mode
     (dev_mode=False, one worker, eval_batch n_evals, the `executor`
     backend): a fresh cluster built through the Server's store,
@@ -1151,8 +1166,11 @@ def server_phase(card, launches, n_nodes: int = N_NODES,
     tensors are freed before the next phase (the store's subscribers
     hold the executor, and through it the engine).  Under the bridge
     the library must hold no buffer after shutdown, and the measured
-    wave's line carries `beside` (the same run's server_wave).  Returns
-    the measured wave's line."""
+    wave's line carries `beside` (the same run's server_wave).  `mesh`
+    goes to the Server (False: one device; None: its automatic rule,
+    which shards over every card when several are visible), `kernels`
+    are the batched kernels each wave must launch, and each line
+    carries `extra`.  Returns the measured wave's line."""
     import weakref
 
     import torch
@@ -1164,7 +1182,7 @@ def server_phase(card, launches, n_nodes: int = N_NODES,
     t0 = time.perf_counter()
     s = Server(dev_mode=False, num_workers=1, eval_batch=n_evals,
                heartbeat_ttl=1e9, nack_timeout=600.0,
-               device_executor=executor, device=device)
+               device_executor=executor, device=device, mesh=mesh)
     engine_ref = weakref.ref(s.engine)
     bridge = s.executor._bridge if executor == "bridge" else None
     try:
@@ -1179,7 +1197,7 @@ def server_phase(card, launches, n_nodes: int = N_NODES,
             all_jobs += jobs
             register_s = time.perf_counter() - t1
             line = server_wave(s, name, jobs, evals, all_jobs, zone_of,
-                               n_zones, per_eval)
+                               n_zones, per_eval, kernels=kernels)
             for k, v in line["launches"].items():
                 launches[k] += v
             for k, v in line.get("bridge_launches", {}).items():
@@ -1193,6 +1211,8 @@ def server_phase(card, launches, n_nodes: int = N_NODES,
                         "wall_s", "evals_per_s", "placements_per_s",
                         "plan_queue_p50_s", "plan_queue_p99_s",
                         "upload_bytes_by_cause", "d2h_bytes")}
+            extra.update(extra_line or {})
+            extra["n_devices"] = s.engine.n_devices
             emit({"phase": name, "card": card, "nodes": n_nodes,
                   "executor": executor, "cluster_build_s": build_s,
                   "register_s": register_s, **line, **extra})
@@ -1293,10 +1313,9 @@ def bridge_phase(card, out_dir: str = ".smoke/bridge"):
         save_program,
     )
     from nomad_tpu_torch.ops import select as psel
-    from nomad_tpu_torch.scheduler import Harness
 
     t0 = time.perf_counter()
-    h = Harness()
+    h = harness()
     build_cluster(h, BRIDGE_NODES, N_ZONES, seed=1)
     _, zevals = register_wave(h, "bridge-zoned", 24, 60, N_ZONES)
     _, fevals = register_wave(h, "bridge-flat", 8, 40, 0)
@@ -1584,7 +1603,7 @@ def pool_phase(card, launches, thread_evals_per_s=None,
     s = Server(dev_mode=False, num_workers=POOL_WORKERS, eval_batch=n_evals,
                heartbeat_ttl=1e9, nack_timeout=600.0,
                device_executor="torch", device=device,
-               worker_mode="process")
+               worker_mode="process", mesh=False)
     engine_ref = weakref.ref(s.engine)
     pool = s.worker_pool
     procs = []
@@ -2475,8 +2494,10 @@ SOAK_RUNS = 2
 SOAK_SCENARIOS = ("split_brain_attempt", "lossy_link_raft_append",
                   "heartbeat_expiry_during_drain")
 # the CLI's -quick rates (cli.py cmd_soak) on 1,000 nodes in 3 zones and
-# no chaos: every synthetic node heartbeats over HTTP every 10 virtual s
-SOAK_FLEET = dict(hours=0.1, n_nodes=1000, n_zones=3, service_per_hour=30,
+# no chaos: every synthetic node heartbeats over HTTP every 10 virtual s;
+# 0.05 virtual hours, cut from 0.1 for the script's time limit (the
+# 0.1-hour run took 80-140 s on the card's host)
+SOAK_FLEET = dict(hours=0.05, n_nodes=1000, n_zones=3, service_per_hour=30,
                   batch_per_hour=30, drains_per_hour=10,
                   flap_storms_per_hour=10, flap_storm_nodes=2,
                   preempt_storms_per_hour=10, chaos_scenarios=())
@@ -3005,6 +3026,13 @@ def eager_replays(zoned_built, flat_built) -> dict:
     def jc0_set():
         jc0[torch.tensor([0], device=dev)] = jrow
 
+    # the mesh across parts: the exchange buffer's zeros (a zoned wave's
+    # on two parts) and K12's frame rows rebased onto a part's rows
+    from nomad_tpu_torch.ops import kernels as K
+    words = K.MULTI_FLAT_XMESH.fn("multi_xmesh_words")(
+        u, 2, min(zoned_built["rs"], zoned_built["cand_rows"].size // u))
+    frame_rows = torch.tensor(zoned_built["cand_rows"], device=dev)
+
     return {
         "prover_con_h2d": (lambda: torch.tensor(np.stack(list(con_np)),
                                                 device=dev),
@@ -3023,6 +3051,10 @@ def eager_replays(zoned_built, flat_built) -> dict:
         "flat_g_job_arange": (lambda: torch.arange(
             g_pad, dtype=torch.int32, device=dev), [g_pad]),
         "solo_used0_delta": (lambda: fin.used0 + fin.used0, [npad, 3]),
+        "xmesh_exchange_zeros": (lambda: torch.zeros(
+            words, dtype=torch.int32, device=dev), [words]),
+        "xmesh_local_rows": (lambda: frame_rows - 1,
+                             list(frame_rows.shape)),
     }
 
 
@@ -3085,11 +3117,15 @@ def bound(n_bytes: int, n_ops: int) -> dict:
 
 
 def tree_map(fn, x):
-    """`x` (a tensor, or an inputs tuple or argument list holding some)
-    with `fn` applied to every tensor."""
+    """`x` (a tensor, a mesh's `Parts`, or an inputs tuple or argument
+    list holding some) with `fn` applied to every tensor."""
     import torch
+
+    from nomad_tpu_torch.parallel.xmesh import Parts
     if isinstance(x, torch.Tensor):
         return fn(x)
+    if isinstance(x, Parts):
+        return Parts([fn(b) for b in x.blocks], x.axis)
     if isinstance(x, tuple) and hasattr(x, "_fields"):
         return type(x)(*[tree_map(fn, v) for v in x])
     if isinstance(x, (tuple, list)):
@@ -3872,7 +3908,6 @@ def bridge_main() -> int:
 
     from nomad_tpu_torch.ops import TorchExecutor
     from nomad_tpu_torch.ops import kernels as K
-    from nomad_tpu_torch.scheduler import Harness
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3888,7 +3923,7 @@ def bridge_main() -> int:
                            if "registers" in ln or "spill" in ln][:8]})
     launches = {k.name: 0 for k in K.KERNELS}
     bridge_phase(card)
-    h = Harness()
+    h = harness()
     executor = TorchExecutor(h.engine)
     build_cluster(h, N_NODES, N_ZONES)
     h.engine.packer.update(h.snapshot())
@@ -3938,7 +3973,6 @@ def bulk_layouts_main() -> int:
     import nomad_tpu_torch.ops.engine as E
     from nomad_tpu_torch import mock
     from nomad_tpu_torch.ops import kernels as K
-    from nomad_tpu_torch.scheduler import Harness
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3946,7 +3980,7 @@ def bulk_layouts_main() -> int:
     K.build_all()
     rec = Recorder()
     rec.wrap(E, "place_bulk_packed", "bulk")
-    h = Harness()
+    h = harness()
     bench_cluster(h, 1000)
     h.engine.packer.update(h.snapshot())
     rec.phase = "bulk_eval"
@@ -3970,7 +4004,6 @@ def solo_phases(card, launches):
     import nomad_tpu_torch.scheduler.system as SY
     from nomad_tpu_torch import mock
     from nomad_tpu_torch.ops import kernels as K
-    from nomad_tpu_torch.scheduler import Harness
     from nomad_tpu_torch import structs
     from nomad_tpu_torch.structs import (
         PreemptionConfig, Resources, SchedulerConfiguration, Task, TaskGroup)
@@ -3997,7 +4030,7 @@ def solo_phases(card, launches):
               "eager": eager})
 
     # config 1: one node, 3 groups x 2
-    h1 = Harness()
+    h1 = harness()
     bench_cluster(h1, 1)
 
     def dev_eval():
@@ -4016,7 +4049,7 @@ def solo_phases(card, launches):
     phase("dev_eval", ("place_scan",), dev_eval)
 
     # config 2: 1,000 nodes, one batch job of 10,000
-    h2 = Harness()
+    h2 = harness()
     n2 = len(bench_cluster(h2, 1000))
     h2.engine.packer.update(h2.snapshot())
 
@@ -4035,7 +4068,7 @@ def solo_phases(card, launches):
     del h2
 
     # config 3: 5,000 nodes in 3 DCs, spread 50/30/20 + rack affinity
-    h3 = Harness()
+    h3 = harness()
     n3 = len(bench_cluster(h3, 5000, n_dcs=3))
     h3.engine.packer.update(h3.snapshot())
 
@@ -4060,7 +4093,7 @@ def solo_phases(card, launches):
     phase("spread_eval", ("landscape", "place_scan"), spread_eval)
 
     # config 4: 500 full nodes, then 125 high-priority placements
-    h4 = Harness()
+    h4 = harness()
     nodes4 = bench_cluster(h4, 500, cpu=4000, mem=8192)
     h4.state.set_scheduler_config(SchedulerConfiguration(
         preemption_config=PreemptionConfig(
@@ -4563,7 +4596,6 @@ def mesh_phases(card, launches, waves, solo_placed):
     import nomad_tpu_torch.parallel.mesh as PM
     from nomad_tpu_torch import mock, structs
     from nomad_tpu_torch.ops import kernels as K
-    from nomad_tpu_torch.scheduler import Harness
 
     rec = Recorder()
     for attr, kind in (("place_sharded_packed", "scan"),
@@ -4590,7 +4622,7 @@ def mesh_phases(card, launches, waves, solo_placed):
 
     # mesh_waves: a second cluster built as the first, the harness's own
     # single-device engine kept as the twin
-    h = Harness()
+    h = harness()
     t0 = time.perf_counter()
     zone_of = build_cluster(h, N_NODES, N_ZONES)
     registered = [register_wave(h, name, n_ev, per, zones)
@@ -4646,7 +4678,7 @@ def mesh_phases(card, launches, waves, solo_placed):
 
     # mesh_solo: config 3 (K9) and config 2 (K10)
     def mesh_solo_eval(label, n_nodes, n_dcs, job, kind, ordered):
-        hm = Harness()
+        hm = harness()
         bench_cluster(hm, n_nodes, n_dcs=n_dcs)
         hm.engine = mesh_engine(hm)
         hm.engine.packer.update(hm.snapshot())
@@ -4847,6 +4879,469 @@ def mesh_kernel_phase(rec, barrier_ms, dsmem_ms):
     return rows
 
 
+# ------------------------------------------------- the mesh across parts
+
+# the launches each xmesh wave must make (on every part: at least one
+# launch a part of each)
+XMESH_MUST = {"zoned_wave": ("multi_compact_xmesh",),
+              "chained_wave": ("multi_compact_xmesh",),
+              "small_zoned_wave": ("multi_compact_xmesh",),
+              "flat_wave": ("multi_flat_xmesh", "scatter_add_xmesh")}
+XMESH_SERVER_WAVES = (("xmesh_server_wave", 1),)
+XMESH_PROBE_ROUNDS = 20000
+
+
+def xmesh_devices() -> list:
+    """The parts of the xmesh phases: one a card when more than one card
+    is visible, else two parts of cuda:0."""
+    import torch
+
+    n = torch.cuda.device_count()
+    return ([f"cuda:{i}" for i in range(n)] if n > 1
+            else ["cuda:0", "cuda:0"])
+
+
+def xmesh_where(mesh) -> dict:
+    cards = len({d.index for d in mesh.parts})
+    return {"cards": cards, "parts": mesh.n_parts, "shards": mesh.n_shards,
+            "part_devices": [str(d) for d in mesh.parts],
+            "layout": "cross_card" if cards > 1 else "one_card"}
+
+
+def parts_gate(name, engine, used, npad):
+    """Each part's node tensors (the engine's node table and usage, and
+    the wave's usage output) lie on the part's own device with npad / D
+    rows."""
+    from nomad_tpu_torch.parallel.xmesh import Parts
+
+    mesh = engine.mesh
+    held = dict(engine._dev_cache)
+    held["wave_used"] = used
+    if engine._used_dev is not None:
+        held["used"] = engine._used_dev
+    for key, t in held.items():
+        if not isinstance(t, Parts) or len(t.blocks) != mesh.n_parts:
+            raise AssertionError(f"{name}: {key} is not held by part")
+        for b, d in zip(t.blocks, mesh.parts):
+            if (b.device != d or b.shape[t.axis] != npad // mesh.n_parts):
+                raise AssertionError(f"{name}: {key} block {b.shape} on "
+                                     f"{b.device}, want {npad // mesh.n_parts}"
+                                     f" rows on {d}")
+    return {"rows_per_part": npad // mesh.n_parts, "tensors": sorted(held)}
+
+
+def same_bytes(name, a, b):
+    import numpy as np
+
+    a = np.asarray(a.cpu().numpy() if hasattr(a, "cpu") else a)
+    b = np.asarray(b.cpu().numpy() if hasattr(b, "cpu") else b)
+    if a.shape != b.shape or a.tobytes() != b.tobytes():
+        raise AssertionError(f"{name}: buffers differ from the one-card "
+                             "8-shard mesh's")
+
+
+def xmesh_phases(card, launches, waves, solo_placed=None):
+    """The mesh across parts (8 shards over xmesh_devices()) over a fresh
+    config-5 cluster: the four waves, each eval held against the
+    single-device engine (parity_gate) and its packed buffers against
+    the one-card 8-shard mesh's at the same snapshot and seeds, byte for
+    byte; each part's node tensors on its own device (parts_gate); then
+    config 3's spread eval (K9) and config 2's bulk eval (K10) through a
+    Harness on the mesh, held against the single-device evals'
+    placements (`solo_placed`, or run here).  Returns the Recorder of
+    the phases' inputs and the mesh."""
+    import torch
+
+    import nomad_tpu_torch.parallel.mesh as PM
+    from nomad_tpu_torch import mock, structs
+    from nomad_tpu_torch.ops import PlacementEngine
+    from nomad_tpu_torch.parallel import xmesh as X
+
+    mesh = PM.make_mesh(MESH_SHARDS, xmesh_devices())
+    where = xmesh_where(mesh)
+    rec = Recorder()
+    for attr, kind in (("place_sharded_packed", "scan"),
+                       ("place_bulk_sharded_packed", "bulk"),
+                       ("place_multi_sharded_packed", "flat"),
+                       ("place_multi_compact_sharded", "compact"),
+                       ("place_multi_compact_sharded_chained",
+                        "compact_chained"),
+                       ("scatter_add_sharded_", "scatter")):
+        rec.wrap(PM, attr, kind)
+
+    def phase(name, must, body):
+        reset_counts()
+        out = body()
+        ph, eager = read_counts(name)
+        for k, v in ph.items():
+            launches[k] += v
+        if min(ph[k] for k in must) < mesh.n_parts:
+            raise AssertionError(f"{name} launches {ph}, want {must} on "
+                                 f"each of {mesh.n_parts} parts")
+        emit({"phase": name, "card": card, **where, **out,
+              "launches": ph, "eager": eager})
+
+    def xmesh_engine(hh):
+        eng = PlacementEngine(mesh=mesh)
+        eng.packer.attach(hh.state)
+        return eng
+
+    h = harness()
+    t0 = time.perf_counter()
+    zone_of = build_cluster(h, N_NODES, N_ZONES)
+    registered = [register_wave(h, "x" + name, n_ev, per, zones)
+                  for name, n_ev, per, zones, _, _ in waves]
+    solo = h.engine
+    one = mesh_engine(h)
+    h.engine = xmesh_engine(h)
+    for eng in (solo, one, h.engine):
+        eng.packer.update(h.snapshot())
+    emit({"phase": "xmesh_cluster", **where, "nodes": N_NODES,
+          "zones": N_ZONES, "build_s": time.perf_counter() - t0})
+    all_jobs = []
+    prev = {}
+    for (name, n_ev, per, zones, chained, _), (jobs, evals) in zip(
+            waves, registered):
+        all_jobs += jobs
+
+        def wave():
+            snap, scheds, preps, items, seeds = prepare(h, evals)
+            chain = {k: ((p["used"], p["node_version"], p["npad"])
+                         if chained else None) for k, p in prev.items()}
+            tw = solo.dispatch_batch(snap, items, seed=seeds,
+                                     used0_dev=chain.get("solo"))
+            tw_dec = solo.collect_batch(tw)
+            oc = one.dispatch_batch(snap, items, seed=seeds,
+                                    used0_dev=chain.get("one"))
+            one.collect_batch(oc)
+            torch.cuda.synchronize()
+            rec.phase = "xmesh_" + name
+            t1 = time.perf_counter()
+            pend = h.engine.dispatch_batch(snap, items, seed=seeds,
+                                           used0_dev=chain.get("xmesh"))
+            dec = h.engine.collect_batch(pend)
+            torch.cuda.synchronize()
+            place_s = time.perf_counter() - t1
+            rec.phase = None
+            X.check(mesh)
+            if bool(pend["chained"]) != chained:
+                raise AssertionError(f"{name}: chained={pend['chained']}")
+            if zones and (pend["cand_rows"] is None
+                          or pend["cand_rows"].shape[:2]
+                          != (MESH_SHARDS, zones)):
+                raise AssertionError(f"xmesh {name} did not take the "
+                                     f"sharded compact path")
+            if not zones and pend["cand_rows"] is not None:
+                raise AssertionError(f"xmesh {name} took the compact path")
+            parity_gate(dec, tw_dec)
+            same_bytes(name, pend["buf"], oc["buf"])
+            if pend["fills_full"] is not None:
+                same_bytes(name + " fills", pend["fills_full"],
+                           oc["fills_full"])
+            for ev, s, prep, bd in zip(evals, scheds, preps, dec):
+                err = s.finalize_batched(ev, s.submit_batched(ev, prep, bd))
+                if err is not None:
+                    raise RuntimeError(f"eval {ev.id} failed: {err}")
+            placed, usage = check_store(h, jobs, per, all_jobs, zone_of,
+                                        zones)
+            used_matches_store(h, pend["used"], usage)
+            rows = parts_gate(name, h.engine, pend["used"], pend["npad"])
+            prev.update(solo=tw, one=oc, xmesh=pend)
+            return {"evals": n_ev, "placements": placed,
+                    "lanes": pend["n_lanes"], "round_size": pend["rs"],
+                    "place_s": place_s,
+                    "placements_per_s": placed / place_s,
+                    "parity_gate": "sorted picks and nodes_filtered equal "
+                    "to the single-device engine's; packed buffers equal "
+                    "to the one-card 8-shard mesh's, byte for byte",
+                    **rows,
+                    "collective_bytes": pend["collective_bytes"],
+                    "shard_h2d_bytes": pend["shard_h2d_bytes"]}
+
+        phase("xmesh_" + name, XMESH_MUST[name], wave)
+    del h, solo, one, prev, registered
+
+    def xmesh_solo_eval(label, n_nodes, n_dcs, make_job, kind, ordered):
+        want = (solo_placed or {}).get(label)
+        if want is None:
+            hs = harness()
+            bench_cluster(hs, n_nodes, n_dcs=n_dcs)
+            job = make_job()
+            process(hs, job, kind)
+            want = alloc_view(hs, job)
+            del hs
+        hm = harness()
+        bench_cluster(hm, n_nodes, n_dcs=n_dcs)
+        hm.engine = xmesh_engine(hm)
+        hm.engine.packer.update(hm.snapshot())
+        job = make_job()
+        rec.phase = "xmesh_" + label
+        dt = process(hm, job, kind)
+        rec.phase = None
+        X.check(mesh)
+        got = alloc_view(hm, job)
+        check_capacity(hm)
+        same = (got == want if ordered
+                else sorted(got.values()) == sorted(want.values()))
+        if not same or len(got) != job.task_groups[0].count:
+            raise AssertionError(f"xmesh {label}: placements differ from "
+                                 "the single-device eval's")
+        return {"nodes": n_nodes, "placements": len(got), "eval_s": dt,
+                "placements_per_s": len(got) / dt,
+                "parity": "picks in order" if ordered
+                else "picks as sorted lists",
+                "collective_bytes": hm.engine.collective_bytes}
+
+    phase("xmesh_spread_eval", ("place_scan_xmesh",),
+          lambda: xmesh_solo_eval("spread_eval", 5000, 3,
+                                  lambda: config3_job(mock, structs),
+                                  "service", True))
+    phase("xmesh_bulk_eval", ("multi_bulk_xmesh",),
+          lambda: xmesh_solo_eval("bulk_eval", 1000, 1,
+                                  lambda: config2_job(mock), "batch",
+                                  False))
+    torch.cuda.synchronize()
+    return rec, mesh
+
+
+def gathered(x):
+    """`x` with every `Parts` gathered to its home device."""
+    from nomad_tpu_torch.parallel.xmesh import Parts
+
+    if isinstance(x, Parts):
+        return x.gather()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*[gathered(v) for v in x])
+    return x
+
+
+def cpu_timed(fn):
+    """(fn(), its host ms): a plain version's run on CPU copies."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def xmesh_exchange_us(mesh, rounds: int = XMESH_PROBE_ROUNDS) -> float:
+    """The exchange across the mesh's parts, per round trip (one post
+    and the gather of every part's, csrc/xmesh.cuh, one warp a part):
+    µs a round over `rounds` rounds (xmesh.exchange_probe)."""
+    from nomad_tpu_torch.parallel import xmesh as X
+
+    X.exchange_probe(mesh, 100)
+    return X.exchange_probe(mesh, rounds) * 1e3 / rounds
+
+
+def xmesh_kernel_phase(rec, mesh, barrier_ms):
+    """K9-K13 across parts against their plain cross-part versions on
+    CPU copies of the xmesh phases' own inputs (on a CPU mesh of as many
+    parts), exact; each row's ms, plain ms (the CPU run), bound (the
+    function's bytes and operations, as the one-card rows count them),
+    the exchange's µs a round trip, and for K13 index_add_'s ms."""
+    import torch
+
+    import nomad_tpu_torch.parallel.mesh as PM
+    from nomad_tpu_torch.ops import kernels as K
+    from nomad_tpu_torch.parallel import xmesh as X
+
+    cpu_mesh = PM.make_mesh(MESH_SHARDS, ["cpu"] * mesh.n_parts)
+    one_us = xmesh_exchange_us(PM.make_mesh(
+        MESH_SHARDS, [mesh.device] * mesh.n_parts))
+    cross_us = (xmesh_exchange_us(mesh)
+                if len({d.index for d in mesh.parts}) > 1 else None)
+    xch = {"exchange_us": cross_us if cross_us is not None else one_us,
+           "exchange_one_card_us": one_us, "exchange_cross_card_us": cross_us}
+    rows = []
+    tensors = lambda x: [v for v in x if isinstance(v, torch.Tensor)]
+
+    def done(name, got, want_cpu, **kw):
+        X.check(mesh)
+        return check_exact(name, got, want_cpu, **kw)
+
+    # K9: the xmesh spread eval's scan
+    inp, _ = rec.get("xmesh_spread_eval", "scan")
+    got = PM.place_sharded_packed(inp, mesh)
+    want_cpu, plain_ms = cpu_timed(
+        lambda: PM.place_sharded_packed(to_cpu(inp), cpu_mesh))
+    err = done("place_scan_xmesh", got, want_cpu, score_cols=[1, 5, 6, 7])
+    g = gathered(inp)
+    steps = scan_steps(g, got[0])
+    n, p = g.attrs.shape[0], g.tg_idx.shape[0]
+    real = steps["active"] + steps["inactive"]
+    rows.append(dict(
+        kernel=K.PLACE_SCAN_XMESH, max_abs_err=err,
+        **timing(lambda: PM.place_sharded_packed(inp, mesh), 3),
+        plain_ms=plain_ms, plain_on="cpu", library_ms=None,
+        bytes=fn_bytes(tensors(g), g.attrs, g.luts, g.con, g.aff)
+        + p * 14 * 4 + n * 16, ops=scan_ops(g, steps), steps=steps,
+        exchanges=real, depth_ms=None, **xch))
+
+    # K10: the xmesh bulk eval's rounds
+    binp, _, rs, n_rounds = rec.get("xmesh_bulk_eval", "bulk")
+    got = PM.place_bulk_sharded_packed(binp, mesh, rs, n_rounds)
+    want_cpu, plain_ms = cpu_timed(lambda: PM.place_bulk_sharded_packed(
+        to_cpu(binp), cpu_mesh, rs, n_rounds))
+    err = done("multi_bulk_xmesh", got, want_cpu, packed=True)
+    gb = gathered(binp)
+    st = bulk_stats(K.MULTI_BULK_XMESH, gb, rs, n_rounds, got[0],
+                    got[0][:, :rs],
+                    fn_bytes(tensors(gb), gb.attrs, gb.luts, gb.con, gb.aff)
+                    + nbytes(got[0]) + got[1].nbytes + got[2].nbytes,
+                    barrier_ms)
+    rows.append(dict(
+        kernel=K.MULTI_BULK_XMESH, max_abs_err=err,
+        **timing(lambda: PM.place_bulk_sharded_packed(binp, mesh, rs,
+                                                        n_rounds), 5),
+        plain_ms=plain_ms, plain_on="cpu", library_ms=None,
+        bytes=st["bytes"], ops=st["ops"], steps=st["steps"],
+        exchanges=st["steps"]["computed"][0], depth_ms=None, **xch))
+
+    # K11: the xmesh flat wave's launch
+    fin, _, frs = rec.get("xmesh_flat_wave", "flat")
+    got = PM.place_multi_sharded_packed(fin, mesh, frs)
+    want_cpu, plain_ms = cpu_timed(lambda: PM.place_multi_sharded_packed(
+        to_cpu(fin), cpu_mesh, frs))
+    err = done("multi_flat_xmesh", got, want_cpu, packed=True)
+    gf = gathered(fin)
+    st = flat_stats(K.MULTI_FLAT_XMESH, gf, frs, got[0], got[0][:, :frs],
+                    flat_bytes(gf, [got[0], got[1].gather(),
+                                    got[2].gather()]), barrier_ms)
+    rows.append(dict(
+        kernel=K.MULTI_FLAT_XMESH, max_abs_err=err,
+        **timing(lambda: PM.place_multi_sharded_packed(fin, mesh, frs), 5),
+        plain_ms=plain_ms, plain_on="cpu", library_ms=None,
+        bytes=st["bytes"], ops=st["ops"], steps=st["steps"],
+        exchanges=st["steps"]["computed"][0], depth_ms=None, **xch))
+
+    # K12: the xmesh zoned wave's launch, and the chained wave's
+    zin, cr, cv, _, rs, lanes = rec.get("xmesh_zoned_wave", "compact")
+    got = PM.place_multi_compact_sharded(zin, cr, cv, mesh, rs, lanes)
+    want_cpu, plain_ms = cpu_timed(lambda: PM.place_multi_compact_sharded(
+        to_cpu(zin), to_cpu(cr), to_cpu(cv), cpu_mesh, rs, lanes))
+    err = done("multi_compact_xmesh", got, want_cpu, packed=True)
+    used0, cin, ccr, ccv, _, crs, clanes = rec.get("xmesh_chained_wave",
+                                                   "compact_chained")
+    cgot = PM.place_multi_compact_sharded_chained(
+        used0.clone(), cin, ccr, ccv, mesh, crs, clanes)
+    err = max(err, done(
+        "multi_compact_xmesh chained", cgot,
+        PM.place_multi_compact_sharded_chained(
+            to_cpu(used0), to_cpu(cin), to_cpu(ccr), to_cpu(ccv),
+            cpu_mesh, crs, clanes), packed=True))
+    gz, gcr, gcv = gathered(zin), gathered(cr), gathered(cv)
+    valid_l = gcv.sum(dim=(0, 2)).cpu().tolist()
+    counts = compact_steps(gz, lanes, got, min(rs, MESH_SHARDS
+                                               * gcr.shape[-1]),
+                           lambda lane, g: valid_l[lane])
+    rows.append(dict(
+        kernel=K.MULTI_COMPACT_XMESH, max_abs_err=err,
+        **timing(lambda: PM.place_multi_compact_sharded(
+            zin, cr, cv, mesh, rs, lanes), 5),
+        plain_ms=plain_ms, plain_on="cpu", library_ms=None,
+        bytes=nbytes(gz.cap, gz.used0, gcr, gcv, gz.aff, gz.req,
+                     gz.desired, gz.dh_limit, gz.g_aff, gz.g_job,
+                     gz.seed, gz.job_count0, gz.round_g, gz.round_want)
+        + nbytes(got[0], got[1]) + got[2].nbytes,
+        ops=compact_ops(counts, MESH_SHARDS), steps=counts,
+        exchanges=max(counts["computed"]), depth_ms=None, **xch))
+
+    # K13: the xmesh flat wave's replay chunk
+    used, r13, v13, _ = rec.get("xmesh_flat_wave", "scatter")
+    got = PM.scatter_add_sharded_(used.clone(), r13, v13, mesh)
+    want_cpu, plain_ms = cpu_timed(lambda: PM.scatter_add_sharded_(
+        to_cpu(used), r13.cpu(), v13.cpu(), cpu_mesh))
+    err = check_exact("scatter_add_xmesh", [got], [want_cpu])
+    work = used.clone()
+    whole = used.gather()
+    r13l = r13.long()
+    m = r13.shape[0]
+    rows.append(dict(
+        kernel=K.SCATTER_ADD_XMESH, max_abs_err=err,
+        **paired_timing(
+            lambda: PM.scatter_add_sharded_(work, r13, v13, mesh),
+            lambda: whole.index_add_(0, r13l, v13)),
+        plain_ms=plain_ms, plain_on="cpu",
+        bytes=nbytes(r13, v13) + 2 * m * 3 * 4, ops=m * 3, depth_ms=None,
+        replay_rows=m, exchange_us=None))
+    X.check(mesh)
+    for r in rows:
+        r.update(bound(r["bytes"], r["ops"]))
+        r["barrier_ms"] = barrier_ms
+        r.update(xmesh_where(mesh))
+    return rows, xch
+
+
+def xmesh_server_phase(card, launches):
+    """config 5's zoned wave through a Server on the mesh across parts:
+    with more than one card `Server()` with no mesh argument (its
+    automatic mesh), else `Server(mesh=make_mesh(8, ["cuda:0",
+    "cuda:0"]))`."""
+    import torch
+
+    from nomad_tpu_torch.parallel import make_mesh
+
+    auto = torch.cuda.device_count() > 1
+    mesh = None if auto else make_mesh(MESH_SHARDS, xmesh_devices())
+    return server_phase(
+        card, launches, waves=XMESH_SERVER_WAVES, mesh=mesh,
+        kernels=("landscape", "multi_compact_xmesh"),
+        extra_line={"mesh": "automatic" if auto else
+                    "make_mesh(8, ['cuda:0', 'cuda:0'])"})
+
+
+def xmesh_all(card, launches, barrier_ms, solo_placed=None):
+    """The xmesh phases, their kernel checks and the Server on the mesh;
+    returns the kernel rows."""
+    import torch
+
+    waves = [("zoned_wave", N_EVALS, PER_EVAL, N_ZONES, False, ()),
+             ("chained_wave", N_EVALS, PER_EVAL, N_ZONES, True, ()),
+             ("small_zoned_wave", SMALL_EVALS, PER_EVAL, N_ZONES, False,
+              ()),
+             ("flat_wave", FLAT_EVALS, FLAT_PER_EVAL, 0, False, ())]
+    xrec, mesh = xmesh_phases(card, launches, waves, solo_placed)
+    xrows, xch = xmesh_kernel_phase(xrec, mesh, barrier_ms)
+    del xrec
+    torch.cuda.synchronize()
+    emit({"phase": "xmesh_kernel_checks", "card": card,
+          "tolerance": "exact", **xmesh_where(mesh), **xch,
+          "checks": [{k: (v.name if k == "kernel" else v)
+                      for k, v in r.items() if k[0] != "_"}
+                     for r in xrows]})
+    xmesh_server_phase(card, launches)
+    return xrows
+
+
+def xmesh_main() -> int:
+    """`chip_smoke.py --xmesh`: the kernels built, then the xmesh phases
+    alone (their own single-device twins for the solo evals), their
+    kernel rows and the launches they made, and the contract's last
+    line.  The whole script runs the same phases after
+    mesh_kernel_checks."""
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as K
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    card = card_line()
+    K.build_all()
+    launches = {k.name: 0 for k in K.KERNELS}
+    rows = xmesh_all(card, launches, barrier_round_ms())
+    device_phase(rows)
+    emit({"phase": "xmesh_device_times", "card": card,
+          "rows": [{"name": r["kernel"].name, "ms": r["ms"],
+                    "device_ms": r["device_ms"],
+                    "library_ms": r["library_ms"]} for r in rows]})
+    emit({"launches": {k: v for k, v in launches.items() if v}})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 # ------------------------------------------------------------- main
 
 def main() -> int:
@@ -4860,7 +5355,6 @@ def main() -> int:
     from nomad_tpu_torch.ops import kernels as K
     from nomad_tpu_torch.ops import TorchExecutor
     from nomad_tpu_torch.ops.feasibility import feasible_mask
-    from nomad_tpu_torch.scheduler import Harness
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -4876,7 +5370,7 @@ def main() -> int:
                     for src, log in K.build_logs().items()}})
 
     # cluster + the four waves' jobs, registered up front
-    h = Harness()
+    h = harness()
     executor = TorchExecutor(h.engine)
     executor.attach_store(h.state)
     t0 = time.perf_counter()
@@ -5015,12 +5509,19 @@ def main() -> int:
     mrec = mesh_phases(card, launches, waves, rec.placed)
     k8_calls = {"system_eval": [(feasible_mask,
                                  rec.get("system_eval", "feasible"))]}
+    solo_placed = rec.placed
     del rec
     mrows = mesh_kernel_phase(mrec, krows[0]["barrier_ms"], dsmem_ms)
+    del mrec
     torch.cuda.synchronize()
     emit({"phase": "mesh_kernel_checks", "card": card, "tolerance": "exact",
           "checks": [{k: (v.name if k == "kernel" else v)
                       for k, v in r.items() if k[0] != "_"} for r in mrows]})
+    # 16. the mesh across parts: the four waves and two solo evals over
+    # parts (one a card, or two on one card), their kernels against the
+    # plain cross-part versions, the exchange probe, and a wave through
+    # a Server on the mesh
+    xrows = xmesh_all(card, launches, krows[0]["barrier_ms"], solo_placed)
 
     # K4's launch path split, then every row's device window (after all
     # wall-time measurements)
@@ -5031,7 +5532,7 @@ def main() -> int:
     lp["card"] = card
     eager = eager_phase(replays)
     eager["card"] = card
-    device_by = device_phase(krows + srows + mrows)
+    device_by = device_phase(krows + srows + mrows + xrows)
     emit(lp)
     emit(eager)
     emit({"phase": "device_times", "card": card, "source": device_by,
@@ -5040,14 +5541,14 @@ def main() -> int:
                     "library_ms": r["library_ms"],
                     "library_device_ms": r["library_device_ms"],
                     **{k: r[k] for k in ("layouts", "large") if k in r}}
-                   for r in krows + srows + mrows]})
+                   for r in krows + srows + mrows + xrows]})
 
     missing = [k for k, v in launches.items() if v < 1]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
     kernels = []
-    for r in krows + srows + mrows:
+    for r in krows + srows + mrows + xrows:
         k = r["kernel"]
         kernels.append({
             "name": k.name, "route": "cuda",
@@ -5070,7 +5571,7 @@ def main() -> int:
 
 MAINS = {"--bulk-layouts": bulk_layouts_main, "--bridge": bridge_main,
          "--cluster": cluster_main, "--pool": pool_main,
-         "--soak": soak_main}
+         "--soak": soak_main, "--xmesh": xmesh_main}
 
 if __name__ == "__main__":
     if sys.argv[1:] and (len(sys.argv) > 2 or sys.argv[1] not in MAINS):

@@ -25,10 +25,12 @@ port runs on PyTorch and CUDA, not JAX:
     and any other name, "jax" included, raises ValueError.  `shutdown`
     also releases the executor (`DeviceExecutor.release`: the bridge
     frees its device buffers; nothing for "torch");
-  - `mesh` takes the port engine's meaning: None or False is one
-    device (no automatic sharding), a `parallel.mesh.Mesh` is that many
-    shards of the node axis on the one card, and a mesh across cards
-    raises;
+  - `mesh` takes the port engine's meaning, the reference's: None
+    shards automatically over every card when the engine's device is
+    CUDA and more than one card is visible (`parallel.mesh.default_mesh`,
+    one shard a card; one device otherwise), False is one device, a
+    `parallel.mesh.Mesh` is that many shards of the node axis over its
+    parts (one card, or several: parallel/xmesh.py);
   - `worker_mode` is checked first, before any store or thread is
     built.  In "process" mode the pool's children have no engine: their
     solo placements run on this Server's engine (core/workerpool.py).
@@ -182,11 +184,12 @@ class Server:
         from nomad_tpu_torch.core.fanout import WatchHub
         self.watch_hub = WatchHub(self.state, self.clock)
         # `device`: the engine's torch device, CUDA unless given (raises
-        # without CUDA).  `mesh`: None or False = one device, or a
-        # parallel.mesh.Mesh = that many shards of the node axis on the
-        # engine's one card (a mesh across cards raises) — forwarded to
-        # PlacementEngine (the sharded-vs-single A/B and the sharded
-        # parity suite both need the explicit override)
+        # without CUDA).  `mesh`: None = auto (shard the node axis over
+        # every card when more than one is visible), False = one device,
+        # or a parallel.mesh.Mesh = that many shards of the node axis
+        # over its parts — forwarded to PlacementEngine (the
+        # sharded-vs-single A/B and the sharded parity suite both need
+        # the explicit override)
         self.engine = PlacementEngine(device=device, mesh=mesh)
         self.engine.packer.attach(self.state)
         # pluggable device executor (ops/executor.py, agent_config

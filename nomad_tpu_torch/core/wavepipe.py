@@ -324,7 +324,9 @@ class WavePipeline:
                 # the pipeline's ONE deliberate sync point: collect()
                 # exists to pay this wait, after the successor wave has
                 # already been dispatched (a CUDA event, or the bridge's
-                # result fetch).  The profiling marker pins
+                # result fetch; on a mesh of parts the event follows
+                # every part's, which the home stream waits on before
+                # the result's copy: parallel/xmesh.py).  The profiling marker pins
                 # the sampler's classification — the GIL is released in
                 # here, so these samples are device-wait, not host time
                 with profiling.activity("device-wait"):

@@ -116,6 +116,24 @@
 // exchange; a memoised step none; K3 adds 3 at a signature change.  The
 // last block of a lane may hold fewer rows; frames of any size are
 // accepted.
+//
+// Across parts (parallel/xmesh.py: K12 "multi_compact_xmesh", K11
+// "multi_flat_xmesh", K10 "multi_bulk_xmesh", the same reference
+// functions on a mesh of several devices): one launch a part over its
+// own frames and rows, the lane's frame being the parts' frames laid
+// end to end (global slot = the part's first slot + its own).  After
+// the cluster's exchange warp 0 merges its blocks' posts into the
+// part's post (its top TOPB entries, its counts), block 0 posts it to
+// every part (csrc/xmesh.cuh), and the decision runs over the D posts
+// as it ran over the blocks'.  A wide step first selects the part's own
+// top min(T, its slots) and ranks them as above; block 0 posts them in
+// rank order, and every block ranks the D lists' entries (an entry's
+// rank in its list plus, by binary search, the keys above it in every
+// other list) and water-fills the top T.  Only the owning part's block
+// commits a fill; part 0 writes the rows.  Each part's usage (and K11's
+// job counts) are its own rows.  What bounds it: one exchange through
+// global memory per computed step (two on a wide step) on top of the
+// one-card depth.
 
 #include "py_launchers.cuh"  // first: it includes Python.h
 #include <cooperative_groups.h>
@@ -148,6 +166,17 @@ constexpr int MAX_CB = 16;         // blocks a cluster (K3's frames; K2 and
 constexpr unsigned F_VALID = 1, F_FIT = 2, F_LT0 = 4;
 
 #include "score_common.cuh"
+#include "xmesh.cuh"
+
+constexpr int MAX_PARTS = 8;       // parts of a mesh across parts (8 x
+                                   // TOPB posts in one warp)
+constexpr int NSTRIDE = 48;        // words of a part's narrow slot: the
+                                   // stamp, its XW-word post, padding
+// words of a part's wide slot: the stamp, its entry count, padding, then
+// its T entries in rank order (key hi lo, GV values)
+__host__ __device__ constexpr long long wide_stride(int kk) {
+  return (4ll + 10ll * kk + 3) / 4 * 4;
+}
 
 // Frames are [S, L, nc] (K2 and K3: S = 1; K3: L = 1, nc = N, no row
 // arrays), every per-slot input laid out alike with the shard outermost.
@@ -183,6 +212,10 @@ struct Params {
                              // used when it does not fit in smem
   long long frame_bytes;     // bytes of one block's frame state
   long long* prof;           // PROF: [2 NPH + 4] block 0's split
+  // on a mesh across parts (xmesh.cuh): this part's exchange; its frames
+  // and rows are its own (n its rows, global rows [part n, (part + 1) n),
+  // frame slots [part nc S, (part + 1) nc S) of each lane's frame)
+  XPart xp;
 };
 
 // The PROF instantiation's phases (PhaseClock): the loop top, the pass,
@@ -339,6 +372,7 @@ __device__ __forceinline__ unsigned long long post_key(const int* w) {
 
 // A post entry of this block's row j: key bits, inverted slot, score,
 // intake, global row, free capacity and job count (0s when key is 0).
+// `row0` is the block's first frame slot (K3: its first global row).
 template <bool FLAT>
 __device__ __forceinline__ void post_entry(int* w, unsigned long long key,
                                            const Frame& f, int row0) {
@@ -422,6 +456,41 @@ __device__ __forceinline__ void metric_delta(const int* f, int jc, int c,
     d[1 + q] = (int)(ex2 && g[q] < r[q]) - (int)(ex && f[q] < r[q]);
 }
 
+// Warp 0: the top TOPB entries of `ns` posts (one key a lane; two past
+// 8 posts, the second from entry lane + 32) and their counts summed, as
+// one post `out` (a part's post to the other parts).
+__device__ __forceinline__ void merge_posts(const int (*slots)[XW], int ns,
+                                            int* out) {
+  const int lane = threadIdx.x & 31;
+  const int ne = ns * TOPB;
+  auto entry = [&](int i) { return slots[i / TOPB] + (i % TOPB) * PW; };
+  unsigned long long ck[TOPB] = {};
+  if (lane < ne) ck[0] = post_key(entry(lane));
+  if (lane + 32 < ne) topb_insert(post_key(entry(lane + 32)), ck);
+  int win = 0, src;
+  unsigned long long wkey = 0ull;
+#pragma unroll
+  for (int q = 0; q < TOPB; ++q) {
+    const unsigned long long b = warp_pop(ck, &src);
+    if (lane == q) {
+      win = src;
+      wkey = b;
+    }
+  }
+  if (win + 32 < ne && post_key(entry(win)) != wkey) win += 32;
+  if (lane < TOPB) {
+    const int* w = entry(win);
+    for (int q = 0; q < PW; ++q) out[lane * PW + q] = wkey ? w[q] : 0;
+  }
+  if (lane < NPC) {
+    int v = 0;
+    for (int r = 0; r < ns; ++r) v += slots[r][TOPB * PW + lane];
+    out[TOPB * PW + lane] = v;
+  }
+  for (int w = TOPB * PW + NPC + lane; w < XW; w += 32) out[w] = 0;
+  __syncwarp();
+}
+
 // SM: the frame state in dynamic shared memory (typed shared loads in
 // the pass), else in the wrapper's global scratch; FLAT: K3's frame
 template <bool PROF, bool SM, bool FLAT>
@@ -442,6 +511,11 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
   __shared__ int s_ctl[14];
   __shared__ int s_sel;   // read by the peers
   __shared__ int s_seg[MAX_CB + 1];
+  // across parts: the parts' posts, and block 0's words to its peers
+  // (narrow and wide exchanges)
+  __shared__ __align__(16) int s_pall[MAX_PARTS][XW];
+  __shared__ unsigned s_go_n, s_go_w;
+  __shared__ int s_xok;
 
   enum { C_WIDE, C_VIABLE, C_CAP, C_PLACED, C_EXH, C_DIG = 8, C_ACC, C_QUOTA,
          C_EQ, C_CNT, C_FILT };
@@ -453,9 +527,19 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
   const int sh = (int)cl.block_rank();
   const int l = (int)blockIdx.x / CB;
   const int nc = p.nc, n = p.n, rs = p.rs;
-  const int nct = nc * p.shards;              // slots of the lane's frame
+  // across parts: this part's frames and rows are its own; the lane's
+  // frame is the NP parts' frames laid end to end, part-major
+  const bool XP = p.xp.n_parts > 1;
+  const int NP = XP ? p.xp.n_parts : 1;
+  const int nct_loc = nc * p.shards;          // this part's frame slots
+  const int nct = nct_loc * NP;               // slots of the lane's frame
+  const int slot0 = XP ? p.xp.part * nct_loc : 0;
+  const int row_off = XP ? p.xp.part * n : 0;  // this part's first row
+  const int n_glob = n * NP;
+  const bool writer = sh == 0 && (!XP || p.xp.part == 0);
   const int row0 = sh * R;
-  const int nb = max(0, min(R, nct - row0));  // this block's rows
+  const int srow0 = slot0 + row0;  // the block's first slot of the frame
+  const int nb = max(0, min(R, nct_loc - row0));  // this block's rows
   // where this block's slots lie in the [S, L, nc] inputs: K12 one block
   // per shard (R = nc), else shard 0 from slot row0
   const int sb = p.shards > 1 ? sh : 0, jb = p.shards > 1 ? 0 : row0;
@@ -474,6 +558,10 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
          : p.frame_glob + (int64_t)blockIdx.x * p.frame_bytes,
       R);
   xch_init(&s_xch, CB);
+  if (tid == 0) s_go_n = s_go_w = 0u;
+  bool xfail = false;
+  int xn = 0, xw = 0;   // narrow and wide exchanges across parts so far
+  const long long wstride = wide_stride(kk);
 
   // the lane's frame rows; K2's padding rows start empty (never valid);
   // K3's valid bits come with the first step's static row
@@ -481,9 +569,10 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
   {
     for (int j = tid; j < nb; j += NT) {
       const bool v = FLAT || p.cand_valid[in0 + j] != 0;
-      const int64_t r = FLAT ? row0 + j : p.cand_rows[in0 + j];
+      const int64_t rg = FLAT ? row0 + j : p.cand_rows[in0 + j];
+      const int64_t r = FLAT ? rg : rg - row_off;   // this part's row
       const int64_t rc = min(r, (int64_t)n - 1);
-      if (!FLAT) F.crow[j] = (int)r;
+      if (!FLAT) F.crow[j] = (int)rg;
       F.c0[j] = p.cap[3 * rc];
       F.c1[j] = p.cap[3 * rc + 1];
       F.c2[j] = p.cap[3 * rc + 2];
@@ -543,7 +632,7 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
     const bool same = g == g_prev;
     if (same && want == want_prev && placed_prev == 0) {
       // 4. the memo: the last computed step's row
-      if (sh == 0) {
+      if (writer) {
         const int64_t r = (int64_t)t * L + l, rl = (int64_t)t_last * L + l;
         if (p.fills)
           for (int i = tid; i < rs; i += NT)
@@ -667,8 +756,8 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
         const unsigned f1 = F.fl[j], f2 = F.fl[jj2];
         const int kc1 = F.kcap[j], kc2 = F.kcap[jj2];
         const float bp1 = F.bp[j], bp2 = F.bp[jj2];
-        const int g1 = row_of<FLAT>(F, j, row0);
-        const int g2 = row_of<FLAT>(F, jj2, row0);
+        const int g1 = row_of<FLAT>(F, j, srow0);
+        const int g2 = row_of<FLAT>(F, jj2, srow0);
         const float af1 = aff_any ? afr[j] : 0.0f;
         const float af2 = aff_any ? afr[jj2] : 0.0f;
         int k1, k2;
@@ -678,7 +767,7 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
         F.k[j] = k1;
         F.sc[j] = sc1;
         if (!jsame) F.jc[j] = jc1;
-        topb_insert(((unsigned long long)hi1 << 32) | (unsigned)~(row0 + j),
+        topb_insert(((unsigned long long)hi1 << 32) | (unsigned)~(srow0 + j),
                     top);
         if (two) {
           const unsigned hi2 = row(jc2, f2, kc2, bp2, g2, af2, &k2, &sc2);
@@ -687,7 +776,7 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
           F.sc[j2] = sc2;
           if (!jsame) F.jc[j2] = jc2;
           topb_insert(
-              ((unsigned long long)hi2 << 32) | (unsigned)~(row0 + j2), top);
+              ((unsigned long long)hi2 << 32) | (unsigned)~(srow0 + j2), top);
         }
       }
     }
@@ -718,7 +807,7 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
         const unsigned long long b = warp_pop(t2, &src);
         if (lane == q) mine = b;
       }
-      if (lane < TOPB) post_entry<FLAT>(s_post + lane * PW, mine, F, row0);
+      if (lane < TOPB) post_entry<FLAT>(s_post + lane * PW, mine, F, srow0);
 #pragma unroll
       for (int q = 0; q < NCNT; ++q) {
         int v = 0;
@@ -732,10 +821,31 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
       xch_meet(&s_xch, xk, sh, CB, s_post);
       pc.mark_nb(PH_XCH, act);
 
-      // 3. the decision over the CB posts (one key a lane; two past 8
-      // blocks, the second from entry lane + 32)
       const int (*slots)[XW] = s_xch.slot[xk & 1];
-      const int ne = CB * TOPB;
+      int nsl = CB;
+      if (XP) {
+        // across parts: this part's post (the merge of its blocks'
+        // posts) to every part, and the NP posts in part order
+        merge_posts(slots, CB, s_post);
+        const int par = xn & 1;
+        int* base = p.xp.buf + XP_HEAD +
+                    (long long)(l * 2 + par) * NP * NSTRIDE;
+        if (sh == 0)
+          xp_post_warp(base + (long long)p.xp.part * NSTRIDE, s_post, XW,
+                       xn + 1);
+        const bool ok = xp_gather(p.xp, sh, CB, base, NSTRIDE, xn + 1,
+                                  &s_go_n, &xfail);
+        ++xn;
+        for (int i = lane; i < NP * XW; i += 32)
+          s_pall[i / XW][i % XW] =
+              ok ? base[(long long)(i / XW) * NSTRIDE + 1 + i % XW] : 0;
+        __syncwarp();
+        slots = s_pall;
+        nsl = NP;
+      }
+      // 3. the decision over the nsl posts (one key a lane; two past 8
+      // posts, the second from entry lane + 32)
+      const int ne = nsl * TOPB;
       auto entry = [&](int i) { return slots[i / TOPB] + (i % TOPB) * PW; };
       unsigned long long ck[TOPB] = {};
       if (lane < ne) ck[0] = post_key(entry(lane));
@@ -755,8 +865,8 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
 #pragma unroll
       for (int q = 0; q < NPC; ++q)
         vt[q] = __reduce_add_sync(
-            FULL, lane < CB ? slots[lane][TOPB * PW + q] : 0);
-      const int filt = n - vt[NCNT];
+            FULL, lane < nsl ? slots[lane][TOPB * PW + q] : 0);
+      const int filt = n_glob - vt[NCNT];
       // lane q < nbk: the lane's q-th key and its values
       int e[PW];
 #pragma unroll
@@ -795,14 +905,14 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
       if (!wide) {
         int d[4] = {0, 0, 0, 0};
         if (c > 0) {
-          const int slot = (int)~(unsigned)e[1];
-          if (slot / R == sh)   // this block's winner
-            commit_row(F, slot - row0, c, req, rs, p.spread != 0);
+          const int ls = (int)~(unsigned)e[1] - slot0;
+          if (ls >= 0 && ls < nct_loc && ls / R == sh)   // this block's
+            commit_row(F, ls - row0, c, req, rs, p.spread != 0);
           metric_delta(e + 5, e[8], c, req, dh, d);
         }
 #pragma unroll
         for (int q = 0; q < 4; ++q) d[q] = __reduce_add_sync(FULL, d[q]);
-        if (sh == 0) {
+        if (writer) {
           const int64_t r = (int64_t)t * L + l;
           int* frow = p.fills ? p.fills + r * rs : nullptr;
           int* brow = p.buf + r * width;
@@ -813,7 +923,7 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
             if (i < p.fill_k) brow[i] = f;
           }
           int* meta = brow + p.fill_k + p.sc_w;
-          const int topn = min(min(kk, TOP_K), n);
+          const int topn = min(min(kk, TOP_K), n_glob);
           if (lane < TOP_K) {
             const bool v = lane < topn && feas;
             meta[lane] = v ? e[4] : -1;
@@ -831,11 +941,13 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
       // the wide path: the exact top T of the lane's keys (K6's score
       // layout: of all kk)
       const int T = p.sc_w ? kk : min(kk, want);
-      // every slot of the frame among the top T: no select
-      const bool all = T == nct;
+      // this part's top Tl (across parts, the parts' lists then meet)
+      const int Tl = min(T, nct_loc);
+      // every slot of the part's frame among its top Tl: no select
+      const bool all = Tl == nct_loc;
       const int cap_round = s_ctl[C_CAP];
       unsigned prefix = 0;
-      int krem = T;
+      int krem = Tl;
       for (int pass = 0; pass < 4 && !all; ++pass) {
         const int shift = 24 - 8 * pass;
         const unsigned mask = pass == 0 ? 0u : (~0u << (shift + 8));
@@ -937,7 +1049,7 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
       // staged in its own gkey, which no peer writes before the next
       // cluster barrier, and each entry's order kept in a register
       auto key_at = [&](int j) {
-        return ((unsigned long long)F.hi[j] << 32) | (unsigned)~(row0 + j);
+        return ((unsigned long long)F.hi[j] << 32) | (unsigned)~(srow0 + j);
       };
       for (int i = tid; i < sel; i += NT) gkey[i] = key_at(gord[i]);
       __syncthreads();
@@ -971,7 +1083,8 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
         const int j = gord[i];
         const unsigned long long key = key_at(j);
         const int4 v0 = make_int4(__float_as_int(F.sc[j]), F.k[j],
-                                  row_of<FLAT>(F, j, row0), F.c0[j] - F.u0[j]);
+                                  row_of<FLAT>(F, j, srow0),
+                                  F.c0[j] - F.u0[j]);
         const int4 v1 =
             make_int4(F.c1[j] - F.u1[j], F.c2[j] - F.u2[j], F.jc[j], 0);
         const int at = off + lr[q];
@@ -1005,6 +1118,73 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
         for (int r = 0; r < CB; ++r) cl.map_shared_rank(gord, r)[rank] = at;
       }
       cl.sync();   // every rank in every block; then water-fill, commit
+      if (XP) {
+        // across parts: block 0 posts this part's Tl entries in rank
+        // order; every block then ranks the NP lists' entries (an entry's
+        // rank in its list plus the keys above it in each other list, by
+        // binary search) and keeps the top T in rank order
+        const int par = xw & 1;
+        int* wb = p.xp.buf + XP_HEAD +
+                  (long long)p.n_lanes * 2 * NP * NSTRIDE +
+                  (long long)(l * 2 + par) * NP * wstride;
+        if (sh == 0) {
+          int* mine = wb + (long long)p.xp.part * wstride;
+          for (int i = tid; i < Tl; i += NT) {
+            const int e = gord[i];
+            int* w = mine + 4 + 10ll * i;
+            w[0] = (int)(gkey[e] >> 32);
+            w[1] = (int)(unsigned)gkey[e];
+            for (int q = 0; q < GV; ++q) w[2 + q] = gval[e * GV + q];
+          }
+          if (tid == 0) mine[1] = Tl;
+          __threadfence_system();
+        }
+        __syncthreads();
+        if (sh == 0 && tid == 0)
+          xp_st_release(wb + (long long)p.xp.part * wstride, xw + 1);
+        if (warp == 0) {
+          const bool ok = xp_gather(p.xp, sh, CB, wb, wstride, xw + 1,
+                                    &s_go_w, &xfail);
+          if (lane == 0) s_xok = ok;
+        }
+        ++xw;
+        __syncthreads();
+        const bool ok = s_xok != 0;
+        auto wkey = [&](const int* w) {
+          return ((unsigned long long)(unsigned)w[0] << 32) | (unsigned)w[1];
+        };
+        for (int idx = tid; ok && idx < NP * T; idx += NT) {
+          const int q = idx / T, i = idx - q * T;
+          const int* lq = wb + (long long)q * wstride;
+          if (i >= lq[1]) continue;
+          const int* eq = lq + 4 + 10ll * i;
+          const unsigned long long ki = wkey(eq);
+          int rank = i;
+          for (int r = 0; r < NP && rank < T; ++r) {
+            if (r == q) continue;
+            const int* lr = wb + (long long)r * wstride;
+            int a = 0, b = lr[1];
+            while (a < b) {
+              const int m = (a + b) >> 1;
+              if (wkey(lr + 4 + 10ll * m) > ki) a = m + 1;
+              else b = m;
+            }
+            rank += a;
+          }
+          if (rank < T) {
+            gkey[rank] = ki;
+            for (int w = 0; w < GV; ++w) gval[rank * GV + w] = eq[2 + w];
+          }
+        }
+        if (!ok)
+          for (int i = tid; i < T; i += NT) {
+            gkey[i] = 0ull;
+            for (int w = 0; w < GV; ++w) gval[i * GV + w] = 0;
+          }
+        __syncthreads();
+        for (int i = tid; i < T; i += NT) gord[i] = i;
+        __syncthreads();
+      }
       const int ch = (T + NT - 1) / NT;
       const int lo = min(T, tid * ch), hi = min(T, lo + ch);
       auto ks_at = [&](int i) {
@@ -1026,9 +1206,9 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
         if (c > 0) {
           const int e = gord[i];
           const int* v = gval + e * GV;
-          const int slot = (int)~(unsigned)gkey[e];
-          if (slot / R == sh)
-            commit_row(F, slot - row0, c, req, rs, p.spread != 0);
+          const int ls = (int)~(unsigned)gkey[e] - slot0;
+          if (ls >= 0 && ls < nct_loc && ls / R == sh)
+            commit_row(F, ls - row0, c, req, rs, p.spread != 0);
           int dm[4];
           metric_delta(v + 3, v[6], c, req, dh, dm);
           d[0] += c;
@@ -1036,7 +1216,7 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
         }
       }
       block_sums<NCNT>(d, s_red);
-      if (sh == 0) {
+      if (writer) {
         const int64_t r = (int64_t)t * L + l;
         int* frow = p.fills ? p.fills + r * rs : nullptr;
         int* brow = p.buf + r * width;
@@ -1057,7 +1237,7 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
           }
         }
         int* meta = brow + p.fill_k + p.sc_w;
-        const int topn = min(min(kk, TOP_K), n);
+        const int topn = min(min(kk, TOP_K), n_glob);
         if (tid < TOP_K) {
           const int e = gord[tid];
           const bool v =
@@ -1082,7 +1262,7 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
   // every row, and its last step's job counts)
   for (int j = tid; j < nb; j += NT)
     if (FLAT || (F.fl[j] & F_VALID)) {
-      const int64_t r = row_of<FLAT>(F, j, row0);
+      const int64_t r = FLAT ? row0 + j : F.crow[j] - row_off;
       p.used_out[3 * r] = F.u0[j];
       p.used_out[3 * r + 1] = F.u1[j];
       p.used_out[3 * r + 2] = F.u2[j];
@@ -1147,12 +1327,15 @@ Plan split(int nct, int c, bool flat, long long fixed, long long room) {
   return q;
 }
 
-int plan(int nc, int shards, int rs, bool flat, Plan* q) {
+int plan(int nc, int shards, int rs, bool flat, Plan* q, int n_parts = 1) {
   long long room = 0;
   const int e = smem_room(&room);
   if (e) return e;
   const int nct = nc * shards;
-  const long long fixed = dyn_layout(rs < nct ? rs : nct).frame;
+  // the wide path's entries: the top of the lane's whole frame, over
+  // every part
+  const long long nctg = (long long)nct * (n_parts > 1 ? n_parts : 1);
+  const long long fixed = dyn_layout(rs < nctg ? rs : (int)nctg).frame;
   if (shards > 1) {
     *q = split(nct, shards, flat, fixed, room);
     return 0;
@@ -1172,16 +1355,21 @@ int plan(int nc, int shards, int rs, bool flat, Plan* q) {
 // used only when the frame state does not fit in shared memory
 template <bool PROF, bool FLAT>
 int launch(Params p, cudaStream_t stream) {
+  const bool xp = p.xp.n_parts > 1;
   if (p.rs > MAX_RS || p.rs < 1 || p.nc < 1 || p.n_lanes < 1 ||
       p.fill_k < 1 || p.fill_k > p.rs || p.shards < 1 ||
       p.shards > XCH_BLOCKS ||
+      (xp && (p.xp.n_parts > MAX_PARTS || p.xp.part < 0 ||
+              p.xp.part >= p.xp.n_parts || !p.xp.buf ||
+              p.xp.deadline < 1 || p.sc_w ||
+              (p.xp.part == 0 && !p.buf))) ||
       (FLAT && (p.n_lanes != 1 || p.shards != 1 || p.nc != p.n ||
                 !p.jc_out)) ||
       (p.sc_w && (p.sc_w != p.rs || p.fill_k != p.rs || p.fills)) ||
       (!p.round_g && (!FLAT || p.p_real < 0)))
     return (int)cudaErrorInvalidValue;
   Plan q;
-  int e = plan(p.nc, p.shards, p.rs, FLAT, &q);
+  int e = plan(p.nc, p.shards, p.rs, FLAT, &q, xp ? p.xp.n_parts : 1);
   if (e) return e;
   long long room = 0;
   e = smem_room(&room);
@@ -1359,6 +1547,20 @@ extern "C" int multi_compact_scratch_bytes(int n_lanes, int nc, int rs,
   return b > 0x7fffffffll ? -1 : (int)b;
 }
 
+// multi_compact_scratch_bytes for one part of a mesh across `n_parts`
+// parts (the wide path's entries then span every part's frame)
+extern "C" int multi_xmesh_scratch_bytes(int n_lanes, int nc, int rs,
+                                         int n_shards, int flat,
+                                         int n_parts) {
+  if (n_lanes < 1 || nc < 1 || rs < 1 || n_shards < 1 || n_parts < 1)
+    return -1;
+  Plan q;
+  if (plan(nc, n_shards, rs, flat != 0, &q, n_parts) != 0) return -1;
+  if (q.fits) return 0;
+  const long long b = (long long)n_lanes * q.cb * q.frame;
+  return b > 0x7fffffffll ? -1 : (int)b;
+}
+
 extern "C" int multi_compact_blocks(int nc, int rs, int n_shards,
                                     int flat) {
   Plan q;
@@ -1449,6 +1651,63 @@ extern "C" int multi_bulk_sharded(BULK_ARGS, int n_shards,
   return launch<false, true>(BULK_PARAMS, stream);
 }
 
+// ---- the rounds on a mesh across parts (xmesh.cuh): one launch a part
+// over the part's own frames and rows, `xbuf` (multi_xmesh_words int32
+// words, zeroed, on the home part's card; word 0 the error word) the
+// exchange, `deadline` the clock64() cycles a wait may take.  Only part
+// 0 writes the packed buffers (the others pass null).
+
+static Params with_part(Params p, int part, int n_parts, int* xbuf,
+                        long long deadline) {
+  p.xp.buf = xbuf;
+  p.xp.part = part;
+  p.xp.n_parts = n_parts;
+  p.xp.deadline = deadline;
+  return p;
+}
+
+// The int32 words of the exchange buffer of one launch: `n_lanes`
+// lanes, `n_parts` parts, kk = min(round size, the lane's whole frame)
+// entries at most in a wide exchange; a host function.
+extern "C" int multi_xmesh_words(int n_lanes, int n_parts, int kk) {
+  if (n_lanes < 1 || n_parts < 1 || kk < 1) return -1;
+  const long long w =
+      XP_HEAD + 2ll * n_lanes * n_parts * (NSTRIDE + wide_stride(kk));
+  return w > 0x7fffffffll ? -1 : (int)w;
+}
+
+// K12 across parts: this part's frames [S_p, L, nc] of global rows
+// (padding the global npad) over its n rows, seeds [S_p, n_jrows, nc]
+extern "C" int multi_compact_xmesh(COMPACT_ARGS, int n_shards, int n_jrows,
+                                   int part, int n_parts, int* xbuf,
+                                   long long deadline, cudaStream_t stream) {
+  if (n_parts < 2) return (int)cudaErrorInvalidValue;
+  Params p = with_part(COMPACT_PARAMS, part, n_parts, xbuf, deadline);
+  p.shards = n_shards;
+  p.n_jrows = n_jrows;
+  return launch<false, false>(p, stream);
+}
+
+// K11 across parts: the flat rounds over this part's n rows
+extern "C" int multi_flat_xmesh(FLAT_ARGS, int part, int n_parts,
+                                int* xbuf, long long deadline,
+                                cudaStream_t stream) {
+  if (n_parts < 2) return (int)cudaErrorInvalidValue;
+  return launch<false, true>(
+      with_part(FLAT_PARAMS, part, n_parts, xbuf, deadline), stream);
+}
+
+// K10 across parts: the bulk rounds over this part's n rows (full
+// layout)
+extern "C" int multi_bulk_xmesh(BULK_ARGS, int part, int n_parts,
+                                int* xbuf, long long deadline,
+                                cudaStream_t stream) {
+  if (n_parts < 2 || with_scores || fill_k != rs)
+    return (int)cudaErrorInvalidValue;
+  return launch<false, true>(
+      with_part(BULK_PARAMS, part, n_parts, xbuf, deadline), stream);
+}
+
 // The kernels' 10^x over an array, to hold it against the C library's
 // powf; the placement path never calls it.
 extern "C" int pow10_f32(const float* x, float* y, long long n,
@@ -1490,4 +1749,9 @@ PY_LAUNCHERS(compact_rounds,
              PY_LAUNCHER(multi_bulk_sharded),
              PY_LAUNCHER(pow10_f32),
              PY_LAUNCHER(barrier_probe),
-             PY_LAUNCHER(compact_exchange_probe))
+             PY_LAUNCHER(compact_exchange_probe),
+             PY_LAUNCHER(multi_xmesh_scratch_bytes),
+             PY_LAUNCHER(multi_xmesh_words),
+             PY_LAUNCHER(multi_compact_xmesh),
+             PY_LAUNCHER(multi_flat_xmesh),
+             PY_LAUNCHER(multi_bulk_xmesh))

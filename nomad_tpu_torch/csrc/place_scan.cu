@@ -81,6 +81,22 @@
 // spread and distinct_property values to its counts, and block 0 writes
 // the step's row.  K5 on a cluster posts its rows whatever their keys
 // and its own scores (report_fin).
+//
+// K9 across parts, "place_scan_xmesh" (parallel/xmesh.py): the same
+// scan on a mesh whose S shards are split over D parts, one launch a
+// part over the part's own rows [part n, (part + 1) n), its cluster of
+// S / D blocks merged as above.  Replaces the same reference function,
+// on a mesh of several devices.  After the cluster's merge, block 0 of
+// each part posts the part's top 3 (key bits, global rows, scores), its
+// counts and its top row's spread and distinct values into the
+// exchange buffer (csrc/xmesh.cuh), and every block merges the D posts
+// keyed by (part, rank), as the cluster's were merged by (block, rank):
+// the reference's all_gather in part order.  The pick's spread and
+// distinct values come from its part's post (no part reads another's
+// rows); the owning block commits.  What bounds it: the same depth,
+// plus one exchange through global memory a computed step (an L2 or
+// NVLink round trip and block 0's release of its peers), which the
+// one-card form pays in full (PERF.md §6).
 
 #include "py_launchers.cuh"  // first: it includes Python.h
 #include <cooperative_groups.h>
@@ -108,6 +124,7 @@ constexpr unsigned F_STAT = 1, F_FIT = 2, F_DH = 4, F_O0 = 8, F_JC = 64;
 constexpr unsigned F_FEAS = F_STAT | F_FIT | F_DH;
 
 #include "score_common.cuh"
+#include "xmesh.cuh"
 
 // Pieces that live in dynamic shared memory when they fit, in this
 // order of preference (plan_smem); off < 0 means global memory.
@@ -141,6 +158,12 @@ struct ScanParams {
   int n_shards, n_loc;       // blocks and rows per block (the last may
                              // hold fewer)
   int report_fin;            // K5: report each pick's own score
+  // K9 on a mesh across parts (xmesh.cuh): this part's exchange, its
+  // first global row and the rows of all parts (n on one part), and the
+  // words of one part's slot
+  XPart xp;
+  int row_off, n_glob;
+  long long xstride;
   long long* prof;           // PROF: [18] phase cycles of block 0
   // the wrapper's scratch (scan_layout), carved by the launcher
   float* c_acc;              // [G, N] binpack + anti-affinity terms
@@ -221,7 +244,8 @@ __global__ void __launch_bounds__(PREP_THREADS) scan_prep(ScanParams p) {
     p.c_acc[i] = acc;
     p.c_base[i] = (acc + 0.0f) + (p.aff_any[g] ? p.aff_sc[i] : 0.0f);
     p.c_flag[i] = (uint8_t)(f | (p.stat[i] ? F_STAT : 0u));
-    if (g == 0) p.c_noise[j] = tiebreak_noise(p.seed, (unsigned)j);
+    if (g == 0)
+      p.c_noise[j] = tiebreak_noise(p.seed, (unsigned)(j + p.row_off));
   }
   for (long long g = first; g < p.g; g += stride) {
     int* gs = p.gstat + g * GS;
@@ -515,6 +539,11 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(ScanParams p) {
   __shared__ int s_memo_sums[NSUM];
   __shared__ __align__(16) int s_post[XW];
   __shared__ __align__(16) Xch s_xch;
+  // across parts: block 0's word to its peers, and the word offset of
+  // the pick's post in the exchange buffer (its spread and distinct
+  // values)
+  __shared__ unsigned s_go;
+  __shared__ long long s_pick_post;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   PhaseClock<PROF, NPHASE> pc;
@@ -525,7 +554,15 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(ScanParams p) {
   const int n_loc = p.n_loc;
   const int row0 = sh * n_loc;
   const int n_b = min(n_loc, n - row0);   // this block's rows
+  // across parts: this block's first global row, and whether this part
+  // exchanges with others (block 0 of part 0 writes the rows)
+  const bool XP = SHARDED && p.xp.n_parts > 1;
+  const int grow0 = p.row_off + row0;
+  const bool writer = sh == 0 && (!XP || p.xp.part == 0);
+  bool xfail = false;
+  int xx = 0;   // cross-part exchanges so far
   if (SHARDED) xch_init(&s_xch, NS);
+  if (tid == 0) s_go = 0u;
 
   const Pieces v = mixed_pieces(p, s_dyn, sh, row0);
   const bool grp_sm = p.off[PC_GROUP] >= 0;
@@ -630,7 +667,7 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(ScanParams p) {
     const int ver = s_ver;
     if (g == s_memo_g && ver == s_memo_ver &&
         (!act || s_memo_sums[0] == 0)) {
-      if (sh == 0 && warp == 0 && lane < ROW)
+      if (writer && warp == 0 && lane < ROW)
         p.buf[(long long)t * ROW + lane] = memo_row(lane, s_memo_sums);
       pc.mark(6, act);
       pc.step(act);
@@ -639,8 +676,8 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(ScanParams p) {
     const int* gs = gstat + g * GS;
     StepArgs sa;
     sa.g = g;
-    sa.prev_l = s_prev[ts] >= row0 && s_prev[ts] < row0 + n_b
-                    ? s_prev[ts] - row0
+    sa.prev_l = s_prev[ts] >= grow0 && s_prev[ts] < grow0 + n_b
+                    ? s_prev[ts] - grow0
                     : -1;
     sa.act = act;
     sa.aff_any = gs[5] != 0;
@@ -727,7 +764,7 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(ScanParams p) {
           const bool real = q < top_k, feas = real && key > HALF_NEG_INF;
           if (lane == q) post = real ? (int)bits : 0;
           if (lane == TOP_K + q)
-            post = real && (feas || p.report_fin) ? row0 + jl : -1;
+            post = real && (feas || p.report_fin) ? grow0 + jl : -1;
           if (lane == 2 * TOP_K + q)
             post = __float_as_int(
                 !feas ? NEG_INF
@@ -765,13 +802,87 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(ScanParams p) {
           rows[q] = q < k ? from[TOP_K + ci % TOP_K] : -1;
           sc[q] = q < k ? __int_as_float(from[2 * TOP_K + ci % TOP_K])
                         : NEG_INF;
-          if (q == 0) publish_pick(act, sc[0], rows[0], from[XW - 1]);
+          if (q == 0 && !XP) publish_pick(act, sc[0], rows[0], from[XW - 1]);
         }
         my_sum = 0;   // lane i < NSUM: the blocks' count i
         if (lane < NSUM)
           for (int r = 0; r < NS; ++r) my_sum += slot[r][3 * TOP_K + lane];
         __syncwarp();   // the slots are read before the next post
         ++xk;
+        if (XP) {
+          // across parts: block 0 posts this part's top 3 (key bits, 0
+          // past k), rows, scores, counts and its top row's spread and
+          // distinct values; every block merges the parts' posts as the
+          // cluster's were merged, keyed by (part, rank)
+          const long long stride = p.xstride;
+          const int par = xx & 1, NP = p.xp.n_parts;
+          int* base = p.xp.buf + XP_HEAD + (long long)par * NP * stride;
+          if (sh == 0) {
+            int sums_all[NSUM];
+#pragma unroll
+            for (int i = 0; i < NSUM; ++i)
+              sums_all[i] = __shfl_sync(FULL, my_sum, i);
+            int* mine = base + (long long)p.xp.part * stride;
+            const int top_l = rows[0] - p.row_off;
+            for (int w = lane; w < XW + S + D; w += 32) {
+              int val = 0;
+              if (w < TOP_K) val = w < k ? (int)(unsigned)(gb[w] >> 32) : 0;
+              else if (w < 2 * TOP_K) val = rows[w - TOP_K];
+              else if (w < 3 * TOP_K)
+                val = __float_as_int(sc[w - 2 * TOP_K]);
+              else if (w < 3 * TOP_K + NSUM) val = sums_all[w - 3 * TOP_K];
+              else if (w < XW) val = 0;
+              else if (w < XW + S)
+                val = rows[0] >= 0
+                          ? p.sp_nodeval[(long long)(w - XW) * n + top_l]
+                          : -1;
+              else
+                val = rows[0] >= 0
+                          ? p.pd_nodeval[(long long)(w - XW - S) * n + top_l]
+                          : -1;
+              mine[1 + w] = val;
+            }
+            __threadfence_system();
+            __syncwarp();
+            if (lane == 0) xp_st_release(mine, xx + 1);
+          }
+          const bool ok = xp_gather(p.xp, sh, NS, base, stride, xx + 1,
+                                    &s_go, &xfail);
+          ++xx;
+          auto post_of = [&](int r) { return base + (long long)r * stride + 1; };
+#pragma unroll
+          for (int q = 0; q < TOP_K; ++q) {
+            t3[q] = 0ull;
+            f3[q] = 0.0f;
+          }
+          if (ok && lane < NP) {
+            const int* pp = post_of(lane);
+#pragma unroll
+            for (int q = 0; q < TOP_K; ++q)
+              t3[q] = ((unsigned long long)(unsigned)pp[q] << 32) |
+                      (unsigned)(~(lane * TOP_K + q));
+          }
+          k = min(TOP_K, p.n_glob);
+          int src0 = 0;
+#pragma unroll
+          for (int q = 0; q < TOP_K; ++q) {
+            warp_round(t3, f3, gb + q, gf + q);
+            const int ci = (int)(~(unsigned)gb[q]);
+            const bool on = ok && q < k && (gb[q] >> 32) != 0ull;
+            const int* from = post_of(on ? ci / TOP_K : 0);
+            rows[q] = on ? from[TOP_K + ci % TOP_K] : -1;
+            sc[q] = on ? __int_as_float(from[2 * TOP_K + ci % TOP_K])
+                       : NEG_INF;
+            if (q == 0) src0 = on ? ci / TOP_K : 0;
+          }
+          if (lane == 0)
+            s_pick_post = (long long)(post_of(src0) - p.xp.buf);
+          publish_pick(act, sc[0], rows[0],
+                       ok && S == 1 ? post_of(src0)[XW] : -1);
+          my_sum = 0;
+          if (ok && lane < NSUM)
+            for (int r = 0; r < NP; ++r) my_sum += post_of(r)[3 * TOP_K + lane];
+        }
       } else {
         k = top_k;
 #pragma unroll
@@ -794,7 +905,7 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(ScanParams p) {
       }
       if (lane == 0) w = pick;
       if (lane == 1) w = __float_as_int(ok ? sc[0] : 0.0f);
-      if (sh == 0 && lane < ROW) p.buf[(long long)t * ROW + lane] = w;
+      if (writer && lane < ROW) p.buf[(long long)t * ROW + lane] = w;
       if (lane < NSUM) s_memo_sums[lane] = my_sum;
       if (lane == 0) {
         s_memo_g = g;
@@ -809,9 +920,13 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(ScanParams p) {
       asm volatile("bar.sync 1, 96;" ::: "memory");
       const int pick = s_pick;
       if (pick >= 0 && warp == 2) {
+        // across parts the pick's values ride its part's post
+        const int* xv = XP ? p.xp.buf + s_pick_post + XW : nullptr;
         for (int s = lane; s < S; s += 32) {
           const int val =
-              S == 1 ? s_pick_v : p.sp_nodeval[(long long)s * n + pick];
+              S == 1 ? s_pick_v
+              : XP   ? xv[s]
+                     : p.sp_nodeval[(long long)s * n + pick];
           if (val >= 0) {
             const int i = s * Kv + min(val, Kv - 1);
             const float c = v.spc[i] + 1.0f, e = v.spe[i];
@@ -826,12 +941,13 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(ScanParams p) {
         const int* pdl_g = pdl + g * D;
         for (int i = lane; i < npd; i += 32) {
           const int q = pdl_g[i];
-          const int val = p.pd_nodeval[(long long)q * n + pick];
+          const int val =
+              XP ? xv[S + q] : p.pd_nodeval[(long long)q * n + pick];
           if (val >= 0) v.pdc[q * Kd + min(val, Kd - 1)] += 1;
         }
       }
-      if (pick >= row0 && pick < row0 + n_b && warp == 1) {
-        const int jl = pick - row0;
+      if (pick >= grow0 && pick < grow0 + n_b && warp == 1) {
+        const int jl = pick - grow0, pl = pick - p.row_off;
         const int c0 = v.ncap[3 * jl], c1 = v.ncap[3 * jl + 1],
                   c2 = v.ncap[3 * jl + 2];
         const int u0 = v.nused[3 * jl] + gs[0],
@@ -844,10 +960,10 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(ScanParams p) {
           v.nused[3 * jl + 1] = u1;
           v.nused[3 * jl + 2] = u2;
           v.njc[jl] = jc;
-          p.used[3 * pick] = u0;
-          p.used[3 * pick + 1] = u1;
-          p.used[3 * pick + 2] = u2;
-          p.job_count[pick] = jc;
+          p.used[3 * pl] = u0;
+          p.used[3 * pl + 1] = u1;
+          p.used[3 * pl + 2] = u2;
+          p.job_count[pl] = jc;
         }
         for (int h = lane; h < G; h += 32) {
           const int* hs = gstat + h * GS;
@@ -977,6 +1093,7 @@ int run_scan(ScanParams p, int* scratch, int n_shards, int nt,
       (n_shards && p.n % n_shards != 0) || (nt && nt != 256 && nt != 1024))
     return (int)cudaErrorInvalidValue;
   // K9 splits the padded rows evenly; K5 reports each pick's own score
+  if (p.xp.n_parts < 2) p.n_glob = p.n;
   p.n_shards = n_shards ? n_shards : k5_blocks(p.n);
   p.n_loc = (p.n + p.n_shards - 1) / p.n_shards;
   p.report_fin = n_shards == 0;
@@ -1050,6 +1167,39 @@ __global__ void __launch_bounds__(32, 1) dsmem_exchange_kernel(int rounds,
   if (v == 0x7fffffff) *sink = v;
 }
 
+// the words of one part's slot of K9's exchange: its stamp, the post
+// (XW words) and the spread and distinct values of the part's top row,
+// rounded up to 16 bytes
+long long xmesh_scan_stride(int s, int d) {
+  return (1ll + XW + s + d + 3) / 4 * 4;
+}
+
+// The probe's kernel: one warp a part; each round block 0 (the only
+// block) posts XW words and gathers every part's post (xmesh.cuh).
+__global__ void __launch_bounds__(32, 1) xmesh_probe_kernel(XPart xp,
+                                                            int rounds,
+                                                            int* sink) {
+  __shared__ unsigned s_go;
+  __shared__ int s_post[XW];
+  const int lane = threadIdx.x;
+  if (lane == 0) s_go = 0u;
+  __syncwarp();
+  const long long stride = 1 + XW + 3;
+  bool failed = false;
+  int v = lane;
+  for (int r = 0; r < rounds; ++r) {
+    int* base = xp.buf + XP_HEAD + (long long)(r & 1) * xp.n_parts * stride;
+    if (lane < XW) s_post[lane] = v + r;
+    __syncwarp();
+    xp_post_warp(base + (long long)xp.part * stride, s_post, XW, r + 1);
+    const bool ok = xp_gather(xp, 0, 1, base, stride, r + 1, &s_go, &failed);
+    if (ok) v += base[(long long)(lane % xp.n_parts) * stride + 1 +
+                      lane % XW] & 1;
+    __syncwarp();
+  }
+  if (v == 0x7fffffff) *sink = v;
+}
+
 }  // namespace
 
 #define SCAN_ARGS                                                           \
@@ -1113,6 +1263,77 @@ extern "C" int place_scan_sharded_prof(SCAN_ARGS, int n_shards, int nt,
   return run_scan<true>(p, scratch, n_shards, nt, stream);
 }
 
+// K9 on a mesh across parts: this part's n = npad / n_parts rows (global
+// rows [part n, (part + 1) n)) in n_shards shards, one launch a part,
+// the parts meeting every step through `xbuf` (place_scan_xmesh_words
+// int32 words, zeroed, on the home part's card; its word 0 is the error
+// word) within `deadline` clock64() cycles a wait.  Only part 0 writes
+// `buf`.
+extern "C" int place_scan_xmesh(SCAN_ARGS, int n_shards, int part,
+                                int n_parts, int* xbuf, long long deadline,
+                                cudaStream_t stream) {
+  if (n_shards < 1 || n_parts < 2 || part < 0 || part >= n_parts ||
+      n_parts > 32 || !xbuf || deadline < 1 || (part == 0 && !buf))
+    return (int)cudaErrorInvalidValue;
+  ScanParams p = SCAN_PARAMS;
+  p.xp.buf = xbuf;
+  p.xp.part = part;
+  p.xp.n_parts = n_parts;
+  p.xp.deadline = deadline;
+  p.row_off = part * n;
+  p.n_glob = n * n_parts;
+  p.xstride = xmesh_scan_stride(s, d);
+  return run_scan<false>(p, scratch, n_shards, 0, stream);
+}
+
+// The int32 words of K9's exchange buffer across `n_parts` parts (s
+// spread rows, d distinct_property rows); a host function.
+extern "C" int place_scan_xmesh_words(int n_parts, int s, int d) {
+  if (n_parts < 1 || s < 1 || d < 1) return -1;
+  const long long w = XP_HEAD + 2ll * n_parts * xmesh_scan_stride(s, d);
+  return w > 0x7fffffffll ? -1 : (int)w;
+}
+
+// Enable the access of device `dev` to the memory of device `peer` (a
+// mesh across cards; once per ordered pair).  Already enabled is not an
+// error.  A host function.
+extern "C" int xmesh_enable_peer(int dev, int peer) {
+  int cur = 0;
+  cudaError_t e = cudaGetDevice(&cur);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaSetDevice(dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceEnablePeerAccess(peer, 0);
+    if (e == cudaErrorPeerAccessAlreadyEnabled) {
+      cudaGetLastError();
+      e = cudaSuccess;
+    }
+  }
+  const cudaError_t e2 = cudaSetDevice(cur);
+  return (int)(e != cudaSuccess ? e : e2);
+}
+
+// The probe of the exchange across parts: `rounds` exchanges of an
+// XW-word post (one warp of one block a part, each post depending on
+// the last) between the n_parts launches of this call's parts, each
+// launched with its own part index on its own stream (xbuf as
+// place_scan_xmesh takes it, XP_HEAD + 2 n_parts (XW + 4) words).  The
+// placement path never calls it.
+extern "C" int xmesh_exchange_probe(int rounds, int part, int n_parts,
+                                    int* xbuf, long long deadline,
+                                    int* sink, cudaStream_t stream) {
+  if (n_parts < 1 || part < 0 || part >= n_parts || n_parts > 32 ||
+      rounds < 0)
+    return (int)cudaErrorInvalidValue;
+  XPart xp;
+  xp.buf = xbuf;
+  xp.part = part;
+  xp.n_parts = n_parts;
+  xp.deadline = deadline;
+  xmesh_probe_kernel<<<1, 32, 0, stream>>>(xp, rounds, sink);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int dsmem_exchange_probe(int rounds, int cluster, int* sink,
                                     cudaStream_t stream) {
   if (cluster < 1 || cluster > MAX_SHARDS) return (int)cudaErrorInvalidValue;
@@ -1127,4 +1348,8 @@ PY_LAUNCHERS(place_scan,
              PY_LAUNCHER(place_scan_sharded),
              PY_LAUNCHER(place_scan_prof),
              PY_LAUNCHER(place_scan_sharded_prof),
-             PY_LAUNCHER(dsmem_exchange_probe))
+             PY_LAUNCHER(dsmem_exchange_probe),
+             PY_LAUNCHER(place_scan_xmesh),
+             PY_LAUNCHER(place_scan_xmesh_words),
+             PY_LAUNCHER(xmesh_enable_peer),
+             PY_LAUNCHER(xmesh_exchange_probe))

@@ -16,8 +16,12 @@
 // nomad_tpu/ops/engine.py:96-101 _sharded_fn(mesh, "scatter").  On one
 // card the S shards are one contiguous tensor: a row's address is the
 // same whichever shard owns it, so K13 runs K4's one pass over the
-// chunk and keeps no owner test.  (A mesh across cards, where each card
-// holds only its own rows, will rebase each row onto its card's slice.)
+// chunk and keeps no owner test.  On a mesh across parts
+// (parallel/xmesh.py), where each part holds only its own rows
+// [row_off, row_off + n) of the npad rows, K13 runs one launch a part
+// over the whole chunk (`scatter_add_xmesh`): each thread wraps its row
+// as above against npad and keeps it only where this part owns it,
+// rebased onto the part's rows.
 //
 // What bounds it on the H100: neither bytes nor operations, but a
 // launch's own latency.  A 16,384-row chunk moves 64 KB of row ids,
@@ -45,14 +49,18 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// n the table's rows; across parts, npad the rows of all parts and
+// row_off this part's first (else npad = n, row_off = 0)
 __global__ void scatter_add_kernel(int* __restrict__ used, int n,
                                    const int* __restrict__ rows,
-                                   const int* __restrict__ vals, int m) {
+                                   const int* __restrict__ vals, int m,
+                                   int npad, int row_off) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= m) return;
   int r = __ldg(rows + i);
-  if (r < 0) r += n;                       // [-n, 0) wraps to [0, n)
-  if ((unsigned)r >= (unsigned)n) return;  // below -n, or n and above
+  if (r < 0) r += npad;                    // [-npad, 0) wraps
+  r -= row_off;                            // onto this part's rows
+  if ((unsigned)r >= (unsigned)n) return;  // another part's, or dropped
   const int* v = vals + (int64_t)i * 3;
   int* u = used + (int64_t)r * 3;
   const int v0 = __ldg(v), v1 = __ldg(v + 1), v2 = __ldg(v + 2);
@@ -62,11 +70,13 @@ __global__ void scatter_add_kernel(int* __restrict__ used, int n,
 }
 
 int run(int* used, int n, const int* rows, const int* vals, int m,
-        cudaStream_t stream) {
-  if (n < 0 || m < 0) return (int)cudaErrorInvalidValue;
+        cudaStream_t stream, int npad = -1, int row_off = 0) {
+  if (npad < 0) npad = n;
+  if (n < 0 || m < 0 || row_off < 0 || row_off + n > npad)
+    return (int)cudaErrorInvalidValue;
   if (m > 0)
     scatter_add_kernel<<<(m + kThreads - 1) / kThreads, kThreads, 0,
-                         stream>>>(used, n, rows, vals, m);
+                         stream>>>(used, n, rows, vals, m, npad, row_off);
   return (int)cudaGetLastError();
 }
 
@@ -86,6 +96,17 @@ extern "C" int scatter_add_sharded(int* used, int npad, const int* rows,
   return run(used, npad, rows, vals, m, stream);
 }
 
+// K13 across parts: this part's used [n, 3] (rows [part n, (part + 1) n)
+// of the npad = n n_parts rows), the chunk's rows indexing all npad
+extern "C" int scatter_add_xmesh(int* used, int n, const int* rows,
+                                 const int* vals, int m, int part,
+                                 int n_parts, cudaStream_t stream) {
+  if (n_parts < 2 || part < 0 || part >= n_parts)
+    return (int)cudaErrorInvalidValue;
+  return run(used, n, rows, vals, m, stream, n * n_parts, part * n);
+}
+
 PY_LAUNCHERS(scatter_add,
              PY_LAUNCHER(scatter_add),
-             PY_LAUNCHER(scatter_add_sharded))
+             PY_LAUNCHER(scatter_add_sharded),
+             PY_LAUNCHER(scatter_add_xmesh))

@@ -9,10 +9,16 @@ launches it (`dispatch_batch`) and maps node rows back to ids and
 AllocMetrics (`collect_batch`).
 
 On a `parallel.mesh.Mesh` (`PlacementEngine(mesh=make_mesh(8))`) the node
-axis is split into shards on the engine's one device: node tensors are
-padded to a multiple of the shard count (padded rows ineligible), a node
-write re-uploads only the shards holding dirty rows, and every launch
-goes through the sharded kernels K9-K13 (parallel/mesh.py).
+axis is split into shards: node tensors are padded to a multiple of the
+shard count (padded rows ineligible), a node write re-uploads only the
+shards holding dirty rows, and every launch goes through the sharded
+kernels K9-K13 (parallel/mesh.py).  On a mesh of several parts
+(`make_mesh(8, ["cuda:0", "cuda:1"])`, or the automatic mesh when more
+than one card is visible) each part keeps only its own rows of every
+node tensor on its own device (`parallel.xmesh.Parts`): a dirty-shard
+patch uploads to the owning part only, K13's delta replay runs on each
+part over its own rows, K1 and K8 run once a part, and the packed
+results come back from the home part (parallel/xmesh.py).
 
 Differences from the reference's engine:
   - the lane prover's per-signature masks (`_host_signature_masks`) come
@@ -21,8 +27,10 @@ Differences from the reference's engine:
     memory with a CUDA event that `collect_batch` waits on;
   - a chained wave reuses the previous wave's usage tensor in place (the
     reference donates it to XLA);
-  - a mesh runs its shards on one card: `mesh=None` means one device
-    (no automatic sharding), and a mesh across cards raises;
+  - `mesh=None` shards automatically over every card (one shard a
+    card, `parallel.mesh.default_mesh`) when the engine's device is CUDA
+    and more than one card is visible, as the reference does over every
+    JAX device; a CPU engine never shards by itself;
   - the compile ledger (`_launch`) sees no per-shape compile: the CUDA
     sources are built once, at the first launch of any kernel, and
     `kernels.build_all` notes that build on `kernels.nvcc/<source>`.  A
@@ -68,6 +76,7 @@ from nomad_tpu_torch.structs import (
     TaskGroup,
 )
 from nomad_tpu_torch.parallel import mesh as pmesh
+from nomad_tpu_torch.parallel import xmesh as X
 
 from . import kernels as K
 from .feasibility import feasible_mask, landscape_mask
@@ -405,14 +414,18 @@ class PlacementEngine:
     on one device (`torch.device("cuda")` unless the caller passes
     another, or the mesh's; the CPU runs the kernels' plain versions).
 
-    `mesh`: None or False = one device, unsharded; a
-    `parallel.mesh.Mesh` shards the node axis over its shards on its
-    device, which must be the engine's.  Node tensors are then padded to
-    a multiple of the shard count (padded rows are ineligible) and every
-    launch goes through the sharded kernels."""
+    `mesh`: None = automatic (one shard on every card, one part a card,
+    when the engine's device is CUDA and more than one card is visible;
+    else one device), False = one device, unsharded; a
+    `parallel.mesh.Mesh` shards the node axis over its shards, its home
+    device the engine's.  Node tensors are then padded to a multiple of
+    the shard count (padded rows are ineligible), held by part on a mesh
+    of several parts, and every launch goes through the sharded
+    kernels."""
 
     def __init__(self, packer: Optional[ClusterPacker] = None,
                  device=None, mesh=None) -> None:
+        auto = mesh is None
         mesh = mesh or None
         if mesh is not None and not isinstance(mesh, pmesh.Mesh):
             raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
@@ -424,11 +437,16 @@ class PlacementEngine:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device} requested but CUDA "
                                "is not available")
+        if (auto and self.device.type == "cuda"
+                and torch.cuda.device_count() > 1):
+            mesh = pmesh.default_mesh(self.device)
         if mesh is not None and not _same_device(mesh.device, self.device):
             raise ValueError(f"the mesh lies on {mesh.device}, the engine "
                              f"on {self.device}")
         self.mesh = mesh
         self._ndev = 1 if mesh is None else mesh.n_shards
+        # node tensors held by part (parallel/xmesh.Parts)
+        self._parts = mesh is not None and mesh.n_parts > 1
         self.packer = packer or ClusterPacker()
         self._dev_cache: Dict[str, torch.Tensor] = {}
         self._cache_version: Tuple[int, int, int] = (-1, -1, -1)
@@ -456,6 +474,41 @@ class PlacementEngine:
         """Copy a host array to the device (always a copy: the packer
         mutates its arrays in place after the upload)."""
         return torch.tensor(a, device=self.device)
+
+    def _to_nodes(self, a: np.ndarray, axis: int = 0):
+        """A host array with a node axis `axis` (npad rows) on the device,
+        or on a mesh of parts as `Parts`: each part's rows uploaded to its
+        own device only."""
+        if not self._parts:
+            return self._to_dev(a)
+        mesh = self.mesh
+        return X.Parts([torch.tensor(np.ascontiguousarray(b), device=d)
+                        for b, d in zip(np.split(a, mesh.n_parts, axis),
+                                        mesh.parts)], axis)
+
+    def _add_nodes(self, t, delta: np.ndarray):
+        """`t + delta` for a node tensor `t` (a tensor or `Parts`) and a
+        host array of its shape."""
+        K.count_eager("solo_used0_delta")
+        if isinstance(t, X.Parts):
+            d = self._to_nodes(delta, t.axis)
+            return X.Parts([a + b for a, b in zip(t.blocks, d.blocks)],
+                           t.axis)
+        return t + self._to_dev(delta)
+
+    def feasible_host(self, attrs, elig, dc_mask, pool_mask,
+                      con: torch.Tensor, luts: torch.Tensor,
+                      fetch=None, mask_fn=None) -> np.ndarray:
+        """K8's [G, npad] static mask of node tensors (tensors, or `Parts`:
+        one launch a part over its own rows) on the host, copied back by
+        `fetch` (unmetered unless given); `mask_fn` is K8's wrapper
+        (`feasible_mask` unless given)."""
+        fetch = fetch or (lambda x: x.cpu().numpy())
+        mask_fn = mask_fn or feasible_mask
+        return X.host_by_part(
+            lambda at: fetch(mask_fn(at(attrs), at(elig), at(dc_mask),
+                                     at(pool_mask), at(con), at(luts))),
+            attrs)
 
     @property
     def n_devices(self) -> int:
@@ -523,9 +576,13 @@ class PlacementEngine:
         seen = set()
         try:
             base = self._base
+            tensors = []
             for v in (*tuple(self._dev_cache.values()), self._used_dev,
                       *tuple(self._const_cache.values()),
                       base[3] if base is not None else None):
+                # a mesh of parts: every part's block
+                tensors += v.blocks if isinstance(v, X.Parts) else [v]
+            for v in tensors:
                 if v is None:
                     continue
                 st = v.untyped_storage()
@@ -547,9 +604,10 @@ class PlacementEngine:
         npad = self._padded_n(t.n)
         dcm = self._dev_const(
             ("dc", t.version, npad, tuple(job.datacenters)),
-            lambda: _pad_rows(ctx.dc_mask, npad, False))
+            lambda: _pad_rows(ctx.dc_mask, npad, False), nodes=True)
         pm = self._dev_const(("pool", t.version, npad, job.node_pool),
-                             lambda: _pad_rows(ctx.pool_mask, npad, False))
+                             lambda: _pad_rows(ctx.pool_mask, npad, False),
+                             nodes=True)
         return dcm, pm
 
     @staticmethod
@@ -582,11 +640,11 @@ class PlacementEngine:
                         patched = True
                 if not patched:
                     self._dev_cache = {
-                        "attrs": self._to_dev(_pad_rows(t.attrs, npad,
-                                                        UNSET)),
-                        "cap": self._to_dev(_pad_rows(t.cap, npad)),
-                        "elig": self._to_dev(_pad_rows(t.elig, npad,
-                                                       False)),
+                        "attrs": self._to_nodes(_pad_rows(t.attrs, npad,
+                                                          UNSET)),
+                        "cap": self._to_nodes(_pad_rows(t.cap, npad)),
+                        "elig": self._to_nodes(_pad_rows(t.elig, npad,
+                                                         False)),
                     }
                     h2d = sum(v.nbytes for v in self._dev_cache.values())
                     # a full re-upload invalidates the resident `used`
@@ -611,9 +669,30 @@ class PlacementEngine:
                       ) -> Tuple[torch.Tensor, int]:
         """A copy of the node-sharded tensor `arr` with the row ranges of
         `dirty_shards` re-uploaded from the host tensor (padding rows
-        `fill`); the clean shards are copied on the device.  Returns
-        (new tensor, bytes uploaded)."""
+        `fill`); the clean shards are copied on the device.  On a mesh of
+        parts only the parts owning a dirty shard get a new block (the
+        others keep theirs): each dirty shard is uploaded to its own part.
+        Returns (new tensor, bytes uploaded)."""
         nloc = max(npad // self._ndev, 1)
+        if isinstance(arr, X.Parts):
+            spp = self.mesh.shards_per_part
+            blocks = list(arr.blocks)
+            nbytes = 0
+            for part in sorted({sh // spp for sh in dirty_shards}):
+                blk = blocks[part].clone()
+                for sh in sorted(dirty_shards):
+                    if sh // spp != part:
+                        continue
+                    lo = sh * nloc
+                    sl = np.full((nloc,) + host.shape[1:], fill, host.dtype)
+                    real = max(min(lo + nloc, host.shape[0]) - lo, 0)
+                    if real:
+                        sl[:real] = host[lo:lo + real]
+                    at = (sh % spp) * nloc
+                    blk[at:at + nloc] = torch.tensor(sl, device=blk.device)
+                    nbytes += sl.nbytes
+                blocks[part] = blk
+            return X.Parts(blocks, arr.axis), nbytes
         out = arr.clone()
         nbytes = 0
         for sh in sorted(dirty_shards):
@@ -707,7 +786,7 @@ class PlacementEngine:
                                      scatter_add_, dev, r_c, v_c)
                     h2d_bytes += r_h.nbytes + v_h.nbytes
             else:
-                self._used_dev = self._to_dev(
+                self._used_dev = self._to_nodes(
                     _pad_rows(t.used, self._padded_n(t.n)))
                 h2d_bytes += self._used_dev.nbytes
             self._used_version = ver
@@ -719,16 +798,18 @@ class PlacementEngine:
                            else "initial-upload")
             return self._used_dev
 
-    def _dev_const(self, key, builder) -> torch.Tensor:
+    def _dev_const(self, key, builder, nodes: bool = False):
         """Small per-eval tensors that repeat across evals (dc/pool
         masks, the LUT matrix, zero rows) — uploaded once and reused by
-        cache key (LRU via dict insertion order)."""
+        cache key (LRU via dict insertion order).  `nodes`: a node-axis
+        row (held by part on a mesh of parts)."""
         with self.packer.lock:
             hit = self._const_cache.pop(key, None)
             if hit is not None:
                 self._const_cache[key] = hit
                 return hit
-        val = self._to_dev(np.asarray(builder()))
+        val = (self._to_nodes if nodes else self._to_dev)(
+            np.asarray(builder()))
         with self.packer.lock:
             if len(self._const_cache) > 256:
                 for old in list(self._const_cache)[:64]:
@@ -756,13 +837,18 @@ class PlacementEngine:
             host.append(row)
             index[key] = i
             if dev is not None and i < dev.shape[0]:
-                dev[i].copy_(torch.from_numpy(row))
+                if isinstance(dev, X.Parts):
+                    for blk, r in zip(dev.blocks,
+                                      np.split(row, len(dev.blocks))):
+                        blk[i].copy_(torch.from_numpy(r))
+                else:
+                    dev[i].copy_(torch.from_numpy(row))
             else:
                 # a new table, twice the rows, from the host rows (an
                 # earlier wave's launch keeps the old one)
                 full = np.zeros((max(8, 2 * i), npad), bool)
                 full[:i + 1] = host
-                tab[3] = self._to_dev(full)
+                tab[3] = self._to_nodes(full, axis=1)
             return i, tab[3]
 
     def _dc_counts(self, t: NodeTensors) -> Dict[str, int]:
@@ -811,9 +897,13 @@ class PlacementEngine:
         native bridge's result buffer (ops/executor.py `_BridgeArray`,
         whose fetch waits on the library's stream)."""
         t0 = time.perf_counter_ns()
-        out = (t.cpu().numpy() if isinstance(t, torch.Tensor)
+        out = (t.cpu().numpy() if isinstance(t, (torch.Tensor, X.Parts))
                else np.asarray(t))
         self._note_d2h(out.nbytes, (time.perf_counter_ns() - t0) / 1e9)
+        if self._parts:
+            # a part of this thread's launches that ran out its wait
+            # raises here, after the fetch
+            X.check(self.mesh, wait=False)
         return out
 
     # -------------------------------------------------------------- solo
@@ -912,24 +1002,25 @@ class PlacementEngine:
                 delta[row, 2] -= a.resources.disk_mb
                 if a.job_id == job.id and job_count[row] > 0:
                     job_count[row] -= 1
-            used0 = used0 + self._to_dev(delta)
-            K.count_eager("solo_used0_delta")
+            used0 = self._add_nodes(used0, delta)
 
         dcm, pm = self.job_masks(t, job, ctx)
         luts_dev = self._dev_const(
             ("luts", self.packer.lut_epoch, tg_tensors.luts.shape),
             lambda: tg_tensors.luts)
         if job_count.any():
-            jc_dev = self._to_dev(_pad_rows(job_count, npad))
+            jc_dev = self._to_nodes(_pad_rows(job_count, npad))
         else:
             jc_dev = self._dev_const(("zjc", npad),
-                                     lambda: np.zeros(npad, np.int32))
+                                     lambda: np.zeros(npad, np.int32),
+                                     nodes=True)
 
         # device (GPU/...) feasibility: a host-computed per-group node mask
         dev_mask = self._device_mask(
             tgs, t, snapshot, {a.id for a in stopped_allocs}, device_in_use)
         extra_mask = (None if dev_mask is None
-                      else self._to_dev(_pad_cols(dev_mask, npad, False)))
+                      else self._to_nodes(_pad_cols(dev_mask, npad, False),
+                                          axis=1))
 
         has_spread = bool(job.spreads) or any(tg.spreads for tg in tgs)
         has_distinct = any(tg_tensors.distinct)
@@ -1037,11 +1128,13 @@ class PlacementEngine:
                 req=self._to_dev(tg_tensors.req),
                 desired=self._to_dev(desired),
                 dh_limit=self._to_dev(tg_tensors.dh_limit),
-                sp_nodeval=self._to_dev(_pad_cols(sp.sp_nodeval, npad, -1)),
+                sp_nodeval=self._to_nodes(_pad_cols(sp.sp_nodeval, npad,
+                                                    -1), axis=1),
                 sp_weight=self._to_dev(sp.sp_weight),
                 sp_expected=self._to_dev(sp.sp_expected),
                 sp_counts0=self._to_dev(sp.sp_counts0),
-                pd_nodeval=self._to_dev(_pad_cols(pd.pd_nodeval, npad, -1)),
+                pd_nodeval=self._to_nodes(_pad_cols(pd.pd_nodeval, npad,
+                                                    -1), axis=1),
                 pd_limit=self._to_dev(pd.pd_limit),
                 pd_apply=self._to_dev(pd.pd_apply),
                 pd_counts0=self._to_dev(pd.pd_counts0),
@@ -1145,10 +1238,11 @@ class PlacementEngine:
                                           job.type)):
             return evictions_by_req
         # mesh padding rows sliced off: the preemptor works over the real
-        # node rows
-        static = self._fetch(feasible_mask(
+        # node rows (a mesh of parts: K8 over each part's rows, the rows
+        # gathered to the home part's host copy, where K7 runs)
+        static = self.feasible_host(
             inp.attrs, inp.elig, inp.dc_mask, inp.pool_mask, inp.con,
-            inp.luts))[:, :t.n]
+            inp.luts, self._fetch)[:, :t.n]
         used = self._fetch(used_dev)[:t.n]
         job_count = self._fetch(job_count_dev)[:t.n]
         pre_evicted: set = set()
@@ -1309,8 +1403,10 @@ class PlacementEngine:
         launch = self._launch
         skey = (rs, aux["npad"], aux["n_lanes"])
         if aux["cand_rows"] is not None:
-            cr = self._to_dev(aux["cand_rows"])
-            cv = self._to_dev(aux["cand_valid"])
+            # per-shard frames: by part on a mesh of parts
+            to = self._to_nodes if self._parts else self._to_dev
+            cr = to(aux["cand_rows"])
+            cv = to(aux["cand_valid"])
             if mesh is not None:
                 if chained:
                     buf, fills_full, used_out = launch(
@@ -1355,6 +1451,8 @@ class PlacementEngine:
                                       inp, rs)
         host_buf, ready = self._start_fetch(buf)
         return {"buf": host_buf, "ready": ready, "used": used_out,
+                # the wave's launches across parts, checked at collect
+                "xmesh": X.take(mesh) if self._parts else None,
                 "items": list(items), "spans": aux["spans"],
                 "counts": aux["counts"], "rs": rs, "t": aux["t"],
                 "ctxs": aux["ctxs"], "n": aux["n"], "npad": aux["npad"],
@@ -1411,7 +1509,7 @@ class PlacementEngine:
             if rows.size:
                 ok = np.ones(npad, bool)
                 ok[rows] = False
-                node_ok = self._to_dev(ok)
+                node_ok = self._to_nodes(ok)
         algo = snapshot.scheduler_config().scheduler_algorithm
 
         G = len(items)
@@ -1535,10 +1633,13 @@ class PlacementEngine:
             if len(cliques) == 1 and len(cliques[0]) > 1:
                 clique = cliques[0]
                 width = len(clique)
-                # the frame IS the static mask on the compact path
-                masks = _host_signature_masks(
-                    dev["attrs"], con, luts_dev, dev["elig"], base_mask,
-                    u_mask, node_ok, clique)
+                # the frame IS the static mask on the compact path (on a
+                # mesh of parts K1 runs once a part, over its own rows)
+                masks = X.host_by_part(
+                    lambda at: _host_signature_masks(
+                        at(dev["attrs"]), at(con), at(luts_dev),
+                        at(dev["elig"]), at(base_mask), at(u_mask),
+                        at(node_ok), clique), dev["attrs"])
                 rows_l = [np.nonzero(masks[i])[0].astype(np.int32)
                           for i in range(width)]
                 if self.mesh is None:
@@ -1616,19 +1717,35 @@ class PlacementEngine:
                 jrows.append(row.astype(np.int32))
             jc0 = np.stack(jrows)
             if cand_rows.ndim == 3:
-                # sharded seeds: [S, J', Nc_loc]
-                jc0 = np.ascontiguousarray(np.moveaxis(jc0, 0, 1))
-            jc0 = self._to_dev(jc0)
+                # sharded seeds: [S, J', Nc_loc] (by part on a mesh of
+                # parts, as the frames)
+                jc0 = self._to_nodes(
+                    np.ascontiguousarray(np.moveaxis(jc0, 0, 1)))
+            else:
+                jc0 = self._to_dev(jc0)
             g_job_dev = self._to_dev(g_job)
         else:
-            jc0 = torch.zeros((g_pad, npad), dtype=torch.int32,
-                              device=self.device)
-            K.count_eager("flat_jc0_zeros")
-            if jc_nz_idx:
-                jc0[torch.tensor(jc_nz_idx, device=self.device)] = \
-                    self._to_dev(_pad_cols(np.stack(jc_nz_rows), npad)
-                                 .astype(np.int32))
-                K.count_eager("flat_jc0_set")
+            # [G, npad] job count rows built on the card (on a mesh of
+            # parts each part's columns on its own device)
+            nz = (_pad_cols(np.stack(jc_nz_rows), npad).astype(np.int32)
+                  if jc_nz_idx else None)
+
+            def jc_rows(dev, lo, hi):
+                jc = torch.zeros((g_pad, hi - lo), dtype=torch.int32,
+                                 device=dev)
+                K.count_eager("flat_jc0_zeros")
+                if nz is not None:
+                    jc[torch.tensor(jc_nz_idx, device=dev)] = torch.tensor(
+                        np.ascontiguousarray(nz[:, lo:hi]), device=dev)
+                    K.count_eager("flat_jc0_set")
+                return jc
+
+            if self._parts:
+                n_p = npad // self.mesh.n_parts
+                jc0 = X.Parts([jc_rows(d, p * n_p, (p + 1) * n_p)
+                               for p, d in enumerate(self.mesh.parts)], 1)
+            else:
+                jc0 = jc_rows(self.device, 0, npad)
             g_job_dev = torch.arange(g_pad, dtype=torch.int32,
                                      device=self.device)
             K.count_eager("flat_g_job_arange")
@@ -1675,6 +1792,9 @@ class PlacementEngine:
             pending["ready"].synchronize()
         buf_np = pending["buf"].numpy()
         self._note_d2h(buf_np.nbytes, time.perf_counter() - tw)
+        if pending.get("xmesh"):
+            # the wave's parts' error words came back before its buffer
+            X.check(self.mesh, pending["xmesh"])
         perm = pending.get("perm")
         if perm is not None:
             # laned schedule: reorder rows back to eval-major order so

@@ -55,8 +55,8 @@ Telemetry (core/telemetry.py):
 Differences from the reference:
   - the backends are `torch` (`TorchExecutor`, the reference's `jax`
     backend's counterpart) and `bridge`; `make_executor("bridge")`
-    raises ValueError on a mesh engine (the port's mesh is S shards on
-    one card, and the library runs the unsharded programs) and
+    raises ValueError on a mesh engine, on one card or across parts (the
+    library runs the unsharded programs), as the reference's does, and
     ExecutorUnavailable on a CPU engine (no card for the library to
     drive), before anything is built;
   - `BridgeExecutor(engine, bridge=None)` takes an injected bridge

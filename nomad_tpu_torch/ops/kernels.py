@@ -130,10 +130,23 @@ MULTI_COMPACT_SHARDED = Kernel("multi_compact_sharded",
                                "nomad_tpu/parallel/mesh.py:590")
 SCATTER_ADD_SHARDED = Kernel("scatter_add_sharded", "scatter_add.cu",
                              "nomad_tpu/ops/engine.py:96")
+# the mesh across parts (parallel/xmesh.py): one launch a part, the parts
+# meeting through a hand-written exchange (csrc/xmesh.cuh)
+PLACE_SCAN_XMESH = Kernel("place_scan_xmesh", "place_scan.cu",
+                          "nomad_tpu/parallel/mesh.py:221")
+MULTI_BULK_XMESH = Kernel("multi_bulk_xmesh", "compact_rounds.cu",
+                          "nomad_tpu/parallel/mesh.py:645")
+MULTI_FLAT_XMESH = Kernel("multi_flat_xmesh", "compact_rounds.cu",
+                          "nomad_tpu/parallel/mesh.py:454")
+MULTI_COMPACT_XMESH = Kernel("multi_compact_xmesh", "compact_rounds.cu",
+                             "nomad_tpu/parallel/mesh.py:590")
+SCATTER_ADD_XMESH = Kernel("scatter_add_xmesh", "scatter_add.cu",
+                           "nomad_tpu/ops/engine.py:96")
 KERNELS = (LANDSCAPE, MULTI_COMPACT, MULTI_FLAT, SCATTER_ADD, PLACE_SCAN,
            MULTI_BULK, PREEMPT_BULK, FEASIBLE, PLACE_SCAN_SHARDED,
            MULTI_BULK_SHARDED, MULTI_FLAT_SHARDED, MULTI_COMPACT_SHARDED,
-           SCATTER_ADD_SHARDED)
+           SCATTER_ADD_SHARDED, PLACE_SCAN_XMESH, MULTI_BULK_XMESH,
+           MULTI_FLAT_XMESH, MULTI_COMPACT_XMESH, SCATTER_ADD_XMESH)
 
 _lock = threading.Lock()
 _bridge_lock = threading.Lock()

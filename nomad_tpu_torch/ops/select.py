@@ -303,6 +303,33 @@ def place_multi_packed_plain(inp: MultiEvalInputs, round_size: int,
     return buf, used[0], cur[0].to(torch.int32)
 
 
+class XPart(NamedTuple):
+    """One part's launch of a mesh across parts (parallel/xmesh.py):
+    the part's index and the part count, the address of the exchange
+    buffer on the home part's card, and the clock64() cycles a wait for
+    another part may take.  The launch's node tensors are the part's own
+    rows [part n, (part + 1) n); only part 0 writes the packed buffers.
+    The launch helpers append the part's exchanging launch to `launches`
+    (a closure) instead of making it: every part's set-up (its statics,
+    allocations, first loads of kernels) then ends before any part
+    starts to wait for the others (parallel/xmesh.py `_run_parts`)."""
+    part: int
+    n_parts: int
+    buf: int
+    deadline: int
+    launches: list
+
+
+def _launch(kern, xp, keep, device: int, symbol: str, *args) -> None:
+    """`kern.launch`, or with an XPart its deferred launch, which holds
+    `keep` (the tensors whose addresses `args` pass) until it runs."""
+    if xp is None:
+        kern.launch(device, symbol, *args)
+    else:
+        xp.launches.append(
+            lambda keep=keep: kern.launch(device, symbol, *args))
+
+
 def _check_shards(name: str, n: int, n_shards: int) -> None:
     if n_shards and (not 1 <= n_shards <= 8 or n % n_shards):
         raise ValueError(f"{name}: {n} rows do not split into {n_shards} "
@@ -319,8 +346,11 @@ def _multi_seed(inp: MultiEvalInputs) -> torch.Tensor:
 def _frame_scratch(kern, name, dev, *plan):
     """The global scratch of a compact_rounds.cu launch whose frame
     state does not fit in shared memory (None when it fits); `plan` as
-    the `multi_compact_scratch_bytes` launcher takes it."""
-    nbytes = kern.fn("multi_compact_scratch_bytes")(*plan)
+    the `multi_compact_scratch_bytes` launcher takes it (with a sixth
+    value, the part count of a mesh across parts, as
+    `multi_xmesh_scratch_bytes` takes it)."""
+    nbytes = kern.fn("multi_xmesh_scratch_bytes" if len(plan) > 5
+                     else "multi_compact_scratch_bytes")(*plan)
     if nbytes < 0:
         raise ValueError(f"{name}: frames of {plan[1]} slots at round "
                          f"size {plan[2]} do not fit")
@@ -329,33 +359,45 @@ def _frame_scratch(kern, name, dev, *plan):
 
 
 def _flat_mode_launch(kern, dev, n: int, round_size: int, args,
-                      n_shards: int = 0, prof=None) -> None:
+                      n_shards: int = 0, prof=None, xp=None,
+                      keep=()) -> None:
     """One launch of csrc/compact_rounds.cu's flat mode (K3, K6, and K11,
     K10 with `n_shards`: the same launch over rows that many shards hold
     in order), on a cluster that `plan()` sizes for `n` rows, with global
     scratch when the frame does not fit in its shared memory.  `args`
     are the entry's arguments before its scratch.  With `prof` (int64
     [18] on the card) the PROF instantiation runs instead and writes
-    block 0's phase split there (chip_smoke.py)."""
-    frame = _frame_scratch(kern, kern.name, dev, 1, n, round_size, 1, 1)
+    block 0's phase split there (chip_smoke.py).  With `xp` (an XPart)
+    the launch is one part's of a mesh across parts (K10, K11), deferred
+    with `keep`, the tensors `args` point into."""
+    if xp is not None:
+        frame = _frame_scratch(kern, kern.name, dev, 1, n, round_size, 1,
+                               1, xp.n_parts)
+    else:
+        frame = _frame_scratch(kern, kern.name, dev, 1, n, round_size, 1, 1)
     tail = [None if frame is None else frame.data_ptr()]
     symbol = kern.name
-    if n_shards:
+    if xp is not None:
+        tail += [xp.part, xp.n_parts, xp.buf, xp.deadline]
+    elif n_shards:
         tail.append(n_shards)
     elif prof is not None:
         symbol += "_prof"
         tail.append(prof.data_ptr())
-    kern.launch(dev.index, symbol, *args, *tail)
+    _launch(kern, xp, (keep, frame), dev.index, symbol, *args, *tail)
 
 
 def _flat_launch(used: torch.Tensor, used_in: torch.Tensor,
                  inp: MultiEvalInputs, round_size: int, n_shards: int = 0,
-                 prof=None):
+                 prof=None, xp=None):
     """K1's landscapes (one launch for both) + one K3 launch
-    (`_flat_mode_launch`; K11 with `n_shards`, counted on K11's entry).
+    (`_flat_mode_launch`; K11 with `n_shards`, counted on K11's entry;
+    with `xp` one part's K11 of a mesh across parts, over the part's own
+    rows, counted on its entry, its buffer None but on part 0).
     The kernel reads the usage from `used_in` and writes every row of
     `used` (the same tensor for the chained form, updated in place)."""
-    kern = K.MULTI_FLAT_SHARDED if n_shards else K.MULTI_FLAT
+    kern = (K.MULTI_FLAT_XMESH if xp is not None
+            else K.MULTI_FLAT_SHARDED if n_shards else K.MULTI_FLAT)
     name = kern.name
     n = inp.attrs.shape[0]
     _check_rounds(n, round_size)
@@ -384,16 +426,18 @@ def _flat_launch(used: torch.Tensor, used_in: torch.Tensor,
         raise ValueError(f"{name}: inconsistent shapes")
     n_rounds = inp.round_g.shape[0]
     ua, af = inp.aff.shape[:2]
-    buf = torch.empty((n_rounds, round_size + 16), dtype=torch.int32,
-                      device=dev)
+    buf = (torch.empty((n_rounds, round_size + 16), dtype=torch.int32,
+                       device=dev) if xp is None or xp.part == 0 else None)
     jc = torch.empty(n, dtype=torch.int32, device=dev)
     if not n_rounds:
         if used is not used_in:
             used.copy_(used_in)
         return buf, used, jc.copy_(inp.job_count0[0])
     _flat_mode_launch(kern, dev, n, round_size, [
-        *[t.data_ptr() for t in (*tensors.values(), buf, jc)], n, ua, af,
-        n_rounds, int(bool(inp.spread_algo)), round_size], n_shards, prof)
+        *[t.data_ptr() for t in tensors.values()],
+        None if buf is None else buf.data_ptr(), jc.data_ptr(), n, ua, af,
+        n_rounds, int(bool(inp.spread_algo)), round_size], n_shards, prof,
+        xp, (tensors, buf, jc))
     return buf, used, jc
 
 
@@ -496,15 +540,19 @@ def place_multi_compact_packed_plain(inp: MultiEvalInputs, cand_rows,
 def _compact_launch(used_out: torch.Tensor, used_in: torch.Tensor,
                     inp: MultiEvalInputs, cand_rows, cand_valid,
                     round_size: int, n_lanes: int, n_shards: int = 0,
-                    prof=None):
+                    prof=None, xp=None):
     """K1's per-frame affinity + one K2 launch (csrc/compact_rounds.cu, a
     cluster of up to 8 blocks per lane; K12 with `n_shards`: per-shard
     frames [S, L, Nc_loc] and seeds [S, J', Nc_loc], each lane's shard
     slices laid end to end, one block per shard).  `used_out` receives
     the final usage; it may be `used_in` itself.  With `prof` (int64
     [18] on the card) the PROF instantiation runs instead and writes
-    block 0's phase split there (chip_smoke.py)."""
-    kern = K.MULTI_COMPACT_SHARDED if n_shards else K.MULTI_COMPACT
+    block 0's phase split there (chip_smoke.py).  With `xp` (an XPart)
+    the launch is one part's K12 of a mesh across parts: its frames
+    [S_p, L, Nc_loc] hold global rows, its node tensors its own rows, and
+    its buffers are None but on part 0."""
+    kern = (K.MULTI_COMPACT_XMESH if xp is not None
+            else K.MULTI_COMPACT_SHARDED if n_shards else K.MULTI_COMPACT)
     name = kern.name
     n = inp.attrs.shape[0]
     _check_rounds(n, round_size)
@@ -517,8 +565,13 @@ def _compact_launch(used_out: torch.Tensor, used_in: torch.Tensor,
     K.check_dtype(f"{name}.cand_rows", cand_rows, torch.int32)
     K.check_dtype(f"{name}.cand_valid", cand_valid, torch.bool)
     nc = cand_rows.shape[-1]
+    aff_rows = cand_rows.reshape(-1, nc)
+    if xp is not None:
+        # K1 reads the part's own rows
+        K.count_eager("xmesh_local_rows")
+        aff_rows = aff_rows - xp.part * n
     aff_cu = affinity_landscape(inp.attrs, inp.aff, inp.luts,
-                                rows=cand_rows.reshape(-1, nc))
+                                rows=aff_rows)
     seed = _multi_seed(inp)
     tensors = dict(cap=inp.cap, used_in=used_in, used_out=used_out,
                    cand_rows=cand_rows, cand_valid=cand_valid,
@@ -544,26 +597,32 @@ def _compact_launch(used_out: torch.Tensor, used_in: torch.Tensor,
     n_steps = inp.round_g.shape[0] // n_lanes
     fill_k = min(FILL_K, round_size)
     ua, af = inp.aff.shape[:2]
-    buf_small = torch.empty((n_steps * n_lanes, fill_k + 16),
-                            dtype=torch.int32, device=dev)
-    fills = torch.empty((n_steps * n_lanes, round_size), dtype=torch.int32,
-                        device=dev)
+    home = xp is None or xp.part == 0
+    buf_small = (torch.empty((n_steps * n_lanes, fill_k + 16),
+                             dtype=torch.int32, device=dev) if home else None)
+    fills = (torch.empty((n_steps * n_lanes, round_size), dtype=torch.int32,
+                         device=dev) if home else None)
     if not (n_steps and nc):
         return buf_small, fills, used_out
-    frame = _frame_scratch(kern, name, dev, n_lanes, nc, round_size,
-                           max(n_shards, 1), 0)
+    plan = (n_lanes, nc, round_size, max(n_shards, 1), 0)
+    if xp is not None:
+        plan += (xp.n_parts,)
+    frame = _frame_scratch(kern, name, dev, *plan)
     tail = [None if frame is None else frame.data_ptr()]
     if n_shards:
         tail += [n_shards, inp.job_count0.shape[1]]
+    if xp is not None:
+        tail += [xp.part, xp.n_parts, xp.buf, xp.deadline]
     symbol = name
     if prof is not None:
         symbol = name + "_prof"
         tail.append(prof.data_ptr())
-    kern.launch(dev.index, symbol,
-                *[t.data_ptr() for t in (*tensors.values(), buf_small,
-                                         fills)],
-                n, n_lanes, nc, ua, af, n_steps, int(bool(inp.spread_algo)),
-                round_size, fill_k, *tail)
+    _launch(kern, xp, (tensors, buf_small, fills, frame), dev.index, symbol,
+            *[t.data_ptr() for t in tensors.values()],
+            *[None if t is None else t.data_ptr()
+              for t in (buf_small, fills)],
+            n, n_lanes, nc, ua, af, n_steps, int(bool(inp.spread_algo)),
+            round_size, fill_k, *tail)
     return buf_small, fills, used_out
 
 
@@ -867,13 +926,16 @@ def _check_inputs(name: str, inp, i32, f32=(), bools=()) -> None:
 
 
 def _scan_launch(inp: PlacementInputs, n_shards: int = 0, prof=None,
-                 nt: int = 0):
+                 nt: int = 0, xp=None):
     """K1 statics + one K5 launch (K9 with `n_shards`: one cluster of
     that many blocks, each keeping its own spread and distinct counts).
     With `prof` (int64 [18] on the card) the PROF instantiation runs
     instead, with `nt` threads a block (0: as the main path chooses),
-    and writes block 0's phase split there (chip_smoke.py)."""
-    kern = K.PLACE_SCAN_SHARDED if n_shards else K.PLACE_SCAN
+    and writes block 0's phase split there (chip_smoke.py).  With `xp`
+    (an XPart) the launch is one part's K9 of a mesh across parts over
+    its own rows, its buffer None but on part 0."""
+    kern = (K.PLACE_SCAN_XMESH if xp is not None
+            else K.PLACE_SCAN_SHARDED if n_shards else K.PLACE_SCAN)
     name = kern.name
     n = inp.attrs.shape[0]
     _check_shards(name, n, n_shards)
@@ -899,7 +961,8 @@ def _scan_launch(inp: PlacementInputs, n_shards: int = 0, prof=None,
     aff_any = (inp.aff[..., 3] != 0).any(dim=1)
     used = inp.used0.clone()
     job_count = inp.job_count0.clone()
-    buf = torch.empty((p, 14), dtype=torch.int32, device=dev)
+    buf = (torch.empty((p, 14), dtype=torch.int32, device=dev)
+           if xp is None or xp.part == 0 else None)
     if not p:
         return buf, used, job_count
     # the kernel's caches, counts and group statics (csrc/place_scan.cu
@@ -909,18 +972,20 @@ def _scan_launch(inp: PlacementInputs, n_shards: int = 0, prof=None,
         raise ValueError(f"{name}: scratch of {g} x {n} nodes too large")
     scratch = torch.empty(words, dtype=torch.int32, device=dev)
     tail = [n_shards] if n_shards else []
+    if xp is not None:
+        tail += [xp.part, xp.n_parts, xp.buf, xp.deadline]
     symbol = name
     if prof is not None:
         symbol = name + "_prof"
         tail += [nt, prof.data_ptr()]
-    kern.launch(
-        dev.index, symbol, *[t.data_ptr() for t in (
-            inp.cap, used, static, aff_sc, aff_any, inp.req,
-            inp.desired, inp.dh_limit, inp.sp_nodeval,
-            inp.sp_weight, inp.sp_expected, inp.sp_counts0,
-            inp.pd_nodeval, inp.pd_limit, inp.pd_apply,
+    args = (inp.cap, used, static, aff_sc, aff_any, inp.req, inp.desired,
+            inp.dh_limit, inp.sp_nodeval, inp.sp_weight, inp.sp_expected,
+            inp.sp_counts0, inp.pd_nodeval, inp.pd_limit, inp.pd_apply,
             inp.pd_counts0, inp.tg_idx, inp.prev_row, inp.active,
-            job_count, buf, scratch)],
+            job_count, buf, scratch)
+    _launch(
+        kern, xp, args, dev.index, symbol,
+        *[None if t is None else t.data_ptr() for t in args],
         n, g, s, k, d, kd, p, int(bool(inp.spread_algo)),
         int(inp.seed) & _U32, *tail)
     return buf, used, job_count
@@ -1133,7 +1198,7 @@ _BULK_SPECS = (("attrs", torch.int32, 2), ("cap", torch.int32, 2),
 
 def _bulk_launch(inp: BulkInputs, round_size: int, n_rounds: int,
                  with_scores: bool, fill_k: int, n_shards: int = 0,
-                 prof=None):
+                 prof=None, xp=None):
     """K8's static row and K1's affinity of group g, then one K6 launch:
     K3's flat mode at one group (csrc/compact_rounds.cu `multi_bulk`,
     `bulk_as_flat`'s identity), which derives each round's demand from
@@ -1141,8 +1206,10 @@ def _bulk_launch(inp: BulkInputs, round_size: int, n_rounds: int,
     only).  The group's `extra_mask` row is ANDed into the static row
     here (one counted eager op; the engine sends no mask on this path).
     The kernel reads `inp.used0` and writes every row of a fresh usage.
-    `prof` as in `_flat_mode_launch`."""
-    kern = K.MULTI_BULK_SHARDED if n_shards else K.MULTI_BULK
+    `prof` and `xp` (K10 on a mesh across parts: full layout, the buffer
+    None but on part 0) as in `_flat_mode_launch`."""
+    kern = (K.MULTI_BULK_XMESH if xp is not None
+            else K.MULTI_BULK_SHARDED if n_shards else K.MULTI_BULK)
     name = kern.name
     specs = [(f, getattr(inp, f), dtype, ndim)
              for f, dtype, ndim in _BULK_SPECS]
@@ -1152,7 +1219,7 @@ def _bulk_launch(inp: BulkInputs, round_size: int, n_rounds: int,
     n = inp.attrs.shape[0]
     _check_bulk(n, round_size, with_scores, fill_k)
     _check_shards(name, n, n_shards)
-    if n_shards and (with_scores or fill_k):
+    if (n_shards or xp is not None) and (with_scores or fill_k):
         raise ValueError(f"{name}: the sharded bulk rounds have the full "
                          "layout only")
     g = inp.g
@@ -1174,7 +1241,8 @@ def _bulk_launch(inp: BulkInputs, round_size: int, n_rounds: int,
                                    inp.luts, extra)
     slot_k = min(fill_k, round_size) if fill_k else round_size
     width = slot_k + (round_size if with_scores else 0) + 16
-    buf = inp.used0.new_empty((n_rounds, width))
+    buf = (inp.used0.new_empty((n_rounds, width))
+           if xp is None or xp.part == 0 else None)
     fills = (inp.used0.new_empty((n_rounds, round_size)) if fill_k
              else None)
     used = torch.empty_like(inp.used0)
@@ -1184,11 +1252,13 @@ def _bulk_launch(inp: BulkInputs, round_size: int, n_rounds: int,
             inp.cap.data_ptr(), inp.used0.data_ptr(), used.data_ptr(),
             static.data_ptr(), aff_sc.data_ptr(), aff.data_ptr(), inp.req[g].data_ptr(),
             inp.desired[g].data_ptr(), inp.dh_limit[g].data_ptr(),
-            inp.job_count0.data_ptr(), buf.data_ptr(),
+            inp.job_count0.data_ptr(),
+            None if buf is None else buf.data_ptr(),
             None if fills is None else fills.data_ptr(), jc.data_ptr(), n,
             aff.shape[1], n_rounds, int(bool(inp.spread_algo)), round_size,
             slot_k, int(bool(with_scores)), inp.p_real,
-            int(inp.seed) & _U32], n_shards, prof)
+            int(inp.seed) & _U32], n_shards, prof, xp,
+            (inp, static, aff_sc, aff, used, buf, fills, jc))
     else:
         used.copy_(inp.used0)
         jc.copy_(inp.job_count0)

@@ -1,4 +1,4 @@
-"""Node-sharded placement on one card (reference: nomad_tpu/parallel/mesh.py).
+"""Node-sharded placement (reference: nomad_tpu/parallel/mesh.py).
 
 The node axis is split over S shards.  Shard s owns the contiguous rows
 [s * n_loc, (s + 1) * n_loc) of every node tensor (`used`, `attrs`,
@@ -8,8 +8,14 @@ local winners, and the winners meet in a global top-k; the owning shard
 commits, and counts and metrics are sums over the shards.
 
 The reference runs the shards as devices of a `jax.sharding.Mesh` under
-`shard_map`.  The port runs them on ONE card: `Mesh` holds the shard
-count and one `torch.device`.  The plain versions below carry the shard
+`shard_map`.  The port's `Mesh` holds the shard count and its parts: a
+part is a device that holds a contiguous block of the shards (part p of
+D owns shards [p S/D, (p + 1) S/D)), and two parts may name the same
+card.  A mesh of one part runs its S shards on that one device, as
+below; a mesh of several parts keeps each part's rows on its own device
+and runs one launch a part, the parts meeting through a hand-written
+exchange on every step or round (parallel/xmesh.py, which the wrappers
+below route such a mesh to).  The plain versions below carry the shard
 axis as a leading tensor dimension (`all_gather` is a reshape over it,
 `psum` a sum, `axis_index` an arange) and reuse ops/select.py's round
 and step cores.  On a CUDA tensor each wrapper launches its kernel, one
@@ -31,11 +37,17 @@ K11's rows):
   scatter_add_sharded_               K13 (usage delta replay,
                                           csrc/scatter_add.cu)
 
-A mesh across several cards waits for a later slice and raises.
+`make_mesh(8)` is 8 shards on one card; `make_mesh(8, ["cuda:0",
+"cuda:1"])` 8 shards over two cards (4 a part; every pair of distinct
+cards needs peer access); `make_mesh(8, ["cpu"] * 4)` 4 parts of the
+plain versions; `default_mesh()` one shard on every visible card, the
+mesh `PlacementEngine(mesh=None)` builds when more than one card is
+visible (reference: engine._default_mesh over `make_mesh()`).
 """
 
 from __future__ import annotations
 
+import threading
 from functools import partial
 from typing import Optional
 
@@ -43,6 +55,7 @@ import torch
 
 from nomad_tpu_torch.ops import kernels as K
 from nomad_tpu_torch.ops import select as S
+from nomad_tpu_torch.parallel import xmesh as X
 from nomad_tpu_torch.ops.select import (
     NEG_INF,
     TOP_K,
@@ -55,43 +68,130 @@ from nomad_tpu_torch.ops.select import (
 
 AXIS = "nodes"
 # the reference's tests and `bench.py --mesh 8` run 8 shards; one
-# thread-block cluster holds at most 8 blocks portably
+# thread-block cluster holds at most 8 blocks portably: the shards of
+# one part
 MAX_SHARDS = 8
+# parts of a mesh (the rounds kernels merge 8 parts' posts in one warp)
+MAX_PARTS = 8
 
 
 class Mesh:
-    """S shards of the node axis on one device."""
+    """S shards of the node axis over its parts: part p of D, on device
+    `parts[p]`, holds shards [p S/D, (p + 1) S/D).  `device` is the
+    first part's, the home of the packed outputs."""
 
-    def __init__(self, n_shards: int, device) -> None:
-        if not 1 <= int(n_shards) <= MAX_SHARDS:
-            raise ValueError(f"a mesh has 1..{MAX_SHARDS} shards, "
-                             f"got {n_shards}")
-        self.n_shards = int(n_shards)
-        self.device = torch.device(device)
+    def __init__(self, n_shards: int, device, parts=None) -> None:
+        parts = [torch.device(device)] if parts is None else [
+            torch.device(d) for d in parts]
+        n_shards = int(n_shards)
+        if not 1 <= len(parts) <= MAX_PARTS or n_shards % len(parts):
+            raise ValueError(f"{n_shards} shards do not split into "
+                             f"{len(parts)} parts (1..{MAX_PARTS})")
+        if not 1 <= n_shards // len(parts) <= MAX_SHARDS:
+            raise ValueError(f"a mesh has 1..{MAX_SHARDS} shards a part, "
+                             f"got {n_shards // len(parts)}")
+        self.n_shards = n_shards
+        self.parts = parts
+        self.n_parts = len(parts)
+        self.shards_per_part = n_shards // len(parts)
+        self.device = parts[0]
         # read on every wrapper call (a torch.device builds its type
         # string anew at each read)
         self.on_cpu = self.device.type == "cpu"
+        # across parts (parallel/xmesh.py): the wait deadline in clock64()
+        # cycles, each part's stream for its exchanging launches, the
+        # lock one caller's exchanging launches hold, each thread's
+        # launches whose error word is unchecked, peer access enabled
+        self.deadline = X.DEADLINE_CYCLES
+        self._streams: dict = {}
+        self._lock = threading.RLock()
+        self._local = threading.local()
+        self._peers_on = False
+
+    def stream(self, p: int):
+        """Part p's stream on its card, made once and used only for the
+        part's exchanging launches (parallel/xmesh.py `_run_parts`, under
+        the mesh's lock): no two parts share a stream, and no caller's
+        work on a card's current stream (a copy between cards orders
+        both cards' current streams) can queue between one call's parts."""
+        s = self._streams.get(p)
+        if s is None:
+            s = self._streams[p] = torch.cuda.Stream(device=self.parts[p])
+        return s
 
     def __repr__(self) -> str:
-        return f"Mesh({self.n_shards} x {AXIS!r} on {self.device})"
+        if self.n_parts == 1:
+            return f"Mesh({self.n_shards} x {AXIS!r} on {self.device})"
+        return (f"Mesh({self.n_shards} x {AXIS!r} over "
+                f"{[str(d) for d in self.parts]})")
+
+
+def _cuda_parts(devs) -> list:
+    """CUDA parts with their indices (an index-less one is the current
+    card), checked: CUDA available, each index a visible card, peer
+    access between every pair of distinct cards."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("a CUDA mesh needs CUDA and no CUDA device is "
+                           "available; pass CPU devices")
+    cur = torch.cuda.current_device()
+    out = [torch.device("cuda", cur if d.index is None else d.index)
+           for d in devs]
+    count = torch.cuda.device_count()
+    idx = sorted({d.index for d in out})
+    for i in idx:
+        if i >= count:
+            raise ValueError(f"cuda:{i} is not visible ({count} cards)")
+    for a in idx:
+        for b in idx:
+            if a != b and not torch.cuda.can_device_access_peer(a, b):
+                raise RuntimeError(
+                    f"cuda:{a} cannot access the memory of cuda:{b}: a "
+                    "mesh across cards needs peer access")
+    return out
 
 
 def make_mesh(n_shards: int = MAX_SHARDS, device=None) -> Mesh:
-    """An `n_shards` mesh on `device` (CUDA unless given).  A sequence of
-    more than one device, a mesh across cards, raises."""
+    """An `n_shards` mesh on `device` (CUDA unless given), or, for a
+    sequence of devices (repeats allowed), a mesh of that many parts,
+    part p on device[p] holding shards [p S/D, (p + 1) S/D); `n_shards`
+    must be a multiple of the part count.  A CUDA mesh of parts checks
+    peer access between every pair of distinct cards and raises where it
+    is missing."""
     if isinstance(device, (list, tuple)):
-        devs = {torch.device(d) for d in device}
-        if len(devs) != 1:
-            raise NotImplementedError(
-                "a mesh across several cards is not supported yet: "
-                "shards run on one device")
-        device = devs.pop()
+        devs = [torch.device(d) for d in device]
+        if len(devs) == 1:
+            device = devs[0]
+        else:
+            types = {d.type for d in devs}
+            if len(types) != 1:
+                raise ValueError(f"the parts of a mesh lie on one kind of "
+                                 f"device, got {sorted(types)}")
+            if types == {"cuda"}:
+                devs = _cuda_parts(devs)
+            return Mesh(n_shards, devs[0], devs)
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("make_mesh defaults to CUDA and no CUDA "
                                "device is available; pass device='cpu'")
         device = "cuda"
     return Mesh(n_shards, device)
+
+
+def default_mesh(home=None) -> Mesh:
+    """The automatic mesh: one shard on every visible card, one part a
+    card (reference: engine._default_mesh, `make_mesh()` over every
+    device), the part on `home` (the current card unless given) first.
+    A host of more than MAX_PARTS cards gives the mesh its first
+    MAX_PARTS cards in that order."""
+    n = torch.cuda.device_count()
+    if n < 1:
+        raise RuntimeError("default_mesh needs CUDA and no CUDA device is "
+                           "available")
+    first = (torch.cuda.current_device() if home is None
+             or torch.device(home).index is None
+             else torch.device(home).index)
+    order = ([first] + [i for i in range(n) if i != first])[:MAX_PARTS]
+    return make_mesh(len(order), [f"cuda:{i}" for i in order])
 
 
 def pad_nodes(n: int, ndev: int) -> int:
@@ -280,10 +380,12 @@ def scatter_add_sharded_plain(used: torch.Tensor, rows: torch.Tensor,
 def _on_mesh(mesh: Mesh, t: torch.Tensor) -> bool:
     """True for a CPU mesh (plain version); raises when the tensors lie
     on another device than the mesh."""
+    if isinstance(t, X.Parts):
+        t = t.blocks[0]
     if mesh.on_cpu:
         if t.is_cpu:
             return True
-    elif t.is_cuda and (mesh.device.index is None
+    elif t.is_cuda and (mesh.device.index is None or mesh.n_parts > 1
                         or t.get_device() == mesh.device.index):
         return False
     raise ValueError(f"tensors on {t.device}, mesh on {mesh.device}")
@@ -291,7 +393,12 @@ def _on_mesh(mesh: Mesh, t: torch.Tensor) -> bool:
 
 def place_sharded_packed(inp: PlacementInputs, mesh: Mesh):
     """K9 (reference: mesh.place_sharded_packed_fn): (buf [P, 14],
-    used [npad, 3], job_count [npad]).  `inp` is not modified."""
+    used [npad, 3], job_count [npad]; `Parts` on a mesh of parts).  `inp`
+    is not modified."""
+    if mesh.n_parts > 1:
+        if _on_mesh(mesh, inp.attrs):
+            return S.pack_outputs(X.place_xmesh_plain(inp, mesh))
+        return X.place_xmesh_packed(inp, mesh)
     if _on_mesh(mesh, inp.attrs):
         return S.pack_outputs(place_sharded_plain(inp, mesh.n_shards))
     return S._scan_launch(inp, n_shards=mesh.n_shards)
@@ -302,6 +409,10 @@ def place_sharded(inp: PlacementInputs, mesh: Mesh) -> PlacementOutputs:
     mesh.place_sharded_fn(mesh)(inp)): K9's packed buffer split by
     `select.unpack_outputs`, as `select.place` splits K5's.  `used` and
     `job_count` keep the npad rows.  `inp` is not modified."""
+    if mesh.n_parts > 1:
+        if _on_mesh(mesh, inp.attrs):
+            return X.place_xmesh_plain(inp, mesh)
+        return S.unpack_outputs(*X.place_xmesh_packed(inp, mesh))
     if _on_mesh(mesh, inp.attrs):
         return place_sharded_plain(inp, mesh.n_shards)
     return S.unpack_outputs(*S._scan_launch(inp, n_shards=mesh.n_shards))
@@ -311,6 +422,10 @@ def place_bulk_sharded_packed(inp: BulkInputs, mesh: Mesh, round_size: int,
                               n_rounds: int):
     """K10 (reference: mesh.place_bulk_sharded_packed_fn): (buf
     [R, round_size + 16], used, job_count), full layout only."""
+    if mesh.n_parts > 1:
+        if _on_mesh(mesh, inp.attrs):
+            return X.place_bulk_xmesh_plain(inp, mesh, round_size, n_rounds)
+        return X.place_bulk_xmesh_packed(inp, mesh, round_size, n_rounds)
     if _on_mesh(mesh, inp.attrs):
         return place_bulk_sharded_plain(inp, mesh.n_shards, round_size,
                                         n_rounds)
@@ -326,6 +441,13 @@ def place_multi_sharded_packed(inp: MultiEvalInputs, mesh: Mesh,
     shard-major union of the shards' top lists is the top over all npad
     rows in row order, and the card runs K3's flat mode over those rows
     (tests/test_torch_mesh.py::test_k11_is_k3_on_padded_rows)."""
+    if mesh.n_parts > 1:
+        if _on_mesh(mesh, inp.attrs):
+            return X.place_multi_xmesh_plain(inp, mesh, round_size)
+        used = X.Parts([torch.empty_like(b) for b in
+                        X.split(inp.used0, mesh).blocks])
+        return X.place_multi_xmesh_launch(used, inp.used0, inp, mesh,
+                                          round_size)
     if _on_mesh(mesh, inp.attrs):
         return place_multi_sharded_plain(inp, mesh.n_shards, round_size)
     return S._flat_launch(torch.empty_like(inp.used0), inp.used0, inp,
@@ -336,6 +458,14 @@ def place_multi_sharded_chained(used0: torch.Tensor, inp: MultiEvalInputs,
                                 mesh: Mesh, round_size: int):
     """K11 from a dead `used0` buffer, updated in place and returned (the
     reference's donated chained form)."""
+    if mesh.n_parts > 1:
+        used0 = X.split(used0, mesh)
+        if _on_mesh(mesh, used0):
+            buf, used, jc = X.place_multi_xmesh_plain(
+                inp._replace(used0=used0), mesh, round_size)
+            return buf, used0.copy_(used), jc
+        return X.place_multi_xmesh_launch(used0, used0, inp, mesh,
+                                          round_size)
     if _on_mesh(mesh, used0):
         buf, used, jc = place_multi_sharded_plain(
             inp._replace(used0=used0), mesh.n_shards, round_size)
@@ -350,6 +480,15 @@ def place_multi_compact_sharded(inp: MultiEvalInputs, cand_rows, cand_valid,
     """K12 (reference: mesh.place_multi_compact_sharded_fn): (buf_small
     [T*L, FILL_K + 16], fills [T*L, round_size], used [npad, 3]) over
     per-shard frames [S, L, Nc_loc].  `inp.used0` is not modified."""
+    if mesh.n_parts > 1:
+        if _on_mesh(mesh, inp.attrs):
+            return X.place_multi_compact_xmesh_plain(
+                inp, cand_rows, cand_valid, mesh, round_size, n_lanes)
+        used_in = X.split(inp.used0, mesh)
+        K.count_eager("compact_used0_clone")
+        return X.place_multi_compact_xmesh_launch(
+            used_in.clone(), used_in, inp, cand_rows, cand_valid, mesh,
+            round_size, n_lanes)
     if _on_mesh(mesh, inp.attrs):
         return place_multi_compact_sharded_plain(
             inp, cand_rows, cand_valid, mesh.n_shards, round_size, n_lanes)
@@ -364,6 +503,16 @@ def place_multi_compact_sharded_chained(used0: torch.Tensor,
                                         cand_valid, mesh: Mesh,
                                         round_size: int, n_lanes: int):
     """K12 from a dead `used0` buffer, updated in place and returned."""
+    if mesh.n_parts > 1:
+        used0 = X.split(used0, mesh)
+        if _on_mesh(mesh, used0):
+            buf, fills, used = X.place_multi_compact_xmesh_plain(
+                inp._replace(used0=used0), cand_rows, cand_valid, mesh,
+                round_size, n_lanes)
+            return buf, fills, used0.copy_(used)
+        return X.place_multi_compact_xmesh_launch(
+            used0, used0, inp, cand_rows, cand_valid, mesh, round_size,
+            n_lanes)
     if _on_mesh(mesh, used0):
         buf, fills, used = place_multi_compact_sharded_plain(
             inp._replace(used0=used0), cand_rows, cand_valid,
@@ -379,7 +528,13 @@ def scatter_add_sharded_(used: torch.Tensor, rows: torch.Tensor,
     """K13 (reference: engine._sharded_fn(mesh, "scatter")):
     used[rows] += vals in place on the sharded usage [npad, 3], rows as
     in scatter_add_sharded_plain.  On the card the shards are one
-    contiguous tensor, so K13 is one pass over the rows."""
+    contiguous tensor, so K13 is one pass over the rows.  On a mesh of
+    parts `used` is a `Parts` (each part's rows on its device) and each
+    part keeps the rows it owns."""
+    if mesh.n_parts > 1:
+        if _on_mesh(mesh, used):
+            return X.scatter_add_xmesh_plain(used, rows, vals, mesh)
+        return X.scatter_add_xmesh_(used, rows, vals, mesh)
     if used.is_cpu and mesh.on_cpu:
         return scatter_add_sharded_plain(used, rows, vals, mesh.n_shards)
     # _on_mesh's test, on the device index the checks return

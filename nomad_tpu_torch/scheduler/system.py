@@ -132,9 +132,10 @@ class SystemScheduler(Scheduler):
         # masks pad alike (padding rows ineligible, so never placed)
         dev = eng._node_arrays(t)
         dcm, pm = eng.job_masks(t, job, ctx)
-        mask = feasible_mask(
+        # (a mesh of parts: K8 once a part, over its own rows)
+        mask = eng.feasible_host(
             dev["attrs"], dev["elig"], dcm, pm, eng._to_dev(tgt.con),
-            eng._to_dev(tgt.luts)).cpu().numpy()          # [G, npad]
+            eng._to_dev(tgt.luts), mask_fn=feasible_mask)  # [G, npad]
 
         for gi, tg in enumerate(job.task_groups):
             metric = AllocMetric(nodes_evaluated=len(nodes))

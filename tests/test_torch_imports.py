@@ -98,8 +98,9 @@ def test_engine_defaults_to_cuda():
 
 
 def test_mesh_modules_stand_alone():
-    """The mesh slice's modules are among those the probe imports, and
-    a mesh across several cards raises."""
+    """The mesh slice's modules, the mesh across parts among them, are
+    among those the probe imports; a mesh of parts splits its shards
+    over them, and a CUDA mesh on a host without CUDA raises."""
     import pkgutil
 
     import nomad_tpu_torch
@@ -107,9 +108,13 @@ def test_mesh_modules_stand_alone():
     names = {m.name for m in pkgutil.walk_packages(
         nomad_tpu_torch.__path__, "nomad_tpu_torch.")}
     assert {"nomad_tpu_torch.parallel",
-            "nomad_tpu_torch.parallel.mesh"} <= names
-    with pytest.raises(NotImplementedError):
-        make_mesh(8, ["cuda:0", "cuda:1"])
+            "nomad_tpu_torch.parallel.mesh",
+            "nomad_tpu_torch.parallel.xmesh"} <= names
+    mesh = make_mesh(8, ["cpu", "cpu"])
+    assert (mesh.n_parts, mesh.shards_per_part) == (2, 4)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_mesh(8, ["cuda:0", "cuda:1"])
 
 
 

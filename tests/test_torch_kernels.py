@@ -1748,3 +1748,245 @@ def test_bridge_executor_waves_equal_torch_executor(cuda_device):
             assert a == b
         else:
             assert np.array_equal(a, b)
+
+
+# ------------------------------------------- the mesh across parts
+
+from nomad_tpu_torch.parallel import xmesh  # noqa: E402
+
+# the parts of the card cases: two parts of one card, S parts of one
+# shard each on one card (the automatic mesh's shard a part), one part a
+# card across two cards where more than one is visible, and one part on
+# each of every visible card where more than two are
+XMESH_LAYOUTS = ("one_card", "one_card_shard_a_part", "cross_card",
+                 "every_card")
+
+
+def _xmesh(layout, cuda_device):
+    if layout == "one_card":
+        return pmesh.make_mesh(S, [cuda_device, cuda_device])
+    if layout == "one_card_shard_a_part":
+        return pmesh.make_mesh(S, [cuda_device] * S)
+    n = torch.cuda.device_count()
+    if layout == "cross_card":
+        if n < 2:
+            pytest.skip("needs two cards")
+        return pmesh.make_mesh(S, ["cuda:0", "cuda:1"])
+    if n < 3 or S % n:
+        pytest.skip(f"needs more than two cards dividing {S} shards")
+    return pmesh.make_mesh(S, [f"cuda:{i}" for i in range(n)])
+
+
+def _cpu_parts(n_parts=2):
+    return pmesh.make_mesh(S, ["cpu"] * n_parts)
+
+
+def _host(t):
+    return t.cpu() if isinstance(t, xmesh.Parts) else _bits(t)
+
+
+def _same_parts(got, *wants):
+    for want in wants:
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert torch.equal(_bits(_host(g)), _bits(_host(w)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", XMESH_LAYOUTS)
+@pytest.mark.parametrize("case", ["padding_spread_distinct", "n_loc_below_3",
+                                  "reschedule_extra_dh", "few_feasible"])
+def test_k9_xmesh_matches_plain(cuda_device, case, layout):
+    """K9 across parts: one launch a part, equal to the plain version
+    across parts on CPU copies and to the one-card 8-shard mesh; each
+    part's usage on its own card with npad / D rows."""
+    mesh = _xmesh(layout, cuda_device)
+    inp = _mesh_scan_inputs(case, cuda_device)
+    K.reset_launches()
+    got = pmesh.place_sharded_packed(inp, mesh)
+    assert K.PLACE_SCAN_XMESH.launches == mesh.n_parts
+    xmesh.check(mesh)
+    want_cpu = pmesh.place_sharded_packed(_mesh_scan_inputs(case),
+                                          _cpu_parts())
+    one_card = pmesh.place_sharded_packed(inp, pmesh.make_mesh(S,
+                                                               cuda_device))
+    torch.cuda.synchronize()
+    _same_parts(got, want_cpu, one_card)
+    npad = inp.attrs.shape[0]
+    d = mesh.n_parts
+    assert [b.shape[0] for b in got[1].blocks] == [npad // d] * d
+    assert [b.device for b in got[1].blocks] == mesh.parts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", XMESH_LAYOUTS)
+@pytest.mark.parametrize("spread_algo", [False, True])
+def test_k10_xmesh_matches_plain(cuda_device, spread_algo, layout):
+    mesh = _xmesh(layout, cuda_device)
+    for n, p_real in ((200, 700), (50, 600)):
+        b = _mesh_bulk_inputs(cuda_device, spread_algo, n, p_real)
+        K.reset_launches()
+        got = pmesh.place_bulk_sharded_packed(b, mesh, 256, 3)
+        assert K.MULTI_BULK_XMESH.launches == mesh.n_parts
+        xmesh.check(mesh)
+        want_cpu = pmesh.place_bulk_sharded_packed(
+            _mesh_bulk_inputs("cpu", spread_algo, n, p_real), _cpu_parts(),
+            256, 3)
+        one_card = pmesh.place_bulk_sharded_packed(
+            b, pmesh.make_mesh(S, cuda_device), 256, 3)
+        torch.cuda.synchronize()
+        _same_parts(got, want_cpu, one_card)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", XMESH_LAYOUTS)
+@pytest.mark.parametrize("case", ["binpack", "spread", "padded_1001"])
+def test_k11_xmesh_matches_plain(cuda_device, case, layout):
+    mesh = _xmesh(layout, cuda_device)
+    built = _mesh_built(False, case == "spread",
+                        n_flat=1001 if case == "padded_1001" else 150)
+    cpu = built["inp"]
+    inp = _on(cpu, cuda_device)
+    rs = built["rs"]
+    K.reset_launches()
+    got = pmesh.place_multi_sharded_packed(inp, mesh, rs)
+    assert K.MULTI_FLAT_XMESH.launches == mesh.n_parts
+    xmesh.check(mesh)
+    want_cpu = pmesh.place_multi_sharded_packed(cpu, _cpu_parts(), rs)
+    one_card = pmesh.place_multi_sharded_packed(
+        inp, pmesh.make_mesh(S, cuda_device), rs)
+    torch.cuda.synchronize()
+    _same_parts(got, want_cpu, one_card)
+    used0 = xmesh.split(inp.used0.clone(), mesh)
+    chained = pmesh.place_multi_sharded_chained(
+        used0, inp._replace(used0=None), mesh, rs)
+    xmesh.check(mesh)
+    assert chained[1] is used0
+    _same_parts(chained, want_cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", XMESH_LAYOUTS)
+@pytest.mark.parametrize("case", ["five_lanes", "two_lanes", "spread",
+                                  "round_512"])
+def test_k12_xmesh_matches_plain(cuda_device, case, layout):
+    mesh = _xmesh(layout, cuda_device)
+    built = _mesh_built(True, case == "spread",
+                        2 if case == "two_lanes" else 5,
+                        300 if case == "round_512" else 40)
+    inp = _on(built["inp"], cuda_device)
+    rs, lanes = built["rs"], built["n_lanes"]
+    cr, cv = frames_from_numpy(built["cand_rows"], built["cand_valid"],
+                               cuda_device)
+    K.reset_launches()
+    got = pmesh.place_multi_compact_sharded(inp, cr, cv, mesh, rs, lanes)
+    assert K.MULTI_COMPACT_XMESH.launches == mesh.n_parts
+    xmesh.check(mesh)
+    want_cpu = pmesh.place_multi_compact_sharded(
+        built["inp"], cr.cpu(), cv.cpu(), _cpu_parts(), rs, lanes)
+    one_card = pmesh.place_multi_compact_sharded(
+        inp, cr, cv, pmesh.make_mesh(S, cuda_device), rs, lanes)
+    torch.cuda.synchronize()
+    _same_parts(got, want_cpu, one_card)
+    used0 = xmesh.split(inp.used0.clone(), mesh)
+    chained = pmesh.place_multi_compact_sharded_chained(
+        used0, inp._replace(used0=None), cr, cv, mesh, rs, lanes)
+    xmesh.check(mesh)
+    assert chained[2] is used0
+    _same_parts(chained, want_cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", XMESH_LAYOUTS)
+def test_k13_xmesh_matches_plain(cuda_device, layout):
+    mesh = _xmesh(layout, cuda_device)
+    used, rows, vals = _replay_inputs(cuda_device,
+                                      np.random.default_rng(3).integers(
+                                          -510, 510, 20000))
+    want_cpu = pmesh.scatter_add_sharded_(
+        xmesh.split(used.cpu(), _cpu_parts()), rows.cpu(), vals.cpu(),
+        _cpu_parts())
+    one_card = pmesh.scatter_add_sharded_(used.clone(), rows, vals,
+                                          pmesh.make_mesh(S, cuda_device))
+    K.reset_launches()
+    got = pmesh.scatter_add_sharded_(xmesh.split(used, mesh), rows, vals,
+                                     mesh)
+    assert K.SCATTER_ADD_XMESH.launches == mesh.n_parts
+    torch.cuda.synchronize()
+    _same_parts([got], [want_cpu], [one_card])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", XMESH_LAYOUTS)
+def test_xmesh_threads_share_a_mesh(cuda_device, layout):
+    """Two threads launching across one mesh at once (K12 in one, K11 in
+    the other, as two workers of a Server share an engine): the mesh's
+    lock queues each call's parts together on the streams they share, so
+    no call waits out the deadline, and each thread's results equal the
+    plain version's."""
+    import threading
+
+    mesh = _xmesh(layout, cuda_device)
+    mesh.deadline = 1 << 31           # about a second: a stall fails fast
+    zb = _mesh_built(True, False, 5, 40)
+    fb = _mesh_built(False, False, n_flat=150)
+    zin, fin = _on(zb["inp"], cuda_device), _on(fb["inp"], cuda_device)
+    cr, cv = frames_from_numpy(zb["cand_rows"], zb["cand_valid"],
+                               cuda_device)
+    runs = {
+        "k12": (lambda: pmesh.place_multi_compact_sharded(
+            zin, cr, cv, mesh, zb["rs"], zb["n_lanes"]),
+            pmesh.place_multi_compact_sharded(
+                zb["inp"], cr.cpu(), cv.cpu(), _cpu_parts(), zb["rs"],
+                zb["n_lanes"])),
+        "k11": (lambda: pmesh.place_multi_sharded_packed(
+            fin, mesh, fb["rs"]),
+            pmesh.place_multi_sharded_packed(fb["inp"], _cpu_parts(),
+                                             fb["rs"])),
+    }
+    errors = []
+    start = threading.Barrier(len(runs))
+
+    def loop(name):
+        launch, want = runs[name]
+        try:
+            start.wait()
+            for _ in range(25):
+                got = launch()
+                xmesh.check(mesh)
+                _same_parts(got, want)
+        except BaseException as e:          # noqa: BLE001 - reported below
+            errors.append((name, e))
+
+    threads = [threading.Thread(target=loop, args=(k,)) for k in runs]
+    K.reset_launches()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert K.MULTI_COMPACT_XMESH.launches == 25 * mesh.n_parts
+    assert K.MULTI_FLAT_XMESH.launches == 25 * mesh.n_parts
+
+
+@pytest.mark.gpu
+def test_xmesh_deadline_raises(cuda_device):
+    """A part whose peer never launches runs out its wait deadline: the
+    kernel ends (no hang), sets the error word, and `check` raises."""
+    mesh = pmesh.make_mesh(S, [cuda_device, cuda_device])
+    mesh.deadline = 1 << 20
+    inp = _mesh_scan_inputs("n_loc_below_3", cuda_device)
+    words = K.PLACE_SCAN_XMESH.fn("place_scan_xmesh_words")(
+        2, inp.sp_counts0.shape[0], inp.pd_counts0.shape[0])
+
+    def only_part0(p, xp):
+        if p == 0:
+            return psel._scan_launch(xmesh.part_inputs(inp, mesh, 0),
+                                     n_shards=4, xp=xp)
+
+    xmesh._run_parts(mesh, "place_scan_xmesh", words, only_part0)
+    with pytest.raises(RuntimeError, match="ran out its wait"):
+        xmesh.check(mesh)
+    ms = xmesh.exchange_probe(mesh, 100)
+    assert ms > 0

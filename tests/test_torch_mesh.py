@@ -572,9 +572,17 @@ def test_mesh_shape_rules():
         pmesh.make_mesh(9, "cpu")
     with pytest.raises(ValueError):
         pmesh.make_mesh(0, "cpu")
-    with pytest.raises(NotImplementedError, match="several cards"):
-        pmesh.make_mesh(8, ["cuda:0", "cuda:1"])
-    assert pmesh.make_mesh(4, ["cpu", "cpu"]).device.type == "cpu"
+    # a mesh of parts: a 2-part mesh's parts and shard split; a shard
+    # count that is not a multiple of the parts raises; a CUDA mesh on a
+    # host without CUDA raises
+    m2 = pmesh.make_mesh(4, ["cpu", "cpu"])
+    assert (m2.device.type, m2.n_parts, m2.shards_per_part) == ("cpu", 2, 2)
+    assert [d.type for d in m2.parts] == ["cpu", "cpu"]
+    with pytest.raises(ValueError, match="do not split"):
+        pmesh.make_mesh(6, ["cpu"] * 4)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pmesh.make_mesh(8, ["cuda:0", "cuda:1"])
     with pytest.raises(ValueError, match="pad_nodes"):
         pmesh.scatter_add_sharded_plain(
             torch.zeros((13, 3), dtype=torch.int32),
