@@ -4881,8 +4881,8 @@ def mesh_kernel_phase(rec, barrier_ms, dsmem_ms):
 
 # ------------------------------------------------- the mesh across parts
 
-# the launches each xmesh wave must make (on every part: at least one
-# launch a part of each)
+# the launches each xmesh wave must make (at least one a part of each;
+# K13 one a card)
 XMESH_MUST = {"zoned_wave": ("multi_compact_xmesh",),
               "chained_wave": ("multi_compact_xmesh",),
               "small_zoned_wave": ("multi_compact_xmesh",),
@@ -4905,7 +4905,8 @@ def xmesh_where(mesh) -> dict:
     cards = len({d.index for d in mesh.parts})
     return {"cards": cards, "parts": mesh.n_parts, "shards": mesh.n_shards,
             "part_devices": [str(d) for d in mesh.parts],
-            "layout": "cross_card" if cards > 1 else "one_card"}
+            "layout": "cross_card" if cards > 1 else "one_card",
+            "exchange": mesh.exchange}
 
 
 def parts_gate(name, engine, used, npad):
@@ -4969,15 +4970,21 @@ def xmesh_phases(card, launches, waves, solo_placed=None):
                        ("scatter_add_sharded_", "scatter")):
         rec.wrap(PM, attr, kind)
 
+    # K13 launches once a card, the others once a part
+    cards = len({d.index for d in mesh.parts})
+    need = {k: cards if k == "scatter_add_xmesh" else mesh.n_parts
+            for m in XMESH_MUST.values() for k in m}
+
     def phase(name, must, body):
         reset_counts()
         out = body()
         ph, eager = read_counts(name)
         for k, v in ph.items():
             launches[k] += v
-        if min(ph[k] for k in must) < mesh.n_parts:
+        if any(ph[k] < need.get(k, mesh.n_parts) for k in must):
             raise AssertionError(f"{name} launches {ph}, want {must} on "
-                                 f"each of {mesh.n_parts} parts")
+                                 f"each of {mesh.n_parts} parts (K13 "
+                                 f"on each of {cards} cards)")
         emit({"phase": name, "card": card, **where, **out,
               "launches": ph, "eager": eager})
 
@@ -5132,6 +5139,57 @@ def xmesh_exchange_us(mesh, rounds: int = XMESH_PROBE_ROUNDS) -> float:
     return X.exchange_probe(mesh, rounds) * 1e3 / rounds
 
 
+# the exchange's sub-phases of K9 across parts (place_scan_xmesh_prof)
+XSCAN_PHASES = ("post", "wait", "relay", "merge")
+
+
+def xmesh_scan_phase_split(inp, mesh, nt: int = 0) -> dict:
+    """K9 across parts' PROF launch (csrc/place_scan.cu
+    `place_scan_xmesh_prof`) at `inp` on `mesh`, as its main path runs
+    it: part 0's block 0 split as K9's (`phase_us`), and the exchange
+    between parts, which its decode contains, in µs a step: the post,
+    the wait (the block's own reads of every part's post into its shared
+    memory), the relay (the cluster's agreement on the outcome,
+    csrc/xmesh.cuh `xp_meet`) and the merge of the posts, of block 0
+    (`block0`) and of the cluster's last block (`last_block`, a peer of
+    block 0)."""
+    import torch
+
+    from nomad_tpu_torch.ops import kernels as K
+    from nomad_tpu_torch.ops import select as S
+    from nomad_tpu_torch.parallel import xmesh as X
+
+    base = 2 * NPH + 4
+    profs = [torch.zeros(base + 4 * len(XSCAN_PHASES), dtype=torch.int64,
+                         device=d) for d in mesh.parts]
+    words = K.PLACE_SCAN_XMESH.fn("place_scan_xmesh_words")(
+        mesh.n_parts, inp.sp_counts0.shape[0], inp.pd_counts0.shape[0])
+
+    def run():
+        X._run_parts(mesh, "place_scan_xmesh_prof", words,
+                     lambda p, xp: S._scan_launch(
+                         X.part_inputs(inp, mesh, p),
+                         n_shards=mesh.shards_per_part, prof=profs[p],
+                         nt=nt, xp=xp))
+        X.check(mesh)
+
+    run()                                           # warm-up
+    for pr in profs:
+        pr.zero_()
+    _, ms = timed(run)
+    c = profs[0].tolist()
+    out = phase_us(c[:base], ms, SCAN_PHASES, ("active", "inactive"))
+    nx = len(XSCAN_PHASES)
+    for who, off in (("block0", base), ("last_block", base + 2 * nx)):
+        for k, kind in enumerate(("active", "inactive")):
+            n = c[2 * NPH + k]
+            out[f"{who}_per_{kind}_step_us"] = {
+                ph: c[off + k * nx + i] / out["mhz"] / max(n, 1)
+                for i, ph in enumerate(XSCAN_PHASES)}
+    out.update(xmesh_where(mesh))
+    return out
+
+
 def xmesh_kernel_phase(rec, mesh, barrier_ms):
     """K9-K13 across parts against their plain cross-part versions on
     CPU copies of the xmesh phases' own inputs (on a CPU mesh of as many
@@ -5153,9 +5211,13 @@ def xmesh_kernel_phase(rec, mesh, barrier_ms):
            "exchange_one_card_us": one_us, "exchange_cross_card_us": cross_us}
     rows = []
     tensors = lambda x: [v for v in x if isinstance(v, torch.Tensor)]
+    # the plain versions' outputs, which xmesh_host_phase holds the host
+    # exchange against too (a plain output is the same for any parts)
+    plains = {}
 
     def done(name, got, want_cpu, **kw):
         X.check(mesh)
+        plains[name] = want_cpu
         return check_exact(name, got, want_cpu, **kw)
 
     # K9: the xmesh spread eval's scan
@@ -5174,7 +5236,8 @@ def xmesh_kernel_phase(rec, mesh, barrier_ms):
         plain_ms=plain_ms, plain_on="cpu", library_ms=None,
         bytes=fn_bytes(tensors(g), g.attrs, g.luts, g.con, g.aff)
         + p * 14 * 4 + n * 16, ops=scan_ops(g, steps), steps=steps,
-        exchanges=real, depth_ms=None, **xch))
+        exchanges=real, depth_ms=None,
+        phase_split=xmesh_scan_phase_split(inp, mesh), **xch))
 
     # K10: the xmesh bulk eval's rounds
     binp, _, rs, n_rounds = rec.get("xmesh_bulk_eval", "bulk")
@@ -5253,22 +5316,111 @@ def xmesh_kernel_phase(rec, mesh, barrier_ms):
     err = check_exact("scatter_add_xmesh", [got], [want_cpu])
     work = used.clone()
     whole = used.gather()
-    r13l = r13.long()
+    # index_add_ on the home card, its rows and deltas already there (and
+    # K13 across parts on such a chunk too, beside the main path's chunk
+    # from the host)
+    r13d = r13.to(whole.device)
+    r13l = r13d.long()
+    v13d = v13.to(whole.device)
     m = r13.shape[0]
     rows.append(dict(
         kernel=K.SCATTER_ADD_XMESH, max_abs_err=err,
         **paired_timing(
             lambda: PM.scatter_add_sharded_(work, r13, v13, mesh),
-            lambda: whole.index_add_(0, r13l, v13)),
+            lambda: whole.index_add_(0, r13l, v13d)),
         plain_ms=plain_ms, plain_on="cpu",
         bytes=nbytes(r13, v13) + 2 * m * 3 * 4, ops=m * 3, depth_ms=None,
-        replay_rows=m, exchange_us=None))
+        replay_rows=m, rows_on=str(r13.device),
+        ms_rows_on_card=time_ms(
+            lambda: PM.scatter_add_sharded_(work, r13d, v13d, mesh),
+            REPLAY_REPS, 10),
+        launches_per_call=len({d.index for d in mesh.parts}),
+        exchange_us=None))
     X.check(mesh)
     for r in rows:
         r.update(bound(r["bytes"], r["ops"]))
         r["barrier_ms"] = barrier_ms
         r.update(xmesh_where(mesh))
-    return rows, xch
+    return rows, xch, plains
+
+
+def host_exchange_mesh(parts):
+    """An 8-shard mesh of `parts` whose parts meet in mapped pinned host
+    memory, as on cards without peer access (the exchange rule's
+    private override, parallel/mesh.py `_FORCE_HOST_EXCHANGE`)."""
+    import nomad_tpu_torch.parallel.mesh as PM
+
+    PM._FORCE_HOST_EXCHANGE = True
+    try:
+        return PM.make_mesh(MESH_SHARDS, parts)
+    finally:
+        PM._FORCE_HOST_EXCHANGE = False
+
+
+def xmesh_host_phase(card, rec, mesh, plains):
+    """K9-K12 across parts and the exchange probe with the exchange in
+    host memory: two parts of cuda:0 forced to the host buffer (and,
+    with more than one card, the xmesh phases' parts forced so too), at
+    the xmesh phases' own inputs; each entry held against its plain
+    version on CPU copies (`plains`, xmesh_kernel_phase's outputs at the
+    same inputs) and against the same parts meeting in the card's
+    memory, byte for byte, with its ms on each buffer; the probe's µs a
+    round trip on each."""
+    import nomad_tpu_torch.parallel.mesh as PM
+    from nomad_tpu_torch.parallel import xmesh as X
+
+    g9 = gathered(rec.get("xmesh_spread_eval", "scan")[0])
+    gb, _, rs_b, n_rounds = rec.get("xmesh_bulk_eval", "bulk")
+    gb = gathered(gb)
+    gf, _, frs = rec.get("xmesh_flat_wave", "flat")
+    gf = gathered(gf)
+    zin, cr, cv, _, rs_z, lanes = rec.get("xmesh_zoned_wave", "compact")
+    gz, gcr, gcv = gathered(zin), gathered(cr), gathered(cv)
+    entries = [
+        ("place_scan_xmesh", 3, {"score_cols": [1, 5, 6, 7]},
+         lambda m: PM.place_sharded_packed(g9, m)),
+        ("multi_bulk_xmesh", 5, {"packed": True},
+         lambda m: PM.place_bulk_sharded_packed(gb, m, rs_b, n_rounds)),
+        ("multi_flat_xmesh", 5, {"packed": True},
+         lambda m: PM.place_multi_sharded_packed(gf, m, frs)),
+        ("multi_compact_xmesh", 5, {"packed": True},
+         lambda m: PM.place_multi_compact_sharded(gz, gcr, gcv, m, rs_z,
+                                                  lanes))]
+    layouts = [("one_card", ["cuda:0", "cuda:0"])]
+    if len({d.index for d in mesh.parts}) > 1:
+        layouts.append(("cross_card", [str(d) for d in mesh.parts]))
+    out = {}
+    for layout, parts in layouts:
+        host = host_exchange_mesh(parts)
+        dev = PM.make_mesh(MESH_SHARDS, parts)
+        if host.exchange != "host" or dev.exchange != "device":
+            raise AssertionError(f"{layout}: exchanges {host.exchange}, "
+                                 f"{dev.exchange}")
+        rows = []
+        for name, reps, kw, run in entries:
+            got_dev = run(dev)
+            X.check(dev)
+            got = run(host)
+            X.check(host)
+            err = check_exact(f"{name} ({layout}, host exchange)", got,
+                              plains[name], got_dev, **kw)
+            ms_dev = time_ms(lambda: run(dev), reps)
+            ms_host = time_ms(lambda: run(host), reps)
+            X.check(dev)
+            X.check(host)
+            rows.append({"name": name, "max_abs_err": err,
+                         "equal": "plain version (CPU copies) and the "
+                         "device-buffer run, byte for byte",
+                         "ms_host_buffer": ms_host,
+                         "ms_device_buffer": ms_dev})
+        out[layout] = {
+            **xmesh_where(host), "checks": rows,
+            "exchange_us_host_buffer": xmesh_exchange_us(host),
+            "exchange_us_device_buffer": xmesh_exchange_us(dev)}
+        del host, dev
+    emit({"phase": "xmesh_host_exchange", "card": card,
+          "tolerance": "exact", "layouts": out})
+    return out
 
 
 def xmesh_server_phase(card, launches):
@@ -5300,14 +5452,17 @@ def xmesh_all(card, launches, barrier_ms, solo_placed=None):
               ()),
              ("flat_wave", FLAT_EVALS, FLAT_PER_EVAL, 0, False, ())]
     xrec, mesh = xmesh_phases(card, launches, waves, solo_placed)
-    xrows, xch = xmesh_kernel_phase(xrec, mesh, barrier_ms)
-    del xrec
+    xrows, xch, plains = xmesh_kernel_phase(xrec, mesh, barrier_ms)
     torch.cuda.synchronize()
     emit({"phase": "xmesh_kernel_checks", "card": card,
           "tolerance": "exact", **xmesh_where(mesh), **xch,
           "checks": [{k: (v.name if k == "kernel" else v)
                       for k, v in r.items() if k[0] != "_"}
                      for r in xrows]})
+    xmesh_host_phase(card, xrec, mesh, plains)
+    del plains
+    del xrec
+    torch.cuda.synchronize()
     xmesh_server_phase(card, launches)
     return xrows
 
@@ -5559,7 +5714,13 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "bridge_launches": BRIDGE_LAUNCHES.get(k.name, 0),
             "depth_ms": r["depth_ms"], "device_ms": r["device_ms"],
-            "library_device_ms": r["library_device_ms"]})
+            "library_device_ms": r["library_device_ms"],
+            # the mesh across parts: K9's split with its exchange, K13
+            # on a chunk already on the card
+            **({"phase_split": r["phase_split"]}
+               if k is K.PLACE_SCAN_XMESH else {}),
+            **({"ms_rows_on_card": r["ms_rows_on_card"]}
+               if "ms_rows_on_card" in r else {})})
     emit({"phase": "summary", "total_s": time.perf_counter() - t_start,
           "gc2_n": GC2["n"], "gc2_s": GC2["s"]})
     print(card, flush=True)

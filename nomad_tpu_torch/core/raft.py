@@ -29,17 +29,26 @@ every server symmetrically rather than through joint-consensus
 configuration entries.
 
 A copy of the reference's nomad_tpu/core/raft.py with its imports
-rewritten and one difference: a follower whose log only grew appends
-the new entries to its durable log (`_persist_entry`, the leader's
-path), where the reference's `_on_append` rewrites the whole log and
-the compaction snapshot on every AppendEntries that adds an entry.  A
-conflict (a truncated suffix) still rewrites.  Restoring either file
-gives the same log; the reference's rewrite costs a follower time
-proportional to its log for every replicated command (tens of MB once
-a 50,000-node cluster has been seeded).  Its durable files pickle
-`Entry`, so a data directory is readable only by the package that
-wrote it.  The chaos invariants and scenarios it mentions are the
-port's `chaos/invariants.py` and `chaos/scenarios.py`.
+rewritten and two differences.  (1) A follower whose log only grew
+appends the new entries to its durable log (`_persist_entry`, the
+leader's path), where the reference's `_on_append` rewrites the whole
+log and the compaction snapshot on every AppendEntries that adds an
+entry.  A conflict (a truncated suffix) still rewrites.  Restoring
+either file gives the same log; the reference's rewrite costs a
+follower time proportional to its log for every replicated command
+(tens of MB once a 50,000-node cluster has been seeded).  Its durable
+files pickle `Entry`, so a data directory is readable only by the
+package that wrote it.  (2) A leader whose commit index advances kicks
+its replicators at once (`_advance_commit`), so the followers learn the
+new commit index on the next round trip; the reference's followers wait
+for the next heartbeat, and a follower whose heartbeats stall (a loaded
+host, or a chaos scenario's frozen virtual clock once it has converged)
+stays one committed entry behind the leader: the chaos invariant that
+every committed entry survives then reports the eval status written
+just after a plan as lost (`lossy_link_raft_append`;
+tests/test_torch_cluster.py holds it).  The chaos invariants and
+scenarios it mentions are the port's `chaos/invariants.py` and
+`chaos/scenarios.py`.
 """
 
 from __future__ import annotations
@@ -704,6 +713,8 @@ class RaftNode:
                 and self._term_at(majority) == self.term:
             self.commit_index = majority
             self._apply_cv.notify_all()
+            # the followers learn it now, not at the next heartbeat
+            self._replicate_once()
 
     # ------------------------------------------------------------- serving
 

@@ -1663,6 +1663,7 @@ static Params with_part(Params p, int part, int n_parts, int* xbuf,
   p.xp.part = part;
   p.xp.n_parts = n_parts;
   p.xp.deadline = deadline;
+  p.xp.sys = 1;
   return p;
 }
 

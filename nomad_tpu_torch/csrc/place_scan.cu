@@ -94,9 +94,10 @@
 // the reference's all_gather in part order.  The pick's spread and
 // distinct values come from its part's post (no part reads another's
 // rows); the owning block commits.  What bounds it: the same depth,
-// plus one exchange through global memory a computed step (an L2 or
-// NVLink round trip and block 0's release of its peers), which the
-// one-card form pays in full (PERF.md §6).
+// plus one exchange through global memory a computed step (the posts'
+// flagged words reach every block's reads over L2, NVLink or PCIe, and
+// the cluster agrees on the outcome), which the one-card form pays in
+// full (PERF.md §6).
 
 #include "py_launchers.cuh"  // first: it includes Python.h
 #include <cooperative_groups.h>
@@ -118,6 +119,11 @@ constexpr int GC = 5;              // per-group counts: filt exh dim(3)
 // and its top row's spread value (one spread row)
 constexpr int XW = 16;
 constexpr int MAX_SHARDS = 8;
+// K9 across parts: the parts of a mesh (parallel/mesh.py MAX_PARTS), and
+// the words of a part's post kept in shared memory (XW + S + D, rounded
+// up to 4; S + D <= 48 keeps all of it)
+constexpr int MAX_XPARTS = 8;
+constexpr int XPOST_MAX = 64;
 constexpr int PREP_THREADS = 256;
 // flag bits of the per-(group, node) cache
 constexpr unsigned F_STAT = 1, F_FIT = 2, F_DH = 4, F_O0 = 8, F_JC = 64;
@@ -164,6 +170,7 @@ struct ScanParams {
   XPart xp;
   int row_off, n_glob;
   long long xstride;
+  int xpost;                 // words of a part's post (XW + S + D, to 4)
   long long* prof;           // PROF: [18] phase cycles of block 0
   // the wrapper's scratch (scan_layout), carved by the launcher
   float* c_acc;              // [G, N] binpack + anti-affinity terms
@@ -189,6 +196,16 @@ struct ScanParams {
 // the memo; the commit of warps 1 and 2 starts during it, once the pick
 // is known), the rest of the commit, and memoised steps.
 constexpr int NPHASE = 7;
+// K9 across parts (place_scan_xmesh_prof): prof[18, 34) holds warp 0's
+// cycles in the exchange between parts, which the decode (phase 4)
+// contains: [18, 26) block 0's, [26, 34) the cluster's last block's (a
+// peer of block 0; zeros with one block a part), each the active steps'
+// then the inactive steps' post (block 0 writes its part's post), wait
+// (the block reads every part's post into its shared memory), relay
+// (the cluster's agreement on it) and merge (the posts merged to the
+// pick and the sums).
+constexpr int XPH = 4;
+constexpr int PROF_WORDS = 2 * NPHASE + 4;
 
 // The cache entry of one node for one group: the flag bits (without the
 // static bit) and acc = (0 + binpack) + anti-affinity, each computed as
@@ -539,10 +556,14 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(ScanParams p) {
   __shared__ int s_memo_sums[NSUM];
   __shared__ __align__(16) int s_post[XW];
   __shared__ __align__(16) Xch s_xch;
-  // across parts: block 0's word to its peers, and the word offset of
-  // the pick's post in the exchange buffer (its spread and distinct
-  // values)
-  __shared__ unsigned s_go;
+  // across parts: the cluster's agreement word (block 0's is the one
+  // used), every part's post read from the exchange buffer, and the
+  // part whose post holds the pick's spread and distinct values with
+  // that post's word offset in the buffer (read there when the posts do
+  // not fit here)
+  __shared__ unsigned s_dec;
+  __shared__ int s_xall[MAX_XPARTS][XPOST_MAX];
+  __shared__ int s_pick_src;
   __shared__ long long s_pick_post;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -561,8 +582,13 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(ScanParams p) {
   const bool writer = sh == 0 && (!XP || p.xp.part == 0);
   bool xfail = false;
   int xx = 0;   // cross-part exchanges so far
+  // PROF across parts: lane 0 of warp 0 of block 0 and of the last
+  // block clocks the exchange's sub-phases (prof[18, 34))
+  const bool xclk = PROF && XP && tid == 0 && (sh == 0 || sh == NS - 1);
+  long long xacc[2 * XPH] = {};
+  long long xt = 0, xmid = 0;
   if (SHARDED) xch_init(&s_xch, NS);
-  if (tid == 0) s_go = 0u;
+  if (tid == 0) s_dec = 0u;
 
   const Pieces v = mixed_pieces(p, s_dyn, sh, row0);
   const bool grp_sm = p.off[PC_GROUP] >= 0;
@@ -648,6 +674,8 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(ScanParams p) {
     }
   }
   if (SHARDED) cg::this_cluster().sync();   // peers' barriers initialised
+  unsigned* const dec0 =
+      XP ? cg::this_cluster().map_shared_rank(&s_dec, 0) : &s_dec;
   pc.setup_done();
 
   int xk = 0;   // on a cluster: exchanges so far
@@ -793,6 +821,7 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(ScanParams p) {
         // warp merges the other two and writes the row
         unsigned long long gb[TOP_K];
         float gf[TOP_K];
+        int spv0 = -1;   // the winning block's top row's spread value
         k = min(TOP_K, n);
 #pragma unroll
         for (int q = 0; q < TOP_K; ++q) {
@@ -802,7 +831,10 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(ScanParams p) {
           rows[q] = q < k ? from[TOP_K + ci % TOP_K] : -1;
           sc[q] = q < k ? __int_as_float(from[2 * TOP_K + ci % TOP_K])
                         : NEG_INF;
-          if (q == 0 && !XP) publish_pick(act, sc[0], rows[0], from[XW - 1]);
+          if (q == 0) {
+            if (!XP) publish_pick(act, sc[0], rows[0], from[XW - 1]);
+            spv0 = from[XW - 1];
+          }
         }
         my_sum = 0;   // lane i < NSUM: the blocks' count i
         if (lane < NSUM)
@@ -810,13 +842,18 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(ScanParams p) {
         __syncwarp();   // the slots are read before the next post
         ++xk;
         if (XP) {
-          // across parts: block 0 posts this part's top 3 (key bits, 0
-          // past k), rows, scores, counts and its top row's spread and
-          // distinct values; every block merges the parts' posts as the
-          // cluster's were merged, keyed by (part, rank)
+          // across parts (xmesh.cuh, K9's protocol): block 0 posts this
+          // part's top 3 (key bits, 0 past k), rows, scores, counts and
+          // its top row's spread and distinct values, each word beside
+          // its flag; warp 0 of every block reads the parts' posts into
+          // shared memory itself and merges them as the cluster's were
+          // merged, keyed by (part, rank)
           const long long stride = p.xstride;
-          const int par = xx & 1, NP = p.xp.n_parts;
+          const int par = xx & 1, NP = p.xp.n_parts, pw = p.xpost;
+          const bool fits = pw <= XPOST_MAX;
           int* base = p.xp.buf + XP_HEAD + (long long)par * NP * stride;
+          const int xk0 = act ? 0 : XPH;
+          if (xclk) xt = clock64();
           if (sh == 0) {
             int sums_all[NSUM];
 #pragma unroll
@@ -824,7 +861,11 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(ScanParams p) {
               sums_all[i] = __shfl_sync(FULL, my_sum, i);
             int* mine = base + (long long)p.xp.part * stride;
             const int top_l = rows[0] - p.row_off;
-            for (int w = lane; w < XW + S + D; w += 32) {
+            // the part's top row's spread value (one spread row) is its
+            // block's post's, and no distinct value is read where the
+            // group has no distinct_property row: no global load then
+            const bool pd_on = gs[6] > 0;
+            for (int w = lane; w < pw; w += 32) {
               int val = 0;
               if (w < TOP_K) val = w < k ? (int)(unsigned)(gb[w] >> 32) : 0;
               else if (w < 2 * TOP_K) val = rows[w - TOP_K];
@@ -833,23 +874,35 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(ScanParams p) {
               else if (w < 3 * TOP_K + NSUM) val = sums_all[w - 3 * TOP_K];
               else if (w < XW) val = 0;
               else if (w < XW + S)
-                val = rows[0] >= 0
-                          ? p.sp_nodeval[(long long)(w - XW) * n + top_l]
-                          : -1;
-              else
-                val = rows[0] >= 0
-                          ? p.pd_nodeval[(long long)(w - XW - S) * n + top_l]
-                          : -1;
-              mine[1 + w] = val;
+                val = rows[0] < 0 ? -1
+                      : S == 1   ? spv0
+                                 : p.sp_nodeval[(long long)(w - XW) * n +
+                                                top_l];
+              else if (w < XW + S + D)
+                val = rows[0] < 0 || !pd_on
+                          ? -1
+                          : p.pd_nodeval[(long long)(w - XW - S) * n +
+                                         top_l];
+              xp_put_pair(mine + 2 * w, val, xx + 1, p.xp.sys);
             }
-            __threadfence_system();
-            __syncwarp();
-            if (lane == 0) xp_st_release(mine, xx + 1);
           }
-          const bool ok = xp_gather(p.xp, sh, NS, base, stride, xx + 1,
-                                    &s_go, &xfail);
+          if (xclk) {
+            const long long now = clock64();
+            xacc[xk0] += now - xt;
+            xt = now;
+          }
+          const bool ok =
+              xp_meet(p.xp, base, stride, pw, xx + 1, &s_xall[0][0],
+                      XPOST_MAX, fits ? pw : XPOST_MAX, dec0, &xfail,
+                      xclk ? &xmid : nullptr);
+          if (xclk) {
+            const long long now = clock64();
+            xacc[xk0 + 1] += xmid - xt;
+            xacc[xk0 + 2] += now - xmid;
+            xt = now;
+          }
           ++xx;
-          auto post_of = [&](int r) { return base + (long long)r * stride + 1; };
+          auto post_of = [&](int r) -> const int* { return s_xall[r]; };
 #pragma unroll
           for (int q = 0; q < TOP_K; ++q) {
             t3[q] = 0ull;
@@ -875,13 +928,16 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(ScanParams p) {
                        : NEG_INF;
             if (q == 0) src0 = on ? ci / TOP_K : 0;
           }
-          if (lane == 0)
-            s_pick_post = (long long)(post_of(src0) - p.xp.buf);
+          if (lane == 0) {
+            s_pick_src = src0;
+            s_pick_post = (long long)(base + src0 * stride - p.xp.buf);
+          }
           publish_pick(act, sc[0], rows[0],
                        ok && S == 1 ? post_of(src0)[XW] : -1);
           my_sum = 0;
           if (ok && lane < NSUM)
             for (int r = 0; r < NP; ++r) my_sum += post_of(r)[3 * TOP_K + lane];
+          if (xclk) xacc[xk0 + 3] += clock64() - xt;
         }
       } else {
         k = top_k;
@@ -920,12 +976,21 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(ScanParams p) {
       asm volatile("bar.sync 1, 96;" ::: "memory");
       const int pick = s_pick;
       if (pick >= 0 && warp == 2) {
-        // across parts the pick's values ride its part's post
-        const int* xv = XP ? p.xp.buf + s_pick_post + XW : nullptr;
+        // across parts the pick's values ride its part's post: in shared
+        // memory, or else in the exchange buffer as (word, flag) pairs,
+        // read there by strong loads (the block's L1 may hold an older
+        // use of the slot)
+        const bool xin = p.xpost <= XPOST_MAX;
+        const int* xv = !XP ? nullptr
+                        : xin ? s_xall[s_pick_src] + XW
+                              : p.xp.buf + s_pick_post + 2 * XW;
+        auto xval = [&](int i) {
+          return xin ? xv[i] : xp_ld_relaxed(xv + 2 * i);
+        };
         for (int s = lane; s < S; s += 32) {
           const int val =
               S == 1 ? s_pick_v
-              : XP   ? xv[s]
+              : XP   ? xval(s)
                      : p.sp_nodeval[(long long)s * n + pick];
           if (val >= 0) {
             const int i = s * Kv + min(val, Kv - 1);
@@ -942,7 +1007,7 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(ScanParams p) {
         for (int i = lane; i < npd; i += 32) {
           const int q = pdl_g[i];
           const int val =
-              XP ? xv[S + q] : p.pd_nodeval[(long long)q * n + pick];
+              XP ? xval(S + q) : p.pd_nodeval[(long long)q * n + pick];
           if (val >= 0) v.pdc[q * Kd + min(val, Kd - 1)] += 1;
         }
       }
@@ -991,6 +1056,9 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(ScanParams p) {
     pc.step(act);
   }
   pc.finish(p.prof);
+  if (xclk)
+    for (int i = 0; i < 2 * XPH; ++i)
+      p.prof[PROF_WORDS + (sh == 0 ? 0 : 2 * XPH) + i] = xacc[i];
   // no block leaves while a peer may still write to its shared memory
   if (SHARDED) cg::this_cluster().sync();
 }
@@ -1167,34 +1235,36 @@ __global__ void __launch_bounds__(32, 1) dsmem_exchange_kernel(int rounds,
   if (v == 0x7fffffff) *sink = v;
 }
 
-// the words of one part's slot of K9's exchange: its stamp, the post
-// (XW words) and the spread and distinct values of the part's top row,
-// rounded up to 16 bytes
+// the words of one part's post in K9's exchange: XW words and the
+// spread and distinct values of the part's top row, rounded up to 16
+// bytes; its slot's words: the post's (word, flag) pairs
+int xmesh_scan_post(int s, int d) { return (XW + s + d + 3) / 4 * 4; }
 long long xmesh_scan_stride(int s, int d) {
-  return (1ll + XW + s + d + 3) / 4 * 4;
+  return 2ll * xmesh_scan_post(s, d);
 }
 
 // The probe's kernel: one warp a part; each round block 0 (the only
-// block) posts XW words and gathers every part's post (xmesh.cuh).
+// block) posts XW words and meets every part's post as K9 does
+// (xmesh.cuh: xp_put_pair, xp_meet).
 __global__ void __launch_bounds__(32, 1) xmesh_probe_kernel(XPart xp,
                                                             int rounds,
                                                             int* sink) {
-  __shared__ unsigned s_go;
-  __shared__ int s_post[XW];
+  __shared__ unsigned s_dec;
+  __shared__ int s_all[MAX_XPARTS][XW];
   const int lane = threadIdx.x;
-  if (lane == 0) s_go = 0u;
+  if (lane == 0) s_dec = 0u;
   __syncwarp();
-  const long long stride = 1 + XW + 3;
+  const long long stride = 2 * XW;
   bool failed = false;
   int v = lane;
   for (int r = 0; r < rounds; ++r) {
     int* base = xp.buf + XP_HEAD + (long long)(r & 1) * xp.n_parts * stride;
-    if (lane < XW) s_post[lane] = v + r;
-    __syncwarp();
-    xp_post_warp(base + (long long)xp.part * stride, s_post, XW, r + 1);
-    const bool ok = xp_gather(xp, 0, 1, base, stride, r + 1, &s_go, &failed);
-    if (ok) v += base[(long long)(lane % xp.n_parts) * stride + 1 +
-                      lane % XW] & 1;
+    if (lane < XW)
+      xp_put_pair(base + (long long)xp.part * stride + 2 * lane, v + r,
+                  r + 1, xp.sys);
+    const bool ok = xp_meet(xp, base, stride, XW, r + 1, &s_all[0][0], XW,
+                            XW, &s_dec, &failed);
+    if (ok) v += s_all[lane % xp.n_parts][lane % XW] & 1;
     __syncwarp();
   }
   if (v == 0x7fffffff) *sink = v;
@@ -1269,21 +1339,45 @@ extern "C" int place_scan_sharded_prof(SCAN_ARGS, int n_shards, int nt,
 // int32 words, zeroed, on the home part's card; its word 0 is the error
 // word) within `deadline` clock64() cycles a wait.  Only part 0 writes
 // `buf`.
-extern "C" int place_scan_xmesh(SCAN_ARGS, int n_shards, int part,
-                                int n_parts, int* xbuf, long long deadline,
-                                cudaStream_t stream) {
+template <bool PROF>
+int run_scan_xmesh(ScanParams p, int* scratch, int n_shards, int part,
+                   int n_parts, int* xbuf, long long deadline,
+                   int sys_scope, int nt, cudaStream_t stream) {
   if (n_shards < 1 || n_parts < 2 || part < 0 || part >= n_parts ||
-      n_parts > 32 || !xbuf || deadline < 1 || (part == 0 && !buf))
+      n_parts > MAX_XPARTS || !xbuf || deadline < 1 || (part == 0 && !p.buf))
     return (int)cudaErrorInvalidValue;
-  ScanParams p = SCAN_PARAMS;
   p.xp.buf = xbuf;
   p.xp.part = part;
   p.xp.n_parts = n_parts;
   p.xp.deadline = deadline;
-  p.row_off = part * n;
-  p.n_glob = n * n_parts;
-  p.xstride = xmesh_scan_stride(s, d);
-  return run_scan<false>(p, scratch, n_shards, 0, stream);
+  p.xp.sys = sys_scope != 0;
+  p.row_off = part * p.n;
+  p.n_glob = p.n * n_parts;
+  p.xstride = xmesh_scan_stride(p.s, p.d);
+  p.xpost = xmesh_scan_post(p.s, p.d);
+  return run_scan<PROF>(p, scratch, n_shards, nt, stream);
+}
+
+extern "C" int place_scan_xmesh(SCAN_ARGS, int n_shards, int part,
+                                int n_parts, int* xbuf, long long deadline,
+                                int sys_scope, cudaStream_t stream) {
+  return run_scan_xmesh<false>(SCAN_PARAMS, scratch, n_shards, part,
+                               n_parts, xbuf, deadline, sys_scope, 0,
+                               stream);
+}
+
+// K9 across parts, PROF: block 0's phase split to prof[0, 18) as K9's,
+// the exchange's sub-phases of block 0 and of the cluster's last block
+// to prof[18, 34) (see XPH).  Never on the main path.
+extern "C" int place_scan_xmesh_prof(SCAN_ARGS, int n_shards, int part,
+                                     int n_parts, int* xbuf,
+                                     long long deadline, int sys_scope,
+                                     int nt, long long* prof,
+                                     cudaStream_t stream) {
+  ScanParams p = SCAN_PARAMS;
+  p.prof = prof;
+  return run_scan_xmesh<true>(p, scratch, n_shards, part, n_parts, xbuf,
+                              deadline, sys_scope, nt, stream);
 }
 
 // The int32 words of K9's exchange buffer across `n_parts` parts (s
@@ -1313,23 +1407,50 @@ extern "C" int xmesh_enable_peer(int dev, int peer) {
   return (int)(e != cudaSuccess ? e : e2);
 }
 
+// An exchange buffer of a mesh whose cards lack peer access
+// (parallel/xmesh.py `_HostBuf`): `bytes` of pinned host memory, mapped
+// into every card's address space (portable), whose address (the same
+// on the host and on every card, under unified addressing) goes to
+// out[0].  A host function.
+extern "C" int xmesh_host_alloc(long long bytes, long long* out) {
+  void* p = nullptr;
+  if (bytes < 1 || !out) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaHostAlloc(&p, (size_t)bytes,
+                                cudaHostAllocMapped | cudaHostAllocPortable);
+  if (e != cudaSuccess) return (int)e;
+  void* d = nullptr;
+  e = cudaHostGetDevicePointer(&d, p, 0);
+  if (e == cudaSuccess && d != p) e = cudaErrorInvalidDevicePointer;
+  if (e != cudaSuccess) {
+    cudaFreeHost(p);
+    return (int)e;
+  }
+  out[0] = (long long)p;
+  return 0;
+}
+
+extern "C" int xmesh_host_free(void* p) { return (int)cudaFreeHost(p); }
+
 // The probe of the exchange across parts: `rounds` exchanges of an
 // XW-word post (one warp of one block a part, each post depending on
-// the last) between the n_parts launches of this call's parts, each
-// launched with its own part index on its own stream (xbuf as
-// place_scan_xmesh takes it, XP_HEAD + 2 n_parts (XW + 4) words).  The
-// placement path never calls it.
+// the last, K9's protocol at the scope `sys_scope` selects) between the
+// n_parts launches of this call's parts, each launched with its own
+// part index on its own stream (xbuf as place_scan_xmesh takes it,
+// XP_HEAD + 4 n_parts XW words).  The placement path never calls
+// it.
 extern "C" int xmesh_exchange_probe(int rounds, int part, int n_parts,
                                     int* xbuf, long long deadline,
-                                    int* sink, cudaStream_t stream) {
-  if (n_parts < 1 || part < 0 || part >= n_parts || n_parts > 32 ||
-      rounds < 0)
+                                    int sys_scope, int* sink,
+                                    cudaStream_t stream) {
+  if (n_parts < 1 || part < 0 || part >= n_parts ||
+      n_parts > MAX_XPARTS || rounds < 0)
     return (int)cudaErrorInvalidValue;
   XPart xp;
   xp.buf = xbuf;
   xp.part = part;
   xp.n_parts = n_parts;
   xp.deadline = deadline;
+  xp.sys = sys_scope != 0;
   xmesh_probe_kernel<<<1, 32, 0, stream>>>(xp, rounds, sink);
   return (int)cudaGetLastError();
 }
@@ -1350,6 +1471,9 @@ PY_LAUNCHERS(place_scan,
              PY_LAUNCHER(place_scan_sharded_prof),
              PY_LAUNCHER(dsmem_exchange_probe),
              PY_LAUNCHER(place_scan_xmesh),
+             PY_LAUNCHER(place_scan_xmesh_prof),
              PY_LAUNCHER(place_scan_xmesh_words),
              PY_LAUNCHER(xmesh_enable_peer),
+             PY_LAUNCHER(xmesh_host_alloc),
+             PY_LAUNCHER(xmesh_host_free),
              PY_LAUNCHER(xmesh_exchange_probe))

@@ -776,7 +776,12 @@ class PlacementEngine:
                     for pad in (512, 2048, 8192, SCATTER_CHUNK):
                         if len(r_h) <= pad:
                             break
-                    r_c, v_c = self._to_dev(r_h), self._to_dev(v_h)
+                    if self._parts:
+                        # K13 across parts reads the chunk straight from
+                        # pinned host memory on every card
+                        r_c, v_c = torch.from_numpy(r_h), torch.from_numpy(v_h)
+                    else:
+                        r_c, v_c = self._to_dev(r_h), self._to_dev(v_h)
                     if self.mesh is not None:
                         self._launch("scatter", (int(dev.shape[0]), pad),
                                      self._sharded("scatter"), dev, r_c,

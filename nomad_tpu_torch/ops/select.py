@@ -312,12 +312,16 @@ class XPart(NamedTuple):
     The launch helpers append the part's exchanging launch to `launches`
     (a closure) instead of making it: every part's set-up (its statics,
     allocations, first loads of kernels) then ends before any part
-    starts to wait for the others (parallel/xmesh.py `_run_parts`)."""
+    starts to wait for the others (parallel/xmesh.py `_run_parts`).
+    `sys_scope`: the exchange's memory operations at system scope (parts
+    on several cards, or a buffer in host memory), else at GPU scope
+    (K9 reads it; the rounds kernels are at system scope throughout)."""
     part: int
     n_parts: int
     buf: int
     deadline: int
     launches: list
+    sys_scope: int
 
 
 def _launch(kern, xp, keep, device: int, symbol: str, *args) -> None:
@@ -929,11 +933,12 @@ def _scan_launch(inp: PlacementInputs, n_shards: int = 0, prof=None,
                  nt: int = 0, xp=None):
     """K1 statics + one K5 launch (K9 with `n_shards`: one cluster of
     that many blocks, each keeping its own spread and distinct counts).
-    With `prof` (int64 [18] on the card) the PROF instantiation runs
-    instead, with `nt` threads a block (0: as the main path chooses),
-    and writes block 0's phase split there (chip_smoke.py).  With `xp`
-    (an XPart) the launch is one part's K9 of a mesh across parts over
-    its own rows, its buffer None but on part 0."""
+    With `prof` (int64 [18] on the card; [34] with `xp`, the exchange's
+    sub-phases after it) the PROF instantiation runs instead, with `nt`
+    threads a block (0: as the main path chooses), and writes block 0's
+    phase split there (chip_smoke.py).  With `xp` (an XPart) the launch
+    is one part's K9 of a mesh across parts over its own rows, its
+    buffer None but on part 0."""
     kern = (K.PLACE_SCAN_XMESH if xp is not None
             else K.PLACE_SCAN_SHARDED if n_shards else K.PLACE_SCAN)
     name = kern.name
@@ -973,7 +978,7 @@ def _scan_launch(inp: PlacementInputs, n_shards: int = 0, prof=None,
     scratch = torch.empty(words, dtype=torch.int32, device=dev)
     tail = [n_shards] if n_shards else []
     if xp is not None:
-        tail += [xp.part, xp.n_parts, xp.buf, xp.deadline]
+        tail += [xp.part, xp.n_parts, xp.buf, xp.deadline, xp.sys_scope]
     symbol = name
     if prof is not None:
         symbol = name + "_prof"

@@ -38,11 +38,19 @@ K11's rows):
                                           csrc/scatter_add.cu)
 
 `make_mesh(8)` is 8 shards on one card; `make_mesh(8, ["cuda:0",
-"cuda:1"])` 8 shards over two cards (4 a part; every pair of distinct
-cards needs peer access); `make_mesh(8, ["cpu"] * 4)` 4 parts of the
-plain versions; `default_mesh()` one shard on every visible card, the
-mesh `PlacementEngine(mesh=None)` builds when more than one card is
-visible (reference: engine._default_mesh over `make_mesh()`).
+"cuda:1"])` 8 shards over two cards (4 a part); `make_mesh(8, ["cpu"] *
+4)` 4 parts of the plain versions; `default_mesh()` one shard on every
+visible card, the mesh `PlacementEngine(mesh=None)` builds when more
+than one card is visible (reference: engine._default_mesh over
+`make_mesh()`, which shards over every device with no condition).
+
+A CUDA mesh of parts records where its parts meet (`Mesh.exchange`,
+one private rule, `_exchange_of`): "device", the home card's global
+memory, when its parts share one card or every pair of its distinct
+cards has peer access; else "host", one exchange buffer a call in
+mapped, portable pinned host memory, which every card reaches over
+PCIe.  A host without peer access between its cards thus runs the same
+mesh, slower on every wait.
 """
 
 from __future__ import annotations
@@ -73,6 +81,10 @@ AXIS = "nodes"
 MAX_SHARDS = 8
 # parts of a mesh (the rounds kernels merge 8 parts' posts in one warp)
 MAX_PARTS = 8
+# the exchange rule's private override: True puts every CUDA mesh of
+# parts made from then on in host memory (the card tests and
+# chip_smoke.py run the host exchange on one card this way)
+_FORCE_HOST_EXCHANGE = False
 
 
 class Mesh:
@@ -95,6 +107,8 @@ class Mesh:
         self.n_parts = len(parts)
         self.shards_per_part = n_shards // len(parts)
         self.device = parts[0]
+        # the distinct devices, in part order
+        self.cards = list(dict.fromkeys(parts))
         # read on every wrapper call (a torch.device builds its type
         # string anew at each read)
         self.on_cpu = self.device.type == "cpu"
@@ -107,6 +121,13 @@ class Mesh:
         self._lock = threading.RLock()
         self._local = threading.local()
         self._peers_on = False
+        # where the parts meet ("device" or "host", _exchange_of), the
+        # host buffers of a "host" mesh and K13's staging ring
+        # (parallel/xmesh.py)
+        self.exchange = "device"
+        self._host_bufs: list = []
+        self._k13_ring = None
+        self._k13_used = None
 
     def stream(self, p: int):
         """Part p's stream on its card, made once and used only for the
@@ -126,10 +147,21 @@ class Mesh:
                 f"{[str(d) for d in self.parts]})")
 
 
+def _exchange_of(idx) -> str:
+    """Where the parts of a CUDA mesh on the cards `idx` meet: "device"
+    (the home card's global memory) when they share one card or every
+    pair of distinct cards has peer access, else "host" (mapped, portable
+    pinned host memory)."""
+    if _FORCE_HOST_EXCHANGE:
+        return "host"
+    peers = all(a == b or torch.cuda.can_device_access_peer(a, b)
+                for a in idx for b in idx)
+    return "device" if peers else "host"
+
+
 def _cuda_parts(devs) -> list:
     """CUDA parts with their indices (an index-less one is the current
-    card), checked: CUDA available, each index a visible card, peer
-    access between every pair of distinct cards."""
+    card), checked: CUDA available, each index a visible card."""
     if not torch.cuda.is_available():
         raise RuntimeError("a CUDA mesh needs CUDA and no CUDA device is "
                            "available; pass CPU devices")
@@ -141,12 +173,6 @@ def _cuda_parts(devs) -> list:
     for i in idx:
         if i >= count:
             raise ValueError(f"cuda:{i} is not visible ({count} cards)")
-    for a in idx:
-        for b in idx:
-            if a != b and not torch.cuda.can_device_access_peer(a, b):
-                raise RuntimeError(
-                    f"cuda:{a} cannot access the memory of cuda:{b}: a "
-                    "mesh across cards needs peer access")
     return out
 
 
@@ -154,9 +180,9 @@ def make_mesh(n_shards: int = MAX_SHARDS, device=None) -> Mesh:
     """An `n_shards` mesh on `device` (CUDA unless given), or, for a
     sequence of devices (repeats allowed), a mesh of that many parts,
     part p on device[p] holding shards [p S/D, (p + 1) S/D); `n_shards`
-    must be a multiple of the part count.  A CUDA mesh of parts checks
-    peer access between every pair of distinct cards and raises where it
-    is missing."""
+    must be a multiple of the part count.  A CUDA mesh of parts meets
+    in host memory where a pair of its distinct cards lacks peer access
+    (`Mesh.exchange`)."""
     if isinstance(device, (list, tuple)):
         devs = [torch.device(d) for d in device]
         if len(devs) == 1:
@@ -166,9 +192,12 @@ def make_mesh(n_shards: int = MAX_SHARDS, device=None) -> Mesh:
             if len(types) != 1:
                 raise ValueError(f"the parts of a mesh lie on one kind of "
                                  f"device, got {sorted(types)}")
-            if types == {"cuda"}:
-                devs = _cuda_parts(devs)
-            return Mesh(n_shards, devs[0], devs)
+            if types != {"cuda"}:
+                return Mesh(n_shards, devs[0], devs)
+            devs = _cuda_parts(devs)
+            mesh = Mesh(n_shards, devs[0], devs)
+            mesh.exchange = _exchange_of(sorted({d.index for d in devs}))
+            return mesh
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("make_mesh defaults to CUDA and no CUDA "
@@ -532,8 +561,9 @@ def scatter_add_sharded_(used: torch.Tensor, rows: torch.Tensor,
     parts `used` is a `Parts` (each part's rows on its device) and each
     part keeps the rows it owns."""
     if mesh.n_parts > 1:
-        if _on_mesh(mesh, used):
+        if mesh.on_cpu and _on_mesh(mesh, used):
             return X.scatter_add_xmesh_plain(used, rows, vals, mesh)
+        # a CUDA mesh: scatter_add_xmesh_ checks every block's device
         return X.scatter_add_xmesh_(used, rows, vals, mesh)
     if used.is_cpu and mesh.on_cpu:
         return scatter_add_sharded_plain(used, rows, vals, mesh.n_shards)

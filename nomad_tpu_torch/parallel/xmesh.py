@@ -21,11 +21,13 @@ Only the part that owns a winner commits it.
   * On the card every entry is one launch a part, each on its own
     stream (`Mesh.stream`), all launched before anything waits, the
     parts meeting on every step or round through an exchange buffer on
-    the home part's card (csrc/xmesh.cuh): K9 `place_scan_xmesh`, K10
+    the home part's card, or in host memory where the cards lack peer
+    access (`Mesh.exchange`, csrc/xmesh.cuh): K9 `place_scan_xmesh`, K10
     `multi_bulk_xmesh`, K11 `multi_flat_xmesh`, K12
     `multi_compact_xmesh`, K13 `scatter_add_xmesh` (no exchange: each
-    part keeps the rows it owns).  Between cards the buffer is reached
-    through peer access; a wait that runs out its deadline sets the
+    part keeps the rows it owns).  Between cards a device buffer is
+    reached through peer access and a host buffer over PCIe (the same
+    protocol, at system scope); a wait that runs out its deadline sets the
     buffer's error word, and `check` raises after the fetch.  A CUDA
     part never runs a plain version.
 
@@ -36,6 +38,9 @@ and return the usage and job counts as `Parts`.
 
 from __future__ import annotations
 
+import ctypes
+import time
+import weakref
 from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -619,15 +624,16 @@ def scatter_add_xmesh_plain(used: Parts, rows: torch.Tensor,
 # ------------------------------------------------------------ the card
 
 def _ensure_peers(mesh) -> None:
-    """Peer access for every ordered pair of the mesh's distinct cards,
-    enabled once a mesh."""
+    """Peer access for every ordered pair of the mesh's distinct cards
+    that has it, enabled once a mesh (a "host" mesh's parts meet in host
+    memory and need none)."""
     if mesh._peers_on:
         return
     idx = sorted({d.index for d in mesh.parts})
     fn = K.PLACE_SCAN_XMESH.fn("xmesh_enable_peer")
     for a in idx:
         for b in idx:
-            if a != b:
+            if a != b and torch.cuda.can_device_access_peer(a, b):
                 rc = fn(a, b)
                 if rc != 0:
                     raise RuntimeError(f"peer access from cuda:{a} to "
@@ -635,10 +641,80 @@ def _ensure_peers(mesh) -> None:
     mesh._peers_on = True
 
 
+class _HostBuf:
+    """Mapped, portable pinned host memory (csrc/place_scan.cu
+    `xmesh_host_alloc`), `view` its int32 words as a CPU tensor: an
+    exchange buffer of a "host" mesh, busy from the launch that takes it
+    until that launch's error word is read (`_HostWord`), or K13's
+    staging ring."""
+
+    __slots__ = ("ptr", "words", "view", "_arr", "busy")
+
+    def __init__(self, words: int) -> None:
+        out = torch.zeros(1, dtype=torch.int64)
+        rc = K.PLACE_SCAN_XMESH.fn("xmesh_host_alloc")(4 * words,
+                                                       out.data_ptr())
+        if rc != 0:
+            raise RuntimeError(f"xmesh_host_alloc of {4 * words} bytes "
+                               f"failed: cudaError {rc}")
+        self.ptr = int(out[0])
+        self.words = words
+        self._arr = (ctypes.c_int32 * words).from_address(self.ptr)
+        self.view = torch.frombuffer(self._arr, dtype=torch.int32)
+        self.busy = False
+
+
+class _HostWord:
+    """The error word of a launch across a "host" mesh, read in place
+    (no copy) once the launch is done; reading it frees the buffer for
+    the mesh's next call."""
+
+    __slots__ = ("buf", "value")
+
+    def __init__(self, buf: _HostBuf) -> None:
+        self.buf = buf
+        self.value = None
+
+    def __getitem__(self, i: int) -> int:
+        if self.value is None:
+            self.value = int(self.buf.view[0])
+            self.buf.busy = False
+        return self.value
+
+
+def _free_host_bufs(bufs: list) -> None:
+    fn = K.PLACE_SCAN_XMESH.fn("xmesh_host_free")
+    for b in bufs:
+        fn(b.ptr)
+    bufs.clear()
+
+
+def _host_buf(mesh, words: int) -> _HostBuf:
+    """A free host buffer of at least `words` words from the mesh's
+    pool (a new one when none is free; at least 16 KiB, so that the
+    entries' different sizes share buffers), marked busy."""
+    with mesh._lock:
+        for b in mesh._host_bufs:
+            if b.words >= words and not b.busy:
+                break
+        else:
+            if not mesh._host_bufs:
+                f = weakref.finalize(mesh, _free_host_bufs,
+                                     mesh._host_bufs)
+                f.atexit = False
+            b = _HostBuf(max(words, 4096))
+            mesh._host_bufs.append(b)
+        b.busy = True
+    return b
+
+
 def _run_parts(mesh, name: str, words: int, launch_part):
     """Launch every part's work, then order each device's later work
     after it.  A zeroed exchange buffer of `words` int32 on the home
-    card; part p's `launch_part(p, XPart)` queues its set-up (inputs,
+    card, or for a "host" mesh one of its pool in host memory, zeroed
+    from the host (free only once its last launch's error word was
+    read, so after that launch's `done`); part p's
+    `launch_part(p, XPart)` queues its set-up (inputs,
     statics, allocations) on its card's current stream and defers its
     exchanging launch (`XPart.launches`).  Once every part's set-up is
     queued, the deferred launches run one after another, each on
@@ -649,8 +725,9 @@ def _run_parts(mesh, name: str, words: int, launch_part):
     waiting part never lets it do), and every tensor belongs to a
     current stream's pool.  Then the current stream of each part's
     card waits on every part's event.  The error word's copy to the
-    host is queued behind them, and the launch joins the calling
-    thread's unchecked launches (`take`, `check`).
+    host is queued behind them (a host buffer's is read in place), and
+    the launch joins the calling thread's unchecked launches (`take`,
+    `check`).
 
     The whole sequence holds the mesh's lock, and the parts' streams
     take no other work: two callers' exchanging launches interleaved on
@@ -663,22 +740,29 @@ def _run_parts(mesh, name: str, words: int, launch_part):
         _ensure_peers(mesh)
         home = mesh.device
         home_cur = torch.cuda.current_stream(home)
-        xbuf = torch.zeros(words, dtype=torch.int32, device=home)
-        K.count_eager("xmesh_exchange_zeros")
-        ev0 = torch.cuda.Event()
-        ev0.record(home_cur)
+        host = mesh.exchange == "host"
+        if host:
+            hbuf = _host_buf(mesh, words)
+            hbuf.view.zero_()
+            ptr = hbuf.ptr
+        else:
+            xbuf = torch.zeros(words, dtype=torch.int32, device=home)
+            K.count_eager("xmesh_exchange_zeros")
+            ptr = xbuf.data_ptr()
+            ev0 = torch.cuda.Event()
+            ev0.record(home_cur)
+        sys_scope = int(host or len({d.index for d in mesh.parts}) > 1)
         outs, runs = [], []
         for p, dev in enumerate(mesh.parts):
-            xp = S.XPart(p, mesh.n_parts, xbuf.data_ptr(), mesh.deadline, [])
+            xp = S.XPart(p, mesh.n_parts, ptr, mesh.deadline, [], sys_scope)
             with torch.cuda.device(dev):
                 outs.append(launch_part(p, xp))
             runs.append((dev, mesh.stream(p), xp.launches))
-        err = torch.empty(1, dtype=torch.int32, pin_memory=True)
         # every part's stream ordered after the set-up first, before
-        # any exchanging launch
+        # any exchanging launch (and after the device buffer's zeros)
         for dev, run_on, _ in runs:
             run_on.wait_stream(torch.cuda.current_stream(dev))
-            if dev != home:
+            if dev != home and not host:
                 run_on.wait_event(ev0)
         evs = []
         for dev, run_on, launches in runs:
@@ -693,7 +777,11 @@ def _run_parts(mesh, name: str, words: int, launch_part):
             cur = torch.cuda.current_stream(dev)
             for ev in evs:
                 cur.wait_event(ev)
-        err.copy_(xbuf[:1], non_blocking=True)
+        if host:
+            err = _HostWord(hbuf)
+        else:
+            err = torch.empty(1, dtype=torch.int32, pin_memory=True)
+            err.copy_(xbuf[:1], non_blocking=True)
         done = torch.cuda.Event()
         done.record(home_cur)
     mine = _unchecked(mesh)
@@ -849,41 +937,175 @@ def place_multi_compact_xmesh_launch(used, used_in, inp: MultiEvalInputs,
     return outs[0][0], outs[0][1], used
 
 
+# K13 across parts: replay chunks from the CPU staged in mapped pinned
+# host memory, a ring of K13_SLOTS slots of K13_SLOT_ROWS rows (the
+# engine's chunk), each read by one call's launches (one a card) and
+# reused once the last block of each of those launches has stored the
+# slot's use number in the slot's done word (one a card, in the same
+# pinned buffer)
+K13_SLOT_ROWS = 16384
+K13_SLOTS = 8
+_K13_HEAD = 64                  # done words: 8 cards x K13_SLOTS
+# seconds a slot's last launches may take to say they are done
+K13_WAIT_S = 10.0
+_I32 = torch.int32
+
+
+class _K13Ring:
+    """A mesh's staging ring for K13's host chunks: the pinned buffer
+    (the done words, then the slots; `done` its numpy view), each card's
+    block counters (a zeroed word a slot on the card), each slot's use
+    number, the next slot."""
+
+    __slots__ = ("buf", "done", "counts", "count_ptrs", "seq", "next")
+
+    def __init__(self, cards) -> None:
+        self.buf = _HostBuf(_K13_HEAD + K13_SLOTS * 4 * K13_SLOT_ROWS)
+        self.buf.view.zero_()
+        self.done = self.buf.view.numpy()
+        self.counts = [torch.zeros(K13_SLOTS, dtype=torch.int32, device=d)
+                       for d in cards]
+        self.count_ptrs = [t.data_ptr() for t in self.counts]
+        self.seq = [0] * K13_SLOTS
+        self.next = 0
+
+
+def _check_rows(rows, vals) -> int:
+    """rows [M] and vals [M, 3], int32 and contiguous, both on the CPU or
+    both on one card (K13 across parts, every call).  Returns M."""
+    rs, vs = rows.shape, vals.shape
+    if (rows.get_device() != vals.get_device() or rows.dtype is not _I32
+            or vals.dtype is not _I32 or len(rs) != 1 or vs != (rs[0], 3)
+            or not rows.is_contiguous() or not vals.is_contiguous()):
+        raise ValueError(f"scatter_add_xmesh: rows {tuple(rs)} "
+                         f"{rows.dtype} on {rows.device}, vals {tuple(vs)} "
+                         f"{vals.dtype} on {vals.device}: want int32 [M] "
+                         "and [M, 3], contiguous, on one device")
+    return rs[0]
+
+
+def _parts_ptrs(used: Parts, mesh):
+    """The addresses K13 across parts takes for `used` on each card of
+    the mesh (a part's used tensor where it lies on that card, None
+    elsewhere), after checking every block: an int32 [n, 3] contiguous
+    tensor on its part's card.  Kept for the mesh's last `used`, checked
+    again when any of its blocks is another tensor."""
+    blocks = used.blocks
+    key = tuple(map(id, blocks))
+    last = mesh._k13_used
+    if last is not None and last[0] is used and last[1] == key:
+        return last[3]
+    shape = blocks[0].shape
+    if len(blocks) != mesh.n_parts or len(shape) != 2 or shape[1] != 3:
+        raise ValueError(f"scatter_add_xmesh: {len(blocks)} blocks of "
+                         f"{tuple(shape)} for a mesh of {mesh.n_parts} "
+                         "parts, want [n, 3] each")
+    for b, dev in zip(blocks, mesh.parts):
+        if (b.shape != shape or b.dtype is not _I32
+                or b.get_device() != dev.index or not b.is_contiguous()):
+            raise ValueError(f"scatter_add_xmesh: a used block "
+                             f"{tuple(b.shape)} {b.dtype} on {b.device}, "
+                             f"want {tuple(shape)} int32, contiguous, on "
+                             f"{dev}")
+    _n_rows(mesh, shape[0] * mesh.n_parts)
+    pad = [None] * (8 - mesh.n_parts)
+    ptrs = [[b.data_ptr() if d == dev else None
+             for b, d in zip(blocks, mesh.parts)] + pad
+            for dev in mesh.cards]
+    # the blocks are kept too, so that no id of theirs is reused
+    mesh._k13_used = (used, key, tuple(blocks), ptrs)
+    return ptrs
+
+
 def scatter_add_xmesh_(used: Parts, rows: torch.Tensor, vals: torch.Tensor,
                        mesh) -> Parts:
-    """K13 across parts on the card: one launch a part over the whole
-    chunk, each keeping the rows it owns (`scatter_add_xmesh`), on the
-    current stream of its card (copies of rows and vals on each other
-    card).  No exchange, no exchange buffer."""
-    _n_rows(mesh, used.blocks[0].shape[0] * mesh.n_parts)
-    on_dev = {}
-    for p, u in enumerate(used.blocks):
-        dev = u.device
-        if dev not in on_dev:
-            on_dev[dev] = (_rep(rows, dev), _rep(vals, dev))
-        r, v = on_dev[dev]
-        d, n, mm = K.check_scatter("scatter_add_xmesh", u, r, v)
-        if mm:
-            K.SCATTER_ADD_XMESH.launch(
-                d, "scatter_add_xmesh", u.data_ptr(), n, r.data_ptr(),
-                v.data_ptr(), mm, p, mesh.n_parts)
+    """K13 across parts on the card: one launch a distinct card over the
+    whole chunk, adding each row to the part that owns it among the
+    card's parts (`scatter_add_xmesh`), on the card's current stream.
+    rows and vals are checked every call, `used` whenever it is another
+    tensor than the last call's (`_parts_ptrs`).  They reach each card
+    once: from the CPU straight out of pinned host memory (a slot of the
+    mesh's staging ring, filled by one host copy and read by every
+    card's launch over PCIe; no copy to a card), from a card as they lie
+    there, and a copy on each other card.  No exchange."""
+    m = _check_rows(rows, vals)
+    ptrs = _parts_ptrs(used, mesh)
+    if not m:
+        return used
+    n, n_parts = used.blocks[0].shape[0], mesh.n_parts
+    launch = K.SCATTER_ADD_XMESH.launch
+    on = rows.get_device()
+    if on >= 0:
+        for c, dev in enumerate(mesh.cards):
+            r, v = ((rows, vals) if dev.index == on
+                    else (rows.to(dev), vals.to(dev)))
+            launch(dev.index, "scatter_add_xmesh", *ptrs[c], n, n_parts,
+                   r.data_ptr(), v.data_ptr(), m, None, None, 0)
+        return used
+    stage = K.SCATTER_ADD_XMESH.fn("xmesh_stage_chunk")
+    r_src, v_src = rows.data_ptr(), vals.data_ptr()
+    with mesh._lock:
+        ring = mesh._k13_ring
+        if ring is None:
+            ring = mesh._k13_ring = _K13Ring(mesh.cards)
+            f = weakref.finalize(mesh, _free_host_bufs, [ring.buf])
+            f.atexit = False
+        done, base = ring.done, ring.buf.ptr
+        for lo in range(0, m, K13_SLOT_ROWS):
+            k = min(K13_SLOT_ROWS, m - lo)
+            i = ring.next
+            ring.next = (i + 1) % K13_SLOTS
+            seq = ring.seq[i]
+            if done[i] != seq or len(mesh.cards) > 1:
+                _k13_slot_free(done, i, seq, len(mesh.cards))
+            seq = ring.seq[i] = seq + 1
+            r_ptr = base + 4 * (_K13_HEAD + 4 * i * K13_SLOT_ROWS)
+            rc = stage(r_ptr, r_src + 4 * lo, v_src + 12 * lo, k)
+            try:
+                if rc != 0:
+                    raise RuntimeError(f"xmesh_stage_chunk: cudaError {rc}")
+                for c, dev in enumerate(mesh.cards):
+                    launch(dev.index, "scatter_add_xmesh", *ptrs[c], n,
+                           n_parts, r_ptr, r_ptr + 4 * k, k,
+                           ring.count_ptrs[c] + 4 * i,
+                           base + 4 * (c * K13_SLOTS + i), seq)
+            except BaseException:
+                # a slot whose launches did not all go out would never
+                # be told done: the next call starts a new ring
+                mesh._k13_ring = None
+                raise
     return used
+
+
+def _k13_slot_free(done, i: int, seq: int, n_cards: int) -> None:
+    """Wait until every card's last launch on slot i (use `seq`) has
+    said it is done; raise after K13_WAIT_S seconds."""
+    t0 = None
+    for c in range(n_cards):
+        while done[c * K13_SLOTS + i] != seq:
+            t0 = time.monotonic() if t0 is None else t0
+            if time.monotonic() - t0 > K13_WAIT_S:
+                raise RuntimeError(
+                    f"scatter_add_xmesh: staging slot {i} not released by "
+                    f"its launches within {K13_WAIT_S} s")
+            time.sleep(0)
 
 
 def exchange_probe(mesh, rounds: int):
     """One launch a part of `rounds` exchanges of a 16-word post across
-    the mesh's parts (csrc/place_scan.cu `xmesh_exchange_probe`), each
-    part on its own stream; returns the home stream's elapsed ms.  The
-    placement path never calls it."""
-    words = 32 + 2 * mesh.n_parts * 20
+    the mesh's parts by K9's protocol (csrc/place_scan.cu
+    `xmesh_exchange_probe`), each part on its own stream; returns the
+    home stream's elapsed ms.  The placement path never calls it."""
+    # the header, then two slots a part of 16 (word, flag) pairs
+    words = 32 + 2 * mesh.n_parts * 32
     sink = torch.zeros(1, dtype=torch.int32, device=mesh.device)
     fn = K.PLACE_SCAN_XMESH.fn("xmesh_exchange_probe")
     start, end = torch.cuda.Event(True), torch.cuda.Event(True)
     start.record(torch.cuda.current_stream(mesh.device))
 
     def launch(p, xp):
-        rc = fn(rounds, p, mesh.n_parts, xp.buf, xp.deadline, sink.data_ptr(),
-                K._raw_stream(mesh.parts[p].index))
+        rc = fn(rounds, p, mesh.n_parts, xp.buf, xp.deadline, xp.sys_scope,
+                sink.data_ptr(), K._raw_stream(mesh.parts[p].index))
         if rc != 0:
             raise RuntimeError(f"xmesh_exchange_probe: cudaError {rc}")
 

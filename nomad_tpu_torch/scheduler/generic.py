@@ -9,6 +9,25 @@ candidates one placement at a time through the iterator stack; here ALL
 placements of the eval go to the device kernels as one batch
 (nomad_tpu_torch.ops.PlacementEngine) and come back as node picks +
 AllocMetrics in a single device round-trip.
+
+Difference from the reference (nomad_tpu/scheduler/generic.py): a plan
+that the planner fails to submit (the plan queue refuses it once its
+server stopped leading, Raft raises NotLeaderError or its forward to the
+new leader fails, the applier refuses a superseded delivery's plan)
+does not mark its eval failed.  `process` and `finalize_batched` return
+the error, the worker nacks, and the eval stays pending in the store:
+its current delivery settles it, the broker redelivers it (after its
+delivery limit the leader reaps it as failed, with a follow-up), or the
+next leader's establish_leadership restores it.  The reference marks it
+failed at once, and the server then mints a follow-up 60-240 s later:
+in a lossy three-server cluster a job could sit without an alloc that
+long (`lossy_link_raft_append`), and a superseded delivery's "failed"
+could overwrite its current delivery's status.  Upstream Nomad does as
+the port does: `GenericScheduler.Process` sets an eval's status only
+when `retryMax` runs out (SetStatusError), and a plan-submit error
+returns to the worker, which nacks.  The scheduler's own "maximum
+attempts reached" stays failed with its follow-up
+(tests/test_torch_leadership_loss.py holds both).
 """
 
 from __future__ import annotations
@@ -115,8 +134,7 @@ class GenericScheduler(Scheduler):
                            + attempt * 0x9E3779B9) & 0xFFFFFFFF) or 1
             done, err = self._process_once(evaluation)
             if err is not None:
-                self._update_eval_status(evaluation, "failed", str(err))
-                return err
+                return err      # a plan-submit error: the worker nacks
             if done:
                 break
         else:
@@ -312,8 +330,7 @@ class GenericScheduler(Scheduler):
             result, err = pending.wait()
             refreshed_state = None
         if err is not None:
-            self._update_eval_status(evaluation, "failed", str(err))
-            return err
+            return err          # the worker nacks, as in process()
         if result is not None:
             full, expected, actual = result.full_commit(plan)
             if not full:

@@ -6,6 +6,10 @@ still evaluated on device — one feasibility-mask launch (kernel K8,
 ops/feasibility.feasible_mask) covers every node × every task group — but
 selection is trivial (each feasible node hosts one alloc), so no scan is
 needed; capacity is checked host-side per node.
+
+Difference from the reference: a plan that the planner fails to submit
+leaves the eval pending for a redelivery instead of failed (as in
+scheduler/generic.py, whose docstring gives the reason).
 """
 
 from __future__ import annotations
@@ -233,8 +237,7 @@ class SystemScheduler(Scheduler):
                 plan.coupled_batch = (evaluation.id, fence)
             _, _, err = self.planner.submit_plan(plan)
             if err is not None:
-                self._update_eval(evaluation, "failed", str(err))
-                return err
+                return err      # the worker nacks (scheduler/generic.py)
         self._update_eval(evaluation, EVAL_STATUS_COMPLETE, "")
         return None
 

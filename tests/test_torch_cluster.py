@@ -119,6 +119,58 @@ def test_raft_election_and_replication():
         stop_all(nodes)
 
 
+def test_raft_followers_learn_a_commit_without_a_heartbeat():
+    """The port's leader tells its followers of a commit advance at once
+    (core/raft.py, difference 2): with a simulated network and the
+    virtual clock stopped once a leader is elected, so that no heartbeat
+    can fire, an entry the leader commits reaches every follower's
+    commit index and FSM.  The reference's followers stay one entry
+    behind until a heartbeat."""
+    import threading
+
+    clock_mod = pkg(PORT, "chaos.clock")
+    transport = pkg(PORT, "chaos.transport")
+    raft = pkg(PORT, "core.raft")
+    clock = clock_mod.VirtualClock()
+    net = transport.SimNetwork(clock=clock, seed=0)
+    fsms = [KVFSM() for _ in range(3)]
+    nodes = [raft.RaftNode(f"s{i}", ("", 0), fsm_apply=fsms[i].apply,
+                           transport=net.node(f"s{i}"), clock=clock,
+                           bootstrap_expect=3, heartbeat_interval=0.05,
+                           election_timeout=(0.2, 0.4))
+             for i in range(3)]
+    addrs = {n.name: n.addr for n in nodes}
+    stop = threading.Event()
+
+    def drive():
+        while not stop.is_set():
+            clock.advance(0.01)
+            time.sleep(0.001)
+
+    ticker = threading.Thread(target=drive, daemon=True)
+    try:
+        for n in nodes:
+            n.set_peers(addrs)
+            n.start()
+        ticker.start()
+        leader = wait_for(lambda: leader_of(nodes), msg="leader")
+        wait_for(lambda: len({n.commit_index for n in nodes}) == 1
+                 and nodes[0].commit_index > 0, msg="no-op committed")
+        stop.set()
+        ticker.join()
+        frozen = clock.monotonic()
+        leader.apply(pickle.dumps(("k", 1)))
+        idx = leader.commit_index
+        wait_for(lambda: all(n.commit_index >= idx for n in nodes)
+                 and all(f.data.get("k") == 1 for f in fsms),
+                 timeout=5.0, msg="followers learn the commit")
+        assert clock.monotonic() == frozen
+    finally:
+        stop.set()
+        stop_all(nodes)
+        clock.close()
+
+
 def test_raft_follower_rejects_apply():
     nodes, _ = raft_trio()
     try:

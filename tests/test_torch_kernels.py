@@ -768,6 +768,9 @@ MESH_SCAN_CASES = {
                                 tight=True, p=64, p_real=59),
     # spread counts past shared memory: each block's copy in global memory
     "counts_in_global": dict(n=64, s=1, k=41000, p=16),
+    # a part's post across parts past its 64 words in shared memory
+    # (XW + S + D = 65): the pick's values read from the exchange buffer
+    "posts_past_shared": dict(n=37, s=47, k=3, d=2, kd=40, p=32),
     **MEMO_SCAN_CASES,
     # 2,000 rows a shard: flags, noise and values in shared memory, the
     # [G, N] scores in global memory
@@ -1754,17 +1757,32 @@ def test_bridge_executor_waves_equal_torch_executor(cuda_device):
 
 from nomad_tpu_torch.parallel import xmesh  # noqa: E402
 
-# the parts of the card cases: two parts of one card, S parts of one
-# shard each on one card (the automatic mesh's shard a part), one part a
-# card across two cards where more than one is visible, and one part on
-# each of every visible card where more than two are
-XMESH_LAYOUTS = ("one_card", "one_card_shard_a_part", "cross_card",
-                 "every_card")
+# the parts of the card cases: two parts of one card, the same meeting
+# in host memory (the exchange of cards without peer access, forced by
+# the rule's private override), S parts of one shard each on one card
+# (the automatic mesh's shard a part), one part a card across two cards
+# where more than one is visible, one part on each of every visible
+# card where more than two are, and one part a card on every visible
+# card meeting in host memory where more than one is
+XMESH_LAYOUTS = ("one_card", "one_card_host", "one_card_shard_a_part",
+                 "cross_card", "every_card", "every_card_host")
+
+
+def _host_mesh(parts):
+    pmesh._FORCE_HOST_EXCHANGE = True
+    try:
+        return pmesh.make_mesh(S, parts)
+    finally:
+        pmesh._FORCE_HOST_EXCHANGE = False
 
 
 def _xmesh(layout, cuda_device):
     if layout == "one_card":
         return pmesh.make_mesh(S, [cuda_device, cuda_device])
+    if layout == "one_card_host":
+        mesh = _host_mesh([cuda_device, cuda_device])
+        assert mesh.exchange == "host"
+        return mesh
     if layout == "one_card_shard_a_part":
         return pmesh.make_mesh(S, [cuda_device] * S)
     n = torch.cuda.device_count()
@@ -1772,6 +1790,10 @@ def _xmesh(layout, cuda_device):
         if n < 2:
             pytest.skip("needs two cards")
         return pmesh.make_mesh(S, ["cuda:0", "cuda:1"])
+    if layout == "every_card_host":
+        if n < 2 or S % n:
+            pytest.skip(f"needs more than one card dividing {S} shards")
+        return _host_mesh([f"cuda:{i}" for i in range(n)])
     if n < 3 or S % n:
         pytest.skip(f"needs more than two cards dividing {S} shards")
     return pmesh.make_mesh(S, [f"cuda:{i}" for i in range(n)])
@@ -1795,7 +1817,8 @@ def _same_parts(got, *wants):
 @pytest.mark.gpu
 @pytest.mark.parametrize("layout", XMESH_LAYOUTS)
 @pytest.mark.parametrize("case", ["padding_spread_distinct", "n_loc_below_3",
-                                  "reschedule_extra_dh", "few_feasible"])
+                                  "reschedule_extra_dh", "few_feasible",
+                                  "posts_past_shared"])
 def test_k9_xmesh_matches_plain(cuda_device, case, layout):
     """K9 across parts: one launch a part, equal to the plain version
     across parts on CPU copies and to the one-card 8-shard mesh; each
@@ -1908,12 +1931,19 @@ def test_k13_xmesh_matches_plain(cuda_device, layout):
         _cpu_parts())
     one_card = pmesh.scatter_add_sharded_(used.clone(), rows, vals,
                                           pmesh.make_mesh(S, cuda_device))
-    K.reset_launches()
-    got = pmesh.scatter_add_sharded_(xmesh.split(used, mesh), rows, vals,
-                                     mesh)
-    assert K.SCATTER_ADD_XMESH.launches == mesh.n_parts
-    torch.cuda.synchronize()
-    _same_parts([got], [want_cpu], [one_card])
+    # one launch a card for each chunk of up to xmesh.K13_SLOT_ROWS rows,
+    # whichever device the chunk starts on (a CPU chunk is read from
+    # pinned host memory by every card)
+    cards = len({d.index for d in mesh.parts})
+    pieces = -(-rows.shape[0] // xmesh.K13_SLOT_ROWS)
+    for r, v in ((rows, vals), (rows.cpu(), vals.cpu())):
+        K.reset_launches()
+        got = pmesh.scatter_add_sharded_(xmesh.split(used.clone(), mesh),
+                                         r, v, mesh)
+        assert K.SCATTER_ADD_XMESH.launches == cards * (
+            1 if r.is_cuda else pieces)
+        torch.cuda.synchronize()
+        _same_parts([got], [want_cpu], [one_card])
 
 
 @pytest.mark.gpu
@@ -1971,10 +2001,15 @@ def test_xmesh_threads_share_a_mesh(cuda_device, layout):
 
 
 @pytest.mark.gpu
-def test_xmesh_deadline_raises(cuda_device):
+@pytest.mark.parametrize("exchange", ["device", "host"])
+def test_xmesh_deadline_raises(cuda_device, exchange):
     """A part whose peer never launches runs out its wait deadline: the
-    kernel ends (no hang), sets the error word, and `check` raises."""
-    mesh = pmesh.make_mesh(S, [cuda_device, cuda_device])
+    kernel ends (no hang), sets the error word (in the card's memory or
+    in host memory), and `check` raises."""
+    parts = [cuda_device, cuda_device]
+    mesh = (_host_mesh(parts) if exchange == "host"
+            else pmesh.make_mesh(S, parts))
+    assert mesh.exchange == exchange
     mesh.deadline = 1 << 20
     inp = _mesh_scan_inputs("n_loc_below_3", cuda_device)
     words = K.PLACE_SCAN_XMESH.fn("place_scan_xmesh_words")(
@@ -1990,3 +2025,34 @@ def test_xmesh_deadline_raises(cuda_device):
         xmesh.check(mesh)
     ms = xmesh.exchange_probe(mesh, 100)
     assert ms > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["one_card", "one_card_host"])
+def test_k9_xmesh_prof_entry(cuda_device, layout):
+    """K9 across parts' PROF instantiation gives the main path's outputs
+    and writes part 0's split (K9's 18 words, then the exchange's
+    sub-phases of block 0 and of the cluster's last block)."""
+    mesh = _xmesh(layout, cuda_device)
+    inp = _mesh_scan_inputs("padding_spread_distinct", cuda_device)
+    got = pmesh.place_sharded_packed(inp, mesh)
+    xmesh.check(mesh)
+    profs = [torch.zeros(34, dtype=torch.int64, device=d)
+             for d in mesh.parts]
+    words = K.PLACE_SCAN_XMESH.fn("place_scan_xmesh_words")(
+        mesh.n_parts, inp.sp_counts0.shape[0], inp.pd_counts0.shape[0])
+    outs = xmesh._run_parts(
+        mesh, "place_scan_xmesh_prof", words,
+        lambda p, xp: psel._scan_launch(xmesh.part_inputs(inp, mesh, p),
+                                        n_shards=mesh.shards_per_part,
+                                        prof=profs[p], xp=xp))
+    xmesh.check(mesh)
+    torch.cuda.synchronize()
+    _same_parts((outs[0][0], xmesh.Parts([o[1] for o in outs]),
+                 xmesh.Parts([o[2] for o in outs])), got)
+    c = profs[0].tolist()
+    assert c[14] == int(inp.active.sum())
+    assert c[14] + c[15] == inp.tg_idx.shape[0]
+    assert c[17] > 0
+    assert c[18] > 0 and c[19] > 0         # block 0's post and wait
+    assert c[26 + 1] + c[26 + 2] > 0       # a peer's wait and relay

@@ -492,7 +492,9 @@ def test_automatic_mesh_rule(monkeypatch):
 
 def test_default_mesh_covers_every_card(monkeypatch):
     """`default_mesh()`: one part a card, one shard a part, the home card
-    first; peer access between every pair is checked."""
+    first; peer access between every pair is read, and with it the parts
+    meet in the home card's memory; a pair without it puts the exchange
+    in host memory instead of refusing the mesh."""
     checked = []
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
@@ -504,10 +506,84 @@ def test_default_mesh_covers_every_card(monkeypatch):
     assert (m.n_shards, m.n_parts, m.shards_per_part) == (3, 3, 1)
     assert sorted(checked) == [(a, b) for a in range(3) for b in range(3)
                                if a != b]
+    assert m.exchange == "device"
     monkeypatch.setattr(torch.cuda, "can_device_access_peer",
                         lambda a, b: False)
-    with pytest.raises(RuntimeError, match="peer access"):
-        pmesh.make_mesh(2, ["cuda:0", "cuda:1"])
+    assert pmesh.make_mesh(2, ["cuda:0", "cuda:1"]).exchange == "host"
+
+
+def _no_peer_host(monkeypatch, n_cards, missing):
+    """A mocked host of `n_cards` cards where the ordered pairs in
+    `missing` (all pairs for None) lack peer access."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: n_cards)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(
+        torch.cuda, "can_device_access_peer",
+        lambda a, b: missing is not None and (a, b) not in missing)
+
+
+@pytest.mark.parametrize("missing", [None, {(1, 0)}],
+                         ids=["no_pair", "one_pair"])
+@pytest.mark.parametrize("n_cards", [2, 4])
+def test_mesh_without_peer_access_exchanges_in_host_memory(
+        monkeypatch, n_cards, missing):
+    """Where a pair of the cards lacks peer access, `make_mesh`,
+    `default_mesh` and `PlacementEngine()` build a mesh whose parts meet
+    in host memory (as the reference shards over every device with no
+    such condition); two parts of one card still meet in its memory, and
+    the private override forces the host exchange there too."""
+    from nomad_tpu_torch.ops import PlacementEngine
+
+    _no_peer_host(monkeypatch, n_cards, missing)
+    cards = [f"cuda:{i}" for i in range(n_cards)]
+    m = pmesh.make_mesh(8, cards)
+    assert m.exchange == "host" and m.parts == [torch.device(c)
+                                                for c in cards]
+    auto = pmesh.default_mesh()
+    assert auto.exchange == "host" and auto.n_parts == n_cards
+    eng = PlacementEngine()
+    assert eng.mesh.exchange == "host"
+    assert eng.mesh.n_parts == eng.mesh.n_shards == n_cards
+    assert pmesh.make_mesh(8, ["cuda:1", "cuda:1"]).exchange == "device"
+    monkeypatch.setattr(pmesh, "_FORCE_HOST_EXCHANGE", True)
+    assert pmesh.make_mesh(8, ["cuda:0", "cuda:0"]).exchange == "host"
+    assert pmesh.make_mesh(8, ["cpu", "cpu"]).exchange == "device"
+
+
+def test_host_exchange_pool_reuses_a_read_buffer(monkeypatch):
+    """A "host" mesh's exchange buffers: a call takes a free one and
+    keeps it until its error word is read, which the next call's buffer
+    then reuses; a larger call gets a larger buffer.  The allocation is
+    faked in ordinary host memory (no card here)."""
+    import ctypes
+
+    keep = []
+
+    class _Alloc:
+        def __call__(self, nbytes, out_ptr):
+            a = (ctypes.c_int32 * (nbytes // 4))()
+            keep.append(a)
+            ctypes.c_int64.from_address(out_ptr).value = ctypes.addressof(a)
+            return 0
+
+    class _Fns:
+        def fn(self, name):
+            return _Alloc() if name == "xmesh_host_alloc" else (lambda p: 0)
+
+    monkeypatch.setattr(xmesh.K, "PLACE_SCAN_XMESH", _Fns())
+    mesh = pmesh.make_mesh(S, ["cpu"] * 2)
+    a = xmesh._host_buf(mesh, 100)
+    a.view[:3] = torch.tensor([1, 2, 3], dtype=torch.int32)
+    b = xmesh._host_buf(mesh, 100)
+    assert a is not b and a.words == b.words == 4096
+    word = xmesh._HostWord(a)
+    assert word[0] == 1 and not a.busy      # read: free again
+    assert xmesh._host_buf(mesh, 100) is a
+    big = xmesh._host_buf(mesh, 5000)
+    assert big.words == 5000 and len(mesh._host_bufs) == 3
+    assert xmesh._HostWord(b)[0] == 0 and not b.busy
+    assert xmesh._host_buf(mesh, 10) is b
 
 
 def test_default_mesh_takes_at_most_max_parts_cards(monkeypatch):
@@ -583,3 +659,20 @@ def test_check_reads_the_callers_launches():
     with pytest.raises(RuntimeError, match="place_scan_xmesh"):
         xmesh.check(mesh)
     assert late[2].waited == 1 and xmesh._unchecked(mesh) == []
+
+
+def test_k13_staging_slot_waits_for_its_launches(monkeypatch):
+    """K13's staging ring reuses a slot only once each card's last
+    launch on it has stored the slot's use number in its done word; a
+    word that never comes raises instead of hanging."""
+    import numpy as np
+
+    done = np.zeros(xmesh._K13_HEAD, dtype=np.int32)
+    xmesh._k13_slot_free(done, 3, 0, 2)          # never used: free
+    done[3] = 1
+    done[xmesh.K13_SLOTS + 3] = 1
+    xmesh._k13_slot_free(done, 3, 1, 2)          # both cards said done
+    monkeypatch.setattr(xmesh, "K13_WAIT_S", 0.05)
+    done[xmesh.K13_SLOTS + 3] = 0                # card 1 has not
+    with pytest.raises(RuntimeError, match="staging slot 3"):
+        xmesh._k13_slot_free(done, 3, 1, 2)
