@@ -5190,6 +5190,88 @@ def xmesh_scan_phase_split(inp, mesh, nt: int = 0) -> dict:
     return out
 
 
+# the exchanges' sub-phases of K11 and K12 across parts
+# (csrc/compact_rounds.cu XPH: multi_flat_xmesh_prof,
+# multi_compact_xmesh_prof): the narrow exchange's, then the wide one's
+XROUNDS_PHASES = ("merge", "post", "wait", "relay", "read", "wide_post",
+                  "wide_wait", "wide_relay", "wide_read")
+XROUNDS_WIDE = 5    # the first wide sub-phase
+
+
+def xmesh_rounds_phase_split(mesh, launch) -> dict:
+    """K11's or K12's PROF launch across parts (`launch(profs)`, each
+    part's int64 [select.XPROF_WORDS]) as its main path runs it: part 0's
+    block 0 split as K2's (`phase_us`), and the exchanges between parts
+    (inside the decision and the wide path) of block 0 (`block0`) and of
+    the cluster's last block (`last_block`), in µs a real and a padding
+    step and in µs an exchange (`*_per_exchange_us`: the narrow
+    sub-phases over `narrow_exchanges`, the wide ones over
+    `wide_exchanges`, block 0's counts)."""
+    import torch
+
+    from nomad_tpu_torch.ops import select as S
+    from nomad_tpu_torch.parallel import xmesh as X
+
+    profs = [torch.zeros(S.XPROF_WORDS, dtype=torch.int64, device=d)
+             for d in mesh.parts]
+
+    def run():
+        launch(profs)
+        X.check(mesh)
+
+    run()                                           # warm-up
+    for pr in profs:
+        pr.zero_()
+    _, ms = timed(run)
+    nph = len(COMPACT_PHASES)
+    base = 2 * nph + 4
+    c = profs[0].tolist()
+    out = phase_us(c[:base], ms, COMPACT_PHASES, ("real", "padding"))
+    nx = len(XROUNDS_PHASES)
+    counts = {"narrow": c[base + 4 * nx], "wide": c[base + 4 * nx + 1]}
+    out["narrow_exchanges"], out["wide_exchanges"] = (counts["narrow"],
+                                                      counts["wide"])
+    for who, off in (("block0", base), ("last_block", base + 2 * nx)):
+        for k, kind in enumerate(("real", "padding")):
+            n = c[2 * nph + k]
+            out[f"{who}_per_{kind}_step_us"] = {
+                ph: c[off + k * nx + i] / out["mhz"] / max(n, 1)
+                for i, ph in enumerate(XROUNDS_PHASES)}
+        out[f"{who}_per_exchange_us"] = {
+            ph: (c[off + i] + c[off + nx + i]) / out["mhz"] / max(
+                counts["wide" if i >= XROUNDS_WIDE else "narrow"], 1)
+            for i, ph in enumerate(XROUNDS_PHASES)}
+    out.update(xmesh_where(mesh))
+    return out
+
+
+def xmesh_flat_phase_split(inp, mesh, rs) -> dict:
+    """K11 across parts' split at `inp` (xmesh_rounds_phase_split)."""
+    import torch
+
+    from nomad_tpu_torch.parallel import xmesh as X
+
+    return xmesh_rounds_phase_split(mesh, lambda profs: (
+        X.place_multi_xmesh_launch(
+            X.Parts([torch.empty_like(b) for b in
+                     X.split(inp.used0, mesh).blocks]),
+            inp.used0, inp, mesh, rs, profs=profs)))
+
+
+def xmesh_compact_phase_split(inp, cand_rows, cand_valid, mesh, rs,
+                              lanes) -> dict:
+    """K12 across parts' split at `inp` (xmesh_rounds_phase_split)."""
+    from nomad_tpu_torch.parallel import xmesh as X
+
+    def launch(profs):
+        used_in = X.split(inp.used0, mesh)
+        return X.place_multi_compact_xmesh_launch(
+            used_in.clone(), used_in, inp, cand_rows, cand_valid, mesh, rs,
+            lanes, profs=profs)
+
+    return xmesh_rounds_phase_split(mesh, launch)
+
+
 def xmesh_kernel_phase(rec, mesh, barrier_ms):
     """K9-K13 across parts against their plain cross-part versions on
     CPU copies of the xmesh phases' own inputs (on a CPU mesh of as many
@@ -5274,7 +5356,8 @@ def xmesh_kernel_phase(rec, mesh, barrier_ms):
         **timing(lambda: PM.place_multi_sharded_packed(fin, mesh, frs), 5),
         plain_ms=plain_ms, plain_on="cpu", library_ms=None,
         bytes=st["bytes"], ops=st["ops"], steps=st["steps"],
-        exchanges=st["steps"]["computed"][0], depth_ms=None, **xch))
+        exchanges=st["steps"]["computed"][0], depth_ms=None,
+        phase_split=xmesh_flat_phase_split(fin, mesh, frs), **xch))
 
     # K12: the xmesh zoned wave's launch, and the chained wave's
     zin, cr, cv, _, rs, lanes = rec.get("xmesh_zoned_wave", "compact")
@@ -5306,7 +5389,9 @@ def xmesh_kernel_phase(rec, mesh, barrier_ms):
                      gz.seed, gz.job_count0, gz.round_g, gz.round_want)
         + nbytes(got[0], got[1]) + got[2].nbytes,
         ops=compact_ops(counts, MESH_SHARDS), steps=counts,
-        exchanges=max(counts["computed"]), depth_ms=None, **xch))
+        exchanges=max(counts["computed"]), depth_ms=None,
+        phase_split=xmesh_compact_phase_split(zin, cr, cv, mesh, rs, lanes),
+        **xch))
 
     # K13: the xmesh flat wave's replay chunk
     used, r13, v13, _ = rec.get("xmesh_flat_wave", "scatter")

@@ -26,10 +26,26 @@ EXECUTION time against live raft state (the canonical trace keeps the
 placeholder, which is what makes leader-relative faults replayable).
 
 A copy of the reference's nomad_tpu/chaos/scenarios.py with its imports
-rewritten.  One difference: `ScenarioRunner(..., device=None)` and
-`run_scenario(..., device=None)` take the device the port's
-`ClusterServer`s place on, and pass it to every one of them.  It is
-CUDA unless given, and raises without CUDA; tests pass `device="cpu"`.
+rewritten.  Two differences:
+
+  - `ScenarioRunner(..., device=None)` and `run_scenario(...,
+    device=None)` take the device the port's `ClusterServer`s place on,
+    and pass it to every one of them.  It is CUDA unless given, and
+    raises without CUDA; tests pass `device="cpu"`.
+  - The final sample waits for the leader's commit.  The reference
+    samples right after convergence holds; a write that commits on the
+    leader in between (the last eval's completion) reaches the
+    followers one round trip later, and `committed_entries_survive`
+    then reports them as having lost it.  The port reads the final
+    sample only once every server's applied index in it reaches the
+    highest commit index in it (the leader's), advancing the virtual
+    clock a step at a time as the convergence loop does, within what
+    is left of the convergence budget; past it the run fails liveness,
+    naming the lag.  With no write in flight the first reading
+    qualifies, so the trace, its digest and the fingerprint are the
+    reference's (tests/test_torch_chaos.py
+    `test_final_sample_waits_for_the_leaders_commit`).
+
 Nothing else differs: the schedules, traces and fingerprints are the
 reference's.
 """
@@ -580,16 +596,22 @@ class ScenarioRunner:
             else:
                 raise ValueError(f"unknown fault kind {kind!r}")
 
-        def sample() -> None:
+        def read_rows() -> List[dict]:
             now_v = clock.monotonic()
+            rows = []
             for s in servers:
                 r = s.raft
                 with r._lock:
-                    row = {"at": now_v, "server": s.name, "role": r.role,
-                           "term": r.term, "commit_index": r.commit_index,
-                           "applied": r.last_applied}
-                with obs_lock:
-                    samples.append(row)
+                    rows.append({"at": now_v, "server": s.name,
+                                 "role": r.role, "term": r.term,
+                                 "commit_index": r.commit_index,
+                                 "applied": r.last_applied})
+            return rows
+
+        def sample() -> None:
+            rows = read_rows()
+            with obs_lock:
+                samples.extend(rows)
 
         conv_reason = [""]          # why the last converged() said no
 
@@ -683,6 +705,27 @@ class ScenarioRunner:
             if not final_ok:
                 final_ok = converged() and not wl_thread.is_alive()
 
+            # the final sample: a write may commit on the leader after
+            # converged() (the last eval's completion), a round trip
+            # ahead of the followers, so read it only once every server
+            # has applied the highest commit index in it, moving the
+            # timeline on as the loop above does (the network delivers
+            # in virtual time) within the budget's rest
+            while True:
+                final_rows = read_rows()
+                commit = max(r["commit_index"] for r in final_rows)
+                lag = {r["server"]: r["applied"] for r in final_rows
+                       if r["applied"] < commit}
+                if not lag or clock.monotonic() >= end_v:
+                    break
+                pump_keepalive()
+                clock.advance(_STEP_V)
+                _wall.sleep(_STEP_REAL)
+            if lag and final_ok:
+                final_ok = False
+                conv_reason[0] = (f"applied lag vs commit {commit} at the "
+                                  f"final sample: {lag}")
+
             # let the fsm observers drain: raft advances last_applied
             # under its lock but observers fire after, so the final
             # check could otherwise read an applied list one entry
@@ -703,7 +746,8 @@ class ScenarioRunner:
             while observers_behind() and _wall.time() < drain_deadline:
                 _wall.sleep(0.005)
 
-            sample()
+            with obs_lock:
+                samples.extend(final_rows)
             leader = next((s for s in servers if s.raft.is_leader()),
                           servers[0])
             snap = leader.state.snapshot()

@@ -122,14 +122,17 @@
 // functions on a mesh of several devices): one launch a part over its
 // own frames and rows, the lane's frame being the parts' frames laid
 // end to end (global slot = the part's first slot + its own).  After
-// the cluster's exchange warp 0 merges its blocks' posts into the
-// part's post (its top TOPB entries, its counts), block 0 posts it to
-// every part (csrc/xmesh.cuh), and the decision runs over the D posts
+// the cluster's exchange warp 0 of every block merges its cluster's
+// posts into the part's post (its top TOPB entries, its counts), block
+// 0's warp posts it to every part as (word, flag) pairs, warp 0 of
+// every block reads the D posts into its shared memory itself
+// (csrc/xmesh.cuh `xp_meet`), and the decision runs over the D posts
 // as it ran over the blocks'.  A wide step first selects the part's own
 // top min(T, its slots) and ranks them as above; block 0 posts them in
-// rank order, and every block ranks the D lists' entries (an entry's
-// rank in its list plus, by binary search, the keys above it in every
-// other list) and water-fills the top T.  Only the owning part's block
+// rank order behind a stamp (`xp_meet_stamps`: every block waits for
+// the stamps itself), and every block ranks the D lists' entries (an
+// entry's rank in its list plus, by binary search, the keys above it in
+// every other list) and water-fills the top T.  Only the owning part's block
 // commits a fill; part 0 writes the rows.  Each part's usage (and K11's
 // job counts) are its own rows.  What bounds it: one exchange through
 // global memory per computed step (two on a wide step) on top of the
@@ -170,8 +173,8 @@ constexpr unsigned F_VALID = 1, F_FIT = 2, F_LT0 = 4;
 
 constexpr int MAX_PARTS = 8;       // parts of a mesh across parts (8 x
                                    // TOPB posts in one warp)
-constexpr int NSTRIDE = 48;        // words of a part's narrow slot: the
-                                   // stamp, its XW-word post, padding
+constexpr int NSTRIDE = 2 * XW;    // words of a part's narrow slot: its
+                                   // XW-word post as (word, flag) pairs
 // words of a part's wide slot: the stamp, its entry count, padding, then
 // its T entries in rank order (key hi lo, GV values)
 __host__ __device__ constexpr long long wide_stride(int kk) {
@@ -223,6 +226,22 @@ struct Params {
 // (with the commit and the output row), the wide path, memoised steps.
 constexpr int NPH = 7;
 enum { PH_TOP, PH_PASS, PH_MERGE, PH_XCH, PH_DECIDE, PH_WIDE, PH_MEMO };
+constexpr int PROF_WORDS = 2 * NPH + 4;
+// Across parts (multi_compact_xmesh_prof, multi_flat_xmesh_prof): lane
+// 0's warp 0 cycles in the exchanges between parts, prof[PROF_WORDS,
+// + 2 XPH) block 0's and [+ 2 XPH, + 4 XPH) the cluster's last block's
+// (zeros with one block a part), each the real steps' then the padding
+// steps' sub-phases; then block 0's narrow and wide exchange counts.
+// The narrow exchange (inside the decision): the merge of the blocks'
+// posts into the part's, its post (block 0), the wait for every part's
+// post, the relay (the cluster's agreement on the outcome), the read of
+// the D posts into shared memory; the wide exchange (inside the wide
+// path) its post, wait, relay and read (the D lists ranked into the top
+// T) alike.
+constexpr int XPH = 9;
+enum { XS_MERGE, XS_POST, XS_WAIT, XS_RELAY, XS_READ, XS_WPOST, XS_WWAIT,
+       XS_WRELAY, XS_WREAD };
+constexpr int XPROF_WORDS = PROF_WORDS + 4 * XPH + 2;
 
 __host__ __device__ constexpr long long align16(long long b) {
   return (b + 15) / 16 * 16;
@@ -511,10 +530,10 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
   __shared__ int s_ctl[14];
   __shared__ int s_sel;   // read by the peers
   __shared__ int s_seg[MAX_CB + 1];
-  // across parts: the parts' posts, and block 0's words to its peers
-  // (narrow and wide exchanges)
+  // across parts: the parts' posts, and the cluster's agreement words
+  // (in block 0; narrow and wide exchanges)
   __shared__ __align__(16) int s_pall[MAX_PARTS][XW];
-  __shared__ unsigned s_go_n, s_go_w;
+  __shared__ unsigned s_dec_n, s_dec_w;
   __shared__ int s_xok;
 
   enum { C_WIDE, C_VIABLE, C_CAP, C_PLACED, C_EXH, C_DIG = 8, C_ACC, C_QUOTA,
@@ -558,10 +577,17 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
          : p.frame_glob + (int64_t)blockIdx.x * p.frame_bytes,
       R);
   xch_init(&s_xch, CB);
-  if (tid == 0) s_go_n = s_go_w = 0u;
+  if (tid == 0) s_dec_n = s_dec_w = 0u;
+  unsigned* const dec_n = XP ? cl.map_shared_rank(&s_dec_n, 0) : &s_dec_n;
+  unsigned* const dec_w = XP ? cl.map_shared_rank(&s_dec_w, 0) : &s_dec_w;
   bool xfail = false;
   int xn = 0, xw = 0;   // narrow and wide exchanges across parts so far
   const long long wstride = wide_stride(kk);
+  // PROF across parts: lane 0's block 0 and last block time the exchange
+  const bool xclk =
+      PROF && XP && tid == 0 && l == 0 && (sh == 0 || sh == CB - 1);
+  long long xacc[PROF ? 2 * XPH : 1] = {};
+  long long xt = 0, xmid = 0;
 
   // the lane's frame rows; K2's padding rows start empty (never valid);
   // K3's valid bits come with the first step's static row
@@ -629,6 +655,13 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
     const int* st = s_stage + (t % STAGE) * SW;
     const int g = st[0], want = st[1];
     const bool act = want > 0;
+    // PROF across parts: the cycles since the last lap to sub-phase `s`
+    auto xlap = [&](int s, long long to) {
+      if (xclk) {
+        xacc[(act ? 0 : XPH) + s] += to - xt;
+        xt = to;
+      }
+    };
     const bool same = g == g_prev;
     if (same && want == want_prev && placed_prev == 0) {
       // 4. the memo: the last computed step's row
@@ -825,21 +858,30 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
       int nsl = CB;
       if (XP) {
         // across parts: this part's post (the merge of its blocks'
-        // posts) to every part, and the NP posts in part order
+        // posts) to every part, each word beside its flag, and the NP
+        // posts in part order read by this block itself (empty after a
+        // failure)
+        if (xclk) xt = clock64();
         merge_posts(slots, CB, s_post);
+        xlap(XS_MERGE, PROF ? clock64() : 0);
         const int par = xn & 1;
         int* base = p.xp.buf + XP_HEAD +
                     (long long)(l * 2 + par) * NP * NSTRIDE;
-        if (sh == 0)
-          xp_post_warp(base + (long long)p.xp.part * NSTRIDE, s_post, XW,
-                       xn + 1);
-        const bool ok = xp_gather(p.xp, sh, CB, base, NSTRIDE, xn + 1,
-                                  &s_go_n, &xfail);
+        if (sh == 0) {
+          int* mine = base + (long long)p.xp.part * NSTRIDE;
+          for (int w = lane; w < XW; w += 32)
+            xp_put_pair(mine + 2 * w, s_post[w], xn + 1, p.xp.sys);
+        }
+        xlap(XS_POST, PROF ? clock64() : 0);
+        const bool ok = xp_meet(p.xp, base, NSTRIDE, XW, xn + 1, &s_pall[0][0],
+                                XW, XW, dec_n, &xfail, xclk ? &xmid : nullptr);
+        xlap(XS_WAIT, xmid);
+        xlap(XS_RELAY, PROF ? clock64() : 0);
         ++xn;
-        for (int i = lane; i < NP * XW; i += 32)
-          s_pall[i / XW][i % XW] =
-              ok ? base[(long long)(i / XW) * NSTRIDE + 1 + i % XW] : 0;
+        if (!ok)
+          for (int i = lane; i < NP * XW; i += 32) s_pall[i / XW][i % XW] = 0;
         __syncwarp();
+        xlap(XS_READ, PROF ? clock64() : 0);
         slots = s_pall;
         nsl = NP;
       }
@@ -1127,6 +1169,7 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
         int* wb = p.xp.buf + XP_HEAD +
                   (long long)p.n_lanes * 2 * NP * NSTRIDE +
                   (long long)(l * 2 + par) * NP * wstride;
+        if (xclk) xt = clock64();
         if (sh == 0) {
           int* mine = wb + (long long)p.xp.part * wstride;
           for (int i = tid; i < Tl; i += NT) {
@@ -1137,16 +1180,21 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
             for (int q = 0; q < GV; ++q) w[2 + q] = gval[e * GV + q];
           }
           if (tid == 0) mine[1] = Tl;
-          __threadfence_system();
+          if (p.xp.sys) __threadfence_system();
+          else __threadfence();
         }
         __syncthreads();
         if (sh == 0 && tid == 0)
-          xp_st_release(wb + (long long)p.xp.part * wstride, xw + 1);
+          xp_st_release(wb + (long long)p.xp.part * wstride, xw + 1,
+                        p.xp.sys);
+        xlap(XS_WPOST, PROF ? clock64() : 0);
         if (warp == 0) {
-          const bool ok = xp_gather(p.xp, sh, CB, wb, wstride, xw + 1,
-                                    &s_go_w, &xfail);
+          const bool ok = xp_meet_stamps(p.xp, wb, wstride, xw + 1, dec_w,
+                                         &xfail, xclk ? &xmid : nullptr);
           if (lane == 0) s_xok = ok;
         }
+        xlap(XS_WWAIT, xmid);
+        xlap(XS_WRELAY, PROF ? clock64() : 0);
         ++xw;
         __syncthreads();
         const bool ok = s_xok != 0;
@@ -1184,6 +1232,7 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
         __syncthreads();
         for (int i = tid; i < T; i += NT) gord[i] = i;
         __syncthreads();
+        xlap(XS_WREAD, PROF ? clock64() : 0);
       }
       const int ch = (T + NT - 1) / NT;
       const int lo = min(T, tid * ch), hi = min(T, lo + ch);
@@ -1269,6 +1318,14 @@ __global__ void __launch_bounds__(BS, 1) compact_kernel(Params p) {
       if (FLAT) p.jc_out[r] = F.jc[j];
     }
   cl.sync();   // no block leaves while a peer may read its memory
+  if (xclk) {
+    for (int i = 0; i < 2 * XPH; ++i)
+      p.prof[PROF_WORDS + (sh == 0 ? 0 : 2 * XPH) + i] = xacc[i];
+    if (sh == 0) {
+      p.prof[PROF_WORDS + 4 * XPH] = xn;
+      p.prof[PROF_WORDS + 4 * XPH + 1] = xw;
+    }
+  }
   pc.finish(p.prof);
 }
 
@@ -1658,12 +1715,14 @@ extern "C" int multi_bulk_sharded(BULK_ARGS, int n_shards,
 // 0 writes the packed buffers (the others pass null).
 
 static Params with_part(Params p, int part, int n_parts, int* xbuf,
-                        long long deadline) {
+                        long long deadline, int sys_scope,
+                        long long* prof = nullptr) {
   p.xp.buf = xbuf;
   p.xp.part = part;
   p.xp.n_parts = n_parts;
   p.xp.deadline = deadline;
-  p.xp.sys = 1;
+  p.xp.sys = sys_scope != 0;
+  p.prof = prof;
   return p;
 }
 
@@ -1681,32 +1740,62 @@ extern "C" int multi_xmesh_words(int n_lanes, int n_parts, int kk) {
 // (padding the global npad) over its n rows, seeds [S_p, n_jrows, nc]
 extern "C" int multi_compact_xmesh(COMPACT_ARGS, int n_shards, int n_jrows,
                                    int part, int n_parts, int* xbuf,
-                                   long long deadline, cudaStream_t stream) {
+                                   long long deadline, int sys_scope,
+                                   cudaStream_t stream) {
   if (n_parts < 2) return (int)cudaErrorInvalidValue;
-  Params p = with_part(COMPACT_PARAMS, part, n_parts, xbuf, deadline);
+  Params p =
+      with_part(COMPACT_PARAMS, part, n_parts, xbuf, deadline, sys_scope);
   p.shards = n_shards;
   p.n_jrows = n_jrows;
   return launch<false, false>(p, stream);
 }
 
+// The PROF instantiations across parts: the part's block 0 split as
+// K12's and K11's, then the exchanges' sub-phases (XPH), prof
+// [XPROF_WORDS].  Never on the main path.
+extern "C" int multi_compact_xmesh_prof(COMPACT_ARGS, int n_shards,
+                                        int n_jrows, int part, int n_parts,
+                                        int* xbuf, long long deadline,
+                                        int sys_scope, long long* prof,
+                                        cudaStream_t stream) {
+  if (n_parts < 2 || !prof) return (int)cudaErrorInvalidValue;
+  Params p = with_part(COMPACT_PARAMS, part, n_parts, xbuf, deadline,
+                       sys_scope, prof);
+  p.shards = n_shards;
+  p.n_jrows = n_jrows;
+  return launch<true, false>(p, stream);
+}
+
 // K11 across parts: the flat rounds over this part's n rows
 extern "C" int multi_flat_xmesh(FLAT_ARGS, int part, int n_parts,
-                                int* xbuf, long long deadline,
+                                int* xbuf, long long deadline, int sys_scope,
                                 cudaStream_t stream) {
   if (n_parts < 2) return (int)cudaErrorInvalidValue;
   return launch<false, true>(
-      with_part(FLAT_PARAMS, part, n_parts, xbuf, deadline), stream);
+      with_part(FLAT_PARAMS, part, n_parts, xbuf, deadline, sys_scope),
+      stream);
+}
+
+extern "C" int multi_flat_xmesh_prof(FLAT_ARGS, int part, int n_parts,
+                                     int* xbuf, long long deadline,
+                                     int sys_scope, long long* prof,
+                                     cudaStream_t stream) {
+  if (n_parts < 2 || !prof) return (int)cudaErrorInvalidValue;
+  return launch<true, true>(with_part(FLAT_PARAMS, part, n_parts, xbuf,
+                                      deadline, sys_scope, prof),
+                            stream);
 }
 
 // K10 across parts: the bulk rounds over this part's n rows (full
 // layout)
 extern "C" int multi_bulk_xmesh(BULK_ARGS, int part, int n_parts,
-                                int* xbuf, long long deadline,
+                                int* xbuf, long long deadline, int sys_scope,
                                 cudaStream_t stream) {
   if (n_parts < 2 || with_scores || fill_k != rs)
     return (int)cudaErrorInvalidValue;
   return launch<false, true>(
-      with_part(BULK_PARAMS, part, n_parts, xbuf, deadline), stream);
+      with_part(BULK_PARAMS, part, n_parts, xbuf, deadline, sys_scope),
+      stream);
 }
 
 // The kernels' 10^x over an array, to hold it against the C library's
@@ -1754,5 +1843,7 @@ PY_LAUNCHERS(compact_rounds,
              PY_LAUNCHER(multi_xmesh_scratch_bytes),
              PY_LAUNCHER(multi_xmesh_words),
              PY_LAUNCHER(multi_compact_xmesh),
+             PY_LAUNCHER(multi_compact_xmesh_prof),
              PY_LAUNCHER(multi_flat_xmesh),
+             PY_LAUNCHER(multi_flat_xmesh_prof),
              PY_LAUNCHER(multi_bulk_xmesh))

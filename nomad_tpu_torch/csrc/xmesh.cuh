@@ -5,30 +5,13 @@
 // through peer access), or, where the cards lack peer access, in mapped
 // pinned host memory that every card reaches over PCIe.  Every access
 // below is valid on both: plain, vector and relaxed stores and loads,
-// acquire and release at system scope, and the error word set by a
-// plain store (an atomic on host memory need not be atomic over PCIe).  Included inside
-// each source's anonymous namespace, after score_common.cuh.
+// acquire and release at the mesh's scope, and the error word set by a
+// plain store (an atomic on host memory need not be atomic over PCIe).
+// Included inside each source's anonymous namespace, after
+// score_common.cuh.
 //
-// The rounds kernels' protocol (K10, K11, K12; `xp_post_warp`,
-// `xp_gather`), per exchange number x (the same sequence in every part):
-//  * block 0 of each part writes its post into its slot [x & 1][part]
-//    (plain stores, each writing thread then fences at system scope),
-//    and one thread stores the slot's stamp x + 1 with a release at
-//    system scope;
-//  * block 0's lanes r < parts then spin on slot r's stamp with acquire
-//    loads at system scope, each wait bounded by a clock64() deadline
-//    that sets the error word (word 0 of the buffer) and gives up;
-//  * block 0 tells the other blocks of its cluster whether every post
-//    is there (a release store at cluster scope into each peer's
-//    `s_go`, which the peer's warp 0 acquires), so that every block of
-//    a cluster reads the same posts or, after a failure, none, and no
-//    block takes a path of cluster barriers that its peers do not take;
-//  * every block reads the D posts in part order and decides alike.
-// Two slots per part are enough: part q posts x + 2 into slot x & 1
-// only after every part has posted x + 1, which each part's blocks do
-// only after they have read the posts of x.
-//
-// K9's protocol (`xp_put_pair`, `xp_meet`), redesigned for the card:
+// The protocol (`xp_put_pair`, `xp_meet`), per exchange number x (the
+// same sequence in every part):
 //  * a post travels as (word, flag) pairs: block 0's lane w stores word
 //    w of its part's post beside the flag x + 1 with one 8-byte store
 //    into its slot [x & 1][part], two 32-bit words that land together
@@ -47,7 +30,16 @@
 //  * the scope follows the mesh (`XPart::sys`): GPU scope when every
 //    part is on one card and the buffer is its memory, system scope
 //    across cards or in host memory.
-// Two slots per part are enough for the same reason as above.
+// K9 meets so every step; K10, K11 and K12 every computed round.  The
+// rounds' wide exchange posts a list of up to 1,024 entries, too long
+// for pairs: block 0's threads store the list, fence at the mesh's
+// scope, and one thread stores the slot's stamp x + 1 with a release;
+// warp 0 of every block waits for every part's stamp itself (acquire
+// loads at the same scope) and the cluster agrees as above
+// (`xp_meet_stamps`); the lists are then read in place.
+// Two slots per part are enough: part q posts x + 2 into slot x & 1
+// only after every part has posted x + 1, which each part's blocks do
+// only after they have read the posts of x.
 //
 // After a failure the kernel runs on to its end with empty posts (no
 // placement), so it never hangs its cluster; the wrapper reads the
@@ -61,12 +53,15 @@ struct XPart {
   int* buf;             // the exchange buffer (header, then the slots)
   int part, n_parts;    // this part and the part count (< 2: no parts)
   long long deadline;   // clock64() cycles a wait may take
-  int sys;              // K9: system scope (several cards or host memory)
+  int sys;              // system scope (several cards or host memory)
 };
 
-__device__ __forceinline__ int xp_ld_acquire(const int* p) {
+__device__ __forceinline__ int xp_ld_acquire(const int* p, bool sys) {
   int v;
-  asm volatile("ld.acquire.sys.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  if (sys)
+    asm volatile("ld.acquire.sys.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  else
+    asm volatile("ld.acquire.gpu.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
   return v;
 }
 
@@ -76,8 +71,11 @@ __device__ __forceinline__ int xp_ld_relaxed(const int* p) {
   return v;
 }
 
-__device__ __forceinline__ void xp_st_release(int* p, int v) {
-  asm volatile("st.release.sys.b32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
+__device__ __forceinline__ void xp_st_release(int* p, int v, bool sys) {
+  if (sys)
+    asm volatile("st.release.sys.b32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
+  else
+    asm volatile("st.release.gpu.b32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
 }
 
 // The error word is only ever set to 1: a plain store at system scope,
@@ -86,73 +84,7 @@ __device__ __forceinline__ void xp_st_relaxed(int* p, int v) {
   asm volatile("st.relaxed.sys.b32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
 }
 
-// Wait until *stamp >= want: false once the error word is set, or when
-// this wait's deadline passes (it then sets the error word).
-__device__ __forceinline__ bool xp_wait(const int* stamp, int want, int* err,
-                                        long long deadline) {
-  const long long t0 = clock64();
-  for (;;) {
-    if (xp_ld_acquire(stamp) >= want) return true;
-    if (xp_ld_relaxed(err) != 0) return false;
-    if (clock64() - t0 > deadline) {
-      xp_st_relaxed(err, 1);
-      return false;
-    }
-    __nanosleep(32);
-  }
-}
-
-// Block 0's warp 0: store `n` words of `post` (any lanes' copies alike)
-// into `slot` after its stamp word, then stamp it `want`.
-__device__ __forceinline__ void xp_post_warp(int* slot, const int* post,
-                                             int n, int want) {
-  const int lane = threadIdx.x & 31;
-  for (int w = lane; w < n; w += 32) slot[1 + w] = post[w];
-  __threadfence_system();
-  __syncwarp();
-  if (lane == 0) xp_st_release(slot, want);
-}
-
-// Warp 0 of every block of a part's cluster (`cb` blocks, this one
-// `sh`), after block 0 posted exchange `want` - 1: block 0's lanes r <
-// n_parts wait for slot r's stamp (slots `stride` words apart from
-// `stamp0`), then block 0 releases its peers with the outcome.  True in
-// every block of the cluster alike when every post is there; a failure
-// sets *failed, and later exchanges then fail at once.
-__device__ __forceinline__ bool xp_gather(const XPart& xp, int sh, int cb,
-                                          const int* stamp0, long long stride,
-                                          int want, unsigned* s_go,
-                                          bool* failed) {
-  const int lane = threadIdx.x & 31;
-  unsigned v;
-  if (sh == 0) {
-    bool ok = !*failed;
-    if (ok && lane < xp.n_parts)
-      ok = xp_wait(stamp0 + lane * stride, want, xp.buf, xp.deadline);
-    ok = __all_sync(FULL, ok);
-    v = 2u * (unsigned)want + (ok ? 0u : 1u);
-    if (lane >= 1 && lane < cb) {
-      unsigned* peer = cg::this_cluster().map_shared_rank(s_go, lane);
-      asm volatile("st.release.cluster.u32 [%0], %1;"
-                   :: "l"(peer), "r"(v) : "memory");
-    }
-  } else {
-    do {
-      asm volatile("ld.acquire.cluster.u32 %0, [%1];"
-                   : "=r"(v) : "l"(s_go) : "memory");
-    } while ((v >> 1) < (unsigned)want);
-    // the posts' stamps, acquired here too (block 0 saw them set)
-    if ((v & 1u) == 0 && lane < xp.n_parts)
-      while (xp_ld_acquire(stamp0 + lane * stride) < want) {
-      }
-  }
-  __syncwarp();   // every lane reads after the acquires
-  const bool ok = (v & 1u) == 0;
-  if (!ok) *failed = true;
-  return ok;
-}
-
-// ---- K9's protocol (see the head of this file)
+// ---- the flagged posts (see the head of this file)
 
 // One (word, flag) pair of a post: one 8-byte store.
 __device__ __forceinline__ void xp_put_pair(int* pair, int v, int flag,
@@ -215,6 +147,21 @@ __device__ __forceinline__ bool xp_read_posts(const XPart& xp,
   return true;
 }
 
+// Warp 0 of a block: the cluster's outcome of exchange `want`, the
+// first proposal `ok` of its blocks (compare-and-swap on `dec0`, block
+// 0's word, 2 (want - 1) before this exchange); true when it is success.
+__device__ __forceinline__ bool xp_agree(bool ok, int want, unsigned* dec0) {
+  unsigned d = 0u;
+  if ((threadIdx.x & 31) == 0) {
+    const unsigned before = 2u * (unsigned)(want - 1);
+    const unsigned mine = 2u * (unsigned)want + (ok ? 0u : 1u);
+    const unsigned old = atomicCAS(dec0, before, mine);
+    d = old == before ? mine : old;
+  }
+  d = __shfl_sync(FULL, d, 0);
+  return (d & 1u) == 0u;
+}
+
 // Warp 0 of every block of a part's cluster, after block 0 posted
 // exchange `want` - 1: read every part's post (xp_read_posts), then
 // agree on the outcome through `dec0` (block 0's word, 2 (want - 1)
@@ -227,23 +174,54 @@ __device__ __forceinline__ bool xp_meet(const XPart& xp, const int* base,
                                         int* all, int ld, int keep,
                                         unsigned* dec0, bool* failed,
                                         long long* t_mid = nullptr) {
-  const int lane = threadIdx.x & 31;
   if (*failed) return false;
   bool ok = xp_read_posts(xp, base, stride, n, want, all, ld, keep, true);
   ok = __all_sync(FULL, ok);
   if (t_mid) *t_mid = clock64();
-  unsigned d = 0u;
-  if (lane == 0) {
-    const unsigned before = 2u * (unsigned)(want - 1);
-    const unsigned mine = 2u * (unsigned)want + (ok ? 0u : 1u);
-    const unsigned old = atomicCAS(dec0, before, mine);
-    d = old == before ? mine : old;
-  }
-  d = __shfl_sync(FULL, d, 0);
-  const bool agreed = (d & 1u) == 0u;
+  const bool agreed = xp_agree(ok, want, dec0);
   if (agreed && !ok)
     xp_read_posts(xp, base, stride, n, want, all, ld, keep, false);
   __syncwarp();   // every lane's words in `all` before any lane reads
+  if (!agreed) *failed = true;
+  return agreed;
+}
+
+// Warp 0 of every block of a part's cluster, after each part's block 0
+// released its stamp `want` (slots `stride` words apart from `stamp0`):
+// lane r < n_parts waits for stamp r with acquire loads at the mesh's
+// scope (the error word and the deadline read every 64 polls), then the
+// cluster agrees on the outcome through `dec0` as in xp_meet.  True in
+// every block alike when every stamp is set; a failure sets *failed in
+// every block, and later exchanges then fail at once.  (`t_mid` as in
+// xp_meet.)
+__device__ __forceinline__ bool xp_meet_stamps(const XPart& xp,
+                                               const int* stamp0,
+                                               long long stride, int want,
+                                               unsigned* dec0, bool* failed,
+                                               long long* t_mid = nullptr) {
+  const int lane = threadIdx.x & 31;
+  if (*failed) return false;
+  const int* stamp = stamp0 + lane * stride;
+  auto wait = [&](bool bounded) {
+    if (lane >= xp.n_parts) return true;
+    const long long t0 = clock64();
+    int polls = 0;
+    while (xp_ld_acquire(stamp, xp.sys) < want) {
+      if (bounded && (++polls & 63) == 0) {
+        if (xp_ld_relaxed(xp.buf) != 0) return false;
+        if (clock64() - t0 > xp.deadline) {
+          xp_st_relaxed(xp.buf, 1);
+          return false;
+        }
+      }
+    }
+    return true;
+  };
+  const bool ok = __all_sync(FULL, wait(true));
+  if (t_mid) *t_mid = clock64();
+  const bool agreed = xp_agree(ok, want, dec0);
+  if (agreed && !ok) wait(false);
+  __syncwarp();   // every lane reads after the acquires
   if (!agreed) *failed = true;
   return agreed;
 }

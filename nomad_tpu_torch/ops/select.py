@@ -59,6 +59,10 @@ TOP_K = 3
 # stays on the device and is fetched only when a round overflows
 # (reference: select.FILL_K).
 FILL_K = 32
+# int64 words of a PROF split across parts (csrc/compact_rounds.cu
+# XPROF_WORDS): K2's 18, 9 exchange sub-phases of two step kinds for
+# block 0 and for the cluster's last block, the exchange counts
+XPROF_WORDS = 18 + 4 * 9 + 2
 
 _U32 = 0xFFFFFFFF
 _INV18 = torch.tensor(1.0 / 18.0, dtype=torch.float32)
@@ -315,7 +319,8 @@ class XPart(NamedTuple):
     starts to wait for the others (parallel/xmesh.py `_run_parts`).
     `sys_scope`: the exchange's memory operations at system scope (parts
     on several cards, or a buffer in host memory), else at GPU scope
-    (K9 reads it; the rounds kernels are at system scope throughout)."""
+    (every part on one card, the buffer in its memory); K9 and the
+    rounds across parts (K10, K11, K12) take it alike."""
     part: int
     n_parts: int
     buf: int
@@ -370,10 +375,11 @@ def _flat_mode_launch(kern, dev, n: int, round_size: int, args,
     in order), on a cluster that `plan()` sizes for `n` rows, with global
     scratch when the frame does not fit in its shared memory.  `args`
     are the entry's arguments before its scratch.  With `prof` (int64
-    [18] on the card) the PROF instantiation runs instead and writes
-    block 0's phase split there (chip_smoke.py).  With `xp` (an XPart)
-    the launch is one part's of a mesh across parts (K10, K11), deferred
-    with `keep`, the tensors `args` point into."""
+    [18] on the card; K11 across parts [XPROF_WORDS]) the PROF
+    instantiation runs instead and writes block 0's phase split there
+    (chip_smoke.py).  With `xp` (an XPart) the launch is one part's of a
+    mesh across parts (K10, K11), deferred with `keep`, the tensors
+    `args` point into."""
     if xp is not None:
         frame = _frame_scratch(kern, kern.name, dev, 1, n, round_size, 1,
                                1, xp.n_parts)
@@ -382,10 +388,10 @@ def _flat_mode_launch(kern, dev, n: int, round_size: int, args,
     tail = [None if frame is None else frame.data_ptr()]
     symbol = kern.name
     if xp is not None:
-        tail += [xp.part, xp.n_parts, xp.buf, xp.deadline]
+        tail += [xp.part, xp.n_parts, xp.buf, xp.deadline, xp.sys_scope]
     elif n_shards:
         tail.append(n_shards)
-    elif prof is not None:
+    if prof is not None:
         symbol += "_prof"
         tail.append(prof.data_ptr())
     _launch(kern, xp, (keep, frame), dev.index, symbol, *args, *tail)
@@ -550,8 +556,9 @@ def _compact_launch(used_out: torch.Tensor, used_in: torch.Tensor,
     frames [S, L, Nc_loc] and seeds [S, J', Nc_loc], each lane's shard
     slices laid end to end, one block per shard).  `used_out` receives
     the final usage; it may be `used_in` itself.  With `prof` (int64
-    [18] on the card) the PROF instantiation runs instead and writes
-    block 0's phase split there (chip_smoke.py).  With `xp` (an XPart)
+    [18] on the card; with `xp` [XPROF_WORDS]) the PROF instantiation
+    runs instead and writes block 0's phase split there (chip_smoke.py;
+    across parts also the exchanges' sub-phases).  With `xp` (an XPart)
     the launch is one part's K12 of a mesh across parts: its frames
     [S_p, L, Nc_loc] hold global rows, its node tensors its own rows, and
     its buffers are None but on part 0."""
@@ -616,7 +623,7 @@ def _compact_launch(used_out: torch.Tensor, used_in: torch.Tensor,
     if n_shards:
         tail += [n_shards, inp.job_count0.shape[1]]
     if xp is not None:
-        tail += [xp.part, xp.n_parts, xp.buf, xp.deadline]
+        tail += [xp.part, xp.n_parts, xp.buf, xp.deadline, xp.sys_scope]
     symbol = name
     if prof is not None:
         symbol = name + "_prof"

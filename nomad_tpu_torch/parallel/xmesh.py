@@ -890,10 +890,12 @@ def place_bulk_xmesh_packed(inp: BulkInputs, mesh, round_size: int,
 
 
 def place_multi_xmesh_launch(used, used_in, inp: MultiEvalInputs, mesh,
-                             round_size: int):
+                             round_size: int, profs=None):
     """K11 across parts on the card: reads `used_in` and writes every row
     of `used` (both `Parts`; the same for the chained form).  (buf, used,
-    last job count row), the last two `Parts`."""
+    last job count row), the last two `Parts`.  With `profs` (a part's
+    int64 [select.XPROF_WORDS] each) the PROF instantiation runs and
+    writes each part's split there (chip_smoke.py)."""
     _launch_check(mesh, inp.attrs)
     n = inp.attrs.shape[0]
     _n_rows(mesh, n)
@@ -902,9 +904,11 @@ def place_multi_xmesh_launch(used, used_in, inp: MultiEvalInputs, mesh,
     def one(p, xp):
         q = part_inputs(inp._replace(used0=None), mesh, p)
         return S._flat_launch(block(used, mesh, p), block(used_in, mesh, p),
-                              q, round_size, xp=xp)
+                              q, round_size, xp=xp,
+                              prof=None if profs is None else profs[p])
 
-    outs = _run_parts(mesh, "multi_flat_xmesh", words, one)
+    outs = _run_parts(mesh, "multi_flat_xmesh" if profs is None
+                      else "multi_flat_xmesh_prof", words, one)
     if not isinstance(used, Parts):
         used = Parts([o[1] for o in outs])
     return outs[0][0], used, Parts([o[2] for o in outs])
@@ -912,11 +916,13 @@ def place_multi_xmesh_launch(used, used_in, inp: MultiEvalInputs, mesh,
 
 def place_multi_compact_xmesh_launch(used, used_in, inp: MultiEvalInputs,
                                      cand_rows, cand_valid, mesh,
-                                     round_size: int, n_lanes: int):
+                                     round_size: int, n_lanes: int,
+                                     profs=None):
     """K12 across parts on the card: each part's launch over its shards'
     frames (`Parts` or whole [S, L, Nc_loc] tensors split by shard),
     reading `used_in` and writing the valid slots' rows of `used`.
-    (buf_small, fills on the home part, used `Parts`)."""
+    (buf_small, fills on the home part, used `Parts`).  `profs` as in
+    `place_multi_xmesh_launch`."""
     _launch_check(mesh, inp.attrs)
     n = inp.attrs.shape[0]
     _n_rows(mesh, n)
@@ -929,9 +935,11 @@ def place_multi_compact_xmesh_launch(used, used_in, inp: MultiEvalInputs,
         return S._compact_launch(
             block(used, mesh, p), block(used_in, mesh, p), q,
             block(cand_rows, mesh, p), block(cand_valid, mesh, p),
-            round_size, n_lanes, n_shards=mesh.shards_per_part, xp=xp)
+            round_size, n_lanes, n_shards=mesh.shards_per_part, xp=xp,
+            prof=None if profs is None else profs[p])
 
-    outs = _run_parts(mesh, "multi_compact_xmesh", words, one)
+    outs = _run_parts(mesh, "multi_compact_xmesh" if profs is None
+                      else "multi_compact_xmesh_prof", words, one)
     if not isinstance(used, Parts):
         used = Parts([o[2] for o in outs])
     return outs[0][0], outs[0][1], used

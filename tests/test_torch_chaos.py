@@ -339,3 +339,74 @@ def test_whole_scenario_equals_reference(scenario, one_device):
     assert port.trace.digest() == ref.trace.digest()
     assert port.fingerprint == ref.fingerprint
     assert port.schedule == ref.schedule
+
+
+def test_final_sample_waits_for_the_leaders_commit(monkeypatch):
+    """The port's repair of the runner's final check: a write that
+    commits on the leader just as convergence holds (here one node
+    registration, the moment the live allocs are there, with one
+    follower's link a virtual step slow) is applied by every server
+    before the final sample, so no committed entry reads as lost.  The
+    write goes through the port's `invariants.membership_converged`,
+    which the runner calls while it waits for convergence; the final
+    sample is the last of the samples the runner hands `check_all`."""
+    import random
+    import threading
+
+    sc = pkg(PORT, "chaos.scenarios")
+    mock = pkg(PORT, "mock")
+    inv = sc.invariants
+    spec = sc.SCENARIOS["leader_partition"](random.Random(0))
+    runner = threading.current_thread()
+    wrote, checked = [], []
+    membership, check_all = inv.membership_converged, inv.check_all
+
+    def live_as_expected(snap):
+        return all(
+            sum(not a.terminal_status()
+                for a in snap.allocs_by_job("default", job)) == want
+            for job, want in spec["expect_live"].items())
+
+    def arm(servers):
+        """Once membership holds, make the leader's next snapshot on the
+        runner's thread (converged()'s, after its applied-lag check)
+        write one node first if the allocs are then all live."""
+        leader = next((s for s in servers if s.raft.is_leader()), None)
+        if leader is None or "snapshot" in vars(leader.state):
+            return
+        slow = next(s for s in servers if s is not leader)
+        real = leader.state.snapshot
+
+        def snapshot():
+            if (not wrote and threading.current_thread() is runner
+                    and live_as_expected(real())):
+                leader.transport.net.set_latency(
+                    leader.name, slow.name, 0.02, 0.02,
+                    bidirectional=False)
+                leader.register_node(mock.node(name="late-write"))
+                wrote.append(leader.raft.commit_index)
+            return real()
+
+        leader.state.snapshot = snapshot
+
+    def membership_then_write(servers):
+        why = membership(servers)
+        if not why and not wrote and threading.current_thread() is runner:
+            arm(servers)
+        return why
+
+    def check_all_seen(**kw):
+        checked.append(list(kw["samples"]))
+        return check_all(**kw)
+
+    monkeypatch.setattr(inv, "membership_converged", membership_then_write)
+    monkeypatch.setattr(inv, "check_all", check_all_seen)
+    r = sc.run_scenario("leader_partition", seed=0, device="cpu")
+    assert wrote, "the write never went in"
+    assert not [v for v in r.violations if "committed entry lost" in v]
+    assert r.ok, r.violations
+    final = checked[-1][-3:]
+    assert {row["server"] for row in final} == {"cs0", "cs1", "cs2"}
+    commit = max(row["commit_index"] for row in final)
+    assert commit >= wrote[0]
+    assert all(row["applied"] >= commit for row in final), final

@@ -1863,11 +1863,16 @@ def test_k10_xmesh_matches_plain(cuda_device, spread_algo, layout):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("layout", XMESH_LAYOUTS)
-@pytest.mark.parametrize("case", ["binpack", "spread", "padded_1001"])
+@pytest.mark.parametrize("case", ["binpack", "spread", "padded_1001",
+                                  "wide_full"])
 def test_k11_xmesh_matches_plain(cuda_device, case, layout):
+    """K11 across parts against the plain version on CPU copies and the
+    one-card mesh; `wide_full`: 40 rows under the spread algorithm, so
+    each wide step's list holds its part's every row."""
     mesh = _xmesh(layout, cuda_device)
-    built = _mesh_built(False, case == "spread",
-                        n_flat=1001 if case == "padded_1001" else 150)
+    built = _mesh_built(False, case in ("spread", "wide_full"),
+                        n_flat={"padded_1001": 1001,
+                                "wide_full": 40}.get(case, 150))
     cpu = built["inp"]
     inp = _on(cpu, cuda_device)
     rs = built["rs"]
@@ -1891,12 +1896,15 @@ def test_k11_xmesh_matches_plain(cuda_device, case, layout):
 @pytest.mark.gpu
 @pytest.mark.parametrize("layout", XMESH_LAYOUTS)
 @pytest.mark.parametrize("case", ["five_lanes", "two_lanes", "spread",
-                                  "round_512"])
+                                  "round_512", "wide_full"])
 def test_k12_xmesh_matches_plain(cuda_device, case, layout):
+    """K12 across parts against the plain version on CPU copies and the
+    one-card mesh; `wide_full`: 300 placements a job under the spread
+    algorithm, so each wide step's list holds its part's whole frame."""
     mesh = _xmesh(layout, cuda_device)
-    built = _mesh_built(True, case == "spread",
+    built = _mesh_built(True, case in ("spread", "wide_full"),
                         2 if case == "two_lanes" else 5,
-                        300 if case == "round_512" else 40)
+                        300 if case in ("round_512", "wide_full") else 40)
     inp = _on(built["inp"], cuda_device)
     rs, lanes = built["rs"], built["n_lanes"]
     cr, cv = frames_from_numpy(built["cand_rows"], built["cand_valid"],
@@ -2002,29 +2010,68 @@ def test_xmesh_threads_share_a_mesh(cuda_device, layout):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("exchange", ["device", "host"])
-def test_xmesh_deadline_raises(cuda_device, exchange):
-    """A part whose peer never launches runs out its wait deadline: the
-    kernel ends (no hang), sets the error word (in the card's memory or
-    in host memory), and `check` raises."""
+@pytest.mark.parametrize("kernel", ["k9", "k11", "k12"])
+def test_xmesh_deadline_raises(cuda_device, kernel, exchange):
+    """A part whose peer never launches runs out its wait deadline (K9,
+    and the rounds across parts, K11 and K12): the kernel ends (no
+    hang), sets the error word (in the card's memory or in host memory),
+    and `check` raises; the mesh then runs a whole call again."""
     parts = [cuda_device, cuda_device]
     mesh = (_host_mesh(parts) if exchange == "host"
             else pmesh.make_mesh(S, parts))
     assert mesh.exchange == exchange
     mesh.deadline = 1 << 20
-    inp = _mesh_scan_inputs("n_loc_below_3", cuda_device)
-    words = K.PLACE_SCAN_XMESH.fn("place_scan_xmesh_words")(
-        2, inp.sp_counts0.shape[0], inp.pd_counts0.shape[0])
+    if kernel == "k9":
+        inp = _mesh_scan_inputs("n_loc_below_3", cuda_device)
+        name = "place_scan_xmesh"
+        words = K.PLACE_SCAN_XMESH.fn("place_scan_xmesh_words")(
+            2, inp.sp_counts0.shape[0], inp.pd_counts0.shape[0])
 
-    def only_part0(p, xp):
-        if p == 0:
+        def launch0(xp):
             return psel._scan_launch(xmesh.part_inputs(inp, mesh, 0),
                                      n_shards=4, xp=xp)
+    elif kernel == "k11":
+        built = _mesh_built(False, True, n_flat=150)
+        inp = _on(built["inp"], cuda_device)
+        rs, n = built["rs"], inp.attrs.shape[0]
+        name = "multi_flat_xmesh"
+        words = xmesh._rounds_words(1, 2, min(rs, n))
 
-    xmesh._run_parts(mesh, "place_scan_xmesh", words, only_part0)
+        def launch0(xp):
+            q = xmesh.part_inputs(inp._replace(used0=None), mesh, 0)
+            used_in = xmesh.block(inp.used0, mesh, 0)
+            return psel._flat_launch(torch.empty_like(used_in), used_in, q,
+                                     rs, xp=xp)
+    else:
+        built = _mesh_built(True, True, 5, 40)
+        inp = _on(built["inp"], cuda_device)
+        cr, cv = frames_from_numpy(built["cand_rows"], built["cand_valid"],
+                                   cuda_device)
+        rs, lanes = built["rs"], built["n_lanes"]
+        name = "multi_compact_xmesh"
+        words = xmesh._rounds_words(lanes, 2, min(rs, S * cr.shape[-1]))
+
+        def launch0(xp):
+            q = xmesh.part_inputs(inp._replace(used0=None), mesh, 0,
+                                  xmesh._frame_axes())
+            used_in = xmesh.block(inp.used0, mesh, 0)
+            return psel._compact_launch(
+                used_in.clone(), used_in, q, xmesh.block(cr, mesh, 0),
+                xmesh.block(cv, mesh, 0), rs, lanes,
+                n_shards=mesh.shards_per_part, xp=xp)
+
+    xmesh._run_parts(mesh, name, words,
+                     lambda p, xp: launch0(xp) if p == 0 else None)
     with pytest.raises(RuntimeError, match="ran out its wait"):
         xmesh.check(mesh)
     ms = xmesh.exchange_probe(mesh, 100)
     assert ms > 0
+    if kernel != "k9":
+        run, want, used0 = _rounds_xmesh_runs(kernel, mesh, cuda_device)
+        used_in = xmesh.split(used0, mesh)
+        got = run(xmesh.Parts([b.clone() for b in used_in.blocks]), used_in)
+        xmesh.check(mesh)
+        _same_parts(got, want)
 
 
 @pytest.mark.gpu
@@ -2056,3 +2103,61 @@ def test_k9_xmesh_prof_entry(cuda_device, layout):
     assert c[17] > 0
     assert c[18] > 0 and c[19] > 0         # block 0's post and wait
     assert c[26 + 1] + c[26 + 2] > 0       # a peer's wait and relay
+
+
+def _rounds_xmesh_runs(kernel, mesh, cuda_device):
+    """K11's or K12's launch across parts at a small input with wide
+    steps (the spread algorithm): (run(used, used_in, profs=None), the
+    plain version's outputs on CPU copies, the whole usage)."""
+    if kernel == "k12":
+        built = _mesh_built(True, True, 5, 40)
+        cr, cv = frames_from_numpy(built["cand_rows"], built["cand_valid"],
+                                   cuda_device)
+        inp = _on(built["inp"], cuda_device)
+        rs, lanes = built["rs"], built["n_lanes"]
+        want = pmesh.place_multi_compact_sharded(
+            built["inp"], cr.cpu(), cv.cpu(), _cpu_parts(), rs, lanes)
+        return (lambda used, used_in, profs=None:
+                xmesh.place_multi_compact_xmesh_launch(
+                    used, used_in, inp, cr, cv, mesh, rs, lanes,
+                    profs=profs)), want, inp.used0
+    built = _mesh_built(False, True, n_flat=150)
+    inp = _on(built["inp"], cuda_device)
+    want = pmesh.place_multi_sharded_packed(built["inp"], _cpu_parts(),
+                                            built["rs"])
+    return (lambda used, used_in, profs=None:
+            xmesh.place_multi_xmesh_launch(used, used_in, inp, mesh,
+                                           built["rs"], profs=profs)), \
+        want, inp.used0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["one_card", "one_card_host"])
+@pytest.mark.parametrize("kernel", ["k11", "k12"])
+def test_rounds_xmesh_prof_entry(cuda_device, kernel, layout):
+    """K11's and K12's PROF instantiations across parts
+    (`multi_flat_xmesh_prof`, `multi_compact_xmesh_prof`) give the main
+    path's outputs and write part 0's split: K2's 18 words, the
+    exchanges' sub-phases of block 0 and of the cluster's last block,
+    and block 0's narrow and wide exchange counts."""
+    mesh = _xmesh(layout, cuda_device)
+    run, want, used0 = _rounds_xmesh_runs(kernel, mesh, cuda_device)
+    used_in = xmesh.split(used0, mesh)
+    profs = [torch.zeros(psel.XPROF_WORDS, dtype=torch.int64, device=d)
+             for d in mesh.parts]
+    K.reset_launches()
+    got = run(xmesh.Parts([b.clone() for b in used_in.blocks]), used_in,
+              profs)
+    xmesh.check(mesh)
+    torch.cuda.synchronize()
+    assert sum(k.launches for k in (K.MULTI_FLAT_XMESH,
+                                    K.MULTI_COMPACT_XMESH)) == mesh.n_parts
+    _same_parts(got, want)
+    c = profs[0].tolist()
+    nx, base = 9, 18
+    assert c[14] > 0 and c[17] > 0
+    narrow, wide = c[base + 4 * nx], c[base + 4 * nx + 1]
+    assert narrow > 0 and wide > 0          # the spread algorithm's rounds
+    assert c[base + 1] + c[base + nx + 1] > 0     # block 0's post
+    assert c[base + 2] + c[base + nx + 2] > 0     # and wait
+    assert sum(c[base + 5:base + 9]) + sum(c[base + nx + 5:base + 2 * nx]) > 0
